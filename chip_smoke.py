@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's one-image chat path once on an NVIDIA GPU.
+"""Run the PyTorch port's one-image chat path on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -8,23 +8,36 @@ Phases (any failure exits nonzero before the last line):
                torch and CUDA versions; turns TF32 off.
   2. build   - compiles minigpt4_tpu_torch/csrc/*.cu with nvcc (sm_90a).
   3. kernels - each hand-written kernel against its plain PyTorch version on
-               the card at the Vicuna-7B shapes of the main path: max error,
-               tolerance, median times (CUDA events, turns plain, kernel,
-               kernel, plain).
-  4. engine  - synthetic full-width files (q5_k Vicuna-7B, f16 ViT-G +
-               Q-Former container; cached under build/smoke_models/ by
-               geometry and seed), then MiniGPT4Engine(device="cuda"):
-               encode_image, system_prompt, begin_chat_image, a greedy
-               generate(limit=32), a sampled second turn; every kernel's
-               launch count must grow.
+               the card at the shapes of the main paths: the exact-plane
+               kernels and flash decode at Vicuna-7B shapes, the generic-plane
+               kernels at Vicuna-13B shapes (q6_k planes, group 16; q8_0,
+               group 32, signed codes); max error, tolerance, median times
+               (CUDA events, turns plain, kernel, kernel, plain).
+  4. engine  - two chats through MiniGPT4Engine(device="cuda"), each on
+               synthetic files cached under build/smoke_models/ by geometry,
+               layout and seed, one engine closed before the next is built:
+               a. Vicuna-13B at full width and depth in llama.cpp's Q5_K_M
+                  layout (q6_k output, q6_k wv/w2 on 20 of 40 layers, q5_k
+                  elsewhere) with a 13B f16 ViT-G + Q-Former container;
+               b. Vicuna-7B width, every projection q5_k, depth cut to 8
+                  layers, with a 7B f16 container.
+               Each: encode_image, system_prompt, begin_chat_image, a greedy
+               generate(limit=32), a timed 16-token decode chunk, a sampled
+               second turn.  The launch counts are set to 0 just before each
+               chat and read just after: the 13B chat must launch all five
+               kernels, the 7B chat the three exact-plane and flash kernels.
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
-its plain versions on a small fixture.  The line before the last is {"kernels": [...]}; the last is
+its plain versions on small fixtures.  The line before the last is
+{"kernels": [...]} (launches of the 13B chat); the last is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -38,11 +51,16 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 DEVICE = "cuda"
 Q5K_D = 2.0 ** -15  # f16 superblock scale of the synthetic q5_k weights
-N_LAYER_7B = 32
-# Vicuna-7B (benchmark.py GEOMETRIES["7B"]) and MiniGPT-4's ViT-G / Q-Former
-LLM_GEOMETRY = dict(n_embd=4096, n_head=32, n_layer=N_LAYER_7B, n_vocab=32000, n_mult=256)
+# q6_k d that gives the q5_k weights' spread: with uniform random bytes a
+# q5_k weight has std 527 d (dmin = 15.5 d), a q6_k weight d * sc * (q - 32)
+# std 1366 d
+Q6K_D = Q5K_D * math.sqrt(277651 / 1865102)
+STACK_7B, STACK_13B = 32, 40  # stacked layers the kernel phase rotates through
+# Vicuna-7B and -13B (benchmark.py GEOMETRIES) and MiniGPT-4's ViT-G / Q-Former
+LLM_13B = dict(n_embd=5120, n_head=40, n_layer=40, n_vocab=32000, n_mult=256, layout="q5_k_m")
+LLM_7B = dict(n_embd=4096, n_head=32, n_layer=8, n_vocab=32000, n_mult=256, layout="q5_k")
 VISION_GEOMETRY = dict(width=1408, depth=39, mlp=6144, hidden=768, qf_layers=12, queries=32,
-                       intermediate=3072, qf_heads=12, out=4096)
+                       intermediate=3072, qf_heads=12)
 
 
 def log(msg: str) -> None:
@@ -88,7 +106,7 @@ def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions at the 7B shapes
+# phase 3: kernels against their plain versions at the 7B and 13B shapes
 # ---------------------------------------------------------------------------
 
 
@@ -109,51 +127,99 @@ def random_gq(n_layer: int, n: int, k: int, gen: torch.Generator):
         dtype=DataType.Q5_K, n_in=k)
 
 
+def random_generic(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
+    """Stacked generic-plane GroupQuant made on the card: q6_k (codes 0..63,
+    A = d * sc for random signed sub-scales sc, B = -32 A) or q8_0 (signed
+    codes, A = d in [0.5, 1.5) x 2^-13, B = -0)."""
+    from minigpt4_tpu_torch.host import DataType
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+
+    gs = gq.group_size(dtype)
+    shape = (n_layer, k // gs, n)
+    if dtype == DataType.Q6_K:
+        codes = torch.randint(0, 64, (n_layer, n, k), generator=gen, device=DEVICE, dtype=torch.int8)
+        a = Q6K_D * torch.randint(-128, 128, shape, generator=gen, device=DEVICE).float()
+        b = -32.0 * a
+    else:
+        codes = torch.randint(-128, 128, (n_layer, n, k), generator=gen, device=DEVICE,
+                              dtype=torch.int8)
+        a = 2.0 ** -13 * (0.5 + torch.rand(shape, generator=gen, device=DEVICE))
+        b = -torch.zeros(shape, device=DEVICE)
+    return gq.GroupQuant(codes=codes, dtype=dtype, n_in=k, group_size=gs,
+                         a=a.to(torch.bfloat16), b=b.to(torch.bfloat16))
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def phase_kernels(card: str) -> dict:
-    from minigpt4_tpu_torch.ops import flash_decode as fd
+def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
+    """Each M of ``ms`` through the weight's decode or prefill kernel against
+    its plain version, timed rotating through the stacked layers (so the code
+    stream is not L2-resident)."""
     from minigpt4_tpu_torch.ops import group_i8 as gq
+
+    n, k = w.n_out, w.n_in
+    last = n_stack - 1
+    for m in ms:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        decode = m <= gq.GQ_MAX_M
+        if decode:
+            kern, plain = (gq.gq_decode if w.exact else gq.gq_decode_generic), gq.qmatmul_decode_ref
+        else:
+            kern, plain = (gq.gq_prefill if w.exact else gq.gq_prefill_generic), gq.qmatmul_prefill_ref
+        tol = 1e-4 if decode else 2e-3
+        got, want = kern(x, w, last), plain(x, w, last)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(got, want), float((got - want).abs().max())
+        k_ms, p_ms = compare_times(kern, plain, lambda i: (x, w, i % n_stack))
+        key = kern.__name__
+        results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format=w.dtype.name.lower(),
+                                 max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=k_ms,
+                                 plain_ms=p_ms))
+        log(f"[kernels] {key:18s} {w.dtype.name.lower():4s} {name:6s} N={n:5d} K={k:5d} M={m:3d}"
+            f"  max_rel_err={err:.3e} (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+            f"  [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+
+
+def phase_kernels(card: str) -> dict:
+    from minigpt4_tpu_torch.host import DataType
+    from minigpt4_tpu_torch.ops import flash_decode as fd
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    results = {k: [] for k in KERNELS}
+    # exact planes at the Vicuna-7B shapes
     d, ff, v = 4096, 11008, 32000
-    shapes = {"wqkv": (3 * d, d), "wo": (d, d), "w13": (2 * ff, d), "w2": (d, ff), "output": (v, d)}
-    results = {"gq_decode": [], "gq_prefill": [], "flash_decode": []}
-    last = N_LAYER_7B - 1
-    for name, (n, k) in shapes.items():
-        w = random_gq(N_LAYER_7B, n, k, gen)
+    for name, (n, k) in {"wqkv": (3 * d, d), "wo": (d, d), "w13": (2 * ff, d), "w2": (d, ff),
+                         "output": (v, d)}.items():
+        w = random_gq(STACK_7B, n, k, gen)
         ms = (1, 8, 32, 512) if name in ("wqkv", "w13", "w2") else (1, 8)
-        for m in ms:
-            x = torch.randn(m, k, generator=gen, device="cuda")
-            decode = m <= gq.GQ_MAX_M
-            kern = gq.gq_decode if decode else gq.gq_prefill
-            plain = gq.qmatmul_decode_ref if decode else gq.qmatmul_prefill_ref
-            tol = 1e-4 if decode else 2e-3
-            got, want = kern(x, w, last), plain(x, w, last)
-            torch.cuda.synchronize()
-            err, abs_err = rel_err(got, want), float((got - want).abs().max())
-            # timing rotates through the layers so the code stream is not L2-resident
-            k_ms, p_ms = compare_times(kern, plain, lambda i: (x, w, i % N_LAYER_7B))
-            key = "gq_decode" if decode else "gq_prefill"
-            results[key].append(dict(shape=f"{name} {n}x{k} M={m}", max_rel_err=err,
-                                     max_abs_err=abs_err, tol=tol, ms=k_ms, plain_ms=p_ms))
-            log(f"[kernels] {key:10s} {name:6s} N={n:5d} K={k:5d} M={m:3d}  max_rel_err={err:.3e}"
-                f" (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  [{card}]")
-            if not err <= tol:
-                raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        check_matmul(results, card, name, w, STACK_7B, ms, gen)
+        del w
+        torch.cuda.empty_cache()
+    # generic planes at the Vicuna-13B shapes: the Q5_K_M file's q6_k output,
+    # wv and w2, and q8_0 (group 32, signed codes) at the fused w13
+    d, ff = 5120, 13824
+    for name, (n, k), dtype, ms in (("output", (v, d), DataType.Q6_K, (1, 8)),
+                                    ("wv", (d, d), DataType.Q6_K, (1, 8)),
+                                    ("w2", (d, ff), DataType.Q6_K, (1, 8, 32, 512)),
+                                    ("w13", (2 * ff, d), DataType.Q8_0, (1, 512))):
+        w = random_generic(STACK_13B, n, k, dtype, gen)
+        check_matmul(results, card, name, w, STACK_13B, ms, gen)
         del w
         torch.cuda.empty_cache()
 
     h, dh, c = 32, 128, 2048
+    last = STACK_7B - 1
     cases = [(1, s, p) for s in (1, 8, 32) for p in (0, 127, 1000, 2015)]
     cases += [(4, s, [0, 127, 1000, 2015]) for s in (1, 8, 32)]
     caches = {}
     for b, s, pos in cases:
         if b not in caches:
-            caches[b] = [torch.randn((N_LAYER_7B, b, h, c, dh), generator=gen, device="cuda")
+            caches[b] = [torch.randn((STACK_7B, b, h, c, dh), generator=gen, device="cuda")
                          .to(torch.bfloat16) for _ in range(2)]
         ck, cv = caches[b]
         q = torch.randn((b, h, s, dh), generator=gen, device="cuda")
@@ -165,7 +231,7 @@ def phase_kernels(card: str) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         k_ms, p_ms = compare_times(fd.flash_decode_attention, fd.flash_decode_ref,
-                                   lambda i: (q, ck, cv, i % N_LAYER_7B, pos_t, scale))
+                                   lambda i: (q, ck, cv, i % STACK_7B, pos_t, scale))
         results["flash_decode"].append(dict(shape=f"B={b} S={s} pos0={pos}", max_abs_err=err,
                                             tol=1e-3, ms=k_ms, plain_ms=p_ms))
         log(f"[kernels] flash_decode B={b} H={h} S={s:2d} C={c} pos0={pos}  max_abs_err={err:.3e}"
@@ -201,14 +267,32 @@ def _q5k_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
     return blk.reshape(-1)
 
 
+def _q6k_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
+    """Raw q6_k blocks of an [n, k] weight: random ql, qh and signed sub-scale
+    bytes (zero mean weight in expectation) and a fixed f16 d, Q6K_D, that
+    matches the q5_k weights' spread."""
+    blk = _rand_u8(n * k // 256 * 210, gen).reshape(-1, 210)
+    blk[:, 208:210] = np.array([Q6K_D], np.float16).view(np.uint8)
+    return blk.reshape(-1)
+
+
+def more_bits(i: int, n_layer: int) -> bool:
+    """llama.cpp's use_more_bits: the layers whose wv and w2 Q5_K_M makes q6_k."""
+    return i < n_layer // 8 or i >= 7 * n_layer // 8 or (i - n_layer // 8) % 3 == 2
+
+
 def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
-    """ggjt-v3 q5_k LLaMA: every projection q5_k, f16 token embeddings, a
-    vocab of the 3 specials, the 256 byte tokens and filler pieces."""
+    """ggjt-v3 LLaMA with a vocab of the 3 specials, the 256 byte tokens and
+    filler pieces.  Layout "q5_k": every projection q5_k, f16 token
+    embeddings.  Layout "q5_k_m", what llama.cpp's quantizer writes for
+    "q5_k": output q6_k, wv and w2 q6_k on the more_bits layers, every other
+    2-D weight q5_k, token embeddings included."""
     from minigpt4_tpu_torch.host import DataType, LlamaFileWriter, LlamaHParams, LlamaVocab
 
     d, n_layer, v = geo["n_embd"], geo["n_layer"], geo["n_vocab"]
+    km = geo["layout"] == "q5_k_m"
     hp = LlamaHParams(n_vocab=v, n_embd=d, n_mult=geo["n_mult"], n_head=geo["n_head"],
-                      n_layer=n_layer, n_rot=d // geo["n_head"], ftype=16)
+                      n_layer=n_layer, n_rot=d // geo["n_head"], ftype=17 if km else 16)
     ff = hp.n_ff
     toks = [b"<unk>", b"<s>", b"</s>"] + [bytes([i]) for i in range(256)]
     toks += [f"w{i}".encode() for i in range(v - len(toks))]
@@ -218,29 +302,37 @@ def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
         a = np.ascontiguousarray(a, "<f4")
         w.add_tensor(name, a.shape, DataType.F32, a.view(np.uint8).reshape(-1))
 
-    def q5k(name, n, k):
-        w.add_tensor(name, (n, k), DataType.Q5_K, _q5k_bytes(n, k, gen))
+    def quant(name, n, k, q6=False):
+        if q6:
+            w.add_tensor(name, (n, k), DataType.Q6_K, _q6k_bytes(n, k, gen))
+        else:
+            w.add_tensor(name, (n, k), DataType.Q5_K, _q5k_bytes(n, k, gen))
 
-    emb = _randn_f16((v, d), 1.0, gen)
-    w.add_tensor("tok_embeddings.weight", (v, d), DataType.F16, emb.view(np.uint8).reshape(-1))
+    if km:
+        quant("tok_embeddings.weight", v, d)
+    else:
+        emb = _randn_f16((v, d), 1.0, gen)
+        w.add_tensor("tok_embeddings.weight", (v, d), DataType.F16, emb.view(np.uint8).reshape(-1))
     f32("norm.weight", np.ones(d))
-    q5k("output.weight", v, d)
+    quant("output.weight", v, d, q6=km)
     for i in range(n_layer):
         p = f"layers.{i}."
+        big = km and more_bits(i, n_layer)
         f32(p + "attention_norm.weight", np.ones(d))
         for t in ("wq", "wk", "wv", "wo"):
-            q5k(p + f"attention.{t}.weight", d, d)
+            quant(p + f"attention.{t}.weight", d, d, q6=big and t == "wv")
         f32(p + "ffn_norm.weight", np.ones(d))
-        q5k(p + "feed_forward.w1.weight", ff, d)
-        q5k(p + "feed_forward.w2.weight", d, ff)
-        q5k(p + "feed_forward.w3.weight", ff, d)
+        quant(p + "feed_forward.w1.weight", ff, d)
+        quant(p + "feed_forward.w2.weight", d, ff, q6=big)
+        quant(p + "feed_forward.w3.weight", ff, d)
     w.write()
 
 
 def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
     """f16 container with ViT-G (depth 39, d 1408, 16 heads of 88, MLP
     6144, 224 px / patch 14), ln_vision, the Q-Former (12 layers, hidden
-    768, 32 queries, cross-attention on even layers) and llama_proj 768->4096."""
+    768, 32 queries, cross-attention on even layers) and llama_proj from 768
+    to the decoder's width (``geo["out"]``)."""
     from minigpt4_tpu_torch.host import ContainerWriter, DataType
 
     vd, depth, mlp = geo["width"], geo["depth"], geo["mlp"]
@@ -314,14 +406,17 @@ def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
     cw.write()
 
 
-def smoke_models() -> tuple[Path, Path]:
+def smoke_models(lg: dict) -> tuple[Path, Path]:
+    """The (container, LLM) pair for decoder geometry ``lg``, written once."""
     out = ROOT / "build" / "smoke_models"
     out.mkdir(parents=True, exist_ok=True)
-    lg, vg = LLM_GEOMETRY, VISION_GEOMETRY
-    llm = out / (f"llama-q5_k-d{lg['n_embd']}-h{lg['n_head']}-L{lg['n_layer']}-v{lg['n_vocab']}"
-                 f"-seed{SEED}.bin")
+    vg = dict(VISION_GEOMETRY, out=lg["n_embd"])
+    llm = out / (f"llama-{lg['layout']}-d{lg['n_embd']}-h{lg['n_head']}-L{lg['n_layer']}"
+                 f"-v{lg['n_vocab']}-seed{SEED}.bin")
     model = out / (f"minigpt4-f16-vit{vg['width']}x{vg['depth']}-qformer{vg['hidden']}x"
                    f"{vg['qf_layers']}-proj{vg['out']}-seed{SEED}.bin")
+    free = shutil.disk_usage(out).free
+    log(f"[engine] {free / 1e9:.1f} GB free under {out.relative_to(ROOT)}")
     gen = torch.Generator(device=DEVICE)
     for path, writer, geo, seed in ((llm, write_llm, lg, SEED),
                                     (model, write_container, vg, SEED + 1)):
@@ -339,37 +434,46 @@ def smoke_models() -> tuple[Path, Path]:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
+
+KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic", "flash_decode")
+
+
+def _wrappers() -> dict:
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+
+    return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
+            "gq_decode_generic": gq.gq_decode_generic,
+            "gq_prefill_generic": gq.gq_prefill_generic,
+            "flash_decode": fd.flash_decode_attention}
 
 
 def launch_counts() -> dict:
-    from minigpt4_tpu_torch.ops import flash_decode as fd
-    from minigpt4_tpu_torch.ops import group_i8 as gq
-
-    return {"gq_decode": gq.gq_decode.launches, "gq_prefill": gq.gq_prefill.launches,
-            "flash_decode": fd.flash_decode_attention.launches}
+    return {k: f.launches for k, f in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from minigpt4_tpu_torch.ops import flash_decode as fd
-    from minigpt4_tpu_torch.ops import group_i8 as gq
-
-    gq.gq_decode.launches = gq.gq_prefill.launches = fd.flash_decode_attention.launches = 0
+    for f in _wrappers().values():
+        f.launches = 0
 
 
-def phase_engine(card: str) -> dict:
+def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
+    """One image chat on the synthetic files of geometry ``lg``; the kernels
+    of ``expect`` must launch in it.  Returns its launch counts and times."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
     from minigpt4_tpu_torch.host import preprocess
 
-    model, llm = smoke_models()
-    reset_launch_counts()
+    model, llm = smoke_models(lg)
     sync = torch.cuda.synchronize
+    reset_launch_counts()
     t0 = time.perf_counter()
     eng = MiniGPT4Engine(model, llm, device=DEVICE)
     sync()
     t_load = time.perf_counter() - t0
     n_vocab = eng.llm_cfg.n_vocab
+    per_token = step_ms = None
     try:
         img = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
         t0 = time.perf_counter()
@@ -389,11 +493,21 @@ def phase_engine(card: str) -> dict:
         if logits.shape != (n_vocab,) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"prefill logits are not finite [{n_vocab}]")
 
+        greedy = SamplingParams(temp=0.0)
         t0 = time.perf_counter()
-        text = list(eng.generate(limit=32, params=SamplingParams(temp=0.0)))
+        text = list(eng.generate(limit=32, params=greedy))
         sync()
         t_decode = time.perf_counter() - t0
         ids = eng._st.tokens[n_prompt:]
+        if eng._st.logits is not None:
+            # one more chunk, timed, with the matmul launches it takes per token
+            before = launch_counts()
+            t0 = time.perf_counter()
+            eng.decode_chunk(16, greedy)
+            sync()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 16
+            after = launch_counts()
+            per_token = sum(after[k] - before[k] for k in ("gq_decode", "gq_decode_generic")) / 16
         eng.begin_chat("Tell me more.")
         before = eng.n_past
         text2 = list(eng.generate(limit=8, params=SamplingParams(temp=0.8)))
@@ -406,16 +520,23 @@ def phase_engine(card: str) -> dict:
     finally:
         eng.close()
     counts = launch_counts()
-    log(f"[engine] launches during the main path: {counts}")
-    missing = [k for k, n in counts.items() if n <= 0]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[engine {label}] launches during the chat: {counts}")
+    missing = [k for k in expect if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    log(f"[engine] prompt {n_prompt} positions; greedy {len(ids)} tokens {ids[:12]}...; "
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    log(f"[engine {label}] prompt {n_prompt} positions; greedy {len(ids)} tokens {ids[:12]}...; "
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
-    log(f"[engine] load {t_load:.2f} s  encode {t_encode * 1e3:.1f} ms  prefill {t_prefill * 1e3:.1f} ms"
-        f" ({n_prompt} positions)  decode {t_decode * 1e3:.1f} ms for {len(ids)} tokens = "
-        f"{len(ids) / t_decode:.2f} tok/s  [{card}]")
-    return counts
+    step = ("not measured (the greedy turn stopped early)" if step_ms is None else
+            f"{step_ms:.2f} ms per token in a 16-token chunk, {per_token:g} matmul launches per token")
+    log(f"[engine {label}] load {t_load:.2f} s  encode {t_encode * 1e3:.1f} ms  prefill "
+        f"{t_prefill * 1e3:.1f} ms ({n_prompt} positions)  decode {t_decode * 1e3:.1f} ms for "
+        f"{len(ids)} tokens = {len(ids) / t_decode:.2f} tok/s; {step}  [{card}]")
+    return dict(counts=counts, load_s=t_load, encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3,
+                prompt=n_prompt, decode_tok_s=len(ids) / t_decode, step_ms=step_ms,
+                matmuls_per_token=per_token)
 
 
 def main() -> int:
@@ -445,13 +566,20 @@ def main() -> int:
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
     kernel_results = phase_kernels(card)
-    counts = phase_engine(card)
+    paths = {"13B Q5_K_M": chat("13B Q5_K_M", LLM_13B, card, KERNELS),
+             "7B q5_k L8": chat("7B q5_k L8", LLM_7B, card,
+                                ("gq_decode", "gq_prefill", "flash_decode"))}
+    counts = paths["13B Q5_K_M"]["counts"]
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
                       "w13 22016x4096 M=1"),
         "gq_prefill": ("minigpt4_tpu_torch/csrc/gq_prefill.cu", "minigpt4_tpu/ops/group_i8.py:736",
                        "w13 22016x4096 M=512"),
+        "gq_decode_generic": ("minigpt4_tpu_torch/csrc/gq_decode.cu",
+                              "minigpt4_tpu/ops/group_i8.py:550", "output 32000x5120 M=1"),
+        "gq_prefill_generic": ("minigpt4_tpu_torch/csrc/gq_prefill.cu",
+                               "minigpt4_tpu/ops/group_i8.py:736", "w2 5120x13824 M=512"),
         "flash_decode": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
                          "minigpt4_tpu/ops/flash_decode.py:82", "B=1 S=1 pos0=1000"),
     }
@@ -462,6 +590,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name],
+            "launches_by_path": {label: p["counts"][name] for label, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "shape": rep,
             "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms")} for r in rows],

@@ -33,4 +33,60 @@ __device__ __forceinline__ float byte_as_float(int word, int i) {
   return static_cast<float>(static_cast<signed char>((word >> (8 * i)) & 0xff));
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // exact for values read from bf16 planes
+}
+
+// Per-group planes of a group-quant weight, W[n, k] = A[g, n] * q[n, k] + B[g, n]
+// with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32; T is the type a
+// kernel keeps staged planes in (f32 for exact planes, bf16 for generic ones,
+// so neither loses a bit).
+//
+// Exact q4_k/q5_k planes (group_i8._kernel_exact): u8 sub-scales sc6/mn6
+// [L, K/32, N] and f32 superblock scales d/dmin [L, K/256, N];
+// A = d * sc6 and B = -dmin * mn6 are exact in f32.
+struct ExactPlanes {
+  using T = float;
+  static constexpr int kGS = 32;
+  const uint8_t* sc6;
+  const uint8_t* mn6;
+  const float* d;
+  const float* dmin;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    const size_t g = static_cast<size_t>(K / kGS) * N, s = static_cast<size_t>(K / 256) * N;
+    sc6 += li * g;
+    mn6 += li * g;
+    d += li * s;
+    dmin += li * s;
+  }
+  __device__ __forceinline__ float2 fetch(int g, int n, int N) const {
+    const size_t gi = static_cast<size_t>(g) * N + n, si = static_cast<size_t>(g / 8) * N + n;
+    return make_float2(d[si] * static_cast<float>(sc6[gi]), -dmin[si] * static_cast<float>(mn6[gi]));
+  }
+};
+
+// Generic planes (group_i8._kernel_generic): bf16 A and B [L, K/GS, N].
+template <int GS>
+struct GenericPlanes {
+  using T = __nv_bfloat16;
+  static constexpr int kGS = GS;
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    const size_t g = static_cast<size_t>(K / kGS) * N;
+    a += li * g;
+    b += li * g;
+  }
+  __device__ __forceinline__ float2 fetch(int g, int n, int N) const {
+    const size_t gi = static_cast<size_t>(g) * N + n;
+    return make_float2(__bfloat162float(a[gi]), __bfloat162float(b[gi]));
+  }
+};
+
 }  // namespace mgt

@@ -94,9 +94,13 @@ class MiniGPT4Engine:
         n_batch: int = 512,
         device: str | torch.device = "cuda",
     ):
-        """Load both model files onto ``device``.  q4_k/q5_k decoder weights
-        load as exact group-quant weights; other quantized formats raise
-        NotImplementedError (ROADMAP Queue 2)."""
+        """Load both model files onto ``device``.  The decoder keeps one
+        weight form, group-quant ("gq"): q4_k/q5_k weights load with exact
+        planes; q4_0, q4_1, q5_0, q5_1, q8_0, q2_k, q3_k and q6_k with bf16
+        planes, so llama.cpp's mixed K_M files (q6_k output, wv and w2 on
+        some layers) load as they are.  A quantized weight gq rejects (a K
+        that is no multiple of 8 groups, another format) raises
+        NotImplementedError (ROADMAP Queue 2 item 3, pallas_quant_matmul)."""
         utils.set_verbosity(verbosity)
         disable_tf32()
         self.device = torch.device(device)

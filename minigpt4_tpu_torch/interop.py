@@ -1,11 +1,13 @@
 """Parameter trees of the JAX package, as NumPy arrays -> the port's trees.
 
 Used by the parity tests so that both implementations compute with the same
-weights.  ``GroupQuant`` fields map one to one (unpacked codes only: load
-the JAX side with sub-byte packing off); dense ``[K, N]`` weights stay
-``[K, N]``; stacked layers stay stacked.  The JAX decoder keeps wq/wk/wv
-and w1/w3 apart for group-quant weights; they are fused here into the
-port's ``wqkv``/``w13``.
+weights.  ``GroupQuant`` fields map one to one, in both plane modes
+(unpacked codes only: load the JAX side with sub-byte packing off); dense
+``[K, N]`` weights stay ``[K, N]``; stacked layers stay stacked and
+per-layer lists (K_M files) stay lists.  The JAX decoder keeps wq/wk/wv
+and w1/w3 apart for group-quant weights; the layers are reassembled here
+by :func:`~minigpt4_tpu_torch.models.llama.assemble_layers`, which fuses
+them as the port's file loader does.
 """
 
 from __future__ import annotations
@@ -14,51 +16,61 @@ import numpy as np
 import torch
 
 from .host import DataType
+from .models.llama import FUSED, assemble_layers
 from .ops import group_i8 as gq
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, order="C"))
+    a = np.array(a, order="C")
+    # torch.from_numpy rejects NumPy's bfloat16 (ml_dtypes): go through its bits
+    t = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) if a.dtype.name == "bfloat16"
+         else torch.from_numpy(a))
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
 def group_quant_from_numpy(w, device) -> gq.GroupQuant:
-    """A JAX ``GroupQuant`` (exact-plane, unpacked) with NumPy fields."""
-    if getattr(w, "sc6", None) is None:
-        raise ValueError("only exact-plane (q4_k/q5_k) GroupQuant is ported")
+    """A JAX ``GroupQuant`` (unpacked, either plane mode) with NumPy fields."""
     if w.packing != "none" or w.k_pad or w.k_shards != 1:
         raise ValueError(f"GroupQuant packing={w.packing!r} k_pad={w.k_pad} "
                          f"k_shards={w.k_shards}: unpacked, unpadded weights only")
+    meta = dict(dtype=DataType(w.dtype), n_in=int(w.n_in), group_size=int(w.group_size))
+    if w.sc6 is None:
+        return gq.GroupQuant(codes=_t(w.codes, device, torch.int8),
+                             a=_t(w.a, device, torch.bfloat16),
+                             b=_t(w.b, device, torch.bfloat16), **meta)
     return gq.GroupQuant(
         codes=_t(w.codes, device, torch.int8), sc6=_t(w.sc6, device, torch.uint8),
         mn6=_t(w.mn6, device, torch.uint8), d=_t(w.d, device, torch.float32),
-        dmin=_t(w.dmin, device, torch.float32), dtype=DataType(w.dtype), n_in=int(w.n_in))
+        dmin=_t(w.dmin, device, torch.float32), **meta)
 
 
 def _weight(w, device, dtype):
+    if isinstance(w, list):
+        return [_weight(v, device, dtype) for v in w]
     if hasattr(w, "codes"):
         return group_quant_from_numpy(w, device)
     return _t(w, device, dtype)
 
 
-def _fuse(ws: list):
-    if isinstance(ws[0], gq.GroupQuant):
-        return gq.concat_out(ws)
-    return torch.cat(ws, dim=-1)
+def _layer_of(w, li: int):
+    if isinstance(w, list):
+        return w[li]
+    if isinstance(w, gq.GroupQuant):
+        return w.layer(li)
+    return w[li]
 
 
 def llama_params_from_numpy(tree: dict, device: str | torch.device,
                             dtype: torch.dtype = torch.float32) -> dict:
     """JAX ``llama.load_params`` output (NumPy leaves) -> port decoder params."""
     src = tree["layers"]
-    layers = {n: _t(src[n], device, dtype) for n in ("attention_norm", "ffn_norm")}
-    for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("wo", ("wo",)),
-                         ("w13", ("w1", "w3")), ("w2", ("w2",))):
-        if fused in src:
-            layers[fused] = {"w": _weight(src[fused]["w"], device, dtype)}
-        else:
-            ws = [_weight(src[p]["w"], device, dtype) for p in parts]
-            layers[fused] = {"w": ws[0] if len(ws) == 1 else _fuse(ws)}
+    n_layer = len(src["attention_norm"])
+    names = [n for n in (*FUSED, "wq", "wk", "wv", "wo", "w1", "w2", "w3") if n in src]
+    ws = {n: _weight(src[n]["w"], device, dtype) for n in names}
+    layers = assemble_layers([{n: _layer_of(w, li) for n, w in ws.items()}
+                              for li in range(n_layer)])
+    for n in ("attention_norm", "ffn_norm"):
+        layers[n] = _t(src[n], device, dtype)
     return {
         "tok_embeddings": _t(tree["tok_embeddings"], device, dtype),
         "norm": _t(tree["norm"], device, dtype),

@@ -5,7 +5,7 @@ positions (token or injected image embeddings) from cursor ``pos0``,
 writes their K/V into the stacked cache ``[L, B, H, C, Dh]`` in place and
 returns the logits of one position; a decode step is the same call with
 S = 1.  Projections run through :func:`~.params.linear` (group-quant
-kernels for q4_k/q5_k weights); attention of S <= ``FLASH_DECODE_MAX_S``
+kernels for quantized weights); attention of S <= ``FLASH_DECODE_MAX_S``
 rows runs the flash-decode kernel, longer prefill chunks a plain masked
 softmax.  RoPE is the interleaved-pair variant (ggml_rope mode 0).
 """
@@ -31,6 +31,12 @@ FLASH_DECODE_MAX_S = 32
 # above this attention span the prefill path computes P.V in f32 (the JAX
 # package's blockwise path); at or below it, in the cache dtype
 PREFILL_FLASH_SPAN = 512
+
+# fused projections and their parts, in output order
+FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
+FILE_NAMES = {"wq": "attention.wq", "wk": "attention.wk", "wv": "attention.wv",
+              "wo": "attention.wo", "w1": "feed_forward.w1", "w2": "feed_forward.w2",
+              "w3": "feed_forward.w3"}
 
 
 @dataclass(frozen=True)
@@ -122,10 +128,9 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len):
         return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
 
     if "wqkv" in layers:
-        qkv = linear(h, layers["wqkv"], li)
-        xq, xk, xv = qkv.split(cfg.n_embd, dim=-1)
+        xq, xk, xv = linear(h, layers["wqkv"], li).split(cfg.n_embd, dim=-1)
     else:
-        xq, xk, xv = (linear(h, layers[n], li) for n in ("wq", "wk", "wv"))
+        xq, xk, xv = (linear(h, layers[n], li) for n in FUSED["wqkv"])
     cos, sin = rope
     q = rope_interleaved(heads(xq), cos, sin)
     k = rope_interleaved(heads(xk), cos, sin)
@@ -150,7 +155,7 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len):
     if "w13" in layers:
         gate_in, up = linear(h, layers["w13"], li).split(cfg.n_ff, dim=-1)
     else:
-        gate_in, up = linear(h, layers["w1"], li), linear(h, layers["w3"], li)
+        gate_in, up = (linear(h, layers[n], li) for n in FUSED["w13"])
     gate = torch.nn.functional.silu(gate_in.float()).to(x.dtype)
     return x + linear(gate * up, layers["w2"], li)
 
@@ -208,14 +213,51 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0: int, n_s
 # ---------------------------------------------------------------------------
 
 
+def _form(w) -> tuple:
+    """What must agree for weights to stack or fuse."""
+    if isinstance(w, gq.GroupQuant):
+        return ("gq", w.dtype, w.n_in)
+    return ("dense", w.dtype, tuple(w.shape))
+
+
+def _stack_or_list(ws: list):
+    """Per-layer weights -> one weight with a leading L axis, or the list
+    itself where the layers differ in form (``linear`` indexes it)."""
+    if any(_form(w) != _form(ws[0]) for w in ws):
+        return list(ws)
+    return gq.stack(ws) if isinstance(ws[0], gq.GroupQuant) else torch.stack(ws)
+
+
+def assemble_layers(per_layer: list[dict]) -> dict:
+    """Per-layer projections ``[{name: weight}]`` -> ``{name: {"w": ...}}``.
+
+    wq|wk|wv and w1|w3 fuse along the output axis (``wqkv``, ``w13``) only
+    where every layer's parts share one form; otherwise all layers keep them
+    apart.  Each name then stacks over layers, or stays a per-layer list
+    where its layers differ (llama.cpp's K_M files make some wv/w2 q6_k).
+    Consumes ``per_layer`` name by name, so the per-layer copies are freed
+    as the stacked ones are made."""
+    for fused, parts in FUSED.items():
+        if all(p in lp for lp in per_layer for p in parts) and all(
+                len({_form(lp[p]) for p in parts}) == 1 for lp in per_layer):
+            for lp in per_layer:
+                ws = [lp.pop(p) for p in parts]
+                lp[fused] = (gq.concat_out(ws) if isinstance(ws[0], gq.GroupQuant)
+                             else torch.cat(ws, dim=-1))
+    out = {}
+    for name in list(per_layer[0]):
+        out[name] = {"w": _stack_or_list([lp.pop(name) for lp in per_layer])}
+    return out
+
+
 def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
                 device: str | torch.device = "cuda") -> tuple[dict, LlamaConfig]:
     """Decoder params from a LlamaFileReader, stacked over layers.
 
-    q4_k/q5_k projections become exact group-quant weights decoded on
-    ``device``; dense tensors are stored [in, out] in ``dtype``.  The
-    attention and gate/up projections are fused along the output axis
-    (``wqkv``, ``w13``) when their parts share one representation."""
+    Quantized projections become group-quant weights decoded on ``device``
+    (every format ``group_i8.supported`` accepts; other quantized weights
+    raise NotImplementedError); dense tensors are stored [in, out] in
+    ``dtype``.  Layers are assembled by :func:`assemble_layers`."""
     cfg = LlamaConfig.from_hparams(reader.hparams, n_ctx=n_ctx)
 
     def lin(name: str):
@@ -229,27 +271,11 @@ def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
         "norm": tensor(reader.tensor_f32("norm.weight"), dtype, device),
         "output": {"w": lin("output.weight")},
     }
-    groups = {"wqkv": ("wq", "wk", "wv"), "wo": ("wo",), "w13": ("w1", "w3"), "w2": ("w2",)}
-    file_name = {"wq": "attention.wq", "wk": "attention.wk", "wv": "attention.wv",
-                 "wo": "attention.wo", "w1": "feed_forward.w1", "w2": "feed_forward.w2",
-                 "w3": "feed_forward.w3"}
-    layers: dict = {}
+    layers = assemble_layers([{p: lin(f"layers.{i}.{f}.weight") for p, f in FILE_NAMES.items()}
+                              for i in range(cfg.n_layer)])
     for norm in ("attention_norm", "ffn_norm"):
         layers[norm] = torch.stack([
             tensor(reader.tensor_f32(f"layers.{i}.{norm}.weight"), dtype, device)
             for i in range(cfg.n_layer)])
-    for fused, parts in groups.items():
-        per_layer = [[lin(f"layers.{i}.{file_name[p]}.weight") for p in parts]
-                     for i in range(cfg.n_layer)]
-        kind = type(per_layer[0][0])
-        if any(type(w) is not kind for ws in per_layer for w in ws):
-            raise NotImplementedError(
-                f"layers mix weight formats for {parts}: mixed-quant (K_M) files "
-                "need the generic-plane kernel (ROADMAP Queue 2)")
-        if kind is gq.GroupQuant:
-            layers[fused] = {"w": gq.stack([gq.concat_out(ws) for ws in per_layer])}
-        else:
-            layers[fused] = {"w": torch.stack([torch.cat(ws, dim=-1) for ws in per_layer])}
-        del per_layer
     params["layers"] = layers
     return params, cfg

@@ -17,8 +17,11 @@ from ..ops import group_i8 as gq
 
 def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
     """Apply ``{"w": weight, "b": optional bias}``; ``layer`` selects one
-    layer of stacked params."""
+    layer of stacked params, or the entry of a per-layer list (a name whose
+    layers differ in format, as in llama.cpp's K_M files)."""
     w = p["w"]
+    if isinstance(w, list):
+        w, layer = w[layer], None
     if isinstance(w, gq.GroupQuant):
         y = gq.qmatmul_group(x, w, layer if w.stacked else None)
     else:
@@ -35,14 +38,15 @@ def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
 
 def load_quant_weight(raw: np.ndarray, shape: tuple[int, int], dtype: DataType,
                       device: str | torch.device) -> gq.GroupQuant:
-    """The device form of a quantized weight: q4_k/q5_k -> exact group-quant."""
+    """The device form of a quantized weight: every format and K that
+    ``group_i8.supported`` accepts -> group-quant (exact planes for
+    q4_k/q5_k, bf16 planes otherwise)."""
     dtype = DataType(dtype)
     if not gq.supported(dtype, shape[1]):
         raise NotImplementedError(
-            f"{dtype.name} weight {tuple(shape)}: only q4_k/q5_k with K % 256 == 0 "
-            "are ported; other formats need the generic-plane and repacked "
-            "kernels (ROADMAP Queue 2: group_i8._kernel_generic, "
-            "pallas_quant_matmul)")
+            f"{dtype.name} weight {tuple(shape)}: gq takes q4_0/q4_1/q5_0/q5_1/q8_0/q4_k/q5_k "
+            "with K % 256 == 0 and q2_k/q3_k/q6_k with K % 128 == 0; other weights need "
+            "the repacked fused kernel (ROADMAP Queue 2 item 3, pallas_quant_matmul)")
     return gq.from_ggml(raw, shape, dtype, device)
 
 

@@ -39,6 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mgt_gq_decode": (_P,) * 7 + (_I,) * 4 + (_P,),
     "mgt_gq_prefill": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "mgt_gq_decode_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "mgt_gq_prefill_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mgt_flash_decode": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
 }
 

@@ -1,26 +1,37 @@
-"""Exact q4_k/q5_k group-quant weights and their matmuls ("gq").
+"""Group-quant weights and their matmuls ("gq").
 
-Counterpart of ``minigpt4_tpu/ops/group_i8.py`` in exact-plane mode.  A
-:class:`GroupQuant` holds the raw ggml codes and integer sub-scales of a
-q4_k/q5_k weight, so the logical weight
+Counterpart of ``minigpt4_tpu/ops/group_i8.py`` with unpacked codes.  A
+:class:`GroupQuant` holds the raw ggml codes of a weight as i8 plus two
+per-group planes, so the logical weight is
 
-    W[n, k] = A[n, g] * q[n, k] + B[n, g],   g = k // 32, s = k // 256
-    A = d[s, n] * sc6[g, n],   B = -dmin[s, n] * mn6[g, n]
+    W[n, k] = A[g, n] * q[n, k] + B[g, n],   g = k // group_size
 
-is rebuilt bit-exactly (an f16 scale times a 6-bit integer is exact in
-f32).  Storage: codes i8 ``[(L,) N, K]``, sc6/mn6 u8 ``[(L,) G, N]``,
-d/dmin f32 ``[(L,) S, N]``; codes are unpacked (one byte per weight).
+in one of two plane modes:
 
-Two hand-written CUDA kernels compute ``x @ W.T``:
+* exact (q4_k/q5_k, group size 32): the integer sub-scales are kept raw,
+  sc6/mn6 u8 ``[(L,) G, N]`` and superblock scales d/dmin f32
+  ``[(L,) S, N]`` (S = K // 256), and ``A = d[s] * sc6[g]``,
+  ``B = -dmin[s] * mn6[g]`` are rebuilt bit-exactly (an f16 scale times a
+  6-bit integer is exact in f32);
+* generic (q4_0, q4_1, q5_0, q5_1, q8_0 with group size 32; q2_k, q3_k,
+  q6_k with group size 16): A and B are bf16 planes a/b ``[(L,) G, N]``,
+  the f32 ggml scale and negated min rounded to nearest even (zero offsets
+  of the unsigned formats are folded into B, q8_0 keeps signed codes).
 
-* :func:`gq_decode` (``csrc/gq_decode.cu``) for at most ``GQ_MAX_M`` rows,
-  with x in f32;
-* :func:`gq_prefill` (``csrc/gq_prefill.cu``) for more rows, with x and the
-  dequantized W rounded to bf16 and f32 accumulation.
+Codes are i8 ``[(L,) N, K]``, one byte per weight.
 
-Beside each is its plain PyTorch version (:func:`qmatmul_decode_ref`,
-:func:`qmatmul_prefill_ref`).  A wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+Four hand-written CUDA kernels compute ``x @ W.T``:
+
+* :func:`gq_decode` / :func:`gq_decode_generic` (``csrc/gq_decode.cu``) for
+  at most ``GQ_MAX_M`` rows, with x in f32;
+* :func:`gq_prefill` / :func:`gq_prefill_generic` (``csrc/gq_prefill.cu``)
+  for more rows, with x and the dequantized W rounded to bf16 and f32
+  accumulation.
+
+Beside them are the plain PyTorch versions (:func:`qmatmul_decode_ref`,
+:func:`qmatmul_prefill_ref`), which cover both plane modes.  A wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,25 +45,41 @@ import torch
 from ..host import DataType
 from . import _build
 
-GROUP = 32  # q4_k / q5_k sub-block
-J = 8  # groups per 256-superblock
-SUPER = GROUP * J
+J = 8  # groups per chunk; K must be a multiple of J * group_size
 EXACT_PLANE = frozenset({DataType.Q4_K, DataType.Q5_K})
-# M <= GQ_MAX_M rides the decode kernel; larger M the prefill kernel
+GS16 = frozenset({DataType.Q2_K, DataType.Q3_K, DataType.Q6_K})
+# ggml block bytes of every format gq decodes (repack.REPACKABLE of the JAX package)
+BLOCK_BYTES = {DataType.Q4_0: 18, DataType.Q4_1: 20, DataType.Q5_0: 22, DataType.Q5_1: 24,
+               DataType.Q8_0: 34, DataType.Q2_K: 84, DataType.Q3_K: 110, DataType.Q4_K: 144,
+               DataType.Q5_K: 176, DataType.Q6_K: 210}
+REPACKABLE = frozenset(BLOCK_BYTES)
+# M <= GQ_MAX_M rides the decode kernels; larger M the prefill kernels
 GQ_MAX_M = 8
+
+
+def group_size(dtype: DataType) -> int:
+    return 16 if DataType(dtype) in GS16 else 32
 
 
 @dataclass
 class GroupQuant:
-    """q4_k/q5_k weight, logically ``[(L,) N, K]``; see the module docstring."""
+    """Group-quant weight, logically ``[(L,) N, K]``; see the module docstring.
+    Exact mode fills sc6/mn6/d/dmin, generic mode a/b."""
 
     codes: torch.Tensor  # i8 [(L,) N, K]
-    sc6: torch.Tensor  # u8 [(L,) G, N]
-    mn6: torch.Tensor  # u8 [(L,) G, N]
-    d: torch.Tensor  # f32 [(L,) S, N]
-    dmin: torch.Tensor  # f32 [(L,) S, N]
     dtype: DataType
     n_in: int
+    group_size: int = 32
+    sc6: torch.Tensor | None = None  # u8 [(L,) G, N]
+    mn6: torch.Tensor | None = None  # u8 [(L,) G, N]
+    d: torch.Tensor | None = None  # f32 [(L,) S, N]
+    dmin: torch.Tensor | None = None  # f32 [(L,) S, N]
+    a: torch.Tensor | None = None  # bf16 [(L,) G, N]
+    b: torch.Tensor | None = None  # bf16 [(L,) G, N]
+
+    @property
+    def exact(self) -> bool:
+        return self.sc6 is not None
 
     @property
     def n_out(self) -> int:
@@ -67,44 +94,65 @@ class GroupQuant:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
     def _replace(self, **ts) -> "GroupQuant":
-        return GroupQuant(**ts, dtype=self.dtype, n_in=self.n_in)
+        return GroupQuant(**ts, dtype=self.dtype, n_in=self.n_in, group_size=self.group_size)
 
     def layer(self, li: int) -> "GroupQuant":
         """One layer of a stacked weight (views, no copy)."""
         return self._replace(**{k: v[li] for k, v in self.tensors().items()})
 
+    def planes(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-group (A, B) ``[..., G, N]`` in f32."""
+        if self.exact:
+            a = torch.repeat_interleave(self.d, J, dim=-2) * self.sc6.float()
+            b = -torch.repeat_interleave(self.dmin, J, dim=-2) * self.mn6.float()
+            return a, b
+        return self.a.float(), self.b.float()
+
     def dequantize(self) -> torch.Tensor:
-        """[..., N, K] f32: the exact ggml dequantization."""
-        # per-group planes [..., G, N]: A = d * sc6, B = -dmin * mn6 (exact in f32)
-        a = torch.repeat_interleave(self.d, J, dim=-2) * self.sc6.float()
-        b = -torch.repeat_interleave(self.dmin, J, dim=-2) * self.mn6.float()
-        a = torch.repeat_interleave(a.transpose(-1, -2), GROUP, dim=-1)
-        b = torch.repeat_interleave(b.transpose(-1, -2), GROUP, dim=-1)
+        """[..., N, K] f32: ``codes * A + B`` with the planes expanded."""
+        a, b = self.planes()
+        a = torch.repeat_interleave(a.transpose(-1, -2), self.group_size, dim=-1)
+        b = torch.repeat_interleave(b.transpose(-1, -2), self.group_size, dim=-1)
         return self.codes.float() * a + b
+
+
+def _form(w: GroupQuant) -> tuple:
+    return (w.dtype, w.n_in, w.group_size, w.exact)
 
 
 def stack(ws: list[GroupQuant]) -> GroupQuant:
     """Per-layer weights -> one weight with a leading L axis."""
     w0 = ws[0]
-    if any((w.dtype, w.n_in) != (w0.dtype, w0.n_in) for w in ws):
+    if any(_form(w) != _form(w0) for w in ws):
         raise ValueError("stacked GroupQuant layers must share format and K")
     return w0._replace(**{k: torch.stack([w.tensors()[k] for w in ws])
                           for k in w0.tensors()})
 
 
 def concat_out(ws: list[GroupQuant]) -> GroupQuant:
-    """Fuse weights of one input width along the output axis (wq|wk|wv)."""
+    """Fuse weights of one input width along the output axis (wq|wk|wv):
+    codes along N (dim -2), every plane along N (dim -1)."""
     w0 = ws[0]
-    if any((w.dtype, w.n_in) != (w0.dtype, w0.n_in) for w in ws):
+    if any(_form(w) != _form(w0) for w in ws):
         raise ValueError("fused GroupQuant parts must share format and K")
-    cat = {"codes": torch.cat([w.codes for w in ws], dim=-2)}
-    for k in ("sc6", "mn6", "d", "dmin"):
-        cat[k] = torch.cat([getattr(w, k) for w in ws], dim=-1)
-    return w0._replace(**cat)
+    return w0._replace(**{k: torch.cat([w.tensors()[k] for w in ws], dim=-2 if k == "codes" else -1)
+                          for k in w0.tensors()})
 
 
 def supported(dtype: DataType, k: int) -> bool:
-    return DataType(dtype) in EXACT_PLANE and k % SUPER == 0
+    """The JAX rule: a REPACKABLE format whose K is a multiple of 8 groups."""
+    dtype = DataType(dtype)
+    return dtype in REPACKABLE and k % (J * group_size(dtype)) == 0
+
+
+# ---------------------------------------------------------------------------
+# ggml bytes -> GroupQuant, decoded with torch ops on the target device
+# ---------------------------------------------------------------------------
+
+
+def _f16(blk: torch.Tensor, at: int) -> torch.Tensor:
+    """The f16 at byte ``at`` of every block [n, nb, bytes] -> f32 [n, nb]."""
+    return blk[:, :, at:at + 2].contiguous().view(torch.float16).squeeze(-1).float()
 
 
 def _unpack_k4_scales(sb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,24 +164,101 @@ def _unpack_k4_scales(sb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(sc, dim=-1), torch.stack(mn, dim=-1)
 
 
+def _unpack_q3k_scales(sb: torch.Tensor) -> torch.Tensor:
+    """[n, nb, 12] packed bytes -> [n, nb, 16] 6-bit scales (ggml's kmask
+    unpacking, done per byte: every mask and shift stays inside a byte)."""
+    a0, a1, hi = sb[..., 0:4], sb[..., 4:8], sb[..., 8:12]
+    return torch.cat([(a0 & 0x0F) | ((hi & 3) << 4), (a1 & 0x0F) | (((hi >> 2) & 3) << 4),
+                      (a0 >> 4) | (((hi >> 4) & 3) << 4), (a1 >> 4) | (((hi >> 6) & 3) << 4)],
+                     dim=-1)
+
+
+def _expand_2bit(qs: torch.Tensor) -> torch.Tensor:
+    """q2_k/q3_k low bits [n, nb, 64] -> [n, nb, 256] in ggml decode order:
+    element 128 h + 32 j + l is bits 2j+1:2j of byte 32 h + l."""
+    n, nb = qs.shape[:2]
+    sh = torch.arange(0, 8, 2, dtype=torch.uint8, device=qs.device).view(1, 1, 1, 4, 1)
+    return ((qs.view(n, nb, 2, 1, 32) >> sh) & 3).reshape(n, nb, 256)
+
+
+def _decode_generic(blk: torch.Tensor, dtype: DataType):
+    """Blocks [n, nb, bytes] u8 -> (q u8 or i8 [n, nb, per-block K], scales f32
+    [n, G], mins f32 [n, G]) with ``w = scales * q - mins`` exactly ggml's
+    decode (counterpart of repack._decode_codes_scales)."""
+    n, nb = blk.shape[:2]
+    if dtype in (DataType.Q4_0, DataType.Q4_1, DataType.Q5_0, DataType.Q5_1):
+        off = {DataType.Q4_0: 2, DataType.Q4_1: 4, DataType.Q5_0: 6, DataType.Q5_1: 8}[dtype]
+        d = _f16(blk, 0)
+        qs = blk[:, :, off:off + 16]
+        lo, hi = qs & 0x0F, qs >> 4
+        if dtype in (DataType.Q5_0, DataType.Q5_1):
+            # bit j of the little-endian u32 qh is the 5th bit of element j
+            qh = blk[:, :, off - 4:off]
+            sh = torch.arange(8, dtype=torch.uint8, device=blk.device).view(1, 1, 1, 8)
+            bits = ((qh.unsqueeze(-1) >> sh) & 1).reshape(n, nb, 32)
+            lo, hi = lo | (bits[:, :, :16] << 4), hi | (bits[:, :, 16:] << 4)
+        q = torch.cat([lo, hi], dim=2)
+        if dtype in (DataType.Q4_1, DataType.Q5_1):
+            mins = -_f16(blk, 2)
+        else:
+            mins = (8.0 if dtype == DataType.Q4_0 else 16.0) * d
+        return q, d, mins
+    if dtype == DataType.Q8_0:
+        d = _f16(blk, 0)
+        # signed codes, zero mins
+        return blk[:, :, 2:34].contiguous().view(torch.int8), d, torch.zeros_like(d)
+    if dtype == DataType.Q2_K:
+        q = _expand_2bit(blk[:, :, 16:80])
+        scales = _f16(blk, 80).unsqueeze(-1) * (blk[:, :, 0:16] & 0x0F).float()
+        mins = _f16(blk, 82).unsqueeze(-1) * (blk[:, :, 0:16] >> 4).float()
+        return q, scales.reshape(n, -1), mins.reshape(n, -1)
+    if dtype == DataType.Q3_K:
+        hmask = blk[:, :, 0:32]
+        sh = torch.arange(8, dtype=torch.uint8, device=blk.device).view(1, 1, 2, 4, 1)
+        hbit = ((hmask.view(n, nb, 1, 1, 32) >> sh) & 1).reshape(n, nb, 256)
+        q = _expand_2bit(blk[:, :, 32:96]) | (hbit << 2)  # 0..7; ggml decodes q - 4
+        sc6 = _unpack_q3k_scales(blk[:, :, 96:108]).float()
+        scales = _f16(blk, 108).unsqueeze(-1) * (sc6 - 32.0)
+        return q, scales.reshape(n, -1), (4.0 * scales).reshape(n, -1)
+    if dtype == DataType.Q6_K:
+        ql = blk[:, :, 0:128].reshape(n, nb, 2, 64)
+        qh = blk[:, :, 128:192].reshape(n, nb, 2, 32)
+        l0, l1 = ql[..., :32], ql[..., 32:]
+        q = torch.cat([(l0 & 0x0F) | ((qh & 3) << 4), (l1 & 0x0F) | (((qh >> 2) & 3) << 4),
+                       (l0 >> 4) | (((qh >> 4) & 3) << 4), (l1 >> 4) | (((qh >> 6) & 3) << 4)],
+                      dim=-1)  # [n, nb, 2, 128]: 0..63, ggml decodes q - 32
+        sc16 = blk[:, :, 192:208].contiguous().view(torch.int8).float()
+        scales = _f16(blk, 208).unsqueeze(-1) * sc16
+        return q, scales.reshape(n, -1), (32.0 * scales).reshape(n, -1)
+    raise ValueError(f"no gq decoding for {dtype.name}")
+
+
 def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
               device: str | torch.device) -> GroupQuant:
-    """ggml q4_k/q5_k bytes of an ``[N, K]`` weight -> :class:`GroupQuant`.
+    """ggml bytes of an ``[N, K]`` weight in any :data:`REPACKABLE` format ->
+    :class:`GroupQuant` (exact planes for q4_k/q5_k, bf16 planes otherwise).
 
     The bytes are copied to ``device`` once and decoded there with torch
-    ops (a 7B file decodes on the card in seconds)."""
+    ops.  Generic planes round as the JAX package does: the f32 ggml scale,
+    and the negated f32 min, to nearest-even bf16."""
     dtype = DataType(dtype)
-    if dtype not in EXACT_PLANE:
-        raise ValueError(f"from_ggml decodes q4_k/q5_k only, got {dtype.name}")
+    if dtype not in REPACKABLE:
+        raise ValueError(f"from_ggml has no gq decoding for {dtype.name}")
     n, k = shape
-    if k % SUPER:
-        raise ValueError(f"K={k} is not a multiple of {SUPER}")
-    bbytes = 144 if dtype == DataType.Q4_K else 176
-    nb = k // SUPER
+    gs = group_size(dtype)
+    if k % (J * gs):
+        raise ValueError(f"{dtype.name}: K={k} is not a multiple of {J * gs}")
     host = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
-    blk = host.to(device).view(n, nb, bbytes)
-    d = blk[:, :, 0:2].contiguous().view(torch.float16).reshape(n, nb).float()
-    dmin = blk[:, :, 2:4].contiguous().view(torch.float16).reshape(n, nb).float()
+    blk = host.to(device).view(n, -1, BLOCK_BYTES[dtype])
+    nb = blk.shape[1]
+    if dtype not in EXACT_PLANE:
+        q, scales, mins = _decode_generic(blk, dtype)
+        return GroupQuant(
+            codes=q.reshape(n, k).to(torch.int8).contiguous(), dtype=dtype, n_in=k,
+            group_size=gs,
+            a=scales.t().to(torch.bfloat16).contiguous(),
+            b=(-mins).t().to(torch.bfloat16).contiguous())
+    d, dmin = _f16(blk, 0), _f16(blk, 2)
     sc, mn = _unpack_k4_scales(blk[:, :, 4:16].to(torch.int32))
     if dtype == DataType.Q4_K:
         qs = blk[:, :, 16:144].view(n, nb, 4, 32)
@@ -146,12 +271,11 @@ def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
         q2 = (qs >> 4) + (((qh >> (2 * j + 1)) & 1) << 4)
         q = torch.stack([q1, q2], dim=3)
     return GroupQuant(
-        codes=q.reshape(n, k).to(torch.int8).contiguous(),
+        codes=q.reshape(n, k).to(torch.int8).contiguous(), dtype=dtype, n_in=k, group_size=gs,
         sc6=sc.reshape(n, nb * J).t().to(torch.uint8).contiguous(),
         mn6=mn.reshape(n, nb * J).t().to(torch.uint8).contiguous(),
         d=d.t().contiguous(),
         dmin=dmin.t().contiguous(),
-        dtype=dtype, n_in=k,
     )
 
 
@@ -190,7 +314,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None) -> torch.Tensor:
+def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
+            exact: bool) -> torch.Tensor:
+    if w.exact != exact:
+        raise ValueError(f"{fn_name} takes {'exact' if exact else 'generic'}-plane weights, "
+                         f"got a {'exact' if w.exact else 'generic'} {w.dtype.name} weight")
     if x.dim() != 2 or x.shape[1] != w.n_in:
         raise ValueError(f"{fn_name}: x must be [M, {w.n_in}], got {tuple(x.shape)}")
     if x.dtype != torch.float32:
@@ -200,8 +328,12 @@ def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None) -> 
             raise ValueError(f"{fn_name}: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{fn_name}: {name} must be contiguous")
-    if w.n_in % SUPER:
-        raise ValueError(f"{fn_name}: K={w.n_in} is not a multiple of {SUPER}")
+    if not exact and (w.a.dtype, w.b.dtype) != (torch.bfloat16, torch.bfloat16):
+        raise TypeError(f"{fn_name}: planes must be bfloat16, got {w.a.dtype}/{w.b.dtype}")
+    if w.group_size not in (16, 32) or (exact and w.group_size != 32):
+        raise ValueError(f"{fn_name}: group size {w.group_size} is not served")
+    if w.n_in % (J * w.group_size):
+        raise ValueError(f"{fn_name}: K={w.n_in} is not a multiple of {J * w.group_size}")
     if w.stacked and layer is None:
         raise ValueError("stacked GroupQuant requires a layer index")
     n_layers = w.codes.shape[0] if w.stacked else 1
@@ -214,45 +346,81 @@ def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None) -> 
     m, k = x.shape
     n = w.n_out
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    rc = getattr(lib, fn_name)(
-        x.data_ptr(), w.codes.data_ptr(), w.sc6.data_ptr(), w.mn6.data_ptr(),
-        w.d.data_ptr(), w.dmin.data_ptr(), y.data_ptr(), m, n, k, li,
-        ctypes.c_void_p(_build.stream_ptr(x.device)))
+    fn = getattr(_build.load(), fn_name)
+    stream = ctypes.c_void_p(_build.stream_ptr(x.device))
+    if exact:
+        rc = fn(x.data_ptr(), w.codes.data_ptr(), w.sc6.data_ptr(), w.mn6.data_ptr(),
+                w.d.data_ptr(), w.dmin.data_ptr(), y.data_ptr(), m, n, k, li, stream)
+    else:
+        rc = fn(x.data_ptr(), w.codes.data_ptr(), w.a.data_ptr(), w.b.data_ptr(),
+                y.data_ptr(), m, n, k, w.group_size, li, stream)
     _build.check(rc, fn_name)
     return y
 
 
+def _decode_rows(name: str, x: torch.Tensor) -> None:
+    if not 1 <= x.shape[0] <= GQ_MAX_M:
+        raise ValueError(f"{name} serves 1..{GQ_MAX_M} rows, got {x.shape[0]}")
+
+
 def gq_decode(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M <= 8, K] @ W.T -> f32 [M, N] (``csrc/gq_decode.cu``)."""
+    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], exact planes (``csrc/gq_decode.cu``)."""
     if x.device.type == "cpu":
         return qmatmul_decode_ref(x, w, layer)
-    if not 1 <= x.shape[0] <= GQ_MAX_M:
-        raise ValueError(f"gq_decode serves 1..{GQ_MAX_M} rows, got {x.shape[0]}")
-    y = _launch("mgt_gq_decode", x, w, layer)
+    _decode_rows("gq_decode", x)
+    y = _launch("mgt_gq_decode", x, w, layer, exact=True)
     gq_decode.launches += 1
     return y
 
 
+def gq_decode_generic(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
+    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], bf16 planes of group size 16
+    or 32 (``csrc/gq_decode.cu``, entry ``mgt_gq_decode_generic``)."""
+    if x.device.type == "cpu":
+        return qmatmul_decode_ref(x, w, layer)
+    _decode_rows("gq_decode_generic", x)
+    y = _launch("mgt_gq_decode_generic", x, w, layer, exact=False)
+    gq_decode_generic.launches += 1
+    return y
+
+
 def gq_prefill(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands (``csrc/gq_prefill.cu``)."""
+    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, exact planes
+    (``csrc/gq_prefill.cu``)."""
     if x.device.type == "cpu":
         return qmatmul_prefill_ref(x, w, layer)
     if x.shape[0] < 1:
         raise ValueError("gq_prefill needs at least one row")
-    y = _launch("mgt_gq_prefill", x, w, layer)
+    y = _launch("mgt_gq_prefill", x, w, layer, exact=True)
     gq_prefill.launches += 1
     return y
 
 
+def gq_prefill_generic(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
+    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, bf16 planes
+    (``csrc/gq_prefill.cu``, entry ``mgt_gq_prefill_generic``)."""
+    if x.device.type == "cpu":
+        return qmatmul_prefill_ref(x, w, layer)
+    if x.shape[0] < 1:
+        raise ValueError("gq_prefill_generic needs at least one row")
+    y = _launch("mgt_gq_prefill_generic", x, w, layer, exact=False)
+    gq_prefill_generic.launches += 1
+    return y
+
+
 gq_decode.launches = 0
+gq_decode_generic.launches = 0
 gq_prefill.launches = 0
+gq_prefill_generic.launches = 0
 
 
 def qmatmul_group(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
     """x [..., K] @ W.T -> [..., N] in x's dtype: M <= GQ_MAX_M rows go to
-    :func:`gq_decode`, more to :func:`gq_prefill`."""
+    the decode kernel of the weight's plane mode, more to its prefill kernel."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, w.n_in).float()
-    fn = gq_decode if x2.shape[0] <= GQ_MAX_M else gq_prefill
+    if x2.shape[0] <= GQ_MAX_M:
+        fn = gq_decode if w.exact else gq_decode_generic
+    else:
+        fn = gq_prefill if w.exact else gq_prefill_generic
     return fn(x2, w, layer).reshape(*lead, w.n_out).to(x.dtype)

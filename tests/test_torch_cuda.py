@@ -7,23 +7,25 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: gq_decode keeps x in f32 like its plain version (1e-5 of
-max|y|, f32 summation order); gq_prefill rounds x and W to bf16 like its
-plain version and sums 64-wide K tiles on the tensor cores (1e-4); flash
-decode is f32 online softmax against f32 softmax (1e-5 absolute on unit
-inputs).
+Tolerances: gq_decode and gq_decode_generic keep x in f32 like their
+plain version (1e-5 of max|y|, f32 summation order); gq_prefill and
+gq_prefill_generic round x and W to bf16 like their plain version and sum
+64-wide K tiles on the tensor cores (1e-4); flash decode is f32 online
+softmax against f32 softmax (1e-5 absolute on unit inputs).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fixtures import build_gq_models
+from fixtures import GQ_D, build_container, build_gq_models
 from minigpt4_tpu.formats import quants
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.host import DataType, preprocess
+from minigpt4_tpu_torch.ops import _build
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
+from test_torch_fixtures import build_llm_q5_k_m
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +63,52 @@ def test_group_quant_kernels_match_plain(cuda_device, m):
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     assert _rel(got, plain(x, w, 1)) <= (1e-5 if m <= tgq.GQ_MAX_M else 1e-4)
+
+
+def _generic(dtype, n, k, seeds, device):
+    return tgq.stack([tgq.from_ggml(quants.quantize(
+        np.random.default_rng(s).normal(0, 0.6, (n, k)).astype(np.float32), dtype),
+        (n, k), dtype, device) for s in seeds])
+
+
+# q6_k: group size 16, codes 0..63; q8_0: group size 32, signed codes
+@pytest.mark.parametrize("dtype", [DataType.Q6_K, DataType.Q8_0], ids=["q6_k", "q8_0"])
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_generic_group_quant_kernels_match_plain(cuda_device, dtype, m):
+    n, k = 300, 768  # ragged N for both kernels' column tiles
+    w = _generic(dtype, n, k, (1, 2), cuda_device)
+    assert w.group_size == (16 if dtype == DataType.Q6_K else 32)
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+    x = x.to(cuda_device)
+    kern, plain = ((tgq.gq_decode_generic, tgq.qmatmul_decode_ref) if m <= tgq.GQ_MAX_M
+                   else (tgq.gq_prefill_generic, tgq.qmatmul_prefill_ref))
+    before = kern.launches
+    got = kern(x, w, 1)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert _rel(got, plain(x, w, 1)) <= (1e-5 if m <= tgq.GQ_MAX_M else 1e-4)
+
+
+def test_refused_launches_raise(cuda_device):
+    w = _generic(DataType.Q6_K, 64, 256, (0,), cuda_device)
+    x9 = torch.zeros((9, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="1..8 rows"):
+        tgq.gq_decode_generic(x9, w, 0)
+    with pytest.raises(ValueError, match="takes exact-plane weights"):
+        tgq.gq_decode(x9[:1], w, 0)  # the exact entry refuses bf16 planes
+    # K = 96 is no multiple of 8 groups of 16
+    bad = tgq.GroupQuant(codes=w.codes[:, :, :96].contiguous(), dtype=w.dtype, n_in=96,
+                         group_size=16, a=w.a[:, :6].contiguous(), b=w.b[:, :6].contiguous())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tgq.gq_prefill_generic(torch.zeros((40, 96), device=cuda_device), bad, 0)
+    # the C entries refuse what the wrappers would: M = 9, group size 24
+    lib, y = _build.load(), torch.empty((9, 64), device=cuda_device)
+    stream = _build.stream_ptr(cuda_device)
+    for m, gs in ((9, 16), (1, 24)):
+        rc = lib.mgt_gq_decode_generic(x9.data_ptr(), w.codes.data_ptr(), w.a.data_ptr(),
+                                       w.b.data_ptr(), y.data_ptr(), m, 64, 256, gs, 0, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(rc, "mgt_gq_decode_generic")
 
 
 FLASH_CASES = [(1, 0), (1, 300), (8, 130), (32, 0), (32, 250), (1, [5, 400]), (32, [97, 128])]
@@ -110,3 +158,28 @@ def test_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
     (ce, ct), (ge, gt) = runs["cpu"], runs["cuda"]
     assert np.abs(ge - ce).max() <= 1e-4 * np.abs(ce).max()
     assert gt == ct
+
+
+def test_mixed_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
+    """The Q5_K_M fixture (q6_k output, wv and w2 on layers 2-3): the card and
+    the CPU give the same greedy tokens, and all five kernels ran."""
+    rng = np.random.default_rng(7)
+    model = build_container(tmp_path / "minigpt4-gq.bin", rng, llm_d=GQ_D)
+    llm = build_llm_q5_k_m(tmp_path / "vicuna-q5_k_m.bin", rng)
+    img = np.random.default_rng(3).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    kernels = (tgq.gq_decode, tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic,
+               tfd.flash_decode_attention)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = [f.launches for f in kernels]
+        eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=device)
+        try:
+            emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+            eng.system_prompt()
+            eng.begin_chat_image(emb, "what is in the image?")
+            runs[device] = list(eng.generate(limit=10, params=SamplingParams(temp=0.0)))
+        finally:
+            eng.close()
+        grew = [f.launches > b for f, b in zip(kernels, before)]
+        assert grew == [device == "cuda"] * 5, (device, before)
+    assert runs["cuda"] == runs["cpu"]

@@ -102,18 +102,27 @@ def test_concat_out_is_concatenated_outputs():
     assert torch.equal(linear(x, {"w": fused}), want)
 
 
-@pytest.mark.parametrize("dtype", [DataType.Q6_K, DataType.Q8_0, DataType.Q4_0])
-def test_unported_formats_raise(dtype):
-    raw = _make(dtype, 8, 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_quant_weight(raw, (8, 512), dtype, "cpu")
+# what gq still rejects: K = 1408 (the ViT-G width) is no multiple of 8
+# groups of 32, K = 96 none of 8 groups at all, q8_1 has no gq form
+@pytest.mark.parametrize("dtype,k", [(DataType.Q4_0, 1408), (DataType.Q8_0, 1408),
+                                     (DataType.Q5_1, 96), (DataType.Q8_1, 512)],
+                         ids=["q4_0-K1408", "q8_0-K1408", "q5_1-K96", "q8_1-K512"])
+def test_unported_formats_raise(dtype, k):
+    assert jgq.supported(dtype, k) is False  # the JAX rule agrees
+    assert not tgq.supported(dtype, k)
+    raw = _make(dtype, 8, k)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3, pallas_quant_matmul"):
+        load_quant_weight(raw, (8, k), dtype, "cpu")
 
 
 def test_cpu_wrappers_count_no_launch():
-    n, k = 64, 256
-    w = tgq.from_ggml(_make(DataType.Q5_K, n, k), (n, k), DataType.Q5_K, "cpu")
-    before = (tgq.gq_decode.launches, tgq.gq_prefill.launches)
-    for m in (1, 8, 9, 40):
-        tgq.qmatmul_group(torch.zeros(m, k), w)
-    assert (tgq.gq_decode.launches, tgq.gq_prefill.launches) == before
+    k = 256
+    ws = [tgq.from_ggml(_make(dt, 64, k), (64, k), dt, "cpu")
+          for dt in (DataType.Q5_K, DataType.Q6_K, DataType.Q8_0)]
+    wrappers = (tgq.gq_decode, tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic)
+    before = [f.launches for f in wrappers]
+    for w in ws:
+        for m in (1, 8, 9, 40):
+            tgq.qmatmul_group(torch.zeros(m, k), w)
+    assert [f.launches for f in wrappers] == before
 
