@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's one-image chat path on an NVIDIA GPU.
+"""Run the PyTorch port's one-image chat path and its batched HTTP serving
+path on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -11,8 +12,16 @@ Phases (any failure exits nonzero before the last line):
                the card at the shapes of the main paths: the exact-plane
                kernels and flash decode at Vicuna-7B shapes, the generic-plane
                kernels at Vicuna-13B shapes (q6_k planes, group 16; q8_0,
-               group 32, signed codes); max error, tolerance, median times
-               (CUDA events, turns plain, kernel, kernel, plain).
+               group 32, signed codes), and the paged flash-decode kernel at
+               Vicuna-13B serving shapes (8 lanes, 40 heads of 128, bf16 pools
+               of 64 + 1 pages, 4 + 1 table slots, shuffled pages, one lane
+               past its capacity): max error, tolerance, median times (CUDA
+               events, turns plain, kernel, kernel, plain), each kernel's
+               bound (the larger of its bytes at 3.35 TB/s and its operations
+               at the H100's peak for their type) and, for the attention
+               kernels, the time of torch's scaled_dot_product_attention with
+               a boolean mask on the same (gathered) cache; the paged kernel
+               must give the dense kernel's bits on the gathered cache.
   4. engine  - two chats through MiniGPT4Engine(device="cuda"), each on
                synthetic files cached under build/smoke_models/ by geometry,
                layout and seed, one engine closed before the next is built:
@@ -22,26 +31,45 @@ Phases (any failure exits nonzero before the last line):
                b. Vicuna-7B width, every projection q5_k, depth cut to 8
                   layers, with a 7B f16 container.
                Each: encode_image, system_prompt, begin_chat_image, a greedy
-               generate(limit=32), a timed 16-token decode chunk, a sampled
+               generate(limit=32), a timed 16-token decode chunk, a
+               16-token chunk under torch.profiler (device busy time, idle
+               share, the kernels with the most device time), a sampled
                second turn.  The launch counts are set to 0 just before each
-               chat and read just after: the 13B chat must launch all five
-               kernels, the 7B chat the three exact-plane and flash kernels.
+               chat and read just after: the 13B chat must launch the five
+               kernels of the chat path, the 7B chat the three exact-plane and
+               flash kernels.
+  5. serving - minigpt4_tpu_torch.serve.start_server on the 13B files with
+               session_ctx 512, a 30 ms batch window and a pool of 32 pages,
+               on an ephemeral port.  Eight client threads each create a
+               session; one uploads an image; all ask (different lengths)
+               and generate 32 greedy tokens concurrently.  Every response
+               must be 200 with text, /v1/health must show all 32 pages free
+               afterwards, and all six kernels must launch (counts set to 0
+               just before, read just after).  Then eight sessions with the
+               same prompts and copies of them decode one step as a paged
+               group and as a dense group: max |dlogit| / max |logit| <= 1e-3,
+               and 31 more tokens each way give the identical-token prefix
+               per lane and the tok/s of an 8-lane paged group; a third copy
+               decodes a 16-token chunk of the group under torch.profiler.
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
-{"kernels": [...]} (launches of the 13B chat); the last is
-{"ok": true, "device": {...}}.
+{"kernels": [...]} (launches of the serving phase, and of each path); the
+last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import gc
+import io
 import json
 import math
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +84,10 @@ Q5K_D = 2.0 ** -15  # f16 superblock scale of the synthetic q5_k weights
 # std 1366 d
 Q6K_D = Q5K_D * math.sqrt(277651 / 1865102)
 STACK_7B, STACK_13B = 32, 40  # stacked layers the kernel phase rotates through
+# NVIDIA's H100 SXM data sheet: HBM rate, f32 (CUDA cores) and dense bf16
+# tensor-core peaks; a kernel's bound is the larger of bytes / HBM_BPS and
+# operations / the peak of the type they run in
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # Vicuna-7B and -13B (benchmark.py GEOMETRIES) and MiniGPT-4's ViT-G / Q-Former
 LLM_13B = dict(n_embd=5120, n_head=40, n_layer=40, n_vocab=32000, n_mult=256, layout="q5_k_m")
 LLM_7B = dict(n_embd=4096, n_head=32, n_layer=8, n_vocab=32000, n_mult=256, layout="q5_k")
@@ -93,6 +125,48 @@ def _time_ms(fn, args_for, reps: int) -> list[float]:
     return out
 
 
+def _short(name: str) -> str:
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
+
+
+def profile_window(fn, sync) -> dict:
+    """One call of ``fn`` under torch.profiler (host and device activity):
+    wall ms, device busy ms (the union of the device activity intervals),
+    the idle share, the number of device activities and the three names
+    with the most device time.  The profiler slows the host, so the idle
+    share is an upper estimate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0.0, -math.inf
+    per_name: dict[str, float] = {}
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        s, f = e.time_range.start, e.time_range.end
+        if f > end:
+            busy += f - max(s, end)
+            end = f
+        per_name[_short(e.name)] = per_name.get(_short(e.name), 0.0) + (f - s) / 1e3
+    busy_ms = busy / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
+                top=[(n, round(ms, 3)) for n, ms in top])
+
+
+def log_profile(label: str, prof: dict, card: str) -> None:
+    log(f"{label} profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+        f"idle {100 * prof['idle']:.0f} %, {prof['device_ops']} device activities; most device "
+        f"time: {prof['top']}  [{card}]")
+
+
 def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float]:
     """Median ms of kernel and plain, measured in turns plain, kernel,
     kernel, plain after one warm-up launch of each."""
@@ -113,7 +187,7 @@ def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float
 def random_gq(n_layer: int, n: int, k: int, gen: torch.Generator):
     """Stacked q5_k-range GroupQuant made on the card (codes 0..31, 6-bit
     sub-scales, the smoke model's d and dmin)."""
-    from minigpt4_tpu_torch.host import DataType
+    from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops.group_i8 import GroupQuant
 
     g, s = k // 32, k // 256
@@ -131,7 +205,7 @@ def random_generic(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
     """Stacked generic-plane GroupQuant made on the card: q6_k (codes 0..63,
     A = d * sc for random signed sub-scales sc, B = -32 A) or q8_0 (signed
     codes, A = d in [0.5, 1.5) x 2^-13, B = -0)."""
-    from minigpt4_tpu_torch.host import DataType
+    from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops import group_i8 as gq
 
     gs = gq.group_size(dtype)
@@ -151,6 +225,44 @@ def random_generic(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for a call that must move
+    ``n_bytes`` and do ``flops`` at ``peak`` operations per second."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gq_bound(w, m: int) -> tuple[float, str]:
+    """One layer's codes and planes read once, x [M, K] f32 read and y
+    [M, N] f32 written once; 2 M N K operations, in f32 on the CUDA cores
+    for the decode kernels (M <= 8), in bf16 on the tensor cores for the
+    prefill kernels."""
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+
+    fields = [t for t in (w.codes, w.sc6, w.mn6, w.d, w.dmin, w.a, w.b) if t is not None]
+    layer = nbytes(*fields) / w.codes.shape[0]
+    n, k = w.n_out, w.n_in
+    return bound(layer + 4 * m * (k + n), 2.0 * m * n * k,
+                 F32_FLOPS if m <= gq.GQ_MAX_M else BF16_FLOPS)
+
+
+def attention_bound(b: int, h: int, s: int, dh: int, keys: int, kv_bytes: int):
+    """Live K and V rows (``keys`` in all lanes) read once, q and the f32
+    output moved once; 4 S Dh operations per live key and head, in f32."""
+    return bound(2 * keys * h * dh * kv_bytes + 2 * b * h * s * dh * 4,
+                 4.0 * s * dh * keys * h, F32_FLOPS)
+
+
+def sdpa_mask(pos: torch.Tensor, s: int, c: int) -> torch.Tensor:
+    """[B, 1, S, C] boolean: query row r of lane b sees keys <= pos[b] + r."""
+    q_pos = pos.long()[:, None] + torch.arange(s, device=pos.device)
+    return (torch.arange(c, device=pos.device) <= q_pos[..., None])[:, None]
 
 
 def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
@@ -174,18 +286,19 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
         err, abs_err = rel_err(got, want), float((got - want).abs().max())
         k_ms, p_ms = compare_times(kern, plain, lambda i: (x, w, i % n_stack))
         key = kern.__name__
+        b_ms, b_by = gq_bound(w, m)
         results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format=w.dtype.name.lower(),
                                  max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=k_ms,
-                                 plain_ms=p_ms))
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
         log(f"[kernels] {key:18s} {w.dtype.name.lower():4s} {name:6s} N={n:5d} K={k:5d} M={m:3d}"
             f"  max_rel_err={err:.3e} (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
-            f"  [{card}]")
+            f"  bound {b_ms:.4f} ms ({b_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
 
 
 def phase_kernels(card: str) -> dict:
-    from minigpt4_tpu_torch.host import DataType
+    from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops import flash_decode as fd
 
     gen = torch.Generator(device="cuda")
@@ -232,15 +345,90 @@ def phase_kernels(card: str) -> dict:
         err = float((got - want).abs().max())
         k_ms, p_ms = compare_times(fd.flash_decode_attention, fd.flash_decode_ref,
                                    lambda i: (q, ck, cv, i % STACK_7B, pos_t, scale))
+        pos_v = fd._pos_vector(pos_t, b, "cuda")
+        keys = int((pos_v + s).clamp(max=c).sum())
+        b_ms, b_by = attention_bound(b, h, s, dh, keys, 2)
+        lib_ms = sdpa_ms(q, ck, cv, pos_v, scale, STACK_7B)
         results["flash_decode"].append(dict(shape=f"B={b} S={s} pos0={pos}", max_abs_err=err,
-                                            tol=1e-3, ms=k_ms, plain_ms=p_ms))
+                                            tol=1e-3, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                            bound_by=b_by, library_ms=lib_ms))
         log(f"[kernels] flash_decode B={b} H={h} S={s:2d} C={c} pos0={pos}  max_abs_err={err:.3e}"
-            f" (tol 1e-3)  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  [{card}]")
+            f" (tol 1e-3)  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})  sdpa {lib_ms:.4f} ms  [{card}]")
         if not err <= 1e-3:
             raise AssertionError(f"flash_decode B={b} S={s} pos0={pos}: abs err {err} > 1e-3")
     del caches
     torch.cuda.empty_cache()
+    paged_kernel_case(results, card, gen)
     return results
+
+
+def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float:
+    """Median ms of torch's scaled_dot_product_attention on the live part of
+    the stacked cache [L, B, H, C, Dh] (bf16 q, boolean causal mask),
+    rotating through the layers: the one PyTorch call for this function."""
+    b, h, s, dh = q.shape
+    c = min(int(pos.max()) + s, ck.shape[3])
+    qb = q.to(ck.dtype)
+    mask = sdpa_mask(pos, s, c)
+    f = torch.nn.functional.scaled_dot_product_attention
+
+    def call(li):
+        return f(qb, ck[li, :, :, :c], cv[li, :, :, :c], attn_mask=mask, scale=scale)
+
+    call(0)
+    torch.cuda.synchronize()
+    return statistics.median(_time_ms(call, lambda i: (i % n_stack,), reps))
+
+
+def paged_kernel_case(results: dict, card: str, gen: torch.Generator) -> None:
+    """The paged kernel at Vicuna-13B serving shapes against its plain
+    version, the dense kernel on the gathered cache (bits) and SDPA."""
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
+    b, h, dh, n_pages, maxp = 8, 40, 128, 64, 4
+    w = maxp + 1
+    shape = (STACK_13B, n_pages + 1, h, 128, dh)
+    pk = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    pv = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.full((b, w), n_pages, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")[: b * maxp]
+    table[:, :maxp] = perm.reshape(b, maxp).int()
+    # a fresh lane, page edges, a full lane, and lane 7 past its capacity
+    pos = torch.tensor([0, 37, 127, 128, 255, 300, 511, 600], dtype=torch.int32, device="cuda")
+    # the gathered dense caches [L, B, H, 128 W, Dh] for the comparisons
+    ck, cv = (p[:, table.long()].permute(0, 1, 3, 2, 4, 5).reshape(STACK_13B, b, h, w * 128, dh)
+              .contiguous() for p in (pk, pv))
+    last, scale = STACK_13B - 1, dh ** -0.5
+    for s in (1, 8):
+        q = torch.randn((b, h, s, dh), generator=gen, device="cuda")
+        got = fd.paged_flash_decode_attention(q, pk, pv, last, pos, table, scale)
+        want = fd.paged_flash_decode_ref(q, pk, pv, last, pos, table, scale)
+        dense = fd.flash_decode_attention(q, ck, cv, last, pos, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        dense_diff = float((got - dense).abs().max())
+        k_ms, p_ms = compare_times(fd.paged_flash_decode_attention, fd.paged_flash_decode_ref,
+                                   lambda i: (q, pk, pv, i % STACK_13B, pos, table, scale))
+        keys = int((pos + s).clamp(max=w * 128).sum())
+        b_ms, b_by = attention_bound(b, h, s, dh, keys, 2)
+        lib_ms = sdpa_ms(q, ck, cv, pos, scale, STACK_13B)
+        results["paged_flash_decode"].append(dict(
+            shape=f"B={b} S={s} pos0={pos.tolist()}", max_abs_err=err, tol=1e-3,
+            dense_bits_equal=dense_diff == 0.0, dense_max_diff=dense_diff, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"[kernels] paged_flash_decode B={b} H={h} S={s} pages {n_pages}+1 table {maxp}+1 "
+            f"pos0={pos.tolist()}  max_abs_err={err:.3e} (tol 1e-3)  dense kernel on the "
+            f"gathered cache: {'bit-equal' if dense_diff == 0 else f'max diff {dense_diff:.3e}'}"
+            f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+            f"sdpa {lib_ms:.4f} ms  [{card}]")
+        if not err <= 1e-3:
+            raise AssertionError(f"paged_flash_decode S={s}: abs err {err} > 1e-3")
+        if dense_diff != 0.0:
+            raise AssertionError(f"paged_flash_decode S={s}: differs from the dense kernel on "
+                                 f"the gathered cache by {dense_diff}")
+    del pk, pv, ck, cv
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +475,7 @@ def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
     embeddings.  Layout "q5_k_m", what llama.cpp's quantizer writes for
     "q5_k": output q6_k, wv and w2 q6_k on the more_bits layers, every other
     2-D weight q5_k, token embeddings included."""
-    from minigpt4_tpu_torch.host import DataType, LlamaFileWriter, LlamaHParams, LlamaVocab
+    from minigpt4_tpu_torch.formats import DataType, LlamaFileWriter, LlamaHParams, LlamaVocab
 
     d, n_layer, v = geo["n_embd"], geo["n_layer"], geo["n_vocab"]
     km = geo["layout"] == "q5_k_m"
@@ -333,7 +521,7 @@ def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
     6144, 224 px / patch 14), ln_vision, the Q-Former (12 layers, hidden
     768, 32 queries, cross-attention on even layers) and llama_proj from 768
     to the decoder's width (``geo["out"]``)."""
-    from minigpt4_tpu_torch.host import ContainerWriter, DataType
+    from minigpt4_tpu_torch.formats import ContainerWriter, DataType
 
     vd, depth, mlp = geo["width"], geo["depth"], geo["mlp"]
     hid, qf_layers, nq = geo["hidden"], geo["qf_layers"], geo["queries"]
@@ -437,7 +625,9 @@ def smoke_models(lg: dict) -> tuple[Path, Path]:
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
 
-KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic", "flash_decode")
+KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic", "flash_decode",
+           "paged_flash_decode")
+CHAT_KERNELS = KERNELS[:5]
 
 
 def _wrappers() -> dict:
@@ -447,7 +637,8 @@ def _wrappers() -> dict:
     return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
             "gq_decode_generic": gq.gq_decode_generic,
             "gq_prefill_generic": gq.gq_prefill_generic,
-            "flash_decode": fd.flash_decode_attention}
+            "flash_decode": fd.flash_decode_attention,
+            "paged_flash_decode": fd.paged_flash_decode_attention}
 
 
 def launch_counts() -> dict:
@@ -463,7 +654,7 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
     """One image chat on the synthetic files of geometry ``lg``; the kernels
     of ``expect`` must launch in it.  Returns its launch counts and times."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-    from minigpt4_tpu_torch.host import preprocess
+    from minigpt4_tpu_torch.image import preprocess
 
     model, llm = smoke_models(lg)
     sync = torch.cuda.synchronize
@@ -473,7 +664,7 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
     sync()
     t_load = time.perf_counter() - t0
     n_vocab = eng.llm_cfg.n_vocab
-    per_token = step_ms = None
+    per_token = step_ms = prof = None
     try:
         img = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
         t0 = time.perf_counter()
@@ -508,6 +699,8 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
             step_ms = (time.perf_counter() - t0) * 1e3 / 16
             after = launch_counts()
             per_token = sum(after[k] - before[k] for k in ("gq_decode", "gq_decode_generic")) / 16
+            prof = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
+            log_profile(f"[engine {label}] a 16-token decode chunk", prof, card)
         eng.begin_chat("Tell me more.")
         before = eng.n_past
         text2 = list(eng.generate(limit=8, params=SamplingParams(temp=0.8)))
@@ -536,7 +729,209 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
         f"{len(ids)} tokens = {len(ids) / t_decode:.2f} tok/s; {step}  [{card}]")
     return dict(counts=counts, load_s=t_load, encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3,
                 prompt=n_prompt, decode_tok_s=len(ids) / t_decode, step_ms=step_ms,
-                matmuls_per_token=per_token)
+                matmuls_per_token=per_token, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: batched HTTP serving over the page pool
+# ---------------------------------------------------------------------------
+
+QUESTIONS = ["Hi.", "What is the capital of France?",
+             "Write a short poem about the sea and the wind over it.",
+             "Explain in a few sentences why the sky is blue during the day and red at sunset.",
+             "List three fruits.", "How do airplanes stay in the air, and what keeps them stable "
+             "when the wind changes direction suddenly during a long flight?",
+             "Tell me a joke about programmers.", "What is in this picture?"]
+
+
+def _request(base: str, path: str, data: bytes | None = None, method: str = "POST"):
+    req = urllib.request.Request(base + path, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read()
+
+
+def _png(img: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _clone(pool, s):
+    """A new session of ``pool`` in the state of ``s`` (cache copied)."""
+    c = pool.new_session()
+    st, src = c.state, s.state
+    st.cache = {kv: v.clone() for kv, v in src.cache.items()}
+    st.n_past, st.n_keep, st.tokens = src.n_past, src.n_keep, list(src.tokens)
+    st.logits = src.logits.clone()
+    return c
+
+
+def paged_vs_dense(pool, sessions: list, card: str, sync) -> dict:
+    """Copies of ``sessions`` decode one step as a paged group and as a dense
+    group (max |dlogit| / max |logit| <= 1e-3), then 31 more greedy tokens
+    each way: the identical-token prefix per lane and the paged group's
+    tok/s."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    greedy = SamplingParams(temp=0.0)
+    paged, dense = sessions, [_clone(pool, s) for s in sessions]
+    profiled = [_clone(pool, s) for s in sessions]
+    n0 = [s.n_past for s in paged]
+    free0 = pool.paged_pool.free_pages
+    pool.generate_batch(paged, limit=1, params=greedy, decode_chunk=1)
+    pool.generate_batch(dense, limit=1, params=greedy, decode_chunk=1, paged=False)
+    got = torch.stack([s.state.logits for s in paged]).float()
+    want = torch.stack([s.state.logits for s in dense]).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"[serving] first decode step, paged group vs dense group of {len(paged)} lanes: "
+        f"max |dlogit| / max |logit| = {rel:.3e} (tol 1e-3)  [{card}]")
+    if not rel <= 1e-3:
+        raise AssertionError(f"paged and dense first steps differ by {rel} > 1e-3")
+    sync()
+    t0 = time.perf_counter()
+    pool.generate_batch(paged, limit=31, params=greedy, decode_chunk=16)
+    sync()
+    t_paged = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool.generate_batch(dense, limit=31, params=greedy, decode_chunk=16, paged=False)
+    sync()
+    t_dense = time.perf_counter() - t0
+    same = []
+    for a, b, n in zip(paged, dense, n0):
+        ta, tb = a.state.tokens[n:], b.state.tokens[n:]
+        k = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), min(len(ta), len(tb)))
+        same.append(f"{k}/{max(len(ta), len(tb))}")
+    n_tok = sum(len(s.state.tokens) - n for s, n in zip(paged, n0)) - len(paged)
+    log(f"[serving] identical-token prefix per lane (paged vs dense): {same}")
+    log(f"[serving] 8-lane group, 31 tokens: paged {t_paged:.3f} s = {n_tok / t_paged:.2f} tok/s "
+        f"aggregate, dense {t_dense:.3f} s  [{card}]")
+    prof = profile_window(lambda: pool.generate_batch(profiled, limit=16, params=greedy,
+                                                      decode_chunk=16), sync)
+    log_profile("[serving] a 16-token chunk of the 8-lane paged group", prof, card)
+    if pool.paged_pool.free_pages != free0:
+        raise AssertionError("the paged group did not return its pages")
+    for s in paged + dense + profiled:
+        s.close()
+    return dict(first_step_rel=rel, same_prefix=same, group_tok_s=n_tok / t_paged,
+                paged_s=t_paged, dense_s=t_dense, group_profile=prof)
+
+
+def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32,
+            limit: int = 32) -> dict:
+    """Eight concurrent HTTP chats through the port's server, then the
+    paged-vs-dense comparison on the same pool."""
+    from minigpt4_tpu_torch import serve
+
+    model, llm = smoke_models(lg) if isinstance(lg, dict) else lg
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    httpd = serve.start_server(model, llm, port=0, session_ctx=512, batch_window_s=0.03,
+                               paged_pages=pages, device=device)
+    sync()
+    t_load = time.perf_counter() - t0
+    pool = httpd.pool
+    groups: list[int] = []
+    decode_from: dict[int, int] = {}  # session id -> cursor where its decode began
+    batch_stream = pool.generate_batch_stream
+
+    def spy(sessions, *a, **k):
+        groups.append(len(sessions))
+        decode_from.update((s.session_id, s.n_past) for s in sessions)
+        return batch_stream(sessions, *a, **k)
+
+    pool.generate_batch_stream = spy
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    img = np.random.default_rng(SEED + 2).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    body = _png(img)
+    results: list = [None] * len(QUESTIONS)
+    start = threading.Barrier(len(QUESTIONS))
+
+    def client(i: int) -> None:
+        try:
+            _, raw = _request(base, "/v1/sessions")
+            sid = json.loads(raw)["session_id"]
+            if i == len(QUESTIONS) - 1:
+                st, _ = _request(base, f"/v1/sessions/{sid}/image", body)
+                if st != 200:
+                    raise AssertionError(f"image upload: HTTP {st}")
+            start.wait(timeout=600)
+            t1 = time.perf_counter()
+            st, raw = _request(base, f"/v1/sessions/{sid}/chat", json.dumps(
+                {"message": QUESTIONS[i], "limit": limit, "temp": 0.0}).encode())
+            results[i] = dict(status=st, text=json.loads(raw).get("text", ""), sid=sid,
+                              t0=t1, t1=time.perf_counter())
+        except Exception as e:  # reported below, never ignored
+            start.abort()  # release the other clients
+            results[i] = dict(status=None, error=f"{type(e).__name__}: {e}")
+
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(QUESTIONS))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        sync()
+        counts = launch_counts()
+        bad = [(i, r) for i, r in enumerate(results) if r["status"] != 200 or not r["text"]]
+        if bad:
+            raise AssertionError(f"serving: failed or empty responses: {bad}")
+        _, raw = _request(base, "/v1/health", method="GET")
+        health = json.loads(raw)
+        if health["paged"]["free_pages"] != pages or health["paged"]["broken"]:
+            raise AssertionError(f"serving: pages not returned: {health['paged']}")
+        lane_tok = [len(pool._sessions[r["sid"]].state.tokens) for r in results]
+        span = max(r["t1"] for r in results) - min(r["t0"] for r in results)
+        n_gen = health["metrics"]["tokens_generated"]
+        if any(r["sid"] not in decode_from for r in results):
+            raise AssertionError(f"serving: a request bypassed the window batcher: {groups}")
+        # tokens each request generated (its cursor after the chat, past the
+        # prompt it prefilled), over the request's span
+        n_req = [pool._sessions[r["sid"]].n_past - decode_from[r["sid"]] for r in results]
+        per_lane = [n / (r["t1"] - r["t0"]) for n, r in zip(n_req, results)]
+        log(f"[serving] {len(QUESTIONS)} concurrent chats (a PNG upload on the last), "
+            f"batch groups {groups}, launches {counts}")
+        log(f"[serving] load {t_load:.2f} s; {n_gen} tokens in {span:.3f} s = "
+            f"{n_gen / span:.2f} tok/s aggregate; per request (prefill, waits and decode) "
+            f"{[round(x, 2) for x in per_lane]} tok/s of {n_req} tokens; "
+            f"positions per session {lane_tok}; "
+            f"/v1/health {health['paged']}, tok_s_30s {health['tok_s_30s']}  [{card}]")
+        for r, q in zip(results, QUESTIONS):
+            log(f"[serving]   {q[:32]!r:36s} -> {r['text'][:40]!r}")
+        pool.generate_batch_stream = batch_stream
+        prepared = []
+        for i, q in enumerate(QUESTIONS):
+            s = pool.new_session()
+            if i == len(QUESTIONS) - 1:
+                s.upload_image(_preprocess(img, pool))
+            s.ask(q)
+            prepared.append(s)
+        cmp = paged_vs_dense(pool, prepared, card, sync)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        log(f"[serving] peak device memory {peak:.2f} GB  [{card}]")
+    finally:
+        httpd.shutdown()
+        server.join(timeout=60)
+        pool.close()
+        del pool, httpd
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return dict(counts=counts, load_s=t_load, groups=groups, agg_tok_s=n_gen / span,
+                per_request_tok_s=per_lane, peak_gb=peak, **cmp)
+
+
+def _preprocess(img: np.ndarray, pool) -> np.ndarray:
+    from minigpt4_tpu_torch.image import preprocess
+
+    return preprocess(img, size=pool.engine.vision_cfg.vit.image_size)
 
 
 def main() -> int:
@@ -566,10 +961,14 @@ def main() -> int:
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
     kernel_results = phase_kernels(card)
-    paths = {"13B Q5_K_M": chat("13B Q5_K_M", LLM_13B, card, KERNELS),
+    paths = {"13B Q5_K_M": chat("13B Q5_K_M", LLM_13B, card, CHAT_KERNELS),
              "7B q5_k L8": chat("7B q5_k L8", LLM_7B, card,
                                 ("gq_decode", "gq_prefill", "flash_decode"))}
-    counts = paths["13B Q5_K_M"]["counts"]
+    paths["serving 13B"] = serving(card)
+    counts = paths["serving 13B"]["counts"]
+    missing = [k for k in KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"serving: kernels never launched on the main path: {missing}")
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
@@ -582,18 +981,23 @@ def main() -> int:
                                "minigpt4_tpu/ops/group_i8.py:736", "w2 5120x13824 M=512"),
         "flash_decode": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
                          "minigpt4_tpu/ops/flash_decode.py:82", "B=1 S=1 pos0=1000"),
+        "paged_flash_decode": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
+                               "minigpt4_tpu/ops/flash_decode.py:82", "B=8 S=1 pos0"),
     }
     kernels = []
     for name, (src, replaces, rep) in meta.items():
         rows = kernel_results[name]
-        main_row = next(r for r in rows if r["shape"].endswith(rep) or r["shape"] == rep)
+        main_row = next(r for r in rows if r["shape"].startswith(rep))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name],
             "launches_by_path": {label: p["counts"][name] for label, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "shape": rep,
-            "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms")} for r in rows],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                      for r in rows],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,19 @@
 // flash_decode: causal attention of S <= 32 query rows over the live part of
-// one layer of the stacked KV cache [L, B, H, C, Dh], online softmax in f32.
+// one layer of a KV cache, online softmax in f32.  Two row sources:
 //
-// Replaces minigpt4_tpu/ops/flash_decode.py:_kernel with paged=False and
-// stats=False (reached through _run and flash_decode_attention): every
-// decode step, and every prefill chunk of 32 rows or fewer (the 8-row text
-// buckets and the 32-row image embedding).
+//  - DenseKV, the stacked cache [L, B, H, C, Dh].  Replaces
+//    minigpt4_tpu/ops/flash_decode.py:_kernel with paged=False and
+//    stats=False (reached through _run and flash_decode_attention): every
+//    decode step, and every prefill chunk of 32 rows or fewer (the 8-row
+//    text buckets and the 32-row image embedding).
+//  - PagedKV, the serving page pools [L, NP + 1, H, 128, Dh] read through a
+//    page table [B, W] (i32; lane b's keys [128 i, 128 i + 128) live in pool
+//    page pt[b, i]).  Replaces the same _kernel with paged=True (reached
+//    through _run_paged and paged_flash_decode_attention): every decode step
+//    of a batched serving group over the page pool.  A lane reads at most
+//    min(pos0 + S, 128 W) keys, so a finished lane decoding past its
+//    capacity reads the table's trailing slot, which the pool points at its
+//    trash page; no lane ever reads another lane's pages.
 //
 // What bounds it on the H100: device-memory bandwidth on the live K and V
 // rows (2 * (pos0 + S) * Dh cache elements per (b, h)); the arithmetic,
@@ -21,9 +30,14 @@
 // key <= pos0 + row) and a Dh/32 slice of the output for P.V, with the
 // online-softmax rescale in f32.  Warps that split the keys merge their
 // (m, l, acc) partials through shared memory in a fixed order, so results
-// are deterministic.  The output is acc / l in f32.  Later work: split the
-// keys across blocks as well (one block per (b, h) leaves most SMs idle at
-// batch 1) and stage K/V through shared memory with TMA.
+// are deterministic.  The output is acc / l in f32.  The row source only
+// says where a 32-key block starts: 32 divides the 128-key page, so a block
+// never straddles two pages and its rows are contiguous in both layouts, and
+// the paged kernel does the dense kernel's arithmetic in the dense kernel's
+// order (bit-equal results on the gathered cache).  One table read per
+// 32-key block.  Later work: split the keys across blocks as well (one block
+// per (b, h) leaves most SMs idle at batch 1) and stage K/V (or whole pages)
+// through shared memory with TMA.
 #include "common.cuh"
 
 namespace {
@@ -31,6 +45,29 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kKeys = 32;      // keys per warp step: one per lane
 constexpr int kMaxRows = 32;   // FLASH_DECODE_MAX_S
+constexpr int kPage = 128;     // positions per pool page (engine/paged.py PAGE)
+static_assert(kPage % kKeys == 0, "a key block must not straddle two pages");
+
+// Where the 32-key block starting at `key0` of lane b, head h begins, as an
+// element offset into the k (or v) tensor; the block's rows follow at DH
+// elements each.
+struct DenseKV {
+  int layer, B, H, C, dh;
+  __device__ __forceinline__ size_t block(int b, int h, int key0) const {
+    return ((static_cast<size_t>(layer) * B + b) * H + h) * static_cast<size_t>(C) * dh +
+           static_cast<size_t>(key0) * dh;
+  }
+};
+
+struct PagedKV {
+  const int* __restrict__ pt;  // [B, W] pool page ids
+  int layer, np1, H, W, dh;
+  __device__ __forceinline__ size_t block(int b, int h, int key0) const {
+    const int page = __ldg(pt + static_cast<size_t>(b) * W + key0 / kPage);
+    return ((static_cast<size_t>(layer) * np1 + page) * H + h) * static_cast<size_t>(kPage) * dh +
+           static_cast<size_t>(key0 % kPage) * dh;
+  }
+};
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -53,12 +90,13 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
-template <typename T, int DH, int RPW>
+// C: the keys a lane can hold (the dense cache length, or 128 W paged).
+template <typename T, int DH, int RPW, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
                     const T* __restrict__ cv, const int* __restrict__ pos,
-                    float* __restrict__ out, int B, int H, int S, int C,
-                    int layer, float scale) {
+                    float* __restrict__ out, int H, int S, int C, float scale,
+                    KV kv) {
   constexpr int kSlice = DH / 32;  // output elements per lane
   __shared__ __align__(16) float qs[kMaxRows][DH];  // scaled q; later the merge buffer
   __shared__ float ms[kWarps][RPW];
@@ -82,10 +120,6 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
   }
   __syncthreads();
 
-  const size_t base = ((static_cast<size_t>(layer) * B + b) * H + h) * static_cast<size_t>(C) * DH;
-  const T* kb = ck + base;
-  const T* vb = cv + base;
-
   float m[RPW], l[RPW], acc[RPW][kSlice];
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
@@ -97,22 +131,25 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
 
   if (active) {
     for (int blk = ks; blk < nblk; blk += n_ks) {
+      const size_t off = kv.block(b, h, blk * kKeys);
+      const T* kb = ck + off;  // key rows blk * 32 .. blk * 32 + 31
+      const T* vb = cv + off;
       const int key = blk * kKeys + lane;
       float sc[RPW];
 #pragma unroll
       for (int r = 0; r < RPW; ++r) sc[r] = 0.f;
       if (key < live) {
-        const T* krow = kb + static_cast<size_t>(key) * DH;
+        const T* krow = kb + static_cast<size_t>(lane) * DH;
 #pragma unroll 4
         for (int d0 = 0; d0 < DH; d0 += 8) {
-          float kv[8];
-          load8(krow + d0, kv);
+          float kf[8];
+          load8(krow + d0, kf);
 #pragma unroll
           for (int r = 0; r < RPW; ++r) {
             const float4 qa = *reinterpret_cast<const float4*>(&qs[r0 + r][d0]);
             const float4 qc = *reinterpret_cast<const float4*>(&qs[r0 + r][d0 + 4]);
-            sc[r] += qa.x * kv[0] + qa.y * kv[1] + qa.z * kv[2] + qa.w * kv[3] +
-                     qc.x * kv[4] + qc.y * kv[5] + qc.z * kv[6] + qc.w * kv[7];
+            sc[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                     qc.x * kf[4] + qc.y * kf[5] + qc.z * kf[6] + qc.w * kf[7];
           }
         }
       }
@@ -132,7 +169,7 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
       }
       const int nk = min(kKeys, live - blk * kKeys);
       for (int j = 0; j < nk; ++j) {
-        const T* vrow = vb + static_cast<size_t>(blk * kKeys + j) * DH + lane * kSlice;
+        const T* vrow = vb + static_cast<size_t>(j) * DH + lane * kSlice;
         float vv[kSlice];
 #pragma unroll
         for (int e = 0; e < kSlice; ++e) vv[e] = to_float(vrow[e]);
@@ -200,19 +237,36 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, typename KV>
 void launch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
-            int B, int H, int S, int C, int layer, float scale, cudaStream_t stream) {
+            int B, int H, int S, int C, float scale, KV kv, cudaStream_t stream) {
   const dim3 grid(H, B);
   if (S == 1) {
-    flash_decode_kernel<T, DH, 1><<<grid, kWarps * 32, 0, stream>>>(
+    flash_decode_kernel<T, DH, 1, KV><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-        static_cast<const int*>(pos), static_cast<float*>(out), B, H, S, C, layer, scale);
+        static_cast<const int*>(pos), static_cast<float*>(out), H, S, C, scale, kv);
   } else {
-    flash_decode_kernel<T, DH, 8><<<grid, kWarps * 32, 0, stream>>>(
+    flash_decode_kernel<T, DH, 8, KV><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-        static_cast<const int*>(pos), static_cast<float*>(out), B, H, S, C, layer, scale);
+        static_cast<const int*>(pos), static_cast<float*>(out), H, S, C, scale, kv);
   }
+}
+
+template <typename KV>
+int dispatch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
+             int B, int H, int S, int C, int Dh, float scale, int cache_bf16, KV kv,
+             cudaStream_t s) {
+  if (Dh == 128 && cache_bf16)
+    launch<__nv_bfloat16, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+  else if (Dh == 128)
+    launch<float, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+  else if (Dh == 64 && cache_bf16)
+    launch<__nv_bfloat16, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+  else if (Dh == 64)
+    launch<float, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -225,16 +279,21 @@ MGT_API int mgt_flash_decode(const void* q, const void* ck, const void* cv,
                              int C, int Dh, int layer, float scale,
                              int cache_bf16, void* stream) {
   if (S < 1 || S > kMaxRows || B < 1 || H < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 128 && cache_bf16)
-    launch<__nv_bfloat16, 128>(q, ck, cv, pos, out, B, H, S, C, layer, scale, s);
-  else if (Dh == 128)
-    launch<float, 128>(q, ck, cv, pos, out, B, H, S, C, layer, scale, s);
-  else if (Dh == 64 && cache_bf16)
-    launch<__nv_bfloat16, 64>(q, ck, cv, pos, out, B, H, S, C, layer, scale, s);
-  else if (Dh == 64)
-    launch<float, 64>(q, ck, cv, pos, out, B, H, S, C, layer, scale, s);
-  else
+  return dispatch(q, ck, cv, pos, out, B, H, S, C, Dh, scale, cache_bf16,
+                  DenseKV{layer, B, H, C, Dh}, static_cast<cudaStream_t>(stream));
+}
+
+// q f32 [B, H, S, Dh]; pk/pv page pools [L, NP1, H, 128, Dh] bf16
+// (cache_bf16 = 1) or f32; pos i32 [B]; pt i32 [B, W] page ids in [0, NP1);
+// out f32 [B, H, S, Dh].  Requires 1 <= S <= 32, Dh in {64, 128} and
+// 16-byte aligned q and pools.
+MGT_API int mgt_flash_decode_paged(const void* q, const void* pk, const void* pv,
+                                   const void* pos, const void* pt, void* out, int B,
+                                   int H, int S, int NP1, int W, int Dh, int layer,
+                                   float scale, int cache_bf16, void* stream) {
+  if (S < 1 || S > kMaxRows || B < 1 || H < 1 || NP1 < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(q, pk, pv, pos, out, B, H, S, W * kPage, Dh, scale, cache_bf16,
+                  PagedKV{static_cast<const int*>(pt), layer, NP1, H, W, Dh},
+                  static_cast<cudaStream_t>(stream));
 }

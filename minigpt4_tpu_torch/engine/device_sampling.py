@@ -7,6 +7,9 @@ sort of the logits.  An optional per-id ``bias`` (the OpenAI logit_bias
 knob) is added before the chain.  Draws come from an explicit
 ``torch.Generator`` (Gumbel-max over the chain's scaled logits), so the
 token ids never leave the device until the caller reads them.
+
+A batched group samples each lane under its own config
+(:func:`lane_rows`, :func:`sample_rows`), with one generator per lane.
 """
 
 from __future__ import annotations
@@ -92,3 +95,43 @@ def logit_bias_tensor(logit_bias: dict | None, n_vocab: int,
         if 0 <= int(tid) < n_vocab:
             bias[int(tid)] = float(b)
     return bias.to(device)
+
+
+@dataclass(frozen=True)
+class LaneRows:
+    """Per-lane sampling configs of a batched group, and the lanes' logit
+    biases as one dense [B, V] f32 plane (None when no lane has one)."""
+
+    configs: tuple[DeviceSamplingConfig, ...]
+    bias: torch.Tensor | None = None
+
+
+def lane_rows(params_list, n_vocab: int, device: str | torch.device) -> LaneRows:
+    """Per-lane rows from anything with temp/top_k/top_p/tfs_z/typical_p and
+    an optional ``logit_bias`` {token_id: offset} (SamplingParams)."""
+    configs = tuple(DeviceSamplingConfig(temp=p.temp, top_k=p.top_k, top_p=p.top_p,
+                                         tfs_z=p.tfs_z, typical_p=p.typical_p)
+                    for p in params_list)
+    bias = None
+    if any(getattr(p, "logit_bias", None) for p in params_list):
+        bias = torch.zeros((len(configs), n_vocab), dtype=torch.float32)
+        for i, p in enumerate(params_list):
+            for tid, off in (getattr(p, "logit_bias", None) or {}).items():
+                if 0 <= int(tid) < n_vocab:
+                    bias[i, int(tid)] = float(off)
+        bias = bias.to(device)
+    return LaneRows(configs, bias)
+
+
+def sample_rows(logits: torch.Tensor, generators: list, rows: LaneRows) -> torch.Tensor:
+    """logits [B, V] f32 -> token ids [B] (int64 on the logits' device), each
+    lane under its own config and bias plane, sampled lanes drawing from
+    their own generator.  Greedy lanes take the argmax of their biased
+    logits, all in one reduction."""
+    biased = logits if rows.bias is None else logits + rows.bias
+    tok = torch.argmax(biased, dim=-1)
+    for i, cfg in enumerate(rows.configs):
+        if not cfg.greedy:
+            tok[i] = sample_token(logits[i], generators[i], cfg,
+                                  None if rows.bias is None else rows.bias[i])
+    return tok

@@ -16,19 +16,28 @@ tokens, which the causal mask hides and the next chunk overwrites.  Decode
 samples on the device in the reference's sample-then-eval order;
 ``generate`` decodes chunks of tokens with one host synchronisation per
 chunk and rolls the cursor back over what it decoded past EOS or the limit.
+
+Every operation acts on a :class:`DecodeState`: the engine's own by
+default, or one passed as ``st``.  The serving sessions
+(``engine/sessions.py``) each own a state with a cache of ``session_ctx``
+positions (:meth:`MiniGPT4Engine.new_state`) and share the loaded model.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..host import ContainerReader, LlamaFileReader, LlamaTokenizer, utils
+from .. import utils
+from ..formats import ContainerReader, LlamaFileReader
+from ..tokenizer import LlamaTokenizer
 from ..models import llama as llama_mod
 from ..models import minigpt4 as vision_mod
-from .device_sampling import DeviceSamplingConfig, logit_bias_tensor, sample_token
+from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
 from .sampling import Sampler, SamplingParams
 
 SYSTEM_PROMPT = (
@@ -66,10 +75,12 @@ def disable_tf32() -> None:
 
 class DecodeState:
     """One decode cursor: KV cache, n_past, pending logits (on the device),
-    the sampling generator, the evaluated token ids and the keep marker."""
+    the sampling generator, the evaluated token ids and the keep marker.
+    ``n_ctx`` is the cache's length: the state's context limit."""
 
     def __init__(self, cache: dict, generator: torch.Generator):
         self.cache = cache
+        self.n_ctx = cache["k"].shape[3]
         self.generator = generator
         self.n_past = 0
         self.logits: torch.Tensor | None = None  # [V] f32 on the device
@@ -119,11 +130,21 @@ class MiniGPT4Engine:
             raise ValueError(
                 f"model mismatch: llama_proj -> {self.vision_cfg.llama_embed_dim}, "
                 f"LLM n_embd = {self.llm_cfg.n_embd}")
+        self._st = self.new_state(self.llm_cfg.n_ctx, seed)
+        self.sampler = Sampler(seed)
+
+    def new_state(self, n_ctx: int, seed: int) -> DecodeState:
+        """A fresh decode state with a cache of ``n_ctx`` positions and its
+        own sampling generator seeded with ``seed``."""
+        if not 0 < n_ctx <= self.llm_cfg.n_ctx:
+            raise ValueError(f"state context {n_ctx} outside (0, {self.llm_cfg.n_ctx}]")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
-        self._st = DecodeState(
-            llama_mod.init_cache(self.llm_cfg, 1, CACHE_DTYPE, self.device), generator)
-        self.sampler = Sampler(seed)
+        cfg = dataclasses.replace(self.llm_cfg, n_ctx=n_ctx)
+        return DecodeState(llama_mod.init_cache(cfg, 1, CACHE_DTYPE, self.device), generator)
+
+    def _state(self, st: DecodeState | None) -> DecodeState:
+        return self._st if st is None else st
 
     @property
     def n_past(self) -> int:
@@ -158,68 +179,70 @@ class MiniGPT4Engine:
     # decoder feeding
     # ------------------------------------------------------------------
 
-    def _forward(self, embeds: torch.Tensor, last_idx: int | None = None) -> torch.Tensor:
-        st = self._st
+    def _forward(self, st: DecodeState, embeds: torch.Tensor,
+                 last_idx: int | None = None) -> torch.Tensor:
         with torch.no_grad():
             return llama_mod.forward(
                 self.llm_params, st.cache, embeds, st.n_past, self.llm_cfg, last_idx,
-                attn_len=_attn_bucket(st.n_past + embeds.shape[1], self.llm_cfg.n_ctx))
+                attn_len=_attn_bucket(st.n_past + embeds.shape[1], st.n_ctx))
 
-    def _prefill_embeds(self, embeds: torch.Tensor, token_ids: list[int] | None = None) -> None:
+    def _prefill_embeds(self, st: DecodeState, embeds: torch.Tensor,
+                        token_ids: list[int] | None = None) -> None:
         """Feed [1, S, D] embeddings in n_batch chunks, each padded to a
         power-of-two bucket capped at the remaining context."""
-        st = self._st
         s_total = embeds.shape[1]
-        if st.n_past + s_total > self.llm_cfg.n_ctx:
-            raise ValueError(
-                f"context overflow: n_past {st.n_past} + {s_total} > {self.llm_cfg.n_ctx}")
+        if st.n_past + s_total > st.n_ctx:
+            raise ValueError(f"context overflow: n_past {st.n_past} + {s_total} > {st.n_ctx}")
         st.tokens.extend(token_ids if token_ids is not None else [-1] * s_total)
         for off in range(0, s_total, self.n_batch):
             chunk = embeds[:, off:off + self.n_batch]
             s = chunk.shape[1]
-            b = min(_bucket(s, self.n_batch), self.llm_cfg.n_ctx - st.n_past)
+            b = min(_bucket(s, self.n_batch), st.n_ctx - st.n_past)
             if b != s:
                 pad = torch.zeros((chunk.shape[0], b - s, chunk.shape[2]),
                                   dtype=chunk.dtype, device=chunk.device)
                 chunk = torch.cat([chunk, pad], dim=1)
-            logits = self._forward(chunk, last_idx=s - 1)
+            logits = self._forward(st, chunk, last_idx=s - 1)
             st.n_past += s
         st.logits = logits[0]
 
-    def add_tokens(self, tokens: list[int]) -> None:
+    def add_tokens(self, tokens: list[int], st: DecodeState | None = None) -> None:
         """llama_eval in n_batch chunks (add_tokens, minigpt4.cpp:2365-2382)."""
         if not tokens:
             return
-        st = self._st
+        st = self._state(st)
         ids = torch.tensor([tokens], dtype=torch.long).to(self.device)
         embeds = llama_mod.embed_tokens(self.llm_params, ids)
-        if len(tokens) == 1 and st.n_past + 1 <= self.llm_cfg.n_ctx:
+        if len(tokens) == 1 and st.n_past + 1 <= st.n_ctx:
             # decode step: one position, no bucket padding
-            st.logits = self._forward(embeds)[0]
+            st.logits = self._forward(st, embeds)[0]
             st.n_past += 1
             st.tokens.append(int(tokens[0]))
             return
-        self._prefill_embeds(embeds, token_ids=[int(t) for t in tokens])
+        self._prefill_embeds(st, embeds, token_ids=[int(t) for t in tokens])
 
-    def add_strings(self, s: str) -> None:
+    def add_strings(self, s: str, st: DecodeState | None = None) -> None:
         """Tokenize (always with BOS, like the reference) and feed."""
-        self.add_tokens(self.tokenizer.tokenize(s, add_bos=True))
+        self.add_tokens(self.tokenizer.tokenize(s, add_bos=True), st)
 
-    def add_embedding(self, embedding: np.ndarray) -> None:
+    def add_embedding(self, embedding: np.ndarray, st: DecodeState | None = None) -> None:
         """Inject raw embedding rows as pseudo-tokens (llama_eval_embd)."""
         emb = np.asarray(embedding, np.float32).reshape(1, -1, self.llm_cfg.n_embd)
         dtype = self.llm_params["tok_embeddings"].dtype
-        self._prefill_embeds(torch.from_numpy(emb).to(self.device, dtype))
+        self._prefill_embeds(self._state(st), torch.from_numpy(emb).to(self.device, dtype))
 
     # ------------------------------------------------------------------
     # chat state machine (minigpt4.cpp:2671-2782)
     # ------------------------------------------------------------------
 
-    def system_prompt(self) -> None:
-        self.add_strings(SYSTEM_PROMPT)
-        self._st.n_keep = self._st.n_past
+    def system_prompt(self, st: DecodeState | None = None) -> None:
+        st = self._state(st)
+        self.add_strings(SYSTEM_PROMPT, st)
+        st.n_keep = st.n_past
 
-    def begin_chat_image(self, embedding: np.ndarray, question: str) -> None:
+    def begin_chat_image(self, embedding: np.ndarray, question: str,
+                         st: DecodeState | None = None) -> None:
+        st = self._state(st)
         n_img = self.vision_cfg.qformer.query_length
         emb = np.asarray(embedding, np.float32).reshape(-1)
         expect = n_img * self.llm_cfg.n_embd
@@ -227,17 +250,18 @@ class MiniGPT4Engine:
             raise utils.MiniGPT4TypedError(
                 utils.MiniGPT4Error.LLAMA_PROJECTION_EMBEDDING_INVALID_SIZE,
                 f"image embedding size {emb.size} != {expect}")
-        self.add_strings("Human: <Img>")
-        self.add_embedding(emb)
-        self.add_strings("</Img> ")
-        self._st.n_keep = self._st.n_past
-        self.add_strings(question)
-        self.add_strings("### Assistant:")
+        self.add_strings("Human: <Img>", st)
+        self.add_embedding(emb, st)
+        self.add_strings("</Img> ", st)
+        st.n_keep = st.n_past
+        self.add_strings(question, st)
+        self.add_strings("### Assistant:", st)
 
-    def begin_chat(self, question: str) -> None:
-        self.add_strings("Human: ")
-        self.add_strings(question)
-        self.add_strings("### Assistant:")
+    def begin_chat(self, question: str, st: DecodeState | None = None) -> None:
+        st = self._state(st)
+        self.add_strings("Human: ", st)
+        self.add_strings(question, st)
+        self.add_strings("### Assistant:", st)
 
     def sample_token(self, params: SamplingParams | None = None) -> int:
         """Host sample from the pending logits (the mirostat path)."""
@@ -263,48 +287,47 @@ class MiniGPT4Engine:
         self.add_tokens([tid])
         return self.id_to_token(tid)
 
-    def decode_chunk(self, n: int, params: SamplingParams) -> list[int]:
+    def decode_chunk(self, n: int, params: SamplingParams,
+                     st: DecodeState | None = None) -> list[int]:
         """Sample and evaluate ``n`` tokens on the device; one host sync."""
-        st = self._st
-        bias = logit_bias_tensor(params.logit_bias, self.llm_cfg.n_vocab, self.device)
+        st = self._state(st)
+        rows = lane_rows([params], self.llm_cfg.n_vocab, self.device)
         with torch.no_grad():
             tokens, logits = llama_mod.decode_loop(
                 self.llm_params, st.cache, st.logits[None], st.n_past, n,
-                st.generator, _device_config(params), self.llm_cfg, bias)
+                [st.generator], rows, self.llm_cfg)
         ids = tokens[0].tolist()
         st.n_past += n
         st.tokens.extend(ids)
         st.logits = logits[0]
         return ids
 
-    def _rollback(self, n: int) -> None:
-        """Rewind ``n`` evaluations decoded past a stop; the pending logits
-        belong to the rolled-back continuation and are dropped."""
-        if n > 0:
-            st = self._st
-            st.n_past -= n
-            del st.tokens[st.n_past:]
-            st.logits = None
-
-    def generate(self, limit: int = 1024, params: SamplingParams | None = None):
+    def generate(self, limit: int = 1024, params: SamplingParams | None = None,
+                 st: DecodeState | None = None, lock=None):
         """Stream tokens with the reference's EOS logic
         (MiniGPT4ChatBot.generate, minigpt4_library.py:609-657): chunks of
         DECODE_CHUNK tokens decoded on the device, yielded one by one.
-        Mirostat samples on the host, one token at a time."""
+        Mirostat samples on the host, one token at a time (the engine's own
+        state only: a session samples mirostat with its own sampler).
+        ``lock``, where given, is held around each chunk's device work."""
         params = params or SamplingParams()
         if params.mirostat != 0:
+            if st is not None:
+                raise ValueError("mirostat samples on the engine's own state only")
             yield from self._generate_mirostat(limit, params)
             return
-        st = self._st
+        st = self._state(st)
         if st.logits is None:
             return
+        lock = lock if lock is not None else contextlib.nullcontext()
         chat = ""
         emitted = 0
         while emitted < limit:
-            n = min(DECODE_CHUNK, self.llm_cfg.n_ctx - st.n_past)
+            n = min(DECODE_CHUNK, st.n_ctx - st.n_past)
             if n <= 0:
                 return
-            token_ids = self.decode_chunk(n, params)
+            with lock:
+                token_ids = self.decode_chunk(n, params, st)
             for j, tid in enumerate(token_ids):
                 token = self.id_to_token(tid)
                 chat += token
@@ -312,15 +335,15 @@ class MiniGPT4Engine:
                 stop = emitted >= limit
                 if token == EOS_TOKEN_SUFFIX:
                     if stop:
-                        self._rollback(len(token_ids) - j - 1)
+                        rollback(st, len(token_ids) - j - 1)
                         return
                     continue
                 if chat.endswith(EOS_SUFFIX):
-                    self._rollback(len(token_ids) - j - 1)
+                    rollback(st, len(token_ids) - j - 1)
                     return
                 yield token
                 if stop:
-                    self._rollback(len(token_ids) - j - 1)
+                    rollback(st, len(token_ids) - j - 1)
                     return
 
     def _generate_mirostat(self, limit: int, params: SamplingParams):
@@ -355,6 +378,15 @@ class MiniGPT4Engine:
     def close(self) -> None:
         self._container.close()
         self._llm_file.close()
+
+
+def rollback(st: DecodeState, n: int) -> None:
+    """Rewind ``n`` evaluations decoded past a stop; the pending logits
+    belong to the rolled-back continuation and are dropped."""
+    if n > 0:
+        st.n_past -= n
+        del st.tokens[st.n_past:]
+        st.logits = None
 
 
 def _device_config(params: SamplingParams) -> DeviceSamplingConfig:

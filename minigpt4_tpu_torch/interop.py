@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .host import DataType
+from .formats import DataType
 from .models.llama import FUSED, assemble_layers
 from .ops import group_i8 as gq
 

@@ -12,7 +12,8 @@ from typing import Optional
 import numpy as np
 
 from .engine import MiniGPT4Engine, SamplingParams
-from .host import preprocess, utils
+from . import utils
+from .image import preprocess
 
 Verbosity = utils.Verbosity
 

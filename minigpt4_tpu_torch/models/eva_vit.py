@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..host import is_quantized
+from ..formats import is_quantized
 from .layers import gelu, layer_norm, merge_heads, mha, split_heads
 from .params import dense_from_numpy, linear, tensor
 

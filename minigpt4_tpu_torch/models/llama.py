@@ -8,6 +8,10 @@ S = 1.  Projections run through :func:`~.params.linear` (group-quant
 kernels for quantized weights); attention of S <= ``FLASH_DECODE_MAX_S``
 rows runs the flash-decode kernel, longer prefill chunks a plain masked
 softmax.  RoPE is the interleaved-pair variant (ggml_rope mode 0).
+
+With a ``page_table`` the cache is instead the serving page pools
+``[L, NP + 1, H, 128, Dh]`` of ``engine/paged.py``: decode steps (S = 1)
+write through the table and attend with the paged flash-decode kernel.
 """
 
 from __future__ import annotations
@@ -18,9 +22,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..host import is_quantized
+from ..formats import is_quantized
 from ..ops import group_i8 as gq
-from ..ops.flash_decode import flash_decode_attention
+from ..ops.flash_decode import PAGE, flash_decode_attention, paged_flash_decode_attention
 from .layers import rms_norm
 from .params import linear, load_quant_weight, tensor
 
@@ -117,10 +121,15 @@ def _prefill_attention(q, ck, cv, li, pos0, span, head_dim):
     return probs.to(vs.dtype).float() @ vs.float()
 
 
-def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len):
+def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
+           page_table=None):
     """One decoder layer on x [B, S, D]; writes K/V of the S positions into
     layer ``li`` of the cache in place.  ``pos0``: host cursor (int, or one
-    per batch row); ``pos_dev``: the same cursors as an i32 [B] tensor."""
+    per batch row); ``pos_dev``: the same cursors as an i32 [B] tensor.
+    ``rows``: for S = 1 with per-row cursors, the (cache row, position)
+    index pair [B] of each row's write (the batch row and its cursor, or its
+    pool page and the offset in it), so that all rows write in one indexed
+    copy.  ``page_table``: the cache is the page pools (see forward)."""
     b, s, _ = x.shape
     h = rms_norm(x, layers["attention_norm"][li], RMS_EPS)
 
@@ -136,15 +145,17 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len):
     k = rope_interleaved(heads(xk), cos, sin)
     v = heads(xv)
 
-    if isinstance(pos0, int):
+    if rows is None:
         ck[li, :, :, pos0:pos0 + s] = k.to(ck.dtype)
         cv[li, :, :, pos0:pos0 + s] = v.to(cv.dtype)
     else:
-        for bi, p in enumerate(pos0):
-            ck[li, bi, :, p:p + s] = k[bi].to(ck.dtype)
-            cv[li, bi, :, p:p + s] = v[bi].to(cv.dtype)
+        ck[li][rows[0], :, rows[1]] = k[:, :, 0].to(ck.dtype)
+        cv[li][rows[0], :, rows[1]] = v[:, :, 0].to(cv.dtype)
 
-    if s <= FLASH_DECODE_MAX_S:
+    if page_table is not None:
+        ctx = paged_flash_decode_attention(q, ck, cv, li, pos_dev, page_table,
+                                           1.0 / math.sqrt(cfg.head_dim))
+    elif s <= FLASH_DECODE_MAX_S:
         ctx = flash_decode_attention(q, ck, cv, li, pos_dev, 1.0 / math.sqrt(cfg.head_dim))
     else:
         ctx = _prefill_attention(q, ck, cv, li, pos0, attn_len or cfg.n_ctx, cfg.head_dim)
@@ -161,24 +172,51 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len):
 
 
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
-            last_idx: int | None = None, attn_len: int | None = None) -> torch.Tensor:
+            last_idx: int | None = None, attn_len: int | None = None,
+            page_table: torch.Tensor | None = None) -> torch.Tensor:
     """embeds [B, S, D] -> logits [B, V] (f32) at position ``last_idx``
     (default S-1); the cache is updated in place.
 
-    ``pos0`` is the host cursor: an int, or a sequence of one int per batch
-    row.  Bucket-padded rows past ``last_idx`` write cache entries beyond
-    the real tokens; the causal mask hides them and the next chunk
+    ``pos0`` is the host cursor: an int, or (for S = 1) a sequence of one
+    int per batch row.  Bucket-padded rows past ``last_idx`` write cache
+    entries beyond the real tokens; the causal mask hides them and the next chunk
     overwrites them.  ``attn_len`` bounds the span the S > 32 prefill path
-    reads (the engine's power-of-two bucket covering pos0 + S)."""
+    reads (the engine's power-of-two bucket covering pos0 + S).
+
+    ``page_table`` [B, MAXP + 1] i32 (on the device) switches to paged mode:
+    ``cache`` holds the page pools [L, NP + 1, H, PAGE, Dh] and row b's
+    position p lives at offset p % PAGE of pool page
+    ``page_table[b, min(p // PAGE, MAXP)]``; a finished row overshooting
+    its capacity lands in the table's last slot, the pool's trash page.
+    The page of each row is looked up on the device, once per call."""
     b, s, _ = embeds.shape
     dev = embeds.device
-    pos_dev = (torch.full((b,), pos0, dtype=torch.int32, device=dev) if isinstance(pos0, int)
-               else torch.tensor(list(pos0), dtype=torch.int32, device=dev))
-    rope = rope_tables(_positions(pos0, s, dev), cfg.head_dim, cfg.rope_theta)
+    if isinstance(pos0, int):
+        pos_dev = torch.full((b,), pos0, dtype=torch.int32, device=dev)
+        positions = _positions(pos0, s, dev)
+    else:
+        pos_dev = torch.tensor(list(pos0), dtype=torch.int32).to(dev)
+        positions = pos_dev.long()[:, None] + torch.arange(s, device=dev)
+    rows = None
+    if s > 1 and (page_table is not None or not isinstance(pos0, int)):
+        raise NotImplementedError(
+            f"forward of {s} positions from per-row cursors: spans over the page pool or "
+            "a batched group (the speculative verify writes) are not ported yet "
+            "(ROADMAP Queue 1, item 14)")
+    if page_table is not None:
+        pos = pos_dev.long()
+        slot = (pos // PAGE).clamp(max=page_table.shape[1] - 1)
+        rows = (page_table.gather(1, slot[:, None])[:, 0].long(), pos % PAGE)
+    elif not isinstance(pos0, int):
+        # a finished row of a batched group may run past the cache end: its
+        # write clamps onto the last position, past its history (the group
+        # stops before that position could hold history: engine/sessions.py)
+        rows = (torch.arange(b, device=dev), pos_dev.long().clamp(max=cache["k"].shape[3] - 1))
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
     for li in range(cfg.n_layer):
         x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos0, pos_dev,
-                   rope, cfg, attn_len)
+                   rope, cfg, attn_len, rows, page_table)
     h = x[:, -1] if last_idx is None else x[:, last_idx]
     return linear(rms_norm(h, params["norm"], RMS_EPS), params["output"]).float()
 
@@ -188,23 +226,31 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["tok_embeddings"][tokens]
 
 
-def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0: int, n_steps: int,
-                generator: torch.Generator, scfg, cfg: LlamaConfig,
-                bias: torch.Tensor | None = None):
+def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps: int,
+                generators: list, rows, cfg: LlamaConfig,
+                page_table: torch.Tensor | None = None):
     """Generate ``n_steps`` tokens with on-device sampling.
 
     Keeps the reference's sample-then-eval order: token i is sampled from
     the pending logits of the previous eval, then evaluated.  Token ids stay
     on the device until the caller reads them, so a chunk costs one host
-    synchronisation.  Returns (tokens [B, n_steps], final logits [B, V])."""
-    from ..engine.device_sampling import sample_token
+    synchronisation.  Returns (tokens [B, n_steps], final logits [B, V]).
+
+    ``pos0``: one cursor for every row (int) or one per row ([B] ints).
+    Sampling: per-lane ``rows`` (:func:`~..engine.device_sampling.lane_rows`)
+    with a list of B ``generators``.  ``page_table``: paged mode (see
+    :func:`forward`); the caller provisions pages covering every active
+    row's pos0 + n_steps."""
+    from ..engine.device_sampling import sample_rows
 
     logits = logits0
     toks = []
     for i in range(n_steps):
-        tok = torch.stack([sample_token(row, generator, scfg, bias) for row in logits])
+        tok = sample_rows(logits, generators, rows)
         toks.append(tok)
-        logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos0 + i, cfg)
+        pos = pos0 + i if isinstance(pos0, int) else [p + i for p in pos0]
+        logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos, cfg,
+                         page_table=page_table)
     return torch.stack(toks, dim=1), logits
 
 

@@ -42,6 +42,7 @@ SIGNATURES = {
     "mgt_gq_decode_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mgt_gq_prefill_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mgt_flash_decode": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
+    "mgt_flash_decode_paged": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,21 @@
-"""Decode attention over the stacked KV cache (S <= 32 query rows).
+"""Decode attention over the KV cache (S <= 32 query rows).
 
-Counterpart of ``minigpt4_tpu/ops/flash_decode.py`` for the dense cache
-without partial statistics.  :func:`flash_decode_attention` runs the
-hand-written CUDA kernel ``csrc/flash_decode.cu`` on CUDA tensors and its
-plain PyTorch version :func:`flash_decode_ref` on CPU tensors: causal
-attention of q ``[B, H, S, Dh]`` over layer ``li`` of ``[L, B, H, C, Dh]``,
-from absolute position ``pos0`` (an int, or one cursor per batch row),
-softmax in f32, output f32.  Only the live keys ``[0, pos0 + S)`` are read;
-keys past the cache end are masked.  The cache is bf16 or f32 (an e4m3
-cache is not ported yet).
+Counterpart of ``minigpt4_tpu/ops/flash_decode.py`` without partial
+statistics, for two cache layouts:
+
+- :func:`flash_decode_attention`: the stacked cache ``[L, B, H, C, Dh]``;
+- :func:`paged_flash_decode_attention`: the serving page pools
+  ``[L, NP + 1, H, 128, Dh]`` read through a page table ``[B, W]``
+  (``engine/paged.py``).
+
+Each runs the hand-written CUDA kernel of ``csrc/flash_decode.cu`` on CUDA
+tensors and its plain PyTorch version (:func:`flash_decode_ref`,
+:func:`paged_flash_decode_ref`) on CPU tensors: causal attention of q
+``[B, H, S, Dh]`` over layer ``li``, from absolute position ``pos0`` (an
+int, or one cursor per batch row), softmax in f32, output f32.  Only the
+live keys ``[0, pos0 + S)`` are read; keys past the cache end (paged: past
+128 W) are masked.  The cache is bf16 or f32 (an e4m3 cache is not ported
+yet).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from . import _build
 
 MAX_S = 32  # rows the kernel serves (models.llama.FLASH_DECODE_MAX_S)
 KERNEL_HEAD_DIMS = (64, 128)
+PAGE = 128  # positions per pool page, fixed in the paged kernel (csrc kPage)
 
 
 def _pos_vector(pos0, b: int, device) -> torch.Tensor:
@@ -50,42 +58,52 @@ def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: in
     return torch.softmax(sc, dim=-1) @ vs
 
 
+def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int, pos0,
+             heads: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """What both kernels refuse, raised before a launch; ``heads`` is the
+    cache's (H, Dh).  Returns q as contiguous, aligned f32 and the cursors as
+    i32 [B]."""
+    b, h, s, dh = q.shape
+    if v.shape != k.shape or v.dtype != k.dtype:
+        raise ValueError(f"{name}: k and v must match in shape and dtype")
+    if heads != (h, dh):
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match {tuple(k.shape)}")
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"{name} serves 1..{MAX_S} query rows, got {s}")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel supports head_dim {KERNEL_HEAD_DIMS}, got {dh}")
+    if k.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"{name}: {k.dtype} cache is not ported yet (the e4m3 cache is a ROADMAP "
+            "Queue 2 item); use a bf16 or f32 cache")
+    if not 0 <= li < k.shape[0]:
+        raise IndexError(f"{name}: layer {li} out of range [0, {k.shape[0]})")
+    for label, t in (("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+    qf = q.float().contiguous()
+    if qf.data_ptr() % 16:
+        qf = qf.clone()
+    pos = _pos_vector(pos0, b, q.device)
+    if pos.shape != (b,):
+        raise ValueError(f"{name}: pos0 must be a scalar or [B={b}]")
+    return qf, pos
+
+
 def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            li: int, pos0, scale: float) -> torch.Tensor:
     """q [B, H, S, Dh] x cache [L, B, H, C, Dh] -> ctx [B, H, S, Dh] f32."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, ck, cv, li, pos0, scale)
     b, h, s, dh = q.shape
-    n_layers, cb, ch, c, cdh = ck.shape
-    if cv.shape != ck.shape or cv.dtype != ck.dtype:
-        raise ValueError("flash_decode: k and v caches must match in shape and dtype")
-    if (cb, ch, cdh) != (b, h, dh):
+    if ck.shape[1] != b:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache {tuple(ck.shape)}")
-    if not 1 <= s <= MAX_S:
-        raise ValueError(f"flash_decode serves 1..{MAX_S} query rows, got {s}")
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_decode kernel supports head_dim {KERNEL_HEAD_DIMS}, got {dh}")
-    if ck.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"flash_decode: {ck.dtype} cache is not ported yet (the e4m3 cache "
-            "is a ROADMAP Queue 2 item); use a bf16 or f32 cache")
-    if not 0 <= li < n_layers:
-        raise IndexError(f"flash_decode: layer {li} out of range [0, {n_layers})")
-    for name, t in (("ck", ck), ("cv", cv)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} must be a contiguous, 16-byte "
-                             f"aligned tensor on {q.device}")
-    qf = q.float().contiguous()
-    if qf.data_ptr() % 16:
-        qf = qf.clone()
-    pos = _pos_vector(pos0, b, q.device)
-    if pos.shape != (b,):
-        raise ValueError(f"flash_decode: pos0 must be a scalar or [B={b}]")
+    qf, pos = _checked("flash_decode", q, ck, cv, li, pos0, (ck.shape[2], ck.shape[4]))
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
-    lib = _build.load()
-    rc = lib.mgt_flash_decode(
+    rc = _build.load().mgt_flash_decode(
         qf.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, s, c, dh, li, float(scale), int(ck.dtype == torch.bfloat16),
+        b, h, s, ck.shape[3], dh, li, float(scale), int(ck.dtype == torch.bfloat16),
         ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode")
     flash_decode_attention.launches += 1
@@ -93,3 +111,51 @@ def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 flash_decode_attention.launches = 0
+
+
+def paged_flash_decode_ref(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                           li: int, pos0, page_table: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version: gather each lane's pages into a dense ``[1, B, H,
+    128 W, Dh]`` cache, then :func:`flash_decode_ref`."""
+    b, h, _, dh = q.shape
+    page = pool_k.shape[3]
+    pt = page_table.long()
+    w = pt.shape[1]
+
+    def gather(pool):  # [NP + 1, H, PAGE, Dh] -> [1, B, H, W * PAGE, Dh]
+        g = pool[li][pt]  # [B, W, H, PAGE, Dh]
+        return g.permute(0, 2, 1, 3, 4).reshape(1, b, h, w * page, dh)
+
+    return flash_decode_ref(q, gather(pool_k), gather(pool_v), 0, pos0, scale)
+
+
+def paged_flash_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                 li: int, pos0, page_table: torch.Tensor,
+                                 scale: float) -> torch.Tensor:
+    """q [B, H, S, Dh] x pools [L, NP + 1, H, 128, Dh] through ``page_table``
+    [B, W] i32 (lane b's positions [128 i, 128 i + 128) in pool page
+    ``page_table[b, i]``) -> ctx [B, H, S, Dh] f32."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_ref(q, pool_k, pool_v, li, pos0, page_table, scale)
+    b, h, s, dh = q.shape
+    if pool_k.shape[3] != PAGE:
+        raise ValueError(f"paged_flash_decode: page size {pool_k.shape[3]}, the kernel takes {PAGE}")
+    qf, pos = _checked("paged_flash_decode", q, pool_k, pool_v, li, pos0,
+                       (pool_k.shape[2], pool_k.shape[4]))
+    pt = page_table
+    if (pt.dim() != 2 or pt.shape[0] != b or pt.dtype != torch.int32
+            or pt.device != q.device or not pt.is_contiguous()):
+        raise ValueError(f"paged_flash_decode: page_table must be a contiguous [B={b}, W] "
+                         f"int32 tensor on {q.device}, got {tuple(pt.shape)} {pt.dtype} "
+                         f"on {pt.device}")
+    out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    rc = _build.load().mgt_flash_decode_paged(
+        qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pos.data_ptr(), pt.data_ptr(),
+        out.data_ptr(), b, h, s, pool_k.shape[1], pt.shape[1], dh, li, float(scale),
+        int(pool_k.dtype == torch.bfloat16), ctypes.c_void_p(_build.stream_ptr(q.device)))
+    _build.check(rc, "mgt_flash_decode_paged")
+    paged_flash_decode_attention.launches += 1
+    return out
+
+
+paged_flash_decode_attention.launches = 0

@@ -42,7 +42,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..host import DataType
+from ..formats import DataType
 from . import _build
 
 J = 8  # groups per chunk; K must be a multiple of J * group_size

@@ -10,8 +10,9 @@ conftest:
 Tolerances: gq_decode and gq_decode_generic keep x in f32 like their
 plain version (1e-5 of max|y|, f32 summation order); gq_prefill and
 gq_prefill_generic round x and W to bf16 like their plain version and sum
-64-wide K tiles on the tensor cores (1e-4); flash decode is f32 online
-softmax against f32 softmax (1e-5 absolute on unit inputs).
+64-wide K tiles on the tensor cores (1e-4); flash decode, dense and paged,
+is f32 online softmax against f32 softmax (1e-5 absolute on unit inputs),
+and the paged kernel gives the dense kernel's bits on the gathered cache.
 """
 
 import numpy as np
@@ -19,9 +20,10 @@ import pytest
 import torch
 
 from fixtures import GQ_D, build_container, build_gq_models
-from minigpt4_tpu.formats import quants
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-from minigpt4_tpu_torch.host import DataType, preprocess
+from minigpt4_tpu_torch.engine.sessions import SessionPool
+from minigpt4_tpu_torch.formats import DataType, quants
+from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.ops import _build
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
@@ -183,3 +185,85 @@ def test_mixed_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
         grew = [f.launches > b for f, b in zip(kernels, before)]
         assert grew == [device == "cuda"] * 5, (device, before)
     assert runs["cuda"] == runs["cpu"]
+
+
+def _paged_case(device, dh, dtype, s, seed=5):
+    """Pools of 2 layers, 4 lanes of 4 + 1 table slots over 16 shuffled pages
+    and the trash page; lane 3 sits past its 512-position capacity, so it
+    reads the trash slot."""
+    rng = np.random.default_rng(seed)
+    l, b, h, maxp = 2, 4, 4, 4
+    n_pages = b * maxp
+    pool = [torch.from_numpy(rng.normal(0, 1, (l, n_pages + 1, h, 128, dh)).astype(np.float32))
+            .to(device, dtype) for _ in range(2)]
+    table = np.full((b, maxp + 1), n_pages, np.int32)
+    table[:, :maxp] = rng.permutation(n_pages).reshape(b, maxp)
+    q = torch.from_numpy(rng.normal(0, 1, (b, h, s, dh)).astype(np.float32)).to(device)
+    pos = torch.tensor([0, 130, 511 - s, 600], dtype=torch.int32, device=device)
+    return q, pool, torch.from_numpy(table).to(device), pos
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("s", [1, 8])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_flash_decode_kernel_matches_plain_and_dense(cuda_device, dh, s, cache_dtype):
+    q, (pk, pv), table, pos = _paged_case(cuda_device, dh, cache_dtype, s)
+    scale = dh ** -0.5
+    before = tfd.paged_flash_decode_attention.launches
+    got = tfd.paged_flash_decode_attention(q, pk, pv, 1, pos, table, scale)
+    torch.cuda.synchronize()
+    assert tfd.paged_flash_decode_attention.launches == before + 1
+    want = tfd.paged_flash_decode_ref(q, pk, pv, 1, pos, table, scale)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    # the dense kernel on the gathered [L, B, H, 128 W, Dh] cache: same bits
+    b, w = table.shape
+    ck, cv = (p[:, table.long()].permute(0, 1, 3, 2, 4, 5).reshape(2, b, 4, w * 128, dh)
+              .contiguous() for p in (pk, pv))
+    dense = tfd.flash_decode_attention(q, ck, cv, 1, pos, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+
+
+def test_paged_flash_decode_refusals_raise(cuda_device):
+    q, (pk, pv), table, pos = _paged_case(cuda_device, 64, torch.bfloat16, 1)
+    run = tfd.paged_flash_decode_attention
+    with pytest.raises(ValueError, match="page size"):
+        half = pk[:, :, :, :64].contiguous()
+        run(q, half, half, 0, pos, table, 0.125)
+    q33 = torch.zeros((4, 4, 33, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="1..32 query rows"):
+        run(q33, pk, pv, 0, pos, table, 0.125)
+    for bad in (table.long(), table.t().contiguous().t(), table.cpu(), table[:2]):
+        with pytest.raises(ValueError, match="page_table"):
+            run(q, pk, pv, 0, pos, bad, 0.125)
+    q96 = torch.zeros((4, 4, 1, 96), device=cuda_device)
+    p96 = torch.zeros((2, 17, 4, 128, 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        run(q96, p96, p96, 0, pos, table, 0.125)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        run(q, pk.half(), pv.half(), 0, pos, table, 0.125)
+
+
+def test_paged_batch_on_card_matches_plain_versions(cuda_device, tmp_path):
+    """A two-lane paged generate_batch on the gq fixture: the card and the
+    CPU give the same greedy text, and the paged kernel ran on the card."""
+    model, llm = build_gq_models(tmp_path)
+    texts = {}
+    for device in ("cpu", "cuda"):
+        before = tfd.paged_flash_decode_attention.launches
+        pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                           paged_pool_pages=8, device=device)
+        try:
+            sessions = []
+            for q in ("one two", "three four five"):
+                s = pool.new_session()
+                pool.begin_chat(s, q)
+                sessions.append(s)
+            texts[device] = pool.generate_batch(sessions, limit=12,
+                                                params=SamplingParams(temp=0.0), decode_chunk=4)
+            assert pool.paged_pool.free_pages == 8
+        finally:
+            pool.close()
+        grew = tfd.paged_flash_decode_attention.launches > before
+        assert grew == (device == "cuda")
+    assert texts["cuda"] == texts["cpu"]

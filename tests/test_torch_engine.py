@@ -1,11 +1,13 @@
 """Port parity for the chat engine: one image chat on the gq fixture through
 the PyTorch engine (device="cpu", kernels' plain versions) against the JAX
-engine (quant_mode="gq", Pallas in interpret mode); the same flow in a
-subprocess where ``import jax`` fails; the on-device sampling chain against
-the JAX chain for fixed logits.
+engine (quant_mode="gq", Pallas in interpret mode); the same flow and a
+two-lane paged batch in a subprocess where importing ``jax`` or the JAX
+package fails; the on-device sampling chain against the JAX chain for
+fixed logits.
 """
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +25,7 @@ from minigpt4_tpu.engine.sampling import Sampler as JaxSampler
 from minigpt4_tpu.engine.sampling import SamplingParams as JaxParams
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, Sampler, SamplingParams
 from minigpt4_tpu_torch.engine import device_sampling as tds
-from minigpt4_tpu_torch.host import preprocess
+from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.library import MiniGPT4ChatBot
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -63,17 +65,31 @@ def test_greedy_chat_matches_jax_engine(gq_files, port_chat):
 _NO_JAX = """
 import json, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["minigpt4_tpu"] = None  # and so does any import of the JAX package
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-from minigpt4_tpu_torch.host import preprocess
+from minigpt4_tpu_torch.image import preprocess
 eng = MiniGPT4Engine(sys.argv[2], sys.argv[3], n_ctx=256, n_batch=32, device="cpu")
 img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
 emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
 eng.system_prompt()
 eng.begin_chat_image(emb, sys.argv[4])
 toks = list(eng.generate(limit=10, params=SamplingParams(temp=0.0)))
-print(json.dumps({"tokens": toks, "jax_loaded": sys.modules["jax"] is not None}))
+eng.close()
+from minigpt4_tpu_torch.engine.sessions import SessionPool
+pool = SessionPool(sys.argv[2], sys.argv[3], session_ctx=256, n_ctx=256, n_batch=32,
+                   paged_pool_pages=8, device="cpu")
+lanes = []
+for q in ("one two", "three four five"):
+    s = pool.new_session()
+    pool.begin_chat(s, q)
+    lanes.append(s)
+texts = pool.generate_batch(lanes, limit=8, params=SamplingParams(temp=0.0), decode_chunk=4)
+print(json.dumps({"tokens": toks, "jax_loaded": sys.modules["jax"] is not None,
+                  "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,
+                  "paged_batch": [len(t) > 0 for t in texts],
+                  "free_pages": pool.paged_pool.free_pages}))
 """
 
 
@@ -84,15 +100,24 @@ def test_port_runs_without_jax(gq_files, port_chat):
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"tokens": port_chat[1], "jax_loaded": False}
+    assert out == {"tokens": port_chat[1], "jax_loaded": False, "jax_package_loaded": False,
+                   "paged_batch": [True, True], "free_pages": 8}
 
 
 def test_port_sources_never_import_jax():
+    """Neither JAX nor the JAX package (``minigpt4_tpu``, as opposed to
+    ``minigpt4_tpu_torch``) is imported by the port or by chip_smoke.py; the
+    card-side test files name nothing of the JAX package either."""
+    jax_pkg = re.compile(r"^(import|from)\s+minigpt4_tpu(\.|\s|$)")
     files = sorted((ROOT / "minigpt4_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith(("import jax", "from jax"))), f"{f}: {s}"
+            assert not jax_pkg.match(s), f"{f}: {s}"
+    for name in ("test_torch_cuda.py", "test_torch_fixtures.py"):
+        text = (ROOT / "tests" / name).read_text()
+        assert re.search(r"\bminigpt4_tpu\.", text) is None, name
 
 
 def test_chatbot_per_token_path_matches_chunked_generate(gq_files, port_chat):

@@ -5,16 +5,19 @@ in the Q5_K_M layout: ``output`` q6_k, ``attention.wv`` and
 ``feed_forward.w2`` q6_k on the layers its use_more_bits rule picks, every
 other 2-D weight q5_k, ``tok_embeddings`` included.  build_llm_q5_k_m writes that
 layout at the gq geometry of tests/fixtures.py (D 256, FF 768) with 4
-layers, so wv/w2 are q6_k on layers 2 and 3.  This module imports no JAX:
-tests/test_torch_generic.py (parity with JAX) and tests/test_torch_cuda.py
-(on the card) both build the file with it.
+layers, so wv/w2 are q6_k on layers 2 and 3.  This module imports no JAX
+and names nothing of the JAX package: tests/test_torch_generic.py (parity
+with JAX) and tests/test_torch_cuda.py (on the card) both build the file
+with it.  It also holds the port's file formats to the fixtures that the
+JAX package's writers make.
 """
 
 import numpy as np
 
-from fixtures import GQ_D, GQ_FF, GQ_HEADS, VOCAB
-from minigpt4_tpu_torch.host import DataType, LlamaFileWriter, LlamaHParams, LlamaVocab
-from minigpt4_tpu.formats import quants as nq
+from fixtures import GQ_D, GQ_FF, GQ_HEADS, VOCAB, build_gq_models
+from minigpt4_tpu_torch.formats import (ContainerReader, ContainerWriter, DataType, LlamaFileReader,
+                                        LlamaFileWriter, LlamaHParams, LlamaVocab)
+from minigpt4_tpu_torch.formats import quants as nq
 
 KM_LAYERS = 4
 
@@ -67,8 +70,6 @@ def test_more_bits_rule_matches_llama_cpp_counts():
 
 
 def test_written_file_has_the_q5_k_m_layout(tmp_path):
-    from minigpt4_tpu_torch.host import LlamaFileReader
-
     path = build_llm_q5_k_m(tmp_path / "km.bin", np.random.default_rng(0))
     with LlamaFileReader(path) as r:
         types = {name: DataType(rec.dtype) for name, rec in r.tensors.items()}
@@ -76,3 +77,26 @@ def test_written_file_has_the_q5_k_m_layout(tmp_path):
     assert types["tok_embeddings.weight"] == types["layers.1.feed_forward.w2.weight"] == DataType.Q5_K
     assert [types[f"layers.{i}.feed_forward.w2.weight"] for i in range(KM_LAYERS)] == \
         [DataType.Q5_K] * 2 + [DataType.Q6_K] * 2
+
+
+def test_port_formats_rewrite_the_jax_fixtures_byte_equal(tmp_path):
+    """The gq fixture pair, written by the JAX package's writers, read by the
+    port's readers and written back by the port's writers: the same bytes."""
+    model, llm = build_gq_models(tmp_path)
+    with ContainerReader(model) as r:
+        w = ContainerWriter(tmp_path / "container.bin", ftype=r.ftype, config=r.config)
+        for name, sm in r.models.items():
+            w.add_model(name, [(t, rec.shape, rec.dtype, np.array(r.raw(name, t)))
+                               for t, rec in sm.tensors.items()])
+        w.write()
+        assert r.tensor_f32("llama_proj", "weight").shape == (GQ_D, r.config["Qformer"]["hidden_size"])
+    assert (tmp_path / "container.bin").read_bytes() == model.read_bytes()
+    with LlamaFileReader(llm) as r:
+        w = LlamaFileWriter(tmp_path / "llm.bin", r.hparams, r.vocab)
+        for name, rec in r.tensors.items():
+            w.add_tensor(name, rec.shape, rec.dtype, np.array(r.raw(name)))
+        w.write()
+        assert any(rec.dtype == DataType.Q5_K for rec in r.tensors.values())
+        wq = r.tensor_f32("layers.0.attention.wq.weight")
+        assert wq.shape == (GQ_D, GQ_D) and np.isfinite(wq).all()
+    assert (tmp_path / "llm.bin").read_bytes() == llm.read_bytes()

@@ -59,7 +59,7 @@ from minigpt4_tpu.models.params import linear as jparams_linear
 from minigpt4_tpu.ops import group_i8 as jgq
 from minigpt4_tpu_torch import interop
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-from minigpt4_tpu_torch.host import preprocess
+from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.models.params import linear as tparams_linear
 from minigpt4_tpu_torch.ops import group_i8 as tgq
@@ -302,7 +302,7 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-from minigpt4_tpu_torch.host import preprocess
+from minigpt4_tpu_torch.image import preprocess
 eng = MiniGPT4Engine(sys.argv[2], sys.argv[3], n_ctx=256, n_batch=32, device="cpu")
 img = np.random.default_rng(3).integers(0, 255, (40, 50, 3), dtype=np.uint8)
 emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))

@@ -31,7 +31,7 @@ from minigpt4_tpu.formats import LlamaFileReader
 from minigpt4_tpu.models import llama as jllama
 from minigpt4_tpu.models.params import linear as jparams_linear
 from minigpt4_tpu_torch import interop
-from minigpt4_tpu_torch.engine.device_sampling import DeviceSamplingConfig
+from minigpt4_tpu_torch.engine.device_sampling import DeviceSamplingConfig, LaneRows
 from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.models.params import linear as tparams_linear
 from minigpt4_tpu_torch.ops.group_i8 import GroupQuant
@@ -105,8 +105,8 @@ def test_forward_and_decode_loop_match_jax(loaded):
                                           jax.random.PRNGKey(0), JaxSampling(temp=0.0), jcfg,
                                           attn_len=128)
     gen = torch.Generator().manual_seed(0)
-    ttoks, tfinal = tllama.decode_loop(tparams, tcache, tl, pos, 6, gen,
-                                       DeviceSamplingConfig(temp=0.0), tcfg)
+    ttoks, tfinal = tllama.decode_loop(tparams, tcache, tl, pos, 6, [gen],
+                                       LaneRows((DeviceSamplingConfig(temp=0.0),)), tcfg)
     assert ttoks.tolist() == np.asarray(jtoks).tolist()
     _close(tfinal.numpy(), np.asarray(jfinal))
 
