@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's one-image chat path and its batched HTTP serving
-path on an NVIDIA GPU.
+"""Run the PyTorch port's one-image chat path, its batched HTTP serving path
+and its quantized-container / repacked-weight path on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -15,13 +15,21 @@ Phases (any failure exits nonzero before the last line):
                group 32, signed codes), and the paged flash-decode kernel at
                Vicuna-13B serving shapes (8 lanes, 40 heads of 128, bf16 pools
                of 64 + 1 pages, 4 + 1 table slots, shuffled pages, one lane
-               past its capacity): max error, tolerance, median times (CUDA
-               events, turns plain, kernel, kernel, plain), each kernel's
-               bound (the larger of its bytes at 3.35 TB/s and its operations
-               at the H100's peak for their type) and, for the attention
-               kernels, the time of torch's scaled_dot_product_attention with
-               a boolean mask on the same (gathered) cache; the paged kernel
-               must give the dense kernel's bits on the gathered cache.
+               past its capacity), and the repacked-weight kernels (rq_decode,
+               rq_prefill) against the f32 plain version qmatmul_repacked_ref
+               at the shapes of their paths: ViT-G fc2 q5_k 1408x6144, fc1
+               q5_1 6144x1408 and qkv q8_0 4224x1408 at M=257 (39 stacked
+               blocks), the Q-Former intermediate q5_k 3072x768 at M=32, the
+               13B w13 q5_k 27648x5120 at M=1 and 512 (40 layers) and the 13B
+               q6_k output 32000x5120 at M=1, with the exact-plane gq kernels
+               beside them at the w13 and fc2 shapes: max error, tolerance,
+               median times (CUDA events, turns plain, kernel, kernel, plain),
+               each kernel's bound (the larger of its bytes at 3.35 TB/s and
+               its operations at the H100's peak for their type) and, for the
+               attention kernels, the time of torch's
+               scaled_dot_product_attention with a boolean mask on the same
+               (gathered) cache; the paged kernel must give the dense kernel's
+               bits on the gathered cache.
   4. engine  - two chats through MiniGPT4Engine(device="cuda"), each on
                synthetic files cached under build/smoke_models/ by geometry,
                layout and seed, one engine closed before the next is built:
@@ -51,10 +59,20 @@ Phases (any failure exits nonzero before the last line):
                and 31 more tokens each way give the identical-token prefix
                per lane and the tok/s of an 8-lane paged group; a third copy
                decodes a 16-token chunk of the group under torch.profiler.
+  6. repack  - a third chat as in phase 4: the 13B Q5_K_M file with
+               quant_mode="repack" (every decoder weight repacked) and a 13B
+               container whose quantizable weights are q5_k (ViT-G fc2 and
+               the Q-Former projections of K % 256 == 0; the rest f16);
+               rq_decode, rq_prefill and flash_decode must launch and no gq
+               kernel may.  Then a 13B q5_1 container, every ViT-G and
+               Q-Former projection quantized (K = 1408 included): its
+               embedding through the kernels against the same weights
+               dequantized to dense f32 on the card (max |d| / max |emb| <=
+               ENCODE_TOL).
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
-{"kernels": [...]} (launches of the serving phase, and of each path); the
-last is {"ok": true, "device": {...}}.
+{"kernels": [...]} (launches in each kernel's own path, the serving phase or
+the repack chat, and of each path); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,6 +102,10 @@ Q5K_D = 2.0 ** -15  # f16 superblock scale of the synthetic q5_k weights
 # std 1366 d
 Q6K_D = Q5K_D * math.sqrt(277651 / 1865102)
 STACK_7B, STACK_13B = 32, 40  # stacked layers the kernel phase rotates through
+STACK_VIT, STACK_QF, STACK_HEAD = 39, 12, 8  # ViT-G blocks, Q-Former layers, output copies
+# q5_1 d that gives the f16 container's weight spread (std 0.02): a q5_1
+# weight d * q + m with uniform codes 0..31 has std 9.23 d; m = -15.5 d
+Q51_D = 0.02 / 9.23
 # NVIDIA's H100 SXM data sheet: HBM rate, f32 (CUDA cores) and dense bf16
 # tensor-core peaks; a kernel's bound is the larger of bytes / HBM_BPS and
 # operations / the peak of the type they run in
@@ -297,6 +319,130 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
 
 
+def random_rq(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
+    """Stacked RepackedQuant made on the card with random codes and high
+    bits: q5_k (scales Q5K_D x a 6-bit sub-scale, mins 15.5 Q5K_D x another),
+    q6_k (Q6K_D x a signed sub-scale, mins 32 scales), q5_1 (d in [0.5, 1.5)
+    x Q51_D, mins 15.5 d) or q8_0 (d in [0.5, 1.5) x 2^-13, signed codes,
+    mins 0)."""
+    from minigpt4_tpu_torch.formats import DataType
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+    from minigpt4_tpu_torch.ops import repack as rp
+
+    code_bits, hi_bits = rp.LAYOUT[dtype]
+    gs = gq.group_size(dtype)
+    shape = (n_layer, n, k // gs)
+
+    def ints(lo, hi, shp, dt=torch.int32):
+        return torch.randint(lo, hi, shp, generator=gen, device=DEVICE, dtype=dt)
+
+    def unit():
+        return 0.5 + torch.rand(shape, generator=gen, device=DEVICE)
+
+    if code_bits == 8:
+        codes = ints(-128, 128, (n_layer, n, k), torch.int8)
+    else:
+        codes = ints(0, 256, (n_layer, n, k // 2), torch.uint8)
+    hi = ints(-2 ** 31, 2 ** 31 - 1, (n_layer, n, k * hi_bits // 32)) if hi_bits else None
+    if dtype == DataType.Q5_K:
+        scales, mins = Q5K_D * ints(0, 64, shape).float(), 15.5 * Q5K_D * ints(0, 64, shape).float()
+    elif dtype == DataType.Q6_K:
+        scales = Q6K_D * ints(-128, 128, shape).float()
+        mins = 32.0 * scales
+    elif dtype == DataType.Q5_1:
+        scales = Q51_D * unit()
+        mins = 15.5 * scales
+    else:
+        scales, mins = 2.0 ** -13 * unit(), torch.zeros(shape, device=DEVICE)
+    return rp.RepackedQuant(codes=codes, scales=scales.to(torch.bfloat16),
+                            mins=mins.to(torch.bfloat16), hi=hi, dtype=dtype, n_in=k,
+                            group_size=gs, code_bits=code_bits, hi_bits=hi_bits)
+
+
+def rq_bound(w, m: int) -> tuple[float, str]:
+    """One layer's codes, high bits and planes read once, x [M, K] f32 read
+    and y [M, N] f32 written once; 2 M N K operations, in f32 on the CUDA
+    cores for the decode entry (M <= 8), in bf16 on the tensor cores for the
+    prefill entry."""
+    from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
+
+    layer = nbytes(*w.tensors().values()) / w.scales.shape[0]
+    n, k = w.n_out, w.n_in
+    return bound(layer + 4 * m * (k + n), 2.0 * m * n * k,
+                 F32_FLOPS if m <= rq.RQ_MAX_M else BF16_FLOPS)
+
+
+# rq tolerances, relative to max|y|: the decode entry keeps x in f32 like the
+# f32 plain version (f32 summation order, as gq_decode); the prefill entry
+# rounds x and w = scale * q - min to bf16 (2^-9 each per product), against
+# the f32 plain version 1e-2 (JAX's own tests hold the TPU kernel to 1.2e-2
+# of the same product) and against the plain version with its roundings
+# 1e-3 (summation order over K up to 6144)
+RQ_DECODE_TOL, RQ_PREFILL_TOL, RQ_PREFILL_SAME_ROUNDING_TOL = 1e-4, 1e-2, 1e-3
+
+
+def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
+    """Each M of ``ms`` through rq_decode or rq_prefill against the f32 plain
+    version, timed rotating through the stacked layers."""
+    from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
+
+    n, k = w.n_out, w.n_in
+    last = n_stack - 1
+    for m in ms:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        decode = m <= rq.RQ_MAX_M
+        kern = rq.rq_decode if decode else rq.rq_prefill
+        got, want = kern(x, w, last), rq.qmatmul_repacked_ref(x, w, last)
+        same = None if decode else rq.qmatmul_repacked_prefill_ref(x, w, last)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(got, want), float((got - want).abs().max())
+        tol = RQ_DECODE_TOL if decode else RQ_PREFILL_TOL
+        same_err = None if decode else rel_err(got, same)
+        k_ms, p_ms = compare_times(kern, rq.qmatmul_repacked_ref, lambda i: (x, w, i % n_stack))
+        key = kern.__name__
+        b_ms, b_by = rq_bound(w, m)
+        results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format=w.dtype.name.lower(),
+                                 max_rel_err=err, max_abs_err=abs_err, tol=tol,
+                                 same_rounding_rel_err=same_err, ms=k_ms, plain_ms=p_ms,
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        log(f"[kernels] {key:18s} {w.dtype.name.lower():4s} {name:6s} N={n:5d} K={k:5d} M={m:3d}"
+            f"  max_rel_err={err:.3e} (tol {tol:g})"
+            + ("" if decode else f", {same_err:.3e} against the bf16-rounding plain version "
+               f"(tol {RQ_PREFILL_SAME_ROUNDING_TOL:g})")
+            + f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        if not decode and not same_err <= RQ_PREFILL_SAME_ROUNDING_TOL:
+            raise AssertionError(f"{key} {name} M={m}: rel err {same_err} against the "
+                                 f"bf16-rounding plain version > {RQ_PREFILL_SAME_ROUNDING_TOL}")
+
+
+def phase_rq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
+    """The repacked-weight kernels at the shapes of their paths, and the gq
+    kernels at the same shapes where gq takes them."""
+    from minigpt4_tpu_torch.formats import DataType
+
+    for name, (n, k), dtype, stack, ms in (
+            ("fc2", (1408, 6144), DataType.Q5_K, STACK_VIT, (257,)),
+            ("fc1", (6144, 1408), DataType.Q5_1, STACK_VIT, (257,)),
+            ("qkv", (4224, 1408), DataType.Q8_0, STACK_VIT, (257,)),
+            ("qf-int", (3072, 768), DataType.Q5_K, STACK_QF, (32,)),
+            ("w13", (27648, 5120), DataType.Q5_K, STACK_13B, (1, 512)),
+            ("output", (32000, 5120), DataType.Q6_K, STACK_HEAD, (1,))):
+        w = random_rq(stack, n, k, dtype, gen)
+        check_rq(results, card, name, w, stack, ms, gen)
+        del w
+        torch.cuda.empty_cache()
+    # gq beside them: the exact-plane kernels at the 13B w13 and ViT fc2
+    # shapes (gq's q6_k output row is in the generic rows above)
+    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (1, 512)),
+                                    ("fc2", (1408, 6144), STACK_VIT, (257,))):
+        w = random_gq(stack, n, k, gen)
+        check_matmul(results, card, name, w, stack, ms, gen)
+        del w
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(card: str) -> dict:
     from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops import flash_decode as fd
@@ -360,6 +506,7 @@ def phase_kernels(card: str) -> dict:
     del caches
     torch.cuda.empty_cache()
     paged_kernel_case(results, card, gen)
+    phase_rq_kernels(results, card, gen)
     return results
 
 
@@ -464,6 +611,20 @@ def _q6k_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
     return blk.reshape(-1)
 
 
+def _q5_1_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
+    """Raw q5_1 blocks of an [n, k] weight: random code and high-bit bytes, a
+    fixed f16 d = Q51_D and m = -15.5 d (zero mean weight, std 0.02, the f16
+    container's spread)."""
+    blk = _rand_u8(n * k // 32 * 24, gen).reshape(-1, 24)
+    blk[:, 0:2] = np.array([Q51_D], np.float16).view(np.uint8)
+    blk[:, 2:4] = np.array([-15.5 * Q51_D], np.float16).view(np.uint8)
+    return blk.reshape(-1)
+
+
+# container formats: (DataType name, block elements, raw block writer)
+CONTAINER_QUANTS = {"q5_k": ("Q5_K", 256, _q5k_bytes), "q5_1": ("Q5_1", 32, _q5_1_bytes)}
+
+
 def more_bits(i: int, n_layer: int) -> bool:
     """llama.cpp's use_more_bits: the layers whose wv and w2 Q5_K_M makes q6_k."""
     return i < n_layer // 8 or i >= 7 * n_layer // 8 or (i - n_layer // 8) % 3 == 2
@@ -517,15 +678,19 @@ def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
 
 
 def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
-    """f16 container with ViT-G (depth 39, d 1408, 16 heads of 88, MLP
-    6144, 224 px / patch 14), ln_vision, the Q-Former (12 layers, hidden
-    768, 32 queries, cross-attention on even layers) and llama_proj from 768
-    to the decoder's width (``geo["out"]``)."""
+    """Container with ViT-G (depth 39, d 1408, 16 heads of 88, MLP 6144, 224
+    px / patch 14), ln_vision, the Q-Former (12 layers, hidden 768, 32
+    queries, cross-attention on even layers) and llama_proj from 768 to the
+    decoder's width (``geo["out"]``).  All f16, or with ``geo["quant"]``
+    ("q5_k", "q5_1") random blocks of that format in every weight the
+    reference's quantizer would quantize (quantize.py ``_eligible``: the ViT
+    and Q-Former projection weights) whose K divides into its blocks."""
     from minigpt4_tpu_torch.formats import ContainerWriter, DataType
 
     vd, depth, mlp = geo["width"], geo["depth"], geo["mlp"]
     hid, qf_layers, nq = geo["hidden"], geo["qf_layers"], geo["queries"]
     inter, out_d = geo["intermediate"], geo["out"]
+    quant = CONTAINER_QUANTS.get(geo.get("quant"))
     cfg = {"ftype": "f16", "vit": {"head_dim": 88},
            "Qformer": {"encoder_width": vd, "query_length": nq, "num_hidden_layers": qf_layers,
                        "hidden_size": hid, "num_attention_heads": geo["qf_heads"],
@@ -533,6 +698,9 @@ def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
     cw = ContainerWriter(path, ftype=0, config=cfg)
 
     def add(lst, name, shape, std=0.02, const=None):
+        if quant and name.endswith(".weight") and len(shape) == 2 and shape[1] % quant[1] == 0:
+            lst.append((name, tuple(shape), DataType[quant[0]], quant[2](*shape, gen)))
+            return
         a = (np.full(shape, const, np.float16) if const is not None
              else _randn_f16(shape, std, gen))
         lst.append((name, tuple(shape), DataType.F16, a.view(np.uint8).reshape(-1)))
@@ -594,31 +762,41 @@ def write_container(path: Path, gen: torch.Generator, geo: dict) -> None:
     cw.write()
 
 
-def smoke_models(lg: dict) -> tuple[Path, Path]:
+def _write_once(path: Path, writer, geo: dict, seed: int) -> Path:
+    if path.exists():
+        log(f"[engine] reusing {path.relative_to(ROOT)}")
+        return path
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    tmp = path.with_suffix(".tmp")
+    writer(tmp, gen, geo)
+    tmp.replace(path)
+    log(f"[engine] wrote {path.relative_to(ROOT)} ({path.stat().st_size / 1e9:.2f} GB) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def smoke_container(out_d: int, quant: str | None = None) -> Path:
+    """The vision container projecting to ``out_d``, f16 or with ``quant``
+    weights, written once."""
+    out = ROOT / "build" / "smoke_models"
+    out.mkdir(parents=True, exist_ok=True)
+    vg = dict(VISION_GEOMETRY, out=out_d, quant=quant)
+    model = out / (f"minigpt4-{quant or 'f16'}-vit{vg['width']}x{vg['depth']}-qformer"
+                   f"{vg['hidden']}x{vg['qf_layers']}-proj{vg['out']}-seed{SEED}.bin")
+    return _write_once(model, write_container, vg, SEED + 1)
+
+
+def smoke_models(lg: dict, vision_quant: str | None = None) -> tuple[Path, Path]:
     """The (container, LLM) pair for decoder geometry ``lg``, written once."""
     out = ROOT / "build" / "smoke_models"
     out.mkdir(parents=True, exist_ok=True)
-    vg = dict(VISION_GEOMETRY, out=lg["n_embd"])
+    log(f"[engine] {shutil.disk_usage(out).free / 1e9:.1f} GB free under {out.relative_to(ROOT)}")
     llm = out / (f"llama-{lg['layout']}-d{lg['n_embd']}-h{lg['n_head']}-L{lg['n_layer']}"
                  f"-v{lg['n_vocab']}-seed{SEED}.bin")
-    model = out / (f"minigpt4-f16-vit{vg['width']}x{vg['depth']}-qformer{vg['hidden']}x"
-                   f"{vg['qf_layers']}-proj{vg['out']}-seed{SEED}.bin")
-    free = shutil.disk_usage(out).free
-    log(f"[engine] {free / 1e9:.1f} GB free under {out.relative_to(ROOT)}")
-    gen = torch.Generator(device=DEVICE)
-    for path, writer, geo, seed in ((llm, write_llm, lg, SEED),
-                                    (model, write_container, vg, SEED + 1)):
-        if path.exists():
-            log(f"[engine] reusing {path.relative_to(ROOT)}")
-            continue
-        gen.manual_seed(seed)
-        t0 = time.perf_counter()
-        tmp = path.with_suffix(".tmp")
-        writer(tmp, gen, geo)
-        tmp.replace(path)
-        log(f"[engine] wrote {path.relative_to(ROOT)} ({path.stat().st_size / 1e9:.2f} GB) "
-            f"in {time.perf_counter() - t0:.1f} s")
-    return model, llm
+    _write_once(llm, write_llm, lg, SEED)
+    return smoke_container(lg["n_embd"], vision_quant), llm
 
 
 # ---------------------------------------------------------------------------
@@ -626,19 +804,25 @@ def smoke_models(lg: dict) -> tuple[Path, Path]:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic", "flash_decode",
-           "paged_flash_decode")
+           "paged_flash_decode", "rq_decode", "rq_prefill")
 CHAT_KERNELS = KERNELS[:5]
+SERVING_KERNELS = KERNELS[:6]
+GQ_KERNELS = KERNELS[:4]
+REPACK_CHAT_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
+DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode")
 
 
 def _wrappers() -> dict:
     from minigpt4_tpu_torch.ops import flash_decode as fd
     from minigpt4_tpu_torch.ops import group_i8 as gq
+    from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
 
     return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
             "gq_decode_generic": gq.gq_decode_generic,
             "gq_prefill_generic": gq.gq_prefill_generic,
             "flash_decode": fd.flash_decode_attention,
-            "paged_flash_decode": fd.paged_flash_decode_attention}
+            "paged_flash_decode": fd.paged_flash_decode_attention,
+            "rq_decode": rq.rq_decode, "rq_prefill": rq.rq_prefill}
 
 
 def launch_counts() -> dict:
@@ -650,17 +834,20 @@ def reset_launch_counts() -> None:
         f.launches = 0
 
 
-def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
-    """One image chat on the synthetic files of geometry ``lg``; the kernels
-    of ``expect`` must launch in it.  Returns its launch counts and times."""
+def chat(label: str, lg: dict, card: str, expect: tuple, quant_mode: str = "auto",
+         vision_quant: str | None = None, forbid: tuple = ()) -> dict:
+    """One image chat on the synthetic files of geometry ``lg`` (the container
+    f16, or with ``vision_quant`` weights) through an engine of ``quant_mode``;
+    the kernels of ``expect`` must launch in it, those of ``forbid`` must not.
+    Returns its launch counts and times."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
     from minigpt4_tpu_torch.image import preprocess
 
-    model, llm = smoke_models(lg)
+    model, llm = smoke_models(lg, vision_quant)
     sync = torch.cuda.synchronize
     reset_launch_counts()
     t0 = time.perf_counter()
-    eng = MiniGPT4Engine(model, llm, device=DEVICE)
+    eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode=quant_mode)
     sync()
     t_load = time.perf_counter() - t0
     n_vocab = eng.llm_cfg.n_vocab
@@ -698,7 +885,7 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
             sync()
             step_ms = (time.perf_counter() - t0) * 1e3 / 16
             after = launch_counts()
-            per_token = sum(after[k] - before[k] for k in ("gq_decode", "gq_decode_generic")) / 16
+            per_token = sum(after[k] - before[k] for k in DECODE_MATMULS) / 16
             prof = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
             log_profile(f"[engine {label}] a 16-token decode chunk", prof, card)
         eng.begin_chat("Tell me more.")
@@ -720,6 +907,9 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
     missing = [k for k in expect if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    stray = [k for k in forbid if counts[k] != 0]
+    if stray:
+        raise AssertionError(f"{label}: kernels launched that this path must not use: {stray}")
     log(f"[engine {label}] prompt {n_prompt} positions; greedy {len(ids)} tokens {ids[:12]}...; "
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
     step = ("not measured (the greedy turn stopped early)" if step_ms is None else
@@ -730,6 +920,90 @@ def chat(label: str, lg: dict, card: str, expect: tuple) -> dict:
     return dict(counts=counts, load_s=t_load, encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3,
                 prompt=n_prompt, decode_tok_s=len(ids) / t_decode, step_ms=step_ms,
                 matmuls_per_token=per_token, profile=prof)
+
+
+# the q5_1 container's embedding against the same weights dequantized to
+# dense f32: the kernel path rounds x and w to bf16 (2^-9 each) in every
+# prefill matmul, 4 in each of the 39 ViT-G blocks and 6 to 10 in each of the
+# 12 Q-Former layers, and those roundings compound through the residual
+# streams and LayerNorms
+ENCODE_TOL = 5e-2
+
+
+def encode_check(card: str) -> dict:
+    """A 13B q5_1 container, every ViT-G and Q-Former projection quantized
+    (K = 1408 included): one image through the kernels (repacked weights)
+    and through the same weights dequantized to dense f32 on the card."""
+    from minigpt4_tpu_torch.formats import ContainerReader, DataType
+    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.models import minigpt4 as vision_mod
+    from minigpt4_tpu_torch.ops import repack as rp
+
+    model = smoke_container(LLM_13B["n_embd"], "q5_1")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ContainerReader(model) as r:
+        params, cfg = vision_mod.load_params(r, torch.float32, DEVICE, "repack")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+
+    def quantized(tree):
+        if isinstance(tree, dict):
+            return [w for v in tree.values() for w in quantized(v)]
+        if isinstance(tree, list):
+            return [w for v in tree for w in quantized(v)]
+        return [tree] if isinstance(tree, rp.RepackedQuant) else []
+
+    weights = quantized(params)
+    blocks = params["visual_encoder"]["blocks"]
+    if not all(isinstance(blocks[n]["w"], rp.RepackedQuant) and blocks[n]["w"].dtype == DataType.Q5_1
+               for n in ("qkv", "proj", "fc1", "fc2")):
+        raise AssertionError("q5_1 container: a ViT-G projection did not load repacked")
+    img = np.random.default_rng(SEED + 3).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    pixels = torch.from_numpy(preprocess(img, size=cfg.vit.image_size)[None]).to(DEVICE)
+    with torch.no_grad():
+        vision_mod.encode_image(params, pixels, cfg)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = vision_mod.encode_image(params, pixels, cfg)
+        torch.cuda.synchronize()
+        t_kernels = time.perf_counter() - t0
+        counts = launch_counts()
+
+        def dense(tree):
+            if isinstance(tree, dict):
+                return {k: dense(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [dense(v) for v in tree]
+            if isinstance(tree, rp.RepackedQuant):
+                return tree.dequantize().transpose(-1, -2).contiguous()  # [(L,) K, N]
+            return tree
+
+        dparams = dense(params)
+        vision_mod.encode_image(dparams, pixels, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = vision_mod.encode_image(dparams, pixels, cfg)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+    err = rel_err(got, want)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[encode q5_1] {len(weights)} repacked weights ({sum(nbytes(*w.tensors().values()) for w in weights) / 1e9:.3f} GB),"
+        f" load {t_load:.2f} s; embedding {tuple(got.shape)} through the kernels "
+        f"{t_kernels * 1e3:.1f} ms, dense f32 {t_dense * 1e3:.1f} ms; max |d| / max |emb| = "
+        f"{err:.3e} (tol {ENCODE_TOL:g}); launches {counts}  [{card}]")
+    if got.shape != (1, cfg.qformer.query_length, LLM_13B["n_embd"]) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"q5_1 encode: embedding {tuple(got.shape)} not finite")
+    if not err <= ENCODE_TOL:
+        raise AssertionError(f"q5_1 encode: kernels and dense f32 differ by {err} > {ENCODE_TOL}")
+    if counts["rq_prefill"] <= 0:
+        raise AssertionError(f"q5_1 encode: rq_prefill never launched: {counts}")
+    return dict(counts=counts, rel_err=err, kernels_ms=t_kernels * 1e3, dense_ms=t_dense * 1e3,
+                load_s=t_load)
 
 
 # ---------------------------------------------------------------------------
@@ -956,7 +1230,9 @@ def main() -> int:
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            kernel = name[max(name.find("gq_"), name.find("flash_")):]
+            unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul", "flash_decode")
+                         if f"{u}_cu" in name), "")
+            kernel = f"{unit}: {name[max(name.find('qmm_'), name.find('flash_')):][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
@@ -966,9 +1242,13 @@ def main() -> int:
                                 ("gq_decode", "gq_prefill", "flash_decode"))}
     paths["serving 13B"] = serving(card)
     counts = paths["serving 13B"]["counts"]
-    missing = [k for k in KERNELS if counts[k] <= 0]
+    missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"serving: kernels never launched on the main path: {missing}")
+    paths["13B repack + q5_k container"] = chat(
+        "13B repack + q5_k container", LLM_13B, card, REPACK_CHAT_KERNELS, quant_mode="repack",
+        vision_quant="q5_k", forbid=GQ_KERNELS)
+    paths["13B q5_1 encode"] = encode_check(card)
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
@@ -983,14 +1263,23 @@ def main() -> int:
                          "minigpt4_tpu/ops/flash_decode.py:82", "B=1 S=1 pos0=1000"),
         "paged_flash_decode": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
                                "minigpt4_tpu/ops/flash_decode.py:82", "B=8 S=1 pos0"),
+        "rq_decode": ("minigpt4_tpu_torch/csrc/rq_matmul.cu",
+                      "minigpt4_tpu/ops/pallas_quant_matmul.py:136", "w13 27648x5120 M=1"),
+        "rq_prefill": ("minigpt4_tpu_torch/csrc/rq_matmul.cu",
+                       "minigpt4_tpu/ops/pallas_quant_matmul.py:195", "fc2 1408x6144 M=257"),
     }
+    # "launches": the count in each kernel's own path (the repack chat for
+    # the rq kernels, the serving phase for the others); every path's count
+    # is in "launches_by_path"
+    main_path = {"rq_decode": "13B repack + q5_k container",
+                 "rq_prefill": "13B repack + q5_k container"}
     kernels = []
     for name, (src, replaces, rep) in meta.items():
         rows = kernel_results[name]
         main_row = next(r for r in rows if r["shape"].startswith(rep))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name],
+            "launches": paths[main_path.get(name, "serving 13B")]["counts"][name],
             "launches_by_path": {label: p["counts"][name] for label, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

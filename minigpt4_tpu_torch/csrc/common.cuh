@@ -41,10 +41,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // exact for values read from bf16 planes
 }
 
+// Codes of a quantized weight, read in runs of 16 consecutive codes of one
+// row that start at a multiple of 16 (qmm_decode.cuh, qmm_prefill.cuh).
+// load(n, k, K) returns the run at row n, column k; value(run, j) is its j-th
+// code as float; a value-initialised Run holds zeros.
+//
+// One signed byte per weight, [L, N, K]: the gq codes, and the q8_0 codes of
+// a repacked weight (rq_matmul.cu).  A run is one 16-byte load.
+struct I8Codes {
+  using Run = int4;
+  const int8_t* codes;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    codes += li * N * K;
+  }
+  __device__ __forceinline__ Run load(int n, int k, int K) const {
+    return __ldg(reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K + k));
+  }
+  __device__ __forceinline__ static float value(const Run& r, int j) {
+    const int w[4] = {r.x, r.y, r.z, r.w};
+    return byte_as_float(w[j / 4], j % 4);
+  }
+};
+
 // Per-group planes of a group-quant weight, W[n, k] = A[g, n] * q[n, k] + B[g, n]
 // with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32; T is the type a
 // kernel keeps staged planes in (f32 for exact planes, bf16 for generic ones,
-// so neither loses a bit).
+// so neither loses a bit).  kRowMajor says whether a plane is stored [N, G]
+// (true) or [G, N]; the decode kernel stages it in the order of its rows.
 //
 // Exact q4_k/q5_k planes (group_i8._kernel_exact): u8 sub-scales sc6/mn6
 // [L, K/32, N] and f32 superblock scales d/dmin [L, K/256, N];
@@ -52,6 +76,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 struct ExactPlanes {
   using T = float;
   static constexpr int kGS = 32;
+  static constexpr bool kRowMajor = false;
   const uint8_t* sc6;
   const uint8_t* mn6;
   const float* d;
@@ -75,6 +100,7 @@ template <int GS>
 struct GenericPlanes {
   using T = __nv_bfloat16;
   static constexpr int kGS = GS;
+  static constexpr bool kRowMajor = false;
   const __nv_bfloat16* a;
   const __nv_bfloat16* b;
 

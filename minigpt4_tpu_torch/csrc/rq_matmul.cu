@@ -1,0 +1,149 @@
+// rq_matmul: the fused dequantize-matmul over repacked quantized weights.
+//
+// Replaces minigpt4_tpu/ops/pallas_quant_matmul.py:_kernel (a static layer
+// index or an unstacked weight) and _kernel_stacked (a traced layer index by
+// scalar prefetch), reached through _run and qmatmul_repacked: every
+// quantized ViT-G / Q-Former weight of a quantized container, and the
+// decoder's weights in quant_mode "repack" or where gq refuses them.  Both
+// TPU kernels compute
+//
+//   y = (scale * q) @ x - groupsum(x) @ mins
+//
+// over the planes of ops/repack.py; here the layer index is one argument
+// and selects the [L, ...] slice by pointer offset, so one entry covers
+// both.  Entry mgt_rq_decode (M <= 8) is qmm_decode.cuh's kernel, x kept in
+// f32 and the group sums of x formed in the kernel (B = -min times sum x per
+// 16-code run); entry mgt_rq_prefill (M > 8) is qmm_prefill.cuh's, which
+// forms w = scale * q - min in f32 and rounds w to bf16 for the tensor
+// cores, so the large scale * q and min of q5_k (min ~ 16 scale) and q6_k
+// (min = 32 scale) cancel before any rounding.
+//
+// The storage is the port's own (ops/repack.py), K in its natural order:
+//   codes  u8 [L, N, K/2] nibble pairs along K, byte (n, j) = q[n, 2j] |
+//          q[n, 2j+1] << 4 (4-bit formats), or i8 [L, N, K] (q8_0);
+//   hi     the high code bits packed along K in 32-bit words: [L, N, K/32]
+//          for q5_* (bit b of word w is bit 4 of q[n, 32 w + b]) or
+//          [L, N, K/16] for q6_k (bits 2b+1:2b of word w are bits 5:4 of
+//          q[n, 16 w + b]);
+//   scales, mins  bf16 [L, N, K/gs], w = scale * q - min.
+// So a 16-code run is one 8-byte load of nibbles and 16 or 32 bits of one
+// high-bit word.
+//
+// What bounds it on the H100: at M <= 8 and at the 32-row image chunk the
+// weight stream (0.5 B per weight of nibbles, + 0.125 of q5 bits or 0.25 of
+// q6 bits, + 4/gs B of planes: 0.75 B per q5_k weight, 1.0 per q6_k weight;
+// q8_0 1.125); at the 257-row ViT chunk and the 512-row bucket the bf16
+// tensor-core rate.
+#include <type_traits>
+
+#include "qmm_decode.cuh"
+#include "qmm_prefill.cuh"
+
+namespace {
+
+// Nibble codes with HB high-bit planes (0, 1 or 2 bits), as laid out above.
+template <int HB>
+struct NibbleCodes {
+  struct Run {
+    uint2 lo;     // 16 nibbles: code j at bits 4j of lo.x (j < 8) or lo.y
+    uint32_t hi;  // the run's high bits, HB per code from bit 0
+  };
+  const uint8_t* codes;
+  const uint32_t* hi;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    codes += li * N * (K / 2);
+    if constexpr (HB > 0) hi += li * N * (K / (32 / HB));
+  }
+  __device__ __forceinline__ Run load(int n, int k, int K) const {
+    const size_t e = static_cast<size_t>(n) * K + k;  // element index, a multiple of 16
+    Run r;
+    r.lo = __ldg(reinterpret_cast<const uint2*>(codes + e / 2));
+    r.hi = 0;
+    if constexpr (HB == 1) r.hi = __ldg(hi + e / 32) >> (e & 16);
+    if constexpr (HB == 2) r.hi = __ldg(hi + e / 16);
+    return r;
+  }
+  __device__ __forceinline__ static float value(const Run& r, int j) {
+    const uint32_t w = j < 8 ? r.lo.x : r.lo.y;
+    uint32_t q = (w >> (4 * (j % 8))) & 15u;
+    if constexpr (HB > 0) q |= ((r.hi >> (HB * j)) & ((1u << HB) - 1u)) << 4;
+    return static_cast<float>(q);
+  }
+};
+
+// Planes of a repacked weight: bf16 scales and mins [L, N, G], G = K / GS,
+// stored row-major per output row; A = scale, B = -min.
+template <int GS>
+struct RowPlanes {
+  using T = __nv_bfloat16;
+  static constexpr int kGS = GS;
+  static constexpr bool kRowMajor = true;
+  const __nv_bfloat16* scales;
+  const __nv_bfloat16* mins;
+  int G;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    scales += li * N * G;
+    mins += li * N * G;
+  }
+  __device__ __forceinline__ float2 fetch(int g, int n, int N) const {
+    const size_t gi = static_cast<size_t>(n) * G + g;
+    return make_float2(__bfloat162float(scales[gi]), -__bfloat162float(mins[gi]));
+  }
+};
+
+template <int GS, class C>
+int run(bool prefill, const void* x, const C& codes, const void* scales, const void* mins,
+        void* y, int M, int N, int K, int layer, void* stream) {
+  const RowPlanes<GS> planes{static_cast<const __nv_bfloat16*>(scales),
+                             static_cast<const __nv_bfloat16*>(mins), K / GS};
+  return prefill ? mgt::qmm_prefill(x, codes, planes, y, M, N, K, layer, stream)
+                 : mgt::qmm_decode(x, codes, planes, y, M, N, K, layer, stream);
+}
+
+// The layouts of ops/repack.py's _LAYOUT: q8_0 (8, 0, 32); q4_0, q4_1, q4_k
+// (4, 0, 32); q2_k, q3_k (4, 0, 16); q5_0, q5_1, q5_k (4, 1, 32); q6_k (4, 2, 16).
+int dispatch(bool prefill, const void* x, const void* codes, const void* hi, const void* scales,
+             const void* mins, void* y, int M, int N, int K, int gs, int code_bits, int hi_bits,
+             int layer, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 0 || K % 32 || layer < 0 || (hi_bits != 0) != (hi != nullptr)) return invalid;
+  const auto* c8 = static_cast<const uint8_t*>(codes);
+  const auto* h = static_cast<const uint32_t*>(hi);
+  const auto args = [&](auto gs_tag, const auto& c) {
+    return run<decltype(gs_tag)::value>(prefill, x, c, scales, mins, y, M, N, K, layer, stream);
+  };
+  using G16 = std::integral_constant<int, 16>;
+  using G32 = std::integral_constant<int, 32>;
+  if (code_bits == 8 && hi_bits == 0 && gs == 32)
+    return args(G32{}, mgt::I8Codes{static_cast<const int8_t*>(codes)});
+  if (code_bits == 4 && hi_bits == 0 && gs == 32) return args(G32{}, NibbleCodes<0>{c8, h});
+  if (code_bits == 4 && hi_bits == 0 && gs == 16) return args(G16{}, NibbleCodes<0>{c8, h});
+  if (code_bits == 4 && hi_bits == 1 && gs == 32) return args(G32{}, NibbleCodes<1>{c8, h});
+  if (code_bits == 4 && hi_bits == 2 && gs == 16) return args(G16{}, NibbleCodes<2>{c8, h});
+  return invalid;
+}
+
+}  // namespace
+
+// x f32 [M, K]; codes u8 [L, N, K/2] (code_bits 4) or i8 [L, N, K]
+// (code_bits 8); hi i32 [L, N, K/32] (hi_bits 1), [L, N, K/16] (hi_bits 2)
+// or null (hi_bits 0); scales/mins bf16 [L, N, K/gs]; y f32 [M, N]; L = 1
+// for an unstacked weight.  Requires 1 <= M <= 8, K % 32 == 0, a layout of
+// dispatch() above and 16-byte aligned x and codes.
+MGT_API int mgt_rq_decode(const void* x, const void* codes, const void* hi, const void* scales,
+                          const void* mins, void* y, int M, int N, int K, int gs, int code_bits,
+                          int hi_bits, int layer, void* stream) {
+  return dispatch(false, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
+                  stream);
+}
+
+// The same for M >= 1 rows (the wrappers send M > 8 here) on the tensor
+// cores.
+MGT_API int mgt_rq_prefill(const void* x, const void* codes, const void* hi, const void* scales,
+                           const void* mins, void* y, int M, int N, int K, int gs, int code_bits,
+                           int hi_bits, int layer, void* stream) {
+  return dispatch(true, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
+                  stream);
+}

@@ -37,6 +37,7 @@ from ..formats import ContainerReader, LlamaFileReader
 from ..tokenizer import LlamaTokenizer
 from ..models import llama as llama_mod
 from ..models import minigpt4 as vision_mod
+from ..models.params import QUANT_MODES
 from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
 from .sampling import Sampler, SamplingParams
 
@@ -104,14 +105,26 @@ class MiniGPT4Engine:
         n_ctx: int = 2048,
         n_batch: int = 512,
         device: str | torch.device = "cuda",
+        quant_mode: str = "auto",
     ):
-        """Load both model files onto ``device``.  The decoder keeps one
-        weight form, group-quant ("gq"): q4_k/q5_k weights load with exact
-        planes; q4_0, q4_1, q5_0, q5_1, q8_0, q2_k, q3_k and q6_k with bf16
-        planes, so llama.cpp's mixed K_M files (q6_k output, wv and w2 on
-        some layers) load as they are.  A quantized weight gq rejects (a K
-        that is no multiple of 8 groups, another format) raises
-        NotImplementedError (ROADMAP Queue 2 item 3, pallas_quant_matmul)."""
+        """Load both model files onto ``device``.
+
+        ``quant_mode`` picks the form of quantized weights, with the JAX
+        engine's values (``auto | repack | qtensor | w8a8 | gq``).  The vision
+        weights load with it as given: ``auto`` and ``repack`` make them
+        repacked (the fused dequant-matmul, as on the TPU).  For the decoder
+        ``auto`` resolves to ``gq``, the form the TPU's budget resolution
+        picks for every supported model when it fits, which 80 GB always
+        allows: group-quant (exact planes for q4_k/q5_k, bf16 planes for
+        q4_0, q4_1, q5_0, q5_1, q8_0, q2_k, q3_k and q6_k, so llama.cpp's
+        mixed K_M files load as they are) where ``group_i8.supported``
+        accepts a weight, repacked otherwise; ``repack`` makes every decoder
+        weight repacked.  ``qtensor`` and ``w8a8`` raise NotImplementedError
+        at the first quantized weight, naming their ROADMAP items.  The
+        resolved decoder mode is ``self.quant_mode``."""
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant_mode {quant_mode!r}: expected "
+                             f"{' | '.join(QUANT_MODES)}")
         utils.set_verbosity(verbosity)
         disable_tf32()
         self.device = torch.device(device)
@@ -119,11 +132,15 @@ class MiniGPT4Engine:
         with utils.phase_timer("Load minigpt4 model"):
             self._container = ContainerReader(model_path)
             self.vision_params, self.vision_cfg = vision_mod.load_params(
-                self._container, COMPUTE_DTYPE, self.device)
+                self._container, COMPUTE_DTYPE, self.device, quant_mode)
         with utils.phase_timer("LLM model init"):
             self._llm_file = LlamaFileReader(llm_path)
+            self.quant_mode = "gq" if quant_mode == "auto" else quant_mode
+            if self.quant_mode != quant_mode:
+                utils.log_info(f"quant_mode auto -> {self.quant_mode} (decoder)")
             self.llm_params, self.llm_cfg = llama_mod.load_params(
-                self._llm_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device)
+                self._llm_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device,
+                quant_mode=self.quant_mode)
             self.tokenizer = LlamaTokenizer(self._llm_file.vocab.tokens,
                                             self._llm_file.vocab.scores)
         if self.vision_cfg.llama_embed_dim != self.llm_cfg.n_embd:

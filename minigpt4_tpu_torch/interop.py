@@ -2,12 +2,14 @@
 
 Used by the parity tests so that both implementations compute with the same
 weights.  ``GroupQuant`` fields map one to one, in both plane modes
-(unpacked codes only: load the JAX side with sub-byte packing off); dense
-``[K, N]`` weights stay ``[K, N]``; stacked layers stay stacked and
-per-layer lists (K_M files) stay lists.  The JAX decoder keeps wq/wk/wv
-and w1/w3 apart for group-quant weights; the layers are reassembled here
-by :func:`~minigpt4_tpu_torch.models.llama.assemble_layers`, which fuses
-them as the port's file loader does.
+(unpacked codes only: load the JAX side with sub-byte packing off); a JAX
+``RepackedQuant`` (TPU layout) is converted to the port's layout by
+:func:`repacked_from_numpy`; dense ``[K, N]`` weights stay ``[K, N]``;
+stacked layers stay stacked and per-layer lists (K_M files) stay lists.
+The JAX decoder keeps wq/wk/wv and w1/w3 apart for group-quant weights; the
+layers are reassembled here by
+:func:`~minigpt4_tpu_torch.models.llama.assemble_layers`, which fuses them
+as the port's file loader does.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from .formats import DataType
 from .models.llama import FUSED, assemble_layers
 from .ops import group_i8 as gq
+from .ops import repack as rp
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -44,9 +47,41 @@ def group_quant_from_numpy(w, device) -> gq.GroupQuant:
         dmin=_t(w.dmin, device, torch.float32), **meta)
 
 
+def repacked_from_numpy(w, device) -> rp.RepackedQuant:
+    """A JAX ``RepackedQuant`` with NumPy fields, unstacked or stacked, in the
+    TPU layout (K tile-interleaved: storage lane b * G + g holds element
+    g * gs + b; nibbles paired across rows 2r, 2r + 1 with a zero row after
+    an odd N; high bits tile-major, lane j in byte j % nb at field j // nb)
+    -> the port's layout (``ops/repack.py``), with the same bf16 planes."""
+    if w.k_shards != 1:
+        raise ValueError(f"RepackedQuant k_shards={w.k_shards}: unsharded weights only")
+    scales = _t(w.scales, device, torch.bfloat16)
+    mins = _t(w.mins, device, torch.bfloat16)
+    lead, n, k, gs = tuple(scales.shape[:-2]), scales.shape[-2], int(w.n_in), int(w.group_size)
+    codes = np.asarray(w.codes)
+    if int(w.code_bits) == 4:
+        q = np.stack([codes & 15, codes >> 4], axis=-2).astype(np.int32)
+        q = q.reshape(*codes.shape[:-2], 2 * codes.shape[-2], k)[..., :n, :]
+    else:
+        q = codes.astype(np.int32)
+    if int(w.hi_bits):
+        hb = int(w.hi_bits)
+        hi = np.asarray(w.hi).astype(np.int32)
+        q = q + (np.concatenate([(hi >> (p * hb)) & ((1 << hb) - 1) for p in range(8 // hb)],
+                                axis=-1) << 4)
+    g = k // gs
+    q = q.reshape(*q.shape[:-1], gs, g).swapaxes(-1, -2).reshape(q.shape)  # original K order
+    flat = [rp.pack(torch.from_numpy(np.ascontiguousarray(qi)).to(device), s, m, DataType(w.dtype))
+            for qi, s, m in zip(q.reshape(-1, n, k), scales.reshape(-1, n, g),
+                                mins.reshape(-1, n, g))]
+    return rp.stack(flat) if lead else flat[0]
+
+
 def _weight(w, device, dtype):
     if isinstance(w, list):
         return [_weight(v, device, dtype) for v in w]
+    if hasattr(w, "hi_bits"):
+        return repacked_from_numpy(w, device)
     if hasattr(w, "codes"):
         return group_quant_from_numpy(w, device)
     return _t(w, device, dtype)
@@ -55,7 +90,7 @@ def _weight(w, device, dtype):
 def _layer_of(w, li: int):
     if isinstance(w, list):
         return w[li]
-    if isinstance(w, gq.GroupQuant):
+    if isinstance(w, (gq.GroupQuant, rp.RepackedQuant)):
         return w.layer(li)
     return w[li]
 
@@ -79,17 +114,19 @@ def llama_params_from_numpy(tree: dict, device: str | torch.device,
     }
 
 
-def _dense_tree(node, device, dtype):
+def _vision_tree(node, device, dtype):
     if isinstance(node, dict):
-        return {k: _dense_tree(v, device, dtype) for k, v in node.items()}
+        return {k: _vision_tree(v, device, dtype) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_dense_tree(v, device, dtype) for v in node]
-    if hasattr(node, "codes") or hasattr(node, "packed"):
-        raise ValueError("quantized vision weights are not ported")
-    return _t(node, device, dtype)
+        return [_vision_tree(v, device, dtype) for v in node]
+    if hasattr(node, "packed"):
+        raise ValueError("QTensor weights are not ported (ROADMAP Queue 1 item 2): "
+                         "load the JAX side with quant_mode='repack' or 'gq'")
+    return _weight(node, device, dtype)
 
 
 def vision_params_from_numpy(tree: dict, device: str | torch.device,
                              dtype: torch.dtype = torch.float32) -> dict:
-    """JAX ``minigpt4.load_params`` output (NumPy leaves) -> port vision params."""
-    return _dense_tree(tree, device, dtype)
+    """JAX ``minigpt4.load_params`` output (NumPy leaves) -> port vision
+    params; repacked and group-quant weights convert as above."""
+    return _vision_tree(tree, device, dtype)

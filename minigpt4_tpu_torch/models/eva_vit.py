@@ -3,7 +3,9 @@
 14x14 patch embedding as one matmul (not a convolution, so no cuDNN and no
 TF32 path), a learned cls token and position embedding, then pre-LN blocks
 with a fused QKV projection whose bias is (q_bias, 0, v_bias), exact-GELU
-MLP, LayerNorm eps 1e-6.  Blocks are stacked [L, ...] and indexed per layer.
+MLP, LayerNorm eps 1e-6.  Blocks are stacked [L, ...] and indexed per layer;
+a quantized container's weights stack as one group-quant or repacked weight
+whose layer index reaches the kernel (the JAX package's static-layer path).
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import numpy as np
 import torch
 
 from ..formats import is_quantized
+from ..ops import group_i8 as gq
+from ..ops import repack as rp
 from .layers import gelu, layer_norm, merge_heads, mha, split_heads
-from .params import dense_from_numpy, linear, tensor
+from .params import dense_from_numpy, linear, load_quant_weight, tensor
 
 LN_EPS = 1e-6
 
@@ -72,9 +76,19 @@ def forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 
 
 def _stack(trees: list[dict]) -> dict:
-    """List of identical {name: tensor | {name: tensor}} -> stacked [L, ...]."""
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+    """List of identical {name: leaf | {name: leaf}} -> stacked [L, ...];
+    a leaf is a tensor, a GroupQuant or a RepackedQuant."""
+
+    def leaf(vs):
+        if isinstance(vs[0], dict):
+            return _stack(vs)
+        if isinstance(vs[0], gq.GroupQuant):
+            return gq.stack(vs)
+        if isinstance(vs[0], rp.RepackedQuant):
+            return rp.stack(vs)
+        return torch.stack(vs)
+
+    return {k: leaf([t[k] for t in trees]) for k in trees[0]}
 
 
 def _ln(t, prefix: str, dtype, device) -> dict:
@@ -82,19 +96,24 @@ def _ln(t, prefix: str, dtype, device) -> dict:
             "b": tensor(t(prefix + ".bias"), dtype, device)}
 
 
-def load_linear(reader, model: str, wname: str, bias, dtype, device) -> dict:
-    """Dense linear from the container (torch layout [out, in]).  Quantized
-    vision containers need the repacked-quant kernel (ROADMAP Queue 2)."""
+def load_linear(reader, model: str, wname: str, bias, dtype, device,
+                quant_mode: str = "auto") -> dict:
+    """Dense or quantized linear from the container (torch layout [out, in]);
+    a quantized weight loads by ``params.load_quant_weight``'s rules for
+    ``quant_mode`` (``auto``: repacked, as on the TPU)."""
     rec = reader.models[model].tensors[wname]
     if is_quantized(rec.dtype):
-        raise NotImplementedError(
-            f"{model}.{wname} is {rec.dtype.name}: quantized vision weights need "
-            "the pallas_quant_matmul port (ROADMAP Queue 2)")
+        p = {"w": load_quant_weight(reader.raw(model, wname), rec.shape, rec.dtype, device,
+                                    quant_mode)}
+        if bias is not None:
+            p["b"] = tensor(bias, dtype, device)
+        return p
     return dense_from_numpy(reader.tensor_f32(model, wname), bias, dtype, device)
 
 
 def load_params(reader, dtype: torch.dtype = torch.float32,
-                device: str | torch.device = "cuda") -> tuple[dict, ViTConfig]:
+                device: str | torch.device = "cuda",
+                quant_mode: str = "auto") -> tuple[dict, ViTConfig]:
     """ViT params from a ContainerReader's ``visual_encoder`` sub-model."""
     names = reader.models["visual_encoder"].tensors.keys()
     depth = 1 + max(int(n.split(".")[1]) for n in names if n.startswith("blocks."))
@@ -125,7 +144,8 @@ def load_params(reader, dtype: torch.dtype = torch.float32,
         qkv_bias = np.concatenate([q_bias, np.zeros_like(q_bias), t(pfx + "attn.v_bias").reshape(-1)])
 
         def lin(name, bias):
-            return load_linear(reader, "visual_encoder", pfx + name, bias, dtype, device)
+            return load_linear(reader, "visual_encoder", pfx + name, bias, dtype, device,
+                               quant_mode)
 
         blocks.append({
             "norm1": _ln(t, pfx + "norm1", dtype, device),

@@ -4,8 +4,8 @@ Counterpart of ``minigpt4_tpu/models/llama.py``.  ``forward`` runs S
 positions (token or injected image embeddings) from cursor ``pos0``,
 writes their K/V into the stacked cache ``[L, B, H, C, Dh]`` in place and
 returns the logits of one position; a decode step is the same call with
-S = 1.  Projections run through :func:`~.params.linear` (group-quant
-kernels for quantized weights); attention of S <= ``FLASH_DECODE_MAX_S``
+S = 1.  Projections run through :func:`~.params.linear` (group-quant or
+repacked-weight kernels for quantized weights); attention of S <= ``FLASH_DECODE_MAX_S``
 rows runs the flash-decode kernel, longer prefill chunks a plain masked
 softmax.  RoPE is the interleaved-pair variant (ggml_rope mode 0).
 
@@ -24,6 +24,7 @@ import torch
 
 from ..formats import is_quantized
 from ..ops import group_i8 as gq
+from ..ops import repack as rp
 from ..ops.flash_decode import PAGE, flash_decode_attention, paged_flash_decode_attention
 from .layers import rms_norm
 from .params import linear, load_quant_weight, tensor
@@ -263,6 +264,8 @@ def _form(w) -> tuple:
     """What must agree for weights to stack or fuse."""
     if isinstance(w, gq.GroupQuant):
         return ("gq", w.dtype, w.n_in)
+    if isinstance(w, rp.RepackedQuant):
+        return ("rq", *w.form())
     return ("dense", w.dtype, tuple(w.shape))
 
 
@@ -271,25 +274,34 @@ def _stack_or_list(ws: list):
     itself where the layers differ in form (``linear`` indexes it)."""
     if any(_form(w) != _form(ws[0]) for w in ws):
         return list(ws)
-    return gq.stack(ws) if isinstance(ws[0], gq.GroupQuant) else torch.stack(ws)
+    if isinstance(ws[0], gq.GroupQuant):
+        return gq.stack(ws)
+    return rp.stack(ws) if isinstance(ws[0], rp.RepackedQuant) else torch.stack(ws)
+
+
+def _concat_out(ws: list):
+    """Parts of one form fused along the output axis."""
+    if isinstance(ws[0], gq.GroupQuant):
+        return gq.concat_out(ws)
+    return rp.concat_out(ws) if isinstance(ws[0], rp.RepackedQuant) else torch.cat(ws, dim=-1)
 
 
 def assemble_layers(per_layer: list[dict]) -> dict:
     """Per-layer projections ``[{name: weight}]`` -> ``{name: {"w": ...}}``.
 
     wq|wk|wv and w1|w3 fuse along the output axis (``wqkv``, ``w13``) only
-    where every layer's parts share one form; otherwise all layers keep them
-    apart.  Each name then stacks over layers, or stays a per-layer list
-    where its layers differ (llama.cpp's K_M files make some wv/w2 q6_k).
+    where every layer's parts share one form (dense, gq or repacked, one
+    format); otherwise all layers keep them apart.  Each name then stacks
+    over layers, or stays a per-layer list where its layers differ
+    (llama.cpp's K_M files make some wv/w2 q6_k; gq and repacked weights may
+    mix in one list).
     Consumes ``per_layer`` name by name, so the per-layer copies are freed
     as the stacked ones are made."""
     for fused, parts in FUSED.items():
         if all(p in lp for lp in per_layer for p in parts) and all(
                 len({_form(lp[p]) for p in parts}) == 1 for lp in per_layer):
             for lp in per_layer:
-                ws = [lp.pop(p) for p in parts]
-                lp[fused] = (gq.concat_out(ws) if isinstance(ws[0], gq.GroupQuant)
-                             else torch.cat(ws, dim=-1))
+                lp[fused] = _concat_out([lp.pop(p) for p in parts])
     out = {}
     for name in list(per_layer[0]):
         out[name] = {"w": _stack_or_list([lp.pop(name) for lp in per_layer])}
@@ -297,19 +309,23 @@ def assemble_layers(per_layer: list[dict]) -> dict:
 
 
 def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
-                device: str | torch.device = "cuda") -> tuple[dict, LlamaConfig]:
+                device: str | torch.device = "cuda",
+                quant_mode: str = "auto") -> tuple[dict, LlamaConfig]:
     """Decoder params from a LlamaFileReader, stacked over layers.
 
-    Quantized projections become group-quant weights decoded on ``device``
-    (every format ``group_i8.supported`` accepts; other quantized weights
-    raise NotImplementedError); dense tensors are stored [in, out] in
-    ``dtype``.  Layers are assembled by :func:`assemble_layers`."""
+    Quantized projections are decoded on ``device`` by
+    ``params.load_quant_weight``'s rules for ``quant_mode``; ``auto`` is
+    ``gq`` for the decoder (group-quant where ``group_i8.supported`` accepts
+    the weight, repacked otherwise), ``repack`` makes every one repacked.
+    Dense tensors are stored [in, out] in ``dtype``.  Layers are assembled by
+    :func:`assemble_layers`."""
     cfg = LlamaConfig.from_hparams(reader.hparams, n_ctx=n_ctx)
+    mode = "gq" if quant_mode == "auto" else quant_mode
 
     def lin(name: str):
         rec = reader.tensors[name]
         if is_quantized(rec.dtype):
-            return load_quant_weight(reader.raw(name), rec.shape, rec.dtype, device)
+            return load_quant_weight(reader.raw(name), rec.shape, rec.dtype, device, mode)
         return tensor(np.asarray(reader.tensor_f32(name)).T, dtype, device)
 
     params = {

@@ -79,7 +79,8 @@ def forward(params: dict, image_states: torch.Tensor, cfg: QFormerConfig) -> tor
 
 
 def load_params(reader, dtype: torch.dtype = torch.float32,
-                device: str | torch.device = "cuda") -> tuple[dict, QFormerConfig]:
+                device: str | torch.device = "cuda",
+                quant_mode: str = "auto") -> tuple[dict, QFormerConfig]:
     """Q-Former params from the container's ``Qformer`` + ``query_tokens``."""
     cfg = QFormerConfig.from_container_config(reader.config)
 
@@ -95,7 +96,8 @@ def load_params(reader, dtype: torch.dtype = torch.float32,
     }
 
     def lin(name):
-        return load_linear(reader, "Qformer", name + ".weight", t(name + ".bias"), dtype, device)
+        return load_linear(reader, "Qformer", name + ".weight", t(name + ".bias"), dtype, device,
+                           quant_mode)
 
     def attn_params(pfx: str) -> dict:
         return {

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
-All ``csrc/*.cu`` files compile, in one nvcc call, into
+Each ``csrc/*.cu`` file compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into
 ``build/kernels/libminigpt4_tpu_torch_kernels.so`` at the root of the
 checkout, for ``sm_90a`` (Hopper).  The build is keyed by a SHA-256 of the
 sources: an unchanged tree reuses the library, a changed one rebuilds it.
@@ -28,10 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libminigpt4_tpu_torch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every entry point (ctypes would cut 64-bit pointers
@@ -43,6 +42,8 @@ SIGNATURES = {
     "mgt_gq_prefill_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mgt_flash_decode": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
     "mgt_flash_decode_paged": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
+    "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -78,18 +79,36 @@ def build() -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    objs = [str(obj) for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-6000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-6000:] for f in failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
     stamp.write_text(digest)
     return lib

@@ -233,6 +233,33 @@ def _decode_generic(blk: torch.Tensor, dtype: DataType):
     raise ValueError(f"no gq decoding for {dtype.name}")
 
 
+def _decode_k4(blk: torch.Tensor, dtype: DataType):
+    """q4_k/q5_k blocks [n, nb, bytes] -> (q [n, nb, 4, 2, 32] in ggml decode
+    order, d and dmin f32 [n, nb], 6-bit sub-scales sc and mins mn [n, nb, 8])
+    with ``w = d * sc * q - dmin * mn`` per group of 32."""
+    n, nb = blk.shape[:2]
+    sc, mn = _unpack_k4_scales(blk[:, :, 4:16].to(torch.int32))
+    if dtype == DataType.Q4_K:
+        qs = blk[:, :, 16:144].view(n, nb, 4, 32)
+        q = torch.stack([qs & 0x0F, qs >> 4], dim=3)
+    else:
+        qh = blk[:, :, 16:48].to(torch.int32).unsqueeze(2)  # [n, nb, 1, 32]
+        qs = blk[:, :, 48:176].view(n, nb, 4, 32).to(torch.int32)
+        j = torch.arange(4, device=blk.device, dtype=torch.int32).view(1, 1, 4, 1)
+        q1 = (qs & 0x0F) + (((qh >> (2 * j)) & 1) << 4)
+        q2 = (qs >> 4) + (((qh >> (2 * j + 1)) & 1) << 4)
+        q = torch.stack([q1, q2], dim=3)
+    return q, _f16(blk, 0), _f16(blk, 2), sc, mn
+
+
+def blocks_on(raw, shape: tuple[int, int], dtype: DataType,
+              device: str | torch.device) -> torch.Tensor:
+    """ggml bytes of an ``[N, K]`` weight -> u8 blocks ``[N, K / block, bytes]``
+    on ``device`` (one host copy, one upload)."""
+    host = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
+    return host.to(device).view(shape[0], -1, BLOCK_BYTES[dtype])
+
+
 def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
               device: str | torch.device) -> GroupQuant:
     """ggml bytes of an ``[N, K]`` weight in any :data:`REPACKABLE` format ->
@@ -248,8 +275,7 @@ def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
     gs = group_size(dtype)
     if k % (J * gs):
         raise ValueError(f"{dtype.name}: K={k} is not a multiple of {J * gs}")
-    host = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
-    blk = host.to(device).view(n, -1, BLOCK_BYTES[dtype])
+    blk = blocks_on(raw, shape, dtype, device)
     nb = blk.shape[1]
     if dtype not in EXACT_PLANE:
         q, scales, mins = _decode_generic(blk, dtype)
@@ -258,18 +284,7 @@ def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
             group_size=gs,
             a=scales.t().to(torch.bfloat16).contiguous(),
             b=(-mins).t().to(torch.bfloat16).contiguous())
-    d, dmin = _f16(blk, 0), _f16(blk, 2)
-    sc, mn = _unpack_k4_scales(blk[:, :, 4:16].to(torch.int32))
-    if dtype == DataType.Q4_K:
-        qs = blk[:, :, 16:144].view(n, nb, 4, 32)
-        q = torch.stack([qs & 0x0F, qs >> 4], dim=3)
-    else:
-        qh = blk[:, :, 16:48].to(torch.int32).unsqueeze(2)  # [n, nb, 1, 32]
-        qs = blk[:, :, 48:176].view(n, nb, 4, 32).to(torch.int32)
-        j = torch.arange(4, device=blk.device, dtype=torch.int32).view(1, 1, 4, 1)
-        q1 = (qs & 0x0F) + (((qh >> (2 * j)) & 1) << 4)
-        q2 = (qs >> 4) + (((qh >> (2 * j + 1)) & 1) << 4)
-        q = torch.stack([q1, q2], dim=3)
+    q, d, dmin, sc, mn = _decode_k4(blk, dtype)
     return GroupQuant(
         codes=q.reshape(n, k).to(torch.int8).contiguous(), dtype=dtype, n_in=k, group_size=gs,
         sc6=sc.reshape(n, nb * J).t().to(torch.uint8).contiguous(),

@@ -1,0 +1,180 @@
+"""Repacked quantized weights ("rq"), the form of the fused dequant-matmul.
+
+Counterpart of ``minigpt4_tpu/ops/repack.py`` with the port's own storage,
+chosen for Hopper: K stays in its natural order, so a kernel reads a row's
+codes with plain vector loads.  A :class:`RepackedQuant` of a logical
+``[(L,) N, K]`` weight holds
+
+    codes   u8 [(L,) N, K/2]  two 4-bit codes per byte along K: byte (n, j) =
+            q[n, 2j] | q[n, 2j+1] << 4 (q4_*, q5_*, q2_k, q3_k, q4_k, q5_k,
+            q6_k), or i8 [(L,) N, K] signed codes (q8_0)
+    hi      i32 [(L,) N, K/32]  bit b of word w is bit 4 of q[n, 32w + b]
+            (q5_0, q5_1, q5_k), or i32 [(L,) N, K/16] with bits 5:4 of
+            q[n, 16w + b] at bits 2b+1:2b (q6_k); None otherwise
+    scales  bf16 [(L,) N, K/gs]  per-group multiplier
+    mins    bf16 [(L,) N, K/gs]  per-group subtrahend
+
+    w[n, k] = scales[n, k // gs] * q[n, k] - mins[n, k // gs]
+
+with the unsigned formats' zero offsets folded into mins (q4_0: 8 d, q5_0:
+16 d, q3_k: 4 scale, q6_k: 32 scale) and q8_0's mins zero, exactly as the
+JAX package's ``_decode_codes_scales``; scales and mins round from f32 to
+bf16 to nearest even, as its default ``plane_dtype``.  Group size 16 for
+q2_k, q3_k and q6_k, 32 otherwise.  An odd N needs no padding row.  The
+Mosaic layouts of the JAX package (tile-interleaved K, row-pair nibbles for
+``pltpu.bitcast``, tile-major bit planes) have no job here;
+``interop.repacked_from_numpy`` converts them.  ``with_k_shards`` (tensor
+parallelism) is not ported (ROADMAP Queue 1 item 11).
+
+Bytes per weight streamed by a matmul: 0.5 of nibbles, + 0.125 of q5 bits
+or 0.25 of q6 bits, + 4/gs of planes: 0.625 (q4_0), 0.75 (q5_k), 1.0 (q6_k);
+q8_0 1.125.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import torch
+
+from ..formats import DataType
+from . import group_i8 as gq
+
+# static plane layout per format: (code bits, high bits); layers stack only
+# within one layout (repack.py _LAYOUT of the JAX package)
+LAYOUT = {
+    DataType.Q4_0: (4, 0), DataType.Q4_1: (4, 0), DataType.Q2_K: (4, 0),
+    DataType.Q3_K: (4, 0), DataType.Q4_K: (4, 0), DataType.Q5_0: (4, 1),
+    DataType.Q5_1: (4, 1), DataType.Q5_K: (4, 1), DataType.Q6_K: (4, 2),
+    DataType.Q8_0: (8, 0),
+}
+REPACKABLE = frozenset(LAYOUT)
+
+
+@dataclass
+class RepackedQuant:
+    """Repacked weight, logically ``[(L,) N, K]``; see the module docstring."""
+
+    codes: torch.Tensor  # u8 [(L,) N, K/2] or i8 [(L,) N, K]
+    scales: torch.Tensor  # bf16 [(L,) N, K/gs]
+    mins: torch.Tensor  # bf16 [(L,) N, K/gs]
+    hi: torch.Tensor | None  # i32 [(L,) N, K/32] or [(L,) N, K/16]
+    dtype: DataType
+    n_in: int
+    group_size: int
+    code_bits: int
+    hi_bits: int
+
+    @property
+    def n_out(self) -> int:
+        return self.scales.shape[-2]
+
+    @property
+    def stacked(self) -> bool:
+        return self.scales.dim() == 3
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+
+    def form(self) -> tuple:
+        """What must agree for weights to stack or fuse."""
+        return (self.dtype, self.n_in, self.group_size, self.code_bits, self.hi_bits)
+
+    def _replace(self, **ts) -> "RepackedQuant":
+        return RepackedQuant(**{"hi": None, **ts}, dtype=self.dtype, n_in=self.n_in,
+                             group_size=self.group_size, code_bits=self.code_bits,
+                             hi_bits=self.hi_bits)
+
+    def layer(self, li: int) -> "RepackedQuant":
+        """One layer of a stacked weight (views, no copy)."""
+        return self._replace(**{k: v[li] for k, v in self.tensors().items()})
+
+    def codes_int(self) -> torch.Tensor:
+        """The full codes q ``[(L,) N, K]`` as i32 (0..63, or -128..127 for q8_0)."""
+        if self.code_bits == 8:
+            return self.codes.to(torch.int32)
+        c = self.codes.to(torch.int32)
+        q = torch.stack([c & 15, c >> 4], dim=-1).reshape(*c.shape[:-1], self.n_in)
+        if self.hi_bits:
+            per = 32 // self.hi_bits
+            sh = torch.arange(0, 32, self.hi_bits, dtype=torch.int32, device=c.device)
+            bits = (self.hi.unsqueeze(-1) >> sh) & ((1 << self.hi_bits) - 1)
+            q = q + (bits.reshape(*self.hi.shape[:-1], self.hi.shape[-1] * per) << 4)
+        return q
+
+    def dequantize(self) -> torch.Tensor:
+        """``[(L,) N, K]`` f32: ``scale * q - min`` with the planes expanded
+        over their groups (the operations of the JAX package's
+        ``dequantize_repacked``, so the two agree bit for bit)."""
+        gs = self.group_size
+        sc = torch.repeat_interleave(self.scales.float(), gs, dim=-1)
+        mn = torch.repeat_interleave(self.mins.float(), gs, dim=-1)
+        return sc * self.codes_int().float() - mn
+
+
+def _check(ws: list[RepackedQuant], what: str) -> RepackedQuant:
+    w0 = ws[0]
+    if any(w.form() != w0.form() for w in ws):
+        raise ValueError(f"{what} RepackedQuant parts must share format and K")
+    return w0
+
+
+def stack(ws: list[RepackedQuant]) -> RepackedQuant:
+    """Per-layer weights -> one weight with a leading L axis."""
+    w0 = _check(ws, "stacked")
+    return w0._replace(**{k: torch.stack([w.tensors()[k] for w in ws]) for k in w0.tensors()})
+
+
+def concat_out(ws: list[RepackedQuant]) -> RepackedQuant:
+    """Fuse weights of one input width along the output axis (wq|wk|wv):
+    every field is one row per output, so all concatenate along N."""
+    w0 = _check(ws, "fused")
+    return w0._replace(**{k: torch.cat([w.tensors()[k] for w in ws], dim=-2)
+                          for k in w0.tensors()})
+
+
+def pack(q: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor,
+         dtype: DataType) -> RepackedQuant:
+    """Full codes ``q [N, K]`` (0..63 unsigned, or i8 for q8_0) and f32 planes
+    ``[N, K/gs]`` -> the port's storage."""
+    dtype = DataType(dtype)
+    code_bits, hi_bits = LAYOUT[dtype]
+    n, k = q.shape
+    hi = None
+    if code_bits == 8:
+        codes = q.to(torch.int8).contiguous()
+    else:
+        q = q.to(torch.int32)
+        lo = q & 15
+        codes = (lo[:, 0::2] | (lo[:, 1::2] << 4)).to(torch.uint8).contiguous()
+        if hi_bits:
+            per = 32 // hi_bits
+            fields_ = ((q >> 4) & ((1 << hi_bits) - 1)).to(torch.int64).view(n, k // per, per)
+            sh = torch.arange(0, 32, hi_bits, dtype=torch.int64, device=q.device)
+            words = (fields_ << sh).sum(dim=-1)  # disjoint bits: the sum is the or
+            hi = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32).contiguous()
+    return RepackedQuant(codes=codes, scales=scales.to(torch.bfloat16).contiguous(),
+                         mins=mins.to(torch.bfloat16).contiguous(), hi=hi, dtype=dtype,
+                         n_in=k, group_size=gq.group_size(dtype), code_bits=code_bits,
+                         hi_bits=hi_bits)
+
+
+def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
+              device: str | torch.device) -> RepackedQuant:
+    """ggml bytes of an ``[N, K]`` weight in any :data:`REPACKABLE` format ->
+    :class:`RepackedQuant`, decoded on ``device`` with torch ops by the
+    decoders of ``group_i8`` (one upload of the bytes, no host pass over the
+    weights)."""
+    dtype = DataType(dtype)
+    if dtype not in REPACKABLE:
+        raise ValueError(f"{dtype.name} has no repacked form")
+    n, k = shape
+    blk = gq.blocks_on(raw, shape, dtype, device)
+    if dtype in gq.EXACT_PLANE:
+        q, d, dmin, sc, mn = gq._decode_k4(blk, dtype)
+        scales = d.unsqueeze(-1) * sc.float()  # exact in f32: f16 times a 6-bit integer
+        mins = dmin.unsqueeze(-1) * mn.float()
+    else:
+        q, scales, mins = gq._decode_generic(blk, dtype)
+    return pack(q.reshape(n, k), scales.reshape(n, -1), mins.reshape(n, -1), dtype)

@@ -569,6 +569,11 @@ def main(argv: list[str] | None = None) -> None:
                     "batched groups: a lane holds device memory for the positions it "
                     "used, not a full session_ctx (0 = dense stacked caches)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quant-mode", choices=["auto", "repack", "gq", "qtensor", "w8a8"],
+                    default="auto",
+                    help="form of quantized weights (MiniGPT4Engine quant_mode): auto = gq for "
+                    "the decoder where it applies, repacked otherwise and for the vision "
+                    "weights; repack = repacked everywhere")
     # the JAX server's options that the port does not serve yet: accepted so
     # that asking for one names its ROADMAP item instead of a usage error
     ap.add_argument("--continuous", action="store_true")
@@ -589,6 +594,7 @@ def main(argv: list[str] | None = None) -> None:
                              session_ctx=args.session_ctx, n_ctx=args.n_ctx,
                              batch_window_s=args.batch_window_ms / 1e3,
                              paged_pages=args.paged_pages or None, device=args.device,
+                             quant_mode=args.quant_mode,
                              **{name: getattr(args, name) for name in UNPORTED})
     except NotImplementedError as e:
         ap.error(str(e))

@@ -13,13 +13,18 @@ gq_prefill_generic round x and W to bf16 like their plain version and sum
 64-wide K tiles on the tensor cores (1e-4); flash decode, dense and paged,
 is f32 online softmax against f32 softmax (1e-5 absolute on unit inputs),
 and the paged kernel gives the dense kernel's bits on the gathered cache.
+rq_decode keeps x in f32 like qmatmul_repacked_ref (1e-5); rq_prefill
+rounds x and w = scale * q - min to bf16 like qmatmul_repacked_prefill_ref
+(1e-4, summation order) and sits within 1e-2 of the f32 plain version
+(two bf16 roundings of 2^-9 each per product; tests/test_pallas_quant_matmul.py
+holds the TPU kernel to 1.2e-2 of the same f32 product).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fixtures import GQ_D, build_container, build_gq_models
+from fixtures import GQ_D, build_container, build_gq_models, build_llm_gq
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.engine.sessions import SessionPool
 from minigpt4_tpu_torch.formats import DataType, quants
@@ -27,6 +32,8 @@ from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.ops import _build
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
+from minigpt4_tpu_torch.ops import pallas_quant_matmul as trq
+from minigpt4_tpu_torch.ops import repack as trp
 from test_torch_fixtures import build_llm_q5_k_m
 
 pytestmark = pytest.mark.cuda
@@ -267,3 +274,114 @@ def test_paged_batch_on_card_matches_plain_versions(cuda_device, tmp_path):
         grew = tfd.paged_flash_decode_attention.launches > before
         assert grew == (device == "cuda")
     assert texts["cuda"] == texts["cpu"]
+
+
+RQ_FORMATS = sorted(trp.REPACKABLE)
+
+
+def _rq(dtype, n, k, seeds, device):
+    return trp.stack([trp.from_ggml(quants.quantize(
+        np.random.default_rng(s).normal(0, 0.6, (n, k)).astype(np.float32), dtype),
+        (n, k), dtype, device) for s in seeds])
+
+
+# every layout; K = 1408 (ViT-G width, 44 groups of 32) for the 32-blocks,
+# 768 for the k-quants; N = 301 is odd and ragged for both column tiles
+@pytest.mark.parametrize("dtype", RQ_FORMATS, ids=[d.name.lower() for d in RQ_FORMATS])
+@pytest.mark.parametrize("m", [1, 5, 8, 40])
+def test_repacked_kernels_match_plain(cuda_device, dtype, m):
+    k = 768 if dtype >= DataType.Q2_K else 1408
+    w = _rq(dtype, 301, k, (1, 2), cuda_device)
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+    x = x.to(cuda_device)
+    decode = m <= trq.RQ_MAX_M
+    kern = trq.rq_decode if decode else trq.rq_prefill
+    before = kern.launches
+    got = kern(x, w, 1)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    f32 = trq.qmatmul_repacked_ref(x, w, 1)
+    if decode:
+        assert _rel(got, f32) <= 1e-5
+    else:
+        assert _rel(got, trq.qmatmul_repacked_prefill_ref(x, w, 1)) <= 1e-4
+        assert _rel(got, f32) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [DataType.Q4_0, DataType.Q5_1], ids=["q4_0", "q5_1"])
+@pytest.mark.parametrize("m", [3, 40])
+def test_repacked_kernels_short_k(cuda_device, dtype, m):
+    # K = 96: three groups, a 32-wide tail in the prefill kernel's 64-wide K tile
+    w = _rq(dtype, 37, 96, (3,), cuda_device)
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, 96)).astype(np.float32))
+    got = trq.qmatmul_repacked(x.to(cuda_device), w, 0)
+    plain = trq.qmatmul_repacked_ref if m <= trq.RQ_MAX_M else trq.qmatmul_repacked_prefill_ref
+    assert _rel(got, plain(x.to(cuda_device), w, 0)) <= 1e-4
+
+
+def test_repacked_refused_launches_raise(cuda_device):
+    w = _rq(DataType.Q5_1, 64, 256, (0,), cuda_device)
+    x9 = torch.zeros((9, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="1..8 rows"):
+        trq.rq_decode(x9, w, 0)
+    with pytest.raises(IndexError, match="out of range"):
+        trq.rq_decode(x9[:1], w, 1)
+    with pytest.raises(ValueError, match="layer index"):
+        trq.rq_prefill(x9, w)
+    # the C entries refuse what the wrappers would: M = 9, group size 24,
+    # K = 48, a missing high-bit plane, a negative layer
+    lib, y = _build.load(), torch.empty((9, 64), device=cuda_device)
+    stream = _build.stream_ptr(cuda_device)
+    ptrs = (w.codes.data_ptr(), w.hi.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr())
+    for entry, m, k, gs, hi, layer in (("mgt_rq_decode", 9, 256, 32, ptrs[1], 0),
+                                       ("mgt_rq_decode", 1, 256, 24, ptrs[1], 0),
+                                       ("mgt_rq_prefill", 9, 48, 16, ptrs[1], 0),
+                                       ("mgt_rq_prefill", 9, 256, 32, None, 0),
+                                       ("mgt_rq_decode", 1, 256, 32, ptrs[1], -1)):
+        rc = getattr(lib, entry)(x9.data_ptr(), ptrs[0], hi, ptrs[2], ptrs[3], y.data_ptr(),
+                                 m, 64, k, gs, 4, 1, layer, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(rc, entry)
+
+
+def test_repacked_cpu_wrappers_count_no_launch():
+    w = _rq(DataType.Q6_K, 32, 256, (0,), "cpu")
+    before = (trq.rq_decode.launches, trq.rq_prefill.launches)
+    for m in (1, 8, 9, 40):
+        trq.qmatmul_repacked(torch.zeros(m, 256), w, 0)
+    assert (trq.rq_decode.launches, trq.rq_prefill.launches) == before
+
+
+@pytest.mark.parametrize("files", ["q4_0", "gq-q5_k"])
+def test_repack_engine_on_card_matches_plain_versions(cuda_device, tmp_path, files):
+    """One image chat with quant_mode="repack" (a q4_0 container with a q4_0
+    decoder of the gq geometry, whose 64-wide heads the flash kernel takes,
+    or the gq fixture's q5_k decoder): the card and the CPU give the same
+    greedy tokens; on the card both rq kernels ran and no gq kernel did."""
+    if files == "q4_0":
+        rng = np.random.default_rng(11)
+        model = build_container(tmp_path / "minigpt4-q4_0.bin", rng, quant=DataType.Q4_0,
+                                llm_d=GQ_D)
+        llm = build_llm_gq(tmp_path / "vicuna-q4_0.bin", rng, quant=DataType.Q4_0)
+    else:
+        model, llm = build_gq_models(tmp_path)
+    img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    rq_kernels = (trq.rq_decode, trq.rq_prefill)
+    gq_kernels = (tgq.gq_decode, tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = [f.launches for f in rq_kernels + gq_kernels]
+        eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=device,
+                             quant_mode="repack")
+        try:
+            emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+            eng.system_prompt()
+            eng.begin_chat_image(emb, "what is in the image?")
+            runs[device] = (emb, list(eng.generate(limit=10, params=SamplingParams(temp=0.0))))
+        finally:
+            eng.close()
+        grew = [f.launches > b for f, b in zip(rq_kernels + gq_kernels, before)]
+        assert grew == [device == "cuda"] * 2 + [False] * 4, (device, grew)
+    (ce, ct), (ge, gt) = runs["cpu"], runs["cuda"]
+    assert np.abs(ge - ce).max() <= 1e-4 * np.abs(ce).max()
+    assert gt == ct

@@ -18,8 +18,11 @@ import jax.numpy as jnp
 from minigpt4_tpu.formats import quants as nq
 from minigpt4_tpu.formats.dtypes import DataType
 from minigpt4_tpu.ops import group_i8 as jgq
+from minigpt4_tpu.ops import repack as jrp
+from minigpt4_tpu.ops.pallas_quant_matmul import qmatmul_repacked as jax_qmatmul
 from minigpt4_tpu_torch.models.params import linear, load_quant_weight
 from minigpt4_tpu_torch.ops import group_i8 as tgq
+from minigpt4_tpu_torch.ops.repack import RepackedQuant
 
 EXACT = [DataType.Q4_K, DataType.Q5_K]
 
@@ -102,8 +105,11 @@ def test_concat_out_is_concatenated_outputs():
     assert torch.equal(linear(x, {"w": fused}), want)
 
 
-# what gq still rejects: K = 1408 (the ViT-G width) is no multiple of 8
-# groups of 32, K = 96 none of 8 groups at all, q8_1 has no gq form
+# what gq rejects: K = 1408 (the ViT-G width) is no multiple of 8 groups of
+# 32, K = 96 none of 8 groups at all, q8_1 has no gq form.  The first three
+# load repacked in gq mode, as in the JAX package (bit-equal dequantized
+# weight, the JAX kernel's bf16 bound of tests/test_torch_repack.py on the
+# product); q8_1 has no repacked form either and still raises.
 @pytest.mark.parametrize("dtype,k", [(DataType.Q4_0, 1408), (DataType.Q8_0, 1408),
                                      (DataType.Q5_1, 96), (DataType.Q8_1, 512)],
                          ids=["q4_0-K1408", "q8_0-K1408", "q5_1-K96", "q8_1-K512"])
@@ -111,8 +117,17 @@ def test_unported_formats_raise(dtype, k):
     assert jgq.supported(dtype, k) is False  # the JAX rule agrees
     assert not tgq.supported(dtype, k)
     raw = _make(dtype, 8, k)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3, pallas_quant_matmul"):
-        load_quant_weight(raw, (8, k), dtype, "cpu")
+    if dtype == DataType.Q8_1:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
+            load_quant_weight(raw, (8, k), dtype, "cpu", "gq")
+        return
+    w = load_quant_weight(raw, (8, k), dtype, "cpu", "gq")
+    assert isinstance(w, RepackedQuant) and w.dtype == dtype
+    jw = jrp.repack(raw, (8, k), dtype)
+    assert np.array_equal(w.dequantize().numpy(), np.asarray(jrp.dequantize_repacked(jw)))
+    x = np.random.default_rng(k).normal(0, 1, (3, k)).astype(np.float32)
+    want = np.asarray(jax_qmatmul(jnp.asarray(x), jw, out_dtype=jnp.float32))
+    assert _rel(linear(torch.from_numpy(x), {"w": w}).numpy(), want) <= 1.2e-2
 
 
 def test_cpu_wrappers_count_no_launch():
