@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's one-image chat path, its batched HTTP serving path
-and its quantized-container / repacked-weight path on an NVIDIA GPU.
+"""Run the PyTorch port's one-image chat path, its batched HTTP serving path,
+its quantized-container / repacked-weight path and its w8a8 path over an
+e4m3 cache on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -69,10 +70,30 @@ Phases (any failure exits nonzero before the last line):
                embedding through the kernels against the same weights
                dequantized to dense f32 on the card (max |d| / max |emb| <=
                ENCODE_TOL).
+  7. w8a8    - the i8 kernels (i8_decode at the 13B w13 and output shapes,
+               M = 1 and 8; i8_prefill at the 13B w13 M = 512, ViT-G fc2 M =
+               257 and the Q-Former intermediate M = 32) against
+               qmatmul_i8sb_ref, with torch._int_mm (i8 x i8 -> i32 without
+               the chunk scales) as the library time where it takes the
+               shape, and both flash kernels over e4m3 caches (dense S = 1,
+               8, 32 at pos0 = 2015; paged at the serving pools) in phase 3.
+               Then smooth-quant scales of the 13B Q5_K_M file
+               (quality.compute_smooth_scales, one 32-token calibration
+               sequence, qtensor params freed before the next load) and a
+               SessionPool over it in quant_mode="w8a8" with those scales and
+               e4m3 caches, behind the 13B q5_1 container (the q5_k container
+               quantizes no K = 1408 weight, so rq_prefill could not run):
+               the chat of phase 4 on its engine, then eight sessions decode
+               32 greedy tokens as a paged group and as a dense group, token
+               for token equal.  i8_decode, i8_prefill, rq_prefill and both
+               flash kernels must launch, no gq kernel may.
+  8. quality - python -m minigpt4_tpu_torch.quality at the small geometry on
+               the card: five finite rows, the table and both gates.
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
-{"kernels": [...]} (launches in each kernel's own path, the serving phase or
-the repack chat, and of each path); the last is {"ok": true, "device": {...}}.
+{"kernels": [...]} (launches in each kernel's own path, the serving phase,
+the repack chat or the w8a8 path, and of each path); the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -109,7 +130,7 @@ Q51_D = 0.02 / 9.23
 # NVIDIA's H100 SXM data sheet: HBM rate, f32 (CUDA cores) and dense bf16
 # tensor-core peaks; a kernel's bound is the larger of bytes / HBM_BPS and
 # operations / the peak of the type they run in
-HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+HBM_BPS, F32_FLOPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
 # Vicuna-7B and -13B (benchmark.py GEOMETRIES) and MiniGPT-4's ViT-G / Q-Former
 LLM_13B = dict(n_embd=5120, n_head=40, n_layer=40, n_vocab=32000, n_mult=256, layout="q5_k_m")
 LLM_7B = dict(n_embd=4096, n_head=32, n_layer=8, n_vocab=32000, n_mult=256, layout="q5_k")
@@ -443,6 +464,125 @@ def phase_rq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+def random_i8(n_layer: int, n: int, k: int, gen: torch.Generator):
+    """Stacked I8SBQuant made on the card: codes -127..127, superblock scales
+    in [0.5, 1.5) x 2^-13."""
+    from minigpt4_tpu_torch.ops import i8_matmul as i8
+
+    codes = torch.randint(-127, 128, (n_layer, n, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+    scales = 2.0 ** -13 * (0.5 + torch.rand((n_layer, n, k // 256), generator=gen, device=DEVICE))
+    return i8.I8SBQuant(codes, scales, k)
+
+
+def int_mm_ms(x_i8: torch.Tensor, w, n_stack: int, reps: int = 10):
+    """Median ms of torch._int_mm (i8 x i8 -> i32, no chunk scales) on the same
+    operands, rotating through the stacked layers; None where it refuses the
+    shape (it needs M > 16)."""
+    if x_i8.shape[0] <= 16:
+        return None
+    f = torch._int_mm
+    try:
+        f(x_i8, w.codes[0].t())
+    except RuntimeError as e:  # the yardstick, not the port: report and go on
+        log(f"[kernels] torch._int_mm refuses [{x_i8.shape[0]}, {x_i8.shape[1]}] x "
+            f"[{w.codes.shape[2]}, {w.codes.shape[1]}]: {str(e).splitlines()[0]}")
+        return None
+    torch.cuda.synchronize()
+    return statistics.median(_time_ms(lambda li: f(x_i8, w.codes[li].t()),
+                                      lambda i: (i % n_stack,), reps))
+
+
+# i8 tolerances, relative to max|y|: each 256-wide chunk's product is an
+# exact i32 in the kernels and in the plain version, and the scaled chunks
+# add in the same order; only the f32 multiply-add rounding differs
+I8_DECODE_TOL, I8_PREFILL_TOL = 1e-5, 1e-4
+
+
+def phase_i8_kernels(results: dict, card: str, gen: torch.Generator) -> None:
+    """i8_decode and i8_prefill against qmatmul_i8sb_ref at the shapes of the
+    w8a8 path: the 13B w13 and output (decode, M = 1 and 8), the 13B w13 at
+    the 512-row bucket, ViT-G fc2 at the 257-row image and the Q-Former
+    intermediate at its 32 queries (prefill)."""
+    from minigpt4_tpu_torch.ops import i8_matmul as i8
+
+    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (1, 8, 512)),
+                                    ("output", (32000, 5120), STACK_HEAD, (1, 8)),
+                                    ("fc2", (1408, 6144), STACK_VIT, (257,)),
+                                    ("qf-int", (3072, 768), STACK_QF, (32,))):
+        w = random_i8(stack, n, k, gen)
+        last = stack - 1
+        for m in ms:
+            x_i8, _ = i8.quantize_activations(torch.randn(m, k, generator=gen, device=DEVICE))
+            decode = m <= i8.I8_MAX_M
+            kern = i8.i8_decode if decode else i8.i8_prefill
+            got, want = kern(x_i8, w, last), i8.qmatmul_i8sb_ref(x_i8, w, last)
+            torch.cuda.synchronize()
+            err, abs_err = rel_err(got, want), float((got - want).abs().max())
+            tol = I8_DECODE_TOL if decode else I8_PREFILL_TOL
+            k_ms, p_ms = compare_times(kern, i8.qmatmul_i8sb_ref, lambda i: (x_i8, w, i % stack))
+            lib_ms = int_mm_ms(x_i8, w, stack)
+            b_ms, b_by = bound(nbytes(w.codes[0], w.scales[0], x_i8) + 4 * m * n,
+                               2.0 * m * n * k, INT8_OPS)
+            key = kern.__name__
+            results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format="i8sb",
+                                     max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=k_ms,
+                                     plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=lib_ms))
+            lib = ("torch._int_mm refuses M <= 16" if lib_ms is None else
+                   f"torch._int_mm (no chunk scales) {lib_ms:.4f} ms")
+            log(f"[kernels] {key:18s} i8sb {name:6s} N={n:5d} K={k:5d} M={m:3d}  max_rel_err="
+                f"{err:.3e} (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by})  {lib}  [{card}]")
+            if not err <= tol:
+                raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        del w
+        torch.cuda.empty_cache()
+
+
+# e4m3 caches read the same f32 values in the kernel and in cache_f32 (the
+# integer unpack); f32 online softmax against f32 softmax on unit inputs
+E4M3_FLASH_TOL = 1e-5
+
+
+def e4m3_flash_cases(results: dict, card: str, gen: torch.Generator) -> None:
+    """The flash kernels over e4m3 caches: dense at the Vicuna-7B cache
+    (32 heads of 128, 2048 positions) with S = 1, 8, 32 at pos0 = 2015, and
+    paged at the Vicuna-13B serving pools of paged_kernel_case; against
+    their plain versions, the paged kernel against the dense kernel on the
+    gathered cache (bits), and SDPA on the cache cast to bf16."""
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
+    f8 = torch.float8_e4m3fn
+    h, dh, c, pos = 32, 128, 2048, 2015
+    ck, cv = (torch.randn((STACK_7B, 1, h, c, dh), generator=gen, device=DEVICE).to(f8)
+              for _ in range(2))
+    last, scale = STACK_7B - 1, dh ** -0.5
+    for s in (1, 8, 32):
+        q = torch.randn((1, h, s, dh), generator=gen, device=DEVICE)
+        got = fd.flash_decode_attention(q, ck, cv, last, pos, scale)
+        want = fd.flash_decode_ref(q, ck, cv, last, pos, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        k_ms, p_ms = compare_times(fd.flash_decode_attention, fd.flash_decode_ref,
+                                   lambda i: (q, ck, cv, i % STACK_7B, pos, scale))
+        keys = min(pos + s, c)
+        b_ms, b_by = attention_bound(1, h, s, dh, keys, 1)
+        pos_v = torch.full((1,), pos, dtype=torch.int32, device=DEVICE)
+        lib_ms = sdpa_ms(q, ck, cv, pos_v, scale, STACK_7B)
+        results["flash_decode"].append(dict(shape=f"e4m3 B=1 S={s} pos0={pos}", max_abs_err=err,
+                                            tol=E4M3_FLASH_TOL, ms=k_ms, plain_ms=p_ms,
+                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"[kernels] flash_decode e4m3 B=1 H={h} S={s:2d} C={c} pos0={pos}  max_abs_err="
+            f"{err:.3e} (tol {E4M3_FLASH_TOL:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by})  sdpa on the bf16 cache {lib_ms:.4f} ms  [{card}]")
+        if not err <= E4M3_FLASH_TOL:
+            raise AssertionError(f"flash_decode e4m3 S={s}: abs err {err} > {E4M3_FLASH_TOL}")
+    del ck, cv
+    torch.cuda.empty_cache()
+    paged_kernel_case(results, card, gen, f8)
+
+
 def phase_kernels(card: str) -> dict:
     from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops import flash_decode as fd
@@ -507,6 +647,8 @@ def phase_kernels(card: str) -> dict:
     torch.cuda.empty_cache()
     paged_kernel_case(results, card, gen)
     phase_rq_kernels(results, card, gen)
+    phase_i8_kernels(results, card, gen)
+    e4m3_flash_cases(results, card, gen)
     return results
 
 
@@ -516,6 +658,8 @@ def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float
     rotating through the layers: the one PyTorch call for this function."""
     b, h, s, dh = q.shape
     c = min(int(pos.max()) + s, ck.shape[3])
+    if ck.element_size() == 1:  # an e4m3 cache: SDPA on it cast to bf16, outside the timing
+        ck, cv = ck[:, :, :, :c].to(torch.bfloat16), cv[:, :, :, :c].to(torch.bfloat16)
     qb = q.to(ck.dtype)
     mask = sdpa_mask(pos, s, c)
     f = torch.nn.functional.scaled_dot_product_attention
@@ -528,16 +672,20 @@ def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float
     return statistics.median(_time_ms(call, lambda i: (i % n_stack,), reps))
 
 
-def paged_kernel_case(results: dict, card: str, gen: torch.Generator) -> None:
-    """The paged kernel at Vicuna-13B serving shapes against its plain
-    version, the dense kernel on the gathered cache (bits) and SDPA."""
+def paged_kernel_case(results: dict, card: str, gen: torch.Generator,
+                      dtype: torch.dtype = torch.bfloat16) -> None:
+    """The paged kernel at Vicuna-13B serving shapes over ``dtype`` pools
+    against its plain version, the dense kernel on the gathered cache (bits)
+    and SDPA."""
     from minigpt4_tpu_torch.ops import flash_decode as fd
 
     b, h, dh, n_pages, maxp = 8, 40, 128, 64, 4
     w = maxp + 1
     shape = (STACK_13B, n_pages + 1, h, 128, dh)
-    pk = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    pv = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    pk = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    pv = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    e4m3 = dtype == torch.float8_e4m3fn
+    tol, tag = (E4M3_FLASH_TOL, "e4m3 ") if e4m3 else (1e-3, "")
     table = torch.full((b, w), n_pages, dtype=torch.int32, device="cuda")
     perm = torch.randperm(n_pages, generator=gen, device="cuda")[: b * maxp]
     table[:, :maxp] = perm.reshape(b, maxp).int()
@@ -558,19 +706,19 @@ def paged_kernel_case(results: dict, card: str, gen: torch.Generator) -> None:
         k_ms, p_ms = compare_times(fd.paged_flash_decode_attention, fd.paged_flash_decode_ref,
                                    lambda i: (q, pk, pv, i % STACK_13B, pos, table, scale))
         keys = int((pos + s).clamp(max=w * 128).sum())
-        b_ms, b_by = attention_bound(b, h, s, dh, keys, 2)
+        b_ms, b_by = attention_bound(b, h, s, dh, keys, pk.element_size())
         lib_ms = sdpa_ms(q, ck, cv, pos, scale, STACK_13B)
         results["paged_flash_decode"].append(dict(
-            shape=f"B={b} S={s} pos0={pos.tolist()}", max_abs_err=err, tol=1e-3,
+            shape=f"{tag}B={b} S={s} pos0={pos.tolist()}", max_abs_err=err, tol=tol,
             dense_bits_equal=dense_diff == 0.0, dense_max_diff=dense_diff, ms=k_ms,
             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"[kernels] paged_flash_decode B={b} H={h} S={s} pages {n_pages}+1 table {maxp}+1 "
-            f"pos0={pos.tolist()}  max_abs_err={err:.3e} (tol 1e-3)  dense kernel on the "
-            f"gathered cache: {'bit-equal' if dense_diff == 0 else f'max diff {dense_diff:.3e}'}"
+        log(f"[kernels] paged_flash_decode {tag}B={b} H={h} S={s} pages {n_pages}+1 table "
+            f"{maxp}+1 pos0={pos.tolist()}  max_abs_err={err:.3e} (tol {tol:g})  dense kernel on "
+            f"the gathered cache: {'bit-equal' if dense_diff == 0 else f'max diff {dense_diff:.3e}'}"
             f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
-            f"sdpa {lib_ms:.4f} ms  [{card}]")
-        if not err <= 1e-3:
-            raise AssertionError(f"paged_flash_decode S={s}: abs err {err} > 1e-3")
+            f"sdpa{' on the bf16 cache' if e4m3 else ''} {lib_ms:.4f} ms  [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"paged_flash_decode {tag}S={s}: abs err {err} > {tol}")
         if dense_diff != 0.0:
             raise AssertionError(f"paged_flash_decode S={s}: differs from the dense kernel on "
                                  f"the gathered cache by {dense_diff}")
@@ -804,17 +952,19 @@ def smoke_models(lg: dict, vision_quant: str | None = None) -> tuple[Path, Path]
 # ---------------------------------------------------------------------------
 
 KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic", "flash_decode",
-           "paged_flash_decode", "rq_decode", "rq_prefill")
+           "paged_flash_decode", "rq_decode", "rq_prefill", "i8_decode", "i8_prefill")
 CHAT_KERNELS = KERNELS[:5]
 SERVING_KERNELS = KERNELS[:6]
 GQ_KERNELS = KERNELS[:4]
 REPACK_CHAT_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
-DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode")
+W8A8_KERNELS = ("i8_decode", "i8_prefill", "rq_prefill", "flash_decode", "paged_flash_decode")
+DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode")
 
 
 def _wrappers() -> dict:
     from minigpt4_tpu_torch.ops import flash_decode as fd
     from minigpt4_tpu_torch.ops import group_i8 as gq
+    from minigpt4_tpu_torch.ops import i8_matmul as i8
     from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
 
     return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
@@ -822,7 +972,8 @@ def _wrappers() -> dict:
             "gq_prefill_generic": gq.gq_prefill_generic,
             "flash_decode": fd.flash_decode_attention,
             "paged_flash_decode": fd.paged_flash_decode_attention,
-            "rq_decode": rq.rq_decode, "rq_prefill": rq.rq_prefill}
+            "rq_decode": rq.rq_decode, "rq_prefill": rq.rq_prefill,
+            "i8_decode": i8.i8_decode, "i8_prefill": i8.i8_prefill}
 
 
 def launch_counts() -> dict:
@@ -840,86 +991,103 @@ def chat(label: str, lg: dict, card: str, expect: tuple, quant_mode: str = "auto
     f16, or with ``vision_quant`` weights) through an engine of ``quant_mode``;
     the kernels of ``expect`` must launch in it, those of ``forbid`` must not.
     Returns its launch counts and times."""
-    from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
-    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
 
     model, llm = smoke_models(lg, vision_quant)
-    sync = torch.cuda.synchronize
     reset_launch_counts()
     t0 = time.perf_counter()
     eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode=quant_mode)
-    sync()
+    torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
-    n_vocab = eng.llm_cfg.n_vocab
-    per_token = step_ms = prof = None
     try:
-        img = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-        t0 = time.perf_counter()
-        emb = eng.encode_image(preprocess(img))
-        t_encode = time.perf_counter() - t0
-        want_shape = (eng.vision_cfg.qformer.query_length, eng.llm_cfg.n_embd)
-        if emb.shape != want_shape or not np.isfinite(emb).all():
-            raise AssertionError(f"image embedding {emb.shape}, finite={np.isfinite(emb).all()}")
-
-        t0 = time.perf_counter()
-        eng.system_prompt()
-        eng.begin_chat_image(emb, "What is in this picture?")
-        logits = eng._st.logits.float()
-        sync()
-        t_prefill = time.perf_counter() - t0
-        n_prompt = eng.n_past
-        if logits.shape != (n_vocab,) or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"prefill logits are not finite [{n_vocab}]")
-
-        greedy = SamplingParams(temp=0.0)
-        t0 = time.perf_counter()
-        text = list(eng.generate(limit=32, params=greedy))
-        sync()
-        t_decode = time.perf_counter() - t0
-        ids = eng._st.tokens[n_prompt:]
-        if eng._st.logits is not None:
-            # one more chunk, timed, with the matmul launches it takes per token
-            before = launch_counts()
-            t0 = time.perf_counter()
-            eng.decode_chunk(16, greedy)
-            sync()
-            step_ms = (time.perf_counter() - t0) * 1e3 / 16
-            after = launch_counts()
-            per_token = sum(after[k] - before[k] for k in DECODE_MATMULS) / 16
-            prof = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
-            log_profile(f"[engine {label}] a 16-token decode chunk", prof, card)
-        eng.begin_chat("Tell me more.")
-        before = eng.n_past
-        text2 = list(eng.generate(limit=8, params=SamplingParams(temp=0.8)))
-        sync()
-        ids2 = eng._st.tokens[before:]
-        if eng._st.logits is not None and not bool(torch.isfinite(eng._st.logits).all()):
-            raise AssertionError("decode logits are not finite")
-        if not ids or not all(0 <= t < n_vocab for t in ids + ids2):
-            raise AssertionError(f"token ids out of range: {ids} {ids2}")
+        out = chat_on(eng, label, card)
     finally:
         eng.close()
-    counts = launch_counts()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[engine {label}] launches during the chat: {counts}")
+    return check_launches(label, dict(out, load_s=t_load), expect, forbid, card)
+
+
+def check_launches(label: str, out: dict, expect: tuple, forbid: tuple, card: str) -> dict:
+    """Read the launch counts of a path into ``out``; fail if a kernel of
+    ``expect`` never launched or one of ``forbid`` did; log the path's times."""
+    counts = launch_counts()
+    log(f"[engine {label}] launches during the path: {counts}")
     missing = [k for k in expect if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
     stray = [k for k in forbid if counts[k] != 0]
     if stray:
         raise AssertionError(f"{label}: kernels launched that this path must not use: {stray}")
+    step = ("not measured (the greedy turn stopped early)" if out["step_ms"] is None else
+            f"{out['step_ms']:.2f} ms per token in a 16-token chunk, "
+            f"{out['matmuls_per_token']:g} matmul launches per token")
+    log(f"[engine {label}] load {out['load_s']:.2f} s  encode {out['encode_ms']:.1f} ms  prefill "
+        f"{out['prefill_ms']:.1f} ms ({out['prompt']} positions)  decode {out['decode_ms']:.1f} ms "
+        f"for {out['n_decoded']} tokens = {out['decode_tok_s']:.2f} tok/s; {step}  [{card}]")
+    return dict(out, counts=counts)
+
+
+def chat_on(eng, label: str, card: str) -> dict:
+    """The chat of :func:`chat` on a loaded engine: encode, system prompt,
+    image turn, a greedy generate(limit=32), a timed and a profiled 16-token
+    chunk, a sampled second turn; returns its times."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.image import preprocess
+
+    sync = torch.cuda.synchronize
+    n_vocab = eng.llm_cfg.n_vocab
+    per_token = step_ms = prof = None
+    img = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+    t_encode = time.perf_counter() - t0
+    want_shape = (eng.vision_cfg.qformer.query_length, eng.llm_cfg.n_embd)
+    if emb.shape != want_shape or not np.isfinite(emb).all():
+        raise AssertionError(f"image embedding {emb.shape}, finite={np.isfinite(emb).all()}")
+
+    t0 = time.perf_counter()
+    eng.system_prompt()
+    eng.begin_chat_image(emb, "What is in this picture?")
+    logits = eng._st.logits.float()
+    sync()
+    t_prefill = time.perf_counter() - t0
+    n_prompt = eng.n_past
+    if logits.shape != (n_vocab,) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits are not finite [{n_vocab}]")
+
+    greedy = SamplingParams(temp=0.0)
+    t0 = time.perf_counter()
+    text = list(eng.generate(limit=32, params=greedy))
+    sync()
+    t_decode = time.perf_counter() - t0
+    ids = eng._st.tokens[n_prompt:]
+    if eng._st.logits is not None:
+        # one more chunk, timed, with the matmul launches it takes per token
+        before = launch_counts()
+        t0 = time.perf_counter()
+        eng.decode_chunk(16, greedy)
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 16
+        after = launch_counts()
+        per_token = sum(after[k] - before[k] for k in DECODE_MATMULS) / 16
+        prof = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
+        log_profile(f"[engine {label}] a 16-token decode chunk", prof, card)
+    eng.begin_chat("Tell me more.")
+    before = eng.n_past
+    text2 = list(eng.generate(limit=8, params=SamplingParams(temp=0.8)))
+    sync()
+    ids2 = eng._st.tokens[before:]
+    if eng._st.logits is not None and not bool(torch.isfinite(eng._st.logits).all()):
+        raise AssertionError("decode logits are not finite")
+    if not ids or not all(0 <= t < n_vocab for t in ids + ids2):
+        raise AssertionError(f"token ids out of range: {ids} {ids2}")
     log(f"[engine {label}] prompt {n_prompt} positions; greedy {len(ids)} tokens {ids[:12]}...; "
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
-    step = ("not measured (the greedy turn stopped early)" if step_ms is None else
-            f"{step_ms:.2f} ms per token in a 16-token chunk, {per_token:g} matmul launches per token")
-    log(f"[engine {label}] load {t_load:.2f} s  encode {t_encode * 1e3:.1f} ms  prefill "
-        f"{t_prefill * 1e3:.1f} ms ({n_prompt} positions)  decode {t_decode * 1e3:.1f} ms for "
-        f"{len(ids)} tokens = {len(ids) / t_decode:.2f} tok/s; {step}  [{card}]")
-    return dict(counts=counts, load_s=t_load, encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3,
-                prompt=n_prompt, decode_tok_s=len(ids) / t_decode, step_ms=step_ms,
-                matmuls_per_token=per_token, profile=prof)
+    return dict(encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3, prompt=n_prompt,
+                decode_ms=t_decode * 1e3, n_decoded=len(ids), decode_tok_s=len(ids) / t_decode,
+                step_ms=step_ms, matmuls_per_token=per_token, profile=prof)
 
 
 # the q5_1 container's embedding against the same weights dequantized to
@@ -1202,6 +1370,121 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
                 per_request_tok_s=per_lane, peak_gb=peak, **cmp)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: w8a8 over an e4m3 cache, and the quality harness
+# ---------------------------------------------------------------------------
+
+CALIB_TOKENS = 32  # one calibration sequence for the smooth-quant scales
+
+
+def smooth_scales_13b(llm: Path, card: str) -> dict:
+    """Smooth-quant scales of the 13B file from quality.compute_smooth_scales
+    (qtensor params on the card, freed before it returns) on one
+    calibration sequence."""
+    from minigpt4_tpu_torch import quality
+
+    calib = [np.random.default_rng(SEED + 4).integers(3, LLM_13B["n_vocab"], CALIB_TOKENS)]
+    t0 = time.perf_counter()
+    scales = quality.compute_smooth_scales(llm, calib, device=DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter() - t0
+    bad = [k for k, v in scales.items() if not (np.isfinite(v).all() and (v > 0).all())]
+    if set(scales) != {"attn", "ffn", "w2", "head"} or bad:
+        raise AssertionError(f"smooth scales: sites {sorted(scales)}, not finite/positive {bad}")
+    log(f"[w8a8] smooth scales of the 13B file from {CALIB_TOKENS} calibration tokens in "
+        f"{t:.1f} s (qtensor load, calibration forward, weight column maxima): "
+        + ", ".join(f"{k} {v.shape} [{v.min():.3g}, {v.max():.3g}]" for k, v in scales.items())
+        + f"  [{card}]")
+    return scales
+
+
+def w8a8_f8(card: str) -> dict:
+    """The 13B Q5_K_M file in quant_mode="w8a8" with smooth-quant scales over
+    an e4m3 cache, behind the 13B q5_1 container (ViT-G fc2 and the Q-Former
+    and llama_proj weights of K % 256 == 0 become i8, the K = 1408 weights
+    repacked): a SessionPool (32 pages of e4m3 pools) whose engine runs the
+    chat of :func:`chat_on`, then eight sessions decode as a paged group and
+    as a dense group, token for token equal.  i8_decode, i8_prefill,
+    rq_prefill and both flash kernels must launch, no gq kernel may."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.engine.sessions import SessionPool
+    from minigpt4_tpu_torch.ops import i8_matmul as i8
+
+    _, llm = smoke_models(LLM_13B)
+    model = smoke_container(LLM_13B["n_embd"], "q5_1")
+    scales = smooth_scales_13b(llm, card)
+    label = "13B w8a8 + f8 cache"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pool = SessionPool(model, llm, session_ctx=512, paged_pool_pages=32, device=DEVICE,
+                       quant_mode="w8a8", cache_dtype="f8", smooth_scales=scales)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    try:
+        eng = pool.engine
+        layers = eng.llm_params["layers"]
+        if not (all(isinstance(layers[n]["w"], i8.I8SBQuant) for n in ("wqkv", "wo", "w13", "w2"))
+                and eng.cache_dtype == torch.float8_e4m3fn):
+            raise AssertionError(f"{label}: decoder weights {[type(layers[n]['w']).__name__ for n in layers]}"
+                                 f", cache {eng.cache_dtype}")
+        out = chat_on(eng, label, card)
+        sessions = []
+        for q in QUESTIONS:
+            s = pool.new_session()
+            s.ask(q)
+            sessions.append(s)
+        dense = [_clone(pool, s) for s in sessions]
+        n0 = [s.n_past for s in sessions]
+        greedy = SamplingParams(temp=0.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pool.generate_batch(sessions, limit=32, params=greedy, decode_chunk=16)
+        torch.cuda.synchronize()
+        t_paged = time.perf_counter() - t1
+        pool.generate_batch(dense, limit=32, params=greedy, decode_chunk=16, paged=False)
+        got = [s.state.tokens[n:] for s, n in zip(sessions, n0)]
+        want = [s.state.tokens[n:] for s, n in zip(dense, n0)]
+        n_tok = sum(len(t) for t in got)
+        log(f"[w8a8] 8-lane group over e4m3 pools, 32 greedy tokens: paged {t_paged:.3f} s = "
+            f"{n_tok / t_paged:.2f} tok/s aggregate; paged tokens equal to the dense group's: "
+            f"{got == want}  [{card}]")
+        if got != want or not all(got):
+            raise AssertionError(f"{label}: the paged group's tokens differ from the dense "
+                                 f"group's: {got} vs {want}")
+        if pool.paged_pool.free_pages != 32:
+            raise AssertionError(f"{label}: the paged group did not return its pages")
+        for s in sessions + dense:
+            s.close()
+    finally:
+        pool.close()
+        del pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = check_launches(label, dict(out, load_s=t_load, group_tok_s=n_tok / t_paged),
+                         W8A8_KERNELS, GQ_KERNELS, card)
+    return out
+
+
+def quality_run(card: str) -> dict:
+    """python -m minigpt4_tpu_torch.quality at the small geometry on the card:
+    all five rows, the table, both gates and its JSON line."""
+    from minigpt4_tpu_torch import quality
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = quality.main(["--geometry", "small", "--device", DEVICE,
+                        "--workdir", str(ROOT / "build" / "smoke_models" / "quality-small")])
+    t = time.perf_counter() - t0
+    counts = launch_counts()
+    bad = [k for k, m in res.items() if not all(np.isfinite(m[c]) for c in
+                                                 ("kl_mean", "kl_p95", "top1", "d_ppl_pct"))]
+    if list(res) != list(quality.PATHS) or bad:
+        raise AssertionError(f"quality: rows {list(res)}, not finite {bad}")
+    log(f"[quality] five rows at the small geometry in {t:.1f} s; launches {counts}  [{card}]")
+    return dict(counts=counts, seconds=t, rows=res)
+
+
 def _preprocess(img: np.ndarray, pool) -> np.ndarray:
     from minigpt4_tpu_torch.image import preprocess
 
@@ -1230,9 +1513,10 @@ def main() -> int:
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul", "flash_decode")
-                         if f"{u}_cu" in name), "")
-            kernel = f"{unit}: {name[max(name.find('qmm_'), name.find('flash_')):][:80]}"
+            unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul", "flash_decode",
+                                     "i8_matmul") if f"{u}_cu" in name), "")
+            at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill"))
+            kernel = f"{unit}: {name[at:][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
@@ -1249,6 +1533,8 @@ def main() -> int:
         "13B repack + q5_k container", LLM_13B, card, REPACK_CHAT_KERNELS, quant_mode="repack",
         vision_quant="q5_k", forbid=GQ_KERNELS)
     paths["13B q5_1 encode"] = encode_check(card)
+    paths["13B w8a8 + f8 cache"] = w8a8_f8(card)
+    paths["quality small"] = quality_run(card)
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
@@ -1267,20 +1553,38 @@ def main() -> int:
                       "minigpt4_tpu/ops/pallas_quant_matmul.py:136", "w13 27648x5120 M=1"),
         "rq_prefill": ("minigpt4_tpu_torch/csrc/rq_matmul.cu",
                        "minigpt4_tpu/ops/pallas_quant_matmul.py:195", "fc2 1408x6144 M=257"),
+        "i8_decode": ("minigpt4_tpu_torch/csrc/i8_matmul.cu", "minigpt4_tpu/ops/i8_matmul.py:133",
+                      "w13 27648x5120 M=1"),
+        "i8_prefill": ("minigpt4_tpu_torch/csrc/i8_matmul.cu",
+                       "minigpt4_tpu/ops/i8_matmul.py:133", "w13 27648x5120 M=512"),
+        # the e4m3 element type of the two flash kernels (_block_f32's unpack):
+        # every flash launch of the w8a8 path reads an e4m3 cache
+        "flash_decode[e4m3]": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
+                               "minigpt4_tpu/ops/flash_decode.py:62", "e4m3 B=1 S=1 pos0=2015"),
+        "paged_flash_decode[e4m3]": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
+                                     "minigpt4_tpu/ops/flash_decode.py:62", "e4m3 B=8 S=1 pos0"),
     }
     # "launches": the count in each kernel's own path (the repack chat for
-    # the rq kernels, the serving phase for the others); every path's count
-    # is in "launches_by_path"
+    # the rq kernels, the w8a8 path for the i8 kernels and the e4m3 reads,
+    # the serving phase for the others); every path's count is in
+    # "launches_by_path"
     main_path = {"rq_decode": "13B repack + q5_k container",
-                 "rq_prefill": "13B repack + q5_k container"}
+                 "rq_prefill": "13B repack + q5_k container",
+                 "i8_decode": "13B w8a8 + f8 cache", "i8_prefill": "13B w8a8 + f8 cache",
+                 "flash_decode[e4m3]": "13B w8a8 + f8 cache",
+                 "paged_flash_decode[e4m3]": "13B w8a8 + f8 cache"}
     kernels = []
     for name, (src, replaces, rep) in meta.items():
-        rows = kernel_results[name]
+        wrapper = name.split("[")[0]
+        e4m3 = name.endswith("[e4m3]")
+        rows = [r for r in kernel_results[wrapper] if r["shape"].startswith("e4m3") == e4m3]
         main_row = next(r for r in rows if r["shape"].startswith(rep))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths[main_path.get(name, "serving 13B")]["counts"][name],
-            "launches_by_path": {label: p["counts"][name] for label, p in paths.items()},
+            "launches": paths[main_path.get(name, "serving 13B")]["counts"][wrapper],
+            # an e4m3 read happens only on the path whose cache is e4m3
+            "launches_by_path": {label: p["counts"][wrapper] for label, p in paths.items()
+                                 if not e4m3 or label == main_path[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -15,9 +15,18 @@
 //    capacity reads the table's trailing slot, which the pool points at its
 //    trash page; no lane ever reads another lane's pages.
 //
+// Cache element types: f32, bf16 and e4m3 (float8_e4m3fn, one byte).  An
+// e4m3 element is unpacked to f32 by an integer exponent rebias, the function
+// of minigpt4_tpu/ops/flash_decode.py:_block_f32 (the e4m3 path of the same
+// _kernel): exponent field 0 (zero and subnormals) gives +-0, 0x7F / 0xFF
+// stay NaN, every other value is exact.  The card's native f8 -> f32
+// conversion keeps subnormals, so it does not compute that function and is
+// not used.
+//
 // What bounds it on the H100: device-memory bandwidth on the live K and V
-// rows (2 * (pos0 + S) * Dh cache elements per (b, h)); the arithmetic,
-// 4 * S * Dh flops per key, stays far below the card's ratio.
+// rows (2 * (pos0 + S) * Dh cache elements per (b, h), 1, 2 or 4 bytes
+// each); the arithmetic, 4 * S * Dh flops per key, stays far below the
+// card's ratio.
 //
 // Design.  One block per (h, b), eight warps.  The block reads its own
 // cursor pos[b] and loops only over the keys [0, min(pos0 + S, C)): keys
@@ -87,8 +96,32 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
+// One byte of an e4m3 cache.
+struct E4M3 {
+  uint8_t bits;
+};
+
+// _block_f32's unpack: sign, exponent rebias 7 -> 127, the 3 mantissa bits
+// on top of the f32 mantissa; exponent field 0 -> +-0, 0x7F -> NaN.
+__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
+  const uint32_t em = b & 0x7Fu, sign = (b & 0x80u) << 24;
+  if (em < 8u) return __uint_as_float(sign);
+  if (em == 0x7Fu) return __uint_as_float(sign | 0x7FC00000u);
+  return __uint_as_float(sign | ((em + (120u << 3)) << 20));
+}
+
+__device__ __forceinline__ void load8(const E4M3* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = e4m3_to_f32((u.x >> (8 * i)) & 0xFFu);
+    o[4 + i] = e4m3_to_f32((u.y >> (8 * i)) & 0xFFu);
+  }
+}
+
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(E4M3 v) { return e4m3_to_f32(v.bits); }
 
 // C: the keys a lane can hold (the dense cache length, or 128 W paged).
 template <typename T, int DH, int RPW, typename KV>
@@ -252,48 +285,58 @@ void launch(const void* q, const void* ck, const void* cv, const void* pos, void
   }
 }
 
-template <typename KV>
-int dispatch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
-             int B, int H, int S, int C, int Dh, float scale, int cache_bf16, KV kv,
-             cudaStream_t s) {
-  if (Dh == 128 && cache_bf16)
-    launch<__nv_bfloat16, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
-  else if (Dh == 128)
-    launch<float, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
-  else if (Dh == 64 && cache_bf16)
-    launch<__nv_bfloat16, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+// cache element type codes of the entries
+constexpr int kF32 = 0, kBF16 = 1, kE4M3 = 2;
+
+template <typename T, typename KV>
+int launch_dh(const void* q, const void* ck, const void* cv, const void* pos, void* out, int B,
+              int H, int S, int C, int Dh, float scale, KV kv, cudaStream_t s) {
+  if (Dh == 128)
+    launch<T, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
   else if (Dh == 64)
-    launch<float, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+    launch<T, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename KV>
+int dispatch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
+             int B, int H, int S, int C, int Dh, float scale, int cache_type, KV kv,
+             cudaStream_t s) {
+  switch (cache_type) {
+    case kF32: return launch_dh<float>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
+    case kBF16: return launch_dh<__nv_bfloat16>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
+    case kE4M3: return launch_dh<E4M3>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// q f32 [B, H, S, Dh]; ck/cv [L, B, H, C, Dh] bf16 (cache_bf16 = 1) or f32;
-// pos i32 [B]; out f32 [B, H, S, Dh].  Requires 1 <= S <= 32, Dh in {64,
-// 128} and 16-byte aligned q and caches.
+// q f32 [B, H, S, Dh]; ck/cv [L, B, H, C, Dh] f32 (cache_type 0), bf16 (1)
+// or e4m3 (2); pos i32 [B]; out f32 [B, H, S, Dh].  Requires 1 <= S <= 32,
+// Dh in {64, 128} and 16-byte aligned q and caches.
 MGT_API int mgt_flash_decode(const void* q, const void* ck, const void* cv,
                              const void* pos, void* out, int B, int H, int S,
                              int C, int Dh, int layer, float scale,
-                             int cache_bf16, void* stream) {
+                             int cache_type, void* stream) {
   if (S < 1 || S > kMaxRows || B < 1 || H < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, ck, cv, pos, out, B, H, S, C, Dh, scale, cache_bf16,
+  return dispatch(q, ck, cv, pos, out, B, H, S, C, Dh, scale, cache_type,
                   DenseKV{layer, B, H, C, Dh}, static_cast<cudaStream_t>(stream));
 }
 
-// q f32 [B, H, S, Dh]; pk/pv page pools [L, NP1, H, 128, Dh] bf16
-// (cache_bf16 = 1) or f32; pos i32 [B]; pt i32 [B, W] page ids in [0, NP1);
+// q f32 [B, H, S, Dh]; pk/pv page pools [L, NP1, H, 128, Dh] of the
+// element type cache_type (as above); pos i32 [B]; pt i32 [B, W] page ids in [0, NP1);
 // out f32 [B, H, S, Dh].  Requires 1 <= S <= 32, Dh in {64, 128} and
 // 16-byte aligned q and pools.
 MGT_API int mgt_flash_decode_paged(const void* q, const void* pk, const void* pv,
                                    const void* pos, const void* pt, void* out, int B,
                                    int H, int S, int NP1, int W, int Dh, int layer,
-                                   float scale, int cache_bf16, void* stream) {
+                                   float scale, int cache_type, void* stream) {
   if (S < 1 || S > kMaxRows || B < 1 || H < 1 || NP1 < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, pk, pv, pos, out, B, H, S, W * kPage, Dh, scale, cache_bf16,
+  return dispatch(q, pk, pv, pos, out, B, H, S, W * kPage, Dh, scale, cache_type,
                   PagedKV{static_cast<const int*>(pt), layer, NP1, H, W, Dh},
                   static_cast<cudaStream_t>(stream));
 }

@@ -50,7 +50,9 @@ EOS_TOKEN_SUFFIX = "##"
 EOS_SUFFIX = "###"
 DECODE_CHUNK = 16  # tokens decoded on the device per host synchronisation
 COMPUTE_DTYPE = torch.float32  # activations and dense weights (engine.py:1039)
-CACHE_DTYPE = torch.bfloat16  # KV cache (engine.py:1224-1226)
+# KV cache element types by their CLI names (the JAX engine's CACHE_DTYPES):
+# e4m3 halves the cache's memory and its decode-attention traffic
+CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f8": torch.float8_e4m3fn}
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -106,6 +108,8 @@ class MiniGPT4Engine:
         n_batch: int = 512,
         device: str | torch.device = "cuda",
         quant_mode: str = "auto",
+        cache_dtype: str | torch.dtype | None = None,
+        smooth_scales: str | Path | dict | None = None,
     ):
         """Load both model files onto ``device``.
 
@@ -119,28 +123,59 @@ class MiniGPT4Engine:
         q4_0, q4_1, q5_0, q5_1, q8_0, q2_k, q3_k and q6_k, so llama.cpp's
         mixed K_M files load as they are) where ``group_i8.supported``
         accepts a weight, repacked otherwise; ``repack`` makes every decoder
-        weight repacked.  ``qtensor`` and ``w8a8`` raise NotImplementedError
-        at the first quantized weight, naming their ROADMAP items.  The
-        resolved decoder mode is ``self.quant_mode``."""
+        weight repacked.  ``w8a8`` makes every weight with K % 256 == 0 i8
+        codes with superblock scales (``ops/i8_matmul.py``) and the others
+        the ``auto`` form; ``qtensor`` keeps the packed ggml bytes and
+        dequantizes them on every call.  The resolved decoder mode is
+        ``self.quant_mode``.
+
+        ``cache_dtype``: the KV cache's element type, a name of
+        ``CACHE_DTYPES`` ("f32", "bf16", "f8" for e4m3) or a torch dtype;
+        ``None`` is bf16, what the JAX engine's ``pick_cache_dtype`` picks
+        for every supported model on an 80 GB card (it takes e4m3 only where
+        the i8 weights and a bf16 cache would not fit a 16 GB chip).
+        ``self.cache_dtype`` is the resolved type.
+
+        ``smooth_scales``: smooth-quant migration scales (an npz path of
+        ``quality.save_smooth_scales`` or a dict) folded into the decoder's
+        w8a8 weights.  With ``auto`` they resolve the decoder to ``w8a8``;
+        any other decoder mode ignores them, with a log line, as the JAX
+        engine does."""
         if quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant_mode {quant_mode!r}: expected "
                              f"{' | '.join(QUANT_MODES)}")
+        cache_dtype = CACHE_DTYPES.get(cache_dtype, cache_dtype) or torch.bfloat16
+        if cache_dtype not in CACHE_DTYPES.values():
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r}: expected "
+                             f"{' | '.join(CACHE_DTYPES)}")
         utils.set_verbosity(verbosity)
         disable_tf32()
         self.device = torch.device(device)
         self.n_batch = n_batch
+        self.cache_dtype = cache_dtype
         with utils.phase_timer("Load minigpt4 model"):
             self._container = ContainerReader(model_path)
             self.vision_params, self.vision_cfg = vision_mod.load_params(
                 self._container, COMPUTE_DTYPE, self.device, quant_mode)
+        if isinstance(smooth_scales, (str, Path)):
+            from ..quality import load_smooth_scales
+
+            smooth_scales = load_smooth_scales(smooth_scales)
         with utils.phase_timer("LLM model init"):
             self._llm_file = LlamaFileReader(llm_path)
             self.quant_mode = "gq" if quant_mode == "auto" else quant_mode
             if self.quant_mode != quant_mode:
                 utils.log_info(f"quant_mode auto -> {self.quant_mode} (decoder)")
+            if smooth_scales and quant_mode == "auto":
+                # calibration scales are a deliberate w8a8 opt-in
+                self.quant_mode = "w8a8"
+                utils.log_info("quant_mode auto -> w8a8 (smooth_scales given)")
+            if smooth_scales and self.quant_mode != "w8a8":
+                utils.log_info("smooth_scales ignored (decoder not on w8a8)")
+                smooth_scales = None
             self.llm_params, self.llm_cfg = llama_mod.load_params(
                 self._llm_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device,
-                quant_mode=self.quant_mode)
+                quant_mode=self.quant_mode, smooth=smooth_scales)
             self.tokenizer = LlamaTokenizer(self._llm_file.vocab.tokens,
                                             self._llm_file.vocab.scores)
         if self.vision_cfg.llama_embed_dim != self.llm_cfg.n_embd:
@@ -158,7 +193,7 @@ class MiniGPT4Engine:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         cfg = dataclasses.replace(self.llm_cfg, n_ctx=n_ctx)
-        return DecodeState(llama_mod.init_cache(cfg, 1, CACHE_DTYPE, self.device), generator)
+        return DecodeState(llama_mod.init_cache(cfg, 1, self.cache_dtype, self.device), generator)
 
     def _state(self, st: DecodeState | None) -> DecodeState:
         return self._st if st is None else st

@@ -19,7 +19,8 @@ operations act.
 
 Not ported yet (ROADMAP): continuous batching, speculative decoding and its
 governor, the radix prefix cache, parking idle sessions in host memory,
-the f8 cache, context shift, sharded pools, save/restore of a state.
+context shift, sharded pools, save/restore of a state.  Lane caches and the
+page pool hold the engine's cache type (``MiniGPT4Engine.cache_dtype``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 
 from ..models import llama as llama_mod
 from .device_sampling import lane_rows
-from .engine import CACHE_DTYPE, EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
+from .engine import EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
 from .paged import PagedKVPool, PoolExhausted
 from .sampling import Sampler, SamplingParams
 
@@ -153,8 +154,8 @@ class SessionPool:
             self.paged_pool = self._new_paged_pool(paged_pool_pages)
 
     def _new_paged_pool(self, n_pages: int) -> PagedKVPool:
-        return PagedKVPool(self._session_cfg, n_pages, self.session_ctx, CACHE_DTYPE,
-                           self.engine.device)
+        return PagedKVPool(self._session_cfg, n_pages, self.session_ctx,
+                           self.engine.cache_dtype, self.engine.device)
 
     def _bump(self, name: str, by: int = 1) -> None:
         with self._metrics_lock:
@@ -371,7 +372,7 @@ class SessionPool:
         """Last-resort recovery of a lane whose state could not be read back:
         the conversation is gone, the session restarts empty."""
         try:
-            st.cache = llama_mod.init_cache(self._session_cfg, 1, CACHE_DTYPE,
+            st.cache = llama_mod.init_cache(self._session_cfg, 1, self.engine.cache_dtype,
                                             self.engine.device)
         except Exception:
             st.cache = None

@@ -2,7 +2,8 @@
 
 Used by the parity tests so that both implementations compute with the same
 weights.  ``GroupQuant`` fields map one to one, in both plane modes
-(unpacked codes only: load the JAX side with sub-byte packing off); a JAX
+(unpacked codes only: load the JAX side with sub-byte packing off), as do
+``I8SBQuant`` (codes, scales) and ``QTensor`` (packed bytes); a JAX
 ``RepackedQuant`` (TPU layout) is converted to the port's layout by
 :func:`repacked_from_numpy`; dense ``[K, N]`` weights stay ``[K, N]``;
 stacked layers stay stacked and per-layer lists (K_M files) stay lists.
@@ -20,7 +21,9 @@ import torch
 from .formats import DataType
 from .models.llama import FUSED, assemble_layers
 from .ops import group_i8 as gq
+from .ops import i8_matmul as i8
 from .ops import repack as rp
+from .ops.quant_matmul import QTensor
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -77,20 +80,35 @@ def repacked_from_numpy(w, device) -> rp.RepackedQuant:
     return rp.stack(flat) if lead else flat[0]
 
 
+def i8sb_from_numpy(w, device) -> i8.I8SBQuant:
+    """A JAX ``I8SBQuant`` (codes i8, scales f32), unstacked or stacked."""
+    return i8.I8SBQuant(_t(w.codes, device, torch.int8), _t(w.scales, device, torch.float32),
+                        int(w.n_in))
+
+
+def qtensor_from_numpy(w, device) -> QTensor:
+    """A JAX ``QTensor`` (packed u8 rows), unstacked or stacked."""
+    return QTensor(_t(w.packed, device, torch.uint8), DataType(w.dtype), int(w.n_in))
+
+
 def _weight(w, device, dtype):
     if isinstance(w, list):
         return [_weight(v, device, dtype) for v in w]
     if hasattr(w, "hi_bits"):
         return repacked_from_numpy(w, device)
-    if hasattr(w, "codes"):
+    if hasattr(w, "packed"):
+        return qtensor_from_numpy(w, device)
+    if hasattr(w, "packing"):
         return group_quant_from_numpy(w, device)
+    if hasattr(w, "codes"):
+        return i8sb_from_numpy(w, device)
     return _t(w, device, dtype)
 
 
 def _layer_of(w, li: int):
     if isinstance(w, list):
         return w[li]
-    if isinstance(w, (gq.GroupQuant, rp.RepackedQuant)):
+    if isinstance(w, (gq.GroupQuant, rp.RepackedQuant, i8.I8SBQuant, QTensor)):
         return w.layer(li)
     return w[li]
 
@@ -119,14 +137,11 @@ def _vision_tree(node, device, dtype):
         return {k: _vision_tree(v, device, dtype) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_vision_tree(v, device, dtype) for v in node]
-    if hasattr(node, "packed"):
-        raise ValueError("QTensor weights are not ported (ROADMAP Queue 1 item 2): "
-                         "load the JAX side with quant_mode='repack' or 'gq'")
     return _weight(node, device, dtype)
 
 
 def vision_params_from_numpy(tree: dict, device: str | torch.device,
                              dtype: torch.dtype = torch.float32) -> dict:
     """JAX ``minigpt4.load_params`` output (NumPy leaves) -> port vision
-    params; repacked and group-quant weights convert as above."""
+    params; quantized weights convert as above."""
     return _vision_tree(tree, device, dtype)

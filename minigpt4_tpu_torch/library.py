@@ -30,19 +30,25 @@ class MiniGPT4SharedLibrary:
     """The ctypes wrapper's method names and call conventions
     (minigpt4_library.py:74-523), backed by engines held in this object."""
 
-    def __init__(self, device: str = "cuda", quant_mode: str = "auto"):
-        # the reference's signatures have no engine options: the device and
-        # the quantized-weight form (MiniGPT4Engine's quant_mode; the JAX C
-        # ABI host reads MINIGPT4_TPU_QUANT_MODE) are set per library object
+    def __init__(self, device: str = "cuda", quant_mode: str = "auto",
+                 cache_dtype: str | None = None, smooth_scales=None):
+        # the reference's signatures have no engine options: the device, the
+        # quantized-weight form, the KV cache type and the smooth-quant scales
+        # (MiniGPT4Engine's quant_mode, cache_dtype and smooth_scales; the JAX
+        # C ABI host reads them from MINIGPT4_TPU_* variables) are set per
+        # library object
         self.device = device
         self.quant_mode = quant_mode
+        self.cache_dtype = cache_dtype
+        self.smooth_scales = smooth_scales
         self._ctxs: dict[int, MiniGPT4Engine] = {}
         self._next = 1
 
     def minigpt4_model_load(self, path: str, llm_model: str, verbosity: int = 0,
                             seed: int = 1337, n_ctx: int = 2048, n_batch: int = 512) -> int:
         eng = MiniGPT4Engine(path, llm_model, verbosity, seed, n_ctx, n_batch, device=self.device,
-                             quant_mode=self.quant_mode)
+                             quant_mode=self.quant_mode, cache_dtype=self.cache_dtype,
+                             smooth_scales=self.smooth_scales)
         handle = self._next
         self._next += 1
         self._ctxs[handle] = eng
@@ -85,8 +91,9 @@ class MiniGPT4ChatBot:
 
     def __init__(self, model_path: str, llm_model_path: str,
                  verbosity: Verbosity = Verbosity.SILENT, n_threads: int = 0,
-                 device: str = "cuda", quant_mode: str = "auto"):
-        self.library = MiniGPT4SharedLibrary(device, quant_mode)
+                 device: str = "cuda", quant_mode: str = "auto", cache_dtype: str | None = None,
+                 smooth_scales=None):
+        self.library = MiniGPT4SharedLibrary(device, quant_mode, cache_dtype, smooth_scales)
         self.ctx = self.library.minigpt4_model_load(model_path, llm_model_path, int(verbosity))
         self.n_threads = n_threads
         self.embedding: Optional[MiniGPT4Embedding] = None

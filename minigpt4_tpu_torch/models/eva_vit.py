@@ -4,8 +4,9 @@
 TF32 path), a learned cls token and position embedding, then pre-LN blocks
 with a fused QKV projection whose bias is (q_bias, 0, v_bias), exact-GELU
 MLP, LayerNorm eps 1e-6.  Blocks are stacked [L, ...] and indexed per layer;
-a quantized container's weights stack as one group-quant or repacked weight
-whose layer index reaches the kernel (the JAX package's static-layer path).
+a quantized container's weights stack as one quantized weight (group-quant,
+repacked, w8a8 or packed bytes) whose layer index reaches the kernel (the
+JAX package's static-layer path).
 """
 
 from __future__ import annotations
@@ -16,10 +17,8 @@ import numpy as np
 import torch
 
 from ..formats import is_quantized
-from ..ops import group_i8 as gq
-from ..ops import repack as rp
 from .layers import gelu, layer_norm, merge_heads, mha, split_heads
-from .params import dense_from_numpy, linear, load_quant_weight, tensor
+from .params import QUANT_FORMS, dense_from_numpy, linear, load_quant_weight, tensor
 
 LN_EPS = 1e-6
 
@@ -77,16 +76,13 @@ def forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 
 def _stack(trees: list[dict]) -> dict:
     """List of identical {name: leaf | {name: leaf}} -> stacked [L, ...];
-    a leaf is a tensor, a GroupQuant or a RepackedQuant."""
+    a leaf is a tensor or a quantized weight (``params.QUANT_FORMS``)."""
 
     def leaf(vs):
         if isinstance(vs[0], dict):
             return _stack(vs)
-        if isinstance(vs[0], gq.GroupQuant):
-            return gq.stack(vs)
-        if isinstance(vs[0], rp.RepackedQuant):
-            return rp.stack(vs)
-        return torch.stack(vs)
+        forms = QUANT_FORMS.get(type(vs[0]))
+        return forms[0](vs) if forms else torch.stack(vs)
 
     return {k: leaf([t[k] for t in trees]) for k in trees[0]}
 

@@ -12,6 +12,9 @@ softmax.  RoPE is the interleaved-pair variant (ggml_rope mode 0).
 With a ``page_table`` the cache is instead the serving page pools
 ``[L, NP + 1, H, 128, Dh]`` of ``engine/paged.py``: decode steps (S = 1)
 write through the table and attend with the paged flash-decode kernel.
+
+The cache holds f32, bf16 or e4m3 (``torch.float8_e4m3fn``); K/V reach an
+e4m3 cache through :func:`to_cache`, the JAX package's cast.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ import torch
 
 from ..formats import is_quantized
 from ..ops import group_i8 as gq
+from ..ops import i8_matmul as i8
+from ..ops import quant_matmul as qm
 from ..ops import repack as rp
 from ..ops.flash_decode import PAGE, flash_decode_attention, paged_flash_decode_attention
 from .layers import rms_norm
-from .params import linear, load_quant_weight, tensor
+from .params import QUANT_FORMS, linear, load_quant_weight, tensor
 
 NEG_INF = float(np.finfo(np.float32).min)
 RMS_EPS = 1e-6  # ggml_rms_norm eps at llama.cpp master-31cfbb1
@@ -36,6 +41,10 @@ FLASH_DECODE_MAX_S = 32
 # above this attention span the prefill path computes P.V in f32 (the JAX
 # package's blockwise path); at or below it, in the cache dtype
 PREFILL_FLASH_SPAN = 512
+
+# f32 magnitudes above this round past 448, the largest finite e4m3 value:
+# the JAX package's cast (ml_dtypes) makes them NaN, torch's cast saturates
+E4M3_NAN_ABOVE = 464.0
 
 # fused projections and their parts, in output order
 FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
@@ -73,6 +82,18 @@ def init_cache(cfg: LlamaConfig, batch: int, dtype: torch.dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def to_cache(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K/V values -> the cache's element type, as the JAX package casts them.
+    For e4m3 that is round to nearest even with magnitudes above
+    ``E4M3_NAN_ABOVE``, infinities and NaN giving NaN, so an overflowing
+    cache shows as NaN as it does in the JAX package (torch's own cast
+    clamps to +-448).  Every cache write (dense, per-row and paged) goes
+    through here."""
+    if dtype == torch.float8_e4m3fn:
+        t = torch.where(t.abs() <= E4M3_NAN_ABOVE, t, float("nan"))
+    return t.to(dtype)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     """(cos, sin) for positions [S] or [B, S] -> [1|B, 1, S, Dh/2] f32."""
     half = head_dim // 2
@@ -102,8 +123,11 @@ def _positions(pos0, s: int, device) -> torch.Tensor:
 
 def _prefill_attention(q, ck, cv, li, pos0, span, head_dim):
     """Masked softmax attention of S > FLASH_DECODE_MAX_S rows over
-    ``cache[:span]``: scores and softmax in f32; P.V in the cache dtype for
-    spans up to PREFILL_FLASH_SPAN, in f32 above (as the JAX package)."""
+    ``cache[:span]``: scores and softmax in f32; P.V in the cache dtype (bf16
+    for a byte-wide e4m3 cache, whose probabilities would keep 3 mantissa
+    bits) for spans up to PREFILL_FLASH_SPAN, in f32 above (as the JAX
+    package).  An e4m3 cache converts natively here, subnormals kept, as in
+    the JAX package; only the flash kernels flush them."""
     ks = ck[li, :, :, :span]
     vs = cv[li, :, :, :span]
     s = q.shape[2]
@@ -119,20 +143,31 @@ def _prefill_attention(q, ck, cv, li, pos0, span, head_dim):
     sc = (q.float() @ ks.float().transpose(-1, -2)) / sqrt_dh
     sc = sc + torch.where(visible, 0.0, NEG_INF)
     probs = torch.softmax(sc, dim=-1)
-    return probs.to(vs.dtype).float() @ vs.float()
+    pv_dt = vs.dtype if vs.element_size() > 1 else torch.bfloat16
+    return probs.to(pv_dt).float() @ vs.to(pv_dt).float()
+
+
+def _amax(t: torch.Tensor) -> torch.Tensor:
+    """Per-channel absolute maximum over every axis but the last, in f32."""
+    return t.float().abs().reshape(-1, t.shape[-1]).amax(dim=0)
 
 
 def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
-           page_table=None):
+           page_table=None, act_stats=None):
     """One decoder layer on x [B, S, D]; writes K/V of the S positions into
     layer ``li`` of the cache in place.  ``pos0``: host cursor (int, or one
     per batch row); ``pos_dev``: the same cursors as an i32 [B] tensor.
     ``rows``: for S = 1 with per-row cursors, the (cache row, position)
     index pair [B] of each row's write (the batch row and its cursor, or its
     pool page and the offset in it), so that all rows write in one indexed
-    copy.  ``page_table``: the cache is the page pools (see forward)."""
+    copy.  ``page_table``: the cache is the page pools (see forward).
+    ``act_stats``: a dict of lists; the per-channel absolute maxima of the
+    inputs of the quantizable matmuls are appended per site ("attn", "wo",
+    "ffn", "w2"), the calibration capture of ``quality.py``."""
     b, s, _ = x.shape
     h = rms_norm(x, layers["attention_norm"][li], RMS_EPS)
+    if act_stats is not None:
+        act_stats.setdefault("attn", []).append(_amax(h))
 
     def heads(t):
         return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
@@ -147,11 +182,11 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     v = heads(xv)
 
     if rows is None:
-        ck[li, :, :, pos0:pos0 + s] = k.to(ck.dtype)
-        cv[li, :, :, pos0:pos0 + s] = v.to(cv.dtype)
+        ck[li, :, :, pos0:pos0 + s] = to_cache(k, ck.dtype)
+        cv[li, :, :, pos0:pos0 + s] = to_cache(v, cv.dtype)
     else:
-        ck[li][rows[0], :, rows[1]] = k[:, :, 0].to(ck.dtype)
-        cv[li][rows[0], :, rows[1]] = v[:, :, 0].to(cv.dtype)
+        ck[li][rows[0], :, rows[1]] = to_cache(k[:, :, 0], ck.dtype)
+        cv[li][rows[0], :, rows[1]] = to_cache(v[:, :, 0], cv.dtype)
 
     if page_table is not None:
         ctx = paged_flash_decode_attention(q, ck, cv, li, pos_dev, page_table,
@@ -161,22 +196,35 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     else:
         ctx = _prefill_attention(q, ck, cv, li, pos0, attn_len or cfg.n_ctx, cfg.head_dim)
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
+    if act_stats is not None:
+        act_stats.setdefault("wo", []).append(_amax(ctx))
     x = x + linear(ctx, layers["wo"], li)
 
     h = rms_norm(x, layers["ffn_norm"][li], RMS_EPS)
+    if act_stats is not None:
+        act_stats.setdefault("ffn", []).append(_amax(h))
     if "w13" in layers:
-        gate_in, up = linear(h, layers["w13"], li).split(cfg.n_ff, dim=-1)
+        # halves of the fused output, as the JAX package splits it: a file's
+        # n_mult may derive an n_ff other than its weights' width
+        gate_in, up = linear(h, layers["w13"], li).chunk(2, dim=-1)
     else:
         gate_in, up = (linear(h, layers[n], li) for n in FUSED["w13"])
     gate = torch.nn.functional.silu(gate_in.float()).to(x.dtype)
-    return x + linear(gate * up, layers["w2"], li)
+    gu = gate * up
+    if act_stats is not None:
+        act_stats.setdefault("w2", []).append(_amax(gu))
+    return x + linear(gu, layers["w2"], li)
 
 
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
             last_idx: int | None = None, attn_len: int | None = None,
-            page_table: torch.Tensor | None = None) -> torch.Tensor:
+            page_table: torch.Tensor | None = None, act_stats: dict | None = None,
+            all_logits: bool = False) -> torch.Tensor:
     """embeds [B, S, D] -> logits [B, V] (f32) at position ``last_idx``
-    (default S-1); the cache is updated in place.
+    (default S-1), or [B, S, V] at every position with ``all_logits``; the
+    cache is updated in place.  ``act_stats``: the calibration capture of
+    :func:`_layer`, plus "head", the absolute maxima of the final norm's
+    output over every position.
 
     ``pos0`` is the host cursor: an int, or (for S = 1) a sequence of one
     int per batch row.  Bucket-padded rows past ``last_idx`` write cache
@@ -217,8 +265,13 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     x = embeds
     for li in range(cfg.n_layer):
         x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos0, pos_dev,
-                   rope, cfg, attn_len, rows, page_table)
-    h = x[:, -1] if last_idx is None else x[:, last_idx]
+                   rope, cfg, attn_len, rows, page_table, act_stats)
+    if act_stats is not None:
+        act_stats.setdefault("head", []).append(_amax(rms_norm(x, params["norm"], RMS_EPS)))
+    if all_logits:
+        h = x
+    else:
+        h = x[:, -1] if last_idx is None else x[:, last_idx]
     return linear(rms_norm(h, params["norm"], RMS_EPS), params["output"]).float()
 
 
@@ -261,11 +314,16 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps:
 
 
 def _form(w) -> tuple:
-    """What must agree for weights to stack or fuse."""
+    """What must agree for weights to stack or fuse (the JAX package's
+    criteria: an I8SBQuant fuses with any of the same K)."""
     if isinstance(w, gq.GroupQuant):
         return ("gq", w.dtype, w.n_in)
     if isinstance(w, rp.RepackedQuant):
         return ("rq", *w.form())
+    if isinstance(w, i8.I8SBQuant):
+        return ("i8", w.n_in)
+    if isinstance(w, qm.QTensor):
+        return ("qt", w.dtype, w.n_in)
     return ("dense", w.dtype, tuple(w.shape))
 
 
@@ -274,16 +332,14 @@ def _stack_or_list(ws: list):
     itself where the layers differ in form (``linear`` indexes it)."""
     if any(_form(w) != _form(ws[0]) for w in ws):
         return list(ws)
-    if isinstance(ws[0], gq.GroupQuant):
-        return gq.stack(ws)
-    return rp.stack(ws) if isinstance(ws[0], rp.RepackedQuant) else torch.stack(ws)
+    forms = QUANT_FORMS.get(type(ws[0]))
+    return forms[0](ws) if forms else torch.stack(ws)
 
 
 def _concat_out(ws: list):
     """Parts of one form fused along the output axis."""
-    if isinstance(ws[0], gq.GroupQuant):
-        return gq.concat_out(ws)
-    return rp.concat_out(ws) if isinstance(ws[0], rp.RepackedQuant) else torch.cat(ws, dim=-1)
+    forms = QUANT_FORMS.get(type(ws[0]))
+    return forms[1](ws) if forms else torch.cat(ws, dim=-1)
 
 
 def assemble_layers(per_layer: list[dict]) -> dict:
@@ -309,8 +365,8 @@ def assemble_layers(per_layer: list[dict]) -> dict:
 
 
 def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
-                device: str | torch.device = "cuda",
-                quant_mode: str = "auto") -> tuple[dict, LlamaConfig]:
+                device: str | torch.device = "cuda", quant_mode: str = "auto",
+                smooth: dict | None = None) -> tuple[dict, LlamaConfig]:
     """Decoder params from a LlamaFileReader, stacked over layers.
 
     Quantized projections are decoded on ``device`` by
@@ -318,26 +374,70 @@ def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
     ``gq`` for the decoder (group-quant where ``group_i8.supported`` accepts
     the weight, repacked otherwise), ``repack`` makes every one repacked.
     Dense tensors are stored [in, out] in ``dtype``.  Layers are assembled by
-    :func:`assemble_layers`."""
+    :func:`assemble_layers`.
+
+    ``smooth`` (``quant_mode="w8a8"`` only): smooth-quant migration scales of
+    ``quality.compute_smooth_scales``, keys "attn" [L, D], "ffn" [L, D], "w2"
+    [L, F], "head" [D].  Each site divides the producing op by s (the norm
+    weight before it; w3's output rows for the w2 site) and multiplies the
+    consuming weights' columns by s before the i8 requantization, as the
+    JAX package's ``load_params``.  A site is skipped where a consumer is
+    quantized with K % 256 != 0 (its packed form keeps the file's bytes)."""
     cfg = LlamaConfig.from_hparams(reader.hparams, n_ctx=n_ctx)
     mode = "gq" if quant_mode == "auto" else quant_mode
+    sm = dict(smooth) if smooth else {}
+    if sm and mode != "w8a8":
+        raise ValueError("smooth scales require quant_mode='w8a8'")
 
-    def lin(name: str):
+    def lin(name: str, col_scale=None, row_scale=None):
         rec = reader.tensors[name]
         if is_quantized(rec.dtype):
-            return load_quant_weight(reader.raw(name), rec.shape, rec.dtype, device, mode)
-        return tensor(np.asarray(reader.tensor_f32(name)).T, dtype, device)
+            return load_quant_weight(reader.raw(name), rec.shape, rec.dtype, device, mode,
+                                     col_scale=col_scale, row_scale=row_scale)
+        w = np.asarray(reader.tensor_f32(name), np.float32)
+        if col_scale is not None:
+            w = w * np.asarray(col_scale, np.float32)[None, :]
+        if row_scale is not None:
+            w = w * np.asarray(row_scale, np.float32)[:, None]
+        return tensor(w.T, dtype, device)
 
+    def absorbs(*names: str) -> bool:
+        return not any(is_quantized(reader.tensors[n].dtype) and reader.tensors[n].shape[1] % i8.SB
+                       for n in names)
+
+    def site(key: str, li, *names: str):
+        if key not in sm or not absorbs(*names):
+            return None
+        v = np.asarray(sm[key], np.float32)
+        return v[li] if li is not None else v
+
+    def norm(name: str, div):
+        w = np.asarray(reader.tensor_f32(name), np.float32)
+        return tensor(w / div if div is not None else w, dtype, device)
+
+    s_head = site("head", None, "output.weight")
     params = {
         "tok_embeddings": tensor(reader.tensor_f32("tok_embeddings.weight"), dtype, device),
-        "norm": tensor(reader.tensor_f32("norm.weight"), dtype, device),
-        "output": {"w": lin("output.weight")},
+        "norm": norm("norm.weight", s_head),
+        "output": {"w": lin("output.weight", col_scale=s_head)},
     }
-    layers = assemble_layers([{p: lin(f"layers.{i}.{f}.weight") for p, f in FILE_NAMES.items()}
-                              for i in range(cfg.n_layer)])
-    for norm in ("attention_norm", "ffn_norm"):
-        layers[norm] = torch.stack([
-            tensor(reader.tensor_f32(f"layers.{i}.{norm}.weight"), dtype, device)
-            for i in range(cfg.n_layer)])
+    per_layer, norms = [], {"attention_norm": [], "ffn_norm": []}
+    for i in range(cfg.n_layer):
+        f = {p: f"layers.{i}.{n}.weight" for p, n in FILE_NAMES.items()}
+        s_attn = site("attn", i, f["wq"], f["wk"], f["wv"])
+        s_ffn = site("ffn", i, f["w1"], f["w3"])
+        s_w2 = site("w2", i, f["w2"], f["w3"])
+        norms["attention_norm"].append(norm(f"layers.{i}.attention_norm.weight", s_attn))
+        norms["ffn_norm"].append(norm(f"layers.{i}.ffn_norm.weight", s_ffn))
+        per_layer.append({
+            "wq": lin(f["wq"], col_scale=s_attn), "wk": lin(f["wk"], col_scale=s_attn),
+            "wv": lin(f["wv"], col_scale=s_attn), "wo": lin(f["wo"]),
+            "w1": lin(f["w1"], col_scale=s_ffn), "w2": lin(f["w2"], col_scale=s_w2),
+            "w3": lin(f["w3"], col_scale=s_ffn,
+                      row_scale=None if s_w2 is None else 1.0 / s_w2),
+        })
+    layers = assemble_layers(per_layer)
+    for name, ts in norms.items():
+        layers[name] = torch.stack(ts)
     params["layers"] = layers
     return params, cfg

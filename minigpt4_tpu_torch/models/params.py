@@ -3,8 +3,10 @@
 Counterpart of ``minigpt4_tpu/models/params.py``.  Weight convention as in
 the JAX package: dense weights are ``[in, out]`` (``x @ w``), optionally
 stacked ``[L, in, out]``; quantized weights keep ggml's ``[out, in]`` rows
-as a :class:`~minigpt4_tpu_torch.ops.group_i8.GroupQuant` or a
-:class:`~minigpt4_tpu_torch.ops.repack.RepackedQuant`.
+as a :class:`~minigpt4_tpu_torch.ops.group_i8.GroupQuant`, a
+:class:`~minigpt4_tpu_torch.ops.repack.RepackedQuant`, an
+:class:`~minigpt4_tpu_torch.ops.i8_matmul.I8SBQuant` or a
+:class:`~minigpt4_tpu_torch.ops.quant_matmul.QTensor` (packed bytes).
 """
 
 from __future__ import annotations
@@ -14,10 +16,17 @@ import torch
 
 from ..formats import DataType
 from ..ops import group_i8 as gq
+from ..ops import i8_matmul as i8
 from ..ops import repack as rp
+from ..ops import quant_matmul as qm
 from ..ops.pallas_quant_matmul import qmatmul_repacked
 
 QUANT_MODES = ("auto", "repack", "qtensor", "w8a8", "gq")
+# (stack over layers, concat along the output axis) of each quantized form
+QUANT_FORMS = {gq.GroupQuant: (gq.stack, gq.concat_out),
+               rp.RepackedQuant: (rp.stack, rp.concat_out),
+               i8.I8SBQuant: (i8.stack, i8.concat_out),
+               qm.QTensor: (qm.stack, qm.concat_out)}
 
 
 def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
@@ -31,6 +40,10 @@ def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
         y = gq.qmatmul_group(x, w, layer if w.stacked else None)
     elif isinstance(w, rp.RepackedQuant):
         y = qmatmul_repacked(x, w, layer if w.stacked else None)
+    elif isinstance(w, i8.I8SBQuant):
+        y = i8.qmatmul_i8sb(x, w, layer if w.stacked else None)
+    elif isinstance(w, qm.QTensor):
+        y = qm.qmatmul(x, w, layer if w.stacked else None)
     else:
         if layer is not None and w.dim() == 3:
             w = w[layer]
@@ -44,40 +57,45 @@ def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
 
 
 def load_quant_weight(raw: np.ndarray, shape: tuple[int, int], dtype: DataType,
-                      device: str | torch.device, mode: str = "auto"):
+                      device: str | torch.device, mode: str = "auto", col_scale=None,
+                      row_scale=None):
     """The device form of a quantized weight, by the JAX package's rules
     (``params.load_quant_weight``):
 
     * ``"gq"``: group-quant (exact planes for q4_k/q5_k, bf16 planes
       otherwise) where ``group_i8.supported`` accepts the format and K, the
-      repacked form otherwise;
-    * ``"repack"`` and ``"auto"``: the repacked form.  On the TPU ``auto``
-      repacks; the engine resolves ``auto`` to ``gq`` for the decoder before
-      it gets here, as the TPU's budget resolution does for every supported
-      model on 80 GB.
+      ``auto`` form otherwise;
+    * ``"w8a8"``: i8 codes with 256-wide superblock scales
+      (``ops/i8_matmul.py``) where K % 256 == 0, the ``auto`` form otherwise;
+    * ``"qtensor"``: the packed ggml bytes, dequantized on every call
+      (``ops/quant_matmul.py``);
+    * ``"repack"`` and ``"auto"``: the repacked form, or the packed bytes
+      for a format with no repacked form (q8_1, ...).  On the TPU ``auto``
+      repacks; the engine resolves ``auto`` to ``gq`` for the decoder
+      before it gets here, as the TPU's budget resolution does for every
+      supported model on 80 GB.
 
-    ``"qtensor"`` (raw ggml bytes with an XLA dequant) and ``"w8a8"`` raise
-    ``NotImplementedError`` naming their ROADMAP items, as does a format with
-    no repacked form (q8_1, ...)."""
+    ``col_scale`` [K] / ``row_scale`` [N]: smooth-quant migration factors,
+    folded in by the w8a8 form only; any other mode, or a K that w8a8 does
+    not take, raises (the packed forms keep the file's exact bytes)."""
     dtype = DataType(dtype)
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quant_mode {mode!r}: expected {' | '.join(QUANT_MODES)}")
-    if mode == "qtensor":
-        raise NotImplementedError(
-            "quant_mode 'qtensor' (packed ggml bytes with a dequantizing fallback matmul) is "
-            "not ported (ROADMAP Queue 1 item 2, ops/quant_matmul.py)")
-    if mode == "w8a8":
-        raise NotImplementedError(
-            "quant_mode 'w8a8' (i8 weights and activations) is not ported (ROADMAP Queue 2 "
-            "item 4, i8_matmul, and Queue 1 item 10)")
+    smooth = col_scale is not None or row_scale is not None
+    if smooth and mode != "w8a8":
+        raise ValueError("smooth scales are only valid with quant_mode='w8a8'")
     if mode == "gq" and gq.supported(dtype, shape[1]):
         return gq.from_ggml(raw, shape, dtype, device)
-    if dtype not in rp.REPACKABLE:
-        raise NotImplementedError(
-            f"{dtype.name} weight {tuple(shape)}: only q4_0/q4_1/q5_0/q5_1/q8_0/q2_k/q3_k/"
-            "q4_k/q5_k/q6_k load; other formats need the packed-bytes fallback (ROADMAP "
-            "Queue 1 item 2, ops/dequant.py and ops/quant_matmul.py)")
-    return rp.from_ggml(raw, shape, dtype, device)
+    if mode == "w8a8":
+        if shape[1] % i8.SB == 0:
+            return i8.from_ggml(raw, shape, dtype, device, col_scale=col_scale,
+                                row_scale=row_scale)
+        if smooth:
+            raise ValueError(f"cannot fold smooth scales into K={shape[1]} (not a multiple of "
+                             f"{i8.SB}); caller must skip this site")
+    if mode != "qtensor" and dtype in rp.REPACKABLE:
+        return rp.from_ggml(raw, shape, dtype, device)
+    return qm.QTensor.from_raw(raw, shape, dtype, device)
 
 
 def dense_from_numpy(w_out_in: np.ndarray, b: np.ndarray | None, dtype: torch.dtype,

@@ -44,6 +44,8 @@ SIGNATURES = {
     "mgt_flash_decode_paged": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
     "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),
     "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "mgt_i8_decode": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mgt_i8_prefill": (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -14,8 +14,9 @@ tensors and its plain PyTorch version (:func:`flash_decode_ref`,
 ``[B, H, S, Dh]`` over layer ``li``, from absolute position ``pos0`` (an
 int, or one cursor per batch row), softmax in f32, output f32.  Only the
 live keys ``[0, pos0 + S)`` are read; keys past the cache end (paged: past
-128 W) are masked.  The cache is bf16 or f32 (an e4m3 cache is not ported
-yet).
+128 W) are masked.  The cache is f32, bf16 or e4m3 (``torch.float8_e4m3fn``);
+both versions read an e4m3 element as the JAX kernel's ``_block_f32`` does
+(:func:`cache_f32`): subnormals flush to +-0 and 0x7F / 0xFF stay NaN.
 """
 
 from __future__ import annotations
@@ -29,6 +30,22 @@ from . import _build
 MAX_S = 32  # rows the kernel serves (models.llama.FLASH_DECODE_MAX_S)
 KERNEL_HEAD_DIMS = (64, 128)
 PAGE = 128  # positions per pool page, fixed in the paged kernel (csrc kPage)
+
+
+# cache element types the kernel takes, by its type code (csrc kF32, kBF16, kE4M3)
+CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+def cache_f32(t: torch.Tensor) -> torch.Tensor:
+    """Cache elements -> f32 as the kernels read them: an e4m3 element whose
+    exponent field is 0 (zero or subnormal) gives +-0 (the JAX kernel's
+    integer unpack, ``flash_decode.py:_block_f32``), every other one its
+    value, NaN included; other types convert exactly."""
+    f = t.float()
+    if t.dtype != torch.float8_e4m3fn:
+        return f
+    sub = (t.view(torch.uint8) & 0x7F) < 8
+    return torch.where(sub, f * 0.0, f)
 
 
 def _pos_vector(pos0, b: int, device) -> torch.Tensor:
@@ -48,8 +65,8 @@ def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: in
     c = ck.shape[-2]
     pos = _pos_vector(pos0, b, q.device).long()
     live = min(int(pos.max()) + s, c)
-    ks = ck[li, :, :, :live].float()
-    vs = cv[li, :, :, :live].float()
+    ks = cache_f32(ck[li, :, :, :live])
+    vs = cache_f32(cv[li, :, :, :live])
     sc = torch.einsum("bhsd,bhcd->bhsc", q.float() * scale, ks)
     q_pos = pos[:, None] + torch.arange(s, device=q.device)  # [B, S]
     key_pos = torch.arange(live, device=q.device)
@@ -72,10 +89,10 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: i
         raise ValueError(f"{name} serves 1..{MAX_S} query rows, got {s}")
     if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name} kernel supports head_dim {KERNEL_HEAD_DIMS}, got {dh}")
-    if k.dtype not in (torch.bfloat16, torch.float32):
+    if k.dtype not in CACHE_TYPES:
         raise NotImplementedError(
-            f"{name}: {k.dtype} cache is not ported yet (the e4m3 cache is a ROADMAP "
-            "Queue 2 item); use a bf16 or f32 cache")
+            f"{name}: a {k.dtype} cache is not ported: the kernel takes f32, bf16 or e4m3 "
+            "(the JAX package's cache types)")
     if not 0 <= li < k.shape[0]:
         raise IndexError(f"{name}: layer {li} out of range [0, {k.shape[0]})")
     for label, t in (("k", k), ("v", v)):
@@ -103,7 +120,7 @@ def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
     rc = _build.load().mgt_flash_decode(
         qf.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, s, ck.shape[3], dh, li, float(scale), int(ck.dtype == torch.bfloat16),
+        b, h, s, ck.shape[3], dh, li, float(scale), CACHE_TYPES[ck.dtype],
         ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode")
     flash_decode_attention.launches += 1
@@ -152,7 +169,7 @@ def paged_flash_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: 
     rc = _build.load().mgt_flash_decode_paged(
         qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pos.data_ptr(), pt.data_ptr(),
         out.data_ptr(), b, h, s, pool_k.shape[1], pt.shape[1], dh, li, float(scale),
-        int(pool_k.dtype == torch.bfloat16), ctypes.c_void_p(_build.stream_ptr(q.device)))
+        CACHE_TYPES[pool_k.dtype], ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode_paged")
     paged_flash_decode_attention.launches += 1
     return out

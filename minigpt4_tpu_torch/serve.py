@@ -61,10 +61,8 @@ UNPORTED = {
     "draft_head": ("draft-head speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
     "prefix_cache_mb": ("the radix prefix cache (ROADMAP Queue 1, item 15)", (None,)),
     "park_idle": ("parking idle sessions in host memory (ROADMAP Queue 1, item 16)", (False,)),
-    "cache_dtype": ("a KV cache other than bf16 (ROADMAP Queue 1, item 17)", ("auto", "bf16")),
     "ctx_shift": ("context shift (ROADMAP Queue 1, item 5)", (False,)),
     "tp": ("tensor parallelism (ROADMAP Queue 1, item 11)", (1,)),
-    "smooth_scales": ("w8a8 smooth-quant scales (ROADMAP Queue 1, item 10)", (None,)),
 }
 
 
@@ -573,7 +571,13 @@ def main(argv: list[str] | None = None) -> None:
                     default="auto",
                     help="form of quantized weights (MiniGPT4Engine quant_mode): auto = gq for "
                     "the decoder where it applies, repacked otherwise and for the vision "
-                    "weights; repack = repacked everywhere")
+                    "weights; repack = repacked everywhere; w8a8 = i8 codes and activations "
+                    "where K %% 256 == 0; qtensor = packed bytes dequantized per call")
+    ap.add_argument("--cache-dtype", choices=["auto", "bf16", "f32", "f8"], default="auto",
+                    help="KV cache element type (f8 = e4m3); auto = the engine's default, bf16")
+    ap.add_argument("--smooth-scales", default=None, metavar="NPZ",
+                    help="smooth-quant scales of minigpt4_tpu_torch.quality (--save-scales), "
+                    "folded into the decoder's w8a8 weights (auto resolves to w8a8)")
     # the JAX server's options that the port does not serve yet: accepted so
     # that asking for one names its ROADMAP item instead of a usage error
     ap.add_argument("--continuous", action="store_true")
@@ -582,12 +586,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--speculative-k", type=int, default=0)
     ap.add_argument("--draft-llm", default=None)
     ap.add_argument("--draft-head", default=None)
-    ap.add_argument("--cache-dtype", choices=["auto", "bf16", "f32", "f8"], default="auto")
     ap.add_argument("--ctx-shift", action="store_true")
     ap.add_argument("--prefix-cache-mb", type=int, default=None)
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--smooth-scales", default=None)
     args = ap.parse_args(argv)
     try:
         httpd = start_server(args.model_path, args.llm_model_path, args.host, args.port,
@@ -595,6 +597,8 @@ def main(argv: list[str] | None = None) -> None:
                              batch_window_s=args.batch_window_ms / 1e3,
                              paged_pages=args.paged_pages or None, device=args.device,
                              quant_mode=args.quant_mode,
+                             cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
+                             smooth_scales=args.smooth_scales,
                              **{name: getattr(args, name) for name in UNPORTED})
     except NotImplementedError as e:
         ap.error(str(e))

@@ -17,7 +17,12 @@ rq_decode keeps x in f32 like qmatmul_repacked_ref (1e-5); rq_prefill
 rounds x and w = scale * q - min to bf16 like qmatmul_repacked_prefill_ref
 (1e-4, summation order) and sits within 1e-2 of the f32 plain version
 (two bf16 roundings of 2^-9 each per product; tests/test_pallas_quant_matmul.py
-holds the TPU kernel to 1.2e-2 of the same f32 product).
+holds the TPU kernel to 1.2e-2 of the same f32 product).  i8_decode and
+i8_prefill form each 256-wide chunk's product as an exact i32 like
+qmatmul_i8sb_ref and sum the scaled chunks in chunk order (1e-5 and 1e-4
+of max|y|: only the f32 multiply-add rounding can differ).  The e4m3 cache
+reads through the same unpack in the kernels and in cache_f32 (1e-5
+absolute, as the other cache types).
 """
 
 import numpy as np
@@ -32,6 +37,7 @@ from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.ops import _build
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
+from minigpt4_tpu_torch.ops import i8_matmul as ti8
 from minigpt4_tpu_torch.ops import pallas_quant_matmul as trq
 from minigpt4_tpu_torch.ops import repack as trp
 from test_torch_fixtures import build_llm_q5_k_m
@@ -123,7 +129,11 @@ def test_refused_launches_raise(cuda_device):
 FLASH_CASES = [(1, 0), (1, 300), (8, 130), (32, 0), (32, 250), (1, [5, 400]), (32, [97, 128])]
 
 
-@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+CACHE_TYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
+CACHE_IDS = ["f32", "bf16", "e4m3"]
+
+
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
 @pytest.mark.parametrize("s,pos0", FLASH_CASES)
 def test_flash_decode_kernel_matches_plain(cuda_device, s, pos0, cache_dtype):
     rng = np.random.default_rng(3)
@@ -212,7 +222,7 @@ def _paged_case(device, dh, dtype, s, seed=5):
 
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("s", [1, 8])
-@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
 def test_paged_flash_decode_kernel_matches_plain_and_dense(cuda_device, dh, s, cache_dtype):
     q, (pk, pv), table, pos = _paged_case(cuda_device, dh, cache_dtype, s)
     scale = dh ** -0.5
@@ -382,6 +392,90 @@ def test_repack_engine_on_card_matches_plain_versions(cuda_device, tmp_path, fil
             eng.close()
         grew = [f.launches > b for f, b in zip(rq_kernels + gq_kernels, before)]
         assert grew == [device == "cuda"] * 2 + [False] * 4, (device, grew)
+    (ce, ct), (ge, gt) = runs["cpu"], runs["cuda"]
+    assert np.abs(ge - ce).max() <= 1e-4 * np.abs(ce).max()
+    assert gt == ct
+
+
+def _i8(n, k, layers, device, seed=0):
+    rng = np.random.default_rng(seed)
+    ws = [ti8.requantize_i8sb(torch.from_numpy(rng.normal(0, 0.6, (n, k)).astype(np.float32))
+                              .to(device)) for _ in range(layers)]
+    if layers == 1:
+        return ti8.I8SBQuant(ws[0][0], ws[0][1], k)
+    return ti8.stack([ti8.I8SBQuant(c, sc, k) for c, sc in ws])
+
+
+# N = 300 is ragged for both column tiles; K = 768 is three chunks
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+@pytest.mark.parametrize("m", [1, 8, 9, 33, 257])
+def test_i8_kernels_match_plain(cuda_device, m, stacked):
+    n, k = 300, 768
+    w = _i8(n, k, 3 if stacked else 1, cuda_device)
+    layer = 2 if stacked else None
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+    x_i8, _ = ti8.quantize_activations(x.to(cuda_device))
+    kern = ti8.i8_decode if m <= ti8.I8_MAX_M else ti8.i8_prefill
+    before = kern.launches
+    got = kern(x_i8, w, layer)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = ti8.qmatmul_i8sb_ref(x_i8, w, layer)
+    assert _rel(got, want) <= (1e-5 if m <= ti8.I8_MAX_M else 1e-4)
+    # the engine's entry: the same product times the row scales
+    y = ti8.qmatmul_i8sb(x.to(cuda_device), w, layer)
+    assert _rel(y, ti8.qmatmul_i8sb(x, ti8.I8SBQuant(w.codes.cpu(), w.scales.cpu(), k),
+                                    layer)) <= 1e-4
+
+
+def test_i8_refused_launches_raise(cuda_device):
+    w = _i8(64, 256, 2, cuda_device)
+    x9 = torch.zeros((9, 256), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="1..8 rows"):
+        ti8.i8_decode(x9, w, 0)
+    with pytest.raises(IndexError, match="out of range"):
+        ti8.i8_prefill(x9, w, 2)
+    with pytest.raises(ValueError, match="layer index"):
+        ti8.i8_prefill(x9, w)
+    # K = 96 is no multiple of 256: both C entries refuse it
+    bad = ti8.I8SBQuant(w.codes[:, :, :96].contiguous(), w.scales[:, :, :1].contiguous(), 96)
+    for kern, x in ((ti8.i8_decode, x9[:1, :96]), (ti8.i8_prefill, x9[:, :96])):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kern(x.contiguous(), bad, 0)
+
+
+def test_i8_cpu_wrappers_count_no_launch():
+    w = _i8(32, 256, 1, "cpu")
+    before = (ti8.i8_decode.launches, ti8.i8_prefill.launches)
+    for m in (1, 8, 9, 40):
+        ti8.qmatmul_i8sb(torch.ones(m, 256), w)
+    assert (ti8.i8_decode.launches, ti8.i8_prefill.launches) == before
+
+
+def test_w8a8_f8_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
+    """One image chat on the gq fixture with quant_mode="w8a8" (every
+    decoder weight has K % 256 == 0) over an e4m3 cache: the card and the
+    CPU give the same greedy tokens; on the card both i8 kernels and the
+    flash kernel ran and no gq kernel did."""
+    model, llm = build_gq_models(tmp_path)
+    img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    kernels = (ti8.i8_decode, ti8.i8_prefill, tfd.flash_decode_attention, tgq.gq_decode,
+               tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = [f.launches for f in kernels]
+        eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=device,
+                             quant_mode="w8a8", cache_dtype="f8")
+        try:
+            assert eng.cache_dtype == torch.float8_e4m3fn
+            emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+            eng.system_prompt()
+            eng.begin_chat_image(emb, "what is in the image?")
+            runs[device] = (emb, list(eng.generate(limit=10, params=SamplingParams(temp=0.0))))
+        finally:
+            eng.close()
+        grew = [f.launches > b for f, b in zip(kernels, before)]
+        assert grew == [device == "cuda"] * 3 + [False] * 4, (device, grew)
     (ce, ct), (ge, gt) = runs["cpu"], runs["cuda"]
     assert np.abs(ge - ce).max() <= 1e-4 * np.abs(ce).max()
     assert gt == ct

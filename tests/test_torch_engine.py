@@ -1,8 +1,8 @@
 """Port parity for the chat engine: one image chat on the gq fixture through
 the PyTorch engine (device="cpu", kernels' plain versions) against the JAX
-engine (quant_mode="gq", Pallas in interpret mode); the same flow and a
-two-lane paged batch in a subprocess where importing ``jax`` or the JAX
-package fails; the on-device sampling chain against the JAX chain for
+engine (quant_mode="gq", Pallas in interpret mode); the same flow, a
+two-lane paged batch and a w8a8 chat over an e4m3 cache in a subprocess
+where importing ``jax`` or the JAX package fails; the on-device sampling chain against the JAX chain for
 fixed logits.
 """
 
@@ -86,10 +86,17 @@ for q in ("one two", "three four five"):
     pool.begin_chat(s, q)
     lanes.append(s)
 texts = pool.generate_batch(lanes, limit=8, params=SamplingParams(temp=0.0), decode_chunk=4)
+w8 = MiniGPT4Engine(sys.argv[2], sys.argv[3], n_ctx=256, n_batch=32, device="cpu",
+                    quant_mode="w8a8", cache_dtype="f8")
+w8.begin_chat(sys.argv[4])
+w8_toks = list(w8.generate(limit=6, params=SamplingParams(temp=0.0)))
+w8_form = (w8.quant_mode, str(w8.cache_dtype),
+           type(w8.llm_params["layers"]["wqkv"]["w"]).__name__, len(w8_toks) > 0)
+w8.close()
 print(json.dumps({"tokens": toks, "jax_loaded": sys.modules["jax"] is not None,
                   "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,
                   "paged_batch": [len(t) > 0 for t in texts],
-                  "free_pages": pool.paged_pool.free_pages}))
+                  "free_pages": pool.paged_pool.free_pages, "w8a8_f8": w8_form}))
 """
 
 
@@ -101,7 +108,8 @@ def test_port_runs_without_jax(gq_files, port_chat):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"tokens": port_chat[1], "jax_loaded": False, "jax_package_loaded": False,
-                   "paged_batch": [True, True], "free_pages": 8}
+                   "paged_batch": [True, True], "free_pages": 8,
+                   "w8a8_f8": ["w8a8", "torch.float8_e4m3fn", "I8SBQuant", True]}
 
 
 def test_port_sources_never_import_jax():

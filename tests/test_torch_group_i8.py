@@ -109,7 +109,8 @@ def test_concat_out_is_concatenated_outputs():
 # 32, K = 96 none of 8 groups at all, q8_1 has no gq form.  The first three
 # load repacked in gq mode, as in the JAX package (bit-equal dequantized
 # weight, the JAX kernel's bf16 bound of tests/test_torch_repack.py on the
-# product); q8_1 has no repacked form either and still raises.
+# product); q8_1 has no repacked form either and keeps its packed bytes (a
+# QTensor), as in the JAX package.
 @pytest.mark.parametrize("dtype,k", [(DataType.Q4_0, 1408), (DataType.Q8_0, 1408),
                                      (DataType.Q5_1, 96), (DataType.Q8_1, 512)],
                          ids=["q4_0-K1408", "q8_0-K1408", "q5_1-K96", "q8_1-K512"])
@@ -118,8 +119,12 @@ def test_unported_formats_raise(dtype, k):
     assert not tgq.supported(dtype, k)
     raw = _make(dtype, 8, k)
     if dtype == DataType.Q8_1:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-            load_quant_weight(raw, (8, k), dtype, "cpu", "gq")
+        from minigpt4_tpu.models.params import load_quant_weight as jax_load
+        from minigpt4_tpu_torch.ops.quant_matmul import QTensor
+
+        w = load_quant_weight(raw, (8, k), dtype, "cpu", "gq")
+        assert isinstance(w, QTensor) and w.dtype == dtype and w.n_in == k
+        assert np.array_equal(w.packed.numpy(), np.asarray(jax_load(raw, (8, k), dtype, "gq").packed))
         return
     w = load_quant_weight(raw, (8, k), dtype, "cpu", "gq")
     assert isinstance(w, RepackedQuant) and w.dtype == dtype

@@ -392,13 +392,40 @@ def repack_chat(quant_files):
         eng.close()
 
 
+def _mode_chat(model, llm, mode, engine=MiniGPT4Engine, params=SamplingParams, **kw):
+    eng = engine(model, llm, n_ctx=N_CTX, n_batch=32, quant_mode=mode, **kw)
+    try:
+        emb = eng.encode_image(preprocess(IMAGE, size=eng.vision_cfg.vit.image_size))
+        eng.system_prompt()
+        eng.begin_chat_image(emb, QUESTION)
+        return eng, emb, list(eng.generate(limit=10, params=params(temp=0.0)))
+    finally:
+        eng.close()
+
+
 def test_engine_quant_modes(quant_files, repack_chat):
     model, llm = quant_files[DataType.Q4_0]
     with pytest.raises(ValueError, match="unknown quant_mode"):
         MiniGPT4Engine(model, llm, device="cpu", quant_mode="q4")
-    for mode, item in (("qtensor", "Queue 1 item 2"), ("w8a8", "Queue 2 item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            MiniGPT4Engine(model, llm, device="cpu", quant_mode=mode)
+    # qtensor: the packed bytes, dequantized in f32 per call, as the JAX
+    # engine's qtensor mode: the same greedy tokens
+    from minigpt4_tpu.engine.engine import MiniGPT4Engine as JaxEngine
+    from minigpt4_tpu.engine.sampling import SamplingParams as JaxParams
+    from minigpt4_tpu_torch.ops.quant_matmul import QTensor
+
+    eng, emb, toks = _mode_chat(model, llm, "qtensor", device="cpu")
+    assert isinstance(eng.vision_params["visual_encoder"]["blocks"]["fc1"]["w"], QTensor)
+    assert isinstance(eng.llm_params["layers"]["wqkv"]["w"], QTensor)
+    _, jemb, jtoks = _mode_chat(model, llm, "qtensor", JaxEngine, JaxParams)
+    assert np.abs(emb - jemb).max() <= 1e-5 * np.abs(jemb).max()
+    assert toks == jtoks and len(toks) == 10
+    # w8a8: no weight of these 32-wide files has K % 256 == 0, so every one
+    # takes the auto form (repacked): the repack chat
+    eng, emb, toks = _mode_chat(model, llm, "w8a8", device="cpu")
+    assert eng.quant_mode == "w8a8"
+    assert isinstance(eng.llm_params["layers"]["wqkv"]["w"], trp.RepackedQuant)
+    np.testing.assert_array_equal(emb, repack_chat[0])
+    assert toks == repack_chat[1]
     # auto: the vision weights repacked, the decoder resolved to gq, which
     # falls back to repacked weights at these widths: the same chat
     eng = MiniGPT4Engine(model, llm, n_ctx=N_CTX, n_batch=32, device="cpu")
@@ -459,11 +486,29 @@ def test_repack_chat_runs_without_jax(quant_files, repack_chat):
 
 
 @pytest.mark.parametrize("mode,item", [("w8a8", "Queue 2 item 4"), ("qtensor", "Queue 1 item 2")])
-def test_server_quant_mode_reaches_the_engine(quant_files, mode, item, capsys):
+def test_server_quant_mode_reaches_the_engine(quant_files, mode, item, capsys, monkeypatch):
+    """--quant-mode reaches the engine and loads (the ROADMAP item that once
+    refused it is done)."""
     from minigpt4_tpu_torch import serve
 
     model, llm = quant_files[DataType.Q4_0]
-    with pytest.raises(SystemExit):
-        serve.main([str(model), str(llm), "--device", "cpu", "--port", "0",
-                    "--quant-mode", mode])
-    assert item in capsys.readouterr().err
+    started = []
+    real = serve.start_server
+
+    def start(*a, **k):
+        httpd = real(*a, **k)
+        httpd.serve_forever = lambda: None  # bound, not served
+        started.append(httpd)
+        return httpd
+
+    monkeypatch.setattr(serve, "start_server", start)
+    serve.main([str(model), str(llm), "--device", "cpu", "--port", "0", "--n-ctx", "256",
+                "--quant-mode", mode])
+    httpd = started[0]
+    try:
+        assert httpd.pool.engine.quant_mode == mode
+    finally:
+        httpd.server_close()
+        httpd.pool.close()
+    out = capsys.readouterr()
+    assert "serving on" in out.out and item not in out.err

@@ -265,7 +265,7 @@ def test_tiny_model_batched_server_matches_plain(tmp_path):
 @pytest.mark.parametrize("flag,item", [("--continuous", "item 13"), ("--max-batch=4", "item 13"),
                                        ("--speculative-k=4", "item 14"),
                                        ("--no-prefix-cache", None), ("--park-idle", "item 16"),
-                                       ("--cache-dtype=f8", "item 17")])
+                                       ("--tp=2", "item 11")])
 def test_unported_options_fail_at_start_up(flag, item, capsys):
     """An option of the JAX server that the port does not serve yet stops the
     server before it loads anything, naming its ROADMAP item."""
@@ -278,3 +278,46 @@ def test_unported_options_fail_at_start_up(flag, item, capsys):
     assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         serve.start_server("missing-model.bin", "missing-llm.bin", continuous=True)
+
+
+def test_w8a8_f8_smooth_options_reach_the_engine(tmp_path, monkeypatch):
+    """--quant-mode w8a8 --smooth-scales F --cache-dtype f8 load: the
+    decoder's weights are i8 with the scales folded in (its norm weights
+    divided by them) over an e4m3 cache, and a chat runs."""
+    import torch
+
+    from minigpt4_tpu_torch import quality
+    from minigpt4_tpu_torch.formats import LlamaFileReader
+
+    model, llm = build_gq_models(tmp_path)
+    scales = quality.compute_smooth_scales(llm, [np.arange(3, 40, dtype=np.int32)], device="cpu")
+    quality.save_smooth_scales(tmp_path / "scales.npz", scales)
+    started = []
+    real = serve.start_server
+
+    def start(*a, **k):
+        httpd = real(*a, **k)
+        httpd.serve_forever = lambda: None  # bound, not served
+        started.append(httpd)
+        return httpd
+
+    monkeypatch.setattr(serve, "start_server", start)
+    serve.main([str(model), str(llm), "--device", "cpu", "--port", "0", "--n-ctx", "256",
+                "--session-ctx", "256", "--quant-mode", "w8a8",
+                "--smooth-scales", str(tmp_path / "scales.npz"),
+                "--cache-dtype", "f8"])
+    pool = started[0].pool
+    try:
+        eng = pool.engine
+        assert eng.quant_mode == "w8a8" and eng.cache_dtype == torch.float8_e4m3fn
+        with LlamaFileReader(llm) as r:
+            norm = r.tensor_f32("layers.0.attention_norm.weight")
+        assert np.allclose(eng.llm_params["layers"]["attention_norm"][0].numpy(),
+                           norm / scales["attn"][0])
+        s = pool.new_session()
+        s.ask("hello")
+        assert s.state.cache["k"].dtype == torch.float8_e4m3fn
+        assert len(list(s.generate(limit=4))) > 0
+    finally:
+        started[0].server_close()
+        pool.close()
