@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's one-image chat path, its batched HTTP serving path,
-its quantized-container / repacked-weight path and its w8a8 path over an
-e4m3 cache on an NVIDIA GPU.
+"""Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
+its batched HTTP serving path, its quantized-container / repacked-weight
+path and its w8a8 path over an e4m3 cache on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -30,15 +30,30 @@ Phases (any failure exits nonzero before the last line):
                attention kernels, the time of torch's
                scaled_dot_product_attention with a boolean mask on the same
                (gathered) cache; the paged kernel must give the dense kernel's
-               bits on the gathered cache.
-  4. engine  - two chats through MiniGPT4Engine(device="cuda"), each on
+               bits on the gathered cache.  Last, the gq entries on packed
+               codes at PACKED_CASES (the packed chats' shapes and row
+               counts): each weight packed by group_i8.pack_codes must give
+               the bits of its unpacked codes (max |d| = 0) and sit within
+               the gq tolerances of the plain version; packed and unpacked
+               are timed in turns, with the bound of the packed bytes and of
+               the unpacked ones, and the wrappers' host time per decode call.
+  4. engine  - four chats through MiniGPT4Engine(device="cuda"), each on
                synthetic files cached under build/smoke_models/ by geometry,
                layout and seed, one engine closed before the next is built:
                a. Vicuna-13B at full width and depth in llama.cpp's Q5_K_M
                   layout (q6_k output, q6_k wv/w2 on 20 of 40 layers, q5_k
                   elsewhere) with a 13B f16 ViT-G + Q-Former container;
+               a'. the same files with quant_mode="gq": the codes packed (p5
+                  q5_k, p6 q6_k); the greedy ids must equal a's, and the
+                  memory each load allocated is printed; a and a' stay
+                  loaded for a decode A/B, 16-token chunks in turns a, a',
+                  a', a (three times);
                b. Vicuna-7B width, every projection q5_k, depth cut to 8
-                  layers, with a 7B f16 container.
+                  layers, with a 7B f16 container;
+               b'. Vicuna-7B width, depth 8, wq/wk/wv/w1/w3 q4_k, wo q5_1, w2
+                  q4_0, output q6_k, quant_mode="gq" (a synthetic mix that
+                  reaches the packed entries a' does not), with the 7B f16
+                  container.
                Each: encode_image, system_prompt, begin_chat_image, a greedy
                generate(limit=32), a timed 16-token decode chunk, a
                16-token chunk under torch.profiler (device busy time, idle
@@ -46,7 +61,9 @@ Phases (any failure exits nonzero before the last line):
                second turn.  The launch counts are set to 0 just before each
                chat and read just after: the 13B chat must launch the five
                kernels of the chat path, the 7B chat the three exact-plane and
-               flash kernels.
+               flash kernels, and neither a packed entry; a' the packed p5 and
+               p6 entries and b' the other six, and neither an unpacked gq
+               entry.
   5. serving - minigpt4_tpu_torch.serve.start_server on the 13B files with
                session_ctx 512, a 30 ms batch window and a pool of 32 pages,
                on an ephemeral port.  Eight client threads each create a
@@ -86,14 +103,15 @@ Phases (any failure exits nonzero before the last line):
                the chat of phase 4 on its engine, then eight sessions decode
                32 greedy tokens as a paged group and as a dense group, token
                for token equal.  i8_decode, i8_prefill, rq_prefill and both
-               flash kernels must launch, no gq kernel may.
+               flash kernels must launch, no gq kernel may, packed or not
+               (nor in the serving phase or the repack chat).
   8. quality - python -m minigpt4_tpu_torch.quality at the small geometry on
                the card: five finite rows, the table and both gates.
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
 {"kernels": [...]} (launches in each kernel's own path, the serving phase,
-the repack chat or the w8a8 path, and of each path); the last is
-{"ok": true, "device": {...}}.
+the repack chat, the w8a8 path or a packed chat, and of each path); the last
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -127,6 +145,11 @@ STACK_VIT, STACK_QF, STACK_HEAD = 39, 12, 8  # ViT-G blocks, Q-Former layers, ou
 # q5_1 d that gives the f16 container's weight spread (std 0.02): a q5_1
 # weight d * q + m with uniform codes 0..31 has std 9.23 d; m = -15.5 d
 Q51_D = 0.02 / 9.23
+# q4_0 d and q4_k d for the q5_k weights' spread (std 527 Q5K_D): a q4_0
+# weight d * (q - 8) with uniform codes 0..15 has std 4.61 d; a q4_k weight
+# d * sc * q - 7.5 d * mn with uniform sc, mn 0..63 and q 0..15 has std 263 d
+Q40_D = 527 * Q5K_D / 4.61
+Q4K_D = Q5K_D * 527 / 263
 # NVIDIA's H100 SXM data sheet: HBM rate, f32 (CUDA cores) and dense bf16
 # tensor-core peaks; a kernel's bound is the larger of bytes / HBM_BPS and
 # operations / the peak of the type they run in
@@ -134,12 +157,28 @@ HBM_BPS, F32_FLOPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
 # Vicuna-7B and -13B (benchmark.py GEOMETRIES) and MiniGPT-4's ViT-G / Q-Former
 LLM_13B = dict(n_embd=5120, n_head=40, n_layer=40, n_vocab=32000, n_mult=256, layout="q5_k_m")
 LLM_7B = dict(n_embd=4096, n_head=32, n_layer=8, n_vocab=32000, n_mult=256, layout="q5_k")
+# the packed gq entries of the formats a Q5_K_M file lacks: Vicuna-7B width,
+# depth cut to 8, wq/wk/wv/w1/w3 q4_k (so wqkv and w13 fuse as in a q5_k
+# file), wo q5_1, w2 q4_0, output q6_k.  No llama.cpp ftype writes this mix:
+# it is synthetic coverage of the p4 and generic p5 entries.
+LLM_7B_MIX = dict(LLM_7B, layout="q4_mix")
+Q4_MIX = {"output.weight": "Q6_K", "attention.wo.weight": "Q5_1", "feed_forward.w2.weight": "Q4_0"}
+# the largest prefill bucket of the chat (a 142-token system prompt padded
+# to 256 rows); the image and the question take 32
+PROMPT_M = 256
 VISION_GEOMETRY = dict(width=1408, depth=39, mlp=6144, hidden=768, qf_layers=12, queries=32,
                        intermediate=3072, qf_heads=12)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"[phase] {name} at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -227,27 +266,33 @@ def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float
 # ---------------------------------------------------------------------------
 
 
-def random_gq(n_layer: int, n: int, k: int, gen: torch.Generator):
-    """Stacked q5_k-range GroupQuant made on the card (codes 0..31, 6-bit
-    sub-scales, the smoke model's d and dmin)."""
+def random_gq(n_layer: int, n: int, k: int, gen: torch.Generator, dtype=None):
+    """Stacked exact-plane GroupQuant made on the card: q5_k (codes 0..31,
+    the smoke model's d and dmin = 15.5 d) or q4_k (codes 0..15, Q4K_D and
+    dmin = 7.5 d), with random 6-bit sub-scales."""
     from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops.group_i8 import GroupQuant
 
+    q4 = dtype == DataType.Q4_K
+    d = Q4K_D if q4 else Q5K_D
     g, s = k // 32, k // 256
     dev = DEVICE
     return GroupQuant(
-        codes=torch.randint(0, 32, (n_layer, n, k), generator=gen, device=dev, dtype=torch.int8),
+        codes=torch.randint(0, 16 if q4 else 32, (n_layer, n, k), generator=gen, device=dev,
+                            dtype=torch.int8),
         sc6=torch.randint(0, 64, (n_layer, g, n), generator=gen, device=dev, dtype=torch.uint8),
         mn6=torch.randint(0, 64, (n_layer, g, n), generator=gen, device=dev, dtype=torch.uint8),
-        d=torch.full((n_layer, s, n), Q5K_D, device=dev),
-        dmin=torch.full((n_layer, s, n), 15.5 * Q5K_D, device=dev),
-        dtype=DataType.Q5_K, n_in=k)
+        d=torch.full((n_layer, s, n), d, device=dev),
+        dmin=torch.full((n_layer, s, n), (7.5 if q4 else 15.5) * d, device=dev),
+        dtype=DataType.Q4_K if q4 else DataType.Q5_K, n_in=k)
 
 
 def random_generic(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
     """Stacked generic-plane GroupQuant made on the card: q6_k (codes 0..63,
-    A = d * sc for random signed sub-scales sc, B = -32 A) or q8_0 (signed
-    codes, A = d in [0.5, 1.5) x 2^-13, B = -0)."""
+    A = d * sc for random signed sub-scales sc, B = -32 A), q4_0 (codes
+    0..15, A = d in [0.5, 1.5) x Q40_D, B = -8 A), q5_1 (codes 0..31, A = d
+    in [0.5, 1.5) x Q51_D, B = -15.5 A) or q8_0 (signed codes, A = d in
+    [0.5, 1.5) x 2^-13, B = -0)."""
     from minigpt4_tpu_torch.formats import DataType
     from minigpt4_tpu_torch.ops import group_i8 as gq
 
@@ -257,6 +302,12 @@ def random_generic(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
         codes = torch.randint(0, 64, (n_layer, n, k), generator=gen, device=DEVICE, dtype=torch.int8)
         a = Q6K_D * torch.randint(-128, 128, shape, generator=gen, device=DEVICE).float()
         b = -32.0 * a
+    elif dtype in (DataType.Q4_0, DataType.Q5_1):
+        q4 = dtype == DataType.Q4_0
+        codes = torch.randint(0, 16 if q4 else 32, (n_layer, n, k), generator=gen, device=DEVICE,
+                              dtype=torch.int8)
+        a = (Q40_D if q4 else Q51_D) * (0.5 + torch.rand(shape, generator=gen, device=DEVICE))
+        b = -(8.0 if q4 else 15.5) * a
     else:
         codes = torch.randint(-128, 128, (n_layer, n, k), generator=gen, device=DEVICE,
                               dtype=torch.int8)
@@ -282,14 +333,13 @@ def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
 
 
 def gq_bound(w, m: int) -> tuple[float, str]:
-    """One layer's codes and planes read once, x [M, K] f32 read and y
+    """One layer's codes (packed or not) and planes read once, x [M, K] f32 read and y
     [M, N] f32 written once; 2 M N K operations, in f32 on the CUDA cores
     for the decode kernels (M <= 8), in bf16 on the tensor cores for the
     prefill kernels."""
     from minigpt4_tpu_torch.ops import group_i8 as gq
 
-    fields = [t for t in (w.codes, w.sc6, w.mn6, w.d, w.dmin, w.a, w.b) if t is not None]
-    layer = nbytes(*fields) / w.codes.shape[0]
+    layer = nbytes(*w.tensors().values()) / w.codes.shape[0]  # codes, high bits, planes
     n, k = w.n_out, w.n_in
     return bound(layer + 4 * m * (k + n), 2.0 * m * n * k,
                  F32_FLOPS if m <= gq.GQ_MAX_M else BF16_FLOPS)
@@ -338,6 +388,103 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             f"  bound {b_ms:.4f} ms ({b_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+
+
+# packed-code cases, (name, (N, K), format, stacked layers, row counts), at
+# the shapes and row counts of the packed chats (decode rows, the prompt's
+# PROMPT_M and the image's 32) and the 512-row bucket: the q5_k (p5, exact)
+# 13B w13 and w2 (K = 13824, unpadded) and ViT-G fc2, the q6_k (p6, generic)
+# 13B output and w2; the 7B mix's q4_k (p4, exact) w13, q4_0 (p4) w2 (K =
+# 11008, 43 chunks of 256) and q5_1 (p5) wo; q4_0 and q5_1 at the 13B
+# attention projections
+PACKED_CASES = (("w13", (27648, 5120), "Q5_K", STACK_13B, (1, 8, PROMPT_M, 512)),
+                ("w2", (5120, 13824), "Q5_K", STACK_13B, (1,)),
+                ("fc2", (1408, 6144), "Q5_K", STACK_VIT, (257,)),
+                ("output", (32000, 5120), "Q6_K", STACK_HEAD, (1, 8)),
+                ("w2", (5120, 13824), "Q6_K", STACK_13B, (PROMPT_M, 512)),
+                ("w13", (22016, 4096), "Q4_K", STACK_7B, (1, PROMPT_M, 512)),
+                ("w2", (4096, 11008), "Q4_0", STACK_7B, (1, 32, PROMPT_M)),
+                ("wo", (4096, 4096), "Q5_1", STACK_7B, (1, 32, PROMPT_M)),
+                ("attn", (5120, 5120), "Q4_0", STACK_13B, (1, 512)),
+                ("attn", (5120, 5120), "Q5_1", STACK_13B, (1, 512)))
+
+
+def host_us(fn, args_for, n: int = 50) -> float:
+    """Host microseconds per call of fn(*args_for(i)), n calls back to back
+    with no synchronisation between them (the device queue takes them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*args_for(i))
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def check_packed(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
+    """The weight packed (group_i8.pack_codes) through the same wrapper,
+    which launches the entry on the packed codes: bit-equal to the unpacked
+    codes on the same weight (max |d| must be 0), within check_matmul's
+    tolerances of the plain version; packed and unpacked timed in turns
+    (unpacked, packed, packed, unpacked), the plain version after them; for
+    decode rows, the wrapper's host time per call, packed and unpacked."""
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+
+    wp = gq.pack_codes(w)
+    n, k = w.n_out, w.n_in
+    last = n_stack - 1
+    for m in ms:
+        x = torch.randn(m, k, generator=gen, device=DEVICE)
+        decode = m <= gq.GQ_MAX_M
+        if decode:
+            kern, plain = (gq.gq_decode if w.exact else gq.gq_decode_generic), gq.qmatmul_decode_ref
+        else:
+            kern, plain = (gq.gq_prefill if w.exact else gq.gq_prefill_generic), gq.qmatmul_prefill_ref
+        tol = 1e-4 if decode else 2e-3
+        got, twin, want = kern(x, wp, last), kern(x, w, last), plain(x, wp, last)
+        torch.cuda.synchronize()
+        diff = float((got - twin).abs().max())
+        err, abs_err = rel_err(got, want), float((got - want).abs().max())
+        p_ms, u_ms = compare_times(lambda xx, li: kern(xx, wp, li), lambda xx, li: kern(xx, w, li),
+                                   lambda i: (x, i % n_stack))
+        plain_ms = statistics.median(_time_ms(plain, lambda i: (x, wp, i % n_stack), 10))
+        host = None
+        if decode:  # packed, unpacked, packed
+            hp = [host_us(kern, lambda i, v=v: (x, v, i % n_stack)) for v in (wp, w, wp)]
+            host = (min(hp[0], hp[2]), hp[1])
+        key = f"{kern.__name__}[{wp.packing}]"
+        b_ms, b_by = gq_bound(wp, m)
+        results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format=w.dtype.name.lower(),
+                                 max_rel_err=err, max_abs_err=abs_err, tol=tol,
+                                 max_diff_unpacked=diff, ms=p_ms, unpacked_ms=u_ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 unpacked_bound_ms=gq_bound(w, m)[0], library_ms=None,
+                                 host_us=host))
+        log(f"[kernels] {key:22s} {w.dtype.name.lower():4s} {name:6s} N={n:5d} K={k:5d} M={m:3d}"
+            f"  max |packed - unpacked| = {diff:g}  max_rel_err={err:.3e} (tol {tol:g})  packed "
+            f"{p_ms:.4f} ms  unpacked {u_ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by}; unpacked {gq_bound(w, m)[0]:.4f} ms)"
+            + ("" if host is None else
+               f"  host per call {host[0]:.1f} us packed, {host[1]:.1f} us unpacked")
+            + f"  [{card}]")
+        if diff != 0.0:
+            raise AssertionError(f"{key} {name} M={m}: packed and unpacked differ by {diff}")
+        if not err <= tol:
+            raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+    del wp
+
+
+def phase_packed_kernels(results: dict, card: str, gen: torch.Generator) -> None:
+    """Every packed entry at the PACKED_CASES shapes."""
+    from minigpt4_tpu_torch.formats import DataType
+
+    for name, (n, k), fmt, stack, ms in PACKED_CASES:
+        dtype = DataType[fmt]
+        w = (random_gq(stack, n, k, gen, dtype) if dtype in (DataType.Q4_K, DataType.Q5_K)
+             else random_generic(stack, n, k, dtype, gen))
+        check_packed(results, card, name, w, stack, ms, gen)
+        del w
+        torch.cuda.empty_cache()
 
 
 def random_rq(n_layer: int, n: int, k: int, dtype, gen: torch.Generator):
@@ -589,7 +736,7 @@ def phase_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    results = {k: [] for k in KERNELS}
+    results = {k: [] for k in KERNELS + PACKED_KERNELS}
     # exact planes at the Vicuna-7B shapes
     d, ff, v = 4096, 11008, 32000
     for name, (n, k) in {"wqkv": (3 * d, d), "wo": (d, d), "w13": (2 * ff, d), "w2": (d, ff),
@@ -611,6 +758,7 @@ def phase_kernels(card: str) -> dict:
         del w
         torch.cuda.empty_cache()
 
+    phase("kernels: flash")
     h, dh, c = 32, 128, 2048
     last = STACK_7B - 1
     cases = [(1, s, p) for s in (1, 8, 32) for p in (0, 127, 1000, 2015)]
@@ -645,10 +793,16 @@ def phase_kernels(card: str) -> dict:
             raise AssertionError(f"flash_decode B={b} S={s} pos0={pos}: abs err {err} > 1e-3")
     del caches
     torch.cuda.empty_cache()
+    phase("kernels: paged flash")
     paged_kernel_case(results, card, gen)
+    phase("kernels: repacked")
     phase_rq_kernels(results, card, gen)
+    phase("kernels: i8")
     phase_i8_kernels(results, card, gen)
+    phase("kernels: e4m3 flash")
     e4m3_flash_cases(results, card, gen)
+    phase("kernels: packed gq")
+    phase_packed_kernels(results, card, gen)
     return results
 
 
@@ -769,6 +923,23 @@ def _q5_1_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
     return blk.reshape(-1)
 
 
+def _q4k_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
+    """Raw q4_k blocks of an [n, k] weight: random code and scale bytes, a
+    fixed f16 d = Q4K_D and dmin = 7.5 d (zero mean weight in expectation)."""
+    blk = _rand_u8(n * k // 256 * 144, gen).reshape(-1, 144)
+    blk[:, 0:2] = np.array([Q4K_D], np.float16).view(np.uint8)
+    blk[:, 2:4] = np.array([7.5 * Q4K_D], np.float16).view(np.uint8)
+    return blk.reshape(-1)
+
+
+def _q4_0_bytes(n: int, k: int, gen: torch.Generator) -> np.ndarray:
+    """Raw q4_0 blocks of an [n, k] weight: random code bytes and a fixed f16
+    d = Q40_D (w = d (q - 8): zero mean weight)."""
+    blk = _rand_u8(n * k // 32 * 18, gen).reshape(-1, 18)
+    blk[:, 0:2] = np.array([Q40_D], np.float16).view(np.uint8)
+    return blk.reshape(-1)
+
+
 # container formats: (DataType name, block elements, raw block writer)
 CONTAINER_QUANTS = {"q5_k": ("Q5_K", 256, _q5k_bytes), "q5_1": ("Q5_1", 32, _q5_1_bytes)}
 
@@ -783,11 +954,13 @@ def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
     filler pieces.  Layout "q5_k": every projection q5_k, f16 token
     embeddings.  Layout "q5_k_m", what llama.cpp's quantizer writes for
     "q5_k": output q6_k, wv and w2 q6_k on the more_bits layers, every other
-    2-D weight q5_k, token embeddings included."""
+    2-D weight q5_k, token embeddings included.  Layout "q4_mix": wq, wk,
+    wv, w1 and w3 q4_k, wo q5_1, w2 q4_0, output q6_k, f16 token
+    embeddings."""
     from minigpt4_tpu_torch.formats import DataType, LlamaFileWriter, LlamaHParams, LlamaVocab
 
     d, n_layer, v = geo["n_embd"], geo["n_layer"], geo["n_vocab"]
-    km = geo["layout"] == "q5_k_m"
+    km, mix = geo["layout"] == "q5_k_m", geo["layout"] == "q4_mix"
     hp = LlamaHParams(n_vocab=v, n_embd=d, n_mult=geo["n_mult"], n_head=geo["n_head"],
                       n_layer=n_layer, n_rot=d // geo["n_head"], ftype=17 if km else 16)
     ff = hp.n_ff
@@ -800,10 +973,12 @@ def write_llm(path: Path, gen: torch.Generator, geo: dict) -> None:
         w.add_tensor(name, a.shape, DataType.F32, a.view(np.uint8).reshape(-1))
 
     def quant(name, n, k, q6=False):
-        if q6:
-            w.add_tensor(name, (n, k), DataType.Q6_K, _q6k_bytes(n, k, gen))
-        else:
-            w.add_tensor(name, (n, k), DataType.Q5_K, _q5k_bytes(n, k, gen))
+        fmt = "Q6_K" if q6 else "Q5_K"
+        if mix:  # by the name without its "layers.<i>." prefix
+            fmt = Q4_MIX.get(name.split(".", 2)[-1] if name.startswith("layers.") else name, "Q4_K")
+        writer = {"Q6_K": _q6k_bytes, "Q5_K": _q5k_bytes, "Q4_K": _q4k_bytes, "Q5_1": _q5_1_bytes,
+                  "Q4_0": _q4_0_bytes}[fmt]
+        w.add_tensor(name, (n, k), DataType[fmt], writer(n, k, gen))
 
     if km:
         quant("tok_embeddings.weight", v, d)
@@ -956,9 +1131,22 @@ KERNELS = ("gq_decode", "gq_prefill", "gq_decode_generic", "gq_prefill_generic",
 CHAT_KERNELS = KERNELS[:5]
 SERVING_KERNELS = KERNELS[:6]
 GQ_KERNELS = KERNELS[:4]
+# the packed gq entries, counted per packing: "gq_decode[p5]" is
+# gq.gq_decode.packed_launches["p5"] (the JAX package has no exact-plane p6
+# and packs no generic code of group size 16 in 4 or 5 bits)
+PACKED_KERNELS = ("gq_decode[p4]", "gq_decode[p5]", "gq_prefill[p4]", "gq_prefill[p5]",
+                  "gq_decode_generic[p4]", "gq_decode_generic[p5]", "gq_decode_generic[p6]",
+                  "gq_prefill_generic[p4]", "gq_prefill_generic[p5]", "gq_prefill_generic[p6]")
+PACKED_13B_KERNELS = ("gq_decode[p5]", "gq_prefill[p5]", "gq_decode_generic[p6]",
+                      "gq_prefill_generic[p6]", "flash_decode")
+# (its q6_k output head takes one row, so its p6 runs only in decode)
+PACKED_MIX_KERNELS = ("gq_decode[p4]", "gq_prefill[p4]", "gq_decode_generic[p4]",
+                      "gq_decode_generic[p5]", "gq_decode_generic[p6]", "gq_prefill_generic[p4]",
+                      "gq_prefill_generic[p5]", "flash_decode")
 REPACK_CHAT_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
 W8A8_KERNELS = ("i8_decode", "i8_prefill", "rq_prefill", "flash_decode", "paged_flash_decode")
-DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode")
+DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode") + tuple(
+    k for k in PACKED_KERNELS if "_decode" in k)
 
 
 def _wrappers() -> dict:
@@ -977,36 +1165,79 @@ def _wrappers() -> dict:
 
 
 def launch_counts() -> dict:
-    return {k: f.launches for k, f in _wrappers().items()}
+    counts = {k: f.launches for k, f in _wrappers().items()}
+    for k in PACKED_KERNELS:
+        name, packing = k[:-1].split("[")
+        counts[k] = _wrappers()[name].packed_launches[packing]
+    return counts
 
 
 def reset_launch_counts() -> None:
     for f in _wrappers().values():
         f.launches = 0
+        if hasattr(f, "packed_launches"):
+            f.packed_launches = dict.fromkeys(f.packed_launches, 0)
 
 
 def chat(label: str, lg: dict, card: str, expect: tuple, quant_mode: str = "auto",
-         vision_quant: str | None = None, forbid: tuple = ()) -> dict:
+         vision_quant: str | None = None, forbid: tuple = (), keep: bool = False):
     """One image chat on the synthetic files of geometry ``lg`` (the container
     f16, or with ``vision_quant`` weights) through an engine of ``quant_mode``;
     the kernels of ``expect`` must launch in it, those of ``forbid`` must not.
-    Returns its launch counts and times."""
+    Returns its launch counts and times, and with ``keep`` the engine, open,
+    beside them."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine
 
     model, llm = smoke_models(lg, vision_quant)
     reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode=quant_mode)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
+    mem_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    codes = (f", gq codes {'packed' if eng.gq_packed else 'unpacked'}"
+             if eng.quant_mode == "gq" else "")
+    log(f"[engine {label}] quant_mode {quant_mode} -> {eng.quant_mode}{codes}; {mem_gb:.3f} GB "
+        f"allocated by the load  [{card}]")
     try:
         out = chat_on(eng, label, card)
-    finally:
+    except BaseException:
         eng.close()
+        raise
+    out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb), expect, forbid, card)
+    if keep:
+        return out, eng
+    eng.close()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return check_launches(label, dict(out, load_s=t_load), expect, forbid, card)
+    return out
+
+
+def decode_ab(engines: dict, card: str, rounds: int = 3) -> dict:
+    """ms per token of a 16-token greedy decode chunk on each of two loaded
+    engines, in turns a, b, b, a, ``rounds`` times, so that a host that
+    speeds up or slows down during the call weighs on both alike."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    greedy = SamplingParams(temp=0.0)
+    la, lb = engines
+    for eng in engines.values():
+        eng.begin_chat("Go on.")  # fresh logits, whatever the last turn left
+    t = {la: [], lb: []}
+    for label in (la, lb, lb, la) * rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[label].decode_chunk(16, greedy)
+        torch.cuda.synchronize()
+        t[label].append((time.perf_counter() - t0) * 1e3 / 16)
+    med = {k: statistics.median(v) for k, v in t.items()}
+    log(f"[engine A/B] ms per token of a 16-token chunk, turns {la} / {lb} / {lb} / {la} x "
+        f"{rounds}: " + "; ".join(f"{k} median {med[k]:.2f} ({[round(x, 2) for x in v]}), "
+                                  f"{1e3 / med[k]:.2f} tok/s" for k, v in t.items())
+        + f"  [{card}]")
+    return dict(ms=t, median_ms=med)
 
 
 def check_launches(label: str, out: dict, expect: tuple, forbid: tuple, card: str) -> dict:
@@ -1087,7 +1318,7 @@ def chat_on(eng, label: str, card: str) -> dict:
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
     return dict(encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3, prompt=n_prompt,
                 decode_ms=t_decode * 1e3, n_decoded=len(ids), decode_tok_s=len(ids) / t_decode,
-                step_ms=step_ms, matmuls_per_token=per_token, profile=prof)
+                step_ms=step_ms, matmuls_per_token=per_token, profile=prof, greedy_ids=ids)
 
 
 # the q5_1 container's embedding against the same weights dequantized to
@@ -1462,7 +1693,7 @@ def w8a8_f8(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out = check_launches(label, dict(out, load_s=t_load, group_tok_s=n_tok / t_paged),
-                         W8A8_KERNELS, GQ_KERNELS, card)
+                         W8A8_KERNELS, GQ_KERNELS + PACKED_KERNELS, card)
     return out
 
 
@@ -1513,28 +1744,66 @@ def main() -> int:
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul", "flash_decode",
-                                     "i8_matmul") if f"{u}_cu" in name), "")
+            unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul",
+                                     "flash_decode", "i8_matmul") if f"{u}_cu" in name), "")
             at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill"))
             kernel = f"{unit}: {name[at:][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
+    phase("kernels")
     kernel_results = phase_kernels(card)
-    paths = {"13B Q5_K_M": chat("13B Q5_K_M", LLM_13B, card, CHAT_KERNELS),
-             "7B q5_k L8": chat("7B q5_k L8", LLM_7B, card,
-                                ("gq_decode", "gq_prefill", "flash_decode"))}
+    phase("13B chats, unpacked and packed")
+    # the same files with the gq codes packed: the same greedy tokens; both
+    # engines stay loaded for a decode A/B in alternating turns
+    label = "13B Q5_K_M gq packed"
+    paths, engines = {}, {}
+    try:
+        paths["13B Q5_K_M"], engines["unpacked"] = chat(
+            "13B Q5_K_M", LLM_13B, card, CHAT_KERNELS, forbid=PACKED_KERNELS, keep=True)
+        paths[label], engines["packed"] = chat(label, LLM_13B, card, PACKED_13B_KERNELS,
+                                               quant_mode="gq", forbid=GQ_KERNELS, keep=True)
+        same = paths[label]["greedy_ids"] == paths["13B Q5_K_M"]["greedy_ids"]
+        log(f"[engine {label}] greedy ids equal to the unpacked chat's: {same}; allocated by "
+            f"the load {paths[label]['mem_gb']:.3f} GB packed, "
+            f"{paths['13B Q5_K_M']['mem_gb']:.3f} GB unpacked "
+            f"({paths['13B Q5_K_M']['mem_gb'] - paths[label]['mem_gb']:.3f} GB less)  [{card}]")
+        if not same:
+            raise AssertionError(f"{label}: greedy ids {paths[label]['greedy_ids']} differ from "
+                                 f"the unpacked chat's {paths['13B Q5_K_M']['greedy_ids']}")
+        ab = decode_ab(engines, card)
+    finally:
+        for e in engines.values():
+            e.close()
+        engines.clear()
+        e = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths[label]["decode_ab"] = ab
+    phase("7B chats")
+    paths["7B q5_k L8"] = chat("7B q5_k L8", LLM_7B, card,
+                               ("gq_decode", "gq_prefill", "flash_decode"), forbid=PACKED_KERNELS)
+    paths["7B q4 mix L8 gq packed"] = chat("7B q4 mix L8 gq packed", LLM_7B_MIX, card,
+                                           PACKED_MIX_KERNELS, quant_mode="gq", forbid=GQ_KERNELS)
+    phase("serving")
     paths["serving 13B"] = serving(card)
     counts = paths["serving 13B"]["counts"]
     missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"serving: kernels never launched on the main path: {missing}")
+    stray = [k for k in PACKED_KERNELS if counts[k]]
+    if stray:
+        raise AssertionError(f"serving: packed kernels launched: {stray}")
+    phase("repack")
     paths["13B repack + q5_k container"] = chat(
         "13B repack + q5_k container", LLM_13B, card, REPACK_CHAT_KERNELS, quant_mode="repack",
-        vision_quant="q5_k", forbid=GQ_KERNELS)
+        vision_quant="q5_k", forbid=GQ_KERNELS + PACKED_KERNELS)
     paths["13B q5_1 encode"] = encode_check(card)
+    phase("w8a8")
     paths["13B w8a8 + f8 cache"] = w8a8_f8(card)
+    phase("quality")
     paths["quality small"] = quality_run(card)
+    phase("end")
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
@@ -1564,6 +1833,21 @@ def main() -> int:
         "paged_flash_decode[e4m3]": ("minigpt4_tpu_torch/csrc/flash_decode.cu",
                                      "minigpt4_tpu/ops/flash_decode.py:62", "e4m3 B=8 S=1 pos0"),
     }
+    # the gq entries on packed codes: the packing mode of the TPU kernel each
+    # replaces, and the case that stands for it, a shape and row count of
+    # the packed chat that counts its launches
+    packed_rep = {"gq_decode[p4]": "w13 22016x4096 M=1", "gq_decode[p5]": "w13 27648x5120 M=1",
+                  "gq_prefill[p4]": f"w13 22016x4096 M={PROMPT_M}",
+                  "gq_prefill[p5]": f"w13 27648x5120 M={PROMPT_M}",
+                  "gq_decode_generic[p4]": "w2 4096x11008 M=1",
+                  "gq_decode_generic[p5]": "wo 4096x4096 M=1",
+                  "gq_decode_generic[p6]": "output 32000x5120 M=1",
+                  "gq_prefill_generic[p4]": f"w2 4096x11008 M={PROMPT_M}",
+                  "gq_prefill_generic[p5]": f"wo 4096x4096 M={PROMPT_M}",
+                  "gq_prefill_generic[p6]": f"w2 5120x13824 M={PROMPT_M}"}
+    for name, rep in packed_rep.items():
+        wrapper, packing = name[:-1].split("[")
+        meta[name] = (meta[wrapper][0], f"{meta[wrapper][1]} (packing {packing})", rep)
     # "launches": the count in each kernel's own path (the repack chat for
     # the rq kernels, the w8a8 path for the i8 kernels and the e4m3 reads,
     # the serving phase for the others); every path's count is in
@@ -1573,23 +1857,27 @@ def main() -> int:
                  "i8_decode": "13B w8a8 + f8 cache", "i8_prefill": "13B w8a8 + f8 cache",
                  "flash_decode[e4m3]": "13B w8a8 + f8 cache",
                  "paged_flash_decode[e4m3]": "13B w8a8 + f8 cache"}
+    main_path.update({k: "13B Q5_K_M gq packed" if k in PACKED_13B_KERNELS
+                      else "7B q4 mix L8 gq packed" for k in PACKED_KERNELS})
     kernels = []
     for name, (src, replaces, rep) in meta.items():
-        wrapper = name.split("[")[0]
         e4m3 = name.endswith("[e4m3]")
-        rows = [r for r in kernel_results[wrapper] if r["shape"].startswith("e4m3") == e4m3]
+        # an e4m3 read counts on its wrapper, a packed entry on its own
+        counter = name.split("[")[0] if e4m3 else name
+        rows = [r for r in kernel_results[counter] if r["shape"].startswith("e4m3") == e4m3]
         main_row = next(r for r in rows if r["shape"].startswith(rep))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths[main_path.get(name, "serving 13B")]["counts"][wrapper],
+            "launches": paths[main_path.get(name, "serving 13B")]["counts"][counter],
             # an e4m3 read happens only on the path whose cache is e4m3
-            "launches_by_path": {label: p["counts"][wrapper] for label, p in paths.items()
+            "launches_by_path": {label: p["counts"][counter] for label, p in paths.items()
                                  if not e4m3 or label == main_path[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
-            "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+            "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                                         "unpacked_ms", "max_diff_unpacked", "host_us") if k in r}
                       for r in rows],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

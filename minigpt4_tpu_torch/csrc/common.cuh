@@ -64,6 +64,69 @@ struct I8Codes {
   }
 };
 
+// Nibble codes with HB high-bit planes (0, 1 or 2 bits), K in its natural
+// order: the repacked weights of rq_matmul.cu and the packed gq codes
+// (group_i8 packings p4, p5, p6) share this layout.
+//   codes  u8 [L, N, K/2], byte (n, j) = q[n, 2j] | q[n, 2j+1] << 4;
+//   hi     i32 [L, N, K/32] for HB = 1 (bit b of word w is bit 4 of
+//          q[n, 32 w + b]), [L, N, K/16] for HB = 2 (bits 2b+1:2b of word w
+//          are bits 5:4 of q[n, 16 w + b]); unused for HB = 0.
+// A run is one 8-byte load of nibbles and 16 or 32 bits of one high-bit word;
+// value() gives the unsigned code as float, the same float an i8 code of
+// I8Codes gives, so both sources feed the kernels identical operands.
+template <int HB>
+struct NibbleCodes {
+  struct Run {
+    uint2 lo;     // 16 nibbles: code j at bits 4j of lo.x (j < 8) or lo.y
+    uint32_t hi;  // the run's high bits, HB per code from bit 0
+  };
+  const uint8_t* codes;
+  const uint32_t* hi;
+
+  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
+    codes += li * N * (K / 2);
+    if constexpr (HB > 0) hi += li * N * (K / (32 / HB));
+  }
+  __device__ __forceinline__ Run load(int n, int k, int K) const {
+    const size_t e = static_cast<size_t>(n) * K + k;  // element index, a multiple of 16
+    Run r;
+    r.lo = __ldg(reinterpret_cast<const uint2*>(codes + e / 2));
+    r.hi = 0;
+    if constexpr (HB == 1) r.hi = __ldg(hi + e / 32) >> (e & 16);
+    if constexpr (HB == 2) r.hi = __ldg(hi + e / 16);
+    return r;
+  }
+  __device__ __forceinline__ static float value(const Run& r, int j) {
+    const uint32_t w = j < 8 ? r.lo.x : r.lo.y;
+    uint32_t q = (w >> (4 * (j % 8))) & 15u;
+    if constexpr (HB > 0) q |= ((r.hi >> (HB * j)) & ((1u << HB) - 1u)) << 4;
+    return static_cast<float>(q);
+  }
+};
+
+// Calls run(source) with the code source of a gq weight's storage and returns
+// its code: hi_bits -1 for one signed byte per code (I8Codes, packing
+// "none"), else nibbles with hi_bits high bits (NibbleCodes): 0 (p4) or 1
+// (p5) at group size 32, 2 (p6) at group size 16, the packable formats of
+// ops/group_i8.py.  cudaErrorInvalidValue for any other layout, a null code
+// pointer, a high-bit pointer that does not match hi_bits, or a negative
+// layer.
+template <int GS, class Run>
+int with_gq_codes(const void* codes, const void* hi, int hi_bits, int layer, Run run) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (layer < 0 || codes == nullptr || (hi_bits > 0) != (hi != nullptr)) return invalid;
+  if (hi_bits == -1) return run(I8Codes{static_cast<const int8_t*>(codes)});
+  const auto* c8 = static_cast<const uint8_t*>(codes);
+  const auto* h = static_cast<const uint32_t*>(hi);
+  if constexpr (GS == 32) {
+    if (hi_bits == 0) return run(NibbleCodes<0>{c8, h});
+    if (hi_bits == 1) return run(NibbleCodes<1>{c8, h});
+  } else {
+    if (hi_bits == 2) return run(NibbleCodes<2>{c8, h});
+  }
+  return invalid;
+}
+
 // Per-group planes of a group-quant weight, W[n, k] = A[g, n] * q[n, k] + B[g, n]
 // with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32; T is the type a
 // kernel keeps staged planes in (f32 for exact planes, bf16 for generic ones,

@@ -41,36 +41,7 @@
 
 namespace {
 
-// Nibble codes with HB high-bit planes (0, 1 or 2 bits), as laid out above.
-template <int HB>
-struct NibbleCodes {
-  struct Run {
-    uint2 lo;     // 16 nibbles: code j at bits 4j of lo.x (j < 8) or lo.y
-    uint32_t hi;  // the run's high bits, HB per code from bit 0
-  };
-  const uint8_t* codes;
-  const uint32_t* hi;
-
-  __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
-    codes += li * N * (K / 2);
-    if constexpr (HB > 0) hi += li * N * (K / (32 / HB));
-  }
-  __device__ __forceinline__ Run load(int n, int k, int K) const {
-    const size_t e = static_cast<size_t>(n) * K + k;  // element index, a multiple of 16
-    Run r;
-    r.lo = __ldg(reinterpret_cast<const uint2*>(codes + e / 2));
-    r.hi = 0;
-    if constexpr (HB == 1) r.hi = __ldg(hi + e / 32) >> (e & 16);
-    if constexpr (HB == 2) r.hi = __ldg(hi + e / 16);
-    return r;
-  }
-  __device__ __forceinline__ static float value(const Run& r, int j) {
-    const uint32_t w = j < 8 ? r.lo.x : r.lo.y;
-    uint32_t q = (w >> (4 * (j % 8))) & 15u;
-    if constexpr (HB > 0) q |= ((r.hi >> (HB * j)) & ((1u << HB) - 1u)) << 4;
-    return static_cast<float>(q);
-  }
-};
+using mgt::NibbleCodes;
 
 // Planes of a repacked weight: bf16 scales and mins [L, N, G], G = K / GS,
 // stored row-major per output row; A = scale, B = -min.

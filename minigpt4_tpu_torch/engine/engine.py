@@ -37,7 +37,7 @@ from ..formats import ContainerReader, LlamaFileReader
 from ..tokenizer import LlamaTokenizer
 from ..models import llama as llama_mod
 from ..models import minigpt4 as vision_mod
-from ..models.params import QUANT_MODES
+from ..models.params import QUANT_MODES, resolve_gq_pack
 from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
 from .sampling import Sampler, SamplingParams
 
@@ -140,7 +140,16 @@ class MiniGPT4Engine:
         ``quality.save_smooth_scales`` or a dict) folded into the decoder's
         w8a8 weights.  With ``auto`` they resolve the decoder to ``w8a8``;
         any other decoder mode ignores them, with a log line, as the JAX
-        engine does."""
+        engine does.
+
+        gq code storage (``ops/group_i8.py``), resolved as the JAX engine's
+        ``resolve_llm_quant_mode`` resolves it: ``auto`` stores one byte per
+        code (its unpacked codes fit every supported model on 80 GB), an
+        explicit ``gq`` packs the 4/5/6-bit formats (0.5, 0.625 or 0.75 B per
+        code) in the decoder and the vision weights alike, and the
+        environment variable ``MINIGPT4_TPU_GQ_PACK`` ("0" off, else on)
+        overrides both.  ``self.gq_packed`` says whether the gq weights are
+        packed."""
         if quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant_mode {quant_mode!r}: expected "
                              f"{' | '.join(QUANT_MODES)}")
@@ -153,10 +162,11 @@ class MiniGPT4Engine:
         self.device = torch.device(device)
         self.n_batch = n_batch
         self.cache_dtype = cache_dtype
+        pack = resolve_gq_pack(quant_mode)
         with utils.phase_timer("Load minigpt4 model"):
             self._container = ContainerReader(model_path)
             self.vision_params, self.vision_cfg = vision_mod.load_params(
-                self._container, COMPUTE_DTYPE, self.device, quant_mode)
+                self._container, COMPUTE_DTYPE, self.device, quant_mode, pack)
         if isinstance(smooth_scales, (str, Path)):
             from ..quality import load_smooth_scales
 
@@ -173,9 +183,13 @@ class MiniGPT4Engine:
             if smooth_scales and self.quant_mode != "w8a8":
                 utils.log_info("smooth_scales ignored (decoder not on w8a8)")
                 smooth_scales = None
+            self.gq_packed = self.quant_mode == "gq" and pack
+            if self.quant_mode == "gq":
+                utils.log_info(f"quant_mode {quant_mode}: gq codes "
+                               f"{'packed' if self.gq_packed else 'unpacked'}")
             self.llm_params, self.llm_cfg = llama_mod.load_params(
                 self._llm_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device,
-                quant_mode=self.quant_mode, smooth=smooth_scales)
+                quant_mode=self.quant_mode, smooth=smooth_scales, pack=pack)
             self.tokenizer = LlamaTokenizer(self._llm_file.vocab.tokens,
                                             self._llm_file.vocab.scores)
         if self.vision_cfg.llama_embed_dim != self.llm_cfg.n_embd:

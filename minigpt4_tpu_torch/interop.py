@@ -1,9 +1,12 @@
 """Parameter trees of the JAX package, as NumPy arrays -> the port's trees.
 
 Used by the parity tests so that both implementations compute with the same
-weights.  ``GroupQuant`` fields map one to one, in both plane modes
-(unpacked codes only: load the JAX side with sub-byte packing off), as do
-``I8SBQuant`` (codes, scales) and ``QTensor`` (packed bytes); a JAX
+weights.  ``GroupQuant`` planes map one to one, in both plane modes; its
+codes map one to one where unpacked, and a packed JAX weight (chunk-local
+nibbles and bit planes, K padded by ``pad_k_chunks``) is unpacked, stripped
+of its pad groups and packed again in the port's K-order layout
+(:func:`group_quant_from_numpy`).  ``I8SBQuant`` (codes, scales) and
+``QTensor`` (packed bytes) map one to one; a JAX
 ``RepackedQuant`` (TPU layout) is converted to the port's layout by
 :func:`repacked_from_numpy`; dense ``[K, N]`` weights stay ``[K, N]``;
 stacked layers stay stacked and per-layer lists (K_M files) stay lists.
@@ -34,20 +37,56 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
+def jax_codes_logical(w) -> np.ndarray:
+    """The logical codes ``[..., N, K_stored]`` (i32) of a JAX ``GroupQuant``
+    with NumPy fields, its pad columns included: NumPy's counterpart of its
+    ``codes_logical``.  JAX packs chunk-locally (chunk = 8 groups, half =
+    chunk / 2): nibble byte ``s*half + j`` holds codes ``s*chunk + j`` (low)
+    and ``s*chunk + half + j`` (high); p5 bit-plane byte ``s*32 + j`` holds
+    bit 4 of code ``s*256 + 32t + j`` at bit t, p6 byte ``s*32 + j`` bits 5:4
+    of code ``s*128 + 32t + j`` at bits 2t+1:2t."""
+    codes = np.asarray(w.codes)
+    if w.packing == "none":
+        return codes.astype(np.int32)
+    chunk = gq.J * int(w.group_size)
+    pk = codes.view(np.uint8)
+    lead, kp = pk.shape[:-1], pk.shape[-1]
+    nch = 2 * kp // chunk
+    pkc = pk.reshape(*lead, nch, chunk // 2).astype(np.int32)
+    cc = np.concatenate([pkc & 0xF, pkc >> 4], axis=-1)  # [..., nch, chunk]
+    if w.packing in ("p5", "p6"):
+        hb = 1 if w.packing == "p5" else 2
+        per = 8 // hb  # fields per byte
+        hbb = np.asarray(w.hb).view(np.uint8).reshape(*lead, nch, chunk // per).astype(np.int32)
+        f = np.stack([(hbb >> (hb * t)) & ((1 << hb) - 1) for t in range(per)], axis=-2)
+        cc = cc + (f.reshape(*lead, nch, chunk) << 4)
+    return cc.reshape(*lead, 2 * kp)
+
+
 def group_quant_from_numpy(w, device) -> gq.GroupQuant:
-    """A JAX ``GroupQuant`` (unpacked, either plane mode) with NumPy fields."""
-    if w.packing != "none" or w.k_pad or w.k_shards != 1:
-        raise ValueError(f"GroupQuant packing={w.packing!r} k_pad={w.k_pad} "
-                         f"k_shards={w.k_shards}: unpacked, unpadded weights only")
-    meta = dict(dtype=DataType(w.dtype), n_in=int(w.n_in), group_size=int(w.group_size))
+    """A JAX ``GroupQuant`` (either plane mode, unstacked or stacked) with
+    NumPy fields.  Unpacked codes and the planes map one to one; packed
+    codes are rebuilt by :func:`jax_codes_logical`, the ``k_pad`` zero groups
+    (codes, planes) are dropped and ``group_i8.pack_codes`` packs them again
+    on ``device``, so the result is the port's own packing of the weight."""
+    if w.k_shards != 1:
+        raise ValueError(f"GroupQuant k_shards={w.k_shards}: unsharded weights only")
+    k, gs = int(w.n_in), int(w.group_size)
+    meta = dict(dtype=DataType(w.dtype), n_in=k, group_size=gs)
+    codes = _t(jax_codes_logical(w)[..., :k], device, torch.int8)
+
+    def rows(p, n_rows, dtype):  # a plane [..., R, N] without its pad rows
+        return _t(np.asarray(p)[..., :n_rows, :], device, dtype)
+
     if w.sc6 is None:
-        return gq.GroupQuant(codes=_t(w.codes, device, torch.int8),
-                             a=_t(w.a, device, torch.bfloat16),
-                             b=_t(w.b, device, torch.bfloat16), **meta)
-    return gq.GroupQuant(
-        codes=_t(w.codes, device, torch.int8), sc6=_t(w.sc6, device, torch.uint8),
-        mn6=_t(w.mn6, device, torch.uint8), d=_t(w.d, device, torch.float32),
-        dmin=_t(w.dmin, device, torch.float32), **meta)
+        out = gq.GroupQuant(codes=codes, a=rows(w.a, k // gs, torch.bfloat16),
+                            b=rows(w.b, k // gs, torch.bfloat16), **meta)
+    else:
+        out = gq.GroupQuant(
+            codes=codes, sc6=rows(w.sc6, k // gs, torch.uint8),
+            mn6=rows(w.mn6, k // gs, torch.uint8), d=rows(w.d, k // 256, torch.float32),
+            dmin=rows(w.dmin, k // 256, torch.float32), **meta)
+    return out if w.packing == "none" else gq.pack_codes(out)
 
 
 def repacked_from_numpy(w, device) -> rp.RepackedQuant:

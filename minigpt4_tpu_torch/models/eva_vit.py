@@ -93,14 +93,14 @@ def _ln(t, prefix: str, dtype, device) -> dict:
 
 
 def load_linear(reader, model: str, wname: str, bias, dtype, device,
-                quant_mode: str = "auto") -> dict:
+                quant_mode: str = "auto", pack: bool = False) -> dict:
     """Dense or quantized linear from the container (torch layout [out, in]);
     a quantized weight loads by ``params.load_quant_weight``'s rules for
-    ``quant_mode`` (``auto``: repacked, as on the TPU)."""
+    ``quant_mode`` (``auto``: repacked, as on the TPU) and ``pack``."""
     rec = reader.models[model].tensors[wname]
     if is_quantized(rec.dtype):
         p = {"w": load_quant_weight(reader.raw(model, wname), rec.shape, rec.dtype, device,
-                                    quant_mode)}
+                                    quant_mode, pack=pack)}
         if bias is not None:
             p["b"] = tensor(bias, dtype, device)
         return p
@@ -109,8 +109,9 @@ def load_linear(reader, model: str, wname: str, bias, dtype, device,
 
 def load_params(reader, dtype: torch.dtype = torch.float32,
                 device: str | torch.device = "cuda",
-                quant_mode: str = "auto") -> tuple[dict, ViTConfig]:
-    """ViT params from a ContainerReader's ``visual_encoder`` sub-model."""
+                quant_mode: str = "auto", pack: bool = False) -> tuple[dict, ViTConfig]:
+    """ViT params from a ContainerReader's ``visual_encoder`` sub-model;
+    quantized weights load as :func:`load_linear` loads them."""
     names = reader.models["visual_encoder"].tensors.keys()
     depth = 1 + max(int(n.split(".")[1]) for n in names if n.startswith("blocks."))
 
@@ -141,7 +142,7 @@ def load_params(reader, dtype: torch.dtype = torch.float32,
 
         def lin(name, bias):
             return load_linear(reader, "visual_encoder", pfx + name, bias, dtype, device,
-                               quant_mode)
+                               quant_mode, pack)
 
         blocks.append({
             "norm1": _ln(t, pfx + "norm1", dtype, device),

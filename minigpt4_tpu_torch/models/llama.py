@@ -317,7 +317,7 @@ def _form(w) -> tuple:
     """What must agree for weights to stack or fuse (the JAX package's
     criteria: an I8SBQuant fuses with any of the same K)."""
     if isinstance(w, gq.GroupQuant):
-        return ("gq", w.dtype, w.n_in)
+        return ("gq", w.dtype, w.n_in, w.packing)
     if isinstance(w, rp.RepackedQuant):
         return ("rq", *w.form())
     if isinstance(w, i8.I8SBQuant):
@@ -347,7 +347,7 @@ def assemble_layers(per_layer: list[dict]) -> dict:
 
     wq|wk|wv and w1|w3 fuse along the output axis (``wqkv``, ``w13``) only
     where every layer's parts share one form (dense, gq or repacked, one
-    format); otherwise all layers keep them apart.  Each name then stacks
+    format and code packing); otherwise all layers keep them apart.  Each name then stacks
     over layers, or stays a per-layer list where its layers differ
     (llama.cpp's K_M files make some wv/w2 q6_k; gq and repacked weights may
     mix in one list).
@@ -366,15 +366,16 @@ def assemble_layers(per_layer: list[dict]) -> dict:
 
 def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
                 device: str | torch.device = "cuda", quant_mode: str = "auto",
-                smooth: dict | None = None) -> tuple[dict, LlamaConfig]:
+                smooth: dict | None = None, pack: bool = False) -> tuple[dict, LlamaConfig]:
     """Decoder params from a LlamaFileReader, stacked over layers.
 
     Quantized projections are decoded on ``device`` by
     ``params.load_quant_weight``'s rules for ``quant_mode``; ``auto`` is
     ``gq`` for the decoder (group-quant where ``group_i8.supported`` accepts
     the weight, repacked otherwise), ``repack`` makes every one repacked.
-    Dense tensors are stored [in, out] in ``dtype``.  Layers are assembled by
-    :func:`assemble_layers`.
+    ``pack`` stores the gq codes packed (``params.resolve_gq_pack`` says
+    what a mode asks for).  Dense tensors are stored [in, out] in
+    ``dtype``.  Layers are assembled by :func:`assemble_layers`.
 
     ``smooth`` (``quant_mode="w8a8"`` only): smooth-quant migration scales of
     ``quality.compute_smooth_scales``, keys "attn" [L, D], "ffn" [L, D], "w2"
@@ -382,7 +383,8 @@ def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
     weight before it; w3's output rows for the w2 site) and multiplies the
     consuming weights' columns by s before the i8 requantization, as the
     JAX package's ``load_params``.  A site is skipped where a consumer is
-    quantized with K % 256 != 0 (its packed form keeps the file's bytes)."""
+    quantized with K % 256 != 0 (it keeps the ``auto`` form, whose codes
+    are the file's and cannot absorb the scales)."""
     cfg = LlamaConfig.from_hparams(reader.hparams, n_ctx=n_ctx)
     mode = "gq" if quant_mode == "auto" else quant_mode
     sm = dict(smooth) if smooth else {}
@@ -393,7 +395,7 @@ def load_params(reader, dtype: torch.dtype = torch.float32, n_ctx: int = 2048,
         rec = reader.tensors[name]
         if is_quantized(rec.dtype):
             return load_quant_weight(reader.raw(name), rec.shape, rec.dtype, device, mode,
-                                     col_scale=col_scale, row_scale=row_scale)
+                                     col_scale=col_scale, row_scale=row_scale, pack=pack)
         w = np.asarray(reader.tensor_f32(name), np.float32)
         if col_scale is not None:
             w = w * np.asarray(col_scale, np.float32)[None, :]

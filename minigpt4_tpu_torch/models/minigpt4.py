@@ -33,11 +33,12 @@ def encode_image(params: dict, pixels: torch.Tensor, cfg: VisionConfig) -> torch
 
 def load_params(reader, dtype: torch.dtype = torch.float32,
                 device: str | torch.device = "cuda",
-                quant_mode: str = "auto") -> tuple[dict, VisionConfig]:
+                quant_mode: str = "auto", pack: bool = False) -> tuple[dict, VisionConfig]:
     """The whole vision pipeline from a ContainerReader; quantized weights
-    load by ``quant_mode`` (``auto``: repacked, as on the TPU)."""
-    vit_params, vit_cfg = eva_vit.load_params(reader, dtype, device, quant_mode)
-    qf_params, qf_cfg = qformer.load_params(reader, dtype, device, quant_mode)
+    load by ``quant_mode`` (``auto``: repacked, as on the TPU) and, as gq
+    weights, store their codes packed with ``pack``."""
+    vit_params, vit_cfg = eva_vit.load_params(reader, dtype, device, quant_mode, pack)
+    qf_params, qf_cfg = qformer.load_params(reader, dtype, device, quant_mode, pack)
     params = {
         "visual_encoder": vit_params,
         "ln_vision": {"g": tensor(reader.tensor_f32("ln_vision", "weight"), dtype, device),
@@ -45,7 +46,7 @@ def load_params(reader, dtype: torch.dtype = torch.float32,
         "qformer": qf_params,
         "llama_proj": eva_vit.load_linear(reader, "llama_proj", "weight",
                                           reader.tensor_f32("llama_proj", "bias"), dtype, device,
-                                          quant_mode),
+                                          quant_mode, pack),
     }
     n_embd = reader.models["llama_proj"].tensors["weight"].shape[0]
     return params, VisionConfig(vit=vit_cfg, qformer=qf_cfg, llama_embed_dim=n_embd)

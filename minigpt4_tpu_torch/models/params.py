@@ -22,6 +22,18 @@ from ..ops import quant_matmul as qm
 from ..ops.pallas_quant_matmul import qmatmul_repacked
 
 QUANT_MODES = ("auto", "repack", "qtensor", "w8a8", "gq")
+
+
+def resolve_gq_pack(quant_mode: str) -> bool:
+    """Whether gq codes are stored packed for the mode a user asked for, as
+    the JAX engine's ``resolve_llm_quant_mode`` leaves it: unpacked for
+    ``auto`` (its unpacked codes fit every supported model on 80 GB),
+    packed for an explicit mode, and ``MINIGPT4_TPU_GQ_PACK`` over both
+    (``group_i8.pack_enabled``).  Callers settle it once and pass the bool
+    to the loaders."""
+    return gq.pack_enabled(False if quant_mode == "auto" else None)
+
+
 # (stack over layers, concat along the output axis) of each quantized form
 QUANT_FORMS = {gq.GroupQuant: (gq.stack, gq.concat_out),
                rp.RepackedQuant: (rp.stack, rp.concat_out),
@@ -58,13 +70,15 @@ def linear(x: torch.Tensor, p: dict, layer: int | None = None) -> torch.Tensor:
 
 def load_quant_weight(raw: np.ndarray, shape: tuple[int, int], dtype: DataType,
                       device: str | torch.device, mode: str = "auto", col_scale=None,
-                      row_scale=None):
+                      row_scale=None, pack: bool = False):
     """The device form of a quantized weight, by the JAX package's rules
     (``params.load_quant_weight``):
 
     * ``"gq"``: group-quant (exact planes for q4_k/q5_k, bf16 planes
       otherwise) where ``group_i8.supported`` accepts the format and K, the
-      ``auto`` form otherwise;
+      ``auto`` form otherwise; with ``pack`` (:func:`resolve_gq_pack`) the
+      codes of the 4/5/6-bit formats are stored packed
+      (``group_i8.pack_codes``);
     * ``"w8a8"``: i8 codes with 256-wide superblock scales
       (``ops/i8_matmul.py``) where K % 256 == 0, the ``auto`` form otherwise;
     * ``"qtensor"``: the packed ggml bytes, dequantized on every call
@@ -85,7 +99,8 @@ def load_quant_weight(raw: np.ndarray, shape: tuple[int, int], dtype: DataType,
     if smooth and mode != "w8a8":
         raise ValueError("smooth scales are only valid with quant_mode='w8a8'")
     if mode == "gq" and gq.supported(dtype, shape[1]):
-        return gq.from_ggml(raw, shape, dtype, device)
+        w = gq.from_ggml(raw, shape, dtype, device)
+        return gq.pack_codes(w) if pack and gq.packable(dtype) else w
     if mode == "w8a8":
         if shape[1] % i8.SB == 0:
             return i8.from_ggml(raw, shape, dtype, device, col_scale=col_scale,

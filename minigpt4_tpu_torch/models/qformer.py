@@ -80,8 +80,9 @@ def forward(params: dict, image_states: torch.Tensor, cfg: QFormerConfig) -> tor
 
 def load_params(reader, dtype: torch.dtype = torch.float32,
                 device: str | torch.device = "cuda",
-                quant_mode: str = "auto") -> tuple[dict, QFormerConfig]:
-    """Q-Former params from the container's ``Qformer`` + ``query_tokens``."""
+                quant_mode: str = "auto", pack: bool = False) -> tuple[dict, QFormerConfig]:
+    """Q-Former params from the container's ``Qformer`` + ``query_tokens``;
+    quantized weights load as ``eva_vit.load_linear`` loads them."""
     cfg = QFormerConfig.from_container_config(reader.config)
 
     def t(name):
@@ -97,7 +98,7 @@ def load_params(reader, dtype: torch.dtype = torch.float32,
 
     def lin(name):
         return load_linear(reader, "Qformer", name + ".weight", t(name + ".bias"), dtype, device,
-                           quant_mode)
+                           quant_mode, pack)
 
     def attn_params(pfx: str) -> dict:
         return {

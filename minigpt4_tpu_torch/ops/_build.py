@@ -36,10 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every entry point (ctypes would cut 64-bit pointers
 # passed without them)
 SIGNATURES = {
-    "mgt_gq_decode": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "mgt_gq_prefill": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "mgt_gq_decode_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
-    "mgt_gq_prefill_generic": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "mgt_gq_decode": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "mgt_gq_prefill": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "mgt_gq_decode_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "mgt_gq_prefill_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
     "mgt_flash_decode": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
     "mgt_flash_decode_paged": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
     "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),

@@ -60,16 +60,22 @@ def _pos_vector(pos0, b: int, device) -> torch.Tensor:
 
 def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: int,
                      pos0, scale: float) -> torch.Tensor:
-    """Plain version: masked f32 softmax attention over ``cache[:pos0+S]``."""
+    """Plain version: masked f32 softmax attention over ``cache[:pos0+S]``.
+
+    Like the kernel, a lane reads nothing past its cursor ``pos0 + S``: a
+    stale NaN there (an e4m3 overflow left behind by a rollback) cannot reach
+    its output.  The JAX kernel reads whole key blocks and lets such a NaN
+    through; this divergence is deliberate."""
     b, h, s, dh = q.shape
     c = ck.shape[-2]
     pos = _pos_vector(pos0, b, q.device).long()
     live = min(int(pos.max()) + s, c)
-    ks = cache_f32(ck[li, :, :, :live])
-    vs = cache_f32(cv[li, :, :, :live])
+    key_pos = torch.arange(live, device=q.device)
+    read = (key_pos[None, :] < (pos[:, None] + s))[:, None, :, None]  # [B, 1, live, 1]
+    ks = cache_f32(ck[li, :, :, :live]).masked_fill(~read, 0.0)
+    vs = cache_f32(cv[li, :, :, :live]).masked_fill(~read, 0.0)
     sc = torch.einsum("bhsd,bhcd->bhsc", q.float() * scale, ks)
     q_pos = pos[:, None] + torch.arange(s, device=q.device)  # [B, S]
-    key_pos = torch.arange(live, device=q.device)
     visible = key_pos[None, None, :] <= q_pos[:, :, None]  # [B, S, live]
     sc = sc.masked_fill(~visible[:, None], float("-inf"))
     return torch.softmax(sc, dim=-1) @ vs

@@ -1,8 +1,8 @@
 """Group-quant weights and their matmuls ("gq").
 
-Counterpart of ``minigpt4_tpu/ops/group_i8.py`` with unpacked codes.  A
-:class:`GroupQuant` holds the raw ggml codes of a weight as i8 plus two
-per-group planes, so the logical weight is
+Counterpart of ``minigpt4_tpu/ops/group_i8.py``.  A :class:`GroupQuant`
+holds the raw ggml codes of a weight plus two per-group planes, so the
+logical weight is
 
     W[n, k] = A[g, n] * q[n, k] + B[g, n],   g = k // group_size
 
@@ -18,7 +18,24 @@ in one of two plane modes:
   the f32 ggml scale and negated min rounded to nearest even (zero offsets
   of the unsigned formats are folded into B, q8_0 keeps signed codes).
 
-Codes are i8 ``[(L,) N, K]``, one byte per weight.
+Codes are stored in one of four ``packing`` modes:
+
+* ``"none"``: i8 ``[(L,) N, K]``, one byte per weight;
+* ``"p4"`` (q4_0, q4_1, q4_k): u8 ``[(L,) N, K/2]`` nibble pairs along K,
+  byte (n, j) = q[n, 2j] | q[n, 2j+1] << 4 (0.5 B per weight);
+* ``"p5"`` (q5_0, q5_1, q5_k): the nibbles plus ``hi`` i32 ``[(L,) N, K/32]``,
+  bit b of word w is bit 4 of q[n, 32w + b] (0.625 B per weight);
+* ``"p6"`` (q6_k): the nibbles plus ``hi`` i32 ``[(L,) N, K/16]``, bits
+  2b+1:2b of word w are bits 5:4 of q[n, 16w + b] (0.75 B per weight).
+
+This is the K-order layout of ``ops/repack.py`` (:func:`pack_nibbles` forms
+both), not the JAX package's chunk-local one: it carries the same bytes per
+weight, a 16-code run is one 8-byte load plus one high-bit word, and no K
+needs padding (``interop.group_quant_from_numpy`` converts JAX's layout).
+:func:`pack_enabled` reads the packing choice (``params.resolve_gq_pack``
+settles it once per engine and the loaders take it as a bool),
+:func:`pack_codes` packs; q2_k, q3_k and q8_0 stay one byte per code, as in
+the JAX package.
 
 Four hand-written CUDA kernels compute ``x @ W.T``:
 
@@ -27,6 +44,12 @@ Four hand-written CUDA kernels compute ``x @ W.T``:
 * :func:`gq_prefill` / :func:`gq_prefill_generic` (``csrc/gq_prefill.cu``)
   for more rows, with x and the dequantized W rounded to bf16 and f32
   accumulation.
+
+Each entry takes the weight's code storage as ``hi_bits`` (-1 for i8
+codes, else the packing's high bits per code): a packed code reaches the
+same arithmetic as the same float, so packed and unpacked weights give the
+same bits.  A wrapper counts its unpacked launches in ``launches`` and its
+packed ones in ``packed_launches[packing]``.
 
 Beside them are the plain PyTorch versions (:func:`qmatmul_decode_ref`,
 :func:`qmatmul_prefill_ref`), which cover both plane modes.  A wrapper
@@ -37,6 +60,7 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -53,6 +77,13 @@ BLOCK_BYTES = {DataType.Q4_0: 18, DataType.Q4_1: 20, DataType.Q5_0: 22, DataType
                DataType.Q8_0: 34, DataType.Q2_K: 84, DataType.Q3_K: 110, DataType.Q4_K: 144,
                DataType.Q5_K: 176, DataType.Q6_K: 210}
 REPACKABLE = frozenset(BLOCK_BYTES)
+# formats whose codes fit 4 / 5 / 6 bits (the JAX package's PACK4/5/6)
+PACK4 = frozenset({DataType.Q4_0, DataType.Q4_1, DataType.Q4_K})
+PACK5 = frozenset({DataType.Q5_0, DataType.Q5_1, DataType.Q5_K})
+PACK6 = frozenset({DataType.Q6_K})
+# high-bit planes per packing: i32 words along K hold 32 // HI_BITS codes'
+# high bits, so ``hi`` is [(L,) N, K * HI_BITS / 32] (the JAX package's HB_DIV)
+HI_BITS = {"none": 0, "p4": 0, "p5": 1, "p6": 2}
 # M <= GQ_MAX_M rides the decode kernels; larger M the prefill kernels
 GQ_MAX_M = 8
 
@@ -76,6 +107,8 @@ class GroupQuant:
     dmin: torch.Tensor | None = None  # f32 [(L,) S, N]
     a: torch.Tensor | None = None  # bf16 [(L,) G, N]
     b: torch.Tensor | None = None  # bf16 [(L,) G, N]
+    hi: torch.Tensor | None = None  # i32 [(L,) N, K/32] (p5) or [(L,) N, K/16] (p6)
+    packing: str = "none"  # none | p4 | p5 | p6
 
     @property
     def exact(self) -> bool:
@@ -94,7 +127,8 @@ class GroupQuant:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
     def _replace(self, **ts) -> "GroupQuant":
-        return GroupQuant(**ts, dtype=self.dtype, n_in=self.n_in, group_size=self.group_size)
+        return GroupQuant(**ts, dtype=self.dtype, n_in=self.n_in, group_size=self.group_size,
+                          packing=self.packing)
 
     def layer(self, li: int) -> "GroupQuant":
         """One layer of a stacked weight (views, no copy)."""
@@ -108,16 +142,23 @@ class GroupQuant:
             return a, b
         return self.a.float(), self.b.float()
 
+    def codes_int(self) -> torch.Tensor:
+        """The logical codes ``[(L,) N, K]`` whatever the packing (i8 stored,
+        i32 reassembled from nibbles and high bits)."""
+        if self.packing == "none":
+            return self.codes
+        return unpack_nibbles(self.codes, self.hi, HI_BITS[self.packing])
+
     def dequantize(self) -> torch.Tensor:
         """[..., N, K] f32: ``codes * A + B`` with the planes expanded."""
         a, b = self.planes()
         a = torch.repeat_interleave(a.transpose(-1, -2), self.group_size, dim=-1)
         b = torch.repeat_interleave(b.transpose(-1, -2), self.group_size, dim=-1)
-        return self.codes.float() * a + b
+        return self.codes_int().float() * a + b
 
 
 def _form(w: GroupQuant) -> tuple:
-    return (w.dtype, w.n_in, w.group_size, w.exact)
+    return (w.dtype, w.n_in, w.group_size, w.exact, w.packing)
 
 
 def stack(ws: list[GroupQuant]) -> GroupQuant:
@@ -131,11 +172,12 @@ def stack(ws: list[GroupQuant]) -> GroupQuant:
 
 def concat_out(ws: list[GroupQuant]) -> GroupQuant:
     """Fuse weights of one input width along the output axis (wq|wk|wv):
-    codes along N (dim -2), every plane along N (dim -1)."""
+    codes and high bits along N (dim -2), every plane along N (dim -1)."""
     w0 = ws[0]
     if any(_form(w) != _form(w0) for w in ws):
         raise ValueError("fused GroupQuant parts must share format and K")
-    return w0._replace(**{k: torch.cat([w.tensors()[k] for w in ws], dim=-2 if k == "codes" else -1)
+    return w0._replace(**{k: torch.cat([w.tensors()[k] for w in ws],
+                                       dim=-2 if k in ("codes", "hi") else -1)
                           for k in w0.tensors()})
 
 
@@ -143,6 +185,82 @@ def supported(dtype: DataType, k: int) -> bool:
     """The JAX rule: a REPACKABLE format whose K is a multiple of 8 groups."""
     dtype = DataType(dtype)
     return dtype in REPACKABLE and k % (J * group_size(dtype)) == 0
+
+
+# ---------------------------------------------------------------------------
+# sub-byte code storage
+# ---------------------------------------------------------------------------
+
+
+def packing_of(dtype: DataType) -> str:
+    """The packing :func:`pack_codes` gives a format ("none" where it keeps
+    one byte per code)."""
+    d = DataType(dtype)
+    return "p4" if d in PACK4 else "p5" if d in PACK5 else "p6" if d in PACK6 else "none"
+
+
+def packable(dtype: DataType) -> bool:
+    """Whether :func:`pack_codes` stores the format's codes in under a byte."""
+    return packing_of(dtype) != "none"
+
+
+def pack_enabled(pack: bool | None = None) -> bool:
+    """Whether the loaders store gq codes packed, with the JAX package's
+    precedence: the environment variable ``MINIGPT4_TPU_GQ_PACK`` (``"0"``
+    is off, anything else on), then the caller's ``pack``, then packed."""
+    v = os.environ.get("MINIGPT4_TPU_GQ_PACK")
+    if v is not None:
+        return v != "0"
+    return True if pack is None else bool(pack)
+
+
+def pack_nibbles(q: torch.Tensor, hi_bits: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Codes ``q [..., K]`` (0..63) -> (nibble pairs u8 ``[..., K/2]``, byte j
+    = q[2j] | q[2j+1] << 4; high bits i32 ``[..., K * hi_bits / 32]`` or None),
+    the K-order layout of ``ops/repack.py`` and of the packed gq codes."""
+    q = q.to(torch.uint8)  # 0..63: lossless, and a quarter of i32's bytes
+    lo = q & 15
+    codes = (lo[..., 0::2] | (lo[..., 1::2] << 4)).contiguous()
+    if not hi_bits:
+        return codes, None
+    per = 32 // hi_bits
+    fields = ((q >> 4) & ((1 << hi_bits) - 1)).view(*q.shape[:-1], q.shape[-1] // per, per)
+    words = torch.zeros(fields.shape[:-1], dtype=torch.int64, device=q.device)
+    for j in range(per):  # disjoint bits: or them in one field at a time
+        words |= fields[..., j].to(torch.int64) << (hi_bits * j)
+    return codes, words.to(torch.int32).contiguous()  # wraps bit 31 to the sign
+
+
+def unpack_nibbles(codes: torch.Tensor, hi: torch.Tensor | None, hi_bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles`: the codes ``[..., K]`` as i32."""
+    c = codes.to(torch.int32)
+    q = torch.stack([c & 15, c >> 4], dim=-1).reshape(*c.shape[:-1], 2 * c.shape[-1])
+    if hi_bits:
+        per = 32 // hi_bits
+        sh = torch.arange(0, 32, hi_bits, dtype=torch.int32, device=c.device)
+        bits = (hi.unsqueeze(-1) >> sh) & ((1 << hi_bits) - 1)
+        q = q + (bits.reshape(*hi.shape[:-1], hi.shape[-1] * per) << 4)
+    return q
+
+
+def pack_codes(w: GroupQuant) -> GroupQuant:
+    """Sub-byte code storage: i8 codes -> the packing of :func:`packing_of`
+    (see the module docstring), on the codes' device, one layer at a time so
+    a stacked weight needs no full-size temporaries.  A no-op for packed
+    weights and for q2_k, q3_k and q8_0, as in the JAX package; the planes
+    are shared, not copied."""
+    mode = packing_of(w.dtype)
+    if w.packing != "none" or mode == "none":
+        return w
+    hb = HI_BITS[mode]
+    layers = [pack_nibbles(c, hb) for c in (w.codes if w.stacked else [w.codes])]
+    codes = [c for c, _ in layers]
+    his = [h for _, h in layers]
+    planes = {k: v for k, v in w.tensors().items() if k != "codes"}
+    return GroupQuant(codes=torch.stack(codes) if w.stacked else codes[0],
+                      hi=None if not hb else torch.stack(his) if w.stacked else his[0],
+                      dtype=w.dtype, n_in=w.n_in, group_size=w.group_size, packing=mode,
+                      **planes)
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +447,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
+def _launch(name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
             exact: bool) -> torch.Tensor:
+    """Launch the entry ``mgt_<name>`` on the weight's plane mode and code
+    storage; count the launch on the wrapper, by packing."""
+    fn_name = f"mgt_{name}"
     if w.exact != exact:
         raise ValueError(f"{fn_name} takes {'exact' if exact else 'generic'}-plane weights, "
                          f"got a {'exact' if w.exact else 'generic'} {w.dtype.name} weight")
@@ -338,17 +459,29 @@ def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
         raise ValueError(f"{fn_name}: x must be [M, {w.n_in}], got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"{fn_name}: x must be float32, got {x.dtype}")
-    for name, t in w.tensors().items():
+    for t_name, t in w.tensors().items():
         if t.device != x.device:
-            raise ValueError(f"{fn_name}: {name} on {t.device}, x on {x.device}")
+            raise ValueError(f"{fn_name}: {t_name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{fn_name}: {name} must be contiguous")
+            raise ValueError(f"{fn_name}: {t_name} must be contiguous")
     if not exact and (w.a.dtype, w.b.dtype) != (torch.bfloat16, torch.bfloat16):
         raise TypeError(f"{fn_name}: planes must be bfloat16, got {w.a.dtype}/{w.b.dtype}")
     if w.group_size not in (16, 32) or (exact and w.group_size != 32):
         raise ValueError(f"{fn_name}: group size {w.group_size} is not served")
     if w.n_in % (J * w.group_size):
         raise ValueError(f"{fn_name}: K={w.n_in} is not a multiple of {J * w.group_size}")
+    hb = HI_BITS.get(w.packing)
+    if hb is None or (w.packing != "none" and w.packing != packing_of(w.dtype)):
+        raise ValueError(f"{fn_name}: packing {w.packing!r} does not fit {w.dtype.name}")
+    k_codes = w.n_in if w.packing == "none" else w.n_in // 2
+    code_dtype = torch.int8 if w.packing == "none" else torch.uint8
+    if w.codes.dtype != code_dtype or w.codes.shape[-1] != k_codes:
+        raise ValueError(f"{fn_name}: codes must be {code_dtype} [..., N, {k_codes}] for packing "
+                         f"{w.packing!r}, got {w.codes.dtype} {tuple(w.codes.shape)}")
+    if (w.hi is not None) != (hb > 0) or (hb and (
+            w.hi.dtype != torch.int32 or w.hi.shape != (*w.codes.shape[:-1], w.n_in * hb // 32))):
+        raise ValueError(f"{fn_name}: packing {w.packing!r} needs "
+                         + (f"hi int32 [..., N, {w.n_in * hb // 32}]" if hb else "no hi"))
     if w.stacked and layer is None:
         raise ValueError("stacked GroupQuant requires a layer index")
     n_layers = w.codes.shape[0] if w.stacked else 1
@@ -364,12 +497,18 @@ def _launch(fn_name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
     fn = getattr(_build.load(), fn_name)
     stream = ctypes.c_void_p(_build.stream_ptr(x.device))
     if exact:
-        rc = fn(x.data_ptr(), w.codes.data_ptr(), w.sc6.data_ptr(), w.mn6.data_ptr(),
-                w.d.data_ptr(), w.dmin.data_ptr(), y.data_ptr(), m, n, k, li, stream)
+        planes, gs = (w.sc6, w.mn6, w.d, w.dmin), ()
     else:
-        rc = fn(x.data_ptr(), w.codes.data_ptr(), w.a.data_ptr(), w.b.data_ptr(),
-                y.data_ptr(), m, n, k, w.group_size, li, stream)
+        planes, gs = (w.a, w.b), (w.group_size,)
+    rc = fn(x.data_ptr(), w.codes.data_ptr(), None if w.hi is None else w.hi.data_ptr(),
+            *(t.data_ptr() for t in planes), y.data_ptr(), m, n, k, *gs,
+            -1 if w.packing == "none" else hb, li, stream)
     _build.check(rc, fn_name)
+    wrapper = _WRAPPERS[name]
+    if w.packing == "none":
+        wrapper.launches += 1
+    else:
+        wrapper.packed_launches[w.packing] += 1
     return y
 
 
@@ -379,54 +518,48 @@ def _decode_rows(name: str, x: torch.Tensor) -> None:
 
 
 def gq_decode(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], exact planes (``csrc/gq_decode.cu``)."""
+    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], exact planes, any packing
+    (``csrc/gq_decode.cu``)."""
     if x.device.type == "cpu":
         return qmatmul_decode_ref(x, w, layer)
     _decode_rows("gq_decode", x)
-    y = _launch("mgt_gq_decode", x, w, layer, exact=True)
-    gq_decode.launches += 1
-    return y
+    return _launch("gq_decode", x, w, layer, exact=True)
 
 
 def gq_decode_generic(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
     """x f32 [M <= 8, K] @ W.T -> f32 [M, N], bf16 planes of group size 16
-    or 32 (``csrc/gq_decode.cu``, entry ``mgt_gq_decode_generic``)."""
+    or 32, any packing (``csrc/gq_decode.cu``, entry ``mgt_gq_decode_generic``)."""
     if x.device.type == "cpu":
         return qmatmul_decode_ref(x, w, layer)
     _decode_rows("gq_decode_generic", x)
-    y = _launch("mgt_gq_decode_generic", x, w, layer, exact=False)
-    gq_decode_generic.launches += 1
-    return y
+    return _launch("gq_decode_generic", x, w, layer, exact=False)
 
 
 def gq_prefill(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, exact planes
-    (``csrc/gq_prefill.cu``)."""
+    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, exact planes, any
+    packing (``csrc/gq_prefill.cu``)."""
     if x.device.type == "cpu":
         return qmatmul_prefill_ref(x, w, layer)
     if x.shape[0] < 1:
         raise ValueError("gq_prefill needs at least one row")
-    y = _launch("mgt_gq_prefill", x, w, layer, exact=True)
-    gq_prefill.launches += 1
-    return y
+    return _launch("gq_prefill", x, w, layer, exact=True)
 
 
 def gq_prefill_generic(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, bf16 planes
-    (``csrc/gq_prefill.cu``, entry ``mgt_gq_prefill_generic``)."""
+    """x f32 [M, K] @ W.T -> f32 [M, N] with bf16 operands, bf16 planes, any
+    packing (``csrc/gq_prefill.cu``, entry ``mgt_gq_prefill_generic``)."""
     if x.device.type == "cpu":
         return qmatmul_prefill_ref(x, w, layer)
     if x.shape[0] < 1:
         raise ValueError("gq_prefill_generic needs at least one row")
-    y = _launch("mgt_gq_prefill_generic", x, w, layer, exact=False)
-    gq_prefill_generic.launches += 1
-    return y
+    return _launch("gq_prefill_generic", x, w, layer, exact=False)
 
 
-gq_decode.launches = 0
-gq_decode_generic.launches = 0
-gq_prefill.launches = 0
-gq_prefill_generic.launches = 0
+_WRAPPERS = {f.__name__: f for f in (gq_decode, gq_decode_generic, gq_prefill, gq_prefill_generic)}
+for _f in _WRAPPERS.values():
+    _f.launches = 0
+    _f.packed_launches = {"p4": 0, "p5": 0, "p6": 0}
+del _f
 
 
 def qmatmul_group(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:

@@ -94,14 +94,7 @@ class RepackedQuant:
         """The full codes q ``[(L,) N, K]`` as i32 (0..63, or -128..127 for q8_0)."""
         if self.code_bits == 8:
             return self.codes.to(torch.int32)
-        c = self.codes.to(torch.int32)
-        q = torch.stack([c & 15, c >> 4], dim=-1).reshape(*c.shape[:-1], self.n_in)
-        if self.hi_bits:
-            per = 32 // self.hi_bits
-            sh = torch.arange(0, 32, self.hi_bits, dtype=torch.int32, device=c.device)
-            bits = (self.hi.unsqueeze(-1) >> sh) & ((1 << self.hi_bits) - 1)
-            q = q + (bits.reshape(*self.hi.shape[:-1], self.hi.shape[-1] * per) << 4)
-        return q
+        return gq.unpack_nibbles(self.codes, self.hi, self.hi_bits)
 
     def dequantize(self) -> torch.Tensor:
         """``[(L,) N, K]`` f32: ``scale * q - min`` with the planes expanded
@@ -140,20 +133,11 @@ def pack(q: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor,
     ``[N, K/gs]`` -> the port's storage."""
     dtype = DataType(dtype)
     code_bits, hi_bits = LAYOUT[dtype]
-    n, k = q.shape
-    hi = None
+    _, k = q.shape
     if code_bits == 8:
-        codes = q.to(torch.int8).contiguous()
+        codes, hi = q.to(torch.int8).contiguous(), None
     else:
-        q = q.to(torch.int32)
-        lo = q & 15
-        codes = (lo[:, 0::2] | (lo[:, 1::2] << 4)).to(torch.uint8).contiguous()
-        if hi_bits:
-            per = 32 // hi_bits
-            fields_ = ((q >> 4) & ((1 << hi_bits) - 1)).to(torch.int64).view(n, k // per, per)
-            sh = torch.arange(0, 32, hi_bits, dtype=torch.int64, device=q.device)
-            words = (fields_ << sh).sum(dim=-1)  # disjoint bits: the sum is the or
-            hi = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32).contiguous()
+        codes, hi = gq.pack_nibbles(q, hi_bits)
     return RepackedQuant(codes=codes, scales=scales.to(torch.bfloat16).contiguous(),
                          mins=mins.to(torch.bfloat16).contiguous(), hi=hi, dtype=dtype,
                          n_in=k, group_size=gq.group_size(dtype), code_bits=code_bits,

@@ -19,7 +19,8 @@ Counterpart of ``minigpt4_tpu/quality.py`` on PyTorch:
 
 Run ``python -m minigpt4_tpu_torch.quality`` (``--device cpu`` without a
 card) for the table, the two gates and a last JSON line.  The five rows:
-``q5k`` (the exact path, ``quant_mode_exact``), ``gq`` (the decoder's default),
+``q5k`` (the exact path, ``quant_mode_exact``), ``gq`` (``quant_mode="gq"``,
+packed by ``params.resolve_gq_pack``),
 ``w8a8``, ``w8a8_smooth`` and ``f8_cache`` (the exact path over an e4m3
 cache).  Scales are saved as npz, which both packages read.
 """
@@ -37,6 +38,7 @@ import torch
 from .formats import DataType, LlamaFileReader, LlamaFileWriter, LlamaHParams, LlamaVocab
 from .formats import is_quantized, quants
 from .models import llama as llama_mod
+from .models.params import resolve_gq_pack
 from .ops.quant_matmul import QTensor
 
 
@@ -281,7 +283,10 @@ def evaluate_paths(f32_path: Path, quant_path: Path, seq_len: int = 128, calib_l
                    device: str | torch.device = "cuda") -> dict:
     """{path name: metrics} against the f32 dense reference, every path
     through the file -> load_params pipeline on ``device``.  The ``gq`` row
-    says ``"packed": false``: the port keeps one byte per gq code."""
+    loads as an explicit ``quant_mode="gq"`` does and records the code
+    storage it measured, ``"packed"``, as the JAX package's row does; every
+    row stores gq codes as an engine of its mode would
+    (``params.resolve_gq_pack``)."""
     rng = np.random.default_rng(seed)
     n_ctx = max(seq_len, 8)
     with LlamaFileReader(f32_path) as r32:
@@ -295,7 +300,8 @@ def evaluate_paths(f32_path: Path, quant_path: Path, seq_len: int = 128, calib_l
     def run(mode, smooth=None, cache_dtype=torch.float32):
         with LlamaFileReader(quant_path) as r:
             p, c = llama_mod.load_params(r, torch.float32, n_ctx=n_ctx, device=device,
-                                         quant_mode=mode, smooth=smooth)
+                                         quant_mode=mode, smooth=smooth,
+                                         pack=resolve_gq_pack(mode))
         lg = teacher_forced_logits(p, c, tokens, cache_dtype=cache_dtype)
         del p
         return logit_metrics(ref_logits, lg, tokens)
@@ -304,7 +310,7 @@ def evaluate_paths(f32_path: Path, quant_path: Path, seq_len: int = 128, calib_l
     if "q5k" in paths:
         results["q5k"] = run(quant_mode_exact)
     if "gq" in paths:
-        results["gq"] = dict(run("gq"), packed=False)
+        results["gq"] = dict(run("gq"), packed=resolve_gq_pack("gq"))
     if "w8a8" in paths:
         results["w8a8"] = run("w8a8")
     if "w8a8_smooth" in paths:

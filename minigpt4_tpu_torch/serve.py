@@ -570,9 +570,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--quant-mode", choices=["auto", "repack", "gq", "qtensor", "w8a8"],
                     default="auto",
                     help="form of quantized weights (MiniGPT4Engine quant_mode): auto = gq for "
-                    "the decoder where it applies, repacked otherwise and for the vision "
-                    "weights; repack = repacked everywhere; w8a8 = i8 codes and activations "
-                    "where K %% 256 == 0; qtensor = packed bytes dequantized per call")
+                    "the decoder where it applies, one byte per code, repacked otherwise and "
+                    "for the vision weights; gq = gq wherever it applies, the 4/5/6-bit codes "
+                    "packed (0.5-0.75 B each); repack = repacked everywhere; w8a8 = i8 codes "
+                    "and activations where K %% 256 == 0; qtensor = packed bytes dequantized "
+                    "per call.  MINIGPT4_TPU_GQ_PACK=0 or 1 decides the gq packing instead")
     ap.add_argument("--cache-dtype", choices=["auto", "bf16", "f32", "f8"], default="auto",
                     help="KV cache element type (f8 = e4m3); auto = the engine's default, bf16")
     ap.add_argument("--smooth-scales", default=None, metavar="NPZ",

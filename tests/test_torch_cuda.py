@@ -22,7 +22,9 @@ i8_prefill form each 256-wide chunk's product as an exact i32 like
 qmatmul_i8sb_ref and sum the scaled chunks in chunk order (1e-5 and 1e-4
 of max|y|: only the f32 multiply-add rounding can differ).  The e4m3 cache
 reads through the same unpack in the kernels and in cache_f32 (1e-5
-absolute, as the other cache types).
+absolute, as the other cache types).  A packed gq weight (p4, p5, p6) gives
+its unpacked twin's bits in every entry (max |d| = 0): the code reaches the
+same arithmetic as the same float.  A NaN past a lane's cursor is never read.
 """
 
 import numpy as np
@@ -120,8 +122,9 @@ def test_refused_launches_raise(cuda_device):
     lib, y = _build.load(), torch.empty((9, 64), device=cuda_device)
     stream = _build.stream_ptr(cuda_device)
     for m, gs in ((9, 16), (1, 24)):
-        rc = lib.mgt_gq_decode_generic(x9.data_ptr(), w.codes.data_ptr(), w.a.data_ptr(),
-                                       w.b.data_ptr(), y.data_ptr(), m, 64, 256, gs, 0, stream)
+        rc = lib.mgt_gq_decode_generic(x9.data_ptr(), w.codes.data_ptr(), None, w.a.data_ptr(),
+                                       w.b.data_ptr(), y.data_ptr(), m, 64, 256, gs, -1, 0,
+                                       stream)
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(rc, "mgt_gq_decode_generic")
 
@@ -479,3 +482,145 @@ def test_w8a8_f8_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
     (ce, ct), (ge, gt) = runs["cpu"], runs["cuda"]
     assert np.abs(ge - ce).max() <= 1e-4 * np.abs(ce).max()
     assert gt == ct
+
+
+PACKED = [DataType.Q4_0, DataType.Q4_1, DataType.Q4_K, DataType.Q5_0, DataType.Q5_1,
+          DataType.Q5_K, DataType.Q6_K]
+
+
+def _gq(dtype, n, k, seeds, device):
+    ws = [tgq.from_ggml(quants.quantize(
+        np.random.default_rng(s).normal(0, 0.6, (n, k)).astype(np.float32), dtype),
+        (n, k), dtype, device) for s in seeds]
+    return ws[0] if len(ws) == 1 else tgq.stack(ws)
+
+
+# every packable format; K = 1280 (5 x 256, no power of two) for the 5-bit
+# formats, 768 otherwise; N = 300 is ragged for both column tiles
+@pytest.mark.parametrize("dtype", PACKED, ids=[d.name.lower() for d in PACKED])
+@pytest.mark.parametrize("m", [1, 5, 8, 40])
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+def test_packed_kernels_bit_equal_to_unpacked(cuda_device, dtype, m, stacked):
+    k = 1280 if dtype in tgq.PACK5 else 768
+    w = _gq(dtype, 300, k, (1, 2) if stacked else (3,), cuda_device)
+    wp = tgq.pack_codes(w)
+    assert wp.packing == tgq.packing_of(dtype) != "none"
+    layer = 1 if stacked else None
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+    x = x.to(cuda_device)
+    decode = m <= tgq.GQ_MAX_M
+    kern = ((tgq.gq_decode if w.exact else tgq.gq_decode_generic) if decode
+            else (tgq.gq_prefill if w.exact else tgq.gq_prefill_generic))
+    plain = tgq.qmatmul_decode_ref if decode else tgq.qmatmul_prefill_ref
+    before = (kern.launches, dict(kern.packed_launches))
+    got = kern(x, wp, layer)
+    torch.cuda.synchronize()
+    assert kern.launches == before[0]
+    assert kern.packed_launches == {**before[1], wp.packing: before[1][wp.packing] + 1}
+    assert torch.equal(got, kern(x, w, layer))
+    assert _rel(got, plain(x, wp, layer)) <= (1e-5 if decode else 1e-4)
+
+
+def test_packed_refused_launches_raise(cuda_device):
+    w6 = tgq.pack_codes(_gq(DataType.Q6_K, 64, 256, (0,), cuda_device))
+    w5 = tgq.pack_codes(_gq(DataType.Q5_K, 64, 256, (0, 1), cuda_device))
+    x = torch.zeros((1, 256), device=cuda_device)
+    # the wrappers: a packing that does not fit the format, codes of the
+    # wrong width, a missing high-bit plane, a layer out of range
+    for bad in (tgq.GroupQuant(**{**w6.__dict__, "packing": "p5"}),
+                tgq.GroupQuant(**{**w6.__dict__, "codes": w6.codes.view(torch.int8)}),
+                tgq.GroupQuant(**{**w6.__dict__, "hi": None})):
+        with pytest.raises(ValueError, match="packing|codes|hi"):
+            tgq.gq_decode_generic(x, bad)
+    with pytest.raises(IndexError, match="out of range"):
+        tgq.gq_prefill(torch.zeros((9, 256), device=cuda_device), w5, 2)
+    with pytest.raises(ValueError, match="takes exact-plane weights"):
+        tgq.gq_decode(x, w6)
+    # the C entries refuse layouts outside the packable formats: 2 high bits
+    # at group size 32, 1 (or none) at group size 16, a null high-bit plane,
+    # a high-bit plane beside i8 codes (hi_bits -1), a negative layer
+    lib, y = _build.load(), torch.empty((1, 64), device=cuda_device)
+    stream = _build.stream_ptr(cuda_device)
+    l5 = w5.layer(0)
+    ptr5 = (l5.codes.data_ptr(), l5.hi.data_ptr(), l5.sc6.data_ptr(), l5.mn6.data_ptr(),
+            l5.d.data_ptr(), l5.dmin.data_ptr())
+    for hb, hi, layer in ((2, ptr5[1], 0), (1, None, 0), (1, ptr5[1], -1), (-1, ptr5[1], 0)):
+        rc = lib.mgt_gq_decode(x.data_ptr(), ptr5[0], hi, *ptr5[2:], y.data_ptr(), 1, 64, 256,
+                               hb, layer, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(rc, "mgt_gq_decode")
+    for hb in (0, 1, 3):
+        rc = lib.mgt_gq_prefill_generic(
+            x.data_ptr(), w6.codes.data_ptr(), w6.hi.data_ptr(), w6.a.data_ptr(),
+            w6.b.data_ptr(), y.data_ptr(), 1, 64, 256, 16, hb, 0, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(rc, "mgt_gq_prefill_generic")
+
+
+def test_packed_cpu_wrappers_count_no_launch():
+    ws = [tgq.pack_codes(_gq(dt, 32, 256, (0,), "cpu"))
+          for dt in (DataType.Q4_K, DataType.Q5_1, DataType.Q6_K)]
+    wrappers = (tgq.gq_decode, tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic)
+    before = [(f.launches, dict(f.packed_launches)) for f in wrappers]
+    for w in ws:
+        for m in (1, 8, 9, 40):
+            tgq.qmatmul_group(torch.zeros(m, 256), w)
+    assert [(f.launches, f.packed_launches) for f in wrappers] == before
+
+
+@pytest.mark.parametrize("s,pos0", [(1, 37), (8, 130), (1, [5, 400])])
+def test_flash_decode_never_reads_past_the_cursor(cuda_device, s, pos0):
+    """A NaN (e4m3 0x7F) in lane 0 past its cursor, inside a 32-key block the
+    kernel reads, in K and in V: the output is the one without it, bit for
+    bit (the JAX kernel returns NaN there; tests/test_torch_f8_cache.py)."""
+    rng = np.random.default_rng(s)
+    b = 1 if isinstance(pos0, int) else len(pos0)
+    ck, cv = (torch.from_numpy(rng.normal(0, 1, (2, b, 4, 512, 128)).astype(np.float32))
+              .to(cuda_device, torch.float8_e4m3fn) for _ in range(2))
+    q = torch.from_numpy(rng.normal(0, 1, (b, 4, s, 128)).astype(np.float32)).to(cuda_device)
+    clean = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884)
+    at = (pos0 if isinstance(pos0, int) else pos0[0]) + s + 3
+    for t in (ck, cv):
+        t.view(torch.uint8)[1, 0, 2, at, 7] = 0x7F
+    got = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all() and torch.equal(got, clean)
+    torch.testing.assert_close(got, tfd.flash_decode_ref(q, ck, cv, 1, pos0, 0.0884),
+                               rtol=0, atol=1e-5)
+
+
+def test_packed_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
+    """One image chat on the Q5_K_M fixture with quant_mode="gq" (packed: p5
+    q5_k, p6 q6_k): the card and the CPU give the same greedy tokens, and
+    the unpacked chat's; on the card the packed p5 and p6 entries ran and no
+    unpacked gq entry did."""
+    rng = np.random.default_rng(7)
+    model = build_container(tmp_path / "minigpt4-gq.bin", rng, llm_d=GQ_D)
+    llm = build_llm_q5_k_m(tmp_path / "vicuna-q5_k_m.bin", rng)
+    img = np.random.default_rng(3).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    kernels = (tgq.gq_decode, tgq.gq_prefill, tgq.gq_decode_generic, tgq.gq_prefill_generic)
+    runs = {}
+    for device, mode in (("cpu", "gq"), ("cuda", "gq"), ("cuda", "auto")):
+        before = [(f.launches, dict(f.packed_launches)) for f in kernels]
+        eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=device, quant_mode=mode)
+        try:
+            assert eng.gq_packed == (mode == "gq")
+            emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+            eng.system_prompt()
+            eng.begin_chat_image(emb, "what is in the image?")
+            runs[device, mode] = list(eng.generate(limit=10, params=SamplingParams(temp=0.0)))
+        finally:
+            eng.close()
+        unpacked = [f.launches - b[0] for f, b in zip(kernels, before)]
+        packed = {(f.__name__, p): f.packed_launches[p] - b[1][p]
+                  for f, b in zip(kernels, before) for p in ("p4", "p5", "p6")}
+        if device == "cpu":
+            assert unpacked == [0] * 4 and not any(packed.values())
+        elif mode == "gq":
+            ran = {key for key, v in packed.items() if v}
+            assert unpacked == [0] * 4 and ran == {
+                ("gq_decode", "p5"), ("gq_prefill", "p5"), ("gq_decode_generic", "p6"),
+                ("gq_prefill_generic", "p6")}, (unpacked, packed)
+        else:
+            assert all(unpacked) and not any(packed.values())
+    assert runs["cuda", "gq"] == runs["cpu", "gq"] == runs["cuda", "auto"]

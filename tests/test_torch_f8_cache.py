@@ -98,6 +98,41 @@ def test_flash_e4m3_matches_jax(s, pos0):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
+# (S, pos0, lane, position): a lane's NaN past its cursor pos0 + S, inside a
+# 32-key block the kernel reads: one lane; and the shorter lane of two,
+# where the plain version reads the longer lane's span
+NAN_PAST_CURSOR = [(1, 37, 0, 40), (8, 130, 0, 150), (1, [5, 400], 0, 9)]
+
+
+@pytest.mark.parametrize("s,pos0,lane,at", NAN_PAST_CURSOR)
+@pytest.mark.parametrize("kv", ["k", "v"])
+def test_nan_past_the_cursor_is_not_read(s, pos0, lane, at, kv):
+    """A deliberate divergence from the JAX kernel: an e4m3 NaN left past
+    the cursor (a stale overflow after a rollback) does not reach the
+    port's output, which equals the output without it; JAX's _kernel reads
+    the whole key block and returns NaN there."""
+    rng = np.random.default_rng(at)
+    b = 1 if isinstance(pos0, int) else len(pos0)
+    l, h, c, dh = 2, 4, 512, 128
+    q = rng.normal(0, 1, (b, h, s, dh)).astype(np.float32)
+    tk, _ = _e4m3_cache(rng, (l, b, h, c, dh))
+    tv, _ = _e4m3_cache(rng, (l, b, h, c, dh))
+    scale = 1.0 / np.sqrt(dh)
+    clean = tfd.flash_decode_attention(torch.from_numpy(q), tk, tv, 1, pos0, scale)
+    t = tk if kv == "k" else tv
+    t.view(torch.uint8)[1, lane, 2, at, 7] = 0x7F
+    got = tfd.flash_decode_attention(torch.from_numpy(q), tk, tv, 1, pos0, scale)
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+    jk, jv = (x.view(torch.uint8).numpy().view(jnp.float8_e4m3fn) for x in (tk, tv))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(jk), jnp.asarray(jv), 1,
+                                jnp.asarray(pos0, jnp.int32), scale))
+    # the JAX kernel: a NaN key spoils every score of the planted head, a NaN
+    # value its column (probability 0 times NaN); nothing else
+    nan = np.zeros(want.shape, bool)
+    nan[lane, 2, :, slice(None) if kv == "k" else 7] = True
+    assert np.array_equal(np.isnan(want), nan)
+
+
 def test_subnormals_flush_in_the_read_only():
     # exponent field 0 reads as +-0; the native cast keeps the subnormal
     t = torch.tensor([2.0 ** -9, -3 * 2.0 ** -9, 2.0 ** -6, -1.5]).to(F8)

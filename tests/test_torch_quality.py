@@ -32,6 +32,7 @@ import torch
 from minigpt4_tpu import quality as jq
 from minigpt4_tpu.formats.ggml_llama import LlamaFileReader as JReader
 from minigpt4_tpu.models import llama as jllama
+from minigpt4_tpu.ops import group_i8 as jgq
 from minigpt4_tpu_torch import quality as tq
 from minigpt4_tpu_torch.formats import LlamaFileReader
 from minigpt4_tpu_torch.models import llama as tllama
@@ -169,7 +170,9 @@ def test_main_prints_five_rows_and_gates(tmp_path, capsys):
     res = tq.main(["--geometry", "tiny", "--device", "cpu", "--seq-len", "32",
                    "--calib-len", "16", "--workdir", str(tmp_path),
                    "--save-scales", str(tmp_path / "s.npz")])
-    assert list(res) == list(tq.PATHS) and res["gq"]["packed"] is False
+    # the gq row records its code storage as the JAX row does, under the
+    # same environment (MINIGPT4_TPU_GQ_PACK, else packed)
+    assert list(res) == list(tq.PATHS) and res["gq"]["packed"] is jgq.pack_enabled()
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(last["quality"]) == set(tq.PATHS)
     assert all(np.isfinite(v["kl_mean"]) for v in last["quality"].values())
