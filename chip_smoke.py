@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
 its batched HTTP serving path, its quantized-container / repacked-weight
-path and its w8a8 path over an e4m3 cache on an NVIDIA GPU.
+path, its w8a8 path over an e4m3 cache and its tensor-parallel path (two
+ranks on one card) on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -37,6 +38,14 @@ Phases (any failure exits nonzero before the last line):
                the gq tolerances of the plain version; packed and unpacked
                are timed in turns, with the bound of the packed bytes and of
                the unpacked ones, and the wrappers' host time per decode call.
+               Last, flash decode's stats mode (the partials of sequence-
+               parallel attention) at 13B attention shapes (40 heads of 128,
+               a bf16 cache of 2048 positions in 4 slices of 512; S = 1 and 8
+               at pos0 = 700, where two slices are empty, and 2015; one e4m3
+               case): each slice against flash_decode_stats_ref, the
+               normalized launch bit-equal to acc / l, the merged slices
+               within 2e-5 of the kernel on the whole cache, and per slice
+               the stats, normalized, plain and SDPA times and the bound.
   4. engine  - four chats through MiniGPT4Engine(device="cuda"), each on
                synthetic files cached under build/smoke_models/ by geometry,
                layout and seed, one engine closed before the next is built:
@@ -107,11 +116,30 @@ Phases (any failure exits nonzero before the last line):
                (nor in the serving phase or the repack chat).
   8. quality - python -m minigpt4_tpu_torch.quality at the small geometry on
                the card: five finite rows, the table and both gates.
+  9. tp      - (runs right after phase 3, while this process holds little
+               device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width and
+               depth, every projection q5_k, quant_mode="repack", behind the
+               13B f16 container.  First the chat of phase 4 at tp=1 in this
+               process; then two ranks (processes spawned by
+               parallel.dryrun.run_ranks, both on cuda:0, gloo, a deadline)
+               each run it on their half of the decoder (rq_decode, rq_prefill
+               and flash_decode at the local shapes, no gq kernel) and print
+               load time, tok/s, the collectives' share of a profiled chunk
+               and the backend.  Each rank's first 8 greedy ids equal to
+               tp=1's (how many of 32 agree is printed).  The logit gap
+               against depth: the prefill logits of a text turn at tp=2
+               against tp=1 on the same geometry cut to 1 and 4 layers and at
+               40; at 1 layer within 1e-3 (max |d| / max |logit|); the
+               deeper gaps, grown from f32 order through bf16 roundings,
+               are printed.  Then sp_flash_decode_attention
+               over the two ranks (1024 positions each) against the kernel on
+               the whole cache, 2e-5, counting the stats kernel's launches
+               (the "sp" path).
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
 {"kernels": [...]} (launches in each kernel's own path, the serving phase,
-the repack chat, the w8a8 path or a packed chat, and of each path); the last
-is {"ok": true, "device": {...}}.
+the repack chat, the w8a8 path, a packed chat or the SP path, and of each
+path); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -178,7 +206,15 @@ def log(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    log(f"[phase] {name} at {time.perf_counter() - T_START:.1f} s")
+    """Mark a phase: the elapsed time, and the device memory this process
+    still references from the phases before, garbage collected first (a
+    leak shows here)."""
+    mem = ""
+    if torch.cuda.is_initialized():
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem = f", {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+    log(f"[phase] {name} at {time.perf_counter() - T_START:.1f} s{mem}")
 
 
 def card_line() -> str:
@@ -215,8 +251,10 @@ def _short(name: str) -> str:
 def profile_window(fn, sync) -> dict:
     """One call of ``fn`` under torch.profiler (host and device activity):
     wall ms, device busy ms (the union of the device activity intervals),
-    the idle share, the number of device activities and the three names
-    with the most device time.  The profiler slows the host, so the idle
+    the idle share, the number of device activities, the three names with
+    the most device time, and the host time inside collectives (the union
+    of the intervals of the host activities named all_reduce / allreduce,
+    0 outside tensor parallelism).  The profiler slows the host, so the idle
     share is an upper estimate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -239,8 +277,16 @@ def profile_window(fn, sync) -> dict:
         per_name[_short(e.name)] = per_name.get(_short(e.name), 0.0) + (f - s) / 1e3
     busy_ms = busy / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
+    coll, end = 0.0, -math.inf
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CPU
+                     and ("allreduce" in e.name.lower() or "all_reduce" in e.name.lower())),
+                    key=lambda e: e.time_range.start):
+        s, f = e.time_range.start, e.time_range.end
+        if f > end:
+            coll += f - max(s, end)
+            end = f
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
-                top=[(n, round(ms, 3)) for n, ms in top])
+                top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
@@ -736,7 +782,7 @@ def phase_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    results = {k: [] for k in KERNELS + PACKED_KERNELS}
+    results = {k: [] for k in KERNELS + PACKED_KERNELS + (STATS,)}
     # exact planes at the Vicuna-7B shapes
     d, ff, v = 4096, 11008, 32000
     for name, (n, k) in {"wqkv": (3 * d, d), "wo": (d, d), "w13": (2 * ff, d), "w2": (d, ff),
@@ -803,7 +849,108 @@ def phase_kernels(card: str) -> dict:
     e4m3_flash_cases(results, card, gen)
     phase("kernels: packed gq")
     phase_packed_kernels(results, card, gen)
+    phase("kernels: flash stats")
+    flash_stats_cases(results, card, gen)
     return results
+
+
+# the merge of C-slice partials against the kernel on the whole cache: f32
+# online softmax regrouped (JAX's bound for its SP merge)
+SP_TOL = 2e-5
+STATS_TOL = 1e-5  # partials against their plain version: f32 sums in another order
+
+
+def flash_stats_cases(results: dict, card: str, gen: torch.Generator) -> None:
+    """The stats mode of flash decode at Vicuna-13B attention shapes (B = 1,
+    40 heads of 128, a bf16 cache of 2048 positions rotating through 40
+    layers) split into 4 slices of 512 positions, as 4 sequence-parallel
+    ranks hold it: S = 1 and 8 at pos0 = 700 (two slices empty: negative
+    cursors) and 2015, and one e4m3 case.  Each slice's (acc, m, l) against
+    flash_decode_stats_ref (m to STATS_TOL absolute, l and acc to STATS_TOL
+    of their maximum, exact zeros and m = -inf where a row sees no key), the
+    normalized launch on the slice against acc / l of the stats launch (bit
+    for bit), and the merge of the 4 slices against the normalized kernel on
+    the whole cache (SP_TOL).  Per slice: the stats launch, the normalized
+    launch, the plain version and SDPA with a boolean mask, timed, and the
+    bound of the slice's live rows."""
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
+    h, dh, c, n_sl = 40, 128, 2048, 4
+    cl, last, scale = c // n_sl, STACK_13B - 1, dh ** -0.5
+
+    def stats(*a):
+        return fd.flash_decode_attention(*a, return_stats=True)
+
+    for dtype, cases in ((torch.bfloat16, [(s, p) for p in (700, 2015) for s in (1, 8)]),
+                         (torch.float8_e4m3fn, [(1, 2015)])):
+        tag = "e4m3 " if dtype == torch.float8_e4m3fn else ""
+        ck, cv = (torch.randn((STACK_13B, 1, h, c, dh), generator=gen, device=DEVICE).to(dtype)
+                  for _ in range(2))
+        slices = [(ck[:, :, :, i * cl:(i + 1) * cl].contiguous(),
+                   cv[:, :, :, i * cl:(i + 1) * cl].contiguous()) for i in range(n_sl)]
+        for s, pos in cases:
+            q = torch.randn((1, h, s, dh), generator=gen, device=DEVICE)
+            whole = fd.flash_decode_attention(q, ck, cv, last, pos, scale)
+            parts, rows = [], []
+            for i, (ks, vs) in enumerate(slices):
+                p_loc = pos - i * cl
+                acc, m, l = stats(q, ks, vs, last, p_loc, scale)
+                wacc, wm, wl = fd.flash_decode_stats_ref(q, ks, vs, last, p_loc, scale)
+                torch.cuda.synchronize()
+                empty = torch.isneginf(wm)
+                if not (torch.equal(torch.isneginf(m), empty) and (l[empty] == 0).all()
+                        and (acc[empty] == 0).all()):
+                    raise AssertionError(f"flash stats {tag}S={s} pos0={pos} slice {i}: a row "
+                                         "that sees no key has nonzero partials")
+                live = ~empty
+                err_m = float((m[live] - wm[live]).abs().max()) if live.any() else 0.0
+                err_l, err_acc = (rel_err(l, wl), rel_err(acc, wacc)) if live.any() else (0.0, 0.0)
+                norm = fd.flash_decode_attention(q, ks, vs, last, p_loc, scale)
+                bits = bool(torch.equal(norm, acc / l[..., None])) if not empty.any() else None
+                if not (err_m <= STATS_TOL and err_l <= STATS_TOL and err_acc <= STATS_TOL):
+                    raise AssertionError(f"flash stats {tag}S={s} pos0={pos} slice {i}: m err "
+                                         f"{err_m}, l rel {err_l}, acc rel {err_acc} > {STATS_TOL}")
+                if bits is False:
+                    raise AssertionError(f"flash stats {tag}S={s} pos0={pos} slice {i}: the "
+                                         "normalized launch is not acc / l of the stats launch")
+                args = lambda j, ks=ks, vs=vs, p_loc=p_loc: (q, ks, vs, j % STACK_13B, p_loc,  # noqa: E731
+                                                             scale)
+                k_ms, p_ms = compare_times(stats, fd.flash_decode_stats_ref, args)
+                n_ms = statistics.median(_time_ms(fd.flash_decode_attention, args, 20))
+                keys = max(0, min(p_loc + s, cl))
+                b_ms, b_by = bound(2 * keys * h * dh * ks.element_size() + 2 * h * s * dh * 4
+                                   + 2 * h * s * 4, 4.0 * s * dh * keys * h, F32_FLOPS)
+                lib_ms = (sdpa_ms(q, ks, vs, torch.full((1,), p_loc, dtype=torch.int32,
+                                                          device=DEVICE), scale, STACK_13B)
+                          if keys > 0 else None)
+                parts.append((acc, m, l))
+                rows.append(dict(shape=f"{tag}B=1 S={s} pos0={pos} slice {i}",
+                                 max_abs_err=max(err_m, float((acc - wacc).abs().max()),
+                                                 float((l - wl).abs().max())),
+                                 rel_err_l=err_l, rel_err_acc=err_acc, tol=STATS_TOL,
+                                 null_ml_bits_equal=bits, ms=k_ms, normalized_ms=n_ms,
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                log(f"[kernels] flash_decode stats {tag}B=1 H={h} S={s} pos0={pos} slice {i} "
+                    f"(local cursor {p_loc}, {keys} live keys)  m err {err_m:.2e}, l rel "
+                    f"{err_l:.2e}, acc rel {err_acc:.2e} (tol {STATS_TOL:g}); normalized launch "
+                    f"{'= acc / l bit for bit' if bits else 'not compared (a row sees no key)'}"
+                    f"  stats {k_ms:.4f} ms  normalized {n_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                    f"bound {b_ms:.4f} ms ({b_by})  sdpa "
+                    f"{'none (no live key)' if lib_ms is None else f'{lib_ms:.4f} ms'}  [{card}]")
+            merged = fd.merge_partials(parts)
+            torch.cuda.synchronize()
+            merge_err = float((merged - whole).abs().max())
+            for r in rows:
+                r["merge_err"] = merge_err
+            results[STATS].extend(rows)
+            log(f"[kernels] flash_decode stats {tag}S={s} pos0={pos}: merge of {n_sl} slices "
+                f"against the kernel on the whole cache, max abs err {merge_err:.3e} "
+                f"(tol {SP_TOL:g})  [{card}]")
+            if not merge_err <= SP_TOL:
+                raise AssertionError(f"flash stats {tag}S={s} pos0={pos}: merged partials differ "
+                                     f"from the whole-cache kernel by {merge_err} > {SP_TOL}")
+        del ck, cv, slices
+        torch.cuda.empty_cache()
 
 
 def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float:
@@ -1144,6 +1291,8 @@ PACKED_MIX_KERNELS = ("gq_decode[p4]", "gq_prefill[p4]", "gq_decode_generic[p4]"
                       "gq_decode_generic[p5]", "gq_decode_generic[p6]", "gq_prefill_generic[p4]",
                       "gq_prefill_generic[p5]", "flash_decode")
 REPACK_CHAT_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
+# the stats mode of flash decode (sequence-parallel partials), counted apart
+STATS = "flash_decode[stats]"
 W8A8_KERNELS = ("i8_decode", "i8_prefill", "rq_prefill", "flash_decode", "paged_flash_decode")
 DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode") + tuple(
     k for k in PACKED_KERNELS if "_decode" in k)
@@ -1166,6 +1315,7 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict:
     counts = {k: f.launches for k, f in _wrappers().items()}
+    counts[STATS] = _wrappers()["flash_decode"].stats_launches
     for k in PACKED_KERNELS:
         name, packing = k[:-1].split("[")
         counts[k] = _wrappers()[name].packed_launches[packing]
@@ -1175,6 +1325,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for f in _wrappers().values():
         f.launches = 0
+        if hasattr(f, "stats_launches"):
+            f.stats_launches = 0
         if hasattr(f, "packed_launches"):
             f.packed_launches = dict.fromkeys(f.packed_launches, 0)
 
@@ -1260,6 +1412,10 @@ def check_launches(label: str, out: dict, expect: tuple, forbid: tuple, card: st
     return dict(out, counts=counts)
 
 
+def chat_image() -> np.ndarray:
+    return np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+
+
 def chat_on(eng, label: str, card: str) -> dict:
     """The chat of :func:`chat` on a loaded engine: encode, system prompt,
     image turn, a greedy generate(limit=32), a timed and a profiled 16-token
@@ -1270,7 +1426,7 @@ def chat_on(eng, label: str, card: str) -> dict:
     sync = torch.cuda.synchronize
     n_vocab = eng.llm_cfg.n_vocab
     per_token = step_ms = prof = None
-    img = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    img = chat_image()
     t0 = time.perf_counter()
     emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
     t_encode = time.perf_counter() - t0
@@ -1318,7 +1474,8 @@ def chat_on(eng, label: str, card: str) -> dict:
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
     return dict(encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3, prompt=n_prompt,
                 decode_ms=t_decode * 1e3, n_decoded=len(ids), decode_tok_s=len(ids) / t_decode,
-                step_ms=step_ms, matmuls_per_token=per_token, profile=prof, greedy_ids=ids)
+                step_ms=step_ms, matmuls_per_token=per_token, profile=prof, greedy_ids=ids,
+                prefill_logits=logits.cpu().numpy())
 
 
 # the q5_1 container's embedding against the same weights dequantized to
@@ -1592,6 +1749,7 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
     finally:
         httpd.shutdown()
         server.join(timeout=60)
+        httpd.server_close()  # stops the batcher, whose thread holds the pool
         pool.close()
         del pool, httpd
         gc.collect()
@@ -1716,6 +1874,196 @@ def quality_run(card: str) -> dict:
     return dict(counts=counts, seconds=t, rows=res)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tensor parallelism, two ranks on one card
+# ---------------------------------------------------------------------------
+
+# Vicuna-13B at full width and depth, every projection q5_k (one format per
+# name, so every weight splits; a Q5_K_M file's mixed wv / w2 lists cannot)
+LLM_13B_Q5K = dict(LLM_13B, layout="q5_k")
+TP = 2
+# the tp=2 / tp=1 logit gap against depth: the same geometry cut to these
+# depths; at the first, max |dlogit| / max |logit| <= TP_LOGIT_TOL.  A rank's
+# sums differ from tp=1's only in f32 order (the wo / w2 K halves, and
+# kernels at half the output rows), but such differences flip bf16 roundings
+# of later matmul inputs and grow with depth; a fault of the split (a wrong
+# K slice) moves the logits by a share of their size already at one layer
+TP_DEPTHS = (1, 4)
+TP_LOGIT_TOL = 1e-3
+TP_PREFIX = 8  # greedy ids that must agree from the first
+TP_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
+
+
+def _local_shapes(eng) -> dict:
+    """The rank's local decoder shapes: (N, K) of each projection of layer 0
+    and of the head, the KV cache's heads."""
+    def nk(w):
+        if isinstance(w, list):
+            w = w[0]
+        return (w.n_out, w.n_in) if hasattr(w, "n_in") else tuple(w.shape[-1:] + w.shape[-2:-1])
+
+    out = {n: nk(v["w"]) for n, v in eng.llm_params["layers"].items() if isinstance(v, dict)}
+    out["output"] = nk(eng.llm_params["output"]["w"])
+    out["cache_heads"] = eng._st.cache["k"].shape[2]
+    return out
+
+
+def text_turn_logits(eng) -> np.ndarray:
+    """The prefill logits of a fresh text turn: system prompt, one question."""
+    eng.reset()
+    eng.system_prompt()
+    eng.begin_chat("What is in this picture?")
+    return eng._st.logits.float().cpu().numpy()
+
+
+def depth_logits(files: list, tp: int) -> list:
+    """text_turn_logits of each (model, llm) pair of ``files`` through an
+    engine of tp ranks (quant_mode="repack"), loaded and closed in turn."""
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
+
+    out = []
+    for model, llm in files:
+        eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode="repack", tp=tp)
+        try:
+            out.append(text_turn_logits(eng))
+        finally:
+            eng.close()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(g, model: str, llm: str, shallow: list, card: str) -> dict:
+    """One rank of the tp phase: text_turn_logits on the ``shallow`` files,
+    the chat of phase 4 through MiniGPT4Engine(tp=2, quant_mode="repack") on
+    this rank's shards (the repacked and flash kernels at the local shapes,
+    no gq kernel) and its text turn, then sp_flash_decode_attention over the
+    ranks at the 13B attention shape against the normalized kernel on the
+    whole cache (the stats kernel's launches counted as the "sp" path)."""
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
+    from minigpt4_tpu_torch.engine.engine import disable_tf32
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
+    disable_tf32()
+    label = f"tp={g.size} rank {g.rank}"
+    log(f"[{label}] backend {g.backend}, device {g.device} ({torch.cuda.get_device_name(g.device)})")
+    text = depth_logits(shallow, g.size)
+    reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated(g.device)
+    t0 = time.perf_counter()
+    eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode="repack", tp=g.size)
+    torch.cuda.synchronize(g.device)
+    t_load = time.perf_counter() - t0
+    mem_gb = (torch.cuda.memory_allocated(g.device) - mem0) / 1e9
+    torch.cuda.empty_cache()  # the whole decoder, freed after sharding, for the other rank
+    try:
+        shapes = _local_shapes(eng)
+        log(f"[{label}] local shapes {shapes}; {mem_gb:.3f} GB allocated by the load")
+        out = chat_on(eng, label, card)
+        text.append(text_turn_logits(eng))
+    finally:
+        eng.close()
+    out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb, shapes=shapes, text=text,
+                                     backend=g.backend), TP_KERNELS,
+                         GQ_KERNELS + PACKED_KERNELS, card)
+    prof = out["profile"]
+    log(f"[{label}] load {t_load:.2f} s, greedy {out['decode_tok_s']:.2f} tok/s, collectives "
+        f"{prof['collective_ms']:.1f} of {prof['wall_ms']:.1f} ms of a profiled 16-token chunk "
+        f"({100 * prof['collective_ms'] / prof['wall_ms']:.0f} %), backend {g.backend}  [{card}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(SEED + 7)  # the same cache and queries on every rank
+    h, dh, c = 40, 128, 2048
+    cl, scale = c // g.size, dh ** -0.5
+    ck, cv = (torch.randn((1, 1, h, c, dh), generator=gen, device=g.device).to(torch.bfloat16)
+              for _ in range(2))
+    kl, vl = (t[:, :, :, g.rank * cl:(g.rank + 1) * cl].contiguous() for t in (ck, cv))
+    reset_launch_counts()
+    sp = []
+    for s, pos in ((1, 700), (1, 2015), (8, 1500)):
+        q = torch.randn((1, h, s, dh), generator=gen, device=g.device)
+        got = fd.sp_flash_decode_attention(q, kl, vl, 0, pos, scale, g, g.rank * cl)
+        want = fd.flash_decode_attention(q, ck, cv, 0, pos, scale)
+        torch.cuda.synchronize(g.device)
+        err = float((got - want).abs().max())
+        sp.append(dict(shape=f"B=1 H={h} S={s} C={c} pos0={pos}", max_abs_err=err))
+        log(f"[{label}] sp_flash_decode_attention S={s} pos0={pos} over {g.size} ranks of {cl} "
+            f"positions: max abs err {err:.3e} against the kernel on the whole cache "
+            f"(tol {SP_TOL:g})  [{card}]")
+        if not err <= SP_TOL:
+            raise AssertionError(f"{label}: SP attention pos0={pos} err {err} > {SP_TOL}")
+    sp_counts = launch_counts()
+    if sp_counts[STATS] <= 0:
+        raise AssertionError(f"{label}: the stats kernel never launched on the SP path")
+    return dict(out, sp=sp, sp_counts=sp_counts)
+
+
+def tp_phase(card: str) -> dict:
+    """MiniGPT4Engine(tp=2) on one card: two ranks (processes) on cuda:0 over
+    gloo, each running the chat of phase 4 on its half of the 13B q5_k file
+    (quant_mode="repack") behind the 13B f16 container, held to the same
+    files at tp=1 in this process: the first TP_PREFIX greedy ids equal, and
+    the text turn's logits at depths TP_DEPTHS and 40 (within TP_LOGIT_TOL
+    at the first depth)."""
+    from minigpt4_tpu_torch.parallel import dryrun
+
+    # the ranks are other processes: memory this one's allocator still holds
+    # from earlier phases would be out of their reach
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = [tuple(map(str, smoke_models(dict(LLM_13B_Q5K, n_layer=n)))) for n in TP_DEPTHS]
+    text1 = depth_logits(shallow, 1)
+    label = "13B q5_k repack tp=1"
+    one, eng = chat(label, LLM_13B_Q5K, card, REPACK_CHAT_KERNELS, quant_mode="repack",
+                    forbid=GQ_KERNELS + PACKED_KERNELS, keep=True)
+    try:
+        text1.append(text_turn_logits(eng))
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    model, llm = smoke_models(LLM_13B_Q5K)
+    log(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the ranks start")
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(tp_rank, TP, (str(model), str(llm), shallow, card), device="cuda",
+                             timeout_s=900)
+    wall = time.perf_counter() - t0
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    depths = TP_DEPTHS + (LLM_13B_Q5K["n_layer"],)
+    for r, out in enumerate(ranks):
+        gaps = [gap(a, b) for a, b in zip(out["text"], text1)]
+        ids, ref = out["greedy_ids"], one["greedy_ids"]
+        agree = next((i for i, (a, b) in enumerate(zip(ids, ref)) if a != b), min(len(ids),
+                                                                                    len(ref)))
+        out.update(logit_gap_by_depth=dict(zip(depths, gaps)), ids_agree=agree,
+                   logit_gap=gap(out["prefill_logits"], one["prefill_logits"]))
+        log(f"[tp={TP} rank {r}] text-turn prefill logits against tp=1, max |d| / max |logit| "
+            f"at depth " + ", ".join(f"{n}: {x:.3e}" for n, x in zip(depths, gaps))
+            + f" (tol {TP_LOGIT_TOL:g} at depth {depths[0]}); image turn at depth {depths[-1]}: "
+            f"{out['logit_gap']:.3e}; greedy ids agree with tp=1 on the first {agree} of "
+            f"{len(ref)} (must: {TP_PREFIX}); {out['decode_tok_s']:.2f} tok/s against tp=1's "
+            f"{one['decode_tok_s']:.2f}  [{card}]")
+        if not gaps[0] <= TP_LOGIT_TOL:
+            raise AssertionError(f"tp rank {r}: at depth {depths[0]} the prefill logits differ "
+                                 f"from tp=1's by {gaps[0]} > {TP_LOGIT_TOL}")
+        if agree < TP_PREFIX:
+            raise AssertionError(f"tp rank {r}: greedy ids {ids} agree with tp=1's {ref} on "
+                                 f"{agree} < {TP_PREFIX}")
+    if ranks[0]["greedy_ids"] != ranks[1]["greedy_ids"]:
+        raise AssertionError("the two ranks decoded different tokens")
+    log(f"[tp] {TP} ranks done in {wall:.1f} s (spawn, loads, chat, SP)  [{card}]")
+    return dict(tp1=one, ranks=ranks)
+
+
 def _preprocess(img: np.ndarray, pool) -> np.ndarray:
     from minigpt4_tpu_torch.image import preprocess
 
@@ -1753,11 +2101,20 @@ def main() -> int:
 
     phase("kernels")
     kernel_results = phase_kernels(card)
+    # the tp ranks are processes of their own: they run while this one holds
+    # little device memory
+    phase("tp")
+    paths = {}
+    tp = tp_phase(card)
+    paths["13B q5_k repack tp=1"] = tp["tp1"]
+    for r, out in enumerate(tp["ranks"]):
+        paths[f"13B q5_k repack tp={TP} rank {r}"] = out
+    paths["sp"] = {"counts": tp["ranks"][0]["sp_counts"]}
     phase("13B chats, unpacked and packed")
     # the same files with the gq codes packed: the same greedy tokens; both
     # engines stay loaded for a decode A/B in alternating turns
     label = "13B Q5_K_M gq packed"
-    paths, engines = {}, {}
+    engines = {}
     try:
         paths["13B Q5_K_M"], engines["unpacked"] = chat(
             "13B Q5_K_M", LLM_13B, card, CHAT_KERNELS, forbid=PACKED_KERNELS, keep=True)
@@ -1803,6 +2160,10 @@ def main() -> int:
     paths["13B w8a8 + f8 cache"] = w8a8_f8(card)
     phase("quality")
     paths["quality small"] = quality_run(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[end] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     phase("end")
 
     meta = {
@@ -1880,6 +2241,21 @@ def main() -> int:
                                          "unpacked_ms", "max_diff_unpacked", "host_us") if k in r}
                       for r in rows],
         })
+    rows = kernel_results[STATS]
+    main_row = next(r for r in rows if r["shape"] == "B=1 S=1 pos0=2015 slice 3")
+    kernels.append({
+        "name": STATS, "route": "cuda", "source": "minigpt4_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "minigpt4_tpu/ops/flash_decode.py:82 stats=True",
+        "launches": paths["sp"]["counts"][STATS],
+        "launches_by_path": {label: p["counts"][STATS] for label, p in paths.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "merge_max_abs_err": max(r["merge_err"] for r in rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+        "shape": main_row["shape"],
+        "cases": [{k: r[k] for k in ("shape", "ms", "normalized_ms", "plain_ms", "bound_ms",
+                                     "library_ms", "null_ml_bits_equal")} for r in rows],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

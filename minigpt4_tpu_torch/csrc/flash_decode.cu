@@ -5,7 +5,15 @@
 //    minigpt4_tpu/ops/flash_decode.py:_kernel with paged=False and
 //    stats=False (reached through _run and flash_decode_attention): every
 //    decode step, and every prefill chunk of 32 rows or fewer (the 8-row
-//    text buckets and the 32-row image embedding).
+//    text buckets and the 32-row image embedding).  With an `ml` output it
+//    also replaces the same _kernel with stats=True (reached through
+//    _run(stats=True), flash_decode_attention(return_stats=True) and
+//    sp_flash_decode_attention): `out` then gets the unnormalized
+//    accumulator, rescaled to the block's running maximum m*, and ml[0] /
+//    ml[1] get m* and the softmax denominator l of each row, the partials
+//    that sequence-parallel attention merges across ranks.  The cursor may
+//    be negative there (this rank's slice of the cache starts after the last
+//    visible key); a row that sees no key gets m = -inf, l = 0, acc = 0.
 //  - PagedKV, the serving page pools [L, NP + 1, H, 128, Dh] read through a
 //    page table [B, W] (i32; lane b's keys [128 i, 128 i + 128) live in pool
 //    page pt[b, i]).  Replaces the same _kernel with paged=True (reached
@@ -128,8 +136,8 @@ template <typename T, int DH, int RPW, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
                     const T* __restrict__ cv, const int* __restrict__ pos,
-                    float* __restrict__ out, int H, int S, int C, float scale,
-                    KV kv) {
+                    float* __restrict__ out, float* __restrict__ ml, int H, int S, int C,
+                    float scale, KV kv) {
   constexpr int kSlice = DH / 32;  // output elements per lane
   __shared__ __align__(16) float qs[kMaxRows][DH];  // scaled q; later the merge buffer
   __shared__ float ms[kWarps][RPW];
@@ -226,7 +234,7 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
     }
   }
   __syncthreads();
-  float total[RPW];
+  float total[RPW], mrow[RPW];
   if (active) {
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
@@ -238,6 +246,7 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
         if (mw != -INFINITY) lsum += ls[rg + k2 * n_rg][r] * expf(mw - mstar);
       }
       total[r] = lsum;
+      mrow[r] = mstar;
       const float f = m[r] == -INFINITY ? 0.f : expf(m[r] - mstar);
 #pragma unroll
       for (int e = 0; e < kSlice; ++e) acc[r][e] *= f;
@@ -261,10 +270,24 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       if (r0 + r >= S) continue;
+      if (ml == nullptr) {
+#pragma unroll
+        for (int e = 0; e < kSlice; ++e) {
+          const int i = (r0 + r) * DH + lane * kSlice + e;
+          ob[i] = buf[i] / total[r];
+        }
+        continue;
+      }
+      // partials: the accumulator as it stands, m* and l beside it
 #pragma unroll
       for (int e = 0; e < kSlice; ++e) {
         const int i = (r0 + r) * DH + lane * kSlice + e;
-        ob[i] = buf[i] / total[r];
+        ob[i] = buf[i];
+      }
+      if (lane == 0) {
+        const size_t j = static_cast<size_t>(b * H + h) * S + r0 + r;
+        ml[j] = mrow[r];
+        ml[static_cast<size_t>(gridDim.y) * H * S + j] = total[r];
       }
     }
   }
@@ -272,16 +295,18 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ ck,
 
 template <typename T, int DH, typename KV>
 void launch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
-            int B, int H, int S, int C, float scale, KV kv, cudaStream_t stream) {
+            void* ml, int B, int H, int S, int C, float scale, KV kv, cudaStream_t stream) {
   const dim3 grid(H, B);
   if (S == 1) {
     flash_decode_kernel<T, DH, 1, KV><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-        static_cast<const int*>(pos), static_cast<float*>(out), H, S, C, scale, kv);
+        static_cast<const int*>(pos), static_cast<float*>(out), static_cast<float*>(ml), H, S,
+        C, scale, kv);
   } else {
     flash_decode_kernel<T, DH, 8, KV><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-        static_cast<const int*>(pos), static_cast<float*>(out), H, S, C, scale, kv);
+        static_cast<const int*>(pos), static_cast<float*>(out), static_cast<float*>(ml), H, S,
+        C, scale, kv);
   }
 }
 
@@ -289,12 +314,12 @@ void launch(const void* q, const void* ck, const void* cv, const void* pos, void
 constexpr int kF32 = 0, kBF16 = 1, kE4M3 = 2;
 
 template <typename T, typename KV>
-int launch_dh(const void* q, const void* ck, const void* cv, const void* pos, void* out, int B,
-              int H, int S, int C, int Dh, float scale, KV kv, cudaStream_t s) {
+int launch_dh(const void* q, const void* ck, const void* cv, const void* pos, void* out,
+              void* ml, int B, int H, int S, int C, int Dh, float scale, KV kv, cudaStream_t s) {
   if (Dh == 128)
-    launch<T, 128>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+    launch<T, 128>(q, ck, cv, pos, out, ml, B, H, S, C, scale, kv, s);
   else if (Dh == 64)
-    launch<T, 64>(q, ck, cv, pos, out, B, H, S, C, scale, kv, s);
+    launch<T, 64>(q, ck, cv, pos, out, ml, B, H, S, C, scale, kv, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -302,12 +327,13 @@ int launch_dh(const void* q, const void* ck, const void* cv, const void* pos, vo
 
 template <typename KV>
 int dispatch(const void* q, const void* ck, const void* cv, const void* pos, void* out,
-             int B, int H, int S, int C, int Dh, float scale, int cache_type, KV kv,
+             void* ml, int B, int H, int S, int C, int Dh, float scale, int cache_type, KV kv,
              cudaStream_t s) {
   switch (cache_type) {
-    case kF32: return launch_dh<float>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
-    case kBF16: return launch_dh<__nv_bfloat16>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
-    case kE4M3: return launch_dh<E4M3>(q, ck, cv, pos, out, B, H, S, C, Dh, scale, kv, s);
+    case kF32: return launch_dh<float>(q, ck, cv, pos, out, ml, B, H, S, C, Dh, scale, kv, s);
+    case kBF16:
+      return launch_dh<__nv_bfloat16>(q, ck, cv, pos, out, ml, B, H, S, C, Dh, scale, kv, s);
+    case kE4M3: return launch_dh<E4M3>(q, ck, cv, pos, out, ml, B, H, S, C, Dh, scale, kv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -315,14 +341,16 @@ int dispatch(const void* q, const void* ck, const void* cv, const void* pos, voi
 }  // namespace
 
 // q f32 [B, H, S, Dh]; ck/cv [L, B, H, C, Dh] f32 (cache_type 0), bf16 (1)
-// or e4m3 (2); pos i32 [B]; out f32 [B, H, S, Dh].  Requires 1 <= S <= 32,
-// Dh in {64, 128} and 16-byte aligned q and caches.
+// or e4m3 (2); pos i32 [B] (negative allowed); out f32 [B, H, S, Dh]; ml
+// null (out normalized) or f32 [2, B, H, S] (out the unnormalized
+// accumulator, ml[0] its m*, ml[1] its l).  Requires 1 <= S <= 32, Dh in
+// {64, 128} and 16-byte aligned q and caches.
 MGT_API int mgt_flash_decode(const void* q, const void* ck, const void* cv,
-                             const void* pos, void* out, int B, int H, int S,
+                             const void* pos, void* out, void* ml, int B, int H, int S,
                              int C, int Dh, int layer, float scale,
                              int cache_type, void* stream) {
   if (S < 1 || S > kMaxRows || B < 1 || H < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, ck, cv, pos, out, B, H, S, C, Dh, scale, cache_type,
+  return dispatch(q, ck, cv, pos, out, ml, B, H, S, C, Dh, scale, cache_type,
                   DenseKV{layer, B, H, C, Dh}, static_cast<cudaStream_t>(stream));
 }
 
@@ -336,7 +364,7 @@ MGT_API int mgt_flash_decode_paged(const void* q, const void* pk, const void* pv
                                    float scale, int cache_type, void* stream) {
   if (S < 1 || S > kMaxRows || B < 1 || H < 1 || NP1 < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, pk, pv, pos, out, B, H, S, W * kPage, Dh, scale, cache_type,
+  return dispatch(q, pk, pv, pos, out, nullptr, B, H, S, W * kPage, Dh, scale, cache_type,
                   PagedKV{static_cast<const int*>(pt), layer, NP1, H, W, Dh},
                   static_cast<cudaStream_t>(stream));
 }

@@ -33,11 +33,14 @@ import numpy as np
 import torch
 
 from .. import utils
-from ..formats import ContainerReader, LlamaFileReader
+from ..formats import ContainerReader, LlamaFileReader, is_quantized
 from ..tokenizer import LlamaTokenizer
 from ..models import llama as llama_mod
 from ..models import minigpt4 as vision_mod
 from ..models.params import QUANT_MODES, resolve_gq_pack
+from ..ops import group_i8 as gq
+from ..parallel import spmd
+from ..parallel.mesh import init_tp
 from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
 from .sampling import Sampler, SamplingParams
 
@@ -110,6 +113,8 @@ class MiniGPT4Engine:
         quant_mode: str = "auto",
         cache_dtype: str | torch.dtype | None = None,
         smooth_scales: str | Path | dict | None = None,
+        tp: int = 1,
+        dp: int = 1,
     ):
         """Load both model files onto ``device``.
 
@@ -149,7 +154,30 @@ class MiniGPT4Engine:
         code) in the decoder and the vision weights alike, and the
         environment variable ``MINIGPT4_TPU_GQ_PACK`` ("0" off, else on)
         overrides both.  ``self.gq_packed`` says whether the gq weights are
-        packed."""
+        packed.
+
+        ``tp``: tensor-parallel ranks.  With tp > 1 this process is one rank
+        of a group (``parallel.mesh.init_tp``: the caller's default process
+        group, or one made from the ``torchrun`` environment), every rank
+        builds the same engine, and the decoder is placed as the JAX
+        engine's ``MiniGPT4Engine(tp=N)`` places it (``parallel/spmd.py``:
+        column-parallel qkv/w13, K-sharded wo/w2, a vocab-parallel head, KV
+        heads over the ranks); the vision weights stay whole on every rank.
+        ``device="cuda"`` puts rank r on ``cuda:{r % device_count}``.
+        Greedy output equals tp=1.  Refused: a decoder with any group-quant
+        weight (``gq``, which ``auto`` resolves to for every weight
+        ``group_i8.supported`` takes; the JAX package cannot place one
+        either), n_head not divisible by tp, and attention projections that
+        would stay whole.  ``self.tp_group`` is the rank's group (None at
+        tp=1).  ``dp`` must be 1, as in the JAX engine: the chat surface
+        prefills at batch 1."""
+        if dp != 1:
+            raise ValueError(
+                f"dp={dp}: the engine's chat and serving surface prefills at batch 1 and cannot "
+                "shard it over a dp axis; use tp for a model over several ranks, or batch "
+                "sessions (SessionPool.generate_batch)")
+        if tp < 1:
+            raise ValueError(f"tp={tp}: needs at least one rank")
         if quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant_mode {quant_mode!r}: expected "
                              f"{' | '.join(QUANT_MODES)}")
@@ -159,7 +187,17 @@ class MiniGPT4Engine:
                              f"{' | '.join(CACHE_DTYPES)}")
         utils.set_verbosity(verbosity)
         disable_tf32()
-        self.device = torch.device(device)
+        # the decoder's mode: auto is gq, or w8a8 where calibration scales
+        # are given (a deliberate w8a8 opt-in)
+        self.quant_mode = quant_mode
+        if quant_mode == "auto":
+            self.quant_mode = "w8a8" if smooth_scales else "gq"
+        if tp > 1:  # refused before any weight loads or any rank joins
+            with LlamaFileReader(llm_path) as reader:
+                check_tp(reader, self.quant_mode, tp)
+        self.tp = tp
+        self.tp_group = init_tp(tp, device) if tp > 1 else None
+        self.device = self.tp_group.device if self.tp_group else torch.device(device)
         self.n_batch = n_batch
         self.cache_dtype = cache_dtype
         pack = resolve_gq_pack(quant_mode)
@@ -173,13 +211,9 @@ class MiniGPT4Engine:
             smooth_scales = load_smooth_scales(smooth_scales)
         with utils.phase_timer("LLM model init"):
             self._llm_file = LlamaFileReader(llm_path)
-            self.quant_mode = "gq" if quant_mode == "auto" else quant_mode
             if self.quant_mode != quant_mode:
-                utils.log_info(f"quant_mode auto -> {self.quant_mode} (decoder)")
-            if smooth_scales and quant_mode == "auto":
-                # calibration scales are a deliberate w8a8 opt-in
-                self.quant_mode = "w8a8"
-                utils.log_info("quant_mode auto -> w8a8 (smooth_scales given)")
+                why = "smooth_scales given" if smooth_scales else "decoder"
+                utils.log_info(f"quant_mode auto -> {self.quant_mode} ({why})")
             if smooth_scales and self.quant_mode != "w8a8":
                 utils.log_info("smooth_scales ignored (decoder not on w8a8)")
                 smooth_scales = None
@@ -190,12 +224,15 @@ class MiniGPT4Engine:
             self.llm_params, self.llm_cfg = llama_mod.load_params(
                 self._llm_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device,
                 quant_mode=self.quant_mode, smooth=smooth_scales, pack=pack)
+            if self.tp_group is not None:
+                self.llm_params = spmd.shard_llama_params(self.llm_params, self.tp_group)
             self.tokenizer = LlamaTokenizer(self._llm_file.vocab.tokens,
                                             self._llm_file.vocab.scores)
         if self.vision_cfg.llama_embed_dim != self.llm_cfg.n_embd:
             raise ValueError(
                 f"model mismatch: llama_proj -> {self.vision_cfg.llama_embed_dim}, "
                 f"LLM n_embd = {self.llm_cfg.n_embd}")
+        self.cache_cfg = spmd.cache_cfg(self.llm_cfg, tp)  # sizes this rank's caches
         self._st = self.new_state(self.llm_cfg.n_ctx, seed)
         self.sampler = Sampler(seed)
 
@@ -206,8 +243,9 @@ class MiniGPT4Engine:
             raise ValueError(f"state context {n_ctx} outside (0, {self.llm_cfg.n_ctx}]")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
-        cfg = dataclasses.replace(self.llm_cfg, n_ctx=n_ctx)
-        return DecodeState(llama_mod.init_cache(cfg, 1, self.cache_dtype, self.device), generator)
+        cfg = dataclasses.replace(self.cache_cfg, n_ctx=n_ctx)
+        return DecodeState(llama_mod.init_cache(cfg, 1, self.cache_dtype, self.device),
+                           generator)
 
     def _state(self, st: DecodeState | None) -> DecodeState:
         return self._st if st is None else st
@@ -250,7 +288,7 @@ class MiniGPT4Engine:
         with torch.no_grad():
             return llama_mod.forward(
                 self.llm_params, st.cache, embeds, st.n_past, self.llm_cfg, last_idx,
-                attn_len=_attn_bucket(st.n_past + embeds.shape[1], st.n_ctx))
+                attn_len=_attn_bucket(st.n_past + embeds.shape[1], st.n_ctx), tp=self.tp_group)
 
     def _prefill_embeds(self, st: DecodeState, embeds: torch.Tensor,
                         token_ids: list[int] | None = None) -> None:
@@ -361,7 +399,7 @@ class MiniGPT4Engine:
         with torch.no_grad():
             tokens, logits = llama_mod.decode_loop(
                 self.llm_params, st.cache, st.logits[None], st.n_past, n,
-                [st.generator], rows, self.llm_cfg)
+                [st.generator], rows, self.llm_cfg, tp=self.tp_group)
         ids = tokens[0].tolist()
         st.n_past += n
         st.tokens.extend(ids)
@@ -444,6 +482,26 @@ class MiniGPT4Engine:
     def close(self) -> None:
         self._container.close()
         self._llm_file.close()
+
+
+def check_tp(reader: LlamaFileReader, decoder_mode: str, tp: int) -> None:
+    """Refuse a decoder that cannot run over ``tp`` ranks: n_head not
+    divisible by tp, or any weight that ``decoder_mode`` (the resolved
+    mode) would load as group-quant."""
+    hp = reader.hparams
+    if hp.n_head % tp:
+        raise ValueError(f"tp={tp}: n_head={hp.n_head} does not divide over the ranks")
+    if decoder_mode != "gq":
+        return
+    held = [n for n, r in reader.tensors.items()
+            if n != "tok_embeddings.weight" and len(r.shape) == 2
+            and is_quantized(r.dtype) and gq.supported(r.dtype, r.shape[1])]
+    if held:
+        raise ValueError(
+            f"tp={tp}: the decoder would hold {len(held)} weights as group-quant (gq), e.g. "
+            f"{held[0]} (quant_mode 'auto' resolves to gq), and a gq weight cannot be placed "
+            "over tensor-parallel ranks (the JAX package cannot place one either); use "
+            "quant_mode='repack', 'w8a8' or 'qtensor', or a dense file")
 
 
 def rollback(st: DecodeState, n: int) -> None:

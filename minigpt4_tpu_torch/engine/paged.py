@@ -33,7 +33,9 @@ class PagedKVPool:
 
     ``n_pages`` counts usable pages (one trash page is added on top).
     ``capacity`` is the per-lane logical limit (table width x PAGE, not
-    counting the trash slot); it equals the owner's ``session_ctx``."""
+    counting the trash slot); it equals the owner's ``session_ctx``.  Under
+    tensor parallelism ``cfg`` is ``parallel.spmd.cache_cfg``'s: a rank's
+    pools hold its heads; the page ids are the same on every rank."""
 
     def __init__(self, cfg, n_pages: int, capacity: int, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda"):

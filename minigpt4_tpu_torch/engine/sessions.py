@@ -17,9 +17,14 @@ operations act.
     otherwise, or when the pool cannot take the whole group, the lanes'
     caches stack into one dense group cache.
 
+With a tensor-parallel engine (``tp=N``, one process per rank, every rank
+running the same calls) the lane caches and the page pool hold the rank's
+heads (``parallel/spmd.py``); lanes, page tables and cursors are the same
+on every rank.
+
 Not ported yet (ROADMAP): continuous batching, speculative decoding and its
 governor, the radix prefix cache, parking idle sessions in host memory,
-context shift, sharded pools, save/restore of a state.  Lane caches and the
+context shift, save/restore of a state.  Lane caches and the
 page pool hold the engine's cache type (``MiniGPT4Engine.cache_dtype``).
 """
 
@@ -146,7 +151,7 @@ class SessionPool:
         self._sessions: dict[int, ChatSession] = {}
         self.metrics = {"sessions_created": 0, "images_encoded": 0,
                         "tokens_prefilled": 0, "tokens_generated": 0}
-        self._session_cfg = dataclasses.replace(self.engine.llm_cfg, n_ctx=session_ctx)
+        self._session_cfg = dataclasses.replace(self.engine.cache_cfg, n_ctx=session_ctx)
         # the shared KV page pool: a batched group then holds device memory
         # for the positions its lanes consumed, not B x session_ctx
         self.paged_pool = None
@@ -310,7 +315,7 @@ class SessionPool:
             tokens, logits = llama_mod.decode_loop(
                 self.engine.llm_params, cache, logits, pos, decode_chunk,
                 [s.state.generator for s in batch], rows, self.engine.llm_cfg,
-                page_table=page_table)
+                page_table=page_table, tp=self.engine.tp_group)
         return tokens.tolist(), logits
 
     def _dense_batch_stream(self, act, batch, limits_all, rows, decode_chunk):

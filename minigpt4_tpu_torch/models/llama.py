@@ -15,6 +15,12 @@ write through the table and attend with the paged flash-decode kernel.
 
 The cache holds f32, bf16 or e4m3 (``torch.float8_e4m3fn``); K/V reach an
 e4m3 cache through :func:`to_cache`, the JAX package's cast.
+
+With a tensor-parallel group (``tp``, a :class:`~..parallel.TPGroup`) the
+same functions run on one rank's shards (``parallel/spmd.py``), as the JAX
+package's run under ``shard_map``: local head counts and widths come from
+the arrays, :func:`_row_linear` sums the row-parallel outputs over the
+ranks, and the vocab-parallel head is gathered.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..ops import i8_matmul as i8
 from ..ops import quant_matmul as qm
 from ..ops import repack as rp
 from ..ops.flash_decode import PAGE, flash_decode_attention, paged_flash_decode_attention
+from ..parallel.mesh import TPGroup, all_gather_tiled, pmax, psum
 from .layers import rms_norm
 from .params import QUANT_FORMS, linear, load_quant_weight, tensor
 
@@ -76,7 +83,8 @@ class LlamaConfig:
 
 def init_cache(cfg: LlamaConfig, batch: int, dtype: torch.dtype,
                device: str | torch.device) -> dict:
-    """Pre-allocated KV cache ``{"k", "v"}`` of shape [L, B, H, C, Dh]."""
+    """Pre-allocated KV cache ``{"k", "v"}`` of shape [L, B, H, C, Dh] (one
+    rank's heads: ``parallel.spmd.cache_cfg``)."""
     shape = (cfg.n_layer, batch, cfg.n_head, cfg.n_ctx, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -152,8 +160,50 @@ def _amax(t: torch.Tensor) -> torch.Tensor:
     return t.float().abs().reshape(-1, t.shape[-1]).amax(dim=0)
 
 
+def _k_width(w, full_k: int) -> int:
+    """The input width a weight contracts (a per-layer list stays whole)."""
+    if isinstance(w, list):
+        return full_k
+    if isinstance(w, (rp.RepackedQuant, qm.QTensor)):
+        return w.n_in
+    if isinstance(w, i8.I8SBQuant):
+        return w.codes.shape[-1]
+    return w.shape[-2]
+
+
+def _row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -> torch.Tensor:
+    """Row-parallel linear (the JAX package's ``_row_linear``).  ``full_k``
+    is the global contraction width (n_embd for wo, n_ff for w2); it tells
+    the four cases apart: a K-sharded weight contracts this rank's slice of
+    the input (sliced here if the producer stayed whole) and the outputs
+    are summed over the ranks; a whole weight takes the full-width input
+    (gathered first if the producer was split) with no sum."""
+    if tp is None:
+        return linear(x, p, li)
+    w = p["w"]
+    kw = _k_width(w, full_k)
+    if kw < full_k:  # weight K-sharded
+        if x.shape[-1] == full_k:
+            x = x[..., tp.rank * kw:(tp.rank + 1) * kw]
+        if isinstance(w, i8.I8SBQuant):
+            # the global row absmax keeps the activation grid of one device
+            # (one tiny MAX over the ranks); the partials stay f32 across
+            # the sum
+            xf = x.float()
+            sx = pmax(xf.abs().amax(dim=-1, keepdim=True), tp) / 127.0
+            sx = torch.where(sx == 0, 1.0, sx)
+            y = i8.qmatmul_i8sb(xf, w, li if w.stacked else None, x_scale=sx)
+            y = psum(y, tp).to(x.dtype)
+            b = p.get("b")
+            return y if b is None else y + b.to(y.dtype)
+        return psum(linear(x, p, li), tp)
+    if x.shape[-1] < full_k:
+        x = all_gather_tiled(x, tp)
+    return linear(x, p, li)
+
+
 def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
-           page_table=None, act_stats=None):
+           page_table=None, act_stats=None, tp=None):
     """One decoder layer on x [B, S, D]; writes K/V of the S positions into
     layer ``li`` of the cache in place.  ``pos0``: host cursor (int, or one
     per batch row); ``pos_dev``: the same cursors as an i32 [B] tensor.
@@ -163,7 +213,8 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     copy.  ``page_table``: the cache is the page pools (see forward).
     ``act_stats``: a dict of lists; the per-channel absolute maxima of the
     inputs of the quantizable matmuls are appended per site ("attn", "wo",
-    "ffn", "w2"), the calibration capture of ``quality.py``."""
+    "ffn", "w2"), the calibration capture of ``quality.py``.  ``tp``: the
+    rank's tensor-parallel group (``forward``)."""
     b, s, _ = x.shape
     h = rms_norm(x, layers["attention_norm"][li], RMS_EPS)
     if act_stats is not None:
@@ -173,7 +224,8 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
         return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
 
     if "wqkv" in layers:
-        xq, xk, xv = linear(h, layers["wqkv"], li).split(cfg.n_embd, dim=-1)
+        qkv = linear(h, layers["wqkv"], li)
+        xq, xk, xv = qkv.split(qkv.shape[-1] // 3, dim=-1)  # local width under tp
     else:
         xq, xk, xv = (linear(h, layers[n], li) for n in FUSED["wqkv"])
     cos, sin = rope
@@ -198,7 +250,7 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
     if act_stats is not None:
         act_stats.setdefault("wo", []).append(_amax(ctx))
-    x = x + linear(ctx, layers["wo"], li)
+    x = x + _row_linear(ctx, layers["wo"], li, tp, cfg.n_embd)
 
     h = rms_norm(x, layers["ffn_norm"][li], RMS_EPS)
     if act_stats is not None:
@@ -213,13 +265,13 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     gu = gate * up
     if act_stats is not None:
         act_stats.setdefault("w2", []).append(_amax(gu))
-    return x + linear(gu, layers["w2"], li)
+    return x + _row_linear(gu, layers["w2"], li, tp, cfg.n_ff)
 
 
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
             last_idx: int | None = None, attn_len: int | None = None,
             page_table: torch.Tensor | None = None, act_stats: dict | None = None,
-            all_logits: bool = False) -> torch.Tensor:
+            all_logits: bool = False, tp: TPGroup | None = None) -> torch.Tensor:
     """embeds [B, S, D] -> logits [B, V] (f32) at position ``last_idx``
     (default S-1), or [B, S, V] at every position with ``all_logits``; the
     cache is updated in place.  ``act_stats``: the calibration capture of
@@ -237,7 +289,11 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     position p lives at offset p % PAGE of pool page
     ``page_table[b, min(p // PAGE, MAXP)]``; a finished row overshooting
     its capacity lands in the table's last slot, the pool's trash page.
-    The page of each row is looked up on the device, once per call."""
+    The page of each row is looked up on the device, once per call.
+
+    ``tp``: this rank's tensor-parallel group; ``params`` and ``cache`` are
+    then its shards (``parallel/spmd.py``) and every rank returns the same
+    full-vocabulary logits."""
     b, s, _ = embeds.shape
     dev = embeds.device
     if isinstance(pos0, int):
@@ -265,14 +321,17 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     x = embeds
     for li in range(cfg.n_layer):
         x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos0, pos_dev,
-                   rope, cfg, attn_len, rows, page_table, act_stats)
+                   rope, cfg, attn_len, rows, page_table, act_stats, tp)
     if act_stats is not None:
         act_stats.setdefault("head", []).append(_amax(rms_norm(x, params["norm"], RMS_EPS)))
     if all_logits:
         h = x
     else:
         h = x[:, -1] if last_idx is None else x[:, last_idx]
-    return linear(rms_norm(h, params["norm"], RMS_EPS), params["output"]).float()
+    logits = linear(rms_norm(h, params["norm"], RMS_EPS), params["output"])
+    if tp is not None and logits.shape[-1] != cfg.n_vocab:
+        logits = all_gather_tiled(logits, tp)  # the vocab-parallel head
+    return logits.float()
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -282,7 +341,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps: int,
                 generators: list, rows, cfg: LlamaConfig,
-                page_table: torch.Tensor | None = None):
+                page_table: torch.Tensor | None = None, tp: TPGroup | None = None):
     """Generate ``n_steps`` tokens with on-device sampling.
 
     Keeps the reference's sample-then-eval order: token i is sampled from
@@ -294,7 +353,9 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps:
     Sampling: per-lane ``rows`` (:func:`~..engine.device_sampling.lane_rows`)
     with a list of B ``generators``.  ``page_table``: paged mode (see
     :func:`forward`); the caller provisions pages covering every active
-    row's pos0 + n_steps."""
+    row's pos0 + n_steps.  ``tp``: see :func:`forward`; every rank samples
+    the same tokens (greedy is key-free, and a sampled row draws from
+    generators seeded alike on every rank)."""
     from ..engine.device_sampling import sample_rows
 
     logits = logits0
@@ -304,7 +365,7 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps:
         toks.append(tok)
         pos = pos0 + i if isinstance(pos0, int) else [p + i for p in pos0]
         logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos, cfg,
-                         page_table=page_table)
+                         page_table=page_table, tp=tp)
     return torch.stack(toks, dim=1), logits
 
 

@@ -40,7 +40,7 @@ SIGNATURES = {
     "mgt_gq_prefill": (_P,) * 8 + (_I,) * 5 + (_P,),
     "mgt_gq_decode_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
     "mgt_gq_prefill_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "mgt_flash_decode": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
+    "mgt_flash_decode": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
     "mgt_flash_decode_paged": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
     "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),
     "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,),
@@ -53,9 +53,12 @@ _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # nvcc wall time of this process's build
 
 
-def source_hash() -> str:
+def source_hash(sources: list[Path] | None = None) -> str:
+    """SHA-256 of ``sources`` (default: every ``csrc/*.cu``) and of the
+    shared headers they may include."""
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):
+    srcs = CSRC.glob("*.cu") if sources is None else sources
+    for p in sorted(srcs) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -72,23 +75,27 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists."""
+def build(sources: list[Path] | None = None, lib_name: str = LIB_NAME) -> Path:
+    """Compile ``sources`` (default: the port's kernels, every
+    ``csrc/*.cu``) into ``build/kernels/<lib_name>`` unless a library of the
+    same sources exists; the shared headers of ``csrc/`` are on the include
+    path.  Returns the library's path."""
     global build_seconds
-    digest = source_hash()
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / "sources.sha256"
+    srcs = sorted(CSRC.glob("*.cu")) if sources is None else sorted(Path(p) for p in sources)
+    digest = source_hash(srcs)
+    lib = BUILD_DIR / lib_name
+    stamp = BUILD_DIR / f"{lib_name}.sha256"
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    tmp = BUILD_DIR / f"{lib_name}.{tag}"
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in srcs:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -105,7 +112,8 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(proc.stdout)
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    log_name = "nvcc.log" if lib_name == LIB_NAME else f"{lib_name}.nvcc.log"
+    (BUILD_DIR / log_name).write_text("\n".join(log))
     for obj in objs:
         Path(obj).unlink(missing_ok=True)
     if failed:

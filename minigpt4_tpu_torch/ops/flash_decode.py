@@ -1,9 +1,12 @@
 """Decode attention over the KV cache (S <= 32 query rows).
 
-Counterpart of ``minigpt4_tpu/ops/flash_decode.py`` without partial
-statistics, for two cache layouts:
+Counterpart of ``minigpt4_tpu/ops/flash_decode.py``, for two cache layouts:
 
-- :func:`flash_decode_attention`: the stacked cache ``[L, B, H, C, Dh]``;
+- :func:`flash_decode_attention`: the stacked cache ``[L, B, H, C, Dh]``,
+  normalized or, with ``return_stats``, as online-softmax partials
+  ``(acc, m, l)`` (plain version :func:`flash_decode_stats_ref`), which
+  :func:`sp_flash_decode_attention` merges across the ranks that each hold
+  a slice of the cache's positions (sequence parallelism);
 - :func:`paged_flash_decode_attention`: the serving page pools
   ``[L, NP + 1, H, 128, Dh]`` read through a page table ``[B, W]``
   (``engine/paged.py``).
@@ -26,6 +29,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..parallel.mesh import TPGroup, pmax, psum
 
 MAX_S = 32  # rows the kernel serves (models.llama.FLASH_DECODE_MAX_S)
 KERNEL_HEAD_DIMS = (64, 128)
@@ -66,10 +70,19 @@ def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: in
     stale NaN there (an e4m3 overflow left behind by a rollback) cannot reach
     its output.  The JAX kernel reads whole key blocks and lets such a NaN
     through; this divergence is deliberate."""
+    sc, visible, vs = _scores(q, ck, cv, li, pos0, scale)
+    return torch.softmax(sc.masked_fill(~visible, float("-inf")), dim=-1) @ vs
+
+
+def _scores(q, ck, cv, li, pos0, scale):
+    """Scaled f32 scores [B, H, S, live] over the keys [0, live) that any
+    row may read (live = min(max cursor + S, C), 0 if negative), the mask
+    of the visible ones [B, 1, S, live] and the values [B, H, live, Dh]; a
+    lane reads nothing past its own cursor."""
     b, h, s, dh = q.shape
     c = ck.shape[-2]
     pos = _pos_vector(pos0, b, q.device).long()
-    live = min(int(pos.max()) + s, c)
+    live = max(0, min(int(pos.max()) + s, c))
     key_pos = torch.arange(live, device=q.device)
     read = (key_pos[None, :] < (pos[:, None] + s))[:, None, :, None]  # [B, 1, live, 1]
     ks = cache_f32(ck[li, :, :, :live]).masked_fill(~read, 0.0)
@@ -77,8 +90,21 @@ def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: in
     sc = torch.einsum("bhsd,bhcd->bhsc", q.float() * scale, ks)
     q_pos = pos[:, None] + torch.arange(s, device=q.device)  # [B, S]
     visible = key_pos[None, None, :] <= q_pos[:, :, None]  # [B, S, live]
-    sc = sc.masked_fill(~visible[:, None], float("-inf"))
-    return torch.softmax(sc, dim=-1) @ vs
+    return sc, visible[:, None], vs
+
+
+def flash_decode_stats_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: int,
+                           pos0, scale: float):
+    """Plain version of the partials: ``(acc [B, H, S, Dh], m [B, H, S],
+    l [B, H, S])``, f32, with m the maximum visible score of a row, l the
+    sum of exp(score - m) over its visible keys and acc the same weights
+    times V.  A row that sees no key (a cursor below -row) gets m = -inf,
+    l = 0 and acc = 0."""
+    sc, visible, vs = _scores(q, ck, cv, li, pos0, scale)
+    sc = sc.masked_fill(~visible, float("-inf"))
+    m = sc.amax(dim=-1) if sc.shape[-1] else sc.new_full(sc.shape[:-1], float("-inf"))
+    p = torch.where(visible, torch.exp(sc - m[..., None]), 0.0)
+    return p @ vs, m, p.sum(dim=-1)
 
 
 def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int, pos0,
@@ -115,25 +141,73 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: i
 
 
 def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                           li: int, pos0, scale: float) -> torch.Tensor:
-    """q [B, H, S, Dh] x cache [L, B, H, C, Dh] -> ctx [B, H, S, Dh] f32."""
+                           li: int, pos0, scale: float, return_stats: bool = False):
+    """q [B, H, S, Dh] x cache [L, B, H, C, Dh] -> ctx [B, H, S, Dh] f32, or
+    with ``return_stats`` the partials ``(acc, m, l)`` of
+    :func:`flash_decode_stats_ref` (the cursors may then be negative).
+    ``launches`` counts the normalized launches, ``stats_launches`` the
+    others."""
     if q.device.type == "cpu":
+        if return_stats:
+            return flash_decode_stats_ref(q, ck, cv, li, pos0, scale)
         return flash_decode_ref(q, ck, cv, li, pos0, scale)
     b, h, s, dh = q.shape
     if ck.shape[1] != b:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache {tuple(ck.shape)}")
     qf, pos = _checked("flash_decode", q, ck, cv, li, pos0, (ck.shape[2], ck.shape[4]))
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    ml = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device) if return_stats else None
     rc = _build.load().mgt_flash_decode(
         qf.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, s, ck.shape[3], dh, li, float(scale), CACHE_TYPES[ck.dtype],
-        ctypes.c_void_p(_build.stream_ptr(q.device)))
+        None if ml is None else ml.data_ptr(), b, h, s, ck.shape[3], dh, li, float(scale),
+        CACHE_TYPES[ck.dtype], ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode")
-    flash_decode_attention.launches += 1
-    return out
+    if ml is None:
+        flash_decode_attention.launches += 1
+        return out
+    flash_decode_attention.stats_launches += 1
+    return out, ml[0], ml[1]
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.stats_launches = 0
+
+
+def merge_partials(parts: list, group: TPGroup | None = None) -> torch.Tensor:
+    """Normalized attention [B, H, S, Dh] from online-softmax partials
+    ``(acc, m, l)`` of disjoint key slices: this process's ``parts``, and
+    with a ``group`` those of every rank of it (one MAX and two SUM
+    all-reduces), as
+
+        ctx = sum_i exp(m_i - m*) acc_i / sum_i exp(m_i - m*) l_i
+
+    A slice with m = -inf (no visible key) weighs 0."""
+    m_star = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    if group is not None:
+        m_star = pmax(m_star, group)
+    acc_star = l_star = 0.0
+    for acc, m, l in parts:
+        w = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_star))
+        acc_star = acc_star + acc * w[..., None]
+        l_star = l_star + l * w
+    if group is not None:
+        acc_star, l_star = psum(acc_star, group), psum(l_star, group)
+    return acc_star / l_star[..., None]
+
+
+def sp_flash_decode_attention(q: torch.Tensor, ck_local: torch.Tensor, cv_local: torch.Tensor,
+                              li: int, pos0, scale: float, group: TPGroup,
+                              c_offset: int) -> torch.Tensor:
+    """Sequence-parallel decode attention: every rank of ``group`` holds
+    the cache positions [c_offset, c_offset + C_local) of the same queries
+    (``ck_local`` [L, B, H, C_local, Dh]); each runs the partials of
+    :func:`flash_decode_attention` on its slice from the cursor
+    ``pos0 - c_offset`` and :func:`merge_partials` combines them.  Every
+    rank returns the attention over the whole cache, f32."""
+    b = q.shape[0]
+    pos = _pos_vector(pos0, b, q.device) - int(c_offset)
+    return merge_partials([flash_decode_attention(q, ck_local, cv_local, li, pos, scale,
+                                                  return_stats=True)], group)
 
 
 def paged_flash_decode_ref(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,

@@ -23,8 +23,10 @@ bf16 to nearest even, as its default ``plane_dtype``.  Group size 16 for
 q2_k, q3_k and q6_k, 32 otherwise.  An odd N needs no padding row.  The
 Mosaic layouts of the JAX package (tile-interleaved K, row-pair nibbles for
 ``pltpu.bitcast``, tile-major bit planes) have no job here;
-``interop.repacked_from_numpy`` converts them.  ``with_k_shards`` (tensor
-parallelism) is not ported (ROADMAP Queue 1 item 11).
+``interop.repacked_from_numpy`` converts them.  The K order also makes
+JAX's ``with_k_shards`` re-layout unnecessary: a contiguous, group-aligned
+K range of the planes is a weight of its own (:func:`k_slice`, the K
+shards of tensor parallelism).
 
 Bytes per weight streamed by a matmul: 0.5 of nibbles, + 0.125 of q5 bits
 or 0.25 of q6 bits, + 4/gs of planes: 0.625 (q4_0), 0.75 (q5_k), 1.0 (q6_k);
@@ -162,3 +164,31 @@ def from_ggml(raw, shape: tuple[int, int], dtype: DataType,
     else:
         q, scales, mins = gq._decode_generic(blk, dtype)
     return pack(q.reshape(n, k), scales.reshape(n, -1), mins.reshape(n, -1), dtype)
+
+
+def k_slice(w: RepackedQuant, shard: int, n_shards: int) -> RepackedQuant:
+    """The K range ``[shard K/S, (shard + 1) K/S)`` of ``w`` as a weight of
+    its own (copies), for the row-parallel shards of tensor parallelism:
+    the counterpart of the JAX package's ``with_k_shards``, which re-lays
+    its tile-interleaved planes so that such a range is self-consistent.
+    The K-order layout needs no re-layout, only slicing: nibbles [N, K/2],
+    high-bit words [N, K/32] (5-bit) or [N, K/16] (6-bit), planes
+    [N, K/gs].  The slice must hold whole groups (JAX's guard)."""
+    k, gs = w.n_in, w.group_size
+    if k % n_shards or (k // n_shards) % gs:
+        raise ValueError(f"K={k} not shardable into {n_shards} group-aligned slices")
+    if not 0 <= shard < n_shards:
+        raise IndexError(f"shard {shard} out of range [0, {n_shards})")
+    ks = k // n_shards
+    k0 = shard * ks
+
+    def cut(t: torch.Tensor, per: int) -> torch.Tensor:  # ``per`` codes per element of t
+        if ks % per:
+            raise ValueError(f"K slice {ks} does not hold whole {per}-code words")
+        return t[..., k0 // per:(k0 + ks) // per].contiguous()
+
+    hi = None if w.hi is None else cut(w.hi, 32 // w.hi_bits)
+    out = w._replace(codes=cut(w.codes, 8 // w.code_bits), scales=cut(w.scales, gs),
+                     mins=cut(w.mins, gs), hi=hi)
+    out.n_in = ks
+    return out

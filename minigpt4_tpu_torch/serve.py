@@ -62,7 +62,7 @@ UNPORTED = {
     "prefix_cache_mb": ("the radix prefix cache (ROADMAP Queue 1, item 15)", (None,)),
     "park_idle": ("parking idle sessions in host memory (ROADMAP Queue 1, item 16)", (False,)),
     "ctx_shift": ("context shift (ROADMAP Queue 1, item 5)", (False,)),
-    "tp": ("tensor parallelism (ROADMAP Queue 1, item 11)", (1,)),
+    "tp": ("serving over tp, which needs a rank-0 controller (ROADMAP Queue 1, item 11b)", (1,)),
 }
 
 
@@ -78,9 +78,11 @@ class _Batcher:
     the first decode together through SessionPool.generate_batch_stream, so
     every decode step reads the weights once for the whole group.  Prompts
     prefill per session before they are submitted; a group runs until its
-    last lane finished (static batching)."""
+    last lane finished (static batching).  :meth:`close` stops its thread,
+    which holds the pool."""
 
     _DONE = object()
+    _STOP = object()
 
     def __init__(self, pool: SessionPool, window_s: float):
         self.pool = pool
@@ -96,18 +98,31 @@ class _Batcher:
         self._q.put((session, limit, params, out))
         return out
 
+    def close(self) -> None:
+        """Decode what was submitted, then end the thread."""
+        self._q.put(self._STOP)
+        self._thread.join()
+
     def _run(self) -> None:
-        while True:
-            group = [self._q.get()]
+        stop = False
+        while not stop:
+            first = self._q.get()
+            if first is self._STOP:
+                return
+            group = [first]
             deadline = time.monotonic() + self.window_s
             while len(group) < MAX_BATCH:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 try:
-                    group.append(self._q.get(timeout=remaining))
+                    nxt = self._q.get(timeout=remaining)
                 except queue.Empty:
                     break
+                if nxt is self._STOP:
+                    stop = True
+                    break
+                group.append(nxt)
             # mixed sampling configs share one group (per-lane rows); only
             # mirostat keeps host state and decodes per session
             rest = [g for g in group if g[2].mirostat == 0]
@@ -532,11 +547,24 @@ def make_handler(srv: _Server):
     return Handler
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """The HTTP server; ``server_close`` also stops the window batcher."""
+
+    batcher = None
+
+    def server_close(self) -> None:
+        super().server_close()
+        if self.batcher is not None:
+            self.batcher.close()
+
+
 def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000,
                  session_ctx: int = 512, batch_window_s: float = 0.0,
                  paged_pages: int | None = None, **engine_kwargs) -> ThreadingHTTPServer:
     """Load the model, build the session pool and bind the server (not yet
-    serving: call ``serve_forever``).  ``port=0`` binds an ephemeral port.
+    serving: call ``serve_forever``; ``shutdown`` stops serving,
+    ``server_close`` releases the socket and stops the batcher, whose
+    thread holds the pool).  ``port=0`` binds an ephemeral port.
     Options of the JAX package's server that the port does not serve yet
     (``UNPORTED``) raise NotImplementedError naming their ROADMAP item."""
     for name, (what, served) in UNPORTED.items():
@@ -545,7 +573,7 @@ def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000
     pool = SessionPool(model_path, llm_path, session_ctx=session_ctx,
                        paged_pool_pages=paged_pages, **engine_kwargs)
     srv = _Server(pool, batch_window_s=batch_window_s)
-    httpd = ThreadingHTTPServer((host, port), make_handler(srv))
+    httpd = _HTTPServer((host, port), make_handler(srv))
     httpd.pool = pool  # for tests and shutdown
     httpd.batcher = srv.batcher
     return httpd

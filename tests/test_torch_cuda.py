@@ -25,6 +25,9 @@ reads through the same unpack in the kernels and in cache_f32 (1e-5
 absolute, as the other cache types).  A packed gq weight (p4, p5, p6) gives
 its unpacked twin's bits in every entry (max |d| = 0): the code reaches the
 same arithmetic as the same float.  A NaN past a lane's cursor is never read.
+The stats mode of flash decode (the partials of sequence parallelism) is
+held to its plain version like the normalized mode (1e-5), with exact
+zero partials where a row sees no key.
 """
 
 import numpy as np
@@ -154,6 +157,104 @@ def test_flash_decode_kernel_matches_plain(cuda_device, s, pos0, cache_dtype):
     assert tfd.flash_decode_attention.launches == before + 1
     want = tfd.flash_decode_ref(q, ck, cv, 1, pos0, 0.0884)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+STATS_CASES = [(1, 0), (1, 300), (8, 130), (32, 250), (8, -3), (1, [5, -40, 400]),
+               (8, [-300, 0, 127])]
+
+
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
+@pytest.mark.parametrize("s,pos0", STATS_CASES)
+def test_flash_decode_stats_match_plain(cuda_device, s, pos0, cache_dtype):
+    """The stats launch (the partials of sequence parallelism) against
+    flash_decode_stats_ref, signed cursors included: m to 1e-5 absolute, l
+    and acc to 1e-5 of their largest value (f32 sums in another order); a
+    row that sees no key gets exactly m = -inf, l = 0, acc = 0; and the
+    normalized launch gives acc / l of the stats launch bit for bit (the
+    same accumulator, the same division)."""
+    rng = np.random.default_rng(7)
+    b = 1 if isinstance(pos0, int) else len(pos0)
+    l_, h, c, dh = 2, 4, 500, 128
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda_device)
+
+    q = rand(b, h, s, dh)
+    ck, cv = rand(l_, b, h, c, dh).to(cache_dtype), rand(l_, b, h, c, dh).to(cache_dtype)
+    before = (tfd.flash_decode_attention.launches, tfd.flash_decode_attention.stats_launches)
+    acc, m, l = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884, return_stats=True)
+    torch.cuda.synchronize()
+    assert (tfd.flash_decode_attention.launches,
+            tfd.flash_decode_attention.stats_launches) == (before[0], before[1] + 1)
+    wacc, wm, wl = tfd.flash_decode_stats_ref(q, ck, cv, 1, pos0, 0.0884)
+    empty = torch.isneginf(wm)
+    assert torch.equal(torch.isneginf(m), empty)
+    assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+    torch.testing.assert_close(m[~empty], wm[~empty], rtol=0, atol=1e-5)
+    assert _rel(l, wl) <= 1e-5 and _rel(acc, wacc) <= 1e-5
+    if not empty.any():
+        norm = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884)
+        assert torch.equal(norm, acc / l[..., None])
+
+
+def test_flash_decode_stats_negative_cursor_reads_nothing(cuda_device):
+    """A slice that starts after every visible key (pos0 = -600 on 512
+    positions, a NaN planted at key 0): zero partials, m = -inf, no NaN."""
+    ck, cv = (torch.randn((1, 2, 4, 512, 128), device=cuda_device) for _ in range(2))
+    ck[0, :, :, 0] = float("nan")
+    q = torch.randn((2, 4, 8, 128), device=cuda_device)
+    acc, m, l = tfd.flash_decode_attention(q, ck, cv, 0, -600, 0.0884, return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.isneginf(m).all() and (l == 0).all() and (acc == 0).all()
+
+
+def test_flash_stats_cpu_wrapper_counts_no_launch():
+    """On CPU tensors the stats mode runs its plain version and counts no
+    launch."""
+    f = tfd.flash_decode_attention
+    before = (f.launches, f.stats_launches)
+    q, ck = torch.zeros(1, 2, 1, 64), torch.zeros(1, 1, 2, 64, 64)
+    acc, m, l = f(q, ck, ck, 0, -5, 0.125, return_stats=True)
+    assert (f.launches, f.stats_launches) == before
+    assert torch.isneginf(m).all() and (l == 0).all() and (acc == 0).all()
+
+
+# a kernel and its launcher for the launch-refusal check: the launcher
+# returns cudaGetLastError() as every entry of the port's library does
+REFUSAL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void touch(int* out) { out[threadIdx.x] = 1; }
+extern "C" int launch_touch(int threads, int shared_bytes, int* out) {
+  touch<<<1, threads, shared_bytes>>>(out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def test_refused_launch_configuration_raises(cuda_device, tmp_path):
+    """A launch the card refuses (2048 threads per block, or dynamic shared
+    memory past the 227 KB a block may opt into) never runs and reports no
+    fault at synchronize(); its error surfaces only through
+    cudaGetLastError(), which the entries return and _build.check raises.
+    The counterpart of the JAX package's deliberately illegal block
+    (tests/test_blockspec_legality.py)."""
+    import ctypes
+
+    src = tmp_path / "refusal_check.cu"
+    src.write_text(REFUSAL_CU)
+    lib = ctypes.CDLL(str(_build.build([src], "librefusal_check.so")))
+    lib.launch_touch.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    lib.launch_touch.restype = ctypes.c_int
+    out = torch.zeros(2048, dtype=torch.int32, device=cuda_device)
+    for threads, shared in ((2048, 0), (32, 300 * 1024)):
+        rc = lib.launch_touch(threads, shared, out.data_ptr())
+        torch.cuda.synchronize()  # nothing to report: the launch never ran
+        with pytest.raises(RuntimeError, match="launch failed with CUDA error"):
+            _build.check(rc, "launch_touch")
+    assert int(out.sum()) == 0
+    assert lib.launch_touch(256, 0, out.data_ptr()) == 0  # the error did not stick
+    torch.cuda.synchronize()
+    assert int(out.sum()) == 256
 
 
 def test_engine_on_card_matches_plain_versions(cuda_device, tmp_path):

@@ -93,10 +93,22 @@ w8_toks = list(w8.generate(limit=6, params=SamplingParams(temp=0.0)))
 w8_form = (w8.quant_mode, str(w8.cache_dtype),
            type(w8.llm_params["layers"]["wqkv"]["w"]).__name__, len(w8_toks) > 0)
 w8.close()
+from minigpt4_tpu_torch.parallel import dryrun, pipeline, spmd  # noqa: F401
+sys.path.insert(0, sys.argv[1] + "/tests")
+from torch_rank_tasks import rank_tasks
+one = MiniGPT4Engine(sys.argv[2], sys.argv[3], n_ctx=256, n_batch=32, device="cpu",
+                     quant_mode="repack")
+tp1 = dryrun.chat_tokens(one)
+one.close()
+task = dict(model=sys.argv[2], llm=sys.argv[3], n_ctx=256, n_batch=32, quant_mode="repack")
+ranks = dryrun.run_ranks(rank_tasks, 2, ([("chat", "chat", task), ("imports", "imports", {})],),
+                         device="cpu", timeout_s=240)
 print(json.dumps({"tokens": toks, "jax_loaded": sys.modules["jax"] is not None,
                   "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,
                   "paged_batch": [len(t) > 0 for t in texts],
-                  "free_pages": pool.paged_pool.free_pages, "w8a8_f8": w8_form}))
+                  "free_pages": pool.paged_pool.free_pages, "w8a8_f8": w8_form,
+                  "tp2_equals_tp1": [r["chat"] == tp1 for r in ranks],
+                  "rank_imports": [r["imports"] for r in ranks]}))
 """
 
 
@@ -109,7 +121,8 @@ def test_port_runs_without_jax(gq_files, port_chat):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"tokens": port_chat[1], "jax_loaded": False, "jax_package_loaded": False,
                    "paged_batch": [True, True], "free_pages": 8,
-                   "w8a8_f8": ["w8a8", "torch.float8_e4m3fn", "I8SBQuant", True]}
+                   "w8a8_f8": ["w8a8", "torch.float8_e4m3fn", "I8SBQuant", True],
+                   "tp2_equals_tp1": [True, True], "rank_imports": [[], []]}
 
 
 def test_port_sources_never_import_jax():

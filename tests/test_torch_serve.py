@@ -6,11 +6,13 @@ streamed and not, and the options the port does not serve yet.
 """
 
 import base64
+import gc
 import io
 import json
 import threading
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -40,6 +42,7 @@ def paged_server(gq_files):
     httpd, base = _start(*gq_files, batch_window_s=0.2, paged_pages=8)
     yield base, httpd
     httpd.shutdown()
+    httpd.server_close()
     httpd.pool.close()
 
 
@@ -49,7 +52,26 @@ def plain_server(gq_files):
     httpd, base = _start(*gq_files)
     yield base, httpd
     httpd.shutdown()
+    httpd.server_close()
     httpd.pool.close()
+
+
+def test_server_close_stops_the_batcher_and_frees_the_pool(gq_files):
+    """The window batcher's thread holds the pool: server_close ends it, and
+    the pool (the engine's weights and caches) can then be freed."""
+    httpd, base = _start(*gq_files, batch_window_s=0.05)
+    sid = json.loads(_post(base, "/v1/sessions")[1])["session_id"]
+    st, raw = _post(base, f"/v1/sessions/{sid}/chat",
+                    json.dumps({"message": "hi", "limit": 2, "temp": 0.0}).encode())
+    assert st == 200 and json.loads(raw)["text"]
+    thread, pool = httpd.batcher._thread, weakref.ref(httpd.pool)
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.pool.close()
+    assert not thread.is_alive()
+    del httpd
+    gc.collect()
+    assert pool() is None
 
 
 def _post(base, path, data=b"", timeout=120):
