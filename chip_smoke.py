@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
 its batched HTTP serving path, its quantized-container / repacked-weight
-path, its w8a8 path over an e4m3 cache and its tensor-parallel path (two
-ranks on one card) on an NVIDIA GPU.
+path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
+on one card) and its dequant-matmul probes on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -116,7 +116,24 @@ Phases (any failure exits nonzero before the last line):
                (nor in the serving phase or the repack chat).
   8. quality - python -m minigpt4_tpu_torch.quality at the small geometry on
                the card: five finite rows, the table and both gates.
-  9. tp      - (runs right after phase 3, while this process holds little
+  3'. probes - (right after phase 3) the micro-benchmarks of
+               minigpt4_tpu_torch/tools/, the counterparts of the JAX
+               package's tools/ probes, each run in this process through its
+               main() at the 13B shapes for M = 1 and 8 with the fewest timed
+               launches (20): qmm_group_i8 (the dual-i8 exact-q5_k kernel
+               against gq_decode_generic, rq_decode and i8_decode at w2, w13,
+               wqkv and wo), qmm_variants, unpack_variants, qmm_v3 (its three
+               entries) and qmm_r3 (the dequantize-matvec at the w2 shape,
+               16-byte loads), probe_int4 (i8 x i8, s4 x s4 on mma.sync, s4
+               chunk-scaled) and probe_i8ops (the op chains, REPS = 8).  Every
+               case holds its kernel against its plain version (integer modes
+               bit-equal, f32 modes within 1e-4 of max|y|; the dual-i8 kernel
+               also within 3e-4 of the f64 dequant); the tools' JSON lines go
+               to build/probes/<tool>.jsonl, the phase's seconds and each
+               kernel's representative case to the log.  The launch counts are
+               set to 0 before and read after (the "probes" path); the phase
+               frees its tensors before the tp phase.
+  9. tp      - (runs right after phase 3', while this process holds little
                device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width and
                depth, every projection q5_k, quant_mode="repack", behind the
                13B f16 container.  First the chat of phase 4 at tp=1 in this
@@ -138,8 +155,8 @@ Phases (any failure exits nonzero before the last line):
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
 {"kernels": [...]} (launches in each kernel's own path, the serving phase,
-the repack chat, the w8a8 path, a packed chat or the SP path, and of each
-path); the last is {"ok": true, "device": {...}}.
+the repack chat, the w8a8 path, a packed chat, the SP path or the probes,
+and of each path); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1303,6 +1320,7 @@ def _wrappers() -> dict:
     from minigpt4_tpu_torch.ops import group_i8 as gq
     from minigpt4_tpu_torch.ops import i8_matmul as i8
     from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
+    from minigpt4_tpu_torch.ops import probes
 
     return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
             "gq_decode_generic": gq.gq_decode_generic,
@@ -1310,7 +1328,7 @@ def _wrappers() -> dict:
             "flash_decode": fd.flash_decode_attention,
             "paged_flash_decode": fd.paged_flash_decode_attention,
             "rq_decode": rq.rq_decode, "rq_prefill": rq.rq_prefill,
-            "i8_decode": i8.i8_decode, "i8_prefill": i8.i8_prefill}
+            "i8_decode": i8.i8_decode, "i8_prefill": i8.i8_prefill, **probes.WRAPPERS}
 
 
 def launch_counts() -> dict:
@@ -2002,6 +2020,96 @@ def tp_rank(g, model: str, llm: str, shallow: list, card: str) -> dict:
     return dict(out, sp=sp, sp_counts=sp_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 3': the dequant-matmul probes (minigpt4_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+# (tool module, entry arguments): each tool's main at the 13B shapes, M = 1
+# and 8, the fewest timed launches (the default); the matvec tools with
+# 16-byte loads (every width: the tools' defaults), the int4 probe without
+# its SASS read-out (cuobjdump over the whole library takes ~20 s), the op
+# chains at the probe's REPS
+_M = ["--m", "1,8"]
+PROBE_RUNS = (("qmm_group_i8", _M), ("qmm_variants", _M + ["--width", "16"]),
+              ("unpack_variants", _M + ["--width", "16"]), ("qmm_v3", _M + ["--width", "16"]),
+              ("qmm_v3", ["km"] + _M + ["--width", "16"]),
+              ("qmm_v3", ["i8"] + _M + ["--width", "16"]), ("qmm_r3", _M + ["--width", "16"]),
+              ("probe_int4", _M + ["--no-sass"]), ("probe_i8ops", ["--reps", "8"]))
+# kernel -> (source, the TPU call site it stands for, every call site it
+# replaces, (tool, case, M) of the representative case)
+PROBE_KERNELS = {
+    "probe_group_i8": ("minigpt4_tpu_torch/csrc/probe_group_i8.cu", "tools/qmm_group_i8.py:115",
+                       ["tools/qmm_group_i8.py:115"], ("qmm_group_i8", "w13 gi8", 8)),
+    "dequant_matvec": ("minigpt4_tpu_torch/csrc/probe_qmm.cu", "tools/qmm_variants.py:48",
+                       ["tools/qmm_variants.py:48", "tools/qmm_v3.py:93", "tools/qmm_v3.py:270",
+                        "tools/qmm_v3.py:416", "tools/qmm_r3.py:89",
+                        "tools/unpack_variants.py:82"], ("qmm_variants", "dense w16", 1)),
+    "int_dot": ("minigpt4_tpu_torch/csrc/probe_int.cu", "tools/probe_int4.py:103",
+                ["tools/probe_int4.py:103", "tools/qmm_variants.py:48 (i8dot)"],
+                ("probe_int4", "s4xs4", 1)),
+    "op_chain": ("minigpt4_tpu_torch/csrc/probe_ops.cu", "tools/probe_i8ops.py:50",
+                 ["tools/probe_i8ops.py:50", "tools/qmm_v3.py:416 (opsi8, opsi32)"],
+                 ("probe_i8ops", "i8aa reps=8", 0)),
+}
+
+
+def probes_phase(card: str) -> dict:
+    """Each probe tool's main() in this process (PROBE_RUNS); returns the
+    path's launch counts and the tools' timed cases by kernel."""
+    import contextlib
+    import importlib
+
+    out_dir = ROOT / "build" / "probes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    records = []
+    for name, entry in PROBE_RUNS:
+        tool = importlib.import_module(f"minigpt4_tpu_torch.tools.{name}")
+        t1 = time.perf_counter()
+        label = "_".join([name] + entry[:1] if entry[:1] in (["km"], ["i8"]) else [name])
+        with open(out_dir / f"{label}.jsonl", "w") as f, contextlib.redirect_stdout(f):
+            recs = tool.main(entry)
+        records += [dict(r, tool=name) for r in recs]
+        log(f"[probes] {label}: {len(recs)} timed cases, checks passed, "
+            f"{time.perf_counter() - t1:.1f} s  [{card}]")
+    counts = launch_counts()
+    by_kernel = {k: [r for r in records if r.get("kernel") == k] for k in PROBE_KERNELS}
+    for kern, (_, _, _, (tool, case, m)) in PROBE_KERNELS.items():
+        row = next(r for r in by_kernel[kern] if r["tool"] == tool and r["case"] == case
+                   and r["m"] == m)
+        log(f"[probes] {kern:15s} {case} M={m}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}, "
+            f"launches on the path {counts[kern]}  [{card}]")
+        if counts[kern] <= 0:
+            raise AssertionError(f"probes: {kern} was never launched")
+    log(f"[probes] phase took {time.perf_counter() - t0:.1f} s  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "by_kernel": by_kernel}
+
+
+def probe_kernel_entries(paths: dict, probe: dict) -> list:
+    """The kernels line's entries of the four probe kernels."""
+    entries = []
+    for kern, (src, replaces, every, (tool, case, m)) in PROBE_KERNELS.items():
+        rows = probe["by_kernel"][kern]
+        row = next(r for r in rows if r["tool"] == tool and r["case"] == case and r["m"] == m)
+        entries.append({
+            "name": kern, "route": "cuda", "source": src, "replaces": replaces,
+            "replaces_all": every, "launches": paths["probes"]["counts"][kern],
+            "launches_by_path": {label: p["counts"].get(kern, 0) for label, p in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r.get("max_abs_err") is not None),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"{tool} {case} M={m}",
+            "cases": [{k: r.get(k) for k in ("tool", "case", "m", "ms", "plain_ms", "bound_ms",
+                                             "library_ms")} for r in rows],
+        })
+    return entries
+
+
 def tp_phase(card: str) -> dict:
     """MiniGPT4Engine(tp=2) on one card: two ranks (processes) on cuda:0 over
     gloo, each running the chat of phase 4 on its half of the 13B q5_k file
@@ -2101,10 +2209,13 @@ def main() -> int:
 
     phase("kernels")
     kernel_results = phase_kernels(card)
+    phase("probes")
+    paths = {}
+    probe = probes_phase(card)
+    paths["probes"] = {"counts": probe["counts"]}
     # the tp ranks are processes of their own: they run while this one holds
     # little device memory
     phase("tp")
-    paths = {}
     tp = tp_phase(card)
     paths["13B q5_k repack tp=1"] = tp["tp1"]
     for r, out in enumerate(tp["ranks"]):
@@ -2256,6 +2367,7 @@ def main() -> int:
         "cases": [{k: r[k] for k in ("shape", "ms", "normalized_ms", "plain_ms", "bound_ms",
                                      "library_ms", "null_ml_bits_equal")} for r in rows],
     })
+    kernels += probe_kernel_entries(paths, probe)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

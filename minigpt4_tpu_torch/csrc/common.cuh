@@ -28,6 +28,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The i32 dot product of 16 signed bytes with 16 signed bytes (__dp4a).
+__device__ __forceinline__ int dot16(const int4& a, const int4& b) {
+  int s = __dp4a(a.x, b.x, 0);
+  s = __dp4a(a.y, b.y, s);
+  s = __dp4a(a.z, b.z, s);
+  return __dp4a(a.w, b.w, s);
+}
+
+// The sum over the 16 lanes of a half-warp (xor offsets below 16 stay inside it).
+__device__ __forceinline__ int half_warp_sum(int v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
 // The i-th signed byte of a 32-bit word, as float (codes are stored as i8).
 __device__ __forceinline__ float byte_as_float(int word, int i) {
   return static_cast<float>(static_cast<signed char>((word >> (8 * i)) & 0xff));

@@ -59,19 +59,8 @@ constexpr int kDecWarps = 8;
 constexpr int kDecColsPerHalf = 2;
 constexpr int kDecBN = kDecWarps * 2 * kDecColsPerHalf;  // 32 columns per block
 
-__device__ __forceinline__ int dot16(const int4& a, const int4& b) {
-  int s = __dp4a(a.x, b.x, 0);
-  s = __dp4a(a.y, b.y, s);
-  s = __dp4a(a.z, b.z, s);
-  return __dp4a(a.w, b.w, s);
-}
-
-// the sum over the 16 lanes of a half-warp (xor offsets below 16 stay inside it)
-__device__ __forceinline__ int half_warp_sum(int v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(mgt::kFullMask, v, o);
-  return v;
-}
+using mgt::dot16;
+using mgt::half_warp_sum;
 
 template <int M>
 __global__ void __launch_bounds__(kDecWarps * 32)

@@ -125,6 +125,15 @@ def i8sb_from_numpy(w, device) -> i8.I8SBQuant:
                         int(w.n_in))
 
 
+def probe_planes_from_jax(codes, sct, bt, device) -> tuple[torch.Tensor, torch.Tensor,
+                                                            torch.Tensor]:
+    """The JAX probe's exact-q5_k operands (``tools/qmm_group_i8.py``:
+    codes i8 ``[(L,) N, K]``, bf16 scale and bias planes ``[(L,) K/32, N]``,
+    NumPy arrays) -> the arguments of ``ops/probes.qmatmul_group_i8``: the
+    same layouts, one to one."""
+    return _t(codes, device, torch.int8), _t(sct, device), _t(bt, device)
+
+
 def qtensor_from_numpy(w, device) -> QTensor:
     """A JAX ``QTensor`` (packed u8 rows), unstacked or stacked."""
     return QTensor(_t(w.packed, device, torch.uint8), DataType(w.dtype), int(w.n_in))

@@ -27,7 +27,13 @@ its unpacked twin's bits in every entry (max |d| = 0): the code reaches the
 same arithmetic as the same float.  A NaN past a lane's cursor is never read.
 The stats mode of flash decode (the partials of sequence parallelism) is
 held to its plain version like the normalized mode (1e-5), with exact
-zero partials where a row sees no key.
+zero partials where a row sees no key.  The probe kernels (ops/probes.py):
+the dual-i8 q5_k matmul and every storage / strategy / width / layout of the
+dequantize-matvec are f32 sums in another order than their plain versions
+(1e-4 of max|y|); the integer dots, the s4 chunk-scaled dot (products and
+sums rounded apart in chunk order, as the plain version) and the op chains
+give their plain versions' bits.  A column-parallel slice (half the output
+rows) of a 13B weight gives the whole-width launch's bits in those rows.
 """
 
 import numpy as np
@@ -44,6 +50,7 @@ from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 from minigpt4_tpu_torch.ops import i8_matmul as ti8
 from minigpt4_tpu_torch.ops import pallas_quant_matmul as trq
+from minigpt4_tpu_torch.ops import probes as tpb
 from minigpt4_tpu_torch.ops import repack as trp
 from test_torch_fixtures import build_llm_q5_k_m
 
@@ -725,3 +732,180 @@ def test_packed_engine_on_card_matches_plain_versions(cuda_device, tmp_path):
         else:
             assert all(unpacked) and not any(packed.values())
     assert runs["cuda", "gq"] == runs["cpu", "gq"] == runs["cuda", "auto"]
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (ops/probes.py, minigpt4_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+PROBE_TOL = 1e-4
+
+
+def _probe_gen(device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_probe_group_i8_matches_plain(cuda_device, m, stacked):
+    """The dual-i8 exact-q5_k kernel against its plain version (1e-4) and the
+    f64 dequant reference (3e-4, the JAX probe's check), ragged N, stacked
+    codes and planes at layer 1."""
+    gen = _probe_gen(cuda_device, m)
+    n, k, lead = 300, 768, ((2,) if stacked else ())
+    codes = torch.randint(0, 32, (*lead, n, k), generator=gen, device=cuda_device,
+                          dtype=torch.int8)
+    sct = (torch.rand((*lead, k // 32, n), generator=gen, device=cuda_device) * 0.02
+           + 0.001).to(torch.bfloat16)
+    bt = -(torch.rand((*lead, k // 32, n), generator=gen, device=cuda_device) * 0.1).to(
+        torch.bfloat16)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    layer = 1 if stacked else None
+    before = tpb.probe_group_i8.launches
+    got = tpb.qmatmul_group_i8(x, codes, sct, bt, layer)
+    assert tpb.probe_group_i8.launches == before + 1
+    x1, x2, s1, s2 = tpb.split_activations(x)
+    want = tpb.group_i8_ref(x1, x2, torch.cat([s1, s2], 1), tpb.group_sums(x), codes, sct, bt,
+                            layer)
+    assert _rel(got, want) <= PROBE_TOL
+    f64 = x.double() @ tpb.dequant_group_i8(codes, sct, bt, layer).double().t()
+    assert _rel(got, f64) <= 3e-4
+
+
+MATVEC_CASES = [(s, st, w, "nm") for s in tpb.STORAGES for st in tpb.STRATEGIES
+                for w in tpb.WIDTHS if not (s == "dense" and st == "magic")]
+MATVEC_CASES += [(s, st, w, "km") for s in tpb.KM_STORAGES for st in tpb.STRATEGIES
+                 for w in tpb.WIDTHS if not (s == "dense" and st == "magic")]
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("storage,strategy,width,layout", MATVEC_CASES,
+                         ids=["-".join(map(str, c)) for c in MATVEC_CASES])
+def test_probe_dequant_matvec_matches_plain(cuda_device, storage, strategy, width, layout, m):
+    """Every storage, unpack strategy, load width and layout of the
+    dequantize-matvec against its plain version, N ragged against the
+    blocks' columns (nm 32, km 32 V)."""
+    gen = _probe_gen(cuda_device, m)
+    n = 200 if layout == "nm" else 208
+    w = tpb.random_probe_weight(storage, n, 2048, gen, cuda_device, layout)
+    x = torch.randn((m, 2048), generator=gen, device=cuda_device)
+    got = tpb.dequant_matvec(x, w, strategy, width)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, tpb.dequant_matvec_ref(x, w)) <= PROBE_TOL
+
+
+INT_CASES = [("i8xi8", 1), ("i8xi8", 8), ("s4xs4", 1), ("s4xs4", 8), ("s4xs4", 16),
+             ("s4_sb", 1), ("s4_sb", 5), ("s4_sb", 8)]
+
+
+@pytest.mark.parametrize("mode,m", INT_CASES, ids=[f"{a}-m{b}" for a, b in INT_CASES])
+def test_probe_int_dot_bit_equal(cuda_device, mode, m):
+    """i8 x i8 and s4 x s4 (mma.sync m16n8k64) give the exact integers; the
+    s4 chunk-scaled dot gives its plain version's bits (ragged N)."""
+    gen = _probe_gen(cuda_device, m)
+    n, k = 300, 1024
+    i8 = lambda rows: torch.randint(-127, 128, (rows, k), generator=gen, device=cuda_device,
+                                    dtype=torch.int8)
+    s4 = lambda rows: torch.randint(0, 256, (rows, k // 2), generator=gen, device=cuda_device,
+                                    dtype=torch.uint8)
+    x = s4(m) if mode == "s4xs4" else i8(m)
+    w = i8(n) if mode == "i8xi8" else s4(n)
+    sc = (torch.rand((n, k // 256), generator=gen, device=cuda_device) + 0.5) * 2.0 ** -13
+    sc = sc if mode == "s4_sb" else None
+    got, want = tpb.int_dot(x, w, sc, mode), tpb.int_dot_ref(x, w, sc, mode)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("reps", [1, 8])
+@pytest.mark.parametrize("op", list(tpb.OPS))
+def test_probe_op_chain_bit_equal(cuda_device, op, reps):
+    """Each op chain's [8, 128 T] block and per-tile checksums equal its plain
+    version's, bit for bit."""
+    gen = _probe_gen(cuda_device, reps)
+    dtype = tpb.OPS[op][1]
+    shape = (768, 384)
+    if dtype == torch.bfloat16:
+        inp = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    else:
+        lo, hi = (0, 200) if dtype == torch.uint8 else (-100, 100)
+        inp = torch.randint(lo, hi, shape, generator=gen, device=cuda_device, dtype=dtype)
+    out, cks = tpb.op_chain(inp, op, reps)
+    ref_out, ref_cks = tpb.op_chain_ref(inp, op, reps)
+    assert torch.equal(out, ref_out) and torch.equal(cks, ref_cks)
+
+
+def test_probe_refused_launches_raise(cuda_device):
+    gen = _probe_gen(cuda_device, 0)
+    w = tpb.random_probe_weight("dense", 64, 256, gen, cuda_device)
+    x = torch.randn((1, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="shift strategy only"):
+        tpb.dequant_matvec(x, w, "magic")
+    with pytest.raises(ValueError, match="rows|1..8"):
+        tpb.dequant_matvec(torch.randn((9, 256), device=cuda_device), w)
+    with pytest.raises(ValueError, match="km layout holds"):
+        tpb.random_probe_weight("q5", 64, 256, gen, cuda_device, "km")
+    s4 = torch.zeros((17, 128), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="out of range"):
+        tpb.int_dot(s4, s4, None, "s4xs4")
+    with pytest.raises(ValueError, match="256 t"):
+        tpb.op_chain(torch.zeros((100, 128), dtype=torch.int8, device=cuda_device), "i8aa")
+
+
+def test_probe_cpu_wrappers_count_no_launch():
+    """On CPU tensors the probe wrappers run their plain versions and count
+    nothing."""
+    before = {k: f.launches for k, f in tpb.WRAPPERS.items()}
+    gen = _probe_gen("cpu", 0)
+    w = tpb.random_probe_weight("q5d", 32, 256, gen, "cpu")
+    x = torch.randn((2, 256))
+    torch.testing.assert_close(tpb.dequant_matvec(x, w, "magic", 4),
+                               tpb.dequant_matvec_ref(x, w), rtol=0, atol=0)
+    codes = torch.randint(0, 32, (32, 256), dtype=torch.int8)
+    planes = torch.ones((8, 32), dtype=torch.bfloat16)
+    tpb.qmatmul_group_i8(x, codes, planes, planes)
+    tpb.int_dot(torch.zeros((1, 256), dtype=torch.int8), torch.zeros((4, 256), dtype=torch.int8),
+                None, "i8xi8")
+    tpb.op_chain(torch.zeros((256, 128), dtype=torch.int32), "i32aa")
+    assert {k: f.launches for k, f in tpb.WRAPPERS.items()} == before
+
+
+def _q5k_13b_bytes(n, k, seed):
+    nb = n * k // 256
+    raw = np.random.default_rng(seed).integers(0, 256, (nb, 176), dtype=np.uint8)
+    raw[:, 0:4] = np.frombuffer(np.full(2 * nb, 2.0 ** -15, np.float16).tobytes(),
+                                np.uint8).reshape(nb, 4)
+    return raw.reshape(-1)
+
+
+@pytest.mark.parametrize("kernel", ["gq_decode", "rq_decode", "rq_prefill"])
+def test_half_rows_bit_equal_to_whole_width(cuda_device, kernel):
+    """tp's column split on the card: each kernel on rows [r0, r0 + N/2) of a
+    13B w13 weight (27648 x 5120, q5_k) gives the whole-width launch's bits
+    in those rows, for both halves and every row count of its path."""
+    n, k = 27648, 5120
+    raw = _q5k_13b_bytes(n, k, 11)
+    h = n // 2
+    if kernel == "gq_decode":
+        w = tgq.from_ggml(raw, (n, k), DataType.Q5_K, cuda_device)
+        fn, ms = tgq.gq_decode, (1, 8)
+
+        def half(r0):
+            ts = {"codes": w.codes[r0:r0 + h]}
+            ts.update({name: getattr(w, name)[:, r0:r0 + h] for name in ("sc6", "mn6", "d",
+                                                                        "dmin")})
+            return w._replace(**{key: v.contiguous() for key, v in ts.items()})
+    else:
+        w = trp.from_ggml(raw, (n, k), DataType.Q5_K, cuda_device)
+        fn, ms = (trq.rq_decode, (1, 8)) if kernel == "rq_decode" else (trq.rq_prefill, (32, 512))
+
+        def half(r0):
+            return w._replace(**{key: v[r0:r0 + h].contiguous()
+                                 for key, v in w.tensors().items()})
+    for m in ms:
+        x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+        x = x.to(cuda_device)
+        whole = fn(x, w)
+        for r0 in (0, h):
+            assert torch.equal(fn(x, half(r0)), whole[:, r0:r0 + h]), (kernel, m, r0)
