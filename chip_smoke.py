@@ -116,6 +116,19 @@ Phases (any failure exits nonzero before the last line):
                (nor in the serving phase or the repack chat).
   8. quality - python -m minigpt4_tpu_torch.quality at the small geometry on
                the card: five finite rows, the table and both gates.
+               Since the redesign of flash decode (keys split over blocks)
+               and i8_prefill (wgmma over a TMA ring), those rows, the stats
+               rows and the chats' own decode attention (13B B = 1, 40 heads,
+               S = 1 at pos0 = 240, bf16 and e4m3) also get a device-only
+               time (a CUDA graph of 20 launches replayed between events, so
+               the wrapper's host work is left out), with SDPA's and
+               torch._int_mm's device-only time beside them, the share of
+               the bound and the factor against the library.  Before phase
+               3 the SASS opcode counts of i8_prefill_kernel (cuobjdump) are
+               printed; they must hold warpgroup MMA and TMA loads.
+               `python3 chip_smoke.py --only-kernels [flash,i8,...]` runs
+               phases 1-3 alone (sections of KERNEL_SECTIONS) and prints no
+               result line.
   3'. probes - (right after phase 3) the micro-benchmarks of
                minigpt4_tpu_torch/tools/, the counterparts of the JAX
                package's tools/ probes, each run in this process through its
@@ -269,7 +282,8 @@ def profile_window(fn, sync) -> dict:
     """One call of ``fn`` under torch.profiler (host and device activity):
     wall ms, device busy ms (the union of the device activity intervals),
     the idle share, the number of device activities, the three names with
-    the most device time, and the host time inside collectives (the union
+    the most device time, the device time of the flash decode kernels, and
+    the host time inside collectives (the union
     of the intervals of the host activities named all_reduce / allreduce,
     0 outside tensor parallelism).  The profiler slows the host, so the idle
     share is an upper estimate."""
@@ -302,14 +316,16 @@ def profile_window(fn, sync) -> dict:
         if f > end:
             coll += f - max(s, end)
             end = f
+    flash = sum(ms for n, ms in per_name.items() if "flash_decode_kernel" in n)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
-                top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3)
+                top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3,
+                flash_ms=flash)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
     log(f"{label} profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
         f"idle {100 * prof['idle']:.0f} %, {prof['device_ops']} device activities; most device "
-        f"time: {prof['top']}  [{card}]")
+        f"time: {prof['top']}; flash decode {prof['flash_ms']:.2f} ms  [{card}]")
 
 
 def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float]:
@@ -322,6 +338,50 @@ def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float
     for who in ("p", "k", "k", "p"):
         t[who] += _time_ms(kernel if who == "k" else plain, args_for, reps)
     return statistics.median(t["k"]), statistics.median(t["p"])
+
+
+def device_ms(fn, args_for, n_args: int) -> float:
+    """Device-only median ms per launch of ``fn(*args_for(i))``: a CUDA graph
+    of 20 launches (i rotating through ``n_args`` argument sets) replayed
+    between CUDA events, so the wrapper's host work is left out
+    (minigpt4_tpu_torch/tools/_harness.py:time_ms)."""
+    from minigpt4_tpu_torch.tools import _harness
+
+    return _harness.time_ms(fn, args_for, n_args)
+
+
+# what device_row adds to a row (and the kernels line carries)
+DEVICE_KEYS = ("device_ms", "library_device_ms", "bound_share", "library_factor")
+
+
+def device_row(row: dict, label: str, dev_ms: float, lib_dev_ms, lib_name: str,
+               card: str) -> None:
+    """Add the device-only times of a kernel and of its library call to its
+    row, with the share of the bound and the factor against the library,
+    and print them."""
+    row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+               bound_share=row["bound_ms"] / dev_ms,
+               library_factor=None if lib_dev_ms is None else dev_ms / lib_dev_ms)
+    lib = ("no library call" if lib_dev_ms is None else
+           f"{lib_name} {lib_dev_ms:.4f} ms, kernel / library {dev_ms / lib_dev_ms:.3f}")
+    log(f"[device-only] {label}  kernel {dev_ms:.4f} ms ({100 * row['bound_share']:.1f} % of "
+        f"its {row['bound_ms']:.4f} ms bound, {row['bound_by']})  {lib}  [{card}]")
+
+
+def check_i8_prefill_sass(card: str) -> dict:
+    """The opcodes of i8_prefill_kernel: fails unless they hold warpgroup MMA
+    (xGMMA) and TMA loads (UTMALDG)."""
+    from minigpt4_tpu_torch.tools import _harness
+
+    ops = _harness.sass_opcodes("i8_prefill_kernel")
+    log(f"[sass] i8_prefill_kernel opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
+    gmma = {k: v for k, v in ops.items() if "GMMA" in k}
+    tma = {k: v for k, v in ops.items() if k.startswith("UTMALDG")}
+    log(f"[sass] i8_prefill_kernel warpgroup MMA {gmma}, TMA loads {tma}")
+    if not gmma or not tma:
+        raise AssertionError(f"i8_prefill_kernel: no warpgroup MMA ({gmma}) or no TMA load "
+                             f"({tma}) in its SASS")
+    return ops
 
 
 # ---------------------------------------------------------------------------
@@ -686,21 +746,23 @@ def random_i8(n_layer: int, n: int, k: int, gen: torch.Generator):
 
 
 def int_mm_ms(x_i8: torch.Tensor, w, n_stack: int, reps: int = 10):
-    """Median ms of torch._int_mm (i8 x i8 -> i32, no chunk scales) on the same
-    operands, rotating through the stacked layers; None where it refuses the
-    shape (it needs M > 16)."""
+    """(median ms around the call, device-only ms) of torch._int_mm (i8 x i8
+    -> i32, no chunk scales) on the same operands, rotating through the
+    stacked layers; (None, None) where it refuses the shape (it needs M >
+    16)."""
     if x_i8.shape[0] <= 16:
-        return None
+        return None, None
     f = torch._int_mm
     try:
         f(x_i8, w.codes[0].t())
     except RuntimeError as e:  # the yardstick, not the port: report and go on
         log(f"[kernels] torch._int_mm refuses [{x_i8.shape[0]}, {x_i8.shape[1]}] x "
             f"[{w.codes.shape[2]}, {w.codes.shape[1]}]: {str(e).splitlines()[0]}")
-        return None
+        return None, None
     torch.cuda.synchronize()
-    return statistics.median(_time_ms(lambda li: f(x_i8, w.codes[li].t()),
-                                      lambda i: (i % n_stack,), reps))
+    call = lambda li: f(x_i8, w.codes[li].t())  # noqa: E731
+    return (statistics.median(_time_ms(call, lambda i: (i % n_stack,), reps)),
+            device_ms(call, lambda i: (i % n_stack,), n_stack))
 
 
 # i8 tolerances, relative to max|y|: each 256-wide chunk's product is an
@@ -731,7 +793,7 @@ def phase_i8_kernels(results: dict, card: str, gen: torch.Generator) -> None:
             err, abs_err = rel_err(got, want), float((got - want).abs().max())
             tol = I8_DECODE_TOL if decode else I8_PREFILL_TOL
             k_ms, p_ms = compare_times(kern, i8.qmatmul_i8sb_ref, lambda i: (x_i8, w, i % stack))
-            lib_ms = int_mm_ms(x_i8, w, stack)
+            lib_ms, lib_dev = int_mm_ms(x_i8, w, stack)
             b_ms, b_by = bound(nbytes(w.codes[0], w.scales[0], x_i8) + 4 * m * n,
                                2.0 * m * n * k, INT8_OPS)
             key = kern.__name__
@@ -746,12 +808,16 @@ def phase_i8_kernels(results: dict, card: str, gen: torch.Generator) -> None:
                 f"{b_ms:.4f} ms ({b_by})  {lib}  [{card}]")
             if not err <= tol:
                 raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+            if not decode:
+                device_row(results[key][-1], f"i8_prefill {name} {n}x{k} M={m}",
+                           device_ms(kern, lambda i: (x_i8, w, i % stack), stack), lib_dev,
+                           "torch._int_mm", card)
         del w
         torch.cuda.empty_cache()
 
 
-# e4m3 caches read the same f32 values in the kernel and in cache_f32 (the
-# integer unpack); f32 online softmax against f32 softmax on unit inputs
+# e4m3 caches read as the same values in the kernel and in cache_f32
+# (_block_f32's function); f32 online softmax against f32 softmax on unit inputs
 E4M3_FLASH_TOL = 1e-5
 
 
@@ -788,18 +854,90 @@ def e4m3_flash_cases(results: dict, card: str, gen: torch.Generator) -> None:
             f"bound {b_ms:.4f} ms ({b_by})  sdpa on the bf16 cache {lib_ms:.4f} ms  [{card}]")
         if not err <= E4M3_FLASH_TOL:
             raise AssertionError(f"flash_decode e4m3 S={s}: abs err {err} > {E4M3_FLASH_TOL}")
+        device_row(results["flash_decode"][-1], f"flash_decode e4m3 B=1 H={h} S={s} pos0={pos}",
+                   device_ms(fd.flash_decode_attention,
+                             lambda i: (q, ck, cv, i % STACK_7B, pos, scale), STACK_7B),
+                   sdpa_ms(q, ck, cv, pos_v, scale, STACK_7B, device_only=True),
+                   "sdpa on the bf16 cache", card)
     del ck, cv
     torch.cuda.empty_cache()
     paged_kernel_case(results, card, gen, f8)
 
 
-def phase_kernels(card: str) -> dict:
-    from minigpt4_tpu_torch.formats import DataType
+def chat_flash_case(results: dict, card: str, gen: torch.Generator) -> None:
+    """The chats' own decode attention: Vicuna-13B B = 1, 40 heads of 128, S =
+    1 at pos0 = 240 (the live range of the smoke chats' decode) over a 2048-
+    position cache rotating through 40 layers, bf16 and e4m3: against the
+    plain version (1e-5) and SDPA, timed around the call and device-only."""
     from minigpt4_tpu_torch.ops import flash_decode as fd
 
+    h, dh, c, pos, s = 40, 128, 2048, 240, 1
+    scale, last = dh ** -0.5, STACK_13B - 1
+    pos_v = torch.full((1,), pos, dtype=torch.int32, device=DEVICE)
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        tag = "e4m3 " if dtype == torch.float8_e4m3fn else ""
+        ck, cv = (torch.randn((STACK_13B, 1, h, c, dh), generator=gen, device=DEVICE).to(dtype)
+                  for _ in range(2))
+        q = torch.randn((1, h, s, dh), generator=gen, device=DEVICE)
+        got = fd.flash_decode_attention(q, ck, cv, last, pos, scale)
+        want = fd.flash_decode_ref(q, ck, cv, last, pos, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        args = lambda i: (q, ck, cv, i % STACK_13B, pos, scale)  # noqa: E731
+        k_ms, p_ms = compare_times(fd.flash_decode_attention, fd.flash_decode_ref, args)
+        b_ms, b_by = attention_bound(1, h, s, dh, pos + s, ck.element_size())
+        results["flash_decode"].append(dict(
+            shape=f"{tag}13B chat B=1 H={h} S={s} pos0={pos}", max_abs_err=err,
+            tol=E4M3_FLASH_TOL, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=sdpa_ms(q, ck, cv, pos_v, scale, STACK_13B)))
+        log(f"[kernels] flash_decode {tag}13B chat B=1 H={h} S={s} C={c} pos0={pos}  max_abs_err="
+            f"{err:.3e} (tol {E4M3_FLASH_TOL:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})  sdpa {results['flash_decode'][-1]['library_ms']:.4f} ms  "
+            f"[{card}]")
+        if not err <= E4M3_FLASH_TOL:
+            raise AssertionError(f"flash_decode {tag}13B chat: abs err {err} > {E4M3_FLASH_TOL}")
+        device_row(results["flash_decode"][-1], f"flash_decode {tag}13B chat S=1 pos0={pos}",
+                   device_ms(fd.flash_decode_attention, args, STACK_13B),
+                   sdpa_ms(q, ck, cv, pos_v, scale, STACK_13B, device_only=True),
+                   "sdpa" + (" on the bf16 cache" if tag else ""), card)
+        del ck, cv
+        torch.cuda.empty_cache()
+
+
+# phase 3's sections, in order; ``--only-kernels a,b`` runs those alone
+KERNEL_SECTIONS = ("gq", "flash", "chat_flash", "paged", "rq", "i8", "e4m3", "packed", "stats")
+
+
+def phase_kernels(card: str, only: set | None = None) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = {k: [] for k in KERNELS + PACKED_KERNELS + (STATS,)}
+
+    def want(section: str) -> bool:
+        return only is None or section in only
+
+    if want("gq"):
+        phase_gq_kernels(results, card, gen)
+    if want("flash"):
+        phase("kernels: flash")
+        dense_flash_cases(results, card, gen)
+    for section, label, fn in (("chat_flash", "chat flash", chat_flash_case),
+                               ("paged", "paged flash", paged_kernel_case),
+                               ("rq", "repacked", phase_rq_kernels),
+                               ("i8", "i8", phase_i8_kernels),
+                               ("e4m3", "e4m3 flash", e4m3_flash_cases),
+                               ("packed", "packed gq", phase_packed_kernels),
+                               ("stats", "flash stats", flash_stats_cases)):
+        if want(section):
+            phase(f"kernels: {label}")
+            fn(results, card, gen)
+    return results
+
+
+def phase_gq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
+    """The gq kernels against their plain versions at the 7B and 13B shapes."""
+    from minigpt4_tpu_torch.formats import DataType
+
     # exact planes at the Vicuna-7B shapes
     d, ff, v = 4096, 11008, 32000
     for name, (n, k) in {"wqkv": (3 * d, d), "wo": (d, d), "w13": (2 * ff, d), "w2": (d, ff),
@@ -821,7 +959,13 @@ def phase_kernels(card: str) -> dict:
         del w
         torch.cuda.empty_cache()
 
-    phase("kernels: flash")
+
+def dense_flash_cases(results: dict, card: str, gen: torch.Generator) -> None:
+    """Dense flash decode over bf16 caches at the Vicuna-7B cache (32 heads
+    of 128, 2048 positions): B = 1 at S = 1, 8, 32 and four cursors, and a
+    ragged B = 4, against the plain version and SDPA."""
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
     h, dh, c = 32, 128, 2048
     last = STACK_7B - 1
     cases = [(1, s, p) for s in (1, 8, 32) for p in (0, 127, 1000, 2015)]
@@ -854,21 +998,12 @@ def phase_kernels(card: str) -> dict:
             f"({b_by})  sdpa {lib_ms:.4f} ms  [{card}]")
         if not err <= 1e-3:
             raise AssertionError(f"flash_decode B={b} S={s} pos0={pos}: abs err {err} > 1e-3")
+        device_row(results["flash_decode"][-1], f"flash_decode bf16 B={b} H={h} S={s} pos0={pos}",
+                   device_ms(fd.flash_decode_attention,
+                             lambda i: (q, ck, cv, i % STACK_7B, pos_t, scale), STACK_7B),
+                   sdpa_ms(q, ck, cv, pos_v, scale, STACK_7B, device_only=True), "sdpa", card)
     del caches
     torch.cuda.empty_cache()
-    phase("kernels: paged flash")
-    paged_kernel_case(results, card, gen)
-    phase("kernels: repacked")
-    phase_rq_kernels(results, card, gen)
-    phase("kernels: i8")
-    phase_i8_kernels(results, card, gen)
-    phase("kernels: e4m3 flash")
-    e4m3_flash_cases(results, card, gen)
-    phase("kernels: packed gq")
-    phase_packed_kernels(results, card, gen)
-    phase("kernels: flash stats")
-    flash_stats_cases(results, card, gen)
-    return results
 
 
 # the merge of C-slice partials against the kernel on the whole cache: f32
@@ -940,6 +1075,10 @@ def flash_stats_cases(results: dict, card: str, gen: torch.Generator) -> None:
                 lib_ms = (sdpa_ms(q, ks, vs, torch.full((1,), p_loc, dtype=torch.int32,
                                                           device=DEVICE), scale, STACK_13B)
                           if keys > 0 else None)
+                dev = device_ms(stats, args, STACK_13B)
+                lib_dev = (sdpa_ms(q, ks, vs, torch.full((1,), p_loc, dtype=torch.int32,
+                                                         device=DEVICE), scale, STACK_13B,
+                                   device_only=True) if keys > 0 else None)
                 parts.append((acc, m, l))
                 rows.append(dict(shape=f"{tag}B=1 S={s} pos0={pos} slice {i}",
                                  max_abs_err=max(err_m, float((acc - wacc).abs().max()),
@@ -954,6 +1093,8 @@ def flash_stats_cases(results: dict, card: str, gen: torch.Generator) -> None:
                     f"  stats {k_ms:.4f} ms  normalized {n_ms:.4f} ms  plain {p_ms:.4f} ms  "
                     f"bound {b_ms:.4f} ms ({b_by})  sdpa "
                     f"{'none (no live key)' if lib_ms is None else f'{lib_ms:.4f} ms'}  [{card}]")
+                device_row(rows[-1], f"flash_decode stats {tag}S={s} pos0={pos} slice {i}", dev,
+                           lib_dev, "sdpa", card)
             merged = fd.merge_partials(parts)
             torch.cuda.synchronize()
             merge_err = float((merged - whole).abs().max())
@@ -970,10 +1111,13 @@ def flash_stats_cases(results: dict, card: str, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
-def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float:
+def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20,
+            device_only: bool = False) -> float:
     """Median ms of torch's scaled_dot_product_attention on the live part of
     the stacked cache [L, B, H, C, Dh] (bf16 q, boolean causal mask),
-    rotating through the layers: the one PyTorch call for this function."""
+    rotating through the layers: the one PyTorch call for this function.
+    Timed around the call, or with ``device_only`` as a CUDA graph
+    (:func:`device_ms`)."""
     b, h, s, dh = q.shape
     c = min(int(pos.max()) + s, ck.shape[3])
     if ck.element_size() == 1:  # an e4m3 cache: SDPA on it cast to bf16, outside the timing
@@ -987,6 +1131,8 @@ def sdpa_ms(q, ck, cv, pos, scale: float, n_stack: int, reps: int = 20) -> float
 
     call(0)
     torch.cuda.synchronize()
+    if device_only:
+        return device_ms(call, lambda i: (i % n_stack,), n_stack)
     return statistics.median(_time_ms(call, lambda i: (i % n_stack,), reps))
 
 
@@ -1040,6 +1186,12 @@ def paged_kernel_case(results: dict, card: str, gen: torch.Generator,
         if dense_diff != 0.0:
             raise AssertionError(f"paged_flash_decode S={s}: differs from the dense kernel on "
                                  f"the gathered cache by {dense_diff}")
+        device_row(results["paged_flash_decode"][-1],
+                   f"paged_flash_decode {tag}B={b} H={h} S={s}",
+                   device_ms(fd.paged_flash_decode_attention,
+                             lambda i: (q, pk, pv, i % STACK_13B, pos, table, scale), STACK_13B),
+                   sdpa_ms(q, ck, cv, pos, scale, STACK_13B, device_only=True),
+                   "sdpa" + (" on the bf16 cache" if e4m3 else ""), card)
     del pk, pv, ck, cv
     torch.cuda.empty_cache()
 
@@ -2207,6 +2359,12 @@ def main() -> int:
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
+    sass = check_i8_prefill_sass(card)
+    if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
+        sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
+        phase_kernels(card, set(sections[0].split(",")) if sections else None)
+        phase("end (--only-kernels)")
+        return 0
     phase("kernels")
     kernel_results = phase_kernels(card)
     phase("probes")
@@ -2348,10 +2506,14 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            **{k: main_row[k] for k in DEVICE_KEYS if k in main_row},
             "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                                         "unpacked_ms", "max_diff_unpacked", "host_us") if k in r}
+                                         "unpacked_ms", "max_diff_unpacked", "host_us")
+                       + DEVICE_KEYS if k in r}
                       for r in rows],
         })
+        if name == "i8_prefill":
+            kernels[-1]["sass_opcodes"] = sass
     rows = kernel_results[STATS]
     main_row = next(r for r in rows if r["shape"] == "B=1 S=1 pos0=2015 slice 3")
     kernels.append({
@@ -2363,9 +2525,10 @@ def main() -> int:
         "merge_max_abs_err": max(r["merge_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
+        "shape": main_row["shape"], **{k: main_row[k] for k in DEVICE_KEYS},
         "cases": [{k: r[k] for k in ("shape", "ms", "normalized_ms", "plain_ms", "bound_ms",
-                                     "library_ms", "null_ml_bits_equal")} for r in rows],
+                                     "library_ms", "null_ml_bits_equal") + DEVICE_KEYS}
+                  for r in rows],
     })
     kernels += probe_kernel_entries(paths, probe)
     print(json.dumps({"kernels": kernels}), flush=True)

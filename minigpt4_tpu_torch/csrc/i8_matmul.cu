@@ -18,7 +18,7 @@
 // weights; the i32 dot products (__dp4a, 4 multiply-adds per instruction)
 // stay far below the instruction rate.  mgt_i8_prefill (M > 8): at the 512-row
 // bucket and the 257-row ViT chunk the s8 tensor-core rate (2 M N K
-// operations); at the 32-row Q-Former chunk the code stream again.
+// operations at 1979 TOP/s); at the 32-row Q-Former chunk the code stream.
 //
 // mgt_i8_decode.  A block owns 32 output columns (8 warps x 4); each half of
 // a warp owns 2 columns and walks their rows chunk by chunk in order.  A
@@ -30,21 +30,41 @@
 // x (at most 8 x K bytes) is read through the read-only cache.  No shared
 // memory, no atomics; results are deterministic.
 //
-// mgt_i8_prefill.  A block computes a 64 x 64 output tile with four warps of
-// 32 x 32.  Per 256-wide chunk it stages the 64 x 256 tiles of x and of the
-// codes in shared memory (rows padded to 272 bytes, so the fragment reads of
-// eight rows fall in distinct banks) and runs eight k-steps of
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (inline PTX).  That
-// instruction's accumulator layout is documented (PTX ISA, "Matrix Fragments
-// for mma.m16n8k32"): thread (group g = lane / 4, t = lane % 4) holds rows g
-// and g + 8, columns 2t and 2t + 1 of each 16 x 8 tile.  So after the
-// chunk's eight k-steps each thread knows the column of each of its exact
-// i32 values, multiplies by that column's chunk scale in registers, adds to
-// its f32 accumulators and clears the i32 fragment.  WMMA's s8 accumulator
-// fragments have an unspecified element layout: applying per-column scales
-// after every chunk would need a round trip through shared memory each
-// time, which is why this kernel uses mma.sync directly.  Later work: wgmma,
-// TMA and a multi-stage shared-memory ring.
+// mgt_i8_prefill. Warpgroup MMA over a TMA ring. A block of three warpgroups
+// computes a 128 x 128 output tile. One producer thread (the third
+// warpgroup, its registers given up with setmaxnreg) loads 128-byte K slices
+// of the x tile [128 rows] and of the code tile [128 columns] with TMA
+// (cp.async.bulk.tensor, 128-byte swizzle, out-of-bounds rows zero-filled,
+// so ragged M and N need no masking on the way in) into a ring of 4 stages
+// of 32 KB, each guarded by a full and an empty mbarrier. Two consumer
+// warpgroups each own 64 rows of the tile: per 256-wide chunk (two stages) a
+// consumer issues eight wgmma.mma_async.m64n128k32.s32.s8.s8 from the staged
+// tiles (both operands K-major, as integer wgmma requires and as x [M, K]
+// and codes [N, K] are stored), waits for them, releases the two stages, and
+// folds the chunk's exact i32 fragment into its f32 accumulator in
+// registers: the PTX ISA's m64nNk32 accumulator layout gives each thread
+// rows 16 w + g and g + 8, columns 8 j + 2 t and 8 j + 2 t + 1, so each
+// value meets its column's chunk scale (staged once per tile in shared
+// memory) there. The i32 -> f32 conversion is exact and runs at the FMA
+// rate: |chunk| <= 256 * 128 * 128 = 2^22, so the float of bits (v +
+// 0x4B400000) minus 1.5 * 2^23 is v. The next chunk's wgmma starts with its
+// accumulate flag off, which clears the fragment. While one consumer scales,
+// the other's wgmmas keep the tensor cores busy and the producer keeps the
+// ring full. A consumer whose 64 rows all lie past M issues no wgmma (the
+// 32-row Q-Former chunk). Tiles are ordered row tile
+// fastest, so the blocks that share a code tile run together and read it
+// from device memory once. The TMA descriptors are encoded on the host per
+// launch by libcuda's cuTensorMapEncodeTiled, found at run time through
+// cudaGetDriverEntryPoint (no link against libcuda). Later work: a persistent grid (the 13B w13 at M
+// = 512 is 6.5 waves of 132 tiles), a TMA store of the output, smaller tiles
+// where a grid leaves SMs idle (ViT-G fc2: 33 tiles), and a chunk's wgmmas
+// overlapping the previous chunk's scaling in the same warpgroup: two s32
+// fragments used in turn need 192 registers with the f32 accumulator, but
+// ptxas holds a 384-thread block to 168, spills and serializes the wgmmas
+// (measured slower), so that needs a narrower tile or a persistent layout.
+
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -127,121 +147,235 @@ void launch_decode(const void* x, const void* codes, const void* scales, void* y
 }
 
 // ---------------------------------------------------------------------------
-// prefill: M > 8, s8 tensor cores
+// prefill: M > 8, warpgroup MMA over a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int kPreBM = 64;
-constexpr int kPreBN = 64;
-constexpr int kPreThreads = 128;
-constexpr int kRow = kSB + 16;  // padded shared-memory row, bytes
+constexpr int kBM = 128;                       // tile rows (two consumers of 64)
+constexpr int kBN = 128;                       // tile columns
+constexpr int kBK = 128;                       // K bytes per stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kStageBytes = (kBM + kBN) * kBK;  // 32 KB
+constexpr int kConsumers = 2;
+constexpr int kPreThreads = (kConsumers + 1) * 128;
+constexpr int kMaxSmem = 232448;               // the H100's per-block limit
+static_assert(kSB == 2 * kBK, "a chunk is two stages");
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found once at run time
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
 }
 
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// a [rows, K] i8 matrix (K contiguous) in boxes of 128 rows x 128 bytes,
+// 128-byte swizzle, rows past the end read as zeros
+int make_map(CUtensorMap* map, const void* base, int rows, int K) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {kBK, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-__global__ void __launch_bounds__(kPreThreads)
-i8_prefill_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ codes,
-                  const float* __restrict__ scales, float* __restrict__ y, int M, int N, int K,
-                  int layer) {
-  __shared__ __align__(16) int8_t xs[kPreBM * kRow];  // [m][k]
-  __shared__ __align__(16) int8_t ws[kPreBN * kRow];  // [n][k]: column-major B
-  const int G = K / kSB;
-  codes += static_cast<size_t>(layer) * N * K;
-  scales += static_cast<size_t>(layer) * N * G;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane / 4, t4 = lane % 4;
-  const int m0 = blockIdx.y * kPreBM, n0 = blockIdx.x * kPreBN;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-
-  float acc[2][4][4];
-  int part[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const size_t k0 = static_cast<size_t>(g) * kSB;
-    // 64 rows x 256 bytes of each operand, 16 bytes per thread and pass
-    for (int i = tid; i < kPreBM * (kSB / 16); i += kPreThreads) {
-      const int r = i / (kSB / 16), c16 = i % (kSB / 16);
-      const int m = m0 + r, n = n0 + r;
-      int4 xv = make_int4(0, 0, 0, 0), wv = make_int4(0, 0, 0, 0);
-      if (m < M) xv = __ldg(reinterpret_cast<const int4*>(x + static_cast<size_t>(m) * K + k0) + c16);
-      if (n < N) wv = __ldg(reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K + k0) + c16);
-      *reinterpret_cast<int4*>(xs + r * kRow + 16 * c16) = xv;
-      *reinterpret_cast<int4*>(ws + r * kRow + 16 * c16) = wv;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) part[i][j][r] = 0;
-
-#pragma unroll
-    for (int kk = 0; kk < kSB; kk += 32) {
-      unsigned a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* row = xs + (wm + 16 * i + grp) * kRow + kk + 4 * t4;
-        a[i][0] = lds32(row);
-        a[i][1] = lds32(row + 8 * kRow);
-        a[i][2] = lds32(row + 16);
-        a[i][3] = lds32(row + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* col = ws + (wn + 8 * j + grp) * kRow + kk + 4 * t4;
-        b[j][0] = lds32(col);
-        b[j][1] = lds32(col + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(part[i][j], a[i], b[j]);
-    }
-
-    // the chunk's exact i32 values times their column's scale, in chunk order
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn + 8 * j + 2 * t4;
-      const float s0 = n < N ? __ldg(scales + static_cast<size_t>(n) * G + g) : 0.f;
-      const float s1 = n + 1 < N ? __ldg(scales + static_cast<size_t>(n + 1) * G + g) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        acc[i][j][0] += static_cast<float>(part[i][j][0]) * s0;
-        acc[i][j][1] += static_cast<float>(part[i][j][1]) * s1;
-        acc[i][j][2] += static_cast<float>(part[i][j][2]) * s0;
-        acc[i][j][3] += static_cast<float>(part[i][j][3]) * s1;
-      }
-    }
-    __syncthreads();  // the tiles are consumed
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
+}
 
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 -> s32; accumulate = 0 clears D
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void fence_fragment(uint32_t (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm + 16 * i + grp + (r >= 2 ? 8 : 0);
-        const int n = n0 + wn + 8 * j + 2 * t4 + (r & 1);
-        if (m < M && n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j][r];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// an exact i32 with |v| <= 2^22 as f32, on the FMA pipe
+__device__ __forceinline__ float small_i2f(uint32_t v) {
+  return __uint_as_float(v + 0x4B400000u) - 12582912.0f;
+}
+
+__global__ void __launch_bounds__(kPreThreads, 1)
+i8_prefill_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                  const float* __restrict__ scales, float* __restrict__ y, int M, int N, int K) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int G = K / kSB, n_steps = K / kBK;
+  unsigned char* a_s = smem;                             // [kStages][kBM][kBK]
+  unsigned char* b_s = smem + kStages * kBM * kBK;       // [kStages][kBN][kBK]
+  float* sc_s = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [G][kBN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc_s + G * kBN);
+  uint64_t* empty = full + kStages;
+
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers * 128) {
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, kStageBytes);
+        tma_load(a_s + s * kBM * kBK, &xmap, it * kBK, m0, full + s);
+        tma_load(b_s + s * kBN * kBK, &wmap, it * kBK, n0, full + s);
       }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // the tile's chunk scales, [G][kBN], 0 past N
+    for (int i = tid; i < G * kBN; i += kConsumers * 128) {
+      const int g = i / kBN, c = i % kBN;
+      sc_s[i] = n0 + c < N ? scales[static_cast<size_t>(n0 + c) * G + g] : 0.f;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+
+    const bool rows_live = m0 + 64 * wg < M;
+    const int warp = (tid % 128) / 32, lane = tid % 32, grp = lane / 4, t4 = lane % 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    if (!rows_live) {
+      // no row of this warpgroup lies below M: release the stages unread
+      for (int it = 0; it < n_steps; ++it) {
+        mbar_wait(full + it % kStages, (it / kStages) & 1);
+        mbar_arrive(empty + it % kStages);
+      }
+      return;
+    }
+    uint32_t d[64];  // the chunk's s32 fragment
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0u;
+    for (int g = 0; g < G; ++g) {
+      const int s0 = (2 * g) % kStages, s1 = (2 * g + 1) % kStages;
+      mbar_wait(full + s0, ((2 * g) / kStages) & 1);
+      mbar_wait(full + s1, ((2 * g + 1) / kStages) & 1);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = half ? s1 : s0;
+        const uint64_t da = smem_desc(a_s + s * kBM * kBK + wg * 64 * kBK);
+        const uint64_t db = smem_desc(b_s + s * kBN * kBK);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk)  // +32 bytes along K: +2 in the address field
+          wgmma_s8(d, da + 2 * kk, db + 2 * kk, half | kk);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_fragment(d);
+      mbar_arrive(empty + s0);
+      mbar_arrive(empty + s1);
+      // the chunk's exact i32 values times their column's scale, in chunk order
+      const float* sg = sc_s + g * kBN;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sg + 8 * j + 2 * t4);
+        acc[4 * j] = fmaf(small_i2f(d[4 * j]), s2.x, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(small_i2f(d[4 * j + 1]), s2.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(small_i2f(d[4 * j + 2]), s2.x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(small_i2f(d[4 * j + 3]), s2.y, acc[4 * j + 3]);
+      }
+    }
+    {
+      const int r0 = m0 + 64 * wg + 16 * warp + grp;
+      const bool pairs = (N & 1) == 0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + 8 * j + 2 * t4;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int m = r0 + 8 * hr;
+          if (m >= M || n >= N) continue;
+          float* dst = y + static_cast<size_t>(m) * N + n;
+          if (pairs) {
+            *reinterpret_cast<float2*>(dst) = make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+          } else {
+            dst[0] = acc[4 * j + 2 * hr];
+            if (n + 1 < N) dst[1] = acc[4 * j + 2 * hr + 1];
+          }
+        }
+      }
+    }
+  }
 }
 
 int check_args(int M, int N, int K, int layer) {
@@ -273,13 +407,25 @@ MGT_API int mgt_i8_decode(const void* x, const void* codes, const void* scales, 
 }
 
 // The same for any M >= 1 (the wrappers send M > 8 here) on the s8 tensor
-// cores.  Requires K % 256 == 0 and 16-byte aligned x and codes.
+// cores (wgmma).  Requires K % 256 == 0, K <= 49920 (the tile's chunk
+// scales in shared memory) and 16-byte aligned x and codes.
 MGT_API int mgt_i8_prefill(const void* x, const void* codes, const void* scales, void* y, int M,
                            int N, int K, int layer, void* stream) {
   if (const int rc = check_args(M, N, K, layer)) return rc;
-  const dim3 grid((N + kPreBN - 1) / kPreBN, (M + kPreBM - 1) / kPreBM);
-  i8_prefill_kernel<<<grid, kPreThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<float*>(y), M, N, K, layer);
+  const int G = K / kSB;
+  const int smem = 1024 + kStages * kStageBytes + G * kBN * 4 + 2 * kStages * 8;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  const int8_t* w = static_cast<const int8_t*>(codes) + static_cast<size_t>(layer) * N * K;
+  if (const int rc = make_map(&xmap, x, M, K)) return rc;
+  if (const int rc = make_map(&wmap, w, N, K)) return rc;
+  // once, for the largest ring and scale tile any K may need
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      i8_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  i8_prefill_kernel<<<grid, kPreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<const float*>(scales) + static_cast<size_t>(layer) * N * G,
+      static_cast<float*>(y), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

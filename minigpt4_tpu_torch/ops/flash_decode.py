@@ -20,6 +20,12 @@ live keys ``[0, pos0 + S)`` are read; keys past the cache end (paged: past
 128 W) are masked.  The cache is f32, bf16 or e4m3 (``torch.float8_e4m3fn``);
 both versions read an e4m3 element as the JAX kernel's ``_block_f32`` does
 (:func:`cache_f32`): subnormals flush to +-0 and 0x7F / 0xFF stay NaN.
+
+The kernel cuts each lane's live keys into ``KEY_TILE``-key tiles and
+splits them over ``n_splits`` blocks per (lane, head), whose partials it
+merges in split order in the same launch; :func:`split_plan` is that plan
+as a plain function and :func:`flash_decode_split_ref` the plain version of
+the split-then-merge arithmetic.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ from ..parallel.mesh import TPGroup, pmax, psum
 MAX_S = 32  # rows the kernel serves (models.llama.FLASH_DECODE_MAX_S)
 KERNEL_HEAD_DIMS = (64, 128)
 PAGE = 128  # positions per pool page, fixed in the paged kernel (csrc kPage)
+KEY_TILE = 64  # keys per staged tile (csrc kTile); divides PAGE
+MAX_SPLITS = 32  # key splits per (lane, head) the kernel takes (csrc kMaxSplits)
+# blocks per SM the split count aims at: one lane's splits all carry keys;
+# the lanes of a batch have other cursors, short lanes' blocks end early and
+# the card needs more blocks in flight
+WAVE_BLOCKS, RAGGED_WAVE_BLOCKS = 2, 8
 
 
 # cache element types the kernel takes, by its type code (csrc kF32, kBF16, kE4M3)
@@ -60,6 +72,77 @@ def _pos_vector(pos0, b: int, device) -> torch.Tensor:
     if isinstance(pos0, int):
         return torch.full((b,), pos0, dtype=torch.int32, device=device)
     return torch.tensor(list(pos0), dtype=torch.int32, device=device)
+
+
+def n_splits(capacity: int, b: int, h: int, sms: int) -> int:
+    """Key splits per (lane, head) for a launch over caches that hold
+    ``capacity`` keys per lane: enough blocks to give each of the ``sms``
+    SMs ``WAVE_BLOCKS`` of them (``RAGGED_WAVE_BLOCKS`` for a batch of
+    several lanes), at most one per tile and at most ``MAX_SPLITS``."""
+    tiles = max(1, -(-capacity // KEY_TILE))
+    per_sm = WAVE_BLOCKS if b == 1 else RAGGED_WAVE_BLOCKS
+    return max(1, min(tiles, MAX_SPLITS, per_sm * sms // (b * h)))
+
+
+def split_bounds(live: int, splits: int) -> list[tuple[int, int]]:
+    """The keys [k0, k1) of each of ``splits`` splits over a lane's ``live``
+    keys, as each block of the kernel finds them: split z takes the tiles
+    [z T / splits, (z + 1) T / splits) of the T live tiles (integer
+    division), clipped to ``live``; a split may be empty (k0 == k1)."""
+    live = max(0, live)
+    tiles = -(-live // KEY_TILE)
+    return [(min(z * tiles // splits * KEY_TILE, live),
+             min((z + 1) * tiles // splits * KEY_TILE, live)) for z in range(splits)]
+
+
+def split_plan(live: int, b: int, h: int, sms: int, capacity: int | None = None
+               ) -> list[tuple[int, int]]:
+    """The non-empty key ranges one (lane, head) block group works on: live
+    keys ``live`` (cursor + S, clipped to the cache), batch ``b``, heads
+    ``h``, ``sms`` SMs, caches of ``capacity`` keys per lane (default
+    ``live``).  Every boundary but the last is a multiple of KEY_TILE, the
+    ranges cover [0, live) in order, and a lane with no live key (a negative
+    cursor) gets none."""
+    splits = n_splits(live if capacity is None else capacity, b, h, sms)
+    return [(k0, k1) for k0, k1 in split_bounds(live, splits) if k1 > k0]
+
+
+def flash_decode_split_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: int,
+                           pos0, scale: float, splits: int, return_stats: bool = False):
+    """Plain version of the kernel's split-then-merge: per lane the partials
+    (m, l, acc) of each split of :func:`split_bounds` over its own live keys
+    (the neutral m = -inf, l = 0, acc = 0 where a split sees no visible key),
+    merged in split order as
+
+        m* = max_z m_z,  w_z = exp(m_z - m*),  l = sum_z w_z l_z,  acc = sum_z w_z acc_z
+
+    -> acc / l [B, H, S, Dh], or ``(acc, m*, l)`` with ``return_stats``."""
+    b, h, s, dh = q.shape
+    sc, visible, vs = _scores(q, ck, cv, li, pos0, scale)
+    pos = _pos_vector(pos0, b, q.device).long()
+    c = ck.shape[-2]
+    key = torch.arange(sc.shape[-1], device=q.device)
+    bounds = [split_bounds(min(int(p) + s, c), splits) for p in pos.tolist()]
+    parts = []
+    for z in range(splits):
+        lo = torch.tensor([bd[z][0] for bd in bounds], device=q.device)[:, None]
+        hi = torch.tensor([bd[z][1] for bd in bounds], device=q.device)[:, None]
+        inside = ((key[None, :] >= lo) & (key[None, :] < hi))[:, None, None, :]  # [B, 1, 1, keys]
+        vis = visible & inside
+        sz = sc.masked_fill(~vis, float("-inf"))
+        m = sz.amax(dim=-1) if sz.shape[-1] else sz.new_full(sz.shape[:-1], float("-inf"))
+        p = torch.where(vis, torch.exp(sz - m[..., None]), 0.0)
+        parts.append((p @ vs, m, p.sum(dim=-1)))
+    m_st = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    l_st = torch.zeros_like(m_st)
+    acc_st = torch.zeros_like(q, dtype=torch.float32)
+    for acc, m, l in parts:
+        w = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_st))
+        l_st = l_st + l * w
+        acc_st = acc_st + acc * w[..., None]
+    if return_stats:
+        return acc_st, m_st, l_st
+    return acc_st / l_st[..., None]
 
 
 def flash_decode_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, li: int,
@@ -107,6 +190,34 @@ def flash_decode_stats_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, 
     return p @ vs, m, p.sum(dim=-1)
 
 
+# per device index: [SM count, counters, partials]; the buffers grow as
+# launches need and are shared by every launch on the device's stream
+_work: dict = {}
+_held: list = []  # outgrown buffers: a captured CUDA graph may still use them
+
+
+def _split_args(device, b: int, h: int, s: int, dh: int, capacity: int):
+    """(splits, partials or None, counters or None) of one launch: the split
+    count of :func:`n_splits` for this card, f32 scratch for the splits'
+    partials and one i32 counter per (lane, head), zero between launches
+    (the kernel leaves them at 0)."""
+    w = _work.get(device.index)
+    if w is None:
+        w = _work[device.index] = [
+            torch.cuda.get_device_properties(device).multi_processor_count, None, None]
+    splits = n_splits(capacity, b, h, w[0])
+    if splits == 1:
+        return 1, None, None
+    n_part = b * h * splits * s * (dh + 2)
+    if w[1] is None or w[1].numel() < b * h:
+        _held.append(w[1])
+        w[1] = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=device)
+    if w[2] is None or w[2].numel() < n_part:
+        _held.append(w[2])
+        w[2] = torch.empty(max(n_part, 1 << 20), dtype=torch.float32, device=device)
+    return splits, w[2], w[1]
+
+
 def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int, pos0,
              heads: tuple) -> tuple[torch.Tensor, torch.Tensor]:
     """What both kernels refuse, raised before a launch; ``heads`` is the
@@ -140,6 +251,10 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: i
     return qf, pos
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            li: int, pos0, scale: float, return_stats: bool = False):
     """q [B, H, S, Dh] x cache [L, B, H, C, Dh] -> ctx [B, H, S, Dh] f32, or
@@ -157,10 +272,12 @@ def flash_decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     qf, pos = _checked("flash_decode", q, ck, cv, li, pos0, (ck.shape[2], ck.shape[4]))
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
     ml = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device) if return_stats else None
+    splits, work, cnt = _split_args(q.device, b, h, s, dh, ck.shape[3])
     rc = _build.load().mgt_flash_decode(
         qf.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        None if ml is None else ml.data_ptr(), b, h, s, ck.shape[3], dh, li, float(scale),
-        CACHE_TYPES[ck.dtype], ctypes.c_void_p(_build.stream_ptr(q.device)))
+        None if ml is None else ml.data_ptr(), _ptr(work), _ptr(cnt), b, h, s, ck.shape[3], dh,
+        li, splits, float(scale), CACHE_TYPES[ck.dtype],
+        ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode")
     if ml is None:
         flash_decode_attention.launches += 1
@@ -246,10 +363,12 @@ def paged_flash_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: 
                          f"int32 tensor on {q.device}, got {tuple(pt.shape)} {pt.dtype} "
                          f"on {pt.device}")
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    splits, work, cnt = _split_args(q.device, b, h, s, dh, pt.shape[1] * PAGE)
     rc = _build.load().mgt_flash_decode_paged(
         qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pos.data_ptr(), pt.data_ptr(),
-        out.data_ptr(), b, h, s, pool_k.shape[1], pt.shape[1], dh, li, float(scale),
-        CACHE_TYPES[pool_k.dtype], ctypes.c_void_p(_build.stream_ptr(q.device)))
+        out.data_ptr(), _ptr(work), _ptr(cnt), b, h, s, pool_k.shape[1], pt.shape[1], dh, li,
+        splits, float(scale), CACHE_TYPES[pool_k.dtype],
+        ctypes.c_void_p(_build.stream_ptr(q.device)))
     _build.check(rc, "mgt_flash_decode_paged")
     paged_flash_decode_attention.launches += 1
     return out

@@ -24,10 +24,14 @@ against the plain version, and the card.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -160,3 +164,23 @@ def record(tool: str, case: str, device: torch.device, *, m: int, elems: float,
            "card": card(device)}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def sass_opcodes(kernel: str) -> dict:
+    """{opcode: count} over the SASS of the built library's functions whose
+    name holds ``kernel`` (``cuobjdump -sass``; needs the CUDA toolkit)."""
+    from ..ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                         timeout=600, check=True).stdout
+    ops: collections.Counter = collections.Counter()
+    inside = False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            hit = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if hit:
+                ops[hit.group(1)] += 1
+    return dict(ops)

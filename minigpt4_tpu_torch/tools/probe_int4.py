@@ -23,17 +23,13 @@ Checks only:  python -m minigpt4_tpu_torch.tools.probe_int4 --device cpu --check
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import re
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-from ..ops import _build, probes
+from ..ops import probes
 from . import _harness as h
 
 TOOL = "probe_int4"
@@ -93,20 +89,8 @@ def run_mode(mode: str, n: int, k: int, m: int, gen, device, timed: bool) -> dic
 def sass_s4() -> dict:
     """The tensor-core instructions ptxas emitted for the s4 kernel, read
     from the built library with cuobjdump: {opcode: count}."""
-    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
-    lib = _build.build()
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                         timeout=600, check=True).stdout
-    ops: collections.Counter = collections.Counter()
-    inside = False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = "s4_mma_kernel" in line
-        elif inside:
-            hit = re.search(r"\b([IH]MMA[.\w]*)", line)
-            if hit:
-                ops[hit.group(1)] += 1
-    return dict(ops)
+    return {op: n for op, n in h.sass_opcodes("s4_mma_kernel").items()
+            if re.match(r"[IH]MMA", op)}
 
 
 def main(argv: list[str] | None = None) -> list[dict]:

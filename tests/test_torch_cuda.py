@@ -21,13 +21,15 @@ holds the TPU kernel to 1.2e-2 of the same f32 product).  i8_decode and
 i8_prefill form each 256-wide chunk's product as an exact i32 like
 qmatmul_i8sb_ref and sum the scaled chunks in chunk order (1e-5 and 1e-4
 of max|y|: only the f32 multiply-add rounding can differ).  The e4m3 cache
-reads through the same unpack in the kernels and in cache_f32 (1e-5
+reads as the same values in the kernels and in cache_f32 (1e-5
 absolute, as the other cache types).  A packed gq weight (p4, p5, p6) gives
 its unpacked twin's bits in every entry (max |d| = 0): the code reaches the
 same arithmetic as the same float.  A NaN past a lane's cursor is never read.
 The stats mode of flash decode (the partials of sequence parallelism) is
 held to its plain version like the normalized mode (1e-5), with exact
-zero partials where a row sees no key.  The probe kernels (ops/probes.py):
+zero partials where a row sees no key.  Flash decode split over several
+blocks (C = 2048) is held to the same bounds, and to the plain
+split-then-merge at the same split count.  The probe kernels (ops/probes.py):
 the dual-i8 q5_k matmul and every storage / strategy / width / layout of the
 dequantize-matvec are f32 sums in another order than their plain versions
 (1e-4 of max|y|); the integer dots, the s4 chunk-scaled dot (products and
@@ -213,6 +215,104 @@ def test_flash_decode_stats_negative_cursor_reads_nothing(cuda_device):
     acc, m, l = tfd.flash_decode_attention(q, ck, cv, 0, -600, 0.0884, return_stats=True)
     torch.cuda.synchronize()
     assert torch.isneginf(m).all() and (l == 0).all() and (acc == 0).all()
+
+
+# C = 2048 positions, so every lane's live keys reach several splits
+# (n_splits: 32 at B = 1, 16 at B = 4 for 4 heads on 132 SMs)
+SPLIT_FLASH_CASES = [(1, s, p) for s in (1, 8, 32) for p in (1000, 2015)]
+SPLIT_FLASH_CASES += [(4, s, [0, 127, 1000, 2015]) for s in (1, 8, 32)]
+
+
+def _split_cache(device, b, s, dh, cache_dtype, seed, c=2048):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device)
+
+    return rand(b, 4, s, dh), rand(2, b, 4, c, dh).to(cache_dtype), rand(2, b, 4, c, dh).to(cache_dtype)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
+@pytest.mark.parametrize("b,s,pos0", SPLIT_FLASH_CASES)
+def test_flash_decode_splits_match_plain(cuda_device, b, s, pos0, cache_dtype, dh):
+    """The kernel with its keys split over several blocks (merged in split
+    order in the same launch) against flash_decode_ref and the plain
+    split-then-merge at the same split count: 1e-5 absolute."""
+    q, ck, cv = _split_cache(cuda_device, b, s, dh, cache_dtype, seed=s + dh)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = tfd.n_splits(ck.shape[3], b, 4, sms)
+    assert splits > 1
+    before = tfd.flash_decode_attention.launches
+    got = tfd.flash_decode_attention(q, ck, cv, 1, pos0, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_attention.launches == before + 1
+    torch.testing.assert_close(got, tfd.flash_decode_ref(q, ck, cv, 1, pos0, dh ** -0.5),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, tfd.flash_decode_split_ref(q, ck, cv, 1, pos0, dh ** -0.5,
+                                                               splits), rtol=0, atol=1e-5)
+    # the counters are left at 0: a second launch gives the same bits
+    again = tfd.flash_decode_attention(q, ck, cv, 1, pos0, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
+@pytest.mark.parametrize("s,pos0", [(1, -5), (8, -3), (8, [-300, 100, 1500, 2015]),
+                                    (32, [-40, 0, 700, 2015])])
+def test_flash_decode_stats_with_splits(cuda_device, s, pos0, cache_dtype):
+    """Stats mode over several splits with negative cursors: m to 1e-5, l
+    and acc to 1e-5 of their maximum, the neutral partial where a row sees no
+    key, and the normalized launch = acc / l bit for bit."""
+    b = 1 if isinstance(pos0, int) else len(pos0)
+    q, ck, cv = _split_cache(cuda_device, b, s, 128, cache_dtype, seed=41 + s)
+    acc, m, l = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884, return_stats=True)
+    torch.cuda.synchronize()
+    wacc, wm, wl = tfd.flash_decode_stats_ref(q, ck, cv, 1, pos0, 0.0884)
+    empty = torch.isneginf(wm)
+    assert torch.equal(torch.isneginf(m), empty)
+    assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+    if (~empty).any():
+        torch.testing.assert_close(m[~empty], wm[~empty], rtol=0, atol=1e-5)
+        assert _rel(l, wl) <= 1e-5 and _rel(acc, wacc) <= 1e-5
+    if not empty.any():
+        norm = tfd.flash_decode_attention(q, ck, cv, 1, pos0, 0.0884)
+        assert torch.equal(norm, acc / l[..., None])
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("s", [1, 8, 32])
+@pytest.mark.parametrize("cache_dtype", CACHE_TYPES, ids=CACHE_IDS)
+def test_paged_flash_decode_splits_bit_equal_to_dense(cuda_device, dh, s, cache_dtype):
+    """Paged pools of 4 lanes x 16 pages + a trash page, table width 17
+    (2176 keys a lane, 16 splits): lane 3's cursor lies past its 16 pages, so
+    it reads the trash slot.  Against the plain version (1e-5) and the dense
+    kernel on the gathered cache (bits)."""
+    rng = np.random.default_rng(s + dh)
+    b, h, maxp = 4, 4, 16
+    n_pages = b * maxp
+    pk, pv = (torch.from_numpy(rng.normal(0, 1, (2, n_pages + 1, h, 128, dh)).astype(np.float32))
+              .to(cuda_device, cache_dtype) for _ in range(2))
+    table = np.full((b, maxp + 1), n_pages, np.int32)
+    table[:, :maxp] = rng.permutation(n_pages).reshape(b, maxp)
+    table = torch.from_numpy(table).to(cuda_device)
+    q = torch.from_numpy(rng.normal(0, 1, (b, h, s, dh)).astype(np.float32)).to(cuda_device)
+    pos = torch.tensor([0, 1000, 2015, 2100], dtype=torch.int32, device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert tfd.n_splits((maxp + 1) * 128, b, h, sms) > 1
+    scale = dh ** -0.5
+    before = tfd.paged_flash_decode_attention.launches
+    got = tfd.paged_flash_decode_attention(q, pk, pv, 1, pos, table, scale)
+    torch.cuda.synchronize()
+    assert tfd.paged_flash_decode_attention.launches == before + 1
+    torch.testing.assert_close(got, tfd.paged_flash_decode_ref(q, pk, pv, 1, pos, table, scale),
+                               rtol=0, atol=1e-5)
+    w = table.shape[1]
+    ck, cv = (p[:, table.long()].permute(0, 1, 3, 2, 4, 5).reshape(2, b, h, w * 128, dh)
+              .contiguous() for p in (pk, pv))
+    dense = tfd.flash_decode_attention(q, ck, cv, 1, pos, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
 
 
 def test_flash_stats_cpu_wrapper_counts_no_launch():
@@ -537,6 +637,35 @@ def test_i8_kernels_match_plain(cuda_device, m, stacked):
     y = ti8.qmatmul_i8sb(x.to(cuda_device), w, layer)
     assert _rel(y, ti8.qmatmul_i8sb(x, ti8.I8SBQuant(w.codes.cpu(), w.scales.cpu(), k),
                                     layer)) <= 1e-4
+
+
+I8_PREFILL_SHAPES = [(300, 256), (300, 768), (1408, 5120), (27648, 5120)]
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+@pytest.mark.parametrize("n,k", I8_PREFILL_SHAPES)
+@pytest.mark.parametrize("m", [9, 32, 64, 65, 257, 512])
+def test_i8_prefill_shapes_match_plain(cuda_device, m, n, k, stacked):
+    """The wgmma kernel at ragged M (a 128-row tile's second warpgroup empty
+    or partly filled) and N (300), the ViT-G and 13B widths: 1e-4 of
+    max|y| against qmatmul_i8sb_ref (exact i32 chunks, scaled in chunk
+    order)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m * 7 + n + k)
+    layers = 3 if stacked else 1
+    codes = torch.randint(-127, 128, (layers, n, k), generator=gen, device=cuda_device,
+                          dtype=torch.int8)
+    scales = 2.0 ** -13 * (0.5 + torch.rand((layers, n, k // 256), generator=gen,
+                                            device=cuda_device))
+    w = (ti8.I8SBQuant(codes, scales, k) if stacked
+         else ti8.I8SBQuant(codes[0], scales[0], k))
+    layer = 2 if stacked else None
+    x_i8 = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device, dtype=torch.int8)
+    before = ti8.i8_prefill.launches
+    got = ti8.i8_prefill(x_i8, w, layer)
+    torch.cuda.synchronize()
+    assert ti8.i8_prefill.launches == before + 1
+    assert _rel(got, ti8.qmatmul_i8sb_ref(x_i8, w, layer)) <= 1e-4
 
 
 def test_i8_refused_launches_raise(cuda_device):

@@ -70,3 +70,76 @@ def test_cache_tail_is_masked_not_refused(pos0, s):
     want = _numpy_attention(q, k, v, pos0, 0.125)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
+
+
+# ---------------------------------------------------------------------------
+# the kernel's key splits: the plan and the plain split-then-merge
+# ---------------------------------------------------------------------------
+
+SMS = 132  # NVIDIA H100 SXM
+
+
+@pytest.mark.parametrize("b,h", [(1, 32), (1, 40), (4, 32), (8, 40)])
+@pytest.mark.parametrize("live", [-5, 0, 1, 63, 64, 65, 241, 1000, 2047, 2048])
+def test_split_plan_covers_the_live_keys_in_tiles(live, b, h):
+    plan = tfd.split_plan(live, b, h, SMS, capacity=2048)
+    if live <= 0:  # a cursor before the first key: no split reads anything
+        assert plan == []
+        return
+    assert plan[0][0] == 0 and plan[-1][1] == live
+    assert all(k0 < k1 for k0, k1 in plan)
+    assert all(a[1] == b_[0] for a, b_ in zip(plan, plan[1:]))  # in order, no gap, no overlap
+    assert all(k0 % tfd.KEY_TILE == 0 for k0, _ in plan)
+    assert tfd.PAGE % tfd.KEY_TILE == 0  # a tile never straddles two pool pages
+    assert len(plan) <= tfd.n_splits(2048, b, h, SMS) <= tfd.MAX_SPLITS
+
+
+@pytest.mark.parametrize("capacity,b,h,want", [
+    (2048, 1, 32, 8),    # 256 blocks on 132 SMs, two each
+    (2048, 1, 40, 6),    # the 13B chat: 240 blocks
+    (2048, 4, 32, 8),    # ragged lanes: up to eight blocks per SM
+    (640, 8, 40, 3),     # an 8-lane serving group
+    (100, 1, 4, 2),      # never more splits than tiles
+    (2048, 32, 40, 1),   # 1280 (lane, head) pairs fill the card unsplit
+])
+def test_n_splits(capacity, b, h, want):
+    ns = tfd.n_splits(capacity, b, h, SMS)
+    assert ns == want
+    per_sm = tfd.WAVE_BLOCKS if b == 1 else tfd.RAGGED_WAVE_BLOCKS
+    assert b * h * ns <= per_sm * SMS or ns == 1
+
+
+SPLIT_CASES = [(1, 300), (8, 130), (32, 250), (1, [5, 400])]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("s,pos0", SPLIT_CASES)
+def test_split_merge_matches_plain_and_jax(s, pos0, cache_dtype, splits):
+    q, tk, tv, ck, cv = _inputs(s, pos0, cache_dtype, seed=s * 7 + splits)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    got = tfd.flash_decode_split_ref(torch.from_numpy(q), tk, tv, 1, pos0, scale, splits)
+    want = tfd.flash_decode_ref(torch.from_numpy(q), tk, tv, 1, pos0, scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+    jpos = jnp.asarray(pos0, jnp.int32)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), 1, jpos, scale))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+@pytest.mark.parametrize("s,pos0", [(8, -3), (1, [5, -40, 400]), (8, [-300, 0, 127]),
+                                    (32, 250)])
+def test_split_merge_stats_match_stats_ref(s, pos0, splits):
+    """The merged partials against flash_decode_stats_ref, signed cursors
+    included: the same m, l and acc (f32 sums regrouped), and exactly the
+    neutral m = -inf, l = 0, acc = 0 where a row sees no key."""
+    q, tk, tv, _, _ = _inputs(s, pos0, torch.float32, seed=11 + splits)
+    q = torch.from_numpy(q)
+    acc, m, l = tfd.flash_decode_split_ref(q, tk, tv, 1, pos0, 0.0884, splits, return_stats=True)
+    wacc, wm, wl = tfd.flash_decode_stats_ref(q, tk, tv, 1, pos0, 0.0884)
+    empty = torch.isneginf(wm)
+    assert torch.equal(torch.isneginf(m), empty)
+    assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+    torch.testing.assert_close(m[~empty], wm[~empty], rtol=0, atol=1e-6)
+    torch.testing.assert_close(l, wl, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(acc, wacc, rtol=1e-5, atol=1e-5)
