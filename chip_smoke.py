@@ -67,7 +67,10 @@ Phases (any failure exits nonzero before the last line):
                generate(limit=32), a timed 16-token decode chunk, a
                16-token chunk under torch.profiler (device busy time, idle
                share, the kernels with the most device time), a sampled
-               second turn.  The launch counts are set to 0 just before each
+               second turn, then the system prompt and image turn once more
+               from position 0 under torch.profiler (wall, device busy, idle
+               share, the quantized prefill kernels' device time: the
+               prefill's part of time to first token).  The launch counts are set to 0 just before each
                chat and read just after: the 13B chat must launch the five
                kernels of the chat path, the 7B chat the three exact-plane and
                flash kernels, and neither a packed entry; a' the packed p5 and
@@ -123,9 +126,18 @@ Phases (any failure exits nonzero before the last line):
                time (a CUDA graph of 20 launches replayed between events, so
                the wrapper's host work is left out), with SDPA's and
                torch._int_mm's device-only time beside them, the share of
-               the bound and the factor against the library.  Before phase
-               3 the SASS opcode counts of i8_prefill_kernel (cuobjdump) are
-               printed; they must hold warpgroup MMA and TMA loads.
+               the bound and the factor against the library.  Every row of
+               the quantized prefill kernel (gq_prefill, gq_prefill_generic,
+               their packed entries, rq_prefill: wgmma with the weight in
+               registers, csrc/qmm_prefill.cuh) gets a device-only time too,
+               beside the dense yardstick "dense bf16, same shape" (torch.
+               matmul of bf16 x with the weight dequantized to bf16 once,
+               outside the timing), which is the row's library time; the 13B
+               w13 q5_k rows cover the chat's buckets (M = 32, 64, 128, 256,
+               512), the q6_k w2 rows M = 256 and 512.  Before phase 3 the
+               SASS opcode counts of i8_prefill_kernel and qmm_prefill_kernel
+               (cuobjdump) are printed; both must hold warpgroup MMA and TMA
+               loads.
                `python3 chip_smoke.py --only-kernels [flash,i8,...]` runs
                phases 1-3 alone (sections of KERNEL_SECTIONS) and prints no
                result line.
@@ -282,8 +294,9 @@ def profile_window(fn, sync) -> dict:
     """One call of ``fn`` under torch.profiler (host and device activity):
     wall ms, device busy ms (the union of the device activity intervals),
     the idle share, the number of device activities, the three names with
-    the most device time, the device time of the flash decode kernels, and
-    the host time inside collectives (the union
+    the most device time, the device time of the flash decode kernels and of
+    the quantized prefill kernels (qmm_prefill_kernel and its x pre-pass),
+    and the host time inside collectives (the union
     of the intervals of the host activities named all_reduce / allreduce,
     0 outside tensor parallelism).  The profiler slows the host, so the idle
     share is an upper estimate."""
@@ -317,15 +330,18 @@ def profile_window(fn, sync) -> dict:
             coll += f - max(s, end)
             end = f
     flash = sum(ms for n, ms in per_name.items() if "flash_decode_kernel" in n)
+    prefill = sum(ms for n, ms in per_name.items()
+                  if "qmm_prefill_kernel" in n or "prefill_x_kernel" in n)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
                 top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3,
-                flash_ms=flash)
+                flash_ms=flash, prefill_ms=prefill)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
     log(f"{label} profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
         f"idle {100 * prof['idle']:.0f} %, {prof['device_ops']} device activities; most device "
-        f"time: {prof['top']}; flash decode {prof['flash_ms']:.2f} ms  [{card}]")
+        f"time: {prof['top']}; flash decode {prof['flash_ms']:.2f} ms; quantized prefill "
+        f"{prof['prefill_ms']:.2f} ms  [{card}]")
 
 
 def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float]:
@@ -368,20 +384,29 @@ def device_row(row: dict, label: str, dev_ms: float, lib_dev_ms, lib_name: str,
         f"its {row['bound_ms']:.4f} ms bound, {row['bound_by']})  {lib}  [{card}]")
 
 
-def check_i8_prefill_sass(card: str) -> dict:
-    """The opcodes of i8_prefill_kernel: fails unless they hold warpgroup MMA
-    (xGMMA) and TMA loads (UTMALDG)."""
+# the kernels that must run on warpgroup MMA (xGMMA in their SASS) fed by TMA
+# (UTMALDG): the s8 i8_prefill_kernel and the bf16 qmm_prefill_kernel (every
+# plane and code source, every token tile)
+WGMMA_KERNELS = ("i8_prefill_kernel", "qmm_prefill_kernel")
+
+
+def check_wgmma_sass(card: str) -> dict:
+    """The opcodes of each kernel of WGMMA_KERNELS: fails unless they hold
+    warpgroup MMA (xGMMA) and TMA loads (UTMALDG)."""
     from minigpt4_tpu_torch.tools import _harness
 
-    ops = _harness.sass_opcodes("i8_prefill_kernel")
-    log(f"[sass] i8_prefill_kernel opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
-    gmma = {k: v for k, v in ops.items() if "GMMA" in k}
-    tma = {k: v for k, v in ops.items() if k.startswith("UTMALDG")}
-    log(f"[sass] i8_prefill_kernel warpgroup MMA {gmma}, TMA loads {tma}")
-    if not gmma or not tma:
-        raise AssertionError(f"i8_prefill_kernel: no warpgroup MMA ({gmma}) or no TMA load "
-                             f"({tma}) in its SASS")
-    return ops
+    out = {}
+    for kernel in WGMMA_KERNELS:
+        ops = _harness.sass_opcodes(kernel)
+        log(f"[sass] {kernel} opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
+        gmma = {k: v for k, v in ops.items() if "GMMA" in k}
+        tma = {k: v for k, v in ops.items() if k.startswith("UTMALDG")}
+        log(f"[sass] {kernel} warpgroup MMA {gmma}, TMA loads {tma}")
+        if not gmma or not tma:
+            raise AssertionError(f"{kernel}: no warpgroup MMA ({gmma}) or no TMA load ({tma}) "
+                                 "in its SASS")
+        out[kernel] = ops
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +506,27 @@ def sdpa_mask(pos: torch.Tensor, s: int, c: int) -> torch.Tensor:
     return (torch.arange(c, device=pos.device) <= q_pos[..., None])[:, None]
 
 
+def prefill_device_row(row: dict, label: str, kern, w, x: torch.Tensor, n_stack: int,
+                       dense_w: torch.Tensor, card: str) -> None:
+    """A prefill row's device-only time (CUDA graph, rotating through the
+    stacked layers) beside the dense yardstick: torch.matmul of bf16 x with
+    ``dense_w``, the weight dequantized to bf16 once (outside the timing;
+    copies of it rotate so it is not L2-resident), timed around the call
+    (the row's library_ms) and device-only."""
+    from minigpt4_tpu_torch.tools import _harness
+
+    xb = x.to(torch.bfloat16)
+    copies = _harness.rotation((dense_w,), dense_w.numel() * dense_w.element_size())
+    dense = lambda a, b: a @ b.t()  # noqa: E731
+    torch.cuda.synchronize()
+    row["library_ms"] = statistics.median(
+        _time_ms(dense, lambda i: (xb, copies[i % len(copies)][0]), 10))
+    device_row(row, label, device_ms(kern, lambda i: (x, w, i % n_stack), n_stack),
+               device_ms(dense, lambda i: (xb, copies[i % len(copies)][0]), len(copies)),
+               "dense bf16, same shape", card)
+    del copies
+
+
 def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
     """Each M of ``ms`` through the weight's decode or prefill kernel against
     its plain version, timed rotating through the stacked layers (so the code
@@ -511,6 +557,10 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             f"  bound {b_ms:.4f} ms ({b_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        if not decode:
+            prefill_device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} "
+                               f"M={m}", kern, w, x, n_stack,
+                               w.layer(last).dequantize().to(torch.bfloat16), card)
 
 
 # packed-code cases, (name, (N, K), format, stacked layers, row counts), at
@@ -594,6 +644,10 @@ def check_packed(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             raise AssertionError(f"{key} {name} M={m}: packed and unpacked differ by {diff}")
         if not err <= tol:
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        if not decode:
+            prefill_device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} "
+                               f"M={m}", kern, wp, x, n_stack,
+                               w.layer(last).dequantize().to(torch.bfloat16), card)
     del wp
 
 
@@ -706,6 +760,10 @@ def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> N
         if not decode and not same_err <= RQ_PREFILL_SAME_ROUNDING_TOL:
             raise AssertionError(f"{key} {name} M={m}: rel err {same_err} against the "
                                  f"bf16-rounding plain version > {RQ_PREFILL_SAME_ROUNDING_TOL}")
+        if not decode:
+            prefill_device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} "
+                               f"M={m}", kern, w, x, n_stack,
+                               w.layer(last).dequantize().to(torch.bfloat16), card)
 
 
 def phase_rq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
@@ -726,7 +784,7 @@ def phase_rq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
     # gq beside them: the exact-plane kernels at the 13B w13 and ViT fc2
     # shapes (gq's q6_k output row is in the generic rows above)
-    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (1, 512)),
+    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (1, 32, 64, 128, 256, 512)),
                                     ("fc2", (1408, 6144), STACK_VIT, (257,))):
         w = random_gq(stack, n, k, gen)
         check_matmul(results, card, name, w, stack, ms, gen)
@@ -952,7 +1010,7 @@ def phase_gq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
     d, ff = 5120, 13824
     for name, (n, k), dtype, ms in (("output", (v, d), DataType.Q6_K, (1, 8)),
                                     ("wv", (d, d), DataType.Q6_K, (1, 8)),
-                                    ("w2", (d, ff), DataType.Q6_K, (1, 8, 32, 512)),
+                                    ("w2", (d, ff), DataType.Q6_K, (1, 8, 32, 256, 512)),
                                     ("w13", (2 * ff, d), DataType.Q8_0, (1, 512))):
         w = random_generic(STACK_13B, n, k, dtype, gen)
         check_matmul(results, card, name, w, STACK_13B, ms, gen)
@@ -1638,14 +1696,27 @@ def chat_on(eng, label: str, card: str) -> dict:
     ids2 = eng._st.tokens[before:]
     if eng._st.logits is not None and not bool(torch.isfinite(eng._st.logits).all()):
         raise AssertionError("decode logits are not finite")
+    # the same system prompt and image turn once more, from position 0,
+    # profiled: how the prefill of time to first token splits
+    eng.reset()
+
+    def prefill():
+        eng.system_prompt()
+        eng.begin_chat_image(emb, "What is in this picture?")
+
+    prefill_prof = profile_window(prefill, sync)
+    log_profile(f"[engine {label}] the system prompt and image turn ({eng.n_past} positions)",
+                prefill_prof, card)
+    if not bool(torch.isfinite(eng._st.logits).all()):
+        raise AssertionError("the profiled prefill's logits are not finite")
     if not ids or not all(0 <= t < n_vocab for t in ids + ids2):
         raise AssertionError(f"token ids out of range: {ids} {ids2}")
     log(f"[engine {label}] prompt {n_prompt} positions; greedy {len(ids)} tokens {ids[:12]}...; "
         f"sampled turn {len(ids2)} tokens; text {''.join(text)[:60]!r} / {''.join(text2)[:30]!r}")
     return dict(encode_ms=t_encode * 1e3, prefill_ms=t_prefill * 1e3, prompt=n_prompt,
                 decode_ms=t_decode * 1e3, n_decoded=len(ids), decode_tok_s=len(ids) / t_decode,
-                step_ms=step_ms, matmuls_per_token=per_token, profile=prof, greedy_ids=ids,
-                prefill_logits=logits.cpu().numpy())
+                step_ms=step_ms, matmuls_per_token=per_token, profile=prof,
+                prefill_profile=prefill_prof, greedy_ids=ids, prefill_logits=logits.cpu().numpy())
 
 
 # the q5_1 container's embedding against the same weights dequantized to
@@ -2359,7 +2430,7 @@ def main() -> int:
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
-    sass = check_i8_prefill_sass(card)
+    sass = check_wgmma_sass(card)
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
         sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
         phase_kernels(card, set(sections[0].split(",")) if sections else None)
@@ -2439,7 +2510,7 @@ def main() -> int:
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
                       "w13 22016x4096 M=1"),
         "gq_prefill": ("minigpt4_tpu_torch/csrc/gq_prefill.cu", "minigpt4_tpu/ops/group_i8.py:736",
-                       "w13 22016x4096 M=512"),
+                       "w13 27648x5120 M=512"),
         "gq_decode_generic": ("minigpt4_tpu_torch/csrc/gq_decode.cu",
                               "minigpt4_tpu/ops/group_i8.py:550", "output 32000x5120 M=1"),
         "gq_prefill_generic": ("minigpt4_tpu_torch/csrc/gq_prefill.cu",
@@ -2513,7 +2584,9 @@ def main() -> int:
                       for r in rows],
         })
         if name == "i8_prefill":
-            kernels[-1]["sass_opcodes"] = sass
+            kernels[-1]["sass_opcodes"] = sass["i8_prefill_kernel"]
+        if name in ("gq_prefill", "gq_prefill_generic", "rq_prefill"):
+            kernels[-1]["sass_opcodes"] = sass["qmm_prefill_kernel"]
     rows = kernel_results[STATS]
     main_row = next(r for r in rows if r["shape"] == "B=1 S=1 pos0=2015 slice 3")
     kernels.append({

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,7 +58,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Codes of a quantized weight, read in runs of 16 consecutive codes of one
-// row that start at a multiple of 16 (qmm_decode.cuh, qmm_prefill.cuh).
+// row that start at a multiple of 16 (qmm_decode.cuh; qmm_prefill.cuh stages
+// the same layouts through its StepCodes).
 // load(n, k, K) returns the run at row n, column k; value(run, j) is its j-th
 // code as float; a value-initialised Run holds zeros.
 //
@@ -142,11 +144,31 @@ int with_gq_codes(const void* codes, const void* hi, int hi_bits, int layer, Run
   return invalid;
 }
 
+// The 4-byte word holding the element at p, copied to shared memory by
+// cp.async (zeros when !ok); element_shift(p) is its bit offset in the word.
+__device__ __forceinline__ void cp_async_word(uint32_t* dst, const void* p, bool ok) {
+  const auto word = reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(3);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(word), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ int element_shift(const void* p) {
+  return 8 * static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+}
+__device__ __forceinline__ float bf16_word_half(uint32_t w, const void* p) {
+  return __uint_as_float(((w >> element_shift(p)) & 0xffffu) << 16);
+}
+
 // Per-group planes of a group-quant weight, W[n, k] = A[g, n] * q[n, k] + B[g, n]
 // with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32; T is the type a
 // kernel keeps staged planes in (f32 for exact planes, bf16 for generic ones,
 // so neither loses a bit).  kRowMajor says whether a plane is stored [N, G]
 // (true) or [G, N]; the decode kernel stages it in the order of its rows.
+// The prefill kernel stages a 64-wide K step's planes of 128 rows (n0 ..)
+// by cp.async, per (group gl of the step, row r) the words that hold its
+// elements ([64 / kGS][128][kWords]; stage(), all threads), and forms (A, B)
+// from them with staged_ab(): the same floats fetch() gives, zeros past N.
 //
 // Exact q4_k/q5_k planes (group_i8._kernel_exact): u8 sub-scales sc6/mn6
 // [L, K/32, N] and f32 superblock scales d/dmin [L, K/256, N];
@@ -171,6 +193,28 @@ struct ExactPlanes {
     const size_t gi = static_cast<size_t>(g) * N + n, si = static_cast<size_t>(g / 8) * N + n;
     return make_float2(d[si] * static_cast<float>(sc6[gi]), -dmin[si] * static_cast<float>(mn6[gi]));
   }
+  static constexpr int kWords = 4;
+  __device__ __forceinline__ void stage(uint32_t* dst, int step, int n0, int N, int tid,
+                                        int nth) const {
+    for (int c = tid; c < 2 * 128; c += nth) {
+      const int g = 2 * step + c / 128, n = n0 + c % 128;
+      const bool ok = n < N;
+      const size_t gi = ok ? static_cast<size_t>(g) * N + n : 0;
+      const size_t si = ok ? static_cast<size_t>(g / 8) * N + n : 0;
+      cp_async_word(dst + 4 * c, sc6 + gi, ok);
+      cp_async_word(dst + 4 * c + 1, mn6 + gi, ok);
+      cp_async_word(dst + 4 * c + 2, d + si, ok);
+      cp_async_word(dst + 4 * c + 3, dmin + si, ok);
+    }
+  }
+  __device__ __forceinline__ float2 staged_ab(const uint32_t* st, int step, int gl, int r, int n0,
+                                              int N) const {
+    const uint32_t* w = st + 4 * (gl * 128 + r);
+    const size_t gi = static_cast<size_t>(2 * step + gl) * N + n0 + r;
+    const float sc = static_cast<float>((w[0] >> element_shift(sc6 + gi)) & 0xffu);
+    const float mn = static_cast<float>((w[1] >> element_shift(mn6 + gi)) & 0xffu);
+    return make_float2(__uint_as_float(w[2]) * sc, -__uint_as_float(w[3]) * mn);
+  }
 };
 
 // Generic planes (group_i8._kernel_generic): bf16 A and B [L, K/GS, N].
@@ -191,6 +235,144 @@ struct GenericPlanes {
     const size_t gi = static_cast<size_t>(g) * N + n;
     return make_float2(__bfloat162float(a[gi]), __bfloat162float(b[gi]));
   }
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ void stage(uint32_t* dst, int step, int n0, int N, int tid,
+                                        int nth) const {
+    for (int c = tid; c < 64 / GS * 128; c += nth) {
+      const int g = step * (64 / GS) + c / 128, n = n0 + c % 128;
+      const bool ok = n < N;
+      const size_t gi = ok ? static_cast<size_t>(g) * N + n : 0;
+      cp_async_word(dst + 2 * c, a + gi, ok);
+      cp_async_word(dst + 2 * c + 1, b + gi, ok);
+    }
+  }
+  __device__ __forceinline__ float2 staged_ab(const uint32_t* st, int step, int gl, int r, int n0,
+                                              int N) const {
+    const uint32_t* w = st + 2 * (gl * 128 + r);
+    const size_t gi = static_cast<size_t>(step * (64 / GS) + gl) * N + n0 + r;
+    return make_float2(bf16_word_half(w[0], a + gi), bf16_word_half(w[1], b + gi));
+  }
 };
+
+// ---------------------------------------------------------------------------
+// Hopper: TMA, mbarriers and warpgroup MMA (i8_matmul.cu, qmm_prefill.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSmem = 232448;  // the H100's per-block shared-memory limit
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found once at run time (no link against
+// libcuda)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// a [rows, cols] matrix of elem_bytes-wide elements (cols contiguous) in
+// boxes of box_rows x box_cols elements, 128-byte swizzle (box_cols *
+// elem_bytes must be 128) or none; rows and columns past the end read as zeros
+inline int make_tma_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                       int elem_bytes, int rows, int cols, int box_cols, int box_rows,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA: the box at (col, row) of map into dst, completing bytes on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart; +2 moves the start 32
+// bytes along K
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of a wgmma fragment across this point
+template <int R>
+__device__ __forceinline__ void fence_fragment(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_fragment(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 }  // namespace mgt

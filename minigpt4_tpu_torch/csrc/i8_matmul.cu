@@ -63,8 +63,6 @@
 // ptxas holds a 384-thread block to 168, spills and serializes the wgmmas
 // (measured slower), so that needs a narrower tile or a persistent layout.
 
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -157,91 +155,21 @@ constexpr int kStages = 4;
 constexpr int kStageBytes = (kBM + kBN) * kBK;  // 32 KB
 constexpr int kConsumers = 2;
 constexpr int kPreThreads = (kConsumers + 1) * 128;
-constexpr int kMaxSmem = 232448;               // the H100's per-block limit
 static_assert(kSB == 2 * kBK, "a chunk is two stages");
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using mgt::fence_fragment;
+using mgt::kMaxSmem;
+using mgt::mbar_arrive;
+using mgt::mbar_expect_tx;
+using mgt::mbar_init;
+using mgt::mbar_wait;
+using mgt::smem_desc;
+using mgt::smem_u32;
+using mgt::tma_load;
 
-// cuTensorMapEncodeTiled of libcuda, found once at run time
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                : nullptr;
-  }();
-  return fn;
-}
-
-// a [rows, K] i8 matrix (K contiguous) in boxes of 128 rows x 128 bytes,
-// 128-byte swizzle, rows past the end read as zeros
+// a [rows, K] i8 matrix (K contiguous) in boxes of 128 rows x 128 bytes
 int make_map(CUtensorMap* map, const void* base, int rows, int K) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {kBK, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k, int row,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
-      : "memory");
-}
-
-// shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
+  return mgt::make_tma_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K, kBK, 128);
 }
 
 // D[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 -> s32; accumulate = 0 clears D
@@ -253,11 +181,6 @@ __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da, uint64_
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void fence_fragment(uint32_t (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // an exact i32 with |v| <= 2^22 as f32, on the FMA pipe
@@ -329,7 +252,7 @@ i8_prefill_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
       const int s0 = (2 * g) % kStages, s1 = (2 * g + 1) % kStages;
       mbar_wait(full + s0, ((2 * g) / kStages) & 1);
       mbar_wait(full + s1, ((2 * g + 1) / kStages) & 1);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      mgt::wgmma_fence();
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int s = half ? s1 : s0;
@@ -339,8 +262,8 @@ i8_prefill_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
         for (int kk = 0; kk < kBK / 32; ++kk)  // +32 bytes along K: +2 in the address field
           wgmma_s8(d, da + 2 * kk, db + 2 * kk, half | kk);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      mgt::wgmma_commit();
+      mgt::wgmma_wait_all();
       fence_fragment(d);
       mbar_arrive(empty + s0);
       mbar_arrive(empty + s1);

@@ -62,28 +62,48 @@ struct RowPlanes {
     const size_t gi = static_cast<size_t>(n) * G + g;
     return make_float2(__bfloat162float(scales[gi]), -__bfloat162float(mins[gi]));
   }
+  static constexpr int kWords = 2;
+  // a K tail (K % 64 == 32) leaves the step's last groups past K: zeros
+  __device__ __forceinline__ void stage(uint32_t* dst, int step, int n0, int N, int tid,
+                                        int nth) const {
+    for (int c = tid; c < 64 / GS * 128; c += nth) {
+      const int g = step * (64 / GS) + c / 128, n = n0 + c % 128;
+      const bool ok = n < N && g < G;
+      const size_t gi = ok ? static_cast<size_t>(n) * G + g : 0;
+      mgt::cp_async_word(dst + 2 * c, scales + gi, ok);
+      mgt::cp_async_word(dst + 2 * c + 1, mins + gi, ok);
+    }
+  }
+  __device__ __forceinline__ float2 staged_ab(const uint32_t* st, int step, int gl, int r, int n0,
+                                              int N) const {
+    const uint32_t* w = st + 2 * (gl * 128 + r);
+    const size_t gi = static_cast<size_t>(n0 + r) * G + step * (64 / GS) + gl;
+    return make_float2(mgt::bf16_word_half(w[0], scales + gi),
+                       -mgt::bf16_word_half(w[1], mins + gi));
+  }
 };
 
+// pre: the prefill kernel's workspace (mgt_rq_prefill), null for the decode kernel
 template <int GS, class C>
-int run(bool prefill, const void* x, const C& codes, const void* scales, const void* mins,
-        void* y, int M, int N, int K, int layer, void* stream) {
+int run(const mgt::PrefillArgs* pre, const void* x, const C& codes, const void* scales,
+        const void* mins, void* y, int M, int N, int K, int layer, void* stream) {
   const RowPlanes<GS> planes{static_cast<const __nv_bfloat16*>(scales),
                              static_cast<const __nv_bfloat16*>(mins), K / GS};
-  return prefill ? mgt::qmm_prefill(x, codes, planes, y, M, N, K, layer, stream)
-                 : mgt::qmm_decode(x, codes, planes, y, M, N, K, layer, stream);
+  return pre ? mgt::qmm_prefill(x, codes, planes, y, M, N, K, layer, *pre, stream)
+             : mgt::qmm_decode(x, codes, planes, y, M, N, K, layer, stream);
 }
 
 // The layouts of ops/repack.py's _LAYOUT: q8_0 (8, 0, 32); q4_0, q4_1, q4_k
 // (4, 0, 32); q2_k, q3_k (4, 0, 16); q5_0, q5_1, q5_k (4, 1, 32); q6_k (4, 2, 16).
-int dispatch(bool prefill, const void* x, const void* codes, const void* hi, const void* scales,
-             const void* mins, void* y, int M, int N, int K, int gs, int code_bits, int hi_bits,
-             int layer, void* stream) {
+int dispatch(const mgt::PrefillArgs* pre, const void* x, const void* codes, const void* hi,
+             const void* scales, const void* mins, void* y, int M, int N, int K, int gs,
+             int code_bits, int hi_bits, int layer, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (K <= 0 || K % 32 || layer < 0 || (hi_bits != 0) != (hi != nullptr)) return invalid;
   const auto* c8 = static_cast<const uint8_t*>(codes);
   const auto* h = static_cast<const uint32_t*>(hi);
   const auto args = [&](auto gs_tag, const auto& c) {
-    return run<decltype(gs_tag)::value>(prefill, x, c, scales, mins, y, M, N, K, layer, stream);
+    return run<decltype(gs_tag)::value>(pre, x, c, scales, mins, y, M, N, K, layer, stream);
   };
   using G16 = std::integral_constant<int, 16>;
   using G32 = std::integral_constant<int, 32>;
@@ -106,15 +126,18 @@ int dispatch(bool prefill, const void* x, const void* codes, const void* hi, con
 MGT_API int mgt_rq_decode(const void* x, const void* codes, const void* hi, const void* scales,
                           const void* mins, void* y, int M, int N, int K, int gs, int code_bits,
                           int hi_bits, int layer, void* stream) {
-  return dispatch(false, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
+  return dispatch(nullptr, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
                   stream);
 }
 
 // The same for M >= 1 rows (the wrappers send M > 8 here) on the tensor
-// cores.
+// cores (bf16 wgmma); xb, ws, cnt, bt and splits are qmm_prefill.cuh's
+// mgt::PrefillArgs.
 MGT_API int mgt_rq_prefill(const void* x, const void* codes, const void* hi, const void* scales,
                            const void* mins, void* y, int M, int N, int K, int gs, int code_bits,
-                           int hi_bits, int layer, void* stream) {
-  return dispatch(true, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
+                           int hi_bits, int layer, void* xb, void* ws, void* cnt, int bt,
+                           int splits, void* stream) {
+  const mgt::PrefillArgs pa{xb, ws, cnt, bt, splits};
+  return dispatch(&pa, x, codes, hi, scales, mins, y, M, N, K, gs, code_bits, hi_bits, layer,
                   stream);
 }

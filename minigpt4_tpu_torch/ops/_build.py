@@ -37,13 +37,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # passed without them)
 SIGNATURES = {
     "mgt_gq_decode": (_P,) * 8 + (_I,) * 5 + (_P,),
-    "mgt_gq_prefill": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "mgt_gq_prefill": (_P,) * 8 + (_I,) * 5 + (_P,) * 3 + (_I,) * 2 + (_P,),
     "mgt_gq_decode_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "mgt_gq_prefill_generic": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "mgt_gq_prefill_generic": (_P,) * 6 + (_I,) * 6 + (_P,) * 3 + (_I,) * 2 + (_P,),
     "mgt_flash_decode": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     "mgt_flash_decode_paged": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
     "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),
-    "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,) * 3 + (_I,) * 2 + (_P,),
     "mgt_i8_decode": (_P,) * 4 + (_I,) * 4 + (_P,),
     "mgt_i8_prefill": (_P,) * 4 + (_I,) * 4 + (_P,),
     "mgt_probe_group_i8": (_P,) * 8 + (_I,) * 4 + (_P,),

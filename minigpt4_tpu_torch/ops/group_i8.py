@@ -43,7 +43,8 @@ Four hand-written CUDA kernels compute ``x @ W.T``:
   at most ``GQ_MAX_M`` rows, with x in f32;
 * :func:`gq_prefill` / :func:`gq_prefill_generic` (``csrc/gq_prefill.cu``)
   for more rows, with x and the dequantized W rounded to bf16 and f32
-  accumulation.
+  accumulation on the tensor cores (``csrc/qmm_prefill.cuh``, its launch plan
+  and workspace in :mod:`.qmm_prefill`).
 
 Each entry takes the weight's code storage as ``hi_bits`` (-1 for i8
 codes, else the packing's high bits per code): a packed code reaches the
@@ -67,7 +68,7 @@ import numpy as np
 import torch
 
 from ..formats import DataType
-from . import _build
+from . import _build, qmm_prefill
 
 J = 8  # groups per chunk; K must be a multiple of J * group_size
 EXACT_PLANE = frozenset({DataType.Q4_K, DataType.Q5_K})
@@ -500,9 +501,12 @@ def _launch(name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
         planes, gs = (w.sc6, w.mn6, w.d, w.dmin), ()
     else:
         planes, gs = (w.a, w.b), (w.group_size,)
+    _xb, pre = None, ()  # _xb: the bf16 x the launch reads, alive until queued
+    if name.startswith("gq_prefill"):  # the workspace of csrc/qmm_prefill.cuh
+        _xb, pre = qmm_prefill.launch_args(x, n)
     rc = fn(x.data_ptr(), w.codes.data_ptr(), None if w.hi is None else w.hi.data_ptr(),
             *(t.data_ptr() for t in planes), y.data_ptr(), m, n, k, *gs,
-            -1 if w.packing == "none" else hb, li, stream)
+            -1 if w.packing == "none" else hb, li, *pre, stream)
     _build.check(rc, fn_name)
     wrapper = _WRAPPERS[name]
     if w.packing == "none":

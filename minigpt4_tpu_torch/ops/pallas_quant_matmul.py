@@ -11,7 +11,8 @@ Two hand-written CUDA kernels (``csrc/rq_matmul.cu``) compute it:
   group sums of x formed inside the kernel;
 * :func:`rq_prefill` for more rows, with ``w = scale * q - min`` formed in
   f32 and rounded to bf16, x rounded to bf16, and f32 accumulation on the
-  tensor cores.
+  tensor cores (``csrc/qmm_prefill.cuh``, launch plan and workspace in
+  :mod:`.qmm_prefill`).
 
 Beside them are the plain PyTorch versions: :func:`qmatmul_repacked_ref`
 (dequantize to f32, one f32 matmul; the decode kernel's and the reference
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, qmm_prefill
 from .repack import RepackedQuant
 
 # M <= RQ_MAX_M rides the decode kernel; larger M the prefill kernel
@@ -98,9 +99,12 @@ def _launch(fn_name: str, x: torch.Tensor, w: RepackedQuant, layer) -> torch.Ten
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = getattr(_build.load(), fn_name)
     stream = ctypes.c_void_p(_build.stream_ptr(x.device))
+    _xb, pre = None, ()  # _xb: the bf16 x the launch reads, alive until queued
+    if fn_name == "mgt_rq_prefill":  # the workspace of csrc/qmm_prefill.cuh
+        _xb, pre = qmm_prefill.launch_args(x, n)
     rc = fn(x.data_ptr(), w.codes.data_ptr(), None if w.hi is None else w.hi.data_ptr(),
             w.scales.data_ptr(), w.mins.data_ptr(), y.data_ptr(), m, n, k, w.group_size,
-            w.code_bits, w.hi_bits, li, stream)
+            w.code_bits, w.hi_bits, li, *pre, stream)
     _build.check(rc, fn_name)
     return y
 

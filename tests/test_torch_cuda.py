@@ -10,7 +10,8 @@ conftest:
 Tolerances: gq_decode and gq_decode_generic keep x in f32 like their
 plain version (1e-5 of max|y|, f32 summation order); gq_prefill and
 gq_prefill_generic round x and W to bf16 like their plain version and sum
-64-wide K tiles on the tensor cores (1e-4); flash decode, dense and paged,
+K segments on the tensor cores (1e-4; two launches give the same bits,
+split K or not); flash decode, dense and paged,
 is f32 online softmax against f32 softmax (1e-5 absolute on unit inputs),
 and the paged kernel gives the dense kernel's bits on the gathered cache.
 rq_decode keeps x in f32 like qmatmul_repacked_ref (1e-5); rq_prefill
@@ -554,13 +555,16 @@ def test_repacked_refused_launches_raise(cuda_device):
     lib, y = _build.load(), torch.empty((9, 64), device=cuda_device)
     stream = _build.stream_ptr(cuda_device)
     ptrs = (w.codes.data_ptr(), w.hi.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr())
+    xb = torch.empty((9, 256), dtype=torch.bfloat16, device=cuda_device)
     for entry, m, k, gs, hi, layer in (("mgt_rq_decode", 9, 256, 32, ptrs[1], 0),
                                        ("mgt_rq_decode", 1, 256, 24, ptrs[1], 0),
                                        ("mgt_rq_prefill", 9, 48, 16, ptrs[1], 0),
                                        ("mgt_rq_prefill", 9, 256, 32, None, 0),
                                        ("mgt_rq_decode", 1, 256, 32, ptrs[1], -1)):
+        # the prefill entry's bf16 x buffer, workspace, counters, token tile, splits
+        pre = (xb.data_ptr(), None, None, 64, 1) if entry == "mgt_rq_prefill" else ()
         rc = getattr(lib, entry)(x9.data_ptr(), ptrs[0], hi, ptrs[2], ptrs[3], y.data_ptr(),
-                                 m, 64, k, gs, 4, 1, layer, stream)
+                                 m, 64, k, gs, 4, 1, layer, *pre, stream)
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(rc, entry)
 
@@ -786,10 +790,12 @@ def test_packed_refused_launches_raise(cuda_device):
                                hb, layer, stream)
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(rc, "mgt_gq_decode")
+    xb = torch.empty((1, 256), dtype=torch.bfloat16, device=cuda_device)
     for hb in (0, 1, 3):
         rc = lib.mgt_gq_prefill_generic(
             x.data_ptr(), w6.codes.data_ptr(), w6.hi.data_ptr(), w6.a.data_ptr(),
-            w6.b.data_ptr(), y.data_ptr(), 1, 64, 256, 16, hb, 0, stream)
+            w6.b.data_ptr(), y.data_ptr(), 1, 64, 256, 16, hb, 0, xb.data_ptr(), None, None, 64,
+            1, stream)
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(rc, "mgt_gq_prefill_generic")
 
@@ -1008,26 +1014,41 @@ def _q5k_13b_bytes(n, k, seed):
     return raw.reshape(-1)
 
 
-@pytest.mark.parametrize("kernel", ["gq_decode", "rq_decode", "rq_prefill"])
+def _q6k_13b_bytes(n, k, seed):
+    nb = n * k // 256
+    raw = np.random.default_rng(seed).integers(0, 256, (nb, 210), dtype=np.uint8)
+    raw[:, 208:210] = np.frombuffer(np.full(nb, 2.0 ** -15, np.float16).tobytes(),
+                                    np.uint8).reshape(nb, 2)
+    return raw.reshape(-1)
+
+
+@pytest.mark.parametrize("kernel", ["gq_decode", "rq_decode", "rq_prefill", "gq_prefill",
+                                    "gq_prefill_generic"])
 def test_half_rows_bit_equal_to_whole_width(cuda_device, kernel):
     """tp's column split on the card: each kernel on rows [r0, r0 + N/2) of a
-    13B w13 weight (27648 x 5120, q5_k) gives the whole-width launch's bits
-    in those rows, for both halves and every row count of its path."""
+    13B w13 weight (27648 x 5120; q5_k, q6_k for the generic planes) gives
+    the whole-width launch's bits in those rows, for both halves and every
+    row count of its path (the prefill kernel's K segments come from K
+    alone, whether the launch splits them or not)."""
     n, k = 27648, 5120
-    raw = _q5k_13b_bytes(n, k, 11)
     h = n // 2
-    if kernel == "gq_decode":
-        w = tgq.from_ggml(raw, (n, k), DataType.Q5_K, cuda_device)
-        fn, ms = tgq.gq_decode, (1, 8)
+    prefill_ms = (32, 256, 512)
+    if kernel.startswith("gq"):
+        generic = kernel == "gq_prefill_generic"
+        dtype = DataType.Q6_K if generic else DataType.Q5_K
+        raw = (_q6k_13b_bytes if generic else _q5k_13b_bytes)(n, k, 11)
+        w = tgq.from_ggml(raw, (n, k), dtype, cuda_device)
+        fn, ms = {"gq_decode": (tgq.gq_decode, (1, 8)), "gq_prefill": (tgq.gq_prefill, prefill_ms),
+                  "gq_prefill_generic": (tgq.gq_prefill_generic, prefill_ms)}[kernel]
+        planes = ("a", "b") if generic else ("sc6", "mn6", "d", "dmin")
 
         def half(r0):
             ts = {"codes": w.codes[r0:r0 + h]}
-            ts.update({name: getattr(w, name)[:, r0:r0 + h] for name in ("sc6", "mn6", "d",
-                                                                        "dmin")})
+            ts.update({name: getattr(w, name)[:, r0:r0 + h] for name in planes})
             return w._replace(**{key: v.contiguous() for key, v in ts.items()})
     else:
-        w = trp.from_ggml(raw, (n, k), DataType.Q5_K, cuda_device)
-        fn, ms = (trq.rq_decode, (1, 8)) if kernel == "rq_decode" else (trq.rq_prefill, (32, 512))
+        w = trp.from_ggml(_q5k_13b_bytes(n, k, 11), (n, k), DataType.Q5_K, cuda_device)
+        fn, ms = (trq.rq_decode, (1, 8)) if kernel == "rq_decode" else (trq.rq_prefill, prefill_ms)
 
         def half(r0):
             return w._replace(**{key: v[r0:r0 + h].contiguous()
@@ -1038,3 +1059,68 @@ def test_half_rows_bit_equal_to_whole_width(cuda_device, kernel):
         whole = fn(x, w)
         for r0 in (0, h):
             assert torch.equal(fn(x, half(r0)), whole[:, r0:r0 + h]), (kernel, m, r0)
+
+
+# The prefill kernel (csrc/qmm_prefill.cuh) behind every entry, plane source
+# and code storage: (entry, format, packed, N, K), N ragged for the 128-row
+# weight tile, K = 96 a half step of tail; the last of two stacked layers.
+PREFILL_CASES = [
+    ("gq_prefill", DataType.Q5_K, False, 4224, 1280), ("gq_prefill", DataType.Q5_K, True, 48, 1280),
+    ("gq_prefill", DataType.Q4_K, True, 1408, 768),
+    ("gq_prefill_generic", DataType.Q6_K, False, 48, 768),
+    ("gq_prefill_generic", DataType.Q6_K, True, 4224, 768),
+    ("gq_prefill_generic", DataType.Q8_0, False, 1408, 768),
+    ("gq_prefill_generic", DataType.Q4_0, True, 48, 768),
+    ("gq_prefill_generic", DataType.Q5_1, True, 1408, 1280),
+    ("gq_prefill_generic", DataType.Q2_K, False, 4224, 768),
+    ("rq_prefill", DataType.Q5_K, False, 1408, 768), ("rq_prefill", DataType.Q6_K, False, 48, 768),
+    ("rq_prefill", DataType.Q8_0, False, 4224, 1408), ("rq_prefill", DataType.Q4_0, False, 48, 96),
+    ("rq_prefill", DataType.Q5_1, False, 1408, 96), ("rq_prefill", DataType.Q3_K, False, 48, 768),
+]
+PREFILL_MS = [9, 32, 100, 128, 129, 257, 512]
+_prefill_weights: dict = {}
+
+
+def _prefill_weight(case, device):
+    if case not in _prefill_weights:
+        entry, dtype, packed, n, k = case
+        raws = [quants.quantize(np.random.default_rng(s).normal(0, 0.6, (n, k)).astype(np.float32),
+                                dtype) for s in (1, 2)]
+        if entry == "rq_prefill":
+            w = trp.stack([trp.from_ggml(r, (n, k), dtype, device) for r in raws])
+        else:
+            w = tgq.stack([tgq.from_ggml(r, (n, k), dtype, device) for r in raws])
+            w = tgq.pack_codes(w) if packed else w
+        _prefill_weights.clear()  # one case at a time on the card
+        _prefill_weights[case] = w
+    return _prefill_weights[case]
+
+
+@pytest.mark.parametrize("m", PREFILL_MS)
+@pytest.mark.parametrize("case", PREFILL_CASES,
+                         ids=[f"{c[0]}-{c[1].name.lower()}{'-packed' if c[2] else ''}-n{c[3]}-k{c[4]}"
+                              for c in PREFILL_CASES])
+def test_prefill_kernel_matches_plain(cuda_device, case, m):
+    """Each prefill entry against its plain version (1e-4 of max|y|: bf16
+    operands as the plain version, f32 sums in another order), and two
+    launches give the same bits (split K merges in a fixed order)."""
+    entry, dtype, packed, n, k = case
+    w = _prefill_weight(case, cuda_device)
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+    x = x.to(cuda_device)
+    if entry == "rq_prefill":
+        kern, plain = trq.rq_prefill, trq.qmatmul_repacked_prefill_ref
+        count = lambda: kern.launches  # noqa: E731
+    else:
+        kern = tgq.gq_prefill if entry == "gq_prefill" else tgq.gq_prefill_generic
+        plain = tgq.qmatmul_prefill_ref
+        count = lambda: kern.packed_launches[w.packing] if packed else kern.launches  # noqa: E731
+    before = count()
+    got = kern(x, w, 1)
+    again = kern(x, w, 1)
+    torch.cuda.synchronize()
+    assert count() == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, plain(x, w, 1)) <= 1e-4
+    if entry == "rq_prefill":
+        assert _rel(got, trq.qmatmul_repacked_ref(x, w, 1)) <= 1e-2
