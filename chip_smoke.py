@@ -137,7 +137,14 @@ Phases (any failure exits nonzero before the last line):
                512), the q6_k w2 rows M = 256 and 512.  Before phase 3 the
                SASS opcode counts of i8_prefill_kernel and qmm_prefill_kernel
                (cuobjdump) are printed; both must hold warpgroup MMA and TMA
-               loads.
+               loads.  Since the redesign of the M <= 8 gq decode kernels
+               (the dual-i8 function on __dp4a, the split of x inside the
+               launch, csrc/gq_decode_i8.cuh), phase 3 starts with the 13B
+               exact-plane decode shapes (wqkv, wo, w13, w2 at M = 1 and 8)
+               within 1e-5 of the plain version, device-only beside the
+               bound and the same-run time of the dual-i8 probe (x split
+               beforehand); the decode kernel's SASS must hold IDP.4A; every
+               profile prints the gq decode kernel's time.
                `python3 chip_smoke.py --only-kernels [flash,i8,...]` runs
                phases 1-3 alone (sections of KERNEL_SECTIONS) and prints no
                result line.
@@ -332,16 +339,17 @@ def profile_window(fn, sync) -> dict:
     flash = sum(ms for n, ms in per_name.items() if "flash_decode_kernel" in n)
     prefill = sum(ms for n, ms in per_name.items()
                   if "qmm_prefill_kernel" in n or "prefill_x_kernel" in n)
+    decode = sum(ms for n, ms in per_name.items() if "gq_decode_i8_kernel" in n)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
                 top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3,
-                flash_ms=flash, prefill_ms=prefill)
+                flash_ms=flash, prefill_ms=prefill, gq_decode_ms=decode)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
     log(f"{label} profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
         f"idle {100 * prof['idle']:.0f} %, {prof['device_ops']} device activities; most device "
         f"time: {prof['top']}; flash decode {prof['flash_ms']:.2f} ms; quantized prefill "
-        f"{prof['prefill_ms']:.2f} ms  [{card}]")
+        f"{prof['prefill_ms']:.2f} ms; gq decode {prof['gq_decode_ms']:.2f} ms  [{card}]")
 
 
 def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float]:
@@ -407,6 +415,22 @@ def check_wgmma_sass(card: str) -> dict:
                                  "in its SASS")
         out[kernel] = ops
     return out
+
+
+def check_dp4a_sass(card: str) -> dict:
+    """The opcodes of the decode kernel (gq_decode_i8_kernel, every plane and
+    code source and M): fails unless its SASS holds the integer dot
+    products (IDP.4A) of the dual-i8 function."""
+    from minigpt4_tpu_torch.tools import _harness
+
+    ops = _harness.sass_opcodes("gq_decode_i8_kernel")
+    idp = {k: v for k, v in ops.items() if k.startswith("IDP")}
+    local = {k: v for k, v in ops.items() if k.startswith(("LDL", "STL"))}
+    log(f"[sass] gq_decode_i8_kernel opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
+    log(f"[sass] gq_decode_i8_kernel integer dot products {idp}, local-memory accesses {local}")
+    if not any(k.startswith("IDP.4A") for k in idp):
+        raise AssertionError(f"gq_decode_i8_kernel: no IDP.4A in its SASS ({idp})")
+    return ops
 
 
 # ---------------------------------------------------------------------------
@@ -482,15 +506,16 @@ def bound(n_bytes: float, flops: float, peak: float) -> tuple[float, str]:
 
 def gq_bound(w, m: int) -> tuple[float, str]:
     """One layer's codes (packed or not) and planes read once, x [M, K] f32 read and y
-    [M, N] f32 written once; 2 M N K operations, in f32 on the CUDA cores
-    for the decode kernels (M <= 8), in bf16 on the tensor cores for the
-    prefill kernels."""
+    [M, N] f32 written once; for the decode kernels (M <= 8) the dual-i8
+    function's 4 M N K integer operations (two i8 dot products) at the int8
+    peak, for the prefill kernels 2 M N K in bf16 on the tensor cores."""
     from minigpt4_tpu_torch.ops import group_i8 as gq
 
     layer = nbytes(*w.tensors().values()) / w.codes.shape[0]  # codes, high bits, planes
     n, k = w.n_out, w.n_in
-    return bound(layer + 4 * m * (k + n), 2.0 * m * n * k,
-                 F32_FLOPS if m <= gq.GQ_MAX_M else BF16_FLOPS)
+    if m <= gq.GQ_MAX_M:
+        return bound(layer + 4 * m * (k + n), 4.0 * m * n * k, INT8_OPS)
+    return bound(layer + 4 * m * (k + n), 2.0 * m * n * k, BF16_FLOPS)
 
 
 def attention_bound(b: int, h: int, s: int, dh: int, keys: int, kv_bytes: int):
@@ -542,7 +567,7 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             kern, plain = (gq.gq_decode if w.exact else gq.gq_decode_generic), gq.qmatmul_decode_ref
         else:
             kern, plain = (gq.gq_prefill if w.exact else gq.gq_prefill_generic), gq.qmatmul_prefill_ref
-        tol = 1e-4 if decode else 2e-3
+        tol = 1e-5 if decode else 2e-3
         got, want = kern(x, w, last), plain(x, w, last)
         torch.cuda.synchronize()
         err, abs_err = rel_err(got, want), float((got - want).abs().max())
@@ -557,7 +582,10 @@ def check_matmul(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             f"  bound {b_ms:.4f} ms ({b_by})  [{card}]")
         if not err <= tol:
             raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
-        if not decode:
+        if decode:  # device-only: no library call computes the dual-i8 function
+            device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} M={m}",
+                       device_ms(kern, lambda i: (x, w, i % n_stack), n_stack), None, "", card)
+        else:
             prefill_device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} "
                                f"M={m}", kern, w, x, n_stack,
                                w.layer(last).dequantize().to(torch.bfloat16), card)
@@ -613,7 +641,7 @@ def check_packed(results: dict, card: str, name: str, w, n_stack: int, ms, gen) 
             kern, plain = (gq.gq_decode if w.exact else gq.gq_decode_generic), gq.qmatmul_decode_ref
         else:
             kern, plain = (gq.gq_prefill if w.exact else gq.gq_prefill_generic), gq.qmatmul_prefill_ref
-        tol = 1e-4 if decode else 2e-3
+        tol = 1e-5 if decode else 2e-3
         got, twin, want = kern(x, wp, last), kern(x, w, last), plain(x, wp, last)
         torch.cuda.synchronize()
         diff = float((got - twin).abs().max())
@@ -760,7 +788,10 @@ def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> N
         if not decode and not same_err <= RQ_PREFILL_SAME_ROUNDING_TOL:
             raise AssertionError(f"{key} {name} M={m}: rel err {same_err} against the "
                                  f"bf16-rounding plain version > {RQ_PREFILL_SAME_ROUNDING_TOL}")
-        if not decode:
+        if decode:  # device-only: no library call computes the dual-i8 function
+            device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} M={m}",
+                       device_ms(kern, lambda i: (x, w, i % n_stack), n_stack), None, "", card)
+        else:
             prefill_device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} "
                                f"M={m}", kern, w, x, n_stack,
                                w.layer(last).dequantize().to(torch.bfloat16), card)
@@ -992,9 +1023,47 @@ def phase_kernels(card: str, only: set | None = None) -> dict:
     return results
 
 
+# the 13B decode matmuls of a q5_k file (exact planes), as models/llama.py
+# issues them (wq|wk|wv and w1|w3 fused)
+GQ_13B_DECODE = {"wqkv": (15360, 5120), "wo": (5120, 5120), "w13": (27648, 5120),
+                 "w2": (5120, 13824)}
+
+
+def gq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
+    """The dual-i8 decode kernel at the 13B exact-plane shapes, M = 1 and 8:
+    against its plain version and device-only (check_matmul), beside the
+    probe's same-run time: the dual-i8 probe kernel on the same codes, x
+    split beforehand and not timed."""
+    from minigpt4_tpu_torch.ops import group_i8 as gq
+    from minigpt4_tpu_torch.ops import probes
+
+    for name, (n, k) in GQ_13B_DECODE.items():
+        w = random_gq(STACK_13B, n, k, gen)
+        a = (Q5K_D * torch.randint(0, 64, (STACK_13B, k // 32, n), generator=gen,
+                                   device=DEVICE).float()).to(torch.bfloat16)
+        b = -a
+        check_matmul(results, card, f"13B {name}", w, STACK_13B, (1, 8), gen)
+        for row in results["gq_decode"][-2:]:
+            m = int(row["shape"].rsplit("M=", 1)[1])
+            x = torch.randn(m, k, generator=gen, device=DEVICE)
+            x1, x2, s1, s2 = gq.split_activations(x)
+            s12, sgt = torch.cat([s1, s2], 1), gq.group_sums(x)
+            probe = device_ms(probes.probe_group_i8,
+                              lambda i: (x1, x2, s12, sgt, w.codes, a, b, i % STACK_13B),
+                              STACK_13B)
+            row.update(probe_device_ms=probe, probe_factor=row["device_ms"] / probe)
+            log(f"[device-only] gq_decode 13B {name} {n}x{k} M={m}  kernel "
+                f"{row['device_ms']:.4f} ms, the dual-i8 probe (x split outside) {probe:.4f} ms,"
+                f" kernel / probe {row['probe_factor']:.3f}  [{card}]")
+        del w, a, b
+        torch.cuda.empty_cache()
+
+
 def phase_gq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
     """The gq kernels against their plain versions at the 7B and 13B shapes."""
     from minigpt4_tpu_torch.formats import DataType
+
+    gq_decode_13b_cases(results, card, gen)
 
     # exact planes at the Vicuna-7B shapes
     d, ff, v = 4096, 11008, 32000
@@ -2425,12 +2494,14 @@ def main() -> int:
             name = line.split("'")[1]
             unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul",
                                      "flash_decode", "i8_matmul") if f"{u}_cu" in name), "")
-            at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill"))
+            at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill",
+                                            "gq_decode_i8"))
             kernel = f"{unit}: {name[at:][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
     sass = check_wgmma_sass(card)
+    sass["gq_decode_i8_kernel"] = check_dp4a_sass(card)
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
         sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
         phase_kernels(card, set(sections[0].split(",")) if sections else None)
@@ -2508,7 +2579,7 @@ def main() -> int:
 
     meta = {
         "gq_decode": ("minigpt4_tpu_torch/csrc/gq_decode.cu", "minigpt4_tpu/ops/group_i8.py:522",
-                      "w13 22016x4096 M=1"),
+                      "13B w13 27648x5120 M=8"),
         "gq_prefill": ("minigpt4_tpu_torch/csrc/gq_prefill.cu", "minigpt4_tpu/ops/group_i8.py:736",
                        "w13 27648x5120 M=512"),
         "gq_decode_generic": ("minigpt4_tpu_torch/csrc/gq_decode.cu",
@@ -2579,10 +2650,14 @@ def main() -> int:
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             **{k: main_row[k] for k in DEVICE_KEYS if k in main_row},
             "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                                         "unpacked_ms", "max_diff_unpacked", "host_us")
+                                         "unpacked_ms", "max_diff_unpacked", "host_us",
+                                         "probe_device_ms", "probe_factor")
                        + DEVICE_KEYS if k in r}
                       for r in rows],
         })
+        if name in ("gq_decode", "gq_decode_generic"):
+            kernels[-1]["sass_idp"] = {k: v for k, v in sass["gq_decode_i8_kernel"].items()
+                                       if k.startswith("IDP")}
         if name == "i8_prefill":
             kernels[-1]["sass_opcodes"] = sass["i8_prefill_kernel"]
         if name in ("gq_prefill", "gq_prefill_generic", "rq_prefill"):

@@ -161,11 +161,8 @@ __device__ __forceinline__ float bf16_word_half(uint32_t w, const void* p) {
 }
 
 // Per-group planes of a group-quant weight, W[n, k] = A[g, n] * q[n, k] + B[g, n]
-// with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32; T is the type a
-// kernel keeps staged planes in (f32 for exact planes, bf16 for generic ones,
-// so neither loses a bit).  kRowMajor says whether a plane is stored [N, G]
-// (true) or [G, N]; the decode kernel stages it in the order of its rows.
-// The prefill kernel stages a 64-wide K step's planes of 128 rows (n0 ..)
+// with g = k / kGS.  fetch(g, n, N) returns (A, B) in f32 (the decode kernel,
+// gq_decode_i8.cuh, reads them so).  The prefill kernel stages a 64-wide K step's planes of 128 rows (n0 ..)
 // by cp.async, per (group gl of the step, row r) the words that hold its
 // elements ([64 / kGS][128][kWords]; stage(), all threads), and forms (A, B)
 // from them with staged_ab(): the same floats fetch() gives, zeros past N.
@@ -174,9 +171,7 @@ __device__ __forceinline__ float bf16_word_half(uint32_t w, const void* p) {
 // [L, K/32, N] and f32 superblock scales d/dmin [L, K/256, N];
 // A = d * sc6 and B = -dmin * mn6 are exact in f32.
 struct ExactPlanes {
-  using T = float;
   static constexpr int kGS = 32;
-  static constexpr bool kRowMajor = false;
   const uint8_t* sc6;
   const uint8_t* mn6;
   const float* d;
@@ -220,9 +215,7 @@ struct ExactPlanes {
 // Generic planes (group_i8._kernel_generic): bf16 A and B [L, K/GS, N].
 template <int GS>
 struct GenericPlanes {
-  using T = __nv_bfloat16;
   static constexpr int kGS = GS;
-  static constexpr bool kRowMajor = false;
   const __nv_bfloat16* a;
   const __nv_bfloat16* b;
 

@@ -1,11 +1,13 @@
-// The quantized matmul for M <= 8 activation rows, shared by the gq entries
-// (gq_decode.cu) and the repacked-weight entry (rq_matmul.cu).
+// The quantized matmul for M <= 8 activation rows of the repacked-weight
+// entry (rq_matmul.cu), x kept in f32 (the gq decode entries run
+// gq_decode_i8.cuh).
 //
 //   y[m, n] = sum_g A[g, n] * sum_{k in g} q[n, k] x[m, k] + B[g, n] * sum_{k in g} x[m, k]
 //
-// templated on where the planes A and B come from (P: common.cuh's exact or
-// generic gq planes, rq_matmul.cu's scale/min rows) and where the codes q come
-// from (C: common.cuh's i8 codes, rq_matmul.cu's nibbles with high-bit planes).
+// templated on where the planes A and B come from (P: rq_matmul.cu's
+// scale/min rows, staged as their type T in the order kRowMajor gives) and
+// where the codes q come from (C: common.cuh's i8 codes or nibbles with
+// high-bit planes).
 //
 // What bounds it on the H100: device-memory bandwidth on the code stream
 // (1 B per weight for i8 codes, 0.5-0.75 B for nibbles with their high bits)
@@ -19,9 +21,8 @@
 // algebra of group_i8._combine, and of pallas_quant_matmul's hoisted offset
 // term, without the TPU's bf16 or dual-i8 activation rounding: x stays f32).
 // The planes of the K tile are staged in shared memory with the tile of x
-// (f32 for exact planes, bf16 otherwise: at M = 8 and GS = 16 the stage is
-// 32 KB of x plus 2 x 4 KB of planes), read once per block in the order they
-// are stored.  Each lane keeps 4 x M partial sums in registers across all of
+// (bf16: at M = 8 and GS = 16 the stage is 32 KB of x plus 2 x 4 KB of
+// planes), read once per block in the order they are stored.  Each lane keeps 4 x M partial sums in registers across all of
 // K; one warp reduction per output at the end, no atomics, so results are
 // deterministic.  The stacked-layer index selects the [L, ...] slice by
 // pointer offset.  K needs only to be a multiple of 32 (the tile tail is

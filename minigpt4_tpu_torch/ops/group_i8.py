@@ -39,8 +39,13 @@ the JAX package.
 
 Four hand-written CUDA kernels compute ``x @ W.T``:
 
-* :func:`gq_decode` / :func:`gq_decode_generic` (``csrc/gq_decode.cu``) for
-  at most ``GQ_MAX_M`` rows, with x in f32;
+* :func:`gq_decode` / :func:`gq_decode_generic` (``csrc/gq_decode.cu``,
+  ``csrc/gq_decode_i8.cuh``) for at most ``GQ_MAX_M`` rows: the function of
+  the JAX package's decode kernels, x split into two i8 planes
+  ``x ~= s1 x1 + s2 x2`` (:func:`split_activations`), exact i32 group dot
+  products of the codes with x1 and x2, and per group
+  ``(c1 s1 + c2 s2) A + sgt B`` in f32 with ``sgt`` the group sums of the
+  true x (:func:`group_sums`); the split runs inside the launch;
 * :func:`gq_prefill` / :func:`gq_prefill_generic` (``csrc/gq_prefill.cu``)
   for more rows, with x and the dequantized W rounded to bf16 and f32
   accumulation on the tensor cores (``csrc/qmm_prefill.cuh``, its launch plan
@@ -52,8 +57,9 @@ same arithmetic as the same float, so packed and unpacked weights give the
 same bits.  A wrapper counts its unpacked launches in ``launches`` and its
 packed ones in ``packed_launches[packing]``.
 
-Beside them are the plain PyTorch versions (:func:`qmatmul_decode_ref`,
-:func:`qmatmul_prefill_ref`), which cover both plane modes.  A wrapper
+Beside them are the plain PyTorch versions (:func:`qmatmul_decode_ref`, the
+dual-i8 function step by step; :func:`qmatmul_prefill_ref`), which cover
+both plane modes and every packing.  A wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises.
 """
@@ -426,9 +432,55 @@ def _select(w: GroupQuant, layer: int | None) -> GroupQuant:
     return w
 
 
+def split_activations(x: torch.Tensor):
+    """[M, K] -> (x1 i8, x2 i8, s1 f32 [M, 1], s2 f32 [M, 1]) with
+    x ~= s1 x1 + s2 x2: the JAX package's ``split_activations``.  s1 is the
+    row's absmax / 127 (1 for a zero row), s2 = s1 / 128; x1 and x2 round
+    half to even.  Every division is IEEE-exact (a tensor divisor, never the
+    reciprocal multiply PyTorch's CUDA division by a Python scalar takes)."""
+    x = x.float()
+    ax = x.abs().amax(dim=-1, keepdim=True)
+    s1 = torch.where(ax == 0, torch.ones_like(ax), ax / torch.full_like(ax, 127.0))
+    x1 = torch.clamp(torch.round(x / s1), -127, 127)
+    r = x - s1 * x1
+    s2 = s1 / torch.full_like(s1, 128.0)
+    x2 = torch.clamp(torch.round(r / s2), -127, 127)
+    return x1.to(torch.int8), x2.to(torch.int8), s1, s2
+
+
+def group_sums(x: torch.Tensor, gs: int = 32) -> torch.Tensor:
+    """x [M, K] -> f32 [K / gs, M], the sum of each ``gs``-wide group of the
+    true x (the JAX package's ``sgt``)."""
+    m, k = x.shape
+    return x.float().reshape(m, k // gs, gs).sum(dim=2).t().contiguous()
+
+
 def qmatmul_decode_ref(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M, K] @ W.T -> f32 [M, N]: dequantize, then an f32 matmul."""
-    return x.float() @ _select(w, layer).dequantize().t()
+    """x f32 [M, K] @ W.T -> f32 [M, N], the function of the decode kernels
+    (and of the JAX package's ``_kernel_exact`` / ``_kernel_generic``): x
+    split by :func:`split_activations`, per group g the exact integer dot
+    products c1 = q . x1 and c2 = q . x2 (in f32: every partial sum is an
+    integer below 32 * 128 * 127 < 2^24, exact even on TF32), then in f32
+    ``t = c1 s1 + c2 s2`` and ``t A[g] + sgt[g] B[g]``, each product and sum
+    rounded on its own; the groups of each chunk of ``J`` summed, the chunks
+    added in K order, as the JAX kernel's ``_combine``."""
+    w = _select(w, layer)
+    x = x.float()
+    m, k = x.shape
+    gs, n = w.group_size, w.n_out
+    g = k // gs
+    x1, x2, s1, s2 = split_activations(x)
+    sgt = group_sums(x, gs)  # [G, M]
+    qg = w.codes_int().float().reshape(n, g, gs)
+    c = torch.einsum("mgk,ngk->gmn", torch.cat([x1, x2]).float().reshape(2 * m, g, gs), qg)
+    t = c[:, :m] * s1.reshape(1, m, 1) + c[:, m:] * s2.reshape(1, m, 1)
+    a, b = w.planes()  # [G, N], exact in f32
+    term = t * a[:, None, :] + sgt[:, :, None] * b[:, None, :]
+    chunks = term.reshape(g // J, J, m, n).sum(dim=1)
+    y = chunks[0]
+    for chunk in chunks[1:]:
+        y = y + chunk
+    return y
 
 
 def qmatmul_prefill_ref(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
@@ -491,6 +543,8 @@ def _launch(name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
         raise IndexError(f"{fn_name}: layer {li} out of range [0, {n_layers})")
     if w.codes.data_ptr() % 16:
         raise ValueError(f"{fn_name}: codes must be 16-byte aligned")
+    if w.hi is not None and w.hi.data_ptr() % 8:
+        raise ValueError(f"{fn_name}: hi must be 8-byte aligned")
     x = _aligned(x)
     m, k = x.shape
     n = w.n_out
@@ -522,8 +576,9 @@ def _decode_rows(name: str, x: torch.Tensor) -> None:
 
 
 def gq_decode(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], exact planes, any packing
-    (``csrc/gq_decode.cu``)."""
+    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], the dual-i8 function of
+    :func:`qmatmul_decode_ref`, exact planes, any packing
+    (``csrc/gq_decode.cu``; one launch, the split of x included)."""
     if x.device.type == "cpu":
         return qmatmul_decode_ref(x, w, layer)
     _decode_rows("gq_decode", x)
@@ -531,8 +586,9 @@ def gq_decode(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch
 
 
 def gq_decode_generic(x: torch.Tensor, w: GroupQuant, layer: int | None = None) -> torch.Tensor:
-    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], bf16 planes of group size 16
-    or 32, any packing (``csrc/gq_decode.cu``, entry ``mgt_gq_decode_generic``)."""
+    """x f32 [M <= 8, K] @ W.T -> f32 [M, N], the dual-i8 function of
+    :func:`qmatmul_decode_ref`, bf16 planes of group size 16 or 32, any
+    packing (``csrc/gq_decode.cu``, entry ``mgt_gq_decode_generic``)."""
     if x.device.type == "cpu":
         return qmatmul_decode_ref(x, w, layer)
     _decode_rows("gq_decode_generic", x)

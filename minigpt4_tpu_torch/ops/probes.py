@@ -9,7 +9,9 @@ micro-benchmarks that drive them are :mod:`minigpt4_tpu_torch.tools`.
   ``tools/qmm_group_i8.py``): exact q5_k codes (i8, 0..31) times dual-i8
   activations ``x ~= s1 x1 + s2 x2``; per 32-code group the two exact i32
   dot products, then ``t = s1 c1 + s2 c2`` and ``y += t sc + sgt bt`` in f32.
-  :func:`qmatmul_group_i8` splits x and forms the group sums ``sgt`` first.
+  :func:`qmatmul_group_i8` splits x and forms the group sums ``sgt`` first,
+  with the functions of the production decode kernels
+  (``group_i8.split_activations``, ``group_i8.group_sums``).
 * :func:`dequant_matvec` (``csrc/probe_qmm.cu``, ``probe_qmm_km.cu``; the
   unpack-chain probes ``qmm_variants``, ``qmm_v3``, ``qmm_r3``,
   ``unpack_variants``): ``y = x @ (value(code) * s[n, k / 32]).T`` for
@@ -41,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .group_i8 import group_sums, split_activations
 
 GS = 32  # group size of q5_k, and of the probes' scales
 SB = 256  # chunk of the dual-i8 kernel and of the s4 superblock scales
@@ -110,25 +113,6 @@ def unpack_nibbles(b: torch.Tensor, signed: bool = False) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # kernel A: exact q5_k codes x dual-i8 activations
 # ---------------------------------------------------------------------------
-
-
-def split_activations(x: torch.Tensor):
-    """[M, K] -> (x1 i8, x2 i8, s1 f32 [M, 1], s2 f32 [M, 1]) with
-    x ~= s1 x1 + s2 x2 and s2 = s1 / 128 (tools/qmm_group_i8.py's split)."""
-    x = x.float()
-    ax = x.abs().amax(dim=-1, keepdim=True)
-    s1 = torch.where(ax == 0, torch.ones_like(ax), ax / 127.0)
-    x1 = torch.clamp(torch.round(x / s1), -127, 127).to(torch.int8)
-    r = x - s1 * x1.float()
-    s2 = s1 / 128.0
-    x2 = torch.clamp(torch.round(r / s2), -127, 127).to(torch.int8)
-    return x1, x2, s1, s2
-
-
-def group_sums(x: torch.Tensor) -> torch.Tensor:
-    """x [M, K] -> f32 [K / 32, M], the sum of each 32-wide group."""
-    m, k = x.shape
-    return x.float().reshape(m, k // GS, GS).sum(dim=2).t().contiguous()
 
 
 def _layer(t: torch.Tensor, layer, dims: int) -> torch.Tensor:

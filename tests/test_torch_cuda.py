@@ -7,8 +7,11 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: gq_decode and gq_decode_generic keep x in f32 like their
-plain version (1e-5 of max|y|, f32 summation order); gq_prefill and
+Tolerances: gq_decode and gq_decode_generic compute their plain version's
+dual-i8 function (the split of x bit-equal, exact integer group dots, the
+same f32 roundings of each group's term) and sum the groups in another
+order (1e-5 of max|y|); two launches give the same bits, and a packed
+weight its unpacked twin's; gq_prefill and
 gq_prefill_generic round x and W to bf16 like their plain version and sum
 K segments on the tensor cores (1e-4; two launches give the same bits,
 split K or not); flash decode, dense and paged,
@@ -734,6 +737,42 @@ def _gq(dtype, n, k, seeds, device):
         np.random.default_rng(s).normal(0, 0.6, (n, k)).astype(np.float32), dtype),
         (n, k), dtype, device) for s in seeds]
     return ws[0] if len(ws) == 1 else tgq.stack(ws)
+
+
+# The decode kernel (csrc/gq_decode_i8.cuh) behind both entries, every
+# plane source and packing: (format, N, K), N = 48 and 4240 ragged for
+# every strip width, K = 13824 two K tiles at M = 8, K = 1280 / 768 short
+DECODE_CASES = [(DataType.Q5_K, 4240, 13824), (DataType.Q5_K, 48, 1280),
+                (DataType.Q4_K, 48, 768), (DataType.Q6_K, 4240, 13824),
+                (DataType.Q6_K, 48, 768), (DataType.Q8_0, 4240, 5120),
+                (DataType.Q4_0, 48, 768), (DataType.Q5_1, 48, 1280), (DataType.Q4_1, 4240, 768)]
+
+
+@pytest.mark.parametrize("dtype,n,k", DECODE_CASES,
+                         ids=[f"{d.name.lower()}-{n}x{k}" for d, n, k in DECODE_CASES])
+def test_decode_kernel_matches_plain(cuda_device, dtype, n, k):
+    """Both decode entries at M = 1..8 on the last of two stacked layers:
+    within 1e-5 of max|y| of the plain version, the same bits from a second
+    launch and from the packed twin (where the format packs)."""
+    w = _gq(dtype, n, k, (1, 2), cuda_device)
+    if dtype == DataType.Q8_0:  # signed codes, -128 among them
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        w = w._replace(**{**w.tensors(), "codes": torch.randint(
+            -128, 128, w.codes.shape, generator=gen, device=cuda_device, dtype=torch.int8)})
+        assert int(w.codes.min()) == -128
+    kern = tgq.gq_decode if w.exact else tgq.gq_decode_generic
+    wp = tgq.pack_codes(w)
+    for m in range(1, 9):
+        x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+        x = x.to(cuda_device)
+        before = kern.launches
+        got = kern(x, w, 1)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert _rel(got, tgq.qmatmul_decode_ref(x, w, 1)) <= 1e-5, m
+        assert torch.equal(kern(x, w, 1), got), m
+        if wp.packing != "none":
+            assert torch.equal(kern(x, wp, 1), got), m
 
 
 # every packable format; K = 1280 (5 x 256, no power of two) for the 5-bit
