@@ -99,13 +99,15 @@ Phases (any failure exits nonzero before the last line):
                embedding through the kernels against the same weights
                dequantized to dense f32 on the card (max |d| / max |emb| <=
                ENCODE_TOL).
-  7. w8a8    - the i8 kernels (i8_decode at the 13B w13 and output shapes,
-               M = 1 and 8; i8_prefill at the 13B w13 M = 512, ViT-G fc2 M =
-               257 and the Q-Former intermediate M = 32) against
-               qmatmul_i8sb_ref, with torch._int_mm (i8 x i8 -> i32 without
-               the chunk scales) as the library time where it takes the
-               shape, and both flash kernels over e4m3 caches (dense S = 1,
-               8, 32 at pos0 = 2015; paged at the serving pools) in phase 3.
+  7. w8a8    - the i8 kernels (i8_decode, the whole matmul from f32 x in
+               one launch, at the five 13B decode shapes, M = 1 and 8,
+               against qmatmul_i8sb_decode_ref; i8_prefill at the 13B w13 M
+               = 512, ViT-G fc2 M = 257 and the Q-Former intermediate M = 32
+               against qmatmul_i8sb_ref, with torch._int_mm (i8 x i8 -> i32
+               without the chunk scales) as the library time where it takes
+               the shape), and both flash kernels over e4m3 caches (dense S
+               = 1, 8, 32 at pos0 = 2015; paged at the serving pools) in
+               phase 3.
                Then smooth-quant scales of the 13B Q5_K_M file
                (quality.compute_smooth_scales, one 32-token calibration
                sequence, qtensor params freed before the next load) and a
@@ -144,7 +146,20 @@ Phases (any failure exits nonzero before the last line):
                within 1e-5 of the plain version, device-only beside the
                bound and the same-run time of the dual-i8 probe (x split
                beforehand); the decode kernel's SASS must hold IDP.4A; every
-               profile prints the gq decode kernel's time.
+               profile prints the gq decode kernel's time.  Since the
+               redesign of rq_decode (csrc/rq_decode.cuh: x staged once per
+               persistent block, quads on contiguous bytes, codes unpacked
+               once without I2F) and i8_decode (the quantization of x and
+               the row scale inside its launch), phase 3 gives both the five
+               13B decode shapes (wqkv, wo, w13, w2, output; rq_decode also
+               q6_k at output, wv and w2) at M = 1 and 8, device-only beside
+               the bound and the same-run time of a probe at the same shape
+               (the q5 magic dequantize-matvec for rq_decode, the i8 x i8
+               dot for i8_decode); the SASS of i8_decode_kernel must hold
+               IDP.4A, neither it nor rq_decode_kernel local memory, and
+               rq_decode_kernel no int-to-float convert; every profile
+               prints the rq and i8 decode kernels' time, every chat its
+               device activities per token.
                `python3 chip_smoke.py --only-kernels [flash,i8,...]` runs
                phases 1-3 alone (sections of KERNEL_SECTIONS) and prints no
                result line.
@@ -153,8 +168,9 @@ Phases (any failure exits nonzero before the last line):
                package's tools/ probes, each run in this process through its
                main() at the 13B shapes for M = 1 and 8 with the fewest timed
                launches (20): qmm_group_i8 (the dual-i8 exact-q5_k kernel
-               against gq_decode_generic, rq_decode and i8_decode at w2, w13,
-               wqkv and wo), qmm_variants, unpack_variants, qmm_v3 (its three
+               against gq_decode_generic at the five 13B decode shapes; its
+               rq_decode and i8_decode arms are phase 3's decode rows),
+               qmm_variants, unpack_variants, qmm_v3 (its three
                entries) and qmm_r3 (the dequantize-matvec at the w2 shape,
                16-byte loads), probe_int4 (i8 x i8, s4 x s4 on mma.sync, s4
                chunk-scaled) and probe_i8ops (the op chains, REPS = 8).  Every
@@ -301,9 +317,10 @@ def profile_window(fn, sync) -> dict:
     """One call of ``fn`` under torch.profiler (host and device activity):
     wall ms, device busy ms (the union of the device activity intervals),
     the idle share, the number of device activities, the three names with
-    the most device time, the device time of the flash decode kernels and of
-    the quantized prefill kernels (qmm_prefill_kernel and its x pre-pass),
-    and the host time inside collectives (the union
+    the most device time, the device time of the flash decode kernels, of
+    the quantized prefill kernels (qmm_prefill_kernel and its x pre-pass)
+    and of the M <= 8 decode matmuls (gq, rq, i8), and the host time inside
+    collectives (the union
     of the intervals of the host activities named all_reduce / allreduce,
     0 outside tensor parallelism).  The profiler slows the host, so the idle
     share is an upper estimate."""
@@ -339,17 +356,19 @@ def profile_window(fn, sync) -> dict:
     flash = sum(ms for n, ms in per_name.items() if "flash_decode_kernel" in n)
     prefill = sum(ms for n, ms in per_name.items()
                   if "qmm_prefill_kernel" in n or "prefill_x_kernel" in n)
-    decode = sum(ms for n, ms in per_name.items() if "gq_decode_i8_kernel" in n)
+    decode = {f"{k}_decode_ms": sum(ms for n, ms in per_name.items() if f"{k}_decode" in n)
+              for k in ("gq", "rq", "i8")}
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
                 top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3,
-                flash_ms=flash, prefill_ms=prefill, gq_decode_ms=decode)
+                flash_ms=flash, prefill_ms=prefill, **decode)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
     log(f"{label} profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
         f"idle {100 * prof['idle']:.0f} %, {prof['device_ops']} device activities; most device "
         f"time: {prof['top']}; flash decode {prof['flash_ms']:.2f} ms; quantized prefill "
-        f"{prof['prefill_ms']:.2f} ms; gq decode {prof['gq_decode_ms']:.2f} ms  [{card}]")
+        f"{prof['prefill_ms']:.2f} ms; decode matmuls gq {prof['gq_decode_ms']:.2f} / rq "
+        f"{prof['rq_decode_ms']:.2f} / i8 {prof['i8_decode_ms']:.2f} ms  [{card}]")
 
 
 def compare_times(kernel, plain, args_for, reps: int = 10) -> tuple[float, float]:
@@ -417,20 +436,36 @@ def check_wgmma_sass(card: str) -> dict:
     return out
 
 
-def check_dp4a_sass(card: str) -> dict:
-    """The opcodes of the decode kernel (gq_decode_i8_kernel, every plane and
-    code source and M): fails unless its SASS holds the integer dot
-    products (IDP.4A) of the dual-i8 function."""
+# the M <= 8 decode kernels (every plane and code source and M): the dual-i8
+# gq kernel and the fused i8 kernel must run on integer dot products
+# (IDP.4A); the rq and i8 kernels keep nothing in local memory, and the rq
+# kernel unpacks its codes without int-to-float converts (I2F*)
+DECODE_SASS = {"gq_decode_i8_kernel": (True, False, False),
+               "i8_decode_kernel": (True, True, False), "rq_decode_kernel": (False, True, True)}
+
+
+def check_decode_sass(card: str) -> dict:
+    """The opcodes of each kernel of DECODE_SASS, held to its row there
+    (integer dot products, no local memory, no int-to-float converts)."""
     from minigpt4_tpu_torch.tools import _harness
 
-    ops = _harness.sass_opcodes("gq_decode_i8_kernel")
-    idp = {k: v for k, v in ops.items() if k.startswith("IDP")}
-    local = {k: v for k, v in ops.items() if k.startswith(("LDL", "STL"))}
-    log(f"[sass] gq_decode_i8_kernel opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
-    log(f"[sass] gq_decode_i8_kernel integer dot products {idp}, local-memory accesses {local}")
-    if not any(k.startswith("IDP.4A") for k in idp):
-        raise AssertionError(f"gq_decode_i8_kernel: no IDP.4A in its SASS ({idp})")
-    return ops
+    out = {}
+    for kernel, (need_idp, no_local, no_i2f) in DECODE_SASS.items():
+        ops = _harness.sass_opcodes(kernel)
+        idp = {k: v for k, v in ops.items() if k.startswith("IDP")}
+        local = {k: v for k, v in ops.items() if k.startswith(("LDL", "STL"))}
+        i2f = {k: v for k, v in ops.items() if k.startswith("I2F")}
+        log(f"[sass] {kernel} opcodes: {json.dumps(dict(sorted(ops.items())))}  [{card}]")
+        log(f"[sass] {kernel} integer dot products {idp}, local-memory accesses {local}, "
+            f"int-to-float converts {i2f}")
+        if need_idp and not any(k.startswith("IDP.4A") for k in idp):
+            raise AssertionError(f"{kernel}: no IDP.4A in its SASS ({idp})")
+        if no_local and local:
+            raise AssertionError(f"{kernel}: local-memory accesses in its SASS ({local})")
+        if no_i2f and i2f:
+            raise AssertionError(f"{kernel}: int-to-float converts in its SASS ({i2f})")
+        out[kernel] = ops
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -745,13 +780,15 @@ def rq_bound(w, m: int) -> tuple[float, str]:
                  F32_FLOPS if m <= rq.RQ_MAX_M else BF16_FLOPS)
 
 
-# rq tolerances, relative to max|y|: the decode entry keeps x in f32 like the
-# f32 plain version (f32 summation order, as gq_decode); the prefill entry
+# rq tolerances, relative to max|y|: the decode entry keeps x in f32 and
+# forms the f32 plain version's weights bit for bit (f32 summation order,
+# as gq_decode; tests/test_torch_cuda.py holds it to the same 1e-5); the
+# prefill entry
 # rounds x and w = scale * q - min to bf16 (2^-9 each per product), against
 # the f32 plain version 1e-2 (JAX's own tests hold the TPU kernel to 1.2e-2
 # of the same product) and against the plain version with its roundings
 # 1e-3 (summation order over K up to 6144)
-RQ_DECODE_TOL, RQ_PREFILL_TOL, RQ_PREFILL_SAME_ROUNDING_TOL = 1e-4, 1e-2, 1e-3
+RQ_DECODE_TOL, RQ_PREFILL_TOL, RQ_PREFILL_SAME_ROUNDING_TOL = 1e-5, 1e-2, 1e-3
 
 
 def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
@@ -788,7 +825,7 @@ def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> N
         if not decode and not same_err <= RQ_PREFILL_SAME_ROUNDING_TOL:
             raise AssertionError(f"{key} {name} M={m}: rel err {same_err} against the "
                                  f"bf16-rounding plain version > {RQ_PREFILL_SAME_ROUNDING_TOL}")
-        if decode:  # device-only: no library call computes the dual-i8 function
+        if decode:  # device-only; no single library call multiplies by repacked codes
             device_row(results[key][-1], f"{key} {w.dtype.name.lower()} {name} {n}x{k} M={m}",
                        device_ms(kern, lambda i: (x, w, i % n_stack), n_stack), None, "", card)
         else:
@@ -797,18 +834,70 @@ def check_rq(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> N
                                w.layer(last).dequantize().to(torch.bfloat16), card)
 
 
+def probe_row(row: dict, label: str, fn, args_for, n_args: int, what: str, card: str) -> None:
+    """Add a probe kernel's same-run device-only time at the row's shape to
+    a decode row, and the factor kernel / probe."""
+    probe = device_ms(fn, args_for, n_args)
+    row.update(probe_device_ms=probe, probe_factor=row["device_ms"] / probe)
+    log(f"[device-only] {label}  kernel {row['device_ms']:.4f} ms ({100 * row['bound_share']:.1f}"
+        f" % of its bound), {what} {probe:.4f} ms, kernel / probe {row['probe_factor']:.3f}  "
+        f"[{card}]")
+
+
+# the 13B decode matmuls as models/llama.py issues them (wq|wk|wv and w1|w3
+# fused) and the output head; the Q5_K_M file's q6_k weights: the output,
+# wv and w2
+DECODE_13B = {"wqkv": (15360, 5120), "wo": (5120, 5120), "w13": (27648, 5120),
+              "w2": (5120, 13824), "output": (32000, 5120)}
+Q6K_13B = {"output": (32000, 5120), "wv": (5120, 5120), "w2": (5120, 13824)}
+
+
+def rq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
+    """rq_decode at the 13B decode shapes, M = 1 and 8: q5_k at the five of
+    DECODE_13B, q6_k at those of Q6K_13B; against the plain version and
+    device-only beside the bound (check_rq), and beside the same-run time of
+    the q5 magic dequantize-matvec probe (qmm_r3's q5u8or: 16-byte loads at M
+    = 1, 4-byte at M = 8, the probe tools' fastest widths there) at the same shape."""
+    import dataclasses
+
+    from minigpt4_tpu_torch.formats import DataType
+    from minigpt4_tpu_torch.ops import probes
+    from minigpt4_tpu_torch.tools import _harness
+
+    cases = ([(name, nk, DataType.Q5_K) for name, nk in DECODE_13B.items()]
+             + [(name, nk, DataType.Q6_K) for name, nk in Q6K_13B.items()])
+    for name, (n, k), dtype in cases:
+        stack = STACK_HEAD if name == "output" else STACK_13B
+        w = random_rq(stack, n, k, dtype, gen)
+        check_rq(results, card, name, w, stack, (1, 8), gen)
+        del w
+        pw = probes.random_probe_weight("q5", n, k, gen, DEVICE)
+        copies = [dataclasses.replace(pw, codes=c, hi=h, scales=sc) for c, h, sc
+                  in _harness.rotation((pw.codes, pw.hi, pw.scales), pw.nbytes)]
+        for row in results["rq_decode"][-2:]:
+            m = int(row["shape"].rsplit("M=", 1)[1])
+            x = torch.randn(m, k, generator=gen, device=DEVICE)
+            width = 16 if m == 1 else 4
+            probe_row(row, f"rq_decode {dtype.name.lower()} 13B {name} {n}x{k} M={m}",
+                      lambda xx, ww: probes.dequant_matvec(xx, ww, "magic", width),
+                      lambda i: (x, copies[i % len(copies)]), len(copies),
+                      f"the q5 magic probe ({width}-byte loads)", card)
+        del pw, copies
+        torch.cuda.empty_cache()
+
+
 def phase_rq_kernels(results: dict, card: str, gen: torch.Generator) -> None:
     """The repacked-weight kernels at the shapes of their paths, and the gq
     kernels at the same shapes where gq takes them."""
     from minigpt4_tpu_torch.formats import DataType
 
+    rq_decode_13b_cases(results, card, gen)
     for name, (n, k), dtype, stack, ms in (
             ("fc2", (1408, 6144), DataType.Q5_K, STACK_VIT, (257,)),
             ("fc1", (6144, 1408), DataType.Q5_1, STACK_VIT, (257,)),
             ("qkv", (4224, 1408), DataType.Q8_0, STACK_VIT, (257,)),
             ("qf-int", (3072, 768), DataType.Q5_K, STACK_QF, (32,)),
-            ("w13", (27648, 5120), DataType.Q5_K, STACK_13B, (1, 512)),
-            ("output", (32000, 5120), DataType.Q6_K, STACK_HEAD, (1,))):
+            ("w13", (27648, 5120), DataType.Q5_K, STACK_13B, (512,))):
         w = random_rq(stack, n, k, dtype, gen)
         check_rq(results, card, name, w, stack, ms, gen)
         del w
@@ -855,52 +944,86 @@ def int_mm_ms(x_i8: torch.Tensor, w, n_stack: int, reps: int = 10):
 
 
 # i8 tolerances, relative to max|y|: each 256-wide chunk's product is an
-# exact i32 in the kernels and in the plain version, and the scaled chunks
-# add in the same order; only the f32 multiply-add rounding differs
+# exact i32 in the kernels and in the plain versions (the decode kernel's
+# codes bit-equal to quantize_activations), and the scaled chunks add in a
+# fixed order; only the f32 summation order differs
 I8_DECODE_TOL, I8_PREFILL_TOL = 1e-5, 1e-4
 
 
-def phase_i8_kernels(results: dict, card: str, gen: torch.Generator) -> None:
-    """i8_decode and i8_prefill against qmatmul_i8sb_ref at the shapes of the
-    w8a8 path: the 13B w13 and output (decode, M = 1 and 8), the 13B w13 at
-    the 512-row bucket, ViT-G fc2 at the 257-row image and the Q-Former
-    intermediate at its 32 queries (prefill)."""
+def check_i8(results: dict, card: str, name: str, w, n_stack: int, ms, gen) -> None:
+    """Each M of ``ms`` through i8_decode (from f32 x: quantization, chunked
+    contraction, row scale) or i8_prefill (x quantized beforehand) against
+    its plain version, timed rotating through the stacked layers; the
+    decode rows device-only, the prefill rows beside torch._int_mm."""
     from minigpt4_tpu_torch.ops import i8_matmul as i8
 
-    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (1, 8, 512)),
-                                    ("output", (32000, 5120), STACK_HEAD, (1, 8)),
+    n, k = w.n_out, w.n_in
+    last = n_stack - 1
+    for m in ms:
+        decode = m <= i8.I8_MAX_M
+        x = torch.randn(m, k, generator=gen, device=DEVICE)
+        if decode:
+            kern, plain, xa = i8.i8_decode, i8.qmatmul_i8sb_decode_ref, x
+        else:
+            kern, plain, xa = i8.i8_prefill, i8.qmatmul_i8sb_ref, i8.quantize_activations(x)[0]
+        got, want = kern(xa, w, last), plain(xa, w, last)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(got, want), float((got - want).abs().max())
+        tol = I8_DECODE_TOL if decode else I8_PREFILL_TOL
+        k_ms, p_ms = compare_times(kern, plain, lambda i: (xa, w, i % n_stack))
+        lib_ms, lib_dev = (None, None) if decode else int_mm_ms(xa, w, n_stack)
+        b_ms, b_by = bound(nbytes(w.codes[0], w.scales[0], xa) + 4 * m * n, 2.0 * m * n * k,
+                           INT8_OPS)
+        key = kern.__name__
+        results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format="i8sb",
+                                 max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=k_ms,
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms))
+        lib = ("no library call quantizes x and scales chunks" if decode else
+               "torch._int_mm refuses M <= 16" if lib_ms is None else
+               f"torch._int_mm (no chunk scales) {lib_ms:.4f} ms")
+        log(f"[kernels] {key:18s} i8sb {name:6s} N={n:5d} K={k:5d} M={m:3d}  max_rel_err="
+            f"{err:.3e} (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})  {lib}  [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
+        device_row(results[key][-1], f"{key} {name} {n}x{k} M={m}",
+                   device_ms(kern, lambda i: (xa, w, i % n_stack), n_stack), lib_dev,
+                   "torch._int_mm", card)
+
+
+def phase_i8_kernels(results: dict, card: str, gen: torch.Generator) -> None:
+    """i8_decode at the 13B decode shapes (DECODE_13B, M = 1 and 8), each
+    beside the same-run time of the i8 x i8 probe (probe_int4's i8xi8: x
+    quantized beforehand, no chunk scales) at the same shape, and
+    i8_prefill at the shapes of the w8a8 path: the 13B w13 at the 512-row
+    bucket, ViT-G fc2 at the 257-row image and the Q-Former intermediate at
+    its 32 queries; each against its plain version."""
+    from minigpt4_tpu_torch.ops import probes
+    from minigpt4_tpu_torch.tools import _harness
+
+    for name, (n, k) in DECODE_13B.items():
+        stack = STACK_HEAD if name == "output" else STACK_13B
+        w = random_i8(stack, n, k, gen)
+        check_i8(results, card, name, w, stack, (1, 8), gen)
+        del w
+        wp = torch.randint(-127, 127, (n, k), generator=gen, device=DEVICE, dtype=torch.int8)
+        copies = _harness.rotation((wp,), wp.numel())
+        for row in results["i8_decode"][-2:]:
+            m = int(row["shape"].rsplit("M=", 1)[1])
+            x_i8 = torch.randint(-127, 127, (m, k), generator=gen, device=DEVICE,
+                                 dtype=torch.int8)
+            probe_row(row, f"i8_decode 13B {name} {n}x{k} M={m}",
+                      lambda xx, ww: probes.int_dot(xx, ww, None, "i8xi8"),
+                      lambda i: (x_i8, copies[i % len(copies)][0]), len(copies),
+                      "the i8 x i8 probe", card)
+        del wp, copies
+        torch.cuda.empty_cache()
+    for name, (n, k), stack, ms in (("w13", (27648, 5120), STACK_13B, (512,)),
                                     ("fc2", (1408, 6144), STACK_VIT, (257,)),
                                     ("qf-int", (3072, 768), STACK_QF, (32,))):
         w = random_i8(stack, n, k, gen)
-        last = stack - 1
-        for m in ms:
-            x_i8, _ = i8.quantize_activations(torch.randn(m, k, generator=gen, device=DEVICE))
-            decode = m <= i8.I8_MAX_M
-            kern = i8.i8_decode if decode else i8.i8_prefill
-            got, want = kern(x_i8, w, last), i8.qmatmul_i8sb_ref(x_i8, w, last)
-            torch.cuda.synchronize()
-            err, abs_err = rel_err(got, want), float((got - want).abs().max())
-            tol = I8_DECODE_TOL if decode else I8_PREFILL_TOL
-            k_ms, p_ms = compare_times(kern, i8.qmatmul_i8sb_ref, lambda i: (x_i8, w, i % stack))
-            lib_ms, lib_dev = int_mm_ms(x_i8, w, stack)
-            b_ms, b_by = bound(nbytes(w.codes[0], w.scales[0], x_i8) + 4 * m * n,
-                               2.0 * m * n * k, INT8_OPS)
-            key = kern.__name__
-            results[key].append(dict(shape=f"{name} {n}x{k} M={m}", format="i8sb",
-                                     max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=k_ms,
-                                     plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=lib_ms))
-            lib = ("torch._int_mm refuses M <= 16" if lib_ms is None else
-                   f"torch._int_mm (no chunk scales) {lib_ms:.4f} ms")
-            log(f"[kernels] {key:18s} i8sb {name:6s} N={n:5d} K={k:5d} M={m:3d}  max_rel_err="
-                f"{err:.3e} (tol {tol:g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
-                f"{b_ms:.4f} ms ({b_by})  {lib}  [{card}]")
-            if not err <= tol:
-                raise AssertionError(f"{key} {name} M={m}: rel err {err} > {tol}")
-            if not decode:
-                device_row(results[key][-1], f"i8_prefill {name} {n}x{k} M={m}",
-                           device_ms(kern, lambda i: (x_i8, w, i % stack), stack), lib_dev,
-                           "torch._int_mm", card)
+        check_i8(results, card, name, w, stack, ms, gen)
         del w
         torch.cuda.empty_cache()
 
@@ -1023,10 +1146,9 @@ def phase_kernels(card: str, only: set | None = None) -> dict:
     return results
 
 
-# the 13B decode matmuls of a q5_k file (exact planes), as models/llama.py
-# issues them (wq|wk|wv and w1|w3 fused)
-GQ_13B_DECODE = {"wqkv": (15360, 5120), "wo": (5120, 5120), "w13": (27648, 5120),
-                 "w2": (5120, 13824)}
+# the 13B decode matmuls of a q5_k file's exact planes (the q6_k output is a
+# generic-plane row)
+GQ_13B_DECODE = {k: v for k, v in DECODE_13B.items() if k != "output"}
 
 
 def gq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
@@ -1048,13 +1170,9 @@ def gq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
             x = torch.randn(m, k, generator=gen, device=DEVICE)
             x1, x2, s1, s2 = gq.split_activations(x)
             s12, sgt = torch.cat([s1, s2], 1), gq.group_sums(x)
-            probe = device_ms(probes.probe_group_i8,
-                              lambda i: (x1, x2, s12, sgt, w.codes, a, b, i % STACK_13B),
-                              STACK_13B)
-            row.update(probe_device_ms=probe, probe_factor=row["device_ms"] / probe)
-            log(f"[device-only] gq_decode 13B {name} {n}x{k} M={m}  kernel "
-                f"{row['device_ms']:.4f} ms, the dual-i8 probe (x split outside) {probe:.4f} ms,"
-                f" kernel / probe {row['probe_factor']:.3f}  [{card}]")
+            probe_row(row, f"gq_decode 13B {name} {n}x{k} M={m}", probes.probe_group_i8,
+                      lambda i: (x1, x2, s12, sgt, w.codes, a, b, i % STACK_13B), STACK_13B,
+                      "the dual-i8 probe (x split outside)", card)
         del w, a, b
         torch.cuda.empty_cache()
 
@@ -1758,6 +1876,8 @@ def chat_on(eng, label: str, card: str) -> dict:
         per_token = sum(after[k] - before[k] for k in DECODE_MATMULS) / 16
         prof = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
         log_profile(f"[engine {label}] a 16-token decode chunk", prof, card)
+        log(f"[engine {label}] {prof['device_ops'] / 16:g} device activities per token, "
+            f"{per_token:g} matmul launches per token")
     eng.begin_chat("Tell me more.")
     before = eng.n_past
     text2 = list(eng.generate(limit=8, params=SamplingParams(temp=0.8)))
@@ -2322,7 +2442,11 @@ def tp_rank(g, model: str, llm: str, shallow: list, card: str) -> dict:
 # its SASS read-out (cuobjdump over the whole library takes ~20 s), the op
 # chains at the probe's REPS
 _M = ["--m", "1,8"]
-PROBE_RUNS = (("qmm_group_i8", _M), ("qmm_variants", _M + ["--width", "16"]),
+# qmm_group_i8's rq and w8a8 arms time rq_decode and i8_decode at the 13B
+# decode shapes, which phase 3 holds and times already: the probe and gq
+# arms alone here
+PROBE_RUNS = (("qmm_group_i8", _M + ["--only", "gi8,gq"]),
+              ("qmm_variants", _M + ["--width", "16"]),
               ("unpack_variants", _M + ["--width", "16"]), ("qmm_v3", _M + ["--width", "16"]),
               ("qmm_v3", ["km"] + _M + ["--width", "16"]),
               ("qmm_v3", ["i8"] + _M + ["--width", "16"]), ("qmm_r3", _M + ["--width", "16"]),
@@ -2495,13 +2619,13 @@ def main() -> int:
             unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul",
                                      "flash_decode", "i8_matmul") if f"{u}_cu" in name), "")
             at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill",
-                                            "gq_decode_i8"))
+                                            "gq_decode_i8", "rq_decode"))
             kernel = f"{unit}: {name[at:][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
 
     sass = check_wgmma_sass(card)
-    sass["gq_decode_i8_kernel"] = check_dp4a_sass(card)
+    sass.update(check_decode_sass(card))
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
         sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
         phase_kernels(card, set(sections[0].split(",")) if sections else None)
@@ -2655,9 +2779,12 @@ def main() -> int:
                        + DEVICE_KEYS if k in r}
                       for r in rows],
         })
-        if name in ("gq_decode", "gq_decode_generic"):
-            kernels[-1]["sass_idp"] = {k: v for k, v in sass["gq_decode_i8_kernel"].items()
-                                       if k.startswith("IDP")}
+        decode_sass = {"gq_decode": "gq_decode_i8_kernel",
+                       "gq_decode_generic": "gq_decode_i8_kernel",
+                       "i8_decode": "i8_decode_kernel", "rq_decode": "rq_decode_kernel"}
+        if name in decode_sass:
+            kernels[-1]["sass_idp_i2f"] = {k: v for k, v in sass[decode_sass[name]].items()
+                                           if k.startswith(("IDP", "I2F"))}
         if name == "i8_prefill":
             kernels[-1]["sass_opcodes"] = sass["i8_prefill_kernel"]
         if name in ("gq_prefill", "gq_prefill_generic", "rq_prefill"):

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,40 +45,52 @@ __device__ __forceinline__ int half_warp_sum(int v) {
   return v;
 }
 
-// The i-th signed byte of a 32-bit word, as float (codes are stored as i8).
-__device__ __forceinline__ float byte_as_float(int word, int i) {
-  return static_cast<float>(static_cast<signed char>((word >> (8 * i)) & 0xff));
+// Round-to-nearest-even quotients of activations by a row scale, without
+// a division per element (gq_decode_i8.cuh's split, i8_matmul.cu's
+// quantization): clamp(rint(v / s), +-127) as a float, taken as v * RN(1/s)
+// (within 2.5 ulps of the rounded quotient) and, only where that lies
+// within 2^-14 of a half-integer (where rint could differ), by __fdiv_rn.
+// t holds the result + kRoundMagic, whose low byte is its i8 two's complement.
+constexpr float kRoundMagic = 12582912.f;  // 1.5 * 2^23: q + kRoundMagic rounds q to an integer
+constexpr float kTieBand = 0.49993896484375f;  // 0.5 - 2^-14
+
+__device__ __forceinline__ float split_level(float v, float s, float rcp, bool fast, float& t) {
+  float q = fast ? __fmul_rn(v, rcp) : __fdiv_rn(v, s);
+  q = fminf(fmaxf(q, -127.f), 127.f);
+  t = __fadd_rn(q, kRoundMagic);
+  float r = __fsub_rn(t, kRoundMagic);
+  if (fast && fabsf(__fsub_rn(q, r)) > kTieBand) {  // near a half-integer: the exact quotient
+    q = fminf(fmaxf(__fdiv_rn(v, s), -127.f), 127.f);
+    t = __fadd_rn(q, kRoundMagic);
+    r = __fsub_rn(t, kRoundMagic);
+  }
+  return r;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // exact for values read from bf16 planes
+// the low bytes of four words, in order, as one word
+__device__ __forceinline__ int pack_low_bytes(float a, float b, float c, float d) {
+  const uint32_t ab = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040);
+  const uint32_t cd = __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040);
+  return static_cast<int>(__byte_perm(ab, cd, 0x5410));
 }
 
-// Codes of a quantized weight, read in runs of 16 consecutive codes of one
-// row that start at a multiple of 16 (qmm_decode.cuh; qmm_prefill.cuh stages
-// the same layouts through its StepCodes).
-// load(n, k, K) returns the run at row n, column k; value(run, j) is its j-th
-// code as float; a value-initialised Run holds zeros.
+// an exact i32 |v| < 2^22 as float without I2F: the float of bits
+// (v + 0x4B400000) is 1.5 * 2^23 + v
+__device__ __forceinline__ float small_int_to_float(int v) {
+  return __fsub_rn(__int_as_float(v + 0x4B400000), kRoundMagic);
+}
+
+// Codes of a quantized weight: the layer selected by pointer offset; the
+// kernels read them with their own loads (gq_decode_i8.cuh, rq_decode.cuh,
+// qmm_prefill.cuh's StepCodes).
 //
 // One signed byte per weight, [L, N, K]: the gq codes, and the q8_0 codes of
-// a repacked weight (rq_matmul.cu).  A run is one 16-byte load.
+// a repacked weight (rq_matmul.cu).
 struct I8Codes {
-  using Run = int4;
   const int8_t* codes;
 
   __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
     codes += li * N * K;
-  }
-  __device__ __forceinline__ Run load(int n, int k, int K) const {
-    return __ldg(reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K + k));
-  }
-  __device__ __forceinline__ static float value(const Run& r, int j) {
-    const int w[4] = {r.x, r.y, r.z, r.w};
-    return byte_as_float(w[j / 4], j % 4);
   }
 };
 
@@ -88,36 +101,14 @@ struct I8Codes {
 //   hi     i32 [L, N, K/32] for HB = 1 (bit b of word w is bit 4 of
 //          q[n, 32 w + b]), [L, N, K/16] for HB = 2 (bits 2b+1:2b of word w
 //          are bits 5:4 of q[n, 16 w + b]); unused for HB = 0.
-// A run is one 8-byte load of nibbles and 16 or 32 bits of one high-bit word;
-// value() gives the unsigned code as float, the same float an i8 code of
-// I8Codes gives, so both sources feed the kernels identical operands.
 template <int HB>
 struct NibbleCodes {
-  struct Run {
-    uint2 lo;     // 16 nibbles: code j at bits 4j of lo.x (j < 8) or lo.y
-    uint32_t hi;  // the run's high bits, HB per code from bit 0
-  };
   const uint8_t* codes;
   const uint32_t* hi;
 
   __device__ __forceinline__ void select_layer(size_t li, int N, int K) {
     codes += li * N * (K / 2);
     if constexpr (HB > 0) hi += li * N * (K / (32 / HB));
-  }
-  __device__ __forceinline__ Run load(int n, int k, int K) const {
-    const size_t e = static_cast<size_t>(n) * K + k;  // element index, a multiple of 16
-    Run r;
-    r.lo = __ldg(reinterpret_cast<const uint2*>(codes + e / 2));
-    r.hi = 0;
-    if constexpr (HB == 1) r.hi = __ldg(hi + e / 32) >> (e & 16);
-    if constexpr (HB == 2) r.hi = __ldg(hi + e / 16);
-    return r;
-  }
-  __device__ __forceinline__ static float value(const Run& r, int j) {
-    const uint32_t w = j < 8 ? r.lo.x : r.lo.y;
-    uint32_t q = (w >> (4 * (j % 8))) & 15u;
-    if constexpr (HB > 0) q |= ((r.hi >> (HB * j)) & ((1u << HB) - 1u)) << 4;
-    return static_cast<float>(q);
   }
 };
 
@@ -246,6 +237,38 @@ struct GenericPlanes {
     return make_float2(bf16_word_half(w[0], a + gi), bf16_word_half(w[1], b + gi));
   }
 };
+
+inline int device_sms() {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = cache[dev & 63];
+  if (c == 0) cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+  return c > 0 ? c : 1;
+}
+
+// Blocks of `threads` threads with `smem` bytes of dynamic shared memory
+// that fit on one SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// cached per kernel and configuration); 0 where none fits.
+template <class Kernel>
+int blocks_per_sm(Kernel kern, int threads, int smem) {
+  struct Key {
+    const void* kern;
+    int threads, smem, occ;
+  };
+  static std::mutex mu;
+  static Key keys[256];
+  static int n_keys = 0;
+  const void* k = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_keys; ++i)
+    if (keys[i].kern == k && keys[i].threads == threads && keys[i].smem == smem) return keys[i].occ;
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem) != cudaSuccess)
+    return 0;
+  if (n_keys < 256) keys[n_keys++] = Key{k, threads, smem, occ};
+  return occ;
+}
 
 // ---------------------------------------------------------------------------
 // Hopper: TMA, mbarriers and warpgroup MMA (i8_matmul.cu, qmm_prefill.cuh)

@@ -56,7 +56,6 @@
 #pragma once
 
 #include <algorithm>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -68,8 +67,6 @@ constexpr int kI8Unit = 32;                    // codes a thread takes per step
 constexpr int kI8Threads = 32 * kI8Slices;     // threads per block
 constexpr int kI8MaxCpl = 2;                   // columns per lane: 2 from M = 3 rows on
 constexpr int kRowFields = 8;                  // s1, s2, RN(1/s1), RN(1/s2), fast
-constexpr float kMagic = 12582912.f;           // 1.5 * 2^23: q + kMagic rounds q to an integer
-constexpr float kTieBand = 0.49993896484375f;  // 0.5 - 2^-14
 
 // 32 codes of row n from column k (k % 32 == 0) as 8 words of 4 signed
 // bytes in K order.
@@ -114,28 +111,6 @@ __device__ __forceinline__ void load_words(const NibbleCodes<HB>& c, int n, int 
     w[2 * i] = static_cast<int>(w0);
     w[2 * i + 1] = static_cast<int>(w1);
   }
-}
-
-// clamp(rint(v / s), +-127) as a float; t holds it + kMagic, whose low byte
-// is its i8 two's complement
-__device__ __forceinline__ float split_level(float v, float s, float rcp, bool fast, float& t) {
-  float q = fast ? __fmul_rn(v, rcp) : __fdiv_rn(v, s);
-  q = fminf(fmaxf(q, -127.f), 127.f);
-  t = __fadd_rn(q, kMagic);
-  float r = __fsub_rn(t, kMagic);
-  if (fast && fabsf(__fsub_rn(q, r)) > kTieBand) {  // near a half-integer: the exact quotient
-    q = fminf(fmaxf(__fdiv_rn(v, s), -127.f), 127.f);
-    t = __fadd_rn(q, kMagic);
-    r = __fsub_rn(t, kMagic);
-  }
-  return r;
-}
-
-// the low bytes of four words, in order, as one word
-__device__ __forceinline__ int pack_low_bytes(float a, float b, float c, float d) {
-  const uint32_t ab = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040);
-  const uint32_t cd = __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040);
-  return static_cast<int>(__byte_perm(ab, cd, 0x5410));
 }
 
 // absmax of each row of x over K, then rowp[m] = (s1, s2, RN(1/s1), RN(1/s2),
@@ -395,15 +370,6 @@ inline int gq_decode_i8_smem(int M, int KT, int GS, int cpl) {
          4 * M * kRowFields + 4 * kI8Slices * M;
 }
 
-inline int device_sms() {
-  static int cache[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& c = cache[dev & 63];
-  if (c == 0) cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
-  return c > 0 ? c : 1;
-}
-
 template <int M, int CPL, class P, class C>
 int gq_decode_i8_run(const void* x, const C& codes, const P& planes, void* y, int N, int K,
                      int layer, cudaStream_t stream) {
@@ -414,26 +380,8 @@ int gq_decode_i8_run(const void* x, const C& codes, const P& planes, void* y, in
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int kt = gq_decode_i8_tile(M, K, GS);
   const int smem = gq_decode_i8_smem(M, kt, GS, CPL);
-  // blocks per SM that fit, cached by shared memory
-  static std::mutex mu;
-  static int keys[32][2];
-  static int n_keys = 0;
-  int occ = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    for (int i = 0; i < n_keys; ++i)
-      if (keys[i][0] == smem) occ = keys[i][1];
-    if (occ == 0) {
-      const cudaError_t e =
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kI8Threads, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-      if (n_keys < 32) {
-        keys[n_keys][0] = smem, keys[n_keys][1] = occ;
-        ++n_keys;
-      }
-    }
-  }
+  const int occ = blocks_per_sm(kern, kI8Threads, smem);
+  if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int n_strips = (N + 32 * CPL - 1) / (32 * CPL);
   const dim3 grid(std::min(n_strips, occ * device_sms()));
   kern<<<grid, kI8Threads, smem, stream>>>(static_cast<const float*>(x), codes, planes,

@@ -9,26 +9,46 @@
 //   y[m, n] = sum_g f32(sum_{k in chunk g} x[m, k] * codes[n, k]) * scale[n, g]
 //
 // over 256-wide chunks g: the chunk's product is an exact i32, and the f32
-// sum runs in chunk order.  The per-row activation scale multiplies y in the
-// wrapper (ops/i8_matmul.py), as in the JAX package.  Both entries require
-// K % 256 == 0 and refuse other K with cudaErrorInvalidValue.
+// sum runs in a fixed order.  The activations x are i8 codes of f32 rows,
+// x_i8 = clamp(rint(x / s), +-127) with s = absmax / 127 per row (or the
+// caller's scale), and y is multiplied by s: mgt_i8_decode does all of that
+// in its one launch from f32 x; for mgt_i8_prefill the wrapper quantizes x
+// and scales y (ops/i8_matmul.py), as in the JAX package.  Both entries
+// require K % 256 == 0 and refuse other K with cudaErrorInvalidValue.
 //
-// What bounds it on the H100.  mgt_i8_decode (M <= 8): device-memory
-// bandwidth on the code stream, 1 B per weight plus 4 B of scale per 256
-// weights; the i32 dot products (__dp4a, 4 multiply-adds per instruction)
-// stay far below the instruction rate.  mgt_i8_prefill (M > 8): at the 512-row
-// bucket and the 257-row ViT chunk the s8 tensor-core rate (2 M N K
-// operations at 1979 TOP/s); at the 32-row Q-Former chunk the code stream.
+// What bounds it on the H100.  mgt_i8_decode (M <= 8): the code stream from
+// device memory, 1 B per weight plus 4 B of scale per 256 weights; at M = 8
+// the integer dot products (2 M N K operations, __dp4a at a quarter of the
+// f32 rate) come within a factor of two of it.  The kernel it replaces ran
+// at 53-86 % of the byte bound at M = 1 but at 22-50 % at M = 8 (13B
+// shapes, NVIDIA H100 80GB HBM3, 700 W), and its caller spent about ten
+// torch launches quantizing x around it.
+// mgt_i8_prefill (M > 8): at the 512-row bucket and the 257-row ViT chunk
+// the s8 tensor-core rate (2 M N K operations at 1979 TOP/s); at the 32-row
+// Q-Former chunk the code stream.
 //
-// mgt_i8_decode.  A block owns 32 output columns (8 warps x 4); each half of
-// a warp owns 2 columns and walks their rows chunk by chunk in order.  A
-// 256-code chunk of one row is 16 lanes x 16 bytes, one coalesced 256-byte
-// read; each lane forms its 16-byte dot products with __dp4a, the half-warp
-// adds the 16 partial i32 with shuffles (integer adds, so the chunk total is
-// exact in any order), and every lane of the half then adds f32(total) *
-// scale[n, g] to its f32 accumulator: the chunk order of the TPU kernel.
-// x (at most 8 x K bytes) is read through the read-only cache.  No shared
-// memory, no atomics; results are deterministic.
+// mgt_i8_decode.  One launch from f32 x to the scaled f32 y.
+// * Persistent blocks (at most what fits on the card at once) take each
+//   row's absmax over K (skipped where the caller gives the scales), then
+//   quantize x into shared memory, M K bytes (at most 110 KB at M = 8, K =
+//   13824): x * RN(1/s), and __fdiv_rn only near a half-integer
+//   (common.cuh's split_level), so the codes are bit-equal to
+//   quantize_activations.
+// * A block is nw warps, one per K slice (chunks g = p, p + nw, ...); a warp
+//   is 8 quads, a quad owns C rows (C = 2 from M = 3 on) and its lane l reads
+//   bytes 64 j + 16 l (j < 4) of each 256-code chunk: 64 contiguous bytes of
+//   a row per load, x read from shared memory at four addresses per warp.
+//   Loads run D chunks ahead in a register ring over the block's whole
+//   sequence of (strip, chunk) tasks.
+// * The quad's four partial i32 per (row, x row) are added by shuffles once
+//   per chunk: a butterfly where a lane holds at most 4 values, else a
+//   reduce-scatter that leaves each lane a quarter of them, finished.  Each
+//   finished total is exact, becomes a float without I2F (common.cuh's
+//   small_int_to_float) and is multiplied by its chunk scale and added
+//   (two roundings, as the plain version).
+// * The nw slices' sums meet in shared memory in slice order; y = sum * s,
+//   one f32 multiply.  nw depends on K alone, so a column's bits depend on
+//   M and K, never on N, the grid or the block that computes it.
 //
 // mgt_i8_prefill. Warpgroup MMA over a TMA ring. A block of three warpgroups
 // computes a 128 x 128 output tile. One producer thread (the third
@@ -63,6 +83,8 @@
 // ptxas holds a 384-thread block to 168, spills and serializes the wgmmas
 // (measured slower), so that needs a narrower tile or a persistent layout.
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -73,75 +95,271 @@ constexpr int kSB = 256;  // superblock: one scale, one exact i32 chunk
 // decode: M <= 8
 // ---------------------------------------------------------------------------
 
-constexpr int kDecWarps = 8;
-constexpr int kDecColsPerHalf = 2;
-constexpr int kDecBN = kDecWarps * 2 * kDecColsPerHalf;  // 32 columns per block
+constexpr int kDecQuads = 8;      // quads per warp, each on its own rows
+constexpr int kDecMaxWarps = 12;  // 384 threads: up to 168 registers a thread
 
-using mgt::dot16;
-using mgt::half_warp_sum;
+using mgt::kMaxSmem;
 
+// one 256-code chunk of one row as a lane reads it: bytes 64 j + 16 l of the
+// chunk, and the chunk's scale
+struct I8Unit {
+  int4 w[4];
+  float sc;
+};
+
+// absmax / 127 (0 -> 1) of each row of x, or x_scale[m]; rowq[m] = (s,
+// RN(1/s), whether the product path holds), then x quantized into xs [M][K];
+// all threads, ends with a barrier
 template <int M>
-__global__ void __launch_bounds__(kDecWarps * 32)
-i8_decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ codes,
-                 const float* __restrict__ scales, float* __restrict__ y, int N, int K,
-                 int layer) {
-  const int G = K / kSB;
-  codes += static_cast<size_t>(layer) * N * K;
-  scales += static_cast<size_t>(layer) * N * G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = lane / 16, hl = lane % 16;
-  const int n0 = blockIdx.x * kDecBN + (warp * 2 + half) * kDecColsPerHalf;
-
-  float acc[kDecColsPerHalf][M];
+__device__ void quantize_rows(const float* __restrict__ x, const float* __restrict__ x_scale,
+                              int K, int8_t* xs, float* rowq, float* scratch) {
+  const int nt = blockDim.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (x_scale == nullptr) {
+    float mx[M];
 #pragma unroll
-  for (int c = 0; c < kDecColsPerHalf; ++c)
+    for (int m = 0; m < M; ++m) mx[m] = 0.f;
+    for (int c = tid; c < K / 4; c += nt) {
 #pragma unroll
-    for (int m = 0; m < M; ++m) acc[c][m] = 0.f;
-
-#pragma unroll 4
-  for (int g = 0; g < G; ++g) {
-    const size_t k0 = static_cast<size_t>(g) * kSB + hl * 16;
-    int4 w[kDecColsPerHalf];
-    float s[kDecColsPerHalf];
-#pragma unroll
-    for (int c = 0; c < kDecColsPerHalf; ++c) {
-      const int n = n0 + c;
-      w[c] = make_int4(0, 0, 0, 0);
-      s[c] = 0.f;
-      if (n < N) {
-        w[c] = __ldg(reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K + k0));
-        s[c] = __ldg(scales + static_cast<size_t>(n) * G + g);
+      for (int m = 0; m < M; ++m) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K) + c);
+        mx[m] = fmaxf(mx[m], fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
       }
     }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const int4 xv = __ldg(reinterpret_cast<const int4*>(x + static_cast<size_t>(m) * K + k0));
+      const float v = mgt::warp_max(mx[m]);
+      if (lane == 0) scratch[warp * M + m] = v;
+    }
+    __syncthreads();
+  }
+  if (tid < M) {
+    float s;
+    if (x_scale != nullptr) {
+      s = x_scale[tid];
+    } else {
+      float ax = 0.f;
+      for (int w = 0; w < nt / 32; ++w) ax = fmaxf(ax, scratch[w * M + tid]);
+      s = ax == 0.f ? 1.f : __fdiv_rn(ax, 127.f);
+    }
+    rowq[3 * tid] = s;
+    rowq[3 * tid + 1] = __frcp_rn(s);
+    rowq[3 * tid + 2] = s >= 0x1p-125f && s <= 0x1p125f ? 1.f : 0.f;  // RN(1/s) normal
+  }
+  __syncthreads();
 #pragma unroll
-      for (int c = 0; c < kDecColsPerHalf; ++c) {
-        const int total = half_warp_sum(dot16(xv, w[c]));
-        acc[c][m] += static_cast<float>(total) * s[c];
+  for (int m = 0; m < M; ++m) {
+    const float s = rowq[3 * m], rcp = rowq[3 * m + 1];
+    const bool fast = rowq[3 * m + 2] != 0.f;
+    for (int c = tid; c < K / 16; c += nt) {
+      const float4* xp = reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K) + 4 * c;
+      int w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = __ldg(xp + j);
+        float t[4];
+        mgt::split_level(v.x, s, rcp, fast, t[0]);
+        mgt::split_level(v.y, s, rcp, fast, t[1]);
+        mgt::split_level(v.z, s, rcp, fast, t[2]);
+        mgt::split_level(v.w, s, rcp, fast, t[3]);
+        w[j] = mgt::pack_low_bytes(t[0], t[1], t[2], t[3]);
       }
+      *reinterpret_cast<int4*>(xs + static_cast<size_t>(m) * K + 16 * c) =
+          make_int4(w[0], w[1], w[2], w[3]);
     }
   }
+  __syncthreads();
+}
 
-  if (hl == 0) {
+// The C rows' chunk g of a task on strip s.  Branch-free: a row past N
+// reads row N - 1 and a chunk past K the last chunk; such a chunk is
+// skipped and such a row never written.
+template <int C>
+__device__ __forceinline__ void i8_load(I8Unit (&r)[C], const int8_t* __restrict__ codes,
+                                        const float* __restrict__ scales, int s, int g, int quad,
+                                        int q, int N, int K, int G) {
+  g = min(g, G - 1);
 #pragma unroll
-    for (int c = 0; c < kDecColsPerHalf; ++c) {
-      const int n = n0 + c;
-      if (n >= N) continue;
+  for (int c = 0; c < C; ++c) {
+    const int n = min((s * kDecQuads + quad) * C + c, N - 1);
+    const int4* p =
+        reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K + kSB * g + 16 * q);
 #pragma unroll
-      for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[c][m];
+    for (int j = 0; j < 4; ++j) r[c].w[j] = __ldg(p + 4 * j);
+    r[c].sc = __ldg(scales + static_cast<size_t>(n) * G + g);
+  }
+}
+
+// the next task: the warp's next chunk of the strip, or the next strip
+__device__ __forceinline__ void i8_next(int& s, int& j, int nj) {
+  if (++j == nj) {
+    j = 0;
+    s += gridDim.x;
+  }
+}
+
+// f32 x [M, K] @ (codes * scales).T * s -> y f32 [M, N]; blockDim.x = 32 nw;
+// dynamic shared memory as i8_decode_smem computes it
+template <int M, int C, int D>
+__global__ void __launch_bounds__(kDecMaxWarps * 32)
+i8_decode_kernel(const float* __restrict__ x, const float* __restrict__ x_scale,
+                 const int8_t* __restrict__ codes, const float* __restrict__ scales,
+                 float* __restrict__ y, int N, int K, int layer) {
+  constexpr int SW = kDecQuads * C;              // rows of a strip
+  constexpr int V = C * M;                       // a lane's partial i32 per chunk
+  constexpr bool kScatter = V > 4;               // reduce-scatter, else a butterfly
+  constexpr int VP = kScatter ? (V + 3) / 4 * 4 : V;
+  constexpr int VL = kScatter ? VP / 4 : V;      // finished totals a lane keeps
+  extern __shared__ __align__(16) unsigned char i8_smem[];
+  const int nw = blockDim.x / 32, G = K / kSB;
+  int8_t* xs = reinterpret_cast<int8_t*>(i8_smem);           // [M][K]
+  float* red = reinterpret_cast<float*>(i8_smem + M * K);    // [2][nw][SW][M]
+  float* rowq = red + 2 * nw * SW * M;                       // [M][3]
+  float* scratch = rowq + 3 * M;                             // [nw][M]
+  codes += static_cast<size_t>(layer) * N * K;
+  scales += static_cast<size_t>(layer) * N * G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, quad = lane / 4, q = lane % 4;
+
+  const int n_strips = (N + SW - 1) / SW;
+  int my_strips = 0, nj = 0;  // nj: chunks per warp and strip, ceil(G / nw)
+  for (int st = blockIdx.x; st < n_strips; st += gridDim.x) ++my_strips;
+  for (int g = 0; g < G; g += nw) ++nj;
+  const int T = my_strips * nj;
+  // the first D tasks' loads go out before x is quantized
+  I8Unit ring[D][C];
+  int ls = blockIdx.x, lj = 0;  // the task the next load is for
+#pragma unroll
+  for (int d = 0; d < D; ++d) {  // unconditional: a task past T reads a clamped address
+    i8_load(ring[d], codes, scales, ls, warp + lj * nw, quad, q, N, K, G);
+    i8_next(ls, lj, nj);
+  }
+  quantize_rows<M>(x, x_scale, K, xs, rowq, scratch);
+
+  // the first value this lane keeps after the reduce-scatter
+  const int v0 = kScatter ? ((q & 2) ? VP / 2 : 0) + ((q & 1) ? VP / 4 : 0) : 0;
+  float acc[VL];
+#pragma unroll
+  for (int i = 0; i < VL; ++i) acc[i] = 0.f;
+  int buf = 0;
+  int cs = blockIdx.x, cj = 0;  // the task being consumed
+  for (int t0 = 0; t0 < T; t0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int t = t0 + d;
+      if (t < T) {
+        const int g = warp + cj * nw;
+        if (g < G) {  // warp-uniform
+          const I8Unit(&r)[C] = ring[d];
+          int v[VP];
+#pragma unroll
+          for (int i = 0; i < VP; ++i) v[i] = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const int4 xv =
+                  *reinterpret_cast<const int4*>(xs + m * K + kSB * g + 64 * j + 16 * q);
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                int& a = v[c * M + m];
+                a = __dp4a(xv.x, r[c].w[j].x, a);
+                a = __dp4a(xv.y, r[c].w[j].y, a);
+                a = __dp4a(xv.z, r[c].w[j].z, a);
+                a = __dp4a(xv.w, r[c].w[j].w, a);
+              }
+            }
+          if constexpr (kScatter) {
+            // lanes q and q ^ 2 keep halves, then q and q ^ 1 quarters
+            int h[VP / 2], f[VP / 4];
+#pragma unroll
+            for (int i = 0; i < VP / 2; ++i) {
+              const int keep = (q & 2) ? v[VP / 2 + i] : v[i];
+              const int send = (q & 2) ? v[i] : v[VP / 2 + i];
+              h[i] = keep + __shfl_xor_sync(mgt::kFullMask, send, 2);
+            }
+#pragma unroll
+            for (int i = 0; i < VP / 4; ++i) {
+              const int keep = (q & 1) ? h[VP / 4 + i] : h[i];
+              const int send = (q & 1) ? h[i] : h[VP / 4 + i];
+              f[i] = keep + __shfl_xor_sync(mgt::kFullMask, send, 1);
+            }
+#pragma unroll
+            for (int i = 0; i < VL; ++i) {
+              const float sc = (C == 1 || v0 + i < M) ? r[0].sc : r[C - 1].sc;
+              acc[i] = __fadd_rn(acc[i], __fmul_rn(mgt::small_int_to_float(f[i]), sc));
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              int a = v[i];
+              a += __shfl_xor_sync(mgt::kFullMask, a, 1);
+              a += __shfl_xor_sync(mgt::kFullMask, a, 2);
+              acc[i] = __fadd_rn(acc[i], __fmul_rn(mgt::small_int_to_float(a), r[i / M].sc));
+            }
+          }
+        }
+        i8_load(ring[d], codes, scales, ls, warp + lj * nw, quad, q, N, K, G);
+        i8_next(ls, lj, nj);
+        if (cj == nj - 1) {  // the strip's last chunk: sum the slices, scale, write y
+          float* rb = red + buf * nw * SW * M;
+#pragma unroll
+          for (int i = 0; i < VL; ++i) {
+            const int vi = v0 + i;
+            if ((kScatter || q == 0) && vi < V)
+              rb[(warp * SW + quad * C + vi / M) * M + vi % M] = acc[i];
+            acc[i] = 0.f;
+          }
+          __syncthreads();
+          for (int i = tid; i < SW * M; i += blockDim.x) {
+            const int r = i / M, m = i - r * M, n = cs * SW + r;
+            if (n < N) {
+              float v = rb[r * M + m];
+              for (int w = 1; w < nw; ++w) v = __fadd_rn(v, rb[(w * SW + r) * M + m]);
+              y[static_cast<size_t>(m) * N + n] = __fmul_rn(v, rowq[3 * m]);
+            }
+          }
+          buf ^= 1;  // the other half of red takes the next strip's slices
+        }
+        i8_next(cs, cj, nj);
+      }
     }
   }
 }
 
+inline int i8_decode_smem(int M, int C, int K, int nw) {
+  return M * K + 4 * (2 * nw * kDecQuads * C * M + 3 * M + nw * M);
+}
+
+// slices (warps) for G chunks: the largest divisor in [8, 12], else all of
+// them up to 12; a function of K alone
+inline int i8_decode_warps(int G) {
+  for (int w = kDecMaxWarps; w >= 8; --w)
+    if (G % w == 0) return w;
+  return std::max(1, std::min(G, kDecMaxWarps));
+}
+
+// rows per lane C: 2 from M = 3 on, else 1; tasks in flight D: 4 where the
+// rows are few; the bits depend on neither
 template <int M>
-void launch_decode(const void* x, const void* codes, const void* scales, void* y, int N, int K,
-                   int layer, cudaStream_t stream) {
-  const dim3 grid((N + kDecBN - 1) / kDecBN);
-  i8_decode_kernel<M><<<grid, kDecWarps * 32, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<float*>(y), N, K, layer);
+int i8_decode_run(const void* x, const void* x_scale, const void* codes, const void* scales,
+                  void* y, int N, int K, int layer, cudaStream_t stream) {
+  constexpr int C = M >= 3 ? 2 : 1;
+  constexpr int D = C * M <= 2 ? 4 : 2;
+  auto* kern = i8_decode_kernel<M, C, D>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int nw = i8_decode_warps(K / kSB);
+  const int smem = i8_decode_smem(M, C, K, nw);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int occ = mgt::blocks_per_sm(kern, 32 * nw, smem);
+  if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int n_strips = (N + kDecQuads * C - 1) / (kDecQuads * C);
+  const dim3 grid(std::min(n_strips, occ * mgt::device_sms()));
+  kern<<<grid, 32 * nw, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(x_scale),
+      static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+      static_cast<float*>(y), N, K, layer);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -158,7 +376,6 @@ constexpr int kPreThreads = (kConsumers + 1) * 128;
 static_assert(kSB == 2 * kBK, "a chunk is two stages");
 
 using mgt::fence_fragment;
-using mgt::kMaxSmem;
 using mgt::mbar_arrive;
 using mgt::mbar_expect_tx;
 using mgt::mbar_init;
@@ -308,25 +525,28 @@ int check_args(int M, int N, int K, int layer) {
 
 }  // namespace
 
-// x i8 [M, K]; codes i8 [L, N, K]; scales f32 [L, N, K/256] (L = 1 for an
-// unstacked weight); y f32 [M, N], before the activation row scale.
-// Requires 1 <= M <= 8, K % 256 == 0 and 16-byte aligned x and codes.
-MGT_API int mgt_i8_decode(const void* x, const void* codes, const void* scales, void* y, int M,
-                          int N, int K, int layer, void* stream) {
+// x f32 [M, K]; x_scale f32 [M] or null (absmax / 127 per row, 0 -> 1);
+// codes i8 [L, N, K]; scales f32 [L, N, K/256] (L = 1 for an unstacked
+// weight); y f32 [M, N], the row scale applied.  Requires 1 <= M <= 8, K %
+// 256 == 0, the M K bytes of x codes and the slice sums within shared
+// memory (i8_decode_smem; K up to about 27000 at M = 8) and 16-byte aligned
+// x and codes.
+MGT_API int mgt_i8_decode(const void* x, const void* x_scale, const void* codes,
+                          const void* scales, void* y, int M, int N, int K, int layer,
+                          void* stream) {
   if (const int rc = check_args(M, N, K, layer)) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (M) {
-    case 1: launch_decode<1>(x, codes, scales, y, N, K, layer, s); break;
-    case 2: launch_decode<2>(x, codes, scales, y, N, K, layer, s); break;
-    case 3: launch_decode<3>(x, codes, scales, y, N, K, layer, s); break;
-    case 4: launch_decode<4>(x, codes, scales, y, N, K, layer, s); break;
-    case 5: launch_decode<5>(x, codes, scales, y, N, K, layer, s); break;
-    case 6: launch_decode<6>(x, codes, scales, y, N, K, layer, s); break;
-    case 7: launch_decode<7>(x, codes, scales, y, N, K, layer, s); break;
-    case 8: launch_decode<8>(x, codes, scales, y, N, K, layer, s); break;
+    case 1: return i8_decode_run<1>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 2: return i8_decode_run<2>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 3: return i8_decode_run<3>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 4: return i8_decode_run<4>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 5: return i8_decode_run<5>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 6: return i8_decode_run<6>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 7: return i8_decode_run<7>(x, x_scale, codes, scales, y, N, K, layer, s);
+    case 8: return i8_decode_run<8>(x, x_scale, codes, scales, y, N, K, layer, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The same for any M >= 1 (the wrappers send M > 8 here) on the s8 tensor

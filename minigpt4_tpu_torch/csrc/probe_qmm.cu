@@ -23,7 +23,7 @@
 // byte bound for nibbles (16.9 us against 10.6-14.5 us at the w2 shape), and
 // the unpack instructions add to them, which is what the probe measures.
 //
-// nm design (qmm_decode.cuh's).  A block owns 32 output columns (8 warps x
+// nm design (the first repacked decode kernel's).  A block owns 32 output columns (8 warps x
 // 4); the x of a K tile of 1024 is staged in shared memory (f32, 32 KB at
 // M = 8).  For the high-bit storages the tile walks the field-local index i
 // (128 per tile) of all 8 fields at once, so a lane that reads a run of

@@ -1,6 +1,6 @@
 // The quantized matmul for M > 8 activation rows, shared by the gq entries
 // (gq_prefill.cu) and the repacked-weight entry (rq_matmul.cu); templated on
-// the plane source P and the code source C as qmm_decode.cuh is.
+// the plane source P and the code source C (common.cuh).
 //
 // Replaces minigpt4_tpu/ops/group_i8.py:_kernel_prefill (through _run_prefill
 // and its pallas_calls, both plane modes, every packing of the codes) and

@@ -11,12 +11,12 @@
 //
 // over the planes of ops/repack.py; here the layer index is one argument
 // and selects the [L, ...] slice by pointer offset, so one entry covers
-// both.  Entry mgt_rq_decode (M <= 8) is qmm_decode.cuh's kernel, x kept in
-// f32 and the group sums of x formed in the kernel (B = -min times sum x per
-// 16-code run); entry mgt_rq_prefill (M > 8) is qmm_prefill.cuh's, which
-// forms w = scale * q - min in f32 and rounds w to bf16 for the tensor
-// cores, so the large scale * q and min of q5_k (min ~ 16 scale) and q6_k
-// (min = 32 scale) cancel before any rounding.
+// both.  Entry mgt_rq_decode (M <= 8) is rq_decode.cuh's kernel, x kept in
+// f32 and w = scale * q - min formed per code in f32 by one FMA, the plain
+// version's weight bit for bit; entry mgt_rq_prefill (M > 8) is
+// qmm_prefill.cuh's, which forms the same w and rounds it to bf16 for the
+// tensor cores, so the large scale * q and min of q5_k (min ~ 16 scale) and
+// q6_k (min = 32 scale) cancel before any rounding.
 //
 // The storage is the port's own (ops/repack.py), K in its natural order:
 //   codes  u8 [L, N, K/2] nibble pairs along K, byte (n, j) = q[n, 2j] |
@@ -26,18 +26,22 @@
 //          [L, N, K/16] for q6_k (bits 2b+1:2b of word w are bits 5:4 of
 //          q[n, 16 w + b]);
 //   scales, mins  bf16 [L, N, K/gs], w = scale * q - min.
-// So a 16-code run is one 8-byte load of nibbles and 16 or 32 bits of one
-// high-bit word.
+// So a 32-code unit is one 16-byte load of nibbles and one or two high-bit
+// words.
 //
-// What bounds it on the H100: at M <= 8 and at the 32-row image chunk the
-// weight stream (0.5 B per weight of nibbles, + 0.125 of q5 bits or 0.25 of
-// q6 bits, + 4/gs B of planes: 0.75 B per q5_k weight, 1.0 per q6_k weight;
-// q8_0 1.125); at the 257-row ViT chunk and the 512-row bucket the bf16
-// tensor-core rate.
+// What bounds it on the H100.  The decode entry: at M = 1 the weight stream
+// (0.5 B per weight of nibbles, + 0.125 of q5 bits or 0.25 of q6 bits, +
+// 4/gs B of planes: 0.75 B per q5_k weight, 1.0 per q6_k weight; q8_0
+// 1.125); at M = 8 the f32 FMA rate (M + 1 FMAs per code, 2 M N K at 67
+// TFLOP/s in the bound), which the unpack (about 3.5 operations per code,
+// no int-to-float convert) shares; rq_decode.cuh says how its design keeps
+// the loads in flight and stages x once per block.  The prefill entry: at
+// the 32-row image chunk the weight stream; at the 257-row ViT chunk and
+// the 512-row bucket the bf16 tensor-core rate.
 #include <type_traits>
 
-#include "qmm_decode.cuh"
 #include "qmm_prefill.cuh"
+#include "rq_decode.cuh"
 
 namespace {
 
@@ -47,9 +51,7 @@ using mgt::NibbleCodes;
 // stored row-major per output row; A = scale, B = -min.
 template <int GS>
 struct RowPlanes {
-  using T = __nv_bfloat16;
   static constexpr int kGS = GS;
-  static constexpr bool kRowMajor = true;
   const __nv_bfloat16* scales;
   const __nv_bfloat16* mins;
   int G;
@@ -58,9 +60,16 @@ struct RowPlanes {
     scales += li * N * G;
     mins += li * N * G;
   }
-  __device__ __forceinline__ float2 fetch(int g, int n, int N) const {
-    const size_t gi = static_cast<size_t>(n) * G + g;
-    return make_float2(__bfloat162float(scales[gi]), -__bfloat162float(mins[gi]));
+  // the decode kernel's planes of the 32-code unit u of row n: the bf16 bits
+  // of the scales in .x and of the mins in .y, one group in the low half
+  // (GS 32) or two (GS 16; G is even, so the pair is 4-byte aligned)
+  __device__ __forceinline__ uint2 unit_bits(int n, int u) const {
+    const size_t gi = static_cast<size_t>(n) * G + u * (32 / GS);
+    if constexpr (GS == 32)
+      return make_uint2(__ldg(reinterpret_cast<const unsigned short*>(scales + gi)),
+                        __ldg(reinterpret_cast<const unsigned short*>(mins + gi)));
+    return make_uint2(__ldg(reinterpret_cast<const unsigned int*>(scales + gi)),
+                      __ldg(reinterpret_cast<const unsigned int*>(mins + gi)));
   }
   static constexpr int kWords = 2;
   // a K tail (K % 64 == 32) leaves the step's last groups past K: zeros
@@ -90,7 +99,7 @@ int run(const mgt::PrefillArgs* pre, const void* x, const C& codes, const void* 
   const RowPlanes<GS> planes{static_cast<const __nv_bfloat16*>(scales),
                              static_cast<const __nv_bfloat16*>(mins), K / GS};
   return pre ? mgt::qmm_prefill(x, codes, planes, y, M, N, K, layer, *pre, stream)
-             : mgt::qmm_decode(x, codes, planes, y, M, N, K, layer, stream);
+             : mgt::rq_decode(x, codes, planes, y, M, N, K, layer, stream);
 }
 
 // The layouts of ops/repack.py's _LAYOUT: q8_0 (8, 0, 32); q4_0, q4_1, q4_k

@@ -44,7 +44,7 @@ SIGNATURES = {
     "mgt_flash_decode_paged": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
     "mgt_rq_decode": (_P,) * 6 + (_I,) * 7 + (_P,),
     "mgt_rq_prefill": (_P,) * 6 + (_I,) * 7 + (_P,) * 3 + (_I,) * 2 + (_P,),
-    "mgt_i8_decode": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mgt_i8_decode": (_P,) * 5 + (_I,) * 4 + (_P,),
     "mgt_i8_prefill": (_P,) * 4 + (_I,) * 4 + (_P,),
     "mgt_probe_group_i8": (_P,) * 8 + (_I,) * 4 + (_P,),
     "mgt_probe_dequant_matvec": (_P,) * 5 + (_I,) * 8 + (_P,),

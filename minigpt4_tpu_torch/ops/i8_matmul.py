@@ -8,9 +8,9 @@ Counterpart of ``minigpt4_tpu/ops/i8_matmul.py`` (``quant_mode="w8a8"``).
     smooth-quant migration factors in first.
   * Activations quantize per row to i8, absmax / 127
     (:func:`quantize_activations`).
-  * The kernel contracts i8 x i8 -> an exact i32 per 256-wide chunk and
-    adds ``f32(chunk) * scale[n, g]`` to an f32 accumulator in chunk order;
-    the per-row activation scale multiplies the result outside the kernel.
+  * The contraction is i8 x i8 -> an exact i32 per 256-wide chunk, and
+    ``f32(chunk) * scale[n, g]`` is added to an f32 accumulator in a fixed
+    order; the per-row activation scale multiplies the result.
 
 Per-token absmax activation quantization is open to LLaMA's activation
 outliers; ``quality.py`` measures that, and smooth-quant scales move the
@@ -18,9 +18,11 @@ outliers into the weights.  1 B per weight plus 1/64 B of scales; the
 JAX package pairs this mode with the e4m3 KV cache (``cache_dtype="f8"``).
 
 Two hand-written CUDA kernels (``csrc/i8_matmul.cu``): :func:`i8_decode`
-for at most ``I8_MAX_M`` rows, :func:`i8_prefill` (s8 tensor cores) for
-more.  Beside them :func:`qmatmul_i8sb_ref`, the plain version.  A wrapper
-takes the plain version only for tensors on the CPU; for CUDA tensors it
+for at most ``I8_MAX_M`` rows, the whole matmul from f32 x in one launch
+(quantization, contraction, row scale), and :func:`i8_prefill` (s8 tensor
+cores) for more, on x quantized here.  Beside them the plain versions,
+:func:`qmatmul_i8sb_decode_ref` and :func:`qmatmul_i8sb_ref`.  A wrapper
+takes its plain version only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises.
 """
 
@@ -162,18 +164,33 @@ def qmatmul_i8sb_ref(x_i8: torch.Tensor, w: I8SBQuant, layer=None) -> torch.Tens
     return acc
 
 
-def _launch(fn_name: str, x_i8: torch.Tensor, w: I8SBQuant, layer) -> torch.Tensor:
-    if x_i8.dim() != 2 or x_i8.shape[1] != w.n_in or x_i8.dtype != torch.int8:
-        raise ValueError(f"{fn_name}: x must be int8 [M, {w.n_in}], got {x_i8.dtype} "
-                         f"{tuple(x_i8.shape)}")
-    if x_i8.shape[0] < 1:
+def qmatmul_i8sb_decode_ref(x: torch.Tensor, w: I8SBQuant, layer=None,
+                            x_scale=None) -> torch.Tensor:
+    """f32 [M, K] -> f32 [M, N], the whole w8a8 matmul step by step:
+    :func:`quantize_activations` (``x_scale`` [M, 1] overrides the row
+    scales), :func:`qmatmul_i8sb_ref`, times the row scales."""
+    x_i8, sx = quantize_activations(x, x_scale)
+    return qmatmul_i8sb_ref(x_i8, w, layer) * sx
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(fn_name: str, x: torch.Tensor, w: I8SBQuant, layer, x_dtype: torch.dtype,
+            x_scale=None) -> torch.Tensor:
+    if x.dim() != 2 or x.shape[1] != w.n_in or x.dtype != x_dtype:
+        raise ValueError(f"{fn_name}: x must be {x_dtype} [M, {w.n_in}], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] < 1:
         raise ValueError(f"{fn_name} needs at least one row")
     if w.codes.dtype != torch.int8 or w.scales.dtype != torch.float32:
         raise TypeError(f"{fn_name}: codes int8 and scales float32, got {w.codes.dtype}/"
                         f"{w.scales.dtype}")
     for name, t in (("codes", w.codes), ("scales", w.scales)):
-        if t.device != x_i8.device or not t.is_contiguous():
-            raise ValueError(f"{fn_name}: {name} must be contiguous on {x_i8.device}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{fn_name}: {name} must be contiguous on {x.device}")
     if w.stacked and layer is None:
         raise ValueError("stacked I8SBQuant requires a layer index")
     n_layers = w.codes.shape[0] if w.stacked else 1
@@ -182,26 +199,34 @@ def _launch(fn_name: str, x_i8: torch.Tensor, w: I8SBQuant, layer) -> torch.Tens
         raise IndexError(f"{fn_name}: layer {li} out of range [0, {n_layers})")
     if w.codes.data_ptr() % 16:
         raise ValueError(f"{fn_name}: codes must be 16-byte aligned")
-    x_i8 = x_i8.contiguous()
-    if x_i8.data_ptr() % 16:
-        x_i8 = x_i8.clone()
-    m, k = x_i8.shape
-    y = torch.empty((m, w.n_out), dtype=torch.float32, device=x_i8.device)
+    x = _aligned(x)
+    m, k = x.shape
+    scale = ()  # the decode entry's row scales, f32 [M] or null
+    if fn_name == "mgt_i8_decode":
+        if x_scale is not None:
+            x_scale = x_scale.reshape(-1).contiguous()
+            if x_scale.shape != (m,) or x_scale.dtype != torch.float32 or (
+                    x_scale.device != x.device):
+                raise ValueError(f"{fn_name}: x_scale must be float32 [{m}, 1] on {x.device}")
+        scale = (None if x_scale is None else x_scale.data_ptr(),)
+    y = torch.empty((m, w.n_out), dtype=torch.float32, device=x.device)
     rc = getattr(_build.load(), fn_name)(
-        x_i8.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr(), y.data_ptr(), m, w.n_out, k,
-        li, ctypes.c_void_p(_build.stream_ptr(x_i8.device)))
+        x.data_ptr(), *scale, w.codes.data_ptr(), w.scales.data_ptr(), y.data_ptr(), m,
+        w.n_out, k, li, ctypes.c_void_p(_build.stream_ptr(x.device)))
     _build.check(rc, fn_name)
     return y
 
 
-def i8_decode(x_i8: torch.Tensor, w: I8SBQuant, layer=None) -> torch.Tensor:
-    """i8 [M <= 8, K] x codes -> f32 [M, N] before the row scale
-    (``csrc/i8_matmul.cu``, entry ``mgt_i8_decode``)."""
-    if x_i8.device.type == "cpu":
-        return qmatmul_i8sb_ref(x_i8, w, layer)
-    if not 1 <= x_i8.shape[0] <= I8_MAX_M:
-        raise ValueError(f"i8_decode serves 1..{I8_MAX_M} rows, got {x_i8.shape[0]}")
-    y = _launch("mgt_i8_decode", x_i8, w, layer)
+def i8_decode(x: torch.Tensor, w: I8SBQuant, layer=None, x_scale=None) -> torch.Tensor:
+    """f32 [M <= 8, K] -> f32 [M, N]: the whole w8a8 matmul in one launch
+    (``csrc/i8_matmul.cu``, entry ``mgt_i8_decode``): x quantized per row as
+    :func:`quantize_activations` does it (``x_scale`` [M, 1] overrides the
+    row scales), the chunked i8 contraction, the row scale."""
+    if x.device.type == "cpu":
+        return qmatmul_i8sb_decode_ref(x, w, layer, x_scale)
+    if not 1 <= x.shape[0] <= I8_MAX_M:
+        raise ValueError(f"i8_decode serves 1..{I8_MAX_M} rows, got {x.shape[0]}")
+    y = _launch("mgt_i8_decode", x, w, layer, torch.float32, x_scale)
     i8_decode.launches += 1
     return y
 
@@ -211,7 +236,7 @@ def i8_prefill(x_i8: torch.Tensor, w: I8SBQuant, layer=None) -> torch.Tensor:
     cores (``csrc/i8_matmul.cu``, entry ``mgt_i8_prefill``)."""
     if x_i8.device.type == "cpu":
         return qmatmul_i8sb_ref(x_i8, w, layer)
-    y = _launch("mgt_i8_prefill", x_i8, w, layer)
+    y = _launch("mgt_i8_prefill", x_i8, w, layer, torch.int8)
     i8_prefill.launches += 1
     return y
 
@@ -230,8 +255,12 @@ def qmatmul_i8sb(x: torch.Tensor, w: I8SBQuant, layer=None, x_scale=None) -> tor
     if k % SB:
         raise ValueError(f"I8SBQuant K={k} is not a multiple of {SB}")
     lead = x.shape[:-1]
-    x_i8, sx = quantize_activations(x.reshape(-1, k),
-                                    None if x_scale is None else x_scale.reshape(-1, 1))
-    fn = i8_decode if x_i8.shape[0] <= I8_MAX_M else i8_prefill
-    y = fn(x_i8, w, layer if w.stacked else None) * sx
+    x2 = x.reshape(-1, k).float()
+    sx = None if x_scale is None else x_scale.reshape(-1, 1).float()
+    layer = layer if w.stacked else None
+    if x2.shape[0] <= I8_MAX_M:
+        y = i8_decode(x2, w, layer, sx)
+    else:
+        x_i8, sx = quantize_activations(x2, sx)
+        y = i8_prefill(x_i8, w, layer) * sx
     return y.reshape(*lead, w.n_out).to(x.dtype)

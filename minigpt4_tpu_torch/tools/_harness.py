@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import math
 import re
@@ -166,14 +167,24 @@ def record(tool: str, case: str, device: torch.device, *, m: int, elems: float,
     return rec
 
 
+@functools.lru_cache(maxsize=2)
+def _sass(lib: str, stamp: float) -> str:
+    """``cuobjdump -sass`` of the library at ``lib``, once per build
+    (``stamp``, its modification time)."""
+    from ..ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+
+
 def sass_opcodes(kernel: str) -> dict:
     """{opcode: count} over the SASS of the built library's functions whose
     name holds ``kernel`` (``cuobjdump -sass``; needs the CUDA toolkit)."""
     from ..ops import _build
 
-    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
-                         timeout=600, check=True).stdout
+    lib = _build.build()
+    out = _sass(str(lib), lib.stat().st_mtime)
     ops: collections.Counter = collections.Counter()
     inside = False
     for line in out.splitlines():

@@ -109,13 +109,17 @@ def formula_f64(x: np.ndarray, w: probes.ProbeWeight) -> np.ndarray:
 
 
 def kquant_bytes(n: int, k: int, dtype: DataType, seed: int) -> np.ndarray:
-    """Random q5_k (176-byte) or q4_k (144-byte) blocks with finite f16
-    d = dmin = 0.01 (the JAX shootout's bytes)."""
+    """Random q5_k (176-byte), q4_k (144-byte) or q6_k (210-byte) blocks with
+    finite f16 d = dmin = 0.01 (the JAX shootout's bytes; q6_k has d alone,
+    its last two bytes)."""
     nb = n * k // 256
-    size = 176 if dtype == DataType.Q5_K else 144
+    size = {DataType.Q5_K: 176, DataType.Q4_K: 144, DataType.Q6_K: 210}[dtype]
     raw = np.random.default_rng(seed).integers(0, 256, (nb, size), dtype=np.uint8)
-    raw[:, 0:2] = np.frombuffer(np.full(nb, 0.01, np.float16).tobytes(), np.uint8).reshape(nb, 2)
-    raw[:, 2:4] = raw[:, 0:2]
+    d = np.frombuffer(np.full(nb, 0.01, np.float16).tobytes(), np.uint8).reshape(nb, 2)
+    if dtype == DataType.Q6_K:
+        raw[:, 208:210] = d
+    else:
+        raw[:, 0:2] = raw[:, 2:4] = d
     return raw.reshape(-1)
 
 

@@ -9,8 +9,8 @@ are exact i32 (``ops/probes.probe_group_i8``, ``csrc/probe_group_i8.cu``).
 The question it answered on the H100: should a ``__dp4a`` kernel replace
 the f32-FMA gq decode kernel, above all at M = 8?  The production decode
 kernels now compute this function (``csrc/gq_decode_i8.cuh``), and the
-probe is their yardstick.  Arms, at the 13B decode shapes (``SHAPES``) and
-each M of ``--m``:
+probe is their yardstick.  Arms, at the five 13B decode shapes
+(``SHAPES``) and each M of ``--m``:
 
   gi8   the probe kernel, on x split beforehand (the split is not timed);
   gq    the port's gq decode kernel (``gq_decode_generic``) on the same
@@ -18,7 +18,14 @@ each M of ``--m``:
         x inside its launch and timed;
   q5k   ``rq_decode`` on repacked random q5_k bytes (the production
         kernel of repacked weights);
-  w8a8  ``i8_decode`` on i8 codes with per-256 scales.
+  q6k   the same on q6_k bytes (the Q5_K_M file's output, wv and w2);
+  w8a8  the whole M <= 8 w8a8 matmul, ``qmatmul_i8sb`` from f32 x (the
+        activation quantization, the i8 contraction over per-256 scales and
+        the row scale) on i8 codes.
+
+Every arm calls only entry points whose signature has not changed since
+the arms were written, so the tool also times an older tree's kernels
+when copied into it.
 
 Usage (timing, on an NVIDIA GPU):
     python -m minigpt4_tpu_torch.tools.qmm_group_i8 [--m 1,8] [--only gi8,gq]
@@ -51,12 +58,13 @@ SHAPES = {  # 13B decode matmuls (fused, as models/llama.py issues them)
     "w13": (27648, 5120),
     "wqkv": (15360, 5120),
     "wo": (5120, 5120),
+    "output": (32000, 5120),
 }
-ARMS = ("gi8", "gq", "q5k", "w8a8")
+ARMS = ("gi8", "gq", "q5k", "q6k", "w8a8")
 CHECK_SHAPES = ((256, 512, 1), (512, 1024, 3), (384, 768, 8))
 CHECK_TOL = 3e-4  # against the f64 dequant reference (the JAX probe's check)
 PLAIN_TOL = 1e-4  # the kernel against its plain version: f32 sums in another order
-GQ_TOL, RQ_TOL, I8_TOL = 1e-5, 1e-4, 1e-5  # the production kernels' own tolerances
+GQ_TOL, RQ_TOL, I8_TOL = 1e-5, 1e-5, 1e-5  # the production kernels' own tolerances
 
 
 def make_planes(gen: torch.Generator, n: int, k: int, device, stacked_l: int | None = None):
@@ -121,9 +129,9 @@ def _arm(name: str, n: int, k: int, m: int, device, gen, planes, x, seed: int):
               for c, a, b in rot]
         return (gq.gq_decode_generic, gq.qmatmul_decode_ref, [(x, w) for w in ws],
                 h.nbytes(codes, sct, bt, x), GQ_TOL, 2.0 * m * n * k, h.F32_FLOPS)
-    if name == "q5k":
-        w = rp.from_ggml(kquant_bytes(n, k, DataType.Q5_K, seed), (n, k), DataType.Q5_K,
-                         device)
+    if name in ("q5k", "q6k"):
+        dtype = DataType.Q5_K if name == "q5k" else DataType.Q6_K
+        w = rp.from_ggml(kquant_bytes(n, k, dtype, seed), (n, k), dtype, device)
         ts = tuple(w.tensors().values())
         ws = [w._replace(**dict(zip(w.tensors(), r))) for r in h.rotation(ts, h.nbytes(*ts))]
         return (rq.rq_decode, rq.qmatmul_repacked_ref, [(x, v) for v in ws],
@@ -131,10 +139,16 @@ def _arm(name: str, n: int, k: int, m: int, device, gen, planes, x, seed: int):
     # w8a8
     ci = torch.randint(-127, 127, (n, k), generator=gen, device=device, dtype=torch.int8)
     sc = torch.full((n, k // i8.SB), 2e-4, device=device)
-    x_i8, _ = i8.quantize_activations(x)
     ws = [i8.I8SBQuant(c, s, k) for c, s in h.rotation((ci, sc), h.nbytes(ci, sc))]
-    return (i8.i8_decode, i8.qmatmul_i8sb_ref, [(x_i8, v) for v in ws],
-            h.nbytes(ci, sc, x_i8), I8_TOL, 2.0 * m * n * k, h.INT8_OPS)
+    return (i8.qmatmul_i8sb, _w8a8_plain, [(x, v) for v in ws],
+            h.nbytes(ci, sc, x), I8_TOL, 2.0 * m * n * k, h.INT8_OPS)
+
+
+def _w8a8_plain(x: torch.Tensor, w) -> torch.Tensor:
+    """The w8a8 matmul of f32 x, step by step: the activation quantization,
+    the chunked i8 contraction, the row scale."""
+    x_i8, sx = i8.quantize_activations(x)
+    return i8.qmatmul_i8sb_ref(x_i8, w) * sx
 
 
 def bench(device: torch.device, seed: int, ms: list[int], arms) -> list[dict]:

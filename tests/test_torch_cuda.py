@@ -17,14 +17,19 @@ K segments on the tensor cores (1e-4; two launches give the same bits,
 split K or not); flash decode, dense and paged,
 is f32 online softmax against f32 softmax (1e-5 absolute on unit inputs),
 and the paged kernel gives the dense kernel's bits on the gathered cache.
-rq_decode keeps x in f32 like qmatmul_repacked_ref (1e-5); rq_prefill
+rq_decode keeps x in f32 and forms the plain version's weights bit for bit
+(1e-5, summation order); rq_prefill
 rounds x and w = scale * q - min to bf16 like qmatmul_repacked_prefill_ref
 (1e-4, summation order) and sits within 1e-2 of the f32 plain version
 (two bf16 roundings of 2^-9 each per product; tests/test_pallas_quant_matmul.py
 holds the TPU kernel to 1.2e-2 of the same f32 product).  i8_decode and
 i8_prefill form each 256-wide chunk's product as an exact i32 like
-qmatmul_i8sb_ref and sum the scaled chunks in chunk order (1e-5 and 1e-4
-of max|y|: only the f32 multiply-add rounding can differ).  The e4m3 cache
+qmatmul_i8sb_ref and sum the scaled chunks in a fixed order (1e-5 and 1e-4
+of max|y|: only the f32 summation order differs); i8_decode quantizes x
+inside its launch, bit-equal to quantize_activations (seen through an
+identity weight, where y is code times row scale), and applies the row
+scale.  The bits of a column of either decode kernel do not depend on N
+or the grid, and a w8a8 matmul of at most 8 rows is one device kernel.  The e4m3 cache
 reads as the same values in the kernels and in cache_f32 (1e-5
 absolute, as the other cache types).  A packed gq weight (p4, p5, p6) gives
 its unpacked twin's bits in every entry (max |d| = 0): the code reaches the
@@ -510,13 +515,29 @@ def _rq(dtype, n, k, seeds, device):
         (n, k), dtype, device) for s in seeds])
 
 
-# every layout; K = 1408 (ViT-G width, 44 groups of 32) for the 32-blocks,
-# 768 for the k-quants; N = 301 is odd and ragged for both column tiles
-@pytest.mark.parametrize("dtype", RQ_FORMATS, ids=[d.name.lower() for d in RQ_FORMATS])
-@pytest.mark.parametrize("m", [1, 5, 8, 40])
-def test_repacked_kernels_match_plain(cuda_device, dtype, m):
-    k = 768 if dtype >= DataType.Q2_K else 1408
-    w = _rq(dtype, 301, k, (1, 2), cuda_device)
+# every layout at M = 1..8 (rq_decode) and 40 (rq_prefill); K = 1408 (ViT-G
+# width, 44 groups of 32, a ragged last 128-code block) for the 32-blocks,
+# 768 for the k-quants; N = 301 is odd and ragged for both column tiles, N =
+# 24 fills three strips of the decode kernel; K = 1440 (% 64 == 32) a tail
+# (k-quant weights hold whole 256-code superblocks, so the 32-blocks only)
+# (the prefill kernel's tail is test_repacked_kernels_short_k)
+def _rq_cases():
+    for dtype in RQ_FORMATS:
+        k = 768 if dtype >= DataType.Q2_K else 1408
+        for m in (1, 2, 3, 4, 5, 6, 7, 8, 40):
+            yield dtype, m, 301, k, "ragged"
+            yield dtype, m, 24, k, "small_n"
+            if dtype < DataType.Q2_K and m <= 8:
+                yield dtype, m, 301, 1440, "tail"
+
+
+RQ_CASES = list(_rq_cases())
+
+
+@pytest.mark.parametrize("dtype,m,n,k", [c[:4] for c in RQ_CASES],
+                         ids=[f"{d.name.lower()}-m{m}-{s}" for d, m, _, _, s in RQ_CASES])
+def test_repacked_kernels_match_plain(cuda_device, dtype, m, n, k):
+    w = _rq(dtype, n, k, (1, 2), cuda_device)
     x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
     x = x.to(cuda_device)
     decode = m <= trq.RQ_MAX_M
@@ -624,26 +645,112 @@ def _i8(n, k, layers, device, seed=0):
     return ti8.stack([ti8.I8SBQuant(c, sc, k) for c, sc in ws])
 
 
-# N = 300 is ragged for both column tiles; K = 768 is three chunks
+# N = 300 is ragged for both column tiles; K = 768 is three chunks; the
+# decode entry from f32 x with its own row scales or the caller's
+@pytest.mark.parametrize("scaled", [False, True], ids=["absmax", "x_scale"])
 @pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
-@pytest.mark.parametrize("m", [1, 8, 9, 33, 257])
-def test_i8_kernels_match_plain(cuda_device, m, stacked):
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 33, 257])
+def test_i8_kernels_match_plain(cuda_device, m, stacked, scaled):
     n, k = 300, 768
     w = _i8(n, k, 3 if stacked else 1, cuda_device)
     layer = 2 if stacked else None
     x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
-    x_i8, _ = ti8.quantize_activations(x.to(cuda_device))
-    kern = ti8.i8_decode if m <= ti8.I8_MAX_M else ti8.i8_prefill
+    xs = None
+    if scaled:  # a global scale above each row's own, as tensor parallelism passes it
+        xs = (x.abs().amax(dim=-1, keepdim=True) * 1.5 / 127).to(cuda_device)
+    x = x.to(cuda_device)
+    decode = m <= ti8.I8_MAX_M
+    kern = ti8.i8_decode if decode else ti8.i8_prefill
     before = kern.launches
-    got = kern(x_i8, w, layer)
+    if decode:
+        got = kern(x, w, layer, xs)
+        want = ti8.qmatmul_i8sb_decode_ref(x, w, layer, xs)
+    else:
+        x_i8, sx = ti8.quantize_activations(x, xs)
+        got = kern(x_i8, w, layer) * sx
+        want = ti8.qmatmul_i8sb_ref(x_i8, w, layer) * sx
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = ti8.qmatmul_i8sb_ref(x_i8, w, layer)
-    assert _rel(got, want) <= (1e-5 if m <= ti8.I8_MAX_M else 1e-4)
-    # the engine's entry: the same product times the row scales
-    y = ti8.qmatmul_i8sb(x.to(cuda_device), w, layer)
-    assert _rel(y, ti8.qmatmul_i8sb(x, ti8.I8SBQuant(w.codes.cpu(), w.scales.cpu(), k),
-                                    layer)) <= 1e-4
+    assert _rel(got, want) <= (1e-5 if decode else 1e-4)
+    # the engine's entry on the card against the CPU
+    y = ti8.qmatmul_i8sb(x, w, layer, xs)
+    w_cpu = ti8.I8SBQuant(w.codes.cpu(), w.scales.cpu(), k)
+    assert _rel(y, ti8.qmatmul_i8sb(x.cpu(), w_cpu, layer, None if xs is None else xs.cpu())
+                ) <= 1e-4
+
+
+def _i8_rows(m: int, k: int, scaled: bool):
+    """Rows whose quotients x / s land on every kind of value: a zero row,
+    exact half-integers of both parities (s = 1/8: absmax 127 / 8) at three
+    scales, +-127.5 where the caller's scale allows them, a lone tiny value,
+    huge values, normal rows; and the caller's scales (or None)."""
+    rng = np.random.default_rng(k + m)
+    x = rng.normal(0, 1, (8, k)).astype(np.float32)
+    a = (np.arange(k) % 254 - 127).astype(np.float32)
+    ties = np.float32(0.125) * (a + np.float32(0.5))  # a + 1/2 for a in -127..126
+    x[0] = 0.0
+    x[1] = ties
+    x[1, 0] = 127 * 0.125
+    x[2] = x[1] * np.float32(0.25)
+    x[3] = -x[1] * np.float32(4.0)
+    x[4] = 0.0
+    x[4, 5] = 1e-30
+    x[5] *= np.float32(1e30)
+    sx = np.maximum(np.abs(x).max(axis=1, keepdims=True) / np.float32(127), np.float32(0))
+    sx[sx == 0] = 1
+    if scaled:  # +-127.5 and beyond, which only a caller's scale allows
+        x[6, :4] = [127.5 * 0.125, -127.5 * 0.125, 200 * 0.125, -126.5 * 0.125]
+        sx[6] = 0.125
+    return x[:m], (sx[:m].astype(np.float32) if scaled else None)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["absmax", "x_scale"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_i8_decode_codes_bit_equal(cuda_device, m, scaled):
+    """The codes and row scales the decode kernel forms in its launch are
+    quantize_activations', bit for bit: through an identity weight (one
+    code 1 per row, scale 1) every y is code * s exactly, so y equals the
+    plain version's bits; ties at .5 round to even, +-127.5 clamp to
+    +-127."""
+    k = 768
+    codes = torch.eye(k, dtype=torch.int8, device=cuda_device)
+    w = ti8.I8SBQuant(codes, torch.ones((k, k // 256), device=cuda_device), k)
+    xn, sn = _i8_rows(m, k, scaled)
+    x = torch.from_numpy(xn).to(cuda_device)
+    xs = None if sn is None else torch.from_numpy(sn).to(cuda_device)
+    got = ti8.i8_decode(x, w, None, xs)
+    want = ti8.qmatmul_i8sb_decode_ref(x, w, None, xs)
+    codes_ref, s_ref = ti8.quantize_activations(x, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, codes_ref.float() * s_ref)
+    cpu = ti8.qmatmul_i8sb_decode_ref(x.cpu(), ti8.I8SBQuant(codes.cpu(), w.scales.cpu(), k),
+                                      None, None if xs is None else xs.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    if m >= 2:  # the ties did round to even
+        q = x[1].double() / s_ref[1].double()
+        half = (q - q.floor()) == 0.5
+        assert int(half.sum()) >= k - 2
+        assert bool((codes_ref[1][half].long() % 2 == 0).all())
+
+
+def test_w8a8_decode_is_one_device_kernel(cuda_device):
+    """A w8a8 matmul of at most 8 rows (qmatmul_i8sb, the engine's entry) is
+    one device kernel under torch.profiler: the quantization of x and the
+    row scale run inside i8_decode's launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _i8(300, 768, 2, cuda_device)
+    for m in (1, 8):
+        x = torch.randn((1, m, 768), device=cuda_device)
+        ti8.qmatmul_i8sb(x, w, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ti8.qmatmul_i8sb(x, w, 1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "i8_decode_kernel" in names[0], (m, names)
 
 
 I8_PREFILL_SHAPES = [(300, 256), (300, 768), (1408, 5120), (27648, 5120)]
@@ -678,15 +785,20 @@ def test_i8_prefill_shapes_match_plain(cuda_device, m, n, k, stacked):
 def test_i8_refused_launches_raise(cuda_device):
     w = _i8(64, 256, 2, cuda_device)
     x9 = torch.zeros((9, 256), dtype=torch.int8, device=cuda_device)
+    f9 = torch.zeros((9, 256), device=cuda_device)
     with pytest.raises(ValueError, match="1..8 rows"):
-        ti8.i8_decode(x9, w, 0)
+        ti8.i8_decode(f9, w, 0)
+    with pytest.raises(ValueError, match="float32"):
+        ti8.i8_decode(x9[:1], w, 0)
+    with pytest.raises(ValueError, match="x_scale"):
+        ti8.i8_decode(f9[:2], w, 0, torch.ones((3, 1), device=cuda_device))
     with pytest.raises(IndexError, match="out of range"):
         ti8.i8_prefill(x9, w, 2)
     with pytest.raises(ValueError, match="layer index"):
         ti8.i8_prefill(x9, w)
     # K = 96 is no multiple of 256: both C entries refuse it
     bad = ti8.I8SBQuant(w.codes[:, :, :96].contiguous(), w.scales[:, :, :1].contiguous(), 96)
-    for kern, x in ((ti8.i8_decode, x9[:1, :96]), (ti8.i8_prefill, x9[:, :96])):
+    for kern, x in ((ti8.i8_decode, f9[:1, :96]), (ti8.i8_prefill, x9[:, :96])):
         with pytest.raises(RuntimeError, match="launch failed"):
             kern(x.contiguous(), bad, 0)
 
@@ -1098,6 +1210,40 @@ def test_half_rows_bit_equal_to_whole_width(cuda_device, kernel):
         whole = fn(x, w)
         for r0 in (0, h):
             assert torch.equal(fn(x, half(r0)), whole[:, r0:r0 + h]), (kernel, m, r0)
+
+
+@pytest.mark.parametrize("kernel", ["rq_decode", "i8_decode"])
+@pytest.mark.parametrize("k", [5120, 13824])
+def test_decode_column_bits_do_not_depend_on_n(cuda_device, kernel, k):
+    """A column of either decode kernel has the same bits whether the launch
+    covers 24, 1000, 1019 or all 5120 rows of the weight (grids of 2 to 132
+    blocks; the 1019 rows start off a strip boundary, so each row meets
+    another lane and block), for M = 1..8 and K = 5120 and 13824 (whose
+    f32 x the rq kernel tiles from M = 5 on)."""
+    n = 5120
+    if kernel == "rq_decode":
+        w = trp.from_ggml(_q5k_13b_bytes(n, k, 5), (n, k), DataType.Q5_K, cuda_device)
+        fn = trq.rq_decode
+
+        def cut(r0, r1):
+            return w._replace(**{key: v[r0:r1].contiguous() for key, v in w.tensors().items()})
+    else:
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(k)
+        w = ti8.I8SBQuant(torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                                        dtype=torch.int8),
+                          2.0 ** -13 * (0.5 + torch.rand((n, k // 256), generator=gen,
+                                                         device=cuda_device)), k)
+        fn = ti8.i8_decode
+
+        def cut(r0, r1):
+            return ti8.I8SBQuant(w.codes[r0:r1].contiguous(), w.scales[r0:r1].contiguous(), k)
+    for m in range(1, 9):
+        x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32))
+        x = x.to(cuda_device)
+        whole = fn(x, w)
+        for r0, r1 in ((0, 24), (1000, 2000), (4101, 5120)):
+            assert torch.equal(fn(x, cut(r0, r1)), whole[:, r0:r1]), (kernel, m, r0)
 
 
 # The prefill kernel (csrc/qmm_prefill.cuh) behind every entry, plane source

@@ -11,7 +11,13 @@ package decodes on the host with ``formats.quants``: the share of codes
 that differ is measured (at most 1e-3, each by +-1, scales within 1 ulp;
 the measured share is 0 for every format here).  The product: the i32 chunk
 products are exact on both sides, the f32 sum over chunks runs in the same
-order, so 1e-5 of max|y|.
+order, so 1e-5 of max|y|.  The decode path's plain version
+(``qmatmul_i8sb_decode_ref``: quantization, contraction and row scale, the
+function the fused decode kernel computes in one launch) is held to JAX's
+``qmatmul_i8sb`` at 1e-5 with and without a caller's row scale; the
+kernel's reciprocal quotient (x * RN(1/s), the IEEE quotient near a
+half-integer), emulated step by step in f32, gives ``torch.round(x / s)``
+bit for bit on a seeded sweep with exact and near ties.
 """
 
 import numpy as np
@@ -126,6 +132,78 @@ def test_qmatmul_matches_jax(m, stacked):
     # and through the decoder's linear
     got_lin = linear(torch.from_numpy(x), {"w": tw}, layer if stacked else None)
     assert torch.equal(got_lin, got)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["absmax", "x_scale"])
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+@pytest.mark.parametrize("m", [1, 5, 8])
+def test_decode_plain_matches_jax(m, stacked, scaled):
+    n, k, layers = 96, 768, 3
+    rng = np.random.default_rng(10 + m)
+    vs = rng.normal(0, 0.5, (layers, n, k)).astype(np.float32)
+    packs = [ji8.requantize_i8sb(v) for v in vs]
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    x[0, :3] = 0.0
+    # a caller's scale: the global absmax over two ranks' halves of K, as
+    # the K-sharded linear passes it, here above each row's own
+    sx = (np.abs(x).max(axis=1, keepdims=True) * np.float32(1.25) / np.float32(127)
+          ).astype(np.float32) if scaled else None
+    pick = (lambda a: np.stack(a)) if stacked else (lambda a: a[0])
+    codes, scales = pick([c for c, _ in packs]), pick([s for _, s in packs])
+    jw = ji8.I8SBQuant(jnp.asarray(codes), jnp.asarray(scales), k)
+    tw = ti8.I8SBQuant(torch.from_numpy(codes), torch.from_numpy(scales), k)
+    layer = 2 if stacked else None
+    want = np.asarray(ji8.qmatmul_i8sb(jnp.asarray(x), jw, out_dtype=jnp.float32, layer=layer,
+                                       x_scale=None if sx is None else jnp.asarray(sx)))
+    ts = None if sx is None else torch.from_numpy(sx)
+    got = ti8.qmatmul_i8sb_decode_ref(torch.from_numpy(x), tw, layer, ts)
+    assert _rel(got.numpy(), want) <= 1e-5
+    # the CPU decode wrapper is this plain version, and so is the engine's entry
+    assert torch.equal(ti8.i8_decode(torch.from_numpy(x), tw, layer, ts), got)
+    assert torch.equal(ti8.qmatmul_i8sb(torch.from_numpy(x), tw, layer, ts), got)
+
+
+TIE_BAND = np.float32(0.49993896484375)  # 0.5 - 2^-14, csrc/common.cuh kTieBand
+
+
+def _rcp_quotient(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's codes, step by step in f32 (csrc/common.cuh
+    split_level): clamp(x * RN(1/s), +-127) rounded half to even, and the
+    IEEE quotient instead where that product lies within 2^-14 of a
+    half-integer or RN(1/s) is not a normal float."""
+    rcp = torch.ones_like(s) / s
+    q = (x * rcp).clamp(-127, 127)
+    r = torch.round(q)
+    exact = torch.round((x / s).clamp(-127, 127))
+    fast = (s >= 2.0 ** -125) & (s <= 2.0 ** 125)
+    return torch.where(((q - r).abs() > TIE_BAND) | ~fast, exact, r)
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "near_ties", "scales"])
+def test_reciprocal_quotient_bit_equal(case):
+    rng = np.random.default_rng(len(case))
+    rows, k = 64, 4096
+    x = rng.normal(0, 1, (rows, k)).astype(np.float32)
+    s = (np.abs(x).max(axis=1, keepdims=True) / np.float32(127)).astype(np.float32)
+    a = rng.integers(-127, 127, (rows, k)).astype(np.float32)
+    if case == "ties":  # x / s exactly a + 1/2 (s a power of two): both parities
+        s = (2.0 ** rng.integers(-20, 20, (rows, 1))).astype(np.float32)
+        x = (s * (a + np.float32(0.5))).astype(np.float32)
+    elif case == "near_ties":  # s = 3 2^e: x / s is a + 1/2, x * RN(1/s) only near it
+        s = (3 * 2.0 ** rng.integers(-20, 20, (rows, 1))).astype(np.float32)
+        x = (s * (a + np.float32(0.5))).astype(np.float32)
+        x[:, ::3] = np.nextafter(x[:, ::3], np.float32(np.inf))
+    elif case == "scales":  # extreme and odd row scales, quotients past +-127
+        s = (np.exp(rng.uniform(-80, 80, (rows, 1))) * rng.uniform(0.5, 1.5, (rows, 1))
+             ).astype(np.float32)
+        x = (s * rng.uniform(-140, 140, (rows, k))).astype(np.float32)
+    xt, st = torch.from_numpy(x), torch.from_numpy(s)
+    want = torch.round(xt / st).clamp(-127, 127)
+    got = _rcp_quotient(xt, st)
+    assert torch.equal(got, want)
+    if case in ("ties", "near_ties"):
+        q = xt.double() / st.double()
+        assert int(((q - q.floor()) == 0.5).sum()) >= rows * k // 2
 
 
 def test_k_not_multiple_falls_back_and_smooth_refusals():
