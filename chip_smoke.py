@@ -200,6 +200,24 @@ Phases (any failure exits nonzero before the last line):
                over the two ranks (1024 positions each) against the kernel on
                the whole cache, 2e-5, counting the stats kernel's launches
                (the "sp" path).
+Captured CUDA graphs (engine/graphs.py): every engine's own steps and the
+paged group replay graphs, so the launch counts of every path above are
+counted through replays (ops/counters.py).  The 13B Q5_K_M chat, its
+packed twin, the repack chat and the w8a8 + e4m3 chat each run
+MiniGPT4Engine.warmup() before the chat (its seconds, graphs and pool
+memory printed; the counts are set to 0 after it) and, after it, outside
+the counts, graph_ab: the encoder, the system prompt and image turn (profiled), a
+greedy 16-token chunk and a sampled one (temp 0.8, the generator seeded
+alike) captured and with graphs_enabled off, each pair from the same
+state: ids equal, logits within GRAPH_TOL of max|logit|, then the greedy
+chunk timed in turns and profiled each way (tok/s, device activities per
+token, idle share); the captured chunk must be less idle.  The server
+captures the paged group's greedy and sampled chunks for 1 to 8 lanes as
+it starts (SessionPool.warmup; the counts are set to 0 after it), and
+paged_graph_ab holds the 8-lane paged group's captured chunk to the eager
+one from copies of the same sessions in the same way, outside the counts.
+The 7B chats and the tp=1 reference chat capture lazily (a key's second
+use) and skip the A/B.
 The card tests (tests/test_torch_cuda.py) hold the engine on the card to
 its plain versions on small fixtures.  The line before the last is
 {"kernels": [...]} (launches in each kernel's own path, the serving phase,
@@ -1231,7 +1249,7 @@ def dense_flash_cases(results: dict, card: str, gen: torch.Generator) -> None:
         err = float((got - want).abs().max())
         k_ms, p_ms = compare_times(fd.flash_decode_attention, fd.flash_decode_ref,
                                    lambda i: (q, ck, cv, i % STACK_7B, pos_t, scale))
-        pos_v = fd._pos_vector(pos_t, b, "cuda")
+        pos_v = fd.pos_vector(pos_t, b, "cuda")
         keys = int((pos_v + s).clamp(max=c).sum())
         b_ms, b_by = attention_bound(b, h, s, dh, keys, 2)
         lib_ms = sdpa_ms(q, ck, cv, pos_v, scale, STACK_7B)
@@ -1712,51 +1730,159 @@ DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode") + 
     k for k in PACKED_KERNELS if "_decode" in k)
 
 
-def _wrappers() -> dict:
-    from minigpt4_tpu_torch.ops import flash_decode as fd
-    from minigpt4_tpu_torch.ops import group_i8 as gq
-    from minigpt4_tpu_torch.ops import i8_matmul as i8
-    from minigpt4_tpu_torch.ops import pallas_quant_matmul as rq
-    from minigpt4_tpu_torch.ops import probes
-
-    return {"gq_decode": gq.gq_decode, "gq_prefill": gq.gq_prefill,
-            "gq_decode_generic": gq.gq_decode_generic,
-            "gq_prefill_generic": gq.gq_prefill_generic,
-            "flash_decode": fd.flash_decode_attention,
-            "paged_flash_decode": fd.paged_flash_decode_attention,
-            "rq_decode": rq.rq_decode, "rq_prefill": rq.rq_prefill,
-            "i8_decode": i8.i8_decode, "i8_prefill": i8.i8_prefill, **probes.WRAPPERS}
-
-
 def launch_counts() -> dict:
-    counts = {k: f.launches for k, f in _wrappers().items()}
-    counts[STATS] = _wrappers()["flash_decode"].stats_launches
+    from minigpt4_tpu_torch.ops import counters
+
+    c = counters.counts()
+    counts = {k: c[(k, "launches", None)] for k in counters.wrappers()}
+    counts[STATS] = c[("flash_decode", "stats_launches", None)]
     for k in PACKED_KERNELS:
         name, packing = k[:-1].split("[")
-        counts[k] = _wrappers()[name].packed_launches[packing]
+        counts[k] = c[(name, "packed_launches", packing)]
     return counts
 
 
 def reset_launch_counts() -> None:
-    for f in _wrappers().values():
-        f.launches = 0
-        if hasattr(f, "stats_launches"):
-            f.stats_launches = 0
-        if hasattr(f, "packed_launches"):
-            f.packed_launches = dict.fromkeys(f.packed_launches, 0)
+    from minigpt4_tpu_torch.ops import counters
+
+    counters.reset()
+
+
+def uncounted(fn):
+    """``fn()``, with its launches taken back out of the counters: the eager
+    and captured runs of an A/B are not the main path's."""
+    from minigpt4_tpu_torch.ops import counters
+
+    before = counters.counts()
+    try:
+        return fn()
+    finally:
+        counters.add({k: n - before.get(k, 0) for k, n in counters.counts().items()}, -1)
+
+
+# captured CUDA graphs against the same steps run eagerly: the same kernels
+# in the same order, so the logits should agree bit for bit; held to this
+# share of max|logit| (and max|embedding|)
+GRAPH_TOL = 1e-5
+GRAPH_ROUNDS = 2  # turns captured, eager, eager, captured of the timed chunk
+
+
+def _rel_d(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |d|, max |d| / max |want|)."""
+    d = float((got.float() - want.float()).abs().max())
+    return d, d / float(want.float().abs().max())
+
+
+def log_warmup(label: str, stats: dict, card: str) -> None:
+    log(f"[graphs {label}] warmup {stats['warmup_s']:.2f} s (the kernel library "
+        f"{stats['build_s']:.2f} s before it): {stats['graphs']} graphs, their memory pool "
+        f"holds {stats['pool_bytes'] / 1e9:.3f} GB  [{card}]")
+
+
+def graph_ab(eng, label: str, card: str) -> dict:
+    """The engine's captured steps against the same steps run eagerly
+    (``graphs_enabled`` off), each pair from the same state: the image
+    encoder; the system prompt and image turn from position 0, profiled
+    (wall, device busy, idle); from the state after it a greedy 16-token
+    chunk (ids equal, final logits within GRAPH_TOL), a sampled one (temp
+    0.8, the generator seeded alike: ids equal), then the greedy chunk timed
+    in turns captured, eager, eager, captured (GRAPH_ROUNDS times) and
+    profiled each way (tok/s, device activities per token, idle share).
+    Fails unless the captured chunk's idle share is below the eager one's."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.image import preprocess
+
+    sync = torch.cuda.synchronize
+    st = eng._st
+    greedy = SamplingParams(temp=0.0)
+    pixels = preprocess(chat_image(), size=eng.vision_cfg.vit.image_size)
+    res: dict = {True: {}, False: {}}
+    for mode in (True, False):
+        eng.graphs_enabled = mode
+        res[mode]["emb"] = torch.from_numpy(eng.encode_image(pixels))
+        eng.reset()
+
+        def prefill():
+            eng.system_prompt()
+            eng.begin_chat_image(res[True]["emb"].numpy(), "What is in this picture?")
+
+        res[mode]["prefill_prof"] = profile_window(prefill, sync)
+        res[mode]["prefill"] = st.logits.clone()
+    # the eager prefill's state: both modes decode from its cache contents
+    n0, logits0 = st.n_past, st.logits.clone()
+
+    def restore():
+        st.n_past = n0
+        del st.tokens[n0:]
+        st.logits = logits0.clone()
+
+    for mode in (True, False):
+        eng.graphs_enabled = mode
+        restore()
+        res[mode]["ids"] = eng.decode_chunk(16, greedy)
+        res[mode]["logits"] = st.logits.clone()
+        restore()
+        st.generator.manual_seed(SEED + 5)
+        res[mode]["sampled"] = eng.decode_chunk(16, SamplingParams(temp=0.8))
+    times: dict = {True: [], False: []}
+    for mode in (True, False, False, True) * GRAPH_ROUNDS:
+        eng.graphs_enabled = mode
+        restore()
+        sync()
+        t0 = time.perf_counter()
+        eng.decode_chunk(16, greedy)
+        sync()
+        times[mode].append((time.perf_counter() - t0) * 1e3 / 16)
+    for mode in (True, False):
+        eng.graphs_enabled = mode
+        restore()
+        res[mode]["prof"] = profile_window(lambda: eng.decode_chunk(16, greedy), sync)
+    eng.graphs_enabled = True
+    restore()
+    cap, eag = res[True], res[False]
+    errs = {k: _rel_d(cap[k], eag[k]) for k in ("emb", "prefill", "logits")}
+    out = {"errs": errs, "greedy_equal": cap["ids"] == eag["ids"],
+           "sampled_equal": cap["sampled"] == eag["sampled"]}
+    for mode, name in ((True, "captured"), (False, "eager")):
+        ms = statistics.median(times[mode])
+        pf, pp = res[mode]["prof"], res[mode]["prefill_prof"]
+        out[name] = dict(ms_per_token=ms, tok_s=1e3 / ms, ms=times[mode],
+                         ops_per_token=pf["device_ops"] / 16, idle=pf["idle"],
+                         busy_ms=pf["busy_ms"], wall_ms=pf["wall_ms"],
+                         prefill_wall_ms=pp["wall_ms"], prefill_busy_ms=pp["busy_ms"],
+                         prefill_idle=pp["idle"], prefill_ops=pp["device_ops"])
+        log(f"[graphs {label}] {name}: 16-token greedy chunk {ms:.2f} ms per token (median of "
+            f"{[round(x, 2) for x in times[mode]]}) = {1e3 / ms:.2f} tok/s; profiled: "
+            f"{pf['device_ops'] / 16:g} device activities per token, device busy "
+            f"{pf['busy_ms']:.1f} of {pf['wall_ms']:.1f} ms, idle {100 * pf['idle']:.1f} %; "
+            f"system prompt + image turn ({n0} positions): wall {pp['wall_ms']:.1f} ms, busy "
+            f"{pp['busy_ms']:.1f} ms, idle {100 * pp['idle']:.1f} %, {pp['device_ops']} device "
+            f"activities  [{card}]")
+    log(f"[graphs {label}] captured vs eager: greedy ids equal {out['greedy_equal']} "
+        f"({cap['ids'][:8]}...), sampled ids equal {out['sampled_equal']}; max |d| (/ max) "
+        + ", ".join(f"{k} {d:.3e} ({r:.3e})" for k, (d, r) in errs.items())
+        + f" (tol {GRAPH_TOL:g})  [{card}]")
+    bad = [k for k, (_, r) in errs.items() if not r <= GRAPH_TOL]
+    if not (out["greedy_equal"] and out["sampled_equal"]) or bad:
+        raise AssertionError(f"{label}: captured and eager steps differ: {out}")
+    if not out["captured"]["idle"] < out["eager"]["idle"]:
+        raise AssertionError(f"{label}: the captured chunk is no less idle than the eager one: "
+                             f"{out['captured']['idle']} >= {out['eager']['idle']}")
+    return out
 
 
 def chat(label: str, lg: dict, card: str, expect: tuple, quant_mode: str = "auto",
-         vision_quant: str | None = None, forbid: tuple = (), keep: bool = False):
+         vision_quant: str | None = None, forbid: tuple = (), keep: bool = False,
+         graphs: bool = True):
     """One image chat on the synthetic files of geometry ``lg`` (the container
     f16, or with ``vision_quant`` weights) through an engine of ``quant_mode``;
     the kernels of ``expect`` must launch in it, those of ``forbid`` must not.
     Returns its launch counts and times, and with ``keep`` the engine, open,
-    beside them."""
+    beside them.  With ``graphs`` the engine's ``warmup()`` runs before the
+    chat and :func:`graph_ab` after it."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine
 
     model, llm = smoke_models(lg, vision_quant)
-    reset_launch_counts()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng = MiniGPT4Engine(model, llm, device=DEVICE, quant_mode=quant_mode)
@@ -1768,11 +1894,19 @@ def chat(label: str, lg: dict, card: str, expect: tuple, quant_mode: str = "auto
     log(f"[engine {label}] quant_mode {quant_mode} -> {eng.quant_mode}{codes}; {mem_gb:.3f} GB "
         f"allocated by the load  [{card}]")
     try:
+        warm = None
+        if graphs:
+            warm = eng.warmup()
+            log_warmup(label, warm, card)
+        reset_launch_counts()  # the chat's own launches
         out = chat_on(eng, label, card)
+        out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb), expect, forbid,
+                             card)
+        if graphs:
+            out["graphs"] = dict(uncounted(lambda: graph_ab(eng, label, card)), warmup=warm)
     except BaseException:
         eng.close()
         raise
-    out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb), expect, forbid, card)
     if keep:
         return out, eng
     eng.close()
@@ -2078,6 +2212,86 @@ def paged_vs_dense(pool, sessions: list, card: str, sync) -> dict:
                 paged_s=t_paged, dense_s=t_dense, group_profile=prof)
 
 
+def paged_graph_ab(pool, sessions: list, card: str) -> dict:
+    """The paged group of copies of ``sessions`` replayed from its graphs and
+    run eagerly (``graphs_enabled`` off), each from fresh copies of the same
+    sessions: a greedy 16-token chunk (ids equal, the lanes' final logits
+    within GRAPH_TOL), a sampled one (temp 0.8, each lane's generator seeded
+    alike: ids equal), the greedy chunk timed in turns captured, eager,
+    eager, captured (GRAPH_ROUNDS times) and profiled each way.  The paged
+    kernel must run each way, and the captured chunk's idle share must be
+    below the eager one's."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.ops import flash_decode as fd
+
+    sync = torch.cuda.synchronize
+    eng = pool.engine
+    greedy, sampled = SamplingParams(temp=0.0), SamplingParams(temp=0.8)
+    n0 = [s.n_past for s in sessions]
+
+    def group(mode: bool, params, profiled: bool = False):
+        eng.graphs_enabled = mode
+        lanes = [_clone(pool, s) for s in sessions]
+        for i, s in enumerate(lanes):
+            s.state.generator.manual_seed(SEED + 100 + i)
+        paged0 = fd.paged_flash_decode_attention.launches
+        sync()
+        t0 = time.perf_counter()
+        prof = None
+        if profiled:
+            prof = profile_window(lambda: pool.generate_batch(
+                lanes, limit=16, params=params, decode_chunk=16), sync)
+        else:
+            pool.generate_batch(lanes, limit=16, params=params, decode_chunk=16)
+            sync()
+        dt = time.perf_counter() - t0
+        if fd.paged_flash_decode_attention.launches == paged0:
+            raise AssertionError("the 8-lane group did not decode paged")
+        ids = [s.state.tokens[n:] for s, n in zip(lanes, n0)]
+        logits = [s.state.logits for s in lanes]
+        for s in lanes:
+            s.close()
+        return ids, logits, dt * 1e3 / 16, prof
+
+    res = {}
+    for mode in (True, False):
+        ids, logits, _, _ = group(mode, greedy)
+        res[mode] = dict(ids=ids, logits=logits, sampled=group(mode, sampled)[0])
+    times: dict = {True: [], False: []}
+    for mode in (True, False, False, True) * GRAPH_ROUNDS:
+        times[mode].append(group(mode, greedy)[2])
+    for mode in (True, False):
+        res[mode]["prof"] = group(mode, greedy, profiled=True)[3]
+    eng.graphs_enabled = True
+    cap, eag = res[True], res[False]
+    pairs = [(a, b) for a, b in zip(cap["logits"], eag["logits"]) if a is not None and b is not None]
+    d, rel = max((_rel_d(a, b) for a, b in pairs), key=lambda x: x[1], default=(0.0, 0.0))
+    out = {"greedy_equal": cap["ids"] == eag["ids"], "sampled_equal": cap["sampled"] == eag["sampled"],
+           "logits_max_d": d, "logits_rel": rel, "lanes_compared": len(pairs),
+           "keys": [list(map(str, k)) for k in pool._paged_graphs.graphs]}
+    n_tok = 16 * len(sessions)
+    for mode, name in ((True, "captured"), (False, "eager")):
+        ms = statistics.median(times[mode])
+        pf = res[mode]["prof"]
+        out[name] = dict(ms_per_step=ms, tok_s=1e3 * len(sessions) / ms, ms=times[mode],
+                         ops_per_token=pf["device_ops"] / n_tok, idle=pf["idle"],
+                         busy_ms=pf["busy_ms"], wall_ms=pf["wall_ms"])
+        log(f"[graphs serving] {name}: the {len(sessions)}-lane paged group's 16-token chunk "
+            f"{ms:.2f} ms per step (median of {[round(x, 2) for x in times[mode]]}) = "
+            f"{1e3 * len(sessions) / ms:.2f} tok/s aggregate; profiled: "
+            f"{pf['device_ops'] / n_tok:g} device activities per token, device busy "
+            f"{pf['busy_ms']:.1f} of {pf['wall_ms']:.1f} ms, idle {100 * pf['idle']:.1f} %  "
+            f"[{card}]")
+    log(f"[graphs serving] captured vs eager: greedy ids equal {out['greedy_equal']}, sampled "
+        f"ids equal {out['sampled_equal']}; lanes' final logits max |d| {d:.3e} ({rel:.3e} of "
+        f"max, {len(pairs)} lanes, tol {GRAPH_TOL:g}); graph keys {out['keys']}  [{card}]")
+    if not (out["greedy_equal"] and out["sampled_equal"]) or not rel <= GRAPH_TOL:
+        raise AssertionError(f"serving: the captured and eager paged groups differ: {out}")
+    if not out["captured"]["idle"] < out["eager"]["idle"]:
+        raise AssertionError("serving: the captured paged chunk is no less idle than the eager one")
+    return out
+
+
 def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32,
             limit: int = 32) -> dict:
     """Eight concurrent HTTP chats through the port's server, then the
@@ -2089,13 +2303,19 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     t0 = time.perf_counter()
     httpd = serve.start_server(model, llm, port=0, session_ctx=512, batch_window_s=0.03,
                                paged_pages=pages, device=device)
     sync()
     t_load = time.perf_counter() - t0
     pool = httpd.pool
+    warm = httpd.warmup
+    if cuda:
+        log(f"[graphs serving] the server's start captured the paged group's greedy and "
+            f"sampled 16-token chunks for 1 to 8 lanes: {warm['warmup_s']:.2f} s, "
+            f"{warm['graphs']} graphs, the engine's graph memory pool holds "
+            f"{warm['pool_bytes'] / 1e9:.3f} GB  [{card}]")
+    reset_launch_counts()  # the HTTP chats' own launches
     groups: list[int] = []
     decode_from: dict[int, int] = {}  # session id -> cursor where its decode began
     batch_stream = pool.generate_batch_stream
@@ -2173,7 +2393,10 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
                 s.upload_image(_preprocess(img, pool))
             s.ask(q)
             prepared.append(s)
-        cmp = paged_vs_dense(pool, prepared, card, sync)
+        # (on copies of the prepared sessions, before paged_vs_dense moves them on)
+        graph_cmp = (dict(uncounted(lambda: paged_graph_ab(pool, prepared, card)), warmup=warm)
+                     if cuda else None)
+        cmp = dict(paged_vs_dense(pool, prepared, card, sync), graphs=graph_cmp)
         peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
         log(f"[serving] peak device memory {peak:.2f} GB  [{card}]")
     finally:
@@ -2185,7 +2408,7 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    return dict(counts=counts, load_s=t_load, groups=groups, agg_tok_s=n_gen / span,
+    return dict(counts=counts, load_s=t_load, groups=groups, agg_tok_s=n_gen / span, warmup=warm,
                 per_request_tok_s=per_lane, peak_gb=peak, **cmp)
 
 
@@ -2223,8 +2446,9 @@ def w8a8_f8(card: str) -> dict:
     an e4m3 cache, behind the 13B q5_1 container (ViT-G fc2 and the Q-Former
     and llama_proj weights of K % 256 == 0 become i8, the K = 1408 weights
     repacked): a SessionPool (32 pages of e4m3 pools) whose engine runs the
-    chat of :func:`chat_on`, then eight sessions decode as a paged group and
-    as a dense group, token for token equal.  i8_decode, i8_prefill,
+    chat of :func:`chat_on`, then eight sessions decode as a paged group
+    (its graphs captured first, as a server's start does) and as a dense
+    group, token for token equal.  i8_decode, i8_prefill,
     rq_prefill and both flash kernels must launch, no gq kernel may."""
     from minigpt4_tpu_torch.engine import SamplingParams
     from minigpt4_tpu_torch.engine.sessions import SessionPool
@@ -2234,7 +2458,6 @@ def w8a8_f8(card: str) -> dict:
     model = smoke_container(LLM_13B["n_embd"], "q5_1")
     scales = smooth_scales_13b(llm, card)
     label = "13B w8a8 + f8 cache"
-    reset_launch_counts()
     t0 = time.perf_counter()
     pool = SessionPool(model, llm, session_ctx=512, paged_pool_pages=32, device=DEVICE,
                        quant_mode="w8a8", cache_dtype="f8", smooth_scales=scales)
@@ -2247,7 +2470,15 @@ def w8a8_f8(card: str) -> dict:
                 and eng.cache_dtype == torch.float8_e4m3fn):
             raise AssertionError(f"{label}: decoder weights {[type(layers[n]['w']).__name__ for n in layers]}"
                                  f", cache {eng.cache_dtype}")
+        warm = eng.warmup()
+        log_warmup(label, warm, card)
+        group_warm = pool.warmup(lanes=(len(QUESTIONS),))  # as a server warms its groups
+        log(f"[graphs {label}] the paged group's greedy and sampled chunks of "
+            f"{len(QUESTIONS)} lanes captured in {group_warm['warmup_s']:.2f} s; the pool holds "
+            f"{group_warm['pool_bytes'] / 1e9:.3f} GB  [{card}]")
+        reset_launch_counts()  # the chat's and the paged group's own launches
         out = chat_on(eng, label, card)
+        out["graphs"] = dict(uncounted(lambda: graph_ab(eng, label, card)), warmup=warm)
         sessions = []
         for q in QUESTIONS:
             s = pool.new_session()
@@ -2543,7 +2774,7 @@ def tp_phase(card: str) -> dict:
     text1 = depth_logits(shallow, 1)
     label = "13B q5_k repack tp=1"
     one, eng = chat(label, LLM_13B_Q5K, card, REPACK_CHAT_KERNELS, quant_mode="repack",
-                    forbid=GQ_KERNELS + PACKED_KERNELS, keep=True)
+                    forbid=GQ_KERNELS + PACKED_KERNELS, keep=True, graphs=False)
     try:
         text1.append(text_turn_logits(eng))
     finally:
@@ -2673,10 +2904,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     paths[label]["decode_ab"] = ab
     phase("7B chats")
+    # (graphs captured lazily; no warmup and no eager A/B, to keep the time)
     paths["7B q5_k L8"] = chat("7B q5_k L8", LLM_7B, card,
-                               ("gq_decode", "gq_prefill", "flash_decode"), forbid=PACKED_KERNELS)
+                               ("gq_decode", "gq_prefill", "flash_decode"), forbid=PACKED_KERNELS,
+                               graphs=False)
     paths["7B q4 mix L8 gq packed"] = chat("7B q4 mix L8 gq packed", LLM_7B_MIX, card,
-                                           PACKED_MIX_KERNELS, quant_mode="gq", forbid=GQ_KERNELS)
+                                           PACKED_MIX_KERNELS, quant_mode="gq", forbid=GQ_KERNELS,
+                                           graphs=False)
     phase("serving")
     paths["serving 13B"] = serving(card)
     counts = paths["serving 13B"]["counts"]

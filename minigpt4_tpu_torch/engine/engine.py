@@ -21,12 +21,21 @@ Every operation acts on a :class:`DecodeState`: the engine's own by
 default, or one passed as ``st``.  The serving sessions
 (``engine/sessions.py``) each own a state with a cache of ``session_ctx``
 positions (:meth:`MiniGPT4Engine.new_state`) and share the loaded model.
+
+On a CUDA engine at tp = 1 the steps of the engine's own state (prefill
+chunks, the single-token step, decode chunks) and the image encoder replay
+captured CUDA graphs (``engine/graphs.py``), captured lazily on the second
+use of each key or ahead of time by :meth:`MiniGPT4Engine.warmup`.  They run
+eagerly on a CPU engine, under tp > 1 (gloo's all-reduces cannot be
+captured) and on states made by ``new_state``; ``graphs_enabled`` (True
+exactly where graphs run) set to False runs the same steps eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +51,7 @@ from ..ops import group_i8 as gq
 from ..parallel import spmd
 from ..parallel.mesh import init_tp
 from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
+from .graphs import GraphCache, StepGraphs, pool_bytes
 from .sampling import Sampler, SamplingParams
 
 SYSTEM_PROMPT = (
@@ -235,6 +245,11 @@ class MiniGPT4Engine:
         self.cache_cfg = spmd.cache_cfg(self.llm_cfg, tp)  # sizes this rank's caches
         self._st = self.new_state(self.llm_cfg.n_ctx, seed)
         self.sampler = Sampler(seed)
+        # captured CUDA graphs: on a CUDA engine at tp = 1, captured lazily
+        self.graphs_enabled = self.device.type == "cuda" and self.tp_group is None
+        self._graph_pool = None
+        self._step_graphs: StepGraphs | None = None
+        self._encode_graphs: GraphCache | None = None
 
     def new_state(self, n_ctx: int, seed: int) -> DecodeState:
         """A fresh decode state with a cache of ``n_ctx`` positions and its
@@ -259,6 +274,108 @@ class MiniGPT4Engine:
         return self._st.cache
 
     # ------------------------------------------------------------------
+    # captured steps
+    # ------------------------------------------------------------------
+
+    @property
+    def graph_pool(self):
+        """The memory pool all captured graphs of this engine share (the
+        session pool's paged group too); made on first use."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _steps(self, st: DecodeState) -> StepGraphs | None:
+        """The captured steps of ``st``'s cache, or None where ``st`` runs
+        eagerly: a state of ``new_state`` (serving sessions), tp > 1 and a
+        CPU engine."""
+        if st is not self._st or not self.graphs_enabled:
+            return None
+        if self._step_graphs is None:
+            self._step_graphs = StepGraphs(self.llm_params, self.llm_cfg, st.cache, self.device,
+                                           self.graph_pool)
+        return self._step_graphs
+
+    def _encode(self, x: torch.Tensor, capture: bool = False) -> torch.Tensor:
+        """pixels [B, 3, S, S] on the device -> [B, 32, n_embd], through the
+        encoder's graph of batch B on a graph engine."""
+        if not self.graphs_enabled:
+            return vision_mod.encode_image(self.vision_params, x, self.vision_cfg)
+        if self._encode_graphs is None:
+            self._encode_graphs = GraphCache(self.device, self.graph_pool)
+
+        def step(inp, _):
+            return (vision_mod.encode_image(self.vision_params, inp["pixels"], self.vision_cfg),)
+
+        return self._encode_graphs.run(("encode", x.shape[0]), step, {"pixels": x},
+                                       capture=capture)[0]
+
+    def graph_stats(self) -> dict:
+        """Graphs captured for this engine (its own state's steps and the
+        encoder) and the bytes the shared memory pool holds (every graph of
+        the engine's, the session pool's included); zeros before the first
+        capture."""
+        caches = [c for c in (self._step_graphs, self._encode_graphs) if c is not None]
+        return {"graphs": sum(len(c.graphs) for c in caches),
+                "keys": [k for c in caches for k in c.graphs],
+                "pool_bytes": 0 if self._graph_pool is None else pool_bytes(self._graph_pool)}
+
+    def warmup(self, prefill_buckets: tuple[int, ...] = (8, 32, 128, 512),
+               decode_chunks: tuple[int, ...] = (1, DECODE_CHUNK)) -> dict:
+        """Capture ahead of time what a chat replays, as the JAX engine's
+        ``warmup`` (engine.py:1295-1346) precompiles it: build the kernel
+        library, then capture the prefill buckets (each at the span
+        ``_attn_bucket`` gives it), the decode chunks (1: the single-token
+        step of ``add_tokens`` / ``end_chat``; more: ``decode_chunk`` for
+        greedy and for sampling, whose traced thresholds serve every
+        config) and the encoder at batch 1.  Captures run on the engine's own cache at positions past
+        its cursor (or, where those run out, at positions whose contents are
+        restored afterwards), and the state's generator is restored, so
+        neither the conversation nor its random stream changes.  Returns
+        :meth:`graph_stats` with the seconds of the build (``build_s``) and
+        of the captures (``warmup_s``).  Refused on an engine that runs
+        eagerly (CPU, tp > 1)."""
+        if not self.graphs_enabled:
+            raise RuntimeError("warmup captures CUDA graphs: this engine runs eagerly "
+                               f"(device {self.device}, tp={self.tp})")
+        from ..ops import _build
+
+        t0 = time.perf_counter()
+        _build.load()
+        t_build = time.perf_counter() - t0
+        st = self._st
+        steps = self._steps(st)
+        d, v = self.llm_cfg.n_embd, self.llm_cfg.n_vocab
+        emb_dtype = self.llm_params["tok_embeddings"].dtype
+        gen_state = st.generator.get_state()
+        with utils.phase_timer("Warmup"), torch.no_grad():
+            for b in prefill_buckets:
+                if b > st.n_ctx:
+                    continue
+                with _spare_positions(st, b) as p:
+                    steps.prefill(torch.zeros((1, b, d), dtype=emb_dtype, device=self.device),
+                                  p, b - 1, _attn_bucket(b, st.n_ctx), capture=True)
+            for n in decode_chunks:
+                if n > st.n_ctx:
+                    continue
+                with _spare_positions(st, n) as p:
+                    if n == 1:
+                        steps.step(torch.zeros((1, 1), dtype=torch.long, device=self.device), p,
+                                   capture=True)
+                        continue
+                    logits = torch.zeros((1, v), dtype=torch.float32, device=self.device)
+                    for params in (SamplingParams(temp=0.0), SamplingParams()):
+                        steps.decode_chunk(logits, p, n, [st.generator],
+                                           lane_rows([params], v, self.device), capture=True)
+            size = self.vision_cfg.vit.image_size
+            self._encode(torch.zeros((1, 3, size, size), dtype=COMPUTE_DTYPE,
+                                     device=self.device), capture=True)
+            torch.cuda.synchronize(self.device)
+        st.generator.set_state(gen_state)
+        return dict(self.graph_stats(), build_s=t_build,
+                    warmup_s=time.perf_counter() - t0 - t_build)
+
+    # ------------------------------------------------------------------
     # vision
     # ------------------------------------------------------------------
 
@@ -275,20 +392,23 @@ class MiniGPT4Engine:
                 f"expected [B, 3, {expect}, {expect}], got {pixels.shape}")
         with utils.phase_timer("Encoding image"), torch.no_grad():
             x = torch.from_numpy(pixels).to(self.device, COMPUTE_DTYPE)
-            emb = vision_mod.encode_image(self.vision_params, x, self.vision_cfg)
-            emb = emb.float().cpu().numpy()
+            emb = self._encode(x).float().cpu().numpy()
         return emb[0] if emb.shape[0] == 1 else emb
 
     # ------------------------------------------------------------------
     # decoder feeding
     # ------------------------------------------------------------------
 
-    def _forward(self, st: DecodeState, embeds: torch.Tensor,
-                 last_idx: int | None = None) -> torch.Tensor:
+    def _forward(self, st: DecodeState, embeds: torch.Tensor, last_idx: int) -> torch.Tensor:
+        """One prefill chunk [1, S, D] from the cursor: the logits at row
+        ``last_idx`` (the chunk's graph of key (S, span) on a graph engine)."""
+        span = _attn_bucket(st.n_past + embeds.shape[1], st.n_ctx)
+        steps = self._steps(st)
         with torch.no_grad():
-            return llama_mod.forward(
-                self.llm_params, st.cache, embeds, st.n_past, self.llm_cfg, last_idx,
-                attn_len=_attn_bucket(st.n_past + embeds.shape[1], st.n_ctx), tp=self.tp_group)
+            if steps is not None:
+                return steps.prefill(embeds, st.n_past, last_idx, span)
+            return llama_mod.forward(self.llm_params, st.cache, embeds, st.n_past, self.llm_cfg,
+                                     last_idx, attn_len=span, tp=self.tp_group)
 
     def _prefill_embeds(self, st: DecodeState, embeds: torch.Tensor,
                         token_ids: list[int] | None = None) -> None:
@@ -316,13 +436,20 @@ class MiniGPT4Engine:
             return
         st = self._state(st)
         ids = torch.tensor([tokens], dtype=torch.long).to(self.device)
-        embeds = llama_mod.embed_tokens(self.llm_params, ids)
         if len(tokens) == 1 and st.n_past + 1 <= st.n_ctx:
-            # decode step: one position, no bucket padding
-            st.logits = self._forward(st, embeds)[0]
+            # decode step: one position, no bucket padding (JAX's decode_step)
+            steps = self._steps(st)
+            with torch.no_grad():
+                if steps is not None:
+                    st.logits = steps.step(ids, st.n_past)[0]
+                else:
+                    st.logits = llama_mod.forward(
+                        self.llm_params, st.cache, llama_mod.embed_tokens(self.llm_params, ids),
+                        st.n_past, self.llm_cfg, tp=self.tp_group)[0]
             st.n_past += 1
             st.tokens.append(int(tokens[0]))
             return
+        embeds = llama_mod.embed_tokens(self.llm_params, ids)
         self._prefill_embeds(st, embeds, token_ids=[int(t) for t in tokens])
 
     def add_strings(self, s: str, st: DecodeState | None = None) -> None:
@@ -396,10 +523,15 @@ class MiniGPT4Engine:
         """Sample and evaluate ``n`` tokens on the device; one host sync."""
         st = self._state(st)
         rows = lane_rows([params], self.llm_cfg.n_vocab, self.device)
+        steps = self._steps(st)
         with torch.no_grad():
-            tokens, logits = llama_mod.decode_loop(
-                self.llm_params, st.cache, st.logits[None], st.n_past, n,
-                [st.generator], rows, self.llm_cfg, tp=self.tp_group)
+            if steps is not None:
+                tokens, logits = steps.decode_chunk(st.logits[None], st.n_past, n,
+                                                    [st.generator], rows)
+            else:
+                tokens, logits = llama_mod.decode_loop(
+                    self.llm_params, st.cache, st.logits[None], st.n_past, n,
+                    [st.generator], rows, self.llm_cfg, tp=self.tp_group)
         ids = tokens[0].tolist()
         st.n_past += n
         st.tokens.extend(ids)
@@ -502,6 +634,22 @@ def check_tp(reader: LlamaFileReader, decoder_mode: str, tp: int) -> None:
             f"{held[0]} (quant_mode 'auto' resolves to gq), and a gq weight cannot be placed "
             "over tensor-parallel ranks (the JAX package cannot place one either); use "
             "quant_mode='repack', 'w8a8' or 'qtensor', or a dense file")
+
+
+@contextlib.contextmanager
+def _spare_positions(st: DecodeState, n: int):
+    """A cursor p whose n positions [p, p + n) a warm-up may write: the
+    state's cursor where n positions remain past it, else the last n, whose
+    contents are restored afterwards."""
+    p = min(st.n_past, st.n_ctx - n)
+    saved = None
+    if p < st.n_past:
+        saved = {kv: t[:, :, :, p:p + n].clone() for kv, t in st.cache.items()}
+    try:
+        yield p
+    finally:
+        for kv, t in (saved or {}).items():
+            st.cache[kv][:, :, :, p:p + n] = t
 
 
 def rollback(st: DecodeState, n: int) -> None:

@@ -15,7 +15,13 @@ operations act.
     prefix is copied into 128-position pages of one shared pool
     (``engine/paged.py``) and decoded through the paged flash-decode kernel;
     otherwise, or when the pool cannot take the whole group, the lanes'
-    caches stack into one dense group cache.
+    caches stack into one dense group cache.  On a CUDA engine at tp = 1 a
+    paged group's decode chunks replay captured CUDA graphs over the pool
+    (``engine/graphs.py``): per lane count and chunk length, one for
+    all-greedy groups and one for every other mix of configs (the traced
+    thresholds of ``device_sampling.lane_rows``), and one more where a lane
+    carries a logit bias.  :meth:`SessionPool.warmup` captures the first
+    two ahead of time; the dense group and single sessions run eagerly.
 
 With a tensor-parallel engine (``tp=N``, one process per rank, every rank
 running the same calls) the lane caches and the page pool hold the rank's
@@ -41,6 +47,7 @@ import torch
 from ..models import llama as llama_mod
 from .device_sampling import lane_rows
 from .engine import EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
+from .graphs import StepGraphs
 from .paged import PagedKVPool, PoolExhausted
 from .sampling import Sampler, SamplingParams
 
@@ -155,6 +162,7 @@ class SessionPool:
         # the shared KV page pool: a batched group then holds device memory
         # for the positions its lanes consumed, not B x session_ctx
         self.paged_pool = None
+        self._paged_graphs: StepGraphs | None = None  # the captured steps of paged_pool
         if paged_pool_pages:
             self.paged_pool = self._new_paged_pool(paged_pool_pages)
 
@@ -308,15 +316,66 @@ class SessionPool:
         return [{"session": s, "limit": limits_all[act[i]], "chat": "", "emitted": 0,
                  "ends": s.n_past} for i, s in enumerate(batch)]
 
-    def _decode(self, cache, logits, pos, rows, batch, decode_chunk, page_table=None):
-        """One decode chunk of the group; returns (token ids per lane, the
-        final logits).  Caller holds the lock."""
+    def _decode(self, cache, logits, pos, rows, batch, decode_chunk, page_table=None,
+                steps: StepGraphs | None = None):
+        """One decode chunk of the group, replaying ``steps``' graph where
+        given; returns (token ids per lane, the final logits).  Caller holds
+        the lock."""
+        gens = [s.state.generator for s in batch]
         with torch.no_grad():
-            tokens, logits = llama_mod.decode_loop(
-                self.engine.llm_params, cache, logits, pos, decode_chunk,
-                [s.state.generator for s in batch], rows, self.engine.llm_cfg,
-                page_table=page_table, tp=self.engine.tp_group)
+            if steps is not None:
+                tokens, logits = steps.decode_chunk(logits, pos, decode_chunk, gens, rows,
+                                                    page_table)
+            else:
+                tokens, logits = llama_mod.decode_loop(
+                    self.engine.llm_params, cache, logits, pos, decode_chunk, gens, rows,
+                    self.engine.llm_cfg, page_table=page_table, tp=self.engine.tp_group)
         return tokens.tolist(), logits
+
+    def _paged_steps(self, pool: PagedKVPool) -> StepGraphs | None:
+        """The captured steps over ``pool``'s page pools (made on first use,
+        in the engine's graph memory pool), or None where the engine runs
+        eagerly.  Caller holds the lock."""
+        eng = self.engine
+        if not eng.graphs_enabled:
+            return None
+        if self._paged_graphs is None or self._paged_graphs.cache["k"] is not pool.k:
+            self._paged_graphs = StepGraphs(eng.llm_params, eng.llm_cfg,
+                                            {"k": pool.k, "v": pool.v}, eng.device,
+                                            eng.graph_pool)
+        return self._paged_graphs
+
+    def warmup(self, lanes=range(1, 9), decode_chunk: int = 16) -> dict:
+        """Capture ahead of time the paged group's decode chunks that a
+        server replays: at each lane count of ``lanes``, the all-greedy
+        chunk and the traced one, which serves every other mix of configs
+        without a logit bias.  The lanes' tables hold only the pool's trash
+        page, so no page a lane owns is written.  Returns the seconds, the
+        graphs of the paged group and the bytes of the engine's graph memory
+        pool.  Refused where the group runs eagerly (no page pool, a CPU
+        engine, tp > 1)."""
+        eng = self.engine
+        if self.paged_pool is None or not eng.graphs_enabled:
+            raise RuntimeError("warmup captures the paged group's CUDA graphs: this pool "
+                               f"has no page pool or runs eagerly (device {eng.device}, "
+                               f"tp={eng.tp})")
+        v = eng.llm_cfg.n_vocab
+        t0 = time.perf_counter()
+        with self._lock, torch.no_grad():
+            pool = self._live_paged_pool()
+            steps = self._paged_steps(pool)
+            for b in lanes:
+                table = torch.full((b, pool.maxp + 1), pool.trash_page, dtype=torch.int32,
+                                   device=eng.device)
+                logits = torch.zeros((b, v), dtype=torch.float32, device=eng.device)
+                gens = [torch.Generator(device=eng.device) for _ in range(b)]
+                for params in (SamplingParams(temp=0.0), SamplingParams()):
+                    steps.decode_chunk(logits, 0, decode_chunk, gens,
+                                       lane_rows([params] * b, v, eng.device), table,
+                                       capture=True)
+            torch.cuda.synchronize(eng.device)
+        return {"warmup_s": time.perf_counter() - t0, "graphs": len(steps.graphs),
+                "keys": list(steps.graphs), "pool_bytes": eng.graph_stats()["pool_bytes"]}
 
     def _dense_batch_stream(self, act, batch, limits_all, rows, decode_chunk):
         """The group's lane caches stacked on the batch axis."""
@@ -462,7 +521,7 @@ class SessionPool:
                     try:
                         lane_tokens, logits = self._decode(
                             {"k": pool.k, "v": pool.v}, logits, pos_host, rows, batch,
-                            decode_chunk, table_dev)
+                            decode_chunk, table_dev, self._paged_steps(pool))
                     except Exception:
                         pool.broken = True  # the pool's contents are unknown now
                         raise

@@ -36,7 +36,8 @@ from ..ops import group_i8 as gq
 from ..ops import i8_matmul as i8
 from ..ops import quant_matmul as qm
 from ..ops import repack as rp
-from ..ops.flash_decode import PAGE, flash_decode_attention, paged_flash_decode_attention
+from ..ops.flash_decode import (PAGE, pos_vector, flash_decode_attention,
+                                paged_flash_decode_attention)
 from ..parallel.mesh import TPGroup, all_gather_tiled, pmax, psum
 from .layers import rms_norm
 from .params import QUANT_FORMS, linear, load_quant_weight, tensor
@@ -121,12 +122,10 @@ def rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> t
     return out.reshape(b, h, s, dh).to(x.dtype)
 
 
-def _positions(pos0, s: int, device) -> torch.Tensor:
-    """Absolute positions [S] (scalar cursor) or [B, S] (one per batch row)."""
-    ar = torch.arange(s, device=device)
-    if isinstance(pos0, int):
-        return pos0 + ar
-    return torch.tensor(list(pos0), device=device)[:, None] + ar
+def _positions(pos: torch.Tensor, s: int) -> torch.Tensor:
+    """Absolute positions [B, S] from the cursors ``pos`` (i32 [B], on the
+    device), computed there."""
+    return pos.long()[:, None] + torch.arange(s, device=pos.device)
 
 
 def _prefill_attention(q, ck, cv, li, pos0, span, head_dim):
@@ -135,14 +134,15 @@ def _prefill_attention(q, ck, cv, li, pos0, span, head_dim):
     for a byte-wide e4m3 cache, whose probabilities would keep 3 mantissa
     bits) for spans up to PREFILL_FLASH_SPAN, in f32 above (as the JAX
     package).  An e4m3 cache converts natively here, subnormals kept, as in
-    the JAX package; only the flash kernels flush them."""
+    the JAX package; only the flash kernels flush them.  ``pos0``: the
+    cursors (int, one int per row, or i32 [B] on the device); ``span`` is
+    static, the attention bucket (JAX's static ``attn_len``)."""
     ks = ck[li, :, :, :span]
     vs = cv[li, :, :, :span]
-    s = q.shape[2]
-    q_pos = _positions(pos0, s, q.device)
+    b, _, s, _ = q.shape
+    q_pos = _positions(pos_vector(pos0, b, q.device), s)
     key_pos = torch.arange(span, device=q.device)
-    visible = key_pos <= q_pos[..., None]  # [S, span] | [B, S, span]
-    visible = visible[:, None] if visible.dim() == 3 else visible[None, None]
+    visible = (key_pos <= q_pos[..., None])[:, None]  # [B, 1, S, span]
     if span > PREFILL_FLASH_SPAN:
         sc = (q.float() * (1.0 / math.sqrt(head_dim))) @ ks.float().transpose(-1, -2)
         sc = sc.masked_fill(~visible, float("-inf"))
@@ -202,15 +202,14 @@ def _row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -
     return linear(x, p, li)
 
 
-def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
+def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
            page_table=None, act_stats=None, tp=None):
     """One decoder layer on x [B, S, D]; writes K/V of the S positions into
-    layer ``li`` of the cache in place.  ``pos0``: host cursor (int, or one
-    per batch row); ``pos_dev``: the same cursors as an i32 [B] tensor.
-    ``rows``: for S = 1 with per-row cursors, the (cache row, position)
-    index pair [B] of each row's write (the batch row and its cursor, or its
-    pool page and the offset in it), so that all rows write in one indexed
-    copy.  ``page_table``: the cache is the page pools (see forward).
+    layer ``li`` of the cache in place.  ``pos_dev``: the cursors, i32 [B]
+    on the device.  ``rows``: the (cache row [B, 1], position [B, S]) index
+    pair of each position's write (the batch row and its position, or its
+    pool page and the offset in it), so that all positions write in one
+    indexed copy.  ``page_table``: the cache is the page pools (see forward).
     ``act_stats``: a dict of lists; the per-channel absolute maxima of the
     inputs of the quantizable matmuls are appended per site ("attn", "wo",
     "ffn", "w2"), the calibration capture of ``quality.py``.  ``tp``: the
@@ -233,12 +232,8 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     k = rope_interleaved(heads(xk), cos, sin)
     v = heads(xv)
 
-    if rows is None:
-        ck[li, :, :, pos0:pos0 + s] = to_cache(k, ck.dtype)
-        cv[li, :, :, pos0:pos0 + s] = to_cache(v, cv.dtype)
-    else:
-        ck[li][rows[0], :, rows[1]] = to_cache(k[:, :, 0], ck.dtype)
-        cv[li][rows[0], :, rows[1]] = to_cache(v[:, :, 0], cv.dtype)
+    ck[li][rows[0], :, rows[1]] = to_cache(k.transpose(1, 2), ck.dtype)
+    cv[li][rows[0], :, rows[1]] = to_cache(v.transpose(1, 2), cv.dtype)
 
     if page_table is not None:
         ctx = paged_flash_decode_attention(q, ck, cv, li, pos_dev, page_table,
@@ -246,7 +241,7 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
     elif s <= FLASH_DECODE_MAX_S:
         ctx = flash_decode_attention(q, ck, cv, li, pos_dev, 1.0 / math.sqrt(cfg.head_dim))
     else:
-        ctx = _prefill_attention(q, ck, cv, li, pos0, attn_len or cfg.n_ctx, cfg.head_dim)
+        ctx = _prefill_attention(q, ck, cv, li, pos_dev, attn_len or cfg.n_ctx, cfg.head_dim)
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
     if act_stats is not None:
         act_stats.setdefault("wo", []).append(_amax(ctx))
@@ -269,20 +264,23 @@ def _layer(x, layers, li, ck, cv, pos0, pos_dev, rope, cfg, attn_len, rows=None,
 
 
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
-            last_idx: int | None = None, attn_len: int | None = None,
+            last_idx=None, attn_len: int | None = None,
             page_table: torch.Tensor | None = None, act_stats: dict | None = None,
             all_logits: bool = False, tp: TPGroup | None = None) -> torch.Tensor:
     """embeds [B, S, D] -> logits [B, V] (f32) at position ``last_idx``
-    (default S-1), or [B, S, V] at every position with ``all_logits``; the
-    cache is updated in place.  ``act_stats``: the calibration capture of
-    :func:`_layer`, plus "head", the absolute maxima of the final norm's
-    output over every position.
+    (default S-1; an int, or a long [1] tensor on the device), or [B, S, V]
+    at every position with ``all_logits``; the cache is updated in place.
+    ``act_stats``: the calibration capture of :func:`_layer`, plus "head",
+    the absolute maxima of the final norm's output over every position.
 
-    ``pos0`` is the host cursor: an int, or (for S = 1) a sequence of one
-    int per batch row.  Bucket-padded rows past ``last_idx`` write cache
-    entries beyond the real tokens; the causal mask hides them and the next chunk
-    overwrites them.  ``attn_len`` bounds the span the S > 32 prefill path
-    reads (the engine's power-of-two bucket covering pos0 + S).
+    ``pos0`` is the cursor: an int, a sequence of one int per batch row (S
+    = 1 only), or an i32 [B] tensor on the device.  Positions, cache writes
+    and the attention masks are computed from it on the device, so a step
+    reads no host value and a captured CUDA graph replays it at any cursor
+    (``engine/graphs.py``).  Bucket-padded rows past ``last_idx`` write
+    cache entries beyond the real tokens; the causal mask hides them and the
+    next chunk overwrites them.  ``attn_len`` bounds the span the S > 32
+    prefill path reads (the engine's power-of-two bucket covering pos0 + S).
 
     ``page_table`` [B, MAXP + 1] i32 (on the device) switches to paged mode:
     ``cache`` holds the page pools [L, NP + 1, H, PAGE, Dh] and row b's
@@ -296,38 +294,37 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     full-vocabulary logits."""
     b, s, _ = embeds.shape
     dev = embeds.device
-    if isinstance(pos0, int):
-        pos_dev = torch.full((b,), pos0, dtype=torch.int32, device=dev)
-        positions = _positions(pos0, s, dev)
-    else:
-        pos_dev = torch.tensor(list(pos0), dtype=torch.int32).to(dev)
-        positions = pos_dev.long()[:, None] + torch.arange(s, device=dev)
-    rows = None
-    if s > 1 and (page_table is not None or not isinstance(pos0, int)):
+    if s > 1 and (page_table is not None or isinstance(pos0, (list, tuple))):
         raise NotImplementedError(
             f"forward of {s} positions from per-row cursors: spans over the page pool or "
             "a batched group (the speculative verify writes) are not ported yet "
             "(ROADMAP Queue 1, item 14)")
+    pos_dev = pos_vector(pos0, b, dev)
+    positions = _positions(pos_dev, s)
     if page_table is not None:
-        pos = pos_dev.long()
-        slot = (pos // PAGE).clamp(max=page_table.shape[1] - 1)
-        rows = (page_table.gather(1, slot[:, None])[:, 0].long(), pos % PAGE)
-    elif not isinstance(pos0, int):
+        slot = (positions // PAGE).clamp(max=page_table.shape[1] - 1)
+        rows = (page_table.gather(1, slot).long(), positions % PAGE)
+    else:
         # a finished row of a batched group may run past the cache end: its
         # write clamps onto the last position, past its history (the group
         # stops before that position could hold history: engine/sessions.py)
-        rows = (torch.arange(b, device=dev), pos_dev.long().clamp(max=cache["k"].shape[3] - 1))
+        rows = (torch.arange(b, device=dev)[:, None],
+                positions.clamp(max=cache["k"].shape[3] - 1))
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
     for li in range(cfg.n_layer):
-        x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos0, pos_dev,
-                   rope, cfg, attn_len, rows, page_table, act_stats, tp)
+        x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos_dev, rope, cfg,
+                   attn_len, rows, page_table, act_stats, tp)
     if act_stats is not None:
         act_stats.setdefault("head", []).append(_amax(rms_norm(x, params["norm"], RMS_EPS)))
     if all_logits:
         h = x
+    elif last_idx is None:
+        h = x[:, -1]
+    elif isinstance(last_idx, torch.Tensor):
+        h = x.index_select(1, last_idx.reshape(1)).squeeze(1)
     else:
-        h = x[:, -1] if last_idx is None else x[:, last_idx]
+        h = x[:, last_idx]
     logits = linear(rms_norm(h, params["norm"], RMS_EPS), params["output"])
     if tp is not None and logits.shape[-1] != cfg.n_vocab:
         logits = all_gather_tiled(logits, tp)  # the vocab-parallel head
@@ -349,22 +346,24 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps:
     on the device until the caller reads them, so a chunk costs one host
     synchronisation.  Returns (tokens [B, n_steps], final logits [B, V]).
 
-    ``pos0``: one cursor for every row (int) or one per row ([B] ints).
-    Sampling: per-lane ``rows`` (:func:`~..engine.device_sampling.lane_rows`)
-    with a list of B ``generators``.  ``page_table``: paged mode (see
-    :func:`forward`); the caller provisions pages covering every active
-    row's pos0 + n_steps.  ``tp``: see :func:`forward`; every rank samples
-    the same tokens (greedy is key-free, and a sampled row draws from
-    generators seeded alike on every rank)."""
+    ``pos0``: one cursor for every row (int), one per row ([B] ints) or an
+    i32 [B] tensor on the device; step i runs at ``pos0 + i``, advanced on
+    the device.  Sampling: per-lane ``rows``
+    (:func:`~..engine.device_sampling.lane_rows`) with a list of B
+    ``generators``.  ``page_table``: paged mode (see :func:`forward`); the
+    caller provisions pages covering every active row's pos0 + n_steps.
+    ``tp``: see :func:`forward`; every rank samples the same tokens (greedy
+    is key-free, and a sampled row draws from generators seeded alike on
+    every rank)."""
     from ..engine.device_sampling import sample_rows
 
+    pos = pos_vector(pos0, logits0.shape[0], logits0.device)
     logits = logits0
     toks = []
     for i in range(n_steps):
         tok = sample_rows(logits, generators, rows)
         toks.append(tok)
-        pos = pos0 + i if isinstance(pos0, int) else [p + i for p in pos0]
-        logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos, cfg,
+        logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos + i, cfg,
                          page_table=page_table, tp=tp)
     return torch.stack(toks, dim=1), logits
 

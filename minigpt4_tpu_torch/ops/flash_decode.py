@@ -64,7 +64,7 @@ def cache_f32(t: torch.Tensor) -> torch.Tensor:
     return torch.where(sub, f * 0.0, f)
 
 
-def _pos_vector(pos0, b: int, device) -> torch.Tensor:
+def pos_vector(pos0, b: int, device) -> torch.Tensor:
     """pos0 (int, sequence of ints, or tensor) -> i32 [B] on ``device``."""
     if isinstance(pos0, torch.Tensor):
         p = pos0.to(device=device, dtype=torch.int32).reshape(-1)
@@ -119,7 +119,7 @@ def flash_decode_split_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, 
     -> acc / l [B, H, S, Dh], or ``(acc, m*, l)`` with ``return_stats``."""
     b, h, s, dh = q.shape
     sc, visible, vs = _scores(q, ck, cv, li, pos0, scale)
-    pos = _pos_vector(pos0, b, q.device).long()
+    pos = pos_vector(pos0, b, q.device).long()
     c = ck.shape[-2]
     key = torch.arange(sc.shape[-1], device=q.device)
     bounds = [split_bounds(min(int(p) + s, c), splits) for p in pos.tolist()]
@@ -164,7 +164,7 @@ def _scores(q, ck, cv, li, pos0, scale):
     lane reads nothing past its own cursor."""
     b, h, s, dh = q.shape
     c = ck.shape[-2]
-    pos = _pos_vector(pos0, b, q.device).long()
+    pos = pos_vector(pos0, b, q.device).long()
     live = max(0, min(int(pos.max()) + s, c))
     key_pos = torch.arange(live, device=q.device)
     read = (key_pos[None, :] < (pos[:, None] + s))[:, None, :, None]  # [B, 1, live, 1]
@@ -245,7 +245,7 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: i
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         qf = qf.clone()
-    pos = _pos_vector(pos0, b, q.device)
+    pos = pos_vector(pos0, b, q.device)
     if pos.shape != (b,):
         raise ValueError(f"{name}: pos0 must be a scalar or [B={b}]")
     return qf, pos
@@ -322,7 +322,7 @@ def sp_flash_decode_attention(q: torch.Tensor, ck_local: torch.Tensor, cv_local:
     ``pos0 - c_offset`` and :func:`merge_partials` combines them.  Every
     rank returns the attention over the whole cache, f32."""
     b = q.shape[0]
-    pos = _pos_vector(pos0, b, q.device) - int(c_offset)
+    pos = pos_vector(pos0, b, q.device) - int(c_offset)
     return merge_partials([flash_decode_attention(q, ck_local, cv_local, li, pos, scale,
                                                   return_stats=True)], group)
 

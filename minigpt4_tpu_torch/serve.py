@@ -564,7 +564,11 @@ def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000
     """Load the model, build the session pool and bind the server (not yet
     serving: call ``serve_forever``; ``shutdown`` stops serving,
     ``server_close`` releases the socket and stops the batcher, whose
-    thread holds the pool).  ``port=0`` binds an ephemeral port.
+    thread holds the pool).  ``port=0`` binds an ephemeral port.  Where the
+    window batcher decodes paged groups from captured CUDA graphs, the pool
+    captures them first for every lane count up to MAX_BATCH
+    (:meth:`SessionPool.warmup`; its figures are ``httpd.warmup``, else
+    None).
     Options of the JAX package's server that the port does not serve yet
     (``UNPORTED``) raise NotImplementedError naming their ROADMAP item."""
     for name, (what, served) in UNPORTED.items():
@@ -572,9 +576,17 @@ def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000
             raise NotImplementedError(f"{name}: {what} is not ported yet")
     pool = SessionPool(model_path, llm_path, session_ctx=session_ctx,
                        paged_pool_pages=paged_pages, **engine_kwargs)
+    warm = None
+    if batch_window_s > 0 and pool.paged_pool is not None and pool.engine.graphs_enabled:
+        try:
+            warm = pool.warmup(range(1, MAX_BATCH + 1))
+        except BaseException:
+            pool.close()
+            raise
     srv = _Server(pool, batch_window_s=batch_window_s)
     httpd = _HTTPServer((host, port), make_handler(srv))
     httpd.pool = pool  # for tests and shutdown
+    httpd.warmup = warm
     httpd.batcher = srv.batcher
     return httpd
 

@@ -53,10 +53,11 @@ import torch
 
 from fixtures import GQ_D, build_container, build_gq_models, build_llm_gq
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
+from minigpt4_tpu_torch.engine.device_sampling import DeviceSamplingConfig
 from minigpt4_tpu_torch.engine.sessions import SessionPool
 from minigpt4_tpu_torch.formats import DataType, quants
 from minigpt4_tpu_torch.image import preprocess
-from minigpt4_tpu_torch.ops import _build
+from minigpt4_tpu_torch.ops import _build, counters
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 from minigpt4_tpu_torch.ops import i8_matmul as ti8
@@ -1309,3 +1310,195 @@ def test_prefill_kernel_matches_plain(cuda_device, case, m):
     assert _rel(got, plain(x, w, 1)) <= 1e-4
     if entry == "rq_prefill":
         assert _rel(got, trq.qmatmul_repacked_ref(x, w, 1)) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# captured CUDA graphs (engine/graphs.py) against the same steps run eagerly
+# ---------------------------------------------------------------------------
+
+GRAPH_TOL = 1e-5  # same kernels in the same order: expected bit-equal
+
+
+def _graph_chat(eng, emb, graphs: bool, before=None):
+    """From the state ``before`` (cache, logits, cursor, tokens) or a fresh
+    image turn: two greedy 16-token chunks (on a fresh engine the first runs
+    eagerly and the second captures its graph at the next cursor; later
+    calls replay), a sampled 8-token chunk from a generator seeded 5, and
+    one single-token step; with ``graphs`` False the same steps run
+    eagerly.  Returns ids, the final logits, the cache up to the cursor and
+    the launch counts of the second greedy chunk."""
+    eng.graphs_enabled = graphs
+    st = eng._st
+    if before is None:
+        eng.reset()
+        eng.system_prompt()
+        eng.begin_chat_image(emb, "what is in the image?")
+    else:
+        for kv in ("k", "v"):
+            st.cache[kv].copy_(before["cache"][kv])
+        st.n_past, st.tokens, st.logits = before["n_past"], list(before["tokens"]), \
+            before["logits"].clone()
+    prefill = st.logits.clone()
+    ids = eng.decode_chunk(16, SamplingParams(temp=0.0))
+    c0 = counters.counts()
+    ids += eng.decode_chunk(16, SamplingParams(temp=0.0))
+    torch.cuda.synchronize()
+    delta = {k: n - c0[k] for k, n in counters.counts().items() if n != c0[k]}
+    st.generator.manual_seed(5)
+    ids += eng.decode_chunk(8, SamplingParams(temp=0.8))
+    eng.add_tokens([ids[-1]])
+    torch.cuda.synchronize()
+    return dict(ids=ids, prefill=prefill, logits=st.logits.clone(), n_past=st.n_past,
+                cache={kv: t[:, :, :, :st.n_past].clone() for kv, t in st.cache.items()},
+                delta=delta)
+
+
+def test_captured_chat_equals_eager(cuda_device, tmp_path):
+    """The gq fixture's image chat with its steps replayed from graphs and
+    run eagerly: equal greedy and sampled ids, prefill and final logits and
+    cache contents (within GRAPH_TOL of max|logit|; the same kernels run in
+    the same order), the same launch counts for a replayed chunk as for an
+    eager one, and an encoder replay equal to the eager encoder.  The first
+    captured chat meets each key once (eager) or twice (captured); the
+    second replays every step."""
+    model, llm = build_gq_models(tmp_path)
+    img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=cuda_device)
+    try:
+        pixels = preprocess(img, size=eng.vision_cfg.vit.image_size)
+        eng.graphs_enabled = False
+        emb_eager = eng.encode_image(pixels)
+        eng.graphs_enabled = True
+        emb = eng.encode_image(pixels)  # the key's first use: eager
+        assert np.array_equal(emb, eng.encode_image(pixels))  # captured
+        assert np.array_equal(emb, eng.encode_image(pixels))  # a replay
+        assert np.abs(emb - emb_eager).max() <= GRAPH_TOL * np.abs(emb_eager).max()
+        got = _graph_chat(eng, emb, True)
+        want = _graph_chat(eng, emb, False)
+        # from the same cache contents, eager against a replay of each graph
+        st = eng._st
+        eng.graphs_enabled = True
+        eng.reset()
+        eng.system_prompt()
+        eng.begin_chat_image(emb, "what is in the image?")
+        before = dict(cache={kv: t.clone() for kv, t in st.cache.items()}, n_past=st.n_past,
+                      tokens=list(st.tokens), logits=st.logits.clone())
+        replayed = _graph_chat(eng, emb, True, before)
+        eager = _graph_chat(eng, emb, False, before)
+        stats = eng.graph_stats()
+    finally:
+        eng.close()
+    for a, b in ((got, want), (replayed, eager), (got, replayed)):
+        assert a["ids"] == b["ids"] and a["n_past"] == b["n_past"]
+        for key in ("prefill", "logits"):
+            assert _rel(a[key], b[key]) <= GRAPH_TOL, key
+        for kv in ("k", "v"):
+            assert torch.equal(a["cache"][kv], b["cache"][kv]), kv
+    assert replayed["delta"] == eager["delta"] and replayed["delta"]
+    assert stats["graphs"] >= 5 and stats["pool_bytes"] > 0
+    assert ("decode", 1, 16, (DeviceSamplingConfig(temp=0.0),), False, None) in stats["keys"]
+    assert ("decode", 1, 8, "traced", False, None) in stats["keys"]
+
+
+def test_warmup_captures_without_touching_the_chat(cuda_device, tmp_path):
+    """warmup() mid-chat: the graphs of the prefill buckets, the decode
+    chunks 1 and 16 and the encoder are captured; the conversation's cache,
+    cursor and random stream are as they were (the last positions' contents
+    restored where the buckets ran past the free ones)."""
+    model, llm = build_gq_models(tmp_path)
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=cuda_device)
+    try:
+        eng.system_prompt()
+        st = eng._st
+        cache = {kv: t.clone() for kv, t in st.cache.items()}
+        gen = st.generator.get_state()
+        n_past, logits = st.n_past, st.logits.clone()
+        stats = eng.warmup(prefill_buckets=(8, 32, 128, 512))
+        assert st.n_past == n_past and torch.equal(st.logits, logits)
+        assert torch.equal(st.generator.get_state(), gen)
+        for kv in ("k", "v"):
+            assert torch.equal(st.cache[kv][:, :, :, :n_past], cache[kv][:, :, :, :n_past])
+        keys = set(stats["keys"])
+        assert {("prefill", 8, None), ("prefill", 32, None), ("prefill", 128, 128),
+                ("step", 1), ("encode", 1)} <= keys, keys
+        # 512 > n_ctx: skipped; the greedy and the default sampled chunk of 16
+        assert ("prefill", 512, 512) not in keys and stats["pool_bytes"] > 0
+        assert sum(k[:3] == ("decode", 1, 16) for k in keys) == 2
+        assert ("decode", 1, 16, "traced", False, None) in keys
+    finally:
+        eng.close()
+
+
+def test_captured_paged_group_equals_eager(cuda_device, tmp_path):
+    """A three-lane paged group (one lane sampling) replayed from graphs and
+    run eagerly from copies of the same sessions: equal ids and logits, and
+    the paged kernel's counter advancing on every replay by what an eager
+    run launches (the group runs captured twice: the first runs its key
+    eagerly, then captures it, and those eager runs launch too)."""
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                       paged_pool_pages=12, device=cuda_device)
+    params = [SamplingParams(temp=0.0), SamplingParams(temp=0.8), SamplingParams(temp=0.0)]
+    try:
+        runs = {}
+        for graphs in (True, True, False):
+            pool.engine.graphs_enabled = graphs
+            sessions = []
+            for i, q in enumerate(("one two", "three four five", "six")):
+                s = pool.new_session()
+                pool.begin_chat(s, q)
+                s.state.generator.manual_seed(100 + i)
+                sessions.append(s)
+            before = tfd.paged_flash_decode_attention.launches
+            pool.generate_batch(sessions, limit=40, params=params, decode_chunk=8)
+            torch.cuda.synchronize()
+            runs[graphs] = ([s.state.tokens for s in sessions],
+                            [s.state.logits for s in sessions],
+                            tfd.paged_flash_decode_attention.launches - before)
+            assert pool.paged_pool.free_pages == 12
+        assert runs[True][0] == runs[False][0]
+        for a, b in zip(runs[True][1], runs[False][1]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _rel(a, b) <= GRAPH_TOL
+        assert runs[True][2] == runs[False][2] > 0
+        keys = set(pool._paged_graphs.graphs)
+        assert ("decode", 3, 8, "traced", False, pool.paged_pool.maxp + 1) in keys, keys
+    finally:
+        pool.close()
+
+
+def test_session_pool_warmup_then_groups_replay(cuda_device, tmp_path):
+    """SessionPool.warmup captures the paged group's greedy and traced
+    chunks for each lane count without writing a lane's page; a greedy and
+    a mixed group afterwards replay those graphs (no new capture) and equal
+    the eager groups."""
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                       paged_pool_pages=12, device=cuda_device)
+    pages = pool.paged_pool
+    try:
+        k0, v0 = pages.k.clone(), pages.v.clone()
+        stats = pool.warmup(lanes=(1, 2, 3), decode_chunk=8)
+        real = slice(0, pages.trash_page)
+        assert torch.equal(pages.k[:, real], k0[:, real])
+        assert torch.equal(pages.v[:, real], v0[:, real])
+        assert stats["graphs"] == 6 and stats["pool_bytes"] > 0
+        for params in ([SamplingParams(temp=0.0)] * 2,
+                       [SamplingParams(temp=0.0), SamplingParams(temp=0.7, top_k=5)]):
+            runs = {}
+            for graphs in (True, False):
+                pool.engine.graphs_enabled = graphs
+                sessions = []
+                for i, q in enumerate(("one two", "three four five")):
+                    s = pool.new_session()
+                    pool.begin_chat(s, q)
+                    s.state.generator.manual_seed(200 + i)
+                    sessions.append(s)
+                pool.generate_batch(sessions, limit=16, params=params, decode_chunk=8)
+                runs[graphs] = [s.state.tokens for s in sessions]
+            assert runs[True] == runs[False]
+        assert len(pool._paged_graphs.graphs) == 6
+        assert not pool._paged_graphs.seen
+    finally:
+        pool.close()
