@@ -2,7 +2,9 @@
 """Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
 its batched HTTP serving path, its quantized-container / repacked-weight
 path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
-on one card) and its dequant-matmul probes on an NVIDIA GPU.
+on one card), its dequant-matmul probes and its clients (context shift,
+chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
+NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
@@ -182,8 +184,8 @@ Phases (any failure exits nonzero before the last line):
                set to 0 before and read after (the "probes" path); the phase
                frees its tensors before the tp phase.
   9. tp      - (runs right after phase 3', while this process holds little
-               device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width and
-               depth, every projection q5_k, quant_mode="repack", behind the
+               device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width, cut
+               to 8 layers, every projection q5_k, quant_mode="repack", behind the
                13B f16 container.  First the chat of phase 4 at tp=1 in this
                process; then two ranks (processes spawned by
                parallel.dryrun.run_ranks, both on cuda:0, gloo, a deadline)
@@ -194,12 +196,36 @@ Phases (any failure exits nonzero before the last line):
                tp=1's (how many of 32 agree is printed).  The logit gap
                against depth: the prefill logits of a text turn at tp=2
                against tp=1 on the same geometry cut to 1 and 4 layers and at
-               40; at 1 layer within 1e-3 (max |d| / max |logit|); the
+               8; at 1 layer within 1e-3 (max |d| / max |logit|); the
                deeper gaps, grown from f32 order through bf16 roundings,
                are printed.  Then sp_flash_decode_attention
                over the two ranks (1024 positions each) against the kernel on
                the whole cache, 2e-5, counting the stats kernel's launches
                (the "sp" path).
+  10. clients - (after phase 8) the 13B Q5_K_M files through
+               MiniGPT4Engine(n_ctx=512, n_batch=64, context_shift=True), graphs
+               on: a. the system prompt and image turn (235 positions), saved
+               with save_state, then 400 greedy ids through generate, which
+               shifts the context at least once (every shift timed; the first
+               one's cache, K and V, bit-equal to shift_kv_cache on a CPU copy
+               of the cache before it; st.cache["k"] keeps its data_ptr; a
+               checkpoint saved two decode chunks before that shift), then
+               five chunks from that checkpoint with graphs_enabled off,
+               across the shift: the ids and the shifts equal; tok/s before
+               and after the first shift.
+               b. restore_state, 32 greedy ids, reset_chat, restore_state, 32
+               ids: equal (and equal to a's first 32), the graph replay count
+               moving each time; the save and restore seconds and the file
+               size.  c. libminigpt4_torch.so (c_api/_build.py, g++) and the
+               unchanged examples/main.c compiled against it, run as a process
+               on the 13B files with no MINIGPT4_TPU_DEVICE: its stream must
+               equal the engine's greedy text for main.c's zero image and
+               prompt (the engine of a-b, then closed); then the same library
+               through ctypes in this process (launch counts set to 0 after
+               its load): the same text, and gq_decode, gq_prefill and
+               flash_decode must launch; its tok/s.
+               `python3 chip_smoke.py --only-clients` runs phases 1-2 and 10
+               and prints no result line.
 Captured CUDA graphs (engine/graphs.py): every engine's own steps and the
 paged group replay graphs, so the launch counts of every path above are
 counted through replays (ops/counters.py).  The 13B Q5_K_M chat, its
@@ -2539,9 +2565,11 @@ def quality_run(card: str) -> dict:
 # phase 9: tensor parallelism, two ranks on one card
 # ---------------------------------------------------------------------------
 
-# Vicuna-13B at full width and depth, every projection q5_k (one format per
-# name, so every weight splits; a Q5_K_M file's mixed wv / w2 lists cannot)
-LLM_13B_Q5K = dict(LLM_13B, layout="q5_k")
+# Vicuna-13B at full width, every projection q5_k (one format per name, so
+# every weight splits; a Q5_K_M file's mixed wv / w2 lists cannot), cut to 8
+# layers for the script's time limit: at full depth two ranks over gloo on one
+# card decode at ~4 tok/s and the phase took 216 s (H100 80GB HBM3, 700 W)
+LLM_13B_Q5K = dict(LLM_13B, layout="q5_k", n_layer=8)
 TP = 2
 # the tp=2 / tp=1 logit gap against depth: the same geometry cut to these
 # depths; at the first, max |dlogit| / max |logit| <= TP_LOGIT_TOL.  A rank's
@@ -2762,8 +2790,8 @@ def tp_phase(card: str) -> dict:
     gloo, each running the chat of phase 4 on its half of the 13B q5_k file
     (quant_mode="repack") behind the 13B f16 container, held to the same
     files at tp=1 in this process: the first TP_PREFIX greedy ids equal, and
-    the text turn's logits at depths TP_DEPTHS and 40 (within TP_LOGIT_TOL
-    at the first depth)."""
+    the text turn's logits at depths TP_DEPTHS and the file's (within
+    TP_LOGIT_TOL at the first depth)."""
     from minigpt4_tpu_torch.parallel import dryrun
 
     # the ranks are other processes: memory this one's allocator still holds
@@ -2819,6 +2847,357 @@ def tp_phase(card: str) -> dict:
     return dict(tp1=one, ranks=ranks)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the clients (context shift, checkpoints, the C ABI)
+# ---------------------------------------------------------------------------
+
+# examples/main.c's engine (n_ctx 512, n_batch 64, seed 1337) and its knobs
+CLIENT_CTX, CLIENT_BATCH, CLIENT_QUESTION = 512, 64, "what is this?"
+CLIENT_KNOBS = (0.0, 40, 0.9, 1.0, 1.0, 64, 1.1, 1.0, 1.0, 0, 5.0, 1.0, 1)
+SHIFT_TOKENS = 400  # greedy ids past the 512-position context
+# the eager run: from a checkpoint AB_BEFORE decode chunks before the first
+# shift, through that shift's chunk and two more
+AB_BEFORE = 2
+RESTORE_TOKENS = 32
+CAPI_TOKENS = 32
+CAPI_KERNELS = ("gq_decode", "gq_prefill", "flash_decode")
+
+
+def _client_params():
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    names = ("temp", "top_k", "top_p", "tfs_z", "typical_p", "repeat_last_n", "repeat_penalty",
+             "alpha_presence", "alpha_frequency", "mirostat", "mirostat_tau", "mirostat_eta",
+             "penalize_nl")
+    return SamplingParams(**dict(zip(names, CLIENT_KNOBS), penalize_nl=True))
+
+
+def _decode_ids(eng, n: int, clock: dict | None = None, on_chunk=None) -> tuple[list, list]:
+    """``n`` greedy ids through ``eng.generate`` (a new "Go on." turn where an
+    answer ends first), recorded chunk by chunk: (ids, (clock time, ids so
+    far) after each chunk).  The clock is perf_counter less
+    ``clock["paused"]``, the seconds the checks' own host work took;
+    ``on_chunk(ids)`` runs after each chunk."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    clock = {"paused": 0.0} if clock is None else clock
+    ids, marks = [], []
+    chunk = eng.decode_chunk
+
+    def recorded(k, params, st=None):
+        out = chunk(k, params, st)
+        ids.extend(out)
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter() - clock["paused"], len(ids)))
+        if on_chunk is not None:
+            on_chunk(ids)
+        return out
+
+    eng.decode_chunk = recorded
+    try:
+        while len(ids) < n:
+            if eng._st.logits is None:
+                eng.begin_chat("Go on.")
+            for _ in eng.generate(limit=n - len(ids), params=SamplingParams(temp=0.0)):
+                pass
+            if eng._st.logits is not None and len(ids) < n:
+                eng.begin_chat("Go on.")  # the answer ended: a new turn
+    finally:
+        del eng.decode_chunk
+    return ids, marks
+
+
+def _cache_to_host(st) -> dict:
+    return {kv: t.cpu() for kv, t in st.cache.items()}
+
+
+def clients_shift(eng, ckpt: Path, card: str) -> dict:
+    """Phase 10 a and b on a 13B engine of n_ctx 512 with context_shift:
+    the image turn, saved; SHIFT_TOKENS greedy ids captured (every shift
+    timed; the first one's cache held to shift_kv_cache on a CPU copy, a
+    checkpoint saved AB_BEFORE chunks before it), then AB_BEFORE + 3 chunks
+    of ids run eagerly from that checkpoint (ids bit-equal, shifts at the same places);
+    then RESTORE_TOKENS ids after restore_state, twice with a reset_chat
+    between, from captured replays."""
+    from minigpt4_tpu_torch.engine.engine import DECODE_CHUNK
+    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.models import llama as llama_mod
+
+    ab_tokens = (AB_BEFORE + 3) * DECODE_CHUNK
+    st = eng._st
+    pixels = preprocess(chat_image(), size=eng.vision_cfg.vit.image_size)
+    emb = eng.encode_image(pixels)
+    eng.system_prompt()
+    eng.begin_chat_image(emb, "What is in this picture?")
+    n0, keep0 = eng.n_past, st.n_keep
+    t0 = time.perf_counter()
+    eng.save_state(ckpt)
+    save_s = time.perf_counter() - t0
+    size_mb = ckpt.stat().st_size / 1e6
+    pre_ckpt = ckpt.with_name("clients-pre-shift.npz")
+    ptr = st.cache["k"].data_ptr()
+    shift = eng.ctx_shift
+    clock = {"paused": 0.0}
+    events: list = []
+    held: dict = {}
+    pre: dict = {}
+
+    def paused(fn):
+        t = time.perf_counter()
+        out = fn()
+        clock["paused"] += time.perf_counter() - t
+        return out
+
+    def timed(s=None, need=0):
+        s = eng._state(s)
+        keep, n_past = min(s.n_keep, s.n_past), s.n_past
+        if not held:
+            held["before"] = paused(lambda: _cache_to_host(s))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        drop = shift(s, need)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if "after" not in held:
+            held.update(after=paused(lambda: _cache_to_host(s)), keep=keep, drop=drop,
+                        n_past=n_past)
+        events.append(dict(keep=keep, drop=drop, n_past=n_past, ms=ms,
+                           at=time.perf_counter() - clock["paused"]))
+        return drop
+
+    def checkpoint(ids):
+        # the first chunk boundary at most AB_BEFORE chunks before a shift
+        if not pre and not events and st.n_past + (AB_BEFORE + 1) * DECODE_CHUNK > st.n_ctx:
+            paused(lambda: eng.save_state(pre_ckpt))
+            pre["at"] = len(ids)
+
+    eng.ctx_shift = timed
+    try:
+        cap_ids, cap_marks = _decode_ids(eng, SHIFT_TOKENS, clock, checkpoint)
+        cap_shifts = [dict(e) for e in events]
+        if not pre or not any(e["drop"] for e in cap_shifts):
+            raise AssertionError("clients: no context shift (or no checkpoint before it) in the "
+                                 "captured run")
+        eng.graphs_enabled = False
+        eng.restore_state(pre_ckpt)
+        events.clear()
+        clock["paused"] = 0.0
+        eag_ids, eag_marks = uncounted(lambda: _decode_ids(eng, ab_tokens, clock))
+        eag_shifts = [dict(e) for e in events]
+    finally:
+        del eng.ctx_shift
+        eng.graphs_enabled = True
+        pre_ckpt.unlink(missing_ok=True)
+    want = llama_mod.shift_kv_cache(held["before"], held["keep"], held["drop"], held["n_past"],
+                                    eng.llm_cfg)
+    cache_equal = all(torch.equal(llama_mod._bits(held["after"][kv]), llama_mod._bits(want[kv]))
+                      for kv in ("k", "v"))
+    first = cap_shifts[0]
+    # tok/s over the chunks before the first shift and from it (the shift included)
+    before = [(t, n) for t, n in cap_marks if t < first["at"]]
+    after = [(t, n) for t, n in cap_marks if t > first["at"]]
+
+    def rate(marks):
+        if len(marks) < 2:
+            return None
+        return (marks[-1][1] - marks[0][1]) / (marks[-1][0] - marks[0][0])
+
+    around = dict(before_tok_s=rate(before[-5:]), after_tok_s=rate(after[:5]))
+    key = [(e["drop"], e["n_past"]) for e in eag_shifts]
+    out = dict(prompt=n0, n_keep=keep0, ab_from=pre["at"],
+               equal=eag_ids == cap_ids[pre["at"]:pre["at"] + ab_tokens],
+               same_shifts=bool(key) and key == [(e["drop"], e["n_past"])
+                                                 for e in cap_shifts[:len(key)]],
+               shifts=[{k: e[k] for k in ("keep", "drop", "n_past", "ms")} for e in cap_shifts],
+               eager_shift_ms=[e["ms"] for e in eag_shifts],
+               cache=dict(equal=cache_equal, keep=held["keep"], drop=held["drop"],
+                          n_past=held["n_past"]),
+               ptr_kept=st.cache["k"].data_ptr() == ptr, save_s=save_s, file_mb=size_mb,
+               captured_tok_s=rate(cap_marks[1:]), eager_tok_s=rate(eag_marks[1:]), **around)
+    log(f"[clients shift] prompt {n0} positions (keep {keep0}); {SHIFT_TOKENS} greedy ids "
+        f"captured, shifts (keep, drop, n_past, ms) "
+        + ", ".join(f"({e['keep']}, {e['drop']}, {e['n_past']}, {e['ms']:.2f})"
+                    for e in cap_shifts)
+        + f"; {ab_tokens} ids eager from the checkpoint after id {pre['at']}, shift ms "
+        f"{[round(m, 2) for m in out['eager_shift_ms']]}; captured = eager ids {out['equal']}, "
+        f"same shifts {out['same_shifts']}; tok/s captured {out['captured_tok_s']:.2f} (before "
+        f"the first shift {around['before_tok_s']}, from it {around['after_tok_s']}), eager "
+        f"{out['eager_tok_s']:.2f}  [{card}]")
+    log(f"[clients shift] the first shift's cache bit-equal (K and V) to shift_kv_cache on a CPU "
+        f"copy: {cache_equal}; k data_ptr kept {out['ptr_kept']}  [{card}]")
+    if not (out["equal"] and out["same_shifts"] and out["ptr_kept"] and cache_equal):
+        raise AssertionError(f"clients: context shift check failed: {out}")
+
+    # b. restore, decode, reset, restore, decode: equal ids from captured replays
+    restore = {"ids": [], "replays": [], "restore_s": []}
+    for _ in range(2):
+        eng.reset_chat()
+        t0 = time.perf_counter()
+        eng.restore_state(ckpt)
+        torch.cuda.synchronize()
+        restore["restore_s"].append(time.perf_counter() - t0)
+        r0 = eng.graph_stats()["replays"]
+        restore["ids"].append(_decode_ids(eng, RESTORE_TOKENS)[0])
+        restore["replays"].append(eng.graph_stats()["replays"] - r0)
+    ok = (restore["ids"][0] == restore["ids"][1] == cap_ids[:RESTORE_TOKENS]
+          and min(restore["replays"]) > 0)
+    log(f"[clients restore] save {save_s:.3f} s, {size_mb:.1f} MB file; restore "
+        f"{[round(s, 3) for s in restore['restore_s']]} s; {RESTORE_TOKENS} greedy ids after each "
+        f"restore equal (and equal to the shift run's first) {ok}, graph replays "
+        f"{restore['replays']}  [{card}]")
+    if not ok:
+        raise AssertionError(f"clients: restore then replay differs: {restore}")
+    return dict(out, restore=restore)
+
+
+def _c_text(tokens: list[str]) -> str:
+    """What examples/main.c prints of ``tokens``: each as a C string (up to a
+    NUL), the EOS token skipped, up to the end-of-answer suffix."""
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
+
+    chat, out = "", ""
+    for token in tokens:
+        token = token.split("\0")[0]
+        chat += token
+        if MiniGPT4Engine.contains_eos_token(token):
+            continue
+        if MiniGPT4Engine.is_eos(chat):
+            break
+        out += token
+    return out
+
+
+def clients_capi(model: Path, llm: Path, want: list[str], size: int, n_floats: int,
+                 card: str) -> dict:
+    """Phase 10 c: examples/main.c, unchanged, compiled against
+    libminigpt4_torch.so and run as a process on the 13B files with no
+    MINIGPT4_TPU_DEVICE (the card); then the same library through ctypes in
+    this process, its launches counted.  Both must stream ``want``'s text
+    (the engine's tokens for a zero image of ``size`` pixels, whose
+    embedding has ``n_floats`` values)."""
+    import ctypes
+
+    from minigpt4_tpu_torch.c_api import _build
+
+    t0 = time.perf_counter()
+    exe = _build.compile_client(ROOT / "examples" / "main.c", _build.BUILD_DIR / "main_c")
+    build_s = time.perf_counter() - t0
+    env = _build.client_env()
+    env.pop("MINIGPT4_TPU_DEVICE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe), str(model), str(llm), str(size), str(CAPI_TOKENS)], env=env,
+                          capture_output=True, timeout=600)
+    main_s = time.perf_counter() - t0
+    text = _c_text(want)
+    expect = f"encoded image -> {n_floats} floats\n{text}\n[done]\n"
+    got = proc.stdout.decode("utf-8", "replace")
+    main_ok = proc.returncode == 0 and got == expect
+    log(f"[clients C ABI] libminigpt4_torch.so + examples/main.c built in {build_s:.1f} s; "
+        f"main_c ran {main_s:.1f} s (rc {proc.returncode}), its stream equals the in-process "
+        f"engine's greedy text: {main_ok} ({text[:40]!r})  [{card}]")
+    if not main_ok:
+        raise AssertionError(f"clients: examples/main.c printed {got[-400:]!r}, want "
+                             f"{expect[-400:]!r}; stderr {proc.stderr.decode()[-3000:]}")
+
+    lib = ctypes.CDLL(str(_build.build()))
+
+    class CImage(ctypes.Structure):
+        _fields_ = [("data", ctypes.c_void_p), ("width", ctypes.c_int),
+                    ("height", ctypes.c_int), ("channels", ctypes.c_int),
+                    ("format", ctypes.c_int)]
+
+    class CEmbedding(ctypes.Structure):
+        _fields_ = [("data", ctypes.POINTER(ctypes.c_float)), ("elements", ctypes.c_size_t)]
+
+    p, i, f, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_char_p
+    lib.minigpt4_model_load.restype = p
+    lib.minigpt4_model_load.argtypes = [s, s, i, i, i, i, ctypes.c_bool]
+    lib.minigpt4_encode_image.argtypes = [p, ctypes.POINTER(CImage), ctypes.POINTER(CEmbedding),
+                                          ctypes.c_size_t]
+    lib.minigpt4_system_prompt.argtypes = [p, ctypes.c_size_t]
+    lib.minigpt4_begin_chat_image.argtypes = [p, ctypes.POINTER(CEmbedding), s, ctypes.c_size_t]
+    lib.minigpt4_end_chat_image.argtypes = [p, ctypes.POINTER(s), ctypes.c_size_t, f,
+                                            ctypes.c_int32, f, f, f, ctypes.c_int32, f, f, f, i,
+                                            f, f, i]
+    lib.minigpt4_free_embedding.argtypes = [ctypes.POINTER(CEmbedding)]
+    lib.minigpt4_free.argtypes = [p]
+    t0 = time.perf_counter()
+    ctx = lib.minigpt4_model_load(str(model).encode(), str(llm).encode(), 1, 1337, CLIENT_CTX,
+                                  CLIENT_BATCH, False)
+    load_s = time.perf_counter() - t0
+    if not ctx:
+        raise AssertionError("clients: minigpt4_model_load failed through ctypes")
+    try:
+        reset_launch_counts()  # the C-ABI chat's own launches
+        pixels = np.zeros((3, size, size), np.float32)
+        img = CImage(pixels.ctypes.data_as(ctypes.c_void_p), size, size, 3, 1)
+        emb = CEmbedding()
+        rcs = [lib.minigpt4_encode_image(ctx, ctypes.byref(img), ctypes.byref(emb), 0),
+               lib.minigpt4_system_prompt(ctx, 0)]
+        t0 = time.perf_counter()
+        rcs.append(lib.minigpt4_begin_chat_image(ctx, ctypes.byref(emb),
+                                                 CLIENT_QUESTION.encode(), 0))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        token, tokens, stamps = ctypes.c_char_p(), [], []
+        for _ in range(CAPI_TOKENS):
+            rcs.append(lib.minigpt4_end_chat_image(ctx, ctypes.byref(token), 0, *CLIENT_KNOBS))
+            tokens.append(token.value.decode("utf-8"))
+            stamps.append(time.perf_counter())
+        counts = launch_counts()
+        lib.minigpt4_free_embedding(ctypes.byref(emb))
+    finally:
+        lib.minigpt4_free(ctx)
+    # per-token rate from the 8th token on (the single-step graph captures on its second use)
+    tok_s = (len(stamps) - 8) / (stamps[-1] - stamps[7])
+    same = _c_text(tokens) == text
+    log(f"[clients C ABI] ctypes in this process: load {load_s:.1f} s, image turn prefill "
+        f"{prefill_ms:.1f} ms, {CAPI_TOKENS} end_chat_image calls at {tok_s:.2f} tok/s (from the "
+        f"8th), rcs all 0 {not any(rcs)}, text equal {same}; launches {counts}  [{card}]")
+    missing = [k for k in CAPI_KERNELS if counts[k] <= 0]
+    if any(rcs) or not same or missing:
+        raise AssertionError(f"clients: the ctypes chat failed: rcs {rcs}, text equal {same}, "
+                             f"kernels never launched {missing}")
+    return dict(counts=counts, main_s=main_s, build_s=build_s, load_s=load_s,
+                prefill_ms=prefill_ms, tok_s=tok_s, text=text)
+
+
+def clients_phase(card: str) -> dict:
+    """Phase 10: the 13B Q5_K_M files through a context-shifting engine
+    (n_ctx 512, n_batch 64, graphs on): the shift and restore checks, then
+    examples/main.c's greedy text in this process as the C ABI's yardstick;
+    the engine closes before the C ABI runs."""
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
+
+    model, llm = smoke_models(LLM_13B)
+    ckpt = ROOT / "build" / "smoke_models" / "clients-chat.npz"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    eng = MiniGPT4Engine(model, llm, device=DEVICE, n_ctx=CLIENT_CTX, n_batch=CLIENT_BATCH,
+                         context_shift=True)
+    load_s = time.perf_counter() - t0
+    try:
+        reset_launch_counts()
+        out = clients_shift(eng, ckpt, card)
+        out["counts"] = launch_counts()
+        eng.reset_chat()
+        size = eng.vision_cfg.vit.image_size
+        emb = eng.encode_image(np.zeros((3, size, size), np.float32))
+        eng.system_prompt()
+        eng.begin_chat_image(emb, CLIENT_QUESTION)
+        params = _client_params()
+        want = uncounted(lambda: [eng.end_chat(params) for _ in range(CAPI_TOKENS)])
+    finally:
+        eng.close()
+        del eng
+        ckpt.unlink(missing_ok=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[clients] engine load {load_s:.1f} s; launches during the shift and restore runs: "
+        f"{out['counts']}")
+    return dict(shift=out, counts=out["counts"], load_s=load_s,
+                capi=clients_capi(model, llm, want, size, emb.size, card))
+
+
 def _preprocess(img: np.ndarray, pool) -> np.ndarray:
     from minigpt4_tpu_torch.image import preprocess
 
@@ -2857,6 +3236,11 @@ def main() -> int:
 
     sass = check_wgmma_sass(card)
     sass.update(check_decode_sass(card))
+    if "--only-clients" in sys.argv:  # a quick look at phase 10 alone: no result line
+        phase("clients")
+        clients_phase(card)
+        phase("end (--only-clients)")
+        return 0
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
         sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
         phase_kernels(card, set(sections[0].split(",")) if sections else None)
@@ -2929,6 +3313,10 @@ def main() -> int:
     paths["13B w8a8 + f8 cache"] = w8a8_f8(card)
     phase("quality")
     paths["quality small"] = quality_run(card)
+    phase("clients")
+    clients = clients_phase(card)
+    paths["13B clients: shift + restore"] = {"counts": clients["counts"]}
+    paths["13B C ABI chat (ctypes)"] = {"counts": clients["capi"]["counts"]}
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[end] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "

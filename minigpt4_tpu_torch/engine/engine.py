@@ -9,6 +9,8 @@ cursor, the tokenizer and the samplers:
     add_strings/tokens  prefill (always add_bos=true, like the reference)
     add_embedding       inject embedding rows as pseudo-tokens
     system_prompt, begin_chat_image, begin_chat, end_chat, generate, reset
+    ctx_shift           drop the oldest turns past the keep prefix
+    save_state, restore_state   checkpoint the chat to an npz file
 
 Prefill chunks are padded to power-of-two buckets (8 .. n_batch), capped
 at the remaining context; padded rows write cache entries past the real
@@ -16,6 +18,9 @@ tokens, which the causal mask hides and the next chunk overwrites.  Decode
 samples on the device in the reference's sample-then-eval order;
 ``generate`` decodes chunks of tokens with one host synchronisation per
 chunk and rolls the cursor back over what it decoded past EOS or the limit.
+With ``context_shift`` a chat that fills its context drops its oldest
+turns after the system prompt and image (``ctx_shift``) instead of
+stopping, at the JAX engine's points.
 
 Every operation acts on a :class:`DecodeState`: the engine's own by
 default, or one passed as ``st``.  The serving sessions
@@ -109,6 +114,84 @@ class DecodeState:
         self.tokens = []
         self.n_keep = 0
 
+    def save(self, path) -> None:
+        """Checkpoint the state to the npz file ``path`` with the JAX
+        engine's fields (``DecodeState.save``): the whole cache as bits
+        (``k``, ``v``) and its type under the JAX name (``kv_dtype``),
+        ``n_past``, ``has_logits``, ``logits``, ``tokens``, ``n_keep`` and
+        ``spec_ban`` (always -1: the port has no speculative sampling),
+        plus the generator's state (``torch_generator``, with its device
+        type in ``torch_generator_device``).  Stored uncompressed: a
+        cache's random bits do not compress."""
+        with open(path, "wb") as f:
+            np.savez(f, k=_host_bits(self.cache["k"]), v=_host_bits(self.cache["v"]),
+                     kv_dtype=np.bytes_(JAX_DTYPE_NAMES[self.cache["k"].dtype]),
+                     n_past=np.int64(self.n_past), has_logits=np.bool_(self.logits is not None),
+                     logits=(self.logits.float().cpu().numpy() if self.logits is not None
+                             else np.zeros(1, np.float32)),
+                     tokens=np.asarray(self.tokens, np.int64), n_keep=np.int64(self.n_keep),
+                     spec_ban=np.int64(-1),
+                     torch_generator=self.generator.get_state().numpy(),
+                     torch_generator_device=np.bytes_(self.generator.device.type))
+
+    def restore(self, path) -> None:
+        """Restore a checkpoint of :meth:`save` or of the JAX engine's
+        ``DecodeState.save``, copying the cache into this state's own
+        tensors (captured CUDA graphs hold their addresses; a checkpoint of
+        another cache type is converted).  A checkpoint without a generator
+        of this state's device type (every JAX one) leaves the state's
+        generator as it is.  Raises ValueError, changing nothing, on a cache
+        shape other than this state's, an unknown cache type, or a pending
+        speculative-sampling exclusion (``spec_ban`` >= 0; speculative
+        decoding is ROADMAP Queue 1, item 14)."""
+        z = np.load(path)
+        arrays = {kv: z[kv] for kv in ("k", "v")}  # an npz member reads on each access
+        for kv, a in arrays.items():
+            if tuple(a.shape) != tuple(self.cache[kv].shape):
+                raise ValueError(f"checkpoint cache shape {a.shape} != "
+                                 f"state {tuple(self.cache[kv].shape)}")
+        name = z["kv_dtype"].item().decode()
+        if name not in TORCH_DTYPES:
+            raise ValueError(f"checkpoint cache type {name!r}: expected "
+                             f"{' | '.join(TORCH_DTYPES)}")
+        if "spec_ban" in z.files and int(z["spec_ban"]) >= 0:
+            raise ValueError("checkpoint holds a speculative-sampling exclusion; speculative "
+                             "decoding is not ported (ROADMAP Queue 1, item 14)")
+        for kv, a in arrays.items():
+            dst = self.cache[kv]
+            bits = a.view(_INT_NP[a.dtype.itemsize])
+            src = torch.from_numpy(bits).view(TORCH_DTYPES[name]).to(dst.device)
+            if src.dtype == dst.dtype:
+                llama_mod._bits(dst).copy_(llama_mod._bits(src))
+            else:
+                dst.copy_(llama_mod.to_cache(src.float(), dst.dtype))
+        self.n_past = int(z["n_past"])
+        self.logits = (torch.from_numpy(z["logits"]).to(self.cache["k"].device, torch.float32)
+                       if bool(z["has_logits"]) else None)
+        self.tokens = ([int(t) for t in z["tokens"]] if "tokens" in z.files
+                       else [-1] * self.n_past)
+        self.n_keep = int(z["n_keep"]) if "n_keep" in z.files else 0
+        if ("torch_generator" in z.files
+                and z["torch_generator_device"].item().decode() == self.generator.device.type):
+            self.generator.set_state(torch.from_numpy(z["torch_generator"].copy()))
+
+
+# KV cache types by the names the JAX package's checkpoints give them
+JAX_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                   torch.float8_e4m3fn: "float8_e4m3fn"}
+TORCH_DTYPES = {v: k for k, v in JAX_DTYPE_NAMES.items()}
+# the numpy types that carry a cache's bits, by element size: the JAX
+# package stores bf16 as uint16 and e4m3 as uint8; torch takes them as
+# signed integers of the same size
+_BITS_NP = {1: np.uint8, 2: np.uint16, 4: np.float32}
+_INT_NP = {1: np.uint8, 2: np.int16, 4: np.int32}
+
+
+def _host_bits(t: torch.Tensor) -> np.ndarray:
+    """A cache tensor's bits on the host, as the JAX package's checkpoints
+    hold them: f32 as float32, bf16 as uint16, e4m3 as uint8."""
+    return llama_mod._bits(t).cpu().numpy().view(_BITS_NP[t.element_size()])
+
 
 class MiniGPT4Engine:
     def __init__(
@@ -125,6 +208,7 @@ class MiniGPT4Engine:
         smooth_scales: str | Path | dict | None = None,
         tp: int = 1,
         dp: int = 1,
+        context_shift: bool = False,
     ):
         """Load both model files onto ``device``.
 
@@ -180,7 +264,12 @@ class MiniGPT4Engine:
         either), n_head not divisible by tp, and attention projections that
         would stay whole.  ``self.tp_group`` is the rank's group (None at
         tp=1).  ``dp`` must be 1, as in the JAX engine: the chat surface
-        prefills at batch 1."""
+        prefills at batch 1.
+
+        ``context_shift``: where a prefill or a decode chunk would overflow
+        a state's context, drop its oldest tokens after the keep prefix
+        (:meth:`ctx_shift`) instead of raising ``context overflow`` (prefill)
+        or stopping (``generate``), as the JAX engine's ``context_shift``."""
         if dp != 1:
             raise ValueError(
                 f"dp={dp}: the engine's chat and serving surface prefills at batch 1 and cannot "
@@ -210,6 +299,7 @@ class MiniGPT4Engine:
         self.device = self.tp_group.device if self.tp_group else torch.device(device)
         self.n_batch = n_batch
         self.cache_dtype = cache_dtype
+        self.context_shift = context_shift
         pack = resolve_gq_pack(quant_mode)
         with utils.phase_timer("Load minigpt4 model"):
             self._container = ContainerReader(model_path)
@@ -312,12 +402,13 @@ class MiniGPT4Engine:
 
     def graph_stats(self) -> dict:
         """Graphs captured for this engine (its own state's steps and the
-        encoder) and the bytes the shared memory pool holds (every graph of
-        the engine's, the session pool's included); zeros before the first
-        capture."""
+        encoder), their replays so far, and the bytes the shared memory pool
+        holds (every graph of the engine's, the session pool's included);
+        zeros before the first capture."""
         caches = [c for c in (self._step_graphs, self._encode_graphs) if c is not None]
         return {"graphs": sum(len(c.graphs) for c in caches),
                 "keys": [k for c in caches for k in c.graphs],
+                "replays": sum(c.replays for c in caches),
                 "pool_bytes": 0 if self._graph_pool is None else pool_bytes(self._graph_pool)}
 
     def warmup(self, prefill_buckets: tuple[int, ...] = (8, 32, 128, 512),
@@ -410,11 +501,38 @@ class MiniGPT4Engine:
             return llama_mod.forward(self.llm_params, st.cache, embeds, st.n_past, self.llm_cfg,
                                      last_idx, attn_len=span, tp=self.tp_group)
 
+    def ctx_shift(self, st: DecodeState | None = None, need: int = 0) -> int:
+        """llama.cpp's context shift on ``st`` (the JAX engine's
+        ``ctx_shift``): free room for ``need`` more positions by dropping the
+        oldest tokens after the keep prefix ([0, n_keep): system prompt and
+        image) and sliding the cache down with K re-rotated
+        (:func:`llama.shift_kv_cache`, in place).  Drops at least half of
+        the rest so that shifts stay rare.  Returns the positions dropped (0:
+        nothing to drop, or the state rides a batched group)."""
+        st = self._state(st)
+        if st.cache is None:
+            return 0
+        keep = min(st.n_keep, st.n_past)
+        drop = min(max(need - (st.n_ctx - st.n_past), (st.n_past - keep) // 2),
+                   st.n_past - keep)
+        if drop <= 0:
+            return 0
+        with torch.no_grad():
+            llama_mod.shift_kv_cache(st.cache, keep, drop, st.n_past, self.llm_cfg)
+        del st.tokens[keep:keep + drop]
+        st.n_past -= drop
+        return drop
+
+    def _maybe_shift(self, st: DecodeState, need: int) -> None:
+        if self.context_shift and st.n_past + need > st.n_ctx:
+            self.ctx_shift(st, need)
+
     def _prefill_embeds(self, st: DecodeState, embeds: torch.Tensor,
                         token_ids: list[int] | None = None) -> None:
         """Feed [1, S, D] embeddings in n_batch chunks, each padded to a
         power-of-two bucket capped at the remaining context."""
         s_total = embeds.shape[1]
+        self._maybe_shift(st, s_total)
         if st.n_past + s_total > st.n_ctx:
             raise ValueError(f"context overflow: n_past {st.n_past} + {s_total} > {st.n_ctx}")
         st.tokens.extend(token_ids if token_ids is not None else [-1] * s_total)
@@ -435,6 +553,7 @@ class MiniGPT4Engine:
         if not tokens:
             return
         st = self._state(st)
+        self._maybe_shift(st, len(tokens))
         ids = torch.tensor([tokens], dtype=torch.long).to(self.device)
         if len(tokens) == 1 and st.n_past + 1 <= st.n_ctx:
             # decode step: one position, no bucket padding (JAX's decode_step)
@@ -543,8 +662,12 @@ class MiniGPT4Engine:
         """Stream tokens with the reference's EOS logic
         (MiniGPT4ChatBot.generate, minigpt4_library.py:609-657): chunks of
         DECODE_CHUNK tokens decoded on the device, yielded one by one.
-        Mirostat samples on the host, one token at a time (the engine's own
-        state only: a session samples mirostat with its own sampler).
+        With ``context_shift`` a chunk that would pass the context first
+        shifts it (JAX's ``generate_stream``): every chunk is then a full one,
+        and a tail chunk is left only where the keep prefix holds nearly all
+        of the context.  Mirostat samples on the host, one token at a time
+        (the engine's own state only: a session samples mirostat with its own
+        sampler), shifting one position at a time.
         ``lock``, where given, is held around each chunk's device work."""
         params = params or SamplingParams()
         if params.mirostat != 0:
@@ -559,6 +682,9 @@ class MiniGPT4Engine:
         chat = ""
         emitted = 0
         while emitted < limit:
+            if self.context_shift and st.n_past + DECODE_CHUNK > st.n_ctx:
+                with lock:
+                    self.ctx_shift(st, DECODE_CHUNK)
             n = min(DECODE_CHUNK, st.n_ctx - st.n_past)
             if n <= 0:
                 return
@@ -602,6 +728,17 @@ class MiniGPT4Engine:
 
     def reset_chat(self) -> None:
         self.reset()
+
+    def save_state(self, path) -> None:
+        """Checkpoint the engine's chat (cache, cursor, pending logits,
+        history, generator) to ``path``: :meth:`DecodeState.save`."""
+        self._st.save(path)
+
+    def restore_state(self, path) -> None:
+        """Resume a chat from a checkpoint of :meth:`save_state` or of the
+        JAX engine's ``save_state``: :meth:`DecodeState.restore`, into the
+        cache tensors that the captured steps replay on."""
+        self._st.restore(path)
 
     @staticmethod
     def contains_eos_token(s: str) -> bool:

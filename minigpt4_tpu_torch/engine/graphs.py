@@ -98,6 +98,7 @@ class GraphCache:
         self.stream = torch.cuda.Stream(device=self.device)
         self.graphs: dict = {}
         self.seen: set = set()  # keys used once, eagerly
+        self.replays = 0  # graph replays so far
 
     def run(self, key, fn, feed: dict, generators=(), capture: bool = False) -> tuple:
         """Replay the graph of ``key``; on the key's first use run ``fn``
@@ -119,6 +120,7 @@ class GraphCache:
             graph.inputs[name].copy_(t)
         _load(graph.slots, generators)
         graph.graph.replay()
+        self.replays += 1
         _store(graph.slots, generators)
         counters.add(graph.delta)
         return tuple(t.clone() for t in graph.outputs)

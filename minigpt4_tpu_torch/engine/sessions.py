@@ -28,10 +28,15 @@ running the same calls) the lane caches and the page pool hold the rank's
 heads (``parallel/spmd.py``); lanes, page tables and cursors are the same
 on every rank.
 
+With an engine of ``context_shift=True`` a session's prefill and its own
+decode shift its context where the JAX ``SessionPool`` does (the engine's
+operations on the session's state, and before each mirostat token); a
+batched group leaves out a session without room for a chunk, as JAX's.
+
 Not ported yet (ROADMAP): continuous batching, speculative decoding and its
-governor, the radix prefix cache, parking idle sessions in host memory,
-context shift, save/restore of a state.  Lane caches and the
-page pool hold the engine's cache type (``MiniGPT4Engine.cache_dtype``).
+governor, the radix prefix cache, parking idle sessions in host memory.
+Lane caches and the page pool hold the engine's cache type
+(``MiniGPT4Engine.cache_dtype``).
 """
 
 from __future__ import annotations
@@ -239,6 +244,9 @@ class SessionPool:
         if params.mirostat != 0:
             chat = ""
             for _ in range(limit):
+                if self.engine.context_shift and s.n_past + 1 > s.state.n_ctx:
+                    with self._lock:
+                        self.engine.ctx_shift(s.state, 1)
                 logits = s.last_logits
                 if logits is None or s.n_past >= s.state.n_ctx:
                     return

@@ -85,3 +85,12 @@ def preprocess(img: np.ndarray, size: int = IMAGE_SIZE) -> np.ndarray:
     x = resize_bicubic(x, size, size)
     x = (x - CLIP_MEAN) / CLIP_STD
     return np.ascontiguousarray(x.transpose(2, 0, 1))
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode an image file to uint8 RGB [H, W, 3] with PIL (the reference
+    decodes with stb/OpenCV)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))

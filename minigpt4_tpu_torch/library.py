@@ -1,21 +1,51 @@
-"""Python client API on the PyTorch engine: ``MiniGPT4ChatBot`` with the
-reference chatbot's methods (minigpt4_library.py:568-689), and the
-``MiniGPT4SharedLibrary`` methods it calls.  Counterpart of
-``minigpt4_tpu/library.py`` for the chat path.
+"""Python client API on the PyTorch engine, counterpart of
+``minigpt4_tpu/library.py``:
+
+  * :class:`MiniGPT4ChatBot` with the reference chatbot's constructor,
+    methods and knobs (minigpt4_library.py:568-689), so web-UI-style clients
+    swap one import;
+  * :class:`MiniGPT4SharedLibrary`, method for method the ctypes wrapper
+    class of the reference (minigpt4_model_load, minigpt4_encode_image, ...)
+    for code written against the low-level binding, raising on error.  C and
+    ctypes clients use the C ABI library instead (``c_api/``).
+
+    python -m minigpt4_tpu_torch.library model.bin vicuna.bin -i image.png
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
 from .engine import MiniGPT4Engine, SamplingParams
+from . import image as image_mod
 from . import utils
-from .image import preprocess
+from .utils import MiniGPT4Error, error_code_to_string
 
 Verbosity = utils.Verbosity
+
+
+class ImageFormat(enum.IntEnum):
+    """minigpt4.h:58-63."""
+
+    UNKNOWN = 0
+    F32 = 1
+    U8 = 2
+
+
+@dataclass
+class MiniGPT4Image:
+    """POD mirror of struct MiniGPT4Image (minigpt4.h:65-72)."""
+
+    data: np.ndarray
+    width: int
+    height: int
+    channels: int
+    format: ImageFormat
 
 
 @dataclass
@@ -34,9 +64,8 @@ class MiniGPT4SharedLibrary:
                  cache_dtype: str | None = None, smooth_scales=None):
         # the reference's signatures have no engine options: the device, the
         # quantized-weight form, the KV cache type and the smooth-quant scales
-        # (MiniGPT4Engine's quant_mode, cache_dtype and smooth_scales; the JAX
-        # C ABI host reads them from MINIGPT4_TPU_* variables) are set per
-        # library object
+        # (MiniGPT4Engine's keywords; the C ABI host reads them from
+        # MINIGPT4_TPU_* variables) are set per library object
         self.device = device
         self.quant_mode = quant_mode
         self.cache_dtype = cache_dtype
@@ -45,7 +74,9 @@ class MiniGPT4SharedLibrary:
         self._next = 1
 
     def minigpt4_model_load(self, path: str, llm_model: str, verbosity: int = 0,
-                            seed: int = 1337, n_ctx: int = 2048, n_batch: int = 512) -> int:
+                            seed: int = 1337, n_ctx: int = 2048, n_batch: int = 512,
+                            numa: bool = False) -> int:
+        # numa is accepted and ignored, as the C ABI does (minigpt4.h:88)
         eng = MiniGPT4Engine(path, llm_model, verbosity, seed, n_ctx, n_batch, device=self.device,
                              quant_mode=self.quant_mode, cache_dtype=self.cache_dtype,
                              smooth_scales=self.smooth_scales)
@@ -57,9 +88,32 @@ class MiniGPT4SharedLibrary:
     def _eng(self, ctx: int) -> MiniGPT4Engine:
         return self._ctxs[ctx]
 
+    def minigpt4_image_load_from_file(self, ctx: int, path: str, flags: int = 0) -> MiniGPT4Image:
+        arr = image_mod.load_image(path)
+        return MiniGPT4Image(arr, arr.shape[1], arr.shape[0], 3, ImageFormat.U8)
+
+    def minigpt4_preprocess_image(self, ctx: int, image: MiniGPT4Image,
+                                  flags: int = 0) -> MiniGPT4Image:
+        if image.format != ImageFormat.U8:
+            raise RuntimeError(error_code_to_string(MiniGPT4Error.IMAGE_FORMAT_EXPECTED_U8))
+        size = self._eng(ctx).vision_cfg.vit.image_size
+        out = image_mod.preprocess(np.asarray(image.data).reshape(image.height, image.width, 3),
+                                   size=size)
+        return MiniGPT4Image(out, size, size, 3, ImageFormat.F32)
+
+    def minigpt4_encode_image(self, ctx: int, image: MiniGPT4Image,
+                              n_threads: int = 0) -> MiniGPT4Embedding:
+        if image.format != ImageFormat.F32:
+            raise RuntimeError(error_code_to_string(MiniGPT4Error.IMAGE_NOT_F32))
+        emb = self._eng(ctx).encode_image(np.asarray(image.data, np.float32))
+        return MiniGPT4Embedding(emb.reshape(-1), emb.size)
+
     def minigpt4_begin_chat_image(self, ctx: int, embedding: MiniGPT4Embedding, s: str,
                                   n_threads: int = 0) -> None:
         self._eng(ctx).begin_chat_image(embedding.data, s)
+
+    def minigpt4_end_chat_image(self, ctx: int, n_threads: int = 0, **knobs) -> str:
+        return self._eng(ctx).end_chat(SamplingParams(**_filter_knobs(knobs)))
 
     def minigpt4_system_prompt(self, ctx: int, n_threads: int = 0) -> None:
         self._eng(ctx).system_prompt()
@@ -68,7 +122,7 @@ class MiniGPT4SharedLibrary:
         self._eng(ctx).begin_chat(s)
 
     def minigpt4_end_chat(self, ctx: int, n_threads: int = 0, **knobs) -> str:
-        return self._eng(ctx).end_chat(SamplingParams(**knobs))
+        return self._eng(ctx).end_chat(SamplingParams(**_filter_knobs(knobs)))
 
     def minigpt4_reset_chat(self, ctx: int) -> None:
         self._eng(ctx).reset_chat()
@@ -82,8 +136,35 @@ class MiniGPT4SharedLibrary:
     def minigpt4_free(self, ctx: int) -> None:
         self._ctxs.pop(ctx).close()
 
+    def minigpt4_free_image(self, image: MiniGPT4Image) -> None:
+        image.data = None
+
     def minigpt4_free_embedding(self, embedding: MiniGPT4Embedding) -> None:
         embedding.data = None
+
+    def minigpt4_error_code_to_string(self, code: int) -> str:
+        return error_code_to_string(code)
+
+    def minigpt4_quantize_model(self, in_path: str, out_path: str, data_type: int) -> int:
+        from .quantize import quantize_model
+
+        return quantize_model(in_path, out_path, data_type)
+
+    def minigpt4_set_verbosity(self, verbosity: int) -> None:
+        utils.set_verbosity(verbosity)
+
+
+def _filter_knobs(knobs: dict) -> dict:
+    """The sampling knobs SamplingParams takes (the bindings pass a few more)."""
+    valid = {f.name for f in dataclasses.fields(SamplingParams)}
+    return {k: v for k, v in knobs.items() if k in valid}
+
+
+def load_library(device: str = "cuda", **options) -> MiniGPT4SharedLibrary:
+    """The reference's loader searched build directories for the .so
+    (minigpt4_library.py:525-566); here the library is this package.
+    ``options``: the engine options of :class:`MiniGPT4SharedLibrary`."""
+    return MiniGPT4SharedLibrary(device, **options)
 
 
 class MiniGPT4ChatBot:
@@ -96,8 +177,10 @@ class MiniGPT4ChatBot:
         self.library = MiniGPT4SharedLibrary(device, quant_mode, cache_dtype, smooth_scales)
         self.ctx = self.library.minigpt4_model_load(model_path, llm_model_path, int(verbosity))
         self.n_threads = n_threads
+        self.image_size = self.library._eng(self.ctx).vision_cfg.vit.image_size
         self.embedding: Optional[MiniGPT4Embedding] = None
         self.is_image_chat = False
+        self.chat_history: list = []
 
     def free(self):
         if self.ctx:
@@ -146,7 +229,37 @@ class MiniGPT4ChatBot:
         self.reset_chat()
         arr = np.asarray(image.convert("RGB") if hasattr(image, "convert") else image)
         eng = self.library._eng(self.ctx)
-        pre = preprocess(arr, size=eng.vision_cfg.vit.image_size)
+        pre = image_mod.preprocess(arr, size=self.image_size)
         emb = eng.encode_image(pre)
         self.embedding = MiniGPT4Embedding(emb.reshape(-1), emb.size)
         self.is_image_chat = True
+
+
+def _main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Test loading minigpt4 (smoke test)")
+    parser.add_argument("model_path")
+    parser.add_argument("llm_model_path")
+    parser.add_argument("-i", "--image_path", default="images/llama.png")
+    parser.add_argument("-p", "--prompts",
+                        default="what is the text in the picture?,what is the color of it?")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--limit", type=int, default=1024)
+    args = parser.parse_args(argv)
+
+    from PIL import Image
+
+    bot = MiniGPT4ChatBot(args.model_path, args.llm_model_path, verbosity=Verbosity.INFO,
+                          device=args.device)
+    bot.upload_image(Image.open(args.image_path))
+    for prompt in args.prompts.split(","):
+        print(f"\n> {prompt}")
+        for tok in bot.generate(prompt, limit=args.limit):
+            print(tok, end="", flush=True)
+    print()
+    bot.free()
+
+
+if __name__ == "__main__":
+    _main()

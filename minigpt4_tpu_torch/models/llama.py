@@ -122,6 +122,47 @@ def rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> t
     return out.reshape(b, h, s, dh).to(x.dtype)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as integers of its element size: cache rows move as bits,
+    so no copy or index kernel needs the float8 type."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def shift_kv_cache(cache: dict, keep: int, drop: int, n_past: int, cfg: LlamaConfig) -> dict:
+    """llama.cpp's context shift on a dense cache [L, B, H, C, Dh], as the
+    JAX package's ``shift_kv_cache``: positions [keep, keep + drop) are
+    dropped, [keep + drop, n_past) slide down to [keep, n_past - drop), and
+    the moved K rows are re-rotated by -drop (RoPE angles are linear in the
+    position, so they then hold RoPE at their new positions); V rows just
+    move.  Every position p >= keep takes the row of min(p + drop, C - 1),
+    the JAX package's gather, so the whole cache stays comparable.
+
+    Writes in place into ``cache``'s own tensors (captured CUDA graphs hold
+    their addresses) and returns ``cache``.  The moved K rows rotate in f32
+    and go back through :func:`to_cache`.  The rotation's cos/sin (one
+    position, -drop) are computed on the host: -drop times an f32 RoPE
+    frequency that differs by an ulp between devices moves the angle by
+    drop ulps, so host tables make a shift's bits the same on the card as on
+    the CPU.  Paged lanes do not shift (they free whole pages instead)."""
+    k, v = cache["k"], cache["v"]
+    c = k.shape[3]
+    if drop <= 0:  # every position takes its own row
+        return cache
+    for t in (_bits(k), _bits(v)):
+        last = t[:, :, :, c - 1:].clone()
+        t[:, :, :, keep:c - drop] = t[:, :, :, keep + drop:].clone()
+        t[:, :, :, c - drop:] = last
+    hi = n_past - drop
+    if hi > keep:
+        rows = k[:, :, :, keep:hi]
+        n_l, b, h, n, dh = rows.shape
+        cos, sin = rope_tables(torch.full((1,), -drop), dh, cfg.rope_theta)
+        rot = rope_interleaved(rows.reshape(n_l * b, h, n, dh).float(), cos.to(k.device),
+                               sin.to(k.device))
+        _bits(rows).copy_(_bits(to_cache(rot, k.dtype)).reshape(rows.shape))
+    return cache
+
+
 def _positions(pos: torch.Tensor, s: int) -> torch.Tensor:
     """Absolute positions [B, S] from the cursors ``pos`` (i32 [B], on the
     device), computed there."""

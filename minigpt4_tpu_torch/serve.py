@@ -61,7 +61,6 @@ UNPORTED = {
     "draft_head": ("draft-head speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
     "prefix_cache_mb": ("the radix prefix cache (ROADMAP Queue 1, item 15)", (None,)),
     "park_idle": ("parking idle sessions in host memory (ROADMAP Queue 1, item 16)", (False,)),
-    "ctx_shift": ("context shift (ROADMAP Queue 1, item 5)", (False,)),
     "tp": ("serving over tp, which needs a rank-0 controller (ROADMAP Queue 1, item 11b)", (1,)),
 }
 
@@ -617,6 +616,9 @@ def main(argv: list[str] | None = None) -> None:
                     "per call.  MINIGPT4_TPU_GQ_PACK=0 or 1 decides the gq packing instead")
     ap.add_argument("--cache-dtype", choices=["auto", "bf16", "f32", "f8"], default="auto",
                     help="KV cache element type (f8 = e4m3); auto = the engine's default, bf16")
+    ap.add_argument("--ctx-shift", action="store_true",
+                    help="when a session fills its context, drop its oldest turns after the "
+                    "system prompt and image and slide its KV cache instead of stopping")
     ap.add_argument("--smooth-scales", default=None, metavar="NPZ",
                     help="smooth-quant scales of minigpt4_tpu_torch.quality (--save-scales), "
                     "folded into the decoder's w8a8 weights (auto resolves to w8a8)")
@@ -628,7 +630,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--speculative-k", type=int, default=0)
     ap.add_argument("--draft-llm", default=None)
     ap.add_argument("--draft-head", default=None)
-    ap.add_argument("--ctx-shift", action="store_true")
     ap.add_argument("--prefix-cache-mb", type=int, default=None)
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
@@ -641,6 +642,7 @@ def main(argv: list[str] | None = None) -> None:
                              quant_mode=args.quant_mode,
                              cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
                              smooth_scales=args.smooth_scales,
+                             context_shift=args.ctx_shift,
                              **{name: getattr(args, name) for name in UNPORTED})
     except NotImplementedError as e:
         ap.error(str(e))

@@ -1502,3 +1502,140 @@ def test_session_pool_warmup_then_groups_replay(cuda_device, tmp_path):
         assert not pool._paged_graphs.seen
     finally:
         pool.close()
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+def test_shift_on_card_matches_cpu(cuda_device, cache_dtype):
+    """llama.shift_kv_cache on the card against its CPU run on the same bits:
+    bit-equal (the rotation's cos/sin come from the host, the products and
+    sums are the same f32 operations), the cache tensors written in place."""
+    from minigpt4_tpu_torch.models import llama as tllama
+
+    cfg = tllama.LlamaConfig(n_vocab=64, n_embd=128, n_head=4, n_layer=2, n_rot=32, n_ff=256,
+                             n_ctx=96)
+    gen = torch.Generator().manual_seed(0)
+    cpu = {kv: tllama.to_cache(torch.randn((2, 1, 4, 96, 32), generator=gen) * 8, cache_dtype)
+           for kv in ("k", "v")}
+    card = {kv: t.to(cuda_device) for kv, t in cpu.items()}
+    ptrs = {kv: t.data_ptr() for kv, t in card.items()}
+    keep, drop, n_past = 11, 30, 90
+    tllama.shift_kv_cache(cpu, keep, drop, n_past, cfg)
+    assert tllama.shift_kv_cache(card, keep, drop, n_past, cfg) is card
+    assert {kv: t.data_ptr() for kv, t in card.items()} == ptrs
+    got = {kv: tllama._bits(t).cpu().long() for kv, t in card.items()}
+    want = {kv: tllama._bits(t).long() for kv, t in cpu.items()}
+    assert torch.equal(got["v"], want["v"]) and torch.equal(got["k"], want["k"])
+
+
+def _shift_run(eng, ckpt, graphs: bool) -> dict:
+    """From the checkpoint: 120 greedy ids through generate (the context
+    shifts inside it) with graphs on or off; ids, shifts, the final logits
+    and the cache up to the cursor."""
+    eng.graphs_enabled = graphs
+    eng.restore_state(ckpt)
+    st, shifts, ids = eng._st, [], []
+    shift, chunk = eng.ctx_shift, eng.decode_chunk
+
+    def counted(s=None, need=0):
+        d = shift(s, need)
+        shifts.append((d, eng._state(s).n_past))
+        return d
+
+    def recorded(n, params, s=None):
+        out = chunk(n, params, s)
+        ids.extend(out)
+        return out
+
+    eng.ctx_shift, eng.decode_chunk = counted, recorded
+    try:
+        for _ in eng.generate(limit=120, params=SamplingParams(temp=0.0)):
+            pass
+    finally:
+        del eng.ctx_shift, eng.decode_chunk
+        eng.graphs_enabled = True
+    torch.cuda.synchronize()
+    return dict(ids=ids, shifts=shifts, n_past=st.n_past, tokens=list(st.tokens),
+                logits=None if st.logits is None else st.logits.clone(),
+                cache={kv: t[:, :, :, :st.n_past].clone() for kv, t in st.cache.items()})
+
+
+def test_captured_equals_eager_after_shift_and_restore(cuda_device, tmp_path):
+    """The gq fixture on the card with context_shift and n_ctx 224: from a
+    saved image turn, a captured and an eager run through generate give
+    bit-equal ids, shifts, cache and logits; a restore then a captured run
+    again gives the same, from graph replays, and the cache tensors keep
+    their storage throughout."""
+    model, llm = build_gq_models(tmp_path)
+    img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    eng = MiniGPT4Engine(model, llm, n_ctx=224, n_batch=32, device=cuda_device,
+                         context_shift=True)
+    try:
+        emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+        eng.system_prompt()
+        eng.begin_chat_image(emb, "what is in the image?")
+        ckpt = tmp_path / "chat.npz"
+        eng.save_state(ckpt)
+        ptrs = {kv: t.data_ptr() for kv, t in eng.cache.items()}
+        captured = _shift_run(eng, ckpt, True)
+        eager = _shift_run(eng, ckpt, False)
+        r0 = eng.graph_stats()["replays"]
+        replayed = _shift_run(eng, ckpt, True)
+        replays = eng.graph_stats()["replays"] - r0
+        assert {kv: t.data_ptr() for kv, t in eng.cache.items()} == ptrs
+    finally:
+        eng.close()
+    assert any(d for d, _ in captured["shifts"]) and replays > 0
+    for other in (eager, replayed):
+        for key in ("ids", "shifts", "n_past", "tokens"):
+            assert captured[key] == other[key], key
+        assert (captured["logits"] is None) == (other["logits"] is None)
+        if captured["logits"] is not None:
+            assert torch.equal(captured["logits"], other["logits"])
+        for kv in ("k", "v"):
+            assert torch.equal(captured["cache"][kv], other["cache"][kv]), kv
+
+
+def test_capi_through_ctypes_runs_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """The C ABI library through ctypes with no MINIGPT4_TPU_DEVICE: the
+    engine it loads is on the card (its kernels launch) and streams the
+    tokens of an engine made here on the card."""
+    import ctypes
+
+    from minigpt4_tpu_torch.c_api import _build as capi_build
+
+    monkeypatch.delenv("MINIGPT4_TPU_DEVICE", raising=False)
+    model, llm = build_gq_models(tmp_path)
+    lib = ctypes.CDLL(str(capi_build.build()))
+    p, f, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int32
+    lib.minigpt4_model_load.restype = p
+    lib.minigpt4_model_load.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_bool]
+    lib.minigpt4_begin_chat.argtypes = [p, ctypes.c_char_p, ctypes.c_size_t]
+    lib.minigpt4_system_prompt.argtypes = [p, ctypes.c_size_t]
+    lib.minigpt4_end_chat.argtypes = [p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_size_t, f, i32,
+                                      f, f, f, i32, f, f, f, ctypes.c_int, f, f, ctypes.c_int]
+    lib.minigpt4_free.argtypes = [p]
+    ctx = lib.minigpt4_model_load(str(model).encode(), str(llm).encode(), 0, 1337, 256, 32, False)
+    assert ctx
+    try:
+        c0 = counters.counts()
+        assert lib.minigpt4_system_prompt(ctx, 0) == 0
+        assert lib.minigpt4_begin_chat(ctx, b"hello there", 0) == 0
+        token, got = ctypes.c_char_p(), []
+        for _ in range(8):
+            assert lib.minigpt4_end_chat(ctx, ctypes.byref(token), 0, 0.0, 40, 0.9, 1.0, 1.0, 64,
+                                         1.1, 1.0, 1.0, 0, 5.0, 1.0, 1) == 0
+            got.append(token.value.decode("utf-8"))
+        delta = {k: n - c0[k] for k, n in counters.counts().items()}
+    finally:
+        lib.minigpt4_free(ctx)
+    for kernel in ("gq_decode", "gq_prefill", "flash_decode"):
+        assert delta[(kernel, "launches", None)] > 0, kernel
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=cuda_device)
+    try:
+        eng.system_prompt()
+        eng.begin_chat("hello there")
+        want = [eng.end_chat(SamplingParams(temp=0.0)) for _ in range(8)]
+    finally:
+        eng.close()
+    assert got == want

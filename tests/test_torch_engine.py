@@ -141,6 +141,38 @@ def test_port_sources_never_import_jax():
         assert re.search(r"\bminigpt4_tpu\.", text) is None, name
 
 
+_CLIENTS_NO_JAX = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["minigpt4_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+from minigpt4_tpu_torch import library, main, quantize, webui  # noqa: F401
+from minigpt4_tpu_torch.c_api import _build, capi_host  # noqa: F401
+code = quantize.main([sys.argv[1] + "/missing-in.bin", sys.argv[1] + "/missing-out.bin", "q8_0"])
+print(json.dumps({"jax_loaded": sys.modules["jax"] is not None,
+                  "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,
+                  "quantize_missing": code}))
+"""
+
+
+def test_client_modules_never_import_jax():
+    """The clients (c_api/, quantize.py, main.py, webui.py, library.py) are
+    among the sources scanned above, import where JAX and the JAX package
+    cannot, and the C ABI library embeds only the port's modules."""
+    port = ROOT / "minigpt4_tpu_torch"
+    for name in ("c_api/capi_host.py", "c_api/_build.py", "quantize.py", "main.py", "webui.py",
+                 "library.py"):
+        assert (port / name).is_file(), name
+    cpp = (port / "c_api" / "minigpt4_capi.cpp").read_text()
+    embedded = re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', cpp)
+    assert len(embedded) == 3 and all(m.startswith("minigpt4_tpu_torch.") for m in embedded)
+    proc = subprocess.run([sys.executable, "-c", _CLIENTS_NO_JAX, str(ROOT)], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "jax_loaded": False, "jax_package_loaded": False, "quantize_missing": 17}
+
+
 def test_chatbot_per_token_path_matches_chunked_generate(gq_files, port_chat):
     model, llm = gq_files
     bot = MiniGPT4ChatBot(str(model), str(llm), device="cpu")

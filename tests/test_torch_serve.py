@@ -343,3 +343,37 @@ def test_w8a8_f8_smooth_options_reach_the_engine(tmp_path, monkeypatch):
     finally:
         started[0].server_close()
         pool.close()
+
+
+def test_ctx_shift_option_reaches_the_engine(gq_files, monkeypatch):
+    """--ctx-shift loads an engine with context_shift on: a session chat
+    past its context shifts it instead of stopping, and keeps its system
+    prompt."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    started = []
+    real = serve.start_server
+
+    def start(*a, **k):
+        httpd = real(*a, **k)
+        httpd.serve_forever = lambda: None  # bound, not served
+        started.append(httpd)
+        return httpd
+
+    monkeypatch.setattr(serve, "start_server", start)
+    serve.main([str(gq_files[0]), str(gq_files[1]), "--device", "cpu", "--port", "0",
+                "--n-ctx", "256", "--session-ctx", "200", "--ctx-shift"])
+    pool = started[0].pool
+    try:
+        assert pool.engine.context_shift
+        s = pool.new_session()
+        pool.system_prompt(s)
+        kept = list(s.state.tokens[:s.state.n_keep])
+        s.ask("hello")
+        n0 = s.n_past
+        toks = list(s.generate(limit=64, params=SamplingParams(temp=0.0)))
+        assert n0 + len(toks) > 200 >= s.n_past and len(s.state.tokens) == s.n_past
+        assert s.state.tokens[:s.state.n_keep] == kept
+    finally:
+        started[0].server_close()
+        pool.close()
