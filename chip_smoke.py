@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
-its batched HTTP serving path, its quantized-container / repacked-weight
+its batched HTTP serving paths (window groups; continuous batching with
+parked sessions and the radix prefix cache), its quantized-container / repacked-weight
 path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
 on one card), its dequant-matmul probes and its clients (context shift,
 chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
 NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
+(--only-serving, --only-clients, --only-kernels SECTIONS: one phase alone, no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -91,6 +93,25 @@ Phases (any failure exits nonzero before the last line):
                and 31 more tokens each way give the identical-token prefix
                per lane and the tok/s of an 8-lane paged group; a third copy
                decodes a 16-token chunk of the group under torch.profiler.
+               Then continuous batching (continuous_serving): start_server
+               with continuous=True, max_batch 8, 32 pages and park_idle
+               (its start seconds, two captured graphs, beside the window
+               server's start); the eight questions streamed through
+               /v1/chat/completions 0.25 s apart (the last with a PNG): at
+               least one join, at least 7 prefix-cache hits, gq_decode,
+               gq_decode_generic and the paged flash kernel launched (the
+               "continuous" path: counts set to 0 just before, read just
+               after), aggregate and per-request tok/s, time to the first
+               streamed token; one of the questions again, before and after
+               a longer conversation that opens with it (texts equal); the
+               system prompt on a miss and on a hit; the
+               eight prepared sessions through the paged batcher and a dense
+               one, a chunk each (ids equal); a forced preemption (the pool held down to
+               one spare page: the preempted text equals the free run's);
+               a 13B session parked and put back (seconds, bytes; its next
+               16 greedy ids equal an unparked copy's); the pass's seconds.
+               `python3 chip_smoke.py --only-serving` runs phases 1-2 and 5
+               and prints no result line.
   6. repack  - a third chat as in phase 4: the 13B Q5_K_M file with
                quant_mode="repack" (every decoder weight repacked) and a 13B
                container whose quantizable weights are q5_k (ViT-G fc2 and
@@ -253,6 +274,7 @@ and of each path); the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import base64
 import gc
 import io
 import json
@@ -2439,6 +2461,301 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
 
 
 # ---------------------------------------------------------------------------
+# phase 5, continued: continuous batching, the prefix cache and parking
+# ---------------------------------------------------------------------------
+
+CONT_LANES = 8
+CONT_STAGGER_S = 0.25  # between the eight requests' starts: later ones join a running group
+CONT_KERNELS = ("gq_decode", "gq_decode_generic", "paged_flash_decode")
+PARK_TOKENS = 16
+
+
+def _stream_chat(base: str, messages: list, limit: int) -> dict:
+    """One streamed /v1/chat/completions request (greedy): its text, the
+    content chunks it streamed (one a token), the seconds to the first one
+    and in all."""
+    req = urllib.request.Request(base + "/v1/chat/completions", method="POST", data=json.dumps(
+        {"messages": messages, "temperature": 0.0, "max_tokens": limit,
+         "stream": True}).encode())
+    t0 = time.perf_counter()
+    first, parts = None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            content = json.loads(line[6:])["choices"][0]["delta"].get("content")
+            if content:
+                first = first if first is not None else time.perf_counter() - t0
+                parts.append(content)
+    return dict(text="".join(parts), n=len(parts), ttft=first, s=time.perf_counter() - t0)
+
+
+def _drain_batcher(cb, out) -> str:
+    parts = []
+    while (t := out.get(timeout=600)) is not cb._DONE:
+        if isinstance(t, Exception):
+            raise t
+        parts.append(t)
+    return "".join(parts)
+
+
+def _batcher_run(cb, sessions: list, limit) -> tuple[list, float]:
+    """Every session through the batcher at once, greedy: texts and seconds."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    limits = limit if isinstance(limit, list) else [limit] * len(sessions)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [cb.submit(s, n, SamplingParams(temp=0.0)) for s, n in zip(sessions, limits)]
+    texts = [_drain_batcher(cb, o) for o in outs]
+    torch.cuda.synchronize()
+    return texts, time.perf_counter() - t0
+
+
+def prefix_times(pool, card: str) -> dict:
+    """The system prompt on a miss (prefill and capture, the cache emptied
+    first) and on two hits (rows and logits installed), on the pool's
+    lock."""
+    with pool._lock:
+        pool._prefix_cache.clear()
+        pool._prefix_bytes = 0
+    ms = []
+    sessions = [pool.new_session() for _ in range(3)]
+    hits0 = pool.metrics["prefix_cache_hits"]
+    for s in sessions:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.system_prompt(s)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    same = all(s.state.tokens == sessions[0].state.tokens
+               and torch.equal(s.state.logits, sessions[0].state.logits) for s in sessions[1:])
+    n = sessions[0].n_past
+    log(f"[continuous] the system prompt ({n} positions): {ms[0]:.2f} ms on a miss (prefill and "
+        f"capture), {ms[1]:.2f} and {ms[2]:.2f} ms on two hits (installed); pending logits equal "
+        f"{same}  [{card}]")
+    if pool.metrics["prefix_cache_hits"] != hits0 + 2 or not same:
+        raise AssertionError("continuous: the later system prompts did not install the first")
+    for s in sessions:
+        s.close()
+    return dict(miss_ms=ms[0], hit_ms=ms[1:], positions=n)
+
+
+def forced_preemption(pool, cb, sources: list, card: str) -> dict:
+    """Two sessions through the server's paged batcher, each generating past
+    its next page edge, while all but one spare page of what they hold is
+    taken: the younger lane is preempted and resumes.  Its text and history
+    must equal those of the same two sessions with the pool free."""
+    from minigpt4_tpu_torch.engine.paged import PAGE
+
+    ppool = pool.paged_pool
+    limit = max(PAGE * ppool.pages_for(s.n_past) - s.n_past for s in sources) + 24
+    runs = {}
+    for tight in (True, False):
+        lanes = [_clone(pool, s) for s in sources]
+        held = []
+        if tight:
+            with pool._lock:
+                spare = ppool.free_pages - sum(ppool.pages_for(s.n_past) for s in lanes) - 1
+                held = ppool.alloc(spare)
+        pre0 = cb.preemptions
+        try:
+            texts, dt = _batcher_run(cb, lanes, limit)
+        finally:
+            if held:
+                with pool._lock:
+                    ppool.free(held)
+        runs[tight] = dict(texts=texts, tokens=[list(s.state.tokens) for s in lanes],
+                           preemptions=cb.preemptions - pre0, s=dt)
+        for s in lanes:
+            s.close()
+    same = runs[True]["texts"] == runs[False]["texts"] and \
+        runs[True]["tokens"] == runs[False]["tokens"]
+    log(f"[continuous] forced preemption: two lanes of {[s.n_past for s in sources]} positions, "
+        f"{limit} tokens each, one spare page: {runs[True]['preemptions']} preemption(s) "
+        f"({runs[True]['s']:.2f} s); with the pool free {runs[False]['preemptions']} "
+        f"({runs[False]['s']:.2f} s); texts and histories equal {same}  [{card}]")
+    if runs[True]["preemptions"] < 1 or runs[False]["preemptions"] or not same:
+        raise AssertionError(f"continuous: the forced preemption failed: {runs}")
+    return dict(limit=limit, preemptions=runs[True]["preemptions"], tight_s=runs[True]["s"],
+                free_s=runs[False]["s"])
+
+
+def park_check(pool, source, card: str) -> dict:
+    """Park a 13B session and put it back (seconds and bytes), then its next
+    PARK_TOKENS greedy ids against those of an unparked copy."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.engine.hostcopy import STAGE_BYTES
+
+    s, twin = _clone(pool, source), _clone(pool, source)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.park()
+    t_park = time.perf_counter() - t0
+    nbytes = s.state.parked["k"].nbytes + s.state.parked["v"].nbytes
+    t0 = time.perf_counter()
+    with pool._lock:
+        s.state.ensure_device()
+    torch.cuda.synchronize()
+    t_unpark = time.perf_counter() - t0
+    n0 = s.n_past
+    for x in (s, twin):
+        list(x.generate(limit=PARK_TOKENS, params=SamplingParams(temp=0.0)))
+    same = s.state.tokens[n0:] == twin.state.tokens[n0:]
+    log(f"[continuous] park of a {n0}-position 13B session: {nbytes / 1e6:.2f} MB to pageable "
+        f"host memory (through {2 * STAGE_BYTES / 2**20:.0f} MiB of page-locked staging) in {t_park * 1e3:.2f} ms, back in {t_unpark * 1e3:.2f} ms; next "
+        f"{len(s.state.tokens) - n0} greedy ids equal to an unparked copy's: {same}  [{card}]")
+    if not same:
+        raise AssertionError("continuous: a parked session decoded other ids than its copy")
+    for x in (s, twin):
+        x.close()
+    return dict(park_s=t_park, unpark_s=t_unpark, bytes=nbytes, positions=n0)
+
+
+def continuous_serving(card: str, window: dict, lg: dict = LLM_13B, pages: int = 32,
+                       limit: int = 32) -> dict:
+    """Continuous batching on the 13B files: a server of CONT_LANES lanes
+    over a pool of ``pages`` pages with --park-idle (start seconds beside the
+    window server's), the eight QUESTIONS streamed through the OpenAI route
+    CONT_STAGGER_S apart (joins, aggregate and per-request tok/s, time to
+    the first token, prefix-cache hits), then on its pool: the system
+    prompt on a miss and a hit, the eight prepared sessions through the
+    paged batcher and a dense one (ids equal), a forced preemption and a
+    park."""
+    from minigpt4_tpu_torch import serve
+    from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
+
+    t_pass = time.perf_counter()
+    model, llm = smoke_models(lg)
+    t0 = time.perf_counter()
+    httpd = serve.start_server(model, llm, port=0, session_ctx=512, continuous=True,
+                               max_batch=CONT_LANES, paged_pages=pages, park_idle=True,
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    pool, cb, warm = httpd.pool, httpd.batcher, httpd.warmup
+    log(f"[continuous] start {t_start:.2f} s, of it the warmup {warm['warmup_s']:.2f} s capturing "
+        f"{warm['graphs']} graphs (all-greedy and traced rows at {CONT_LANES} lanes); the window "
+        f"server's start {window['load_s']:.2f} s with {window['warmup']['graphs']} graphs in "
+        f"{window['warmup']['warmup_s']:.2f} s  [{card}]")
+    if warm["graphs"] != 2:
+        raise AssertionError(f"continuous: the start captured {warm['graphs']} graphs, not 2")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    img = np.random.default_rng(SEED + 2).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    url = "data:image/png;base64," + base64.b64encode(_png(img)).decode()
+    results: list = [None] * len(QUESTIONS)
+
+    def client(i: int) -> None:
+        time.sleep(i * CONT_STAGGER_S)
+        content = QUESTIONS[i] if i < len(QUESTIONS) - 1 else [
+            {"type": "text", "text": QUESTIONS[i]}, {"type": "image_url", "image_url": {"url": url}}]
+        t1 = time.perf_counter()
+        try:
+            results[i] = dict(_stream_chat(base, [{"role": "user", "content": content}], limit),
+                              t0=t1, t1=time.perf_counter())
+        except Exception as e:  # reported below, never ignored
+            results[i] = dict(error=f"{type(e).__name__}: {e}")
+
+    try:
+        reset_launch_counts()  # the HTTP requests' own launches
+        gen0 = pool.metrics["tokens_generated"]
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(QUESTIONS))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        joins = cb.joins
+        bad = [(i, r) for i, r in enumerate(results) if "error" in r or not r["text"]]
+        if bad:
+            raise AssertionError(f"continuous: failed or empty responses: {bad}")
+        n_gen = pool.metrics["tokens_generated"] - gen0
+        span = max(r["t1"] for r in results) - min(r["t0"] for r in results)
+        per_req = [r["n"] / r["s"] for r in results]
+        ttft = [r["ttft"] * 1e3 for r in results]
+        _, raw = _request(base, "/v1/health", method="GET")
+        health = json.loads(raw)
+        hits = health["metrics"]["prefix_cache_hits"]
+        log(f"[continuous] {len(QUESTIONS)} streamed OpenAI requests {CONT_STAGGER_S} s apart (a "
+            f"PNG in the last): joins {joins}, launches {counts}")
+        log(f"[continuous] {n_gen} tokens in {span:.3f} s = {n_gen / span:.2f} tok/s aggregate; "
+            f"per request {[round(x, 2) for x in per_req]} tok/s of {[r['n'] for r in results]} "
+            f"streamed tokens; first token after {[round(x, 1) for x in ttft]} ms; prefix cache "
+            f"hits {hits}, misses {health['metrics']['prefix_cache_misses']}, "
+            f"{health['prefix_cache']}; /v1/health {health['paged']}  [{card}]")
+        for r, q in zip(results, QUESTIONS):
+            log(f"[continuous]   {q[:32]!r:36s} -> {r['text'][:40]!r}")
+        missing = [k for k in CONT_KERNELS if counts.get(k, 0) <= 0]
+        if joins < 1 or hits < 7 or missing or health["paged"]["free_pages"] != pages:
+            raise AssertionError(f"continuous: joins {joins}, prefix hits {hits}, kernels never "
+                                 f"launched {missing}, pages {health['paged']}")
+        # a stateless request gives its text again after a longer
+        # conversation that opens with it was captured (which prunes its entry)
+        one = [{"role": "user", "content": QUESTIONS[1]}]
+        before = _stream_chat(base, one, limit)["text"]
+        _stream_chat(base, one + [{"role": "assistant", "content": before},
+                                  {"role": "user", "content": "Go on."}], limit)
+        hits0 = pool.metrics["prefix_cache_hits"]
+        after = _stream_chat(base, one, limit)["text"]
+        log(f"[continuous] a stateless request before and after a longer conversation of the same "
+            f"opening: texts equal {after == before}, exact hits "
+            f"{pool.metrics['prefix_cache_hits'] - hits0}  [{card}]")
+        if after != before:
+            raise AssertionError(f"continuous: {after!r} != {before!r} after a longer conversation")
+        prefix = prefix_times(pool, card)
+        prepared = []
+        for i, q in enumerate(QUESTIONS):
+            s = pool.new_session()
+            if i == len(QUESTIONS) - 1:
+                s.upload_image(_preprocess(img, pool))
+            else:
+                pool.system_prompt(s)
+            s.ask(q)
+            prepared.append(s)
+        paged_lanes = [_clone(pool, s) for s in prepared]
+        dense_lanes = [_clone(pool, s) for s in prepared]
+        # one chunk each way: the dense batcher's first use of its key runs eagerly
+        paged_texts, t_paged = _batcher_run(cb, paged_lanes, cb.decode_chunk)
+        dense_cb = ContinuousBatcher(pool, max_batch=CONT_LANES, paged=False)
+        try:
+            dense_texts, t_dense = _batcher_run(dense_cb, dense_lanes, cb.decode_chunk)
+        finally:
+            dense_cb.close()
+        same = ([s.state.tokens for s in paged_lanes] == [s.state.tokens for s in dense_lanes]
+                and paged_texts == dense_texts)
+        log(f"[continuous] the eight prepared sessions through the batcher, {cb.decode_chunk} "
+            f"greedy tokens: paged (captured) {t_paged:.3f} s, dense (stacked cache, eager) "
+            f"{t_dense:.3f} s; ids equal {same}  [{card}]")
+        if not same:
+            raise AssertionError("continuous: the paged and dense batchers gave other ids")
+        for s in paged_lanes + dense_lanes:
+            s.close()
+        del dense_cb
+        preempt = forced_preemption(pool, cb, prepared[:2], card)
+        park = park_check(pool, prepared[-1], card)
+        for s in prepared:
+            s.close()
+    finally:
+        httpd.shutdown()
+        server.join(timeout=60)
+        httpd.server_close()  # stops the batcher, whose thread holds the pool
+        pool.close()
+        del pool, httpd, cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_all = time.perf_counter() - t_pass
+    log(f"[continuous] the pass took {t_all:.1f} s  [{card}]")
+    return dict(counts=counts, start_s=t_start, warmup=warm, joins=joins,
+                agg_tok_s=n_gen / span, per_request_tok_s=per_req, ttft_ms=ttft, hits=hits,
+                prefix=prefix, paged_s=t_paged, dense_s=t_dense, preemption=preempt, park=park,
+                pass_s=t_all)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: w8a8 over an e4m3 cache, and the quality harness
 # ---------------------------------------------------------------------------
 
@@ -3241,6 +3558,11 @@ def main() -> int:
         clients_phase(card)
         phase("end (--only-clients)")
         return 0
+    if "--only-serving" in sys.argv:  # a quick look at phase 5 alone: no result line
+        phase("serving")
+        continuous_serving(card, serving(card))
+        phase("end (--only-serving)")
+        return 0
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
         sections = sys.argv[sys.argv.index("--only-kernels") + 1:]
         phase_kernels(card, set(sections[0].split(",")) if sections else None)
@@ -3297,6 +3619,7 @@ def main() -> int:
                                            graphs=False)
     phase("serving")
     paths["serving 13B"] = serving(card)
+    paths["continuous"] = continuous_serving(card, paths["serving 13B"])
     counts = paths["serving 13B"]["counts"]
     missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:

@@ -57,6 +57,7 @@ from ..parallel import spmd
 from ..parallel.mesh import init_tp
 from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
 from .graphs import GraphCache, StepGraphs, pool_bytes
+from .hostcopy import copy_from_host_, host_copy
 from .sampling import Sampler, SamplingParams
 
 SYSTEM_PROMPT = (
@@ -97,22 +98,71 @@ def disable_tf32() -> None:
 class DecodeState:
     """One decode cursor: KV cache, n_past, pending logits (on the device),
     the sampling generator, the evaluated token ids and the keep marker.
-    ``n_ctx`` is the cache's length: the state's context limit."""
+    ``n_ctx`` is the cache's length: the state's context limit.
+
+    A serving session's state can be parked (:meth:`park`): its cache then
+    lives in host memory, trimmed to the consumed prefix, until
+    :meth:`ensure_device` puts it back.  ``cache`` is None while the state is
+    parked or rides a batched group (whose cache is then the live copy)."""
 
     def __init__(self, cache: dict, generator: torch.Generator):
         self.cache = cache
         self.n_ctx = cache["k"].shape[3]
         self.generator = generator
         self.n_past = 0
-        self.logits: torch.Tensor | None = None  # [V] f32 on the device
+        self.logits: torch.Tensor | None = None  # [V] f32 (on the host while parked)
         self.tokens: list[int] = []  # one per cache position, -1 for embeddings
         self.n_keep = 0  # system prompt + image prefix
+        # the host copy of the cache while parked: {"shape", "dtype", "device",
+        # "k", "v"}, k / v the bits (llama._bits) of rows [0, n_past)
+        self.parked: dict | None = None
 
     def reset(self) -> None:
         self.n_past = 0
         self.logits = None
         self.tokens = []
         self.n_keep = 0
+        if self.parked is not None:  # nothing of the old rows is needed
+            self.parked = dict(self.parked, k=self.parked["k"][:, :, :, :0],
+                               v=self.parked["v"][:, :, :, :0])
+
+    def park(self) -> None:
+        """Move the cache to host memory, trimmed to the consumed prefix, and
+        the pending logits with it (the JAX engine's ``DecodeState.park``):
+        the session holds no device memory between turns.  The rows move as
+        their bits (``llama._bits``), so an e4m3 cache moves as bytes, into
+        pageable host memory (``engine/hostcopy.py``).  A
+        no-op while the cache is not resident (parked already, or riding a
+        batched group)."""
+        if self.cache is None or self.parked is not None:
+            return
+        k = self.cache["k"]
+        n = min(self.n_past, k.shape[3])
+        host = {kv: host_copy(llama_mod._bits(self.cache[kv][:, :, :, :n])) for kv in ("k", "v")}
+        self.parked = dict(host, shape=tuple(k.shape), dtype=k.dtype, device=k.device)
+        if self.logits is not None:
+            self.logits = self.logits.cpu()
+        self.cache = None
+
+    def ensure_device(self) -> None:
+        """Put a parked cache back on its device: a zero cache of the state's
+        geometry with the parked rows copied in (positions past ``n_past``
+        are masked), and the pending logits beside it.  Raises ValueError
+        when the state has no cache at all (it rides a batched group, whose
+        cache is the live copy)."""
+        if self.parked is not None:
+            p, self.parked = self.parked, None
+            n = p["k"].shape[3]
+            cache = {}
+            for kv in ("k", "v"):
+                cache[kv] = torch.zeros(p["shape"], dtype=p["dtype"], device=p["device"])
+                copy_from_host_(llama_mod._bits(cache[kv])[:, :, :, :n], p[kv])
+            self.cache = cache
+            if self.logits is not None:
+                self.logits = self.logits.to(p["device"])
+            return
+        if self.cache is None:
+            raise ValueError("session cache is not resident (riding a batched decode?)")
 
     def save(self, path) -> None:
         """Checkpoint the state to the npz file ``path`` with the JAX
@@ -122,7 +172,9 @@ class DecodeState:
         ``spec_ban`` (always -1: the port has no speculative sampling),
         plus the generator's state (``torch_generator``, with its device
         type in ``torch_generator_device``).  Stored uncompressed: a
-        cache's random bits do not compress."""
+        cache's random bits do not compress.  A parked state is put back on
+        its device first, as the JAX engine's is."""
+        self.ensure_device()
         with open(path, "wb") as f:
             np.savez(f, k=_host_bits(self.cache["k"]), v=_host_bits(self.cache["v"]),
                      kv_dtype=np.bytes_(JAX_DTYPE_NAMES[self.cache["k"].dtype]),
@@ -143,7 +195,10 @@ class DecodeState:
         generator as it is.  Raises ValueError, changing nothing, on a cache
         shape other than this state's, an unknown cache type, or a pending
         speculative-sampling exclusion (``spec_ban`` >= 0; speculative
-        decoding is ROADMAP Queue 1, item 14)."""
+        decoding is ROADMAP Queue 1, item 14).  A parked state is put back on
+        its device first (JAX ``DecodeState.restore``), so nothing stale of
+        the parked copy comes back later."""
+        self.ensure_device()
         z = np.load(path)
         arrays = {kv: z[kv] for kv in ("k", "v")}  # an npz member reads on each access
         for kv, a in arrays.items():
@@ -585,33 +640,54 @@ class MiniGPT4Engine:
     # chat state machine (minigpt4.cpp:2671-2782)
     # ------------------------------------------------------------------
 
-    def system_prompt(self, st: DecodeState | None = None) -> None:
+    # The templates as ordered pieces, fed one after another: ("text", str),
+    # tokenized with BOS; ("rows", flat f32 embedding rows); ("keep", None),
+    # where the context shift's keep prefix ends.  The serving pool feeds
+    # the same pieces through its prefix cache.
+    @staticmethod
+    def system_pieces() -> list[tuple]:
+        return [("text", SYSTEM_PROMPT), ("keep", None)]
+
+    def chat_pieces(self, question: str, embedding: np.ndarray | None = None) -> list[tuple]:
+        """One user turn; with ``embedding``, the image turn, whose prefix
+        survives every shift.  Raises the reference's typed error on an
+        embedding of the wrong size, before anything is fed."""
+        if embedding is None:
+            return [("text", "Human: "), ("text", question), ("text", "### Assistant:")]
+        return [("text", "Human: <Img>"), ("rows", self.image_rows(embedding)),
+                ("text", "</Img> "), ("keep", None), ("text", question),
+                ("text", "### Assistant:")]
+
+    def _feed(self, pieces: list[tuple], st: DecodeState | None) -> None:
         st = self._state(st)
-        self.add_strings(SYSTEM_PROMPT, st)
-        st.n_keep = st.n_past
+        for kind, x in pieces:
+            if kind == "text":
+                self.add_strings(x, st)
+            elif kind == "rows":
+                self.add_embedding(x, st)
+            else:
+                st.n_keep = st.n_past
+
+    def system_prompt(self, st: DecodeState | None = None) -> None:
+        self._feed(self.system_pieces(), st)
 
     def begin_chat_image(self, embedding: np.ndarray, question: str,
                          st: DecodeState | None = None) -> None:
-        st = self._state(st)
-        n_img = self.vision_cfg.qformer.query_length
+        self._feed(self.chat_pieces(question, embedding), st)
+
+    def image_rows(self, embedding: np.ndarray) -> np.ndarray:
+        """An image embedding as the flat f32 rows that ``begin_chat_image``
+        feeds; raises the reference's typed error on a wrong size."""
         emb = np.asarray(embedding, np.float32).reshape(-1)
-        expect = n_img * self.llm_cfg.n_embd
+        expect = self.vision_cfg.qformer.query_length * self.llm_cfg.n_embd
         if emb.size != expect:
             raise utils.MiniGPT4TypedError(
                 utils.MiniGPT4Error.LLAMA_PROJECTION_EMBEDDING_INVALID_SIZE,
                 f"image embedding size {emb.size} != {expect}")
-        self.add_strings("Human: <Img>", st)
-        self.add_embedding(emb, st)
-        self.add_strings("</Img> ", st)
-        st.n_keep = st.n_past
-        self.add_strings(question, st)
-        self.add_strings("### Assistant:", st)
+        return emb
 
     def begin_chat(self, question: str, st: DecodeState | None = None) -> None:
-        st = self._state(st)
-        self.add_strings("Human: ", st)
-        self.add_strings(question, st)
-        self.add_strings("### Assistant:", st)
+        self._feed(self.chat_pieces(question), st)
 
     def sample_token(self, params: SamplingParams | None = None) -> int:
         """Host sample from the pending logits (the mirostat path)."""

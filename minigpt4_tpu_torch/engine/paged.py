@@ -21,6 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.llama import _bits
+from .hostcopy import copy_from_host_
+
 PAGE = 128  # positions per page == the paged kernel's page (csrc kPage)
 
 
@@ -103,6 +106,29 @@ class PagedKVPool:
                 l, _, h, _, dh = lane.shape
                 blocks = lane[:, 0, :, :n * PAGE].reshape(l, h, n, PAGE, dh).transpose(1, 2)
                 pool[:, ids] = blocks.to(pool.dtype)
+        except Exception:
+            self.broken = True
+            self.free(pages)
+            raise
+        return pages
+
+    def admit_host(self, parked: dict, n_past: int) -> list[int]:
+        """Copy a parked lane (``DecodeState.parked``: the bits of rows [0,
+        n_past) in host memory) into freshly allocated pages; returns the
+        page ids.  Only the parked rows cross to the device; the rest of the
+        last page is zeros, as :meth:`admit` leaves it from a dense cache
+        past its cursor.  The caller drops the parked copy afterwards."""
+        if parked["dtype"] != self.k.dtype:
+            raise ValueError(f"parked cache {parked['dtype']} != pool {self.k.dtype}")
+        n = self.pages_for(n_past)
+        pages = self.alloc(n)
+        try:
+            ids = self._ids(pages)
+            for pool, rows in ((self.k, parked["k"]), (self.v, parked["v"])):
+                l, _, h, m, dh = rows.shape
+                lane = torch.zeros((l, h, n * PAGE, dh), dtype=rows.dtype, device=pool.device)
+                copy_from_host_(lane[:, :, :m], rows[:, 0])
+                _bits(pool)[:, ids] = lane.reshape(l, h, n, PAGE, dh).transpose(1, 2)
         except Exception:
             self.broken = True
             self.free(pages)

@@ -1,58 +1,78 @@
 """Concurrent chat sessions over one loaded model (the serving layer).
 
-Counterpart of ``minigpt4_tpu/engine/sessions.py`` for window-batched
-serving.  The reference holds one global cursor (minigpt4.cpp:2521); here
-the model weights are loaded once and each :class:`ChatSession` owns a
-:class:`~.engine.DecodeState` (KV cache of ``session_ctx`` positions,
-cursor, pending logits, sampling generator) on which the engine's
-operations act.
+Counterpart of ``minigpt4_tpu/engine/sessions.py``.  The reference holds
+one global cursor (minigpt4.cpp:2521); here the model weights are loaded
+once and each :class:`ChatSession` owns a :class:`~.engine.DecodeState`
+(KV cache of ``session_ctx`` positions, cursor, pending logits, sampling
+generator) on which the engine's operations act.
 
   * A lock serializes device work (prefill, decode chunks, group joins and
     detaches); host work (tokenizing, detokenizing, EOS scans) interleaves.
   * :meth:`SessionPool.generate_batch_stream` decodes several prepared
-    sessions together: every decode step reads the weights once for all
-    lanes.  With a page pool (``paged_pool_pages``) each lane's consumed
-    prefix is copied into 128-position pages of one shared pool
-    (``engine/paged.py``) and decoded through the paged flash-decode kernel;
-    otherwise, or when the pool cannot take the whole group, the lanes'
-    caches stack into one dense group cache.  On a CUDA engine at tp = 1 a
-    paged group's decode chunks replay captured CUDA graphs over the pool
-    (``engine/graphs.py``): per lane count and chunk length, one for
-    all-greedy groups and one for every other mix of configs (the traced
-    thresholds of ``device_sampling.lane_rows``), and one more where a lane
-    carries a logit bias.  :meth:`SessionPool.warmup` captures the first
-    two ahead of time; the dense group and single sessions run eagerly.
+    sessions together (window batching): every decode step reads the
+    weights once for all lanes.  With a page pool (``paged_pool_pages``)
+    each lane's consumed prefix is copied into 128-position pages of one
+    shared pool (``engine/paged.py``) and decoded through the paged
+    flash-decode kernel; otherwise, or when the pool cannot take the whole
+    group, the lanes' caches stack into one dense group cache.
+  * :class:`ContinuousBatcher` runs one group of ``max_batch`` lanes for
+    good: requests join at chunk boundaries and leave when they finish,
+    over the page pool (a dry pool preempts the youngest lane) or over one
+    stacked cache allocated once.
+  * A session can be parked (:meth:`ChatSession.park`): its cache waits in
+    pageable host memory between turns (``engine/hostcopy.py``); every
+    operation puts it back first, and a paged group admits it straight from
+    the host copy.
+  * The radix prefix cache keeps computed prefixes (KV rows and pending
+    logits, in pageable host memory, keyed by the token ids fed from
+    position 0): from the second session on, the system prompt installs its
+    rows instead of prefilling them, and a replayed conversation installs
+    all but its new turn.  Only exact hits install (the state a capture
+    left after the same template pieces), so a hit gives the bits of the
+    prefill it replaces.
+
+On a CUDA engine at tp = 1 the paged group's and the batcher's decode
+chunks replay captured CUDA graphs (``engine/graphs.py``): per lane count
+and chunk length, one for all-greedy groups and one for every other mix of
+configs (the traced thresholds of ``device_sampling.lane_rows``), and one
+more where a lane carries a logit bias.  The batcher's lane count is fixed,
+so it needs two graphs; :meth:`SessionPool.warmup` and
+:meth:`ContinuousBatcher.warmup` capture them ahead of time.  The dense
+window group and single sessions run eagerly.
 
 With a tensor-parallel engine (``tp=N``, one process per rank, every rank
 running the same calls) the lane caches and the page pool hold the rank's
 heads (``parallel/spmd.py``); lanes, page tables and cursors are the same
-on every rank.
+on every rank.  The prefix cache is off there, and the batcher refuses tp.
 
 With an engine of ``context_shift=True`` a session's prefill and its own
 decode shift its context where the JAX ``SessionPool`` does (the engine's
 operations on the session's state, and before each mirostat token); a
-batched group leaves out a session without room for a chunk, as JAX's.
+window group leaves out a session without room for a chunk, as JAX's, and a
+batcher lane that reaches the end detaches, shifts and rejoins.
 
-Not ported yet (ROADMAP): continuous batching, speculative decoding and its
-governor, the radix prefix cache, parking idle sessions in host memory.
-Lane caches and the page pool hold the engine's cache type
+Not ported yet (ROADMAP): speculative decoding and its governor.  Lane
+caches and the page pool hold the engine's cache type
 (``MiniGPT4Engine.cache_dtype``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import sys
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
 
 from ..models import llama as llama_mod
 from .device_sampling import lane_rows
-from .engine import EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
+from .engine import DECODE_CHUNK, EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
 from .graphs import StepGraphs
+from .hostcopy import copy_from_host_, host_copy
 from .paged import PagedKVPool, PoolExhausted
 from .sampling import Sampler, SamplingParams
 
@@ -105,6 +125,15 @@ class ChatSession:
         self.is_image_chat = False
         self.embedding = None
 
+    def park(self) -> None:
+        """Move this session's KV cache to host memory, trimmed to the
+        consumed prefix, while the user thinks (:meth:`DecodeState.park`).
+        Every operation of the pool puts it back first; a paged group admits
+        it from the host copy.  ``serve.py --park-idle`` parks after each
+        turn."""
+        with self._pool._lock:
+            self.state.park()
+
     def close(self) -> None:
         self._pool._release(self)
 
@@ -115,7 +144,8 @@ def _consume_lane_tokens(lane: dict, token_ids, tokenizer, bump):
     Mutates ``lane`` (keys: session, limit, chat, emitted, ends) and the
     session's token history; returns ``(deliver, finished)``: the tokens to
     send to the client and whether the lane hit EOS or its limit (the
-    reference's EOS rules, minigpt4.cpp:2764-2782)."""
+    reference's EOS rules, minigpt4.cpp:2764-2782).  Shared by the window
+    groups and the continuous batcher."""
     deliver: list[str] = []
     for tid in token_ids:
         token = tokenizer.id_to_str(int(tid))
@@ -136,8 +166,8 @@ def _consume_lane_tokens(lane: dict, token_ids, tokenizer, bump):
     return deliver, False
 
 
-def _detach_lane_state(st: DecodeState, ends: int, pos_now: int, cache: dict,
-                       logits_row: torch.Tensor) -> None:
+def _detach_lane_state(st: DecodeState, ends: int, pos_now: int, cache: dict | None,
+                       logits_row: torch.Tensor | None) -> None:
     """Return a lane's state to its session, rolling back overshoot: cursor
     and token history truncate to the consumed prefix; a rolled-back lane's
     pending logits belong to the overshoot and are dropped (the next
@@ -149,10 +179,14 @@ def _detach_lane_state(st: DecodeState, ends: int, pos_now: int, cache: dict,
 
 
 class SessionPool:
-    """One loaded engine and the decode states of its sessions."""
+    """One loaded engine and the decode states of its sessions.
+
+    ``prefix_cache`` / ``prefix_cache_mb``: the radix prefix cache and its
+    host-memory budget (JAX's defaults: on, 512 MB); off under tp."""
 
     def __init__(self, model_path, llm_path, session_ctx: int = 512, seed: int = 1337,
-                 paged_pool_pages: int | None = None, **engine_kwargs):
+                 paged_pool_pages: int | None = None, prefix_cache: bool = True,
+                 prefix_cache_mb: int = 512, **engine_kwargs):
         self.engine = MiniGPT4Engine(model_path, llm_path, seed=seed, **engine_kwargs)
         self.session_ctx = session_ctx
         self.seed = seed
@@ -162,8 +196,15 @@ class SessionPool:
         self._next_id = 0
         self._sessions: dict[int, ChatSession] = {}
         self.metrics = {"sessions_created": 0, "images_encoded": 0,
-                        "tokens_prefilled": 0, "tokens_generated": 0}
+                        "tokens_prefilled": 0, "tokens_generated": 0,
+                        "prefix_cache_hits": 0, "prefix_cache_misses": 0}
         self._session_cfg = dataclasses.replace(self.engine.cache_cfg, n_ctx=session_ctx)
+        # the radix prefix cache: token ids fed from position 0 -> {"k", "v":
+        # host bits of rows [0, n), "logits": host [V], "bytes"}, in LRU order
+        self.prefix_cache = bool(prefix_cache) and self.engine.tp == 1
+        self.prefix_cache_mb = int(prefix_cache_mb)
+        self._prefix_cache: OrderedDict[tuple[int, ...], dict] = OrderedDict()
+        self._prefix_bytes = 0
         # the shared KV page pool: a batched group then holds device memory
         # for the positions its lanes consumed, not B x session_ctx
         self.paged_pool = None
@@ -212,35 +253,204 @@ class SessionPool:
             self.metrics["images_encoded"] += 1
             return self.engine.encode_image(pixels)
 
-    def _prefill(self, s: ChatSession, op, *args) -> None:
-        """Run the engine operation ``op(*args, st=s.state)`` under the lock
-        and count the positions it fed."""
+    def _prefill(self, s: ChatSession, kind: str, x) -> None:
+        """One piece, ("ids", token ids) or ("rows", embedding rows), into
+        the session under the lock (a parked session is put back first)."""
         with self._lock:
-            if s.state.cache is None:
-                raise ValueError("session cache is not resident (riding a batched decode?)")
-            n0 = s.state.n_past
-            op(*args, st=s.state)
-            self._bump("tokens_prefilled", s.state.n_past - n0)
+            st = s.state
+            st.ensure_device()
+            n0 = st.n_past
+            if kind == "ids":
+                self.engine.add_tokens(x, st=st)
+                self._bump("tokens_prefilled", len(x))
+            else:
+                self.engine.add_embedding(x, st=st)
+                self._bump("tokens_prefilled", st.n_past - n0)
+
+    def feed(self, s: ChatSession, pieces: list[tuple]) -> None:
+        """Feed pieces of the engine's templates (``system_pieces``,
+        ``chat_pieces``: ("text", str), ("rows", embedding), ("keep", None))
+        or ("ids", token ids) to the session in order, as the engine's own
+        templates feed them.  The longest leading run of pieces whose end
+        state the radix cache holds installs instead of prefilling
+        (:meth:`_radix_fast_forward`)."""
+        tokenize = self.engine.tokenizer.tokenize
+        pieces = [("ids", [int(t) for t in tokenize(x, add_bos=True)]) if kind == "text"
+                  else (kind, x) for kind, x in pieces]
+        with self._lock:
+            s.state.ensure_device()
+            served = self._radix_fast_forward(s.state, pieces)
+        for kind, x in pieces[served:]:
+            if kind == "keep":
+                s.state.n_keep = s.state.n_past  # context-shift keep marker
+            else:
+                self._prefill(s, kind, x)
 
     def _add_tokens(self, s: ChatSession, tokens: list[int]) -> None:
-        self._prefill(s, self.engine.add_tokens, tokens)
+        self.feed(s, [("ids", tokens)])
 
-    def _add_strings(self, s: ChatSession, text: str) -> None:
-        self._prefill(s, self.engine.add_strings, text)
+    # -- the radix prefix cache --
+    @staticmethod
+    def _pure(st: DecodeState) -> bool:
+        """A state that is exactly the token ids fed from position 0 (no
+        embedding rows, no rolled-back gap): the condition for matching and
+        for capturing a prefix."""
+        return st.n_past == len(st.tokens) and all(t >= 0 for t in st.tokens)
 
-    # -- chat protocol (the engine's templates) --
+    def _exact(self, key: tuple) -> tuple | None:
+        """(entry key, pending logits) where the cache holds the state after
+        the ids ``key`` exactly: an entry of that key, or a longer entry that
+        kept the pending logits of a pruned prefix of that length; else
+        None."""
+        if key in self._prefix_cache:
+            return key, self._prefix_cache[key]["logits"]
+        n = len(key)
+        for other, ent in self._prefix_cache.items():
+            logits = ent["logits_at"].get(n)
+            if logits is not None and other[:n] == key:
+                return other, logits
+        return None
+
+    def _radix_fast_forward(self, st: DecodeState, pieces: list[tuple]) -> int:
+        """Install the longest leading run of ``pieces`` whose end state the
+        radix cache holds exactly (:meth:`_exact`); returns the number of
+        pieces served.  Caller holds the lock and has put the state on its
+        device.
+
+        The run's rows and pending logits are copied as bits into the
+        state's own cache tensors, so what follows is computed from the very
+        state its prefill would have left.  Unlike JAX's, a run that ends
+        inside a longer entry (JAX's partial hit, which feeds the last token
+        again) or past a shorter one (its extension, which prefills the
+        rest in one piece) is not served: that prefill would feed other
+        chunks than the uncached path, give other roundings, and at a near
+        tie other ids.  Embedding rows end the run."""
+        if not self.prefix_cache or not self._pure(st):
+            return 0
+        n0 = len(st.tokens)
+        ends, ids = [], list(st.tokens)  # (pieces served, ids fed) after each ids piece
+        for i, (kind, x) in enumerate(pieces):
+            if kind == "rows":
+                break
+            if kind == "ids":
+                ids += x
+                ends.append((i + 1, tuple(ids)))
+        for served, key in reversed(ends):
+            # worth installing only past the computed prefix and one token
+            if len(key) <= n0 + 1 or len(key) > st.n_ctx:
+                continue
+            hit = self._exact(key)
+            if hit is None:
+                continue
+            entry_key, logits = hit
+            ent = self._prefix_cache[entry_key]
+            self._prefix_cache.move_to_end(entry_key)  # LRU touch
+            n = len(key)
+            for kv in ("k", "v"):
+                copy_from_host_(llama_mod._bits(st.cache[kv])[:, :, :, :n], ent[kv][:, :, :, :n])
+            st.n_past = n
+            st.tokens = list(key)
+            st.logits = logits.to(st.cache["k"].device, copy=True)
+            pos = n0
+            for kind, x in pieces[:served]:
+                if kind == "ids":
+                    pos += len(x)
+                elif kind == "keep":
+                    st.n_keep = pos
+            self._bump("prefix_cache_hits")
+            return served
+        return 0
+
+    @staticmethod
+    def _same_rows(a: dict, b: dict, n: int) -> bool:
+        return all(torch.equal(a[kv][:, :, :, :n], b[kv][:, :, :, :n]) for kv in ("k", "v"))
+
+    def capture_prefix(self, s: ChatSession) -> bool:
+        """Capture the session's state (KV rows, pending logits) into the
+        radix cache, keyed by its token ids, in pageable host memory
+        (``engine/hostcopy.py``), evicting the least recently used entries
+        past ``prefix_cache_mb``.  Entries that are strict prefixes of the
+        new key are pruned, their pending logits kept in the new entry
+        (``logits_at``), so each stays an exact hit; a state a longer entry
+        holds only keeps its logits there.  Either happens only where the
+        rows are the same bits; otherwise both entries stay.  The OpenAI
+        route calls this before decoding, so that the next request of the
+        conversation prefills only its new turn.  False where nothing could
+        be captured (cache off, a parked or batched state, embedding
+        rows)."""
+        if not self.prefix_cache:
+            return False
+        with self._lock:
+            st = s.state
+            if st.cache is None or st.logits is None or st.n_past == 0 or not self._pure(st):
+                return False
+            key = tuple(st.tokens)
+            n = st.n_past
+            hit = self._exact(key)
+            if hit is not None:
+                self._prefix_cache.move_to_end(hit[0])
+                return True
+            ent = {kv: host_copy(llama_mod._bits(st.cache[kv][:, :, :, :n])) for kv in ("k", "v")}
+            ent["logits"] = host_copy(st.logits)
+            for other, longer in self._prefix_cache.items():
+                if len(other) > n and other[:n] == key and self._same_rows(longer, ent, n):
+                    longer["logits_at"][n] = ent["logits"]
+                    self._prefix_cache.move_to_end(other)
+                    return True
+            ent["bytes"] = ent["k"].nbytes + ent["v"].nbytes
+            ent["logits_at"] = {}
+            for other in [o for o in self._prefix_cache if len(o) < n and key[:len(o)] == o]:
+                old = self._prefix_cache[other]
+                if self._same_rows(old, ent, len(other)):
+                    ent["logits_at"].update(old["logits_at"])
+                    ent["logits_at"][len(other)] = old["logits"]
+                    self._prefix_bytes -= self._prefix_cache.pop(other)["bytes"]
+            self._prefix_cache[key] = ent
+            self._prefix_bytes += ent["bytes"]
+            self._bump("prefix_cache_misses")
+            while (self._prefix_bytes > self.prefix_cache_mb * 1_000_000
+                   and len(self._prefix_cache) > 1):
+                old_key, old = self._prefix_cache.popitem(last=False)
+                self._prefix_bytes -= old["bytes"]
+                self._rehome(old_key, old)
+        return True
+
+    def _rehome(self, key: tuple, ent: dict) -> None:
+        """Hand the pending logits an evicted entry kept for pruned prefixes
+        to the most recently used entry that holds the same rows of that
+        prefix: the system prompt outlives the transcript that pruned it."""
+        for m, logits in ent["logits_at"].items():
+            for other in reversed(self._prefix_cache):
+                held = self._prefix_cache[other]
+                if len(other) <= m or other[:m] != key[:m]:
+                    continue
+                if m not in held["logits_at"] and self._same_rows(held, ent, m):
+                    held["logits_at"][m] = logits
+                break
+
+    def prefix_cache_stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._prefix_cache), "bytes": self._prefix_bytes}
+
+    # -- chat protocol: the engine's templates, through the prefix cache --
     def system_prompt(self, s: ChatSession) -> None:
-        self._prefill(s, self.engine.system_prompt)
+        """The system prompt, captured: every fresh session's system prompt
+        installs from the cache from the second session on."""
+        self.feed(s, self.engine.system_pieces())
+        self.capture_prefix(s)
 
     def begin_chat_image(self, s: ChatSession, embedding: np.ndarray, q: str) -> None:
-        self._prefill(s, self.engine.begin_chat_image, embedding, q)
+        self.feed(s, self.engine.chat_pieces(q, embedding))
 
     def begin_chat(self, s: ChatSession, q: str) -> None:
-        self._prefill(s, self.engine.begin_chat, q)
+        self.feed(s, self.engine.chat_pieces(q))
 
     def generate(self, s: ChatSession, limit: int, params: SamplingParams):
         """One session's stream: device-sampled chunks through the engine,
-        or, for mirostat, the session's host sampler one token at a time."""
+        or, for mirostat, the session's host sampler one token at a time.
+        A parked session is put back on its device first."""
+        with self._lock:
+            s.state.ensure_device()
         if params.mirostat != 0:
             chat = ""
             for _ in range(limit):
@@ -290,6 +500,8 @@ class SessionPool:
         in the same step (device sampling only, no mirostat).  With a page
         pool the group decodes paged when the pool can take it whole, and
         densely otherwise; ``paged=False`` decodes it densely regardless.
+        Parked sessions join from their host copies (a session left out
+        stays parked).
 
         Yields, once per decode chunk, a list of (session index, token) in
         the order per-session generation would emit them."""
@@ -324,12 +536,11 @@ class SessionPool:
         return [{"session": s, "limit": limits_all[act[i]], "chat": "", "emitted": 0,
                  "ends": s.n_past} for i, s in enumerate(batch)]
 
-    def _decode(self, cache, logits, pos, rows, batch, decode_chunk, page_table=None,
+    def _decode(self, cache, logits, pos, rows, gens, decode_chunk, page_table=None,
                 steps: StepGraphs | None = None):
-        """One decode chunk of the group, replaying ``steps``' graph where
-        given; returns (token ids per lane, the final logits).  Caller holds
-        the lock."""
-        gens = [s.state.generator for s in batch]
+        """One decode chunk of a group whose lanes draw from ``gens``,
+        replaying ``steps``' graph where given; returns (token ids per lane,
+        the final logits).  Caller holds the lock."""
         with torch.no_grad():
             if steps is not None:
                 tokens, logits = steps.decode_chunk(logits, pos, decode_chunk, gens, rows,
@@ -390,6 +601,8 @@ class SessionPool:
         n = len(batch)
         n_ctx = self.session_ctx
         with self._lock:
+            for s in batch:
+                s.state.ensure_device()  # a parked lane joins
             cache = {kv: torch.cat([s.state.cache[kv] for s in batch], dim=1)
                      for kv in ("k", "v")}
             logits = torch.stack([s.state.logits for s in batch])
@@ -412,8 +625,9 @@ class SessionPool:
                        and lanes[i]["ends"] > n_ctx - decode_chunk for i in range(n)):
                     break
                 with self._lock:
-                    lane_tokens, logits = self._decode(cache, logits, pos_host, rows, batch,
-                                                       decode_chunk)
+                    lane_tokens, logits = self._decode(
+                        cache, logits, pos_host, rows, [s.state.generator for s in batch],
+                        decode_chunk)
                 pos_host = [p + decode_chunk for p in pos_host]
                 yield self._deliver(act, lanes, lane_tokens, done, bump)
         finally:
@@ -466,11 +680,13 @@ class SessionPool:
         return pool
 
     def _try_admit_paged(self, batch: list[ChatSession]):
-        """Copy every lane's consumed prefix into pool pages, all or nothing.
-        Returns (page ids per lane, the admitting pool), or None when the pool
-        cannot take the whole group now (the group then decodes densely).
-        Lanes drop their dense caches only after every lane was copied; a
-        failure frees the group's pages and leaves every lane as it was."""
+        """Copy every lane's consumed prefix into pool pages, all or nothing,
+        a parked lane from its host copy (only its used rows cross to the
+        card).  Returns (page ids per lane, the admitting pool), or None when
+        the pool cannot take the whole group now (the group then decodes
+        densely).  Lanes drop their dense caches and parked copies only after
+        every lane was copied; a failure frees the group's pages and leaves
+        every lane as it was."""
         with self._lock:
             pool = self._live_paged_pool()
             if pool is None:
@@ -480,13 +696,15 @@ class SessionPool:
             lane_pages: list[list[int]] = []
             try:
                 for s in batch:
-                    lane_pages.append(pool.admit(s.state.cache, s.n_past))
+                    st = s.state
+                    lane_pages.append(pool.admit_host(st.parked, st.n_past) if st.parked is not None
+                                      else pool.admit(st.cache, st.n_past))
             except Exception:
                 for pages in lane_pages:
                     pool.free(pages)
                 return None
             for s in batch:
-                s.state.cache = None  # the pool copy is the live one
+                s.state.cache = s.state.parked = None  # the pool copy is the live one
             return lane_pages, pool
 
     def _paged_batch_stream(self, act, batch, lane_pages, pool, limits_all, rows,
@@ -501,7 +719,8 @@ class SessionPool:
         n = len(batch)
         n_ctx = min(self.session_ctx, pool.capacity)
         with self._lock:
-            logits = torch.stack([s.state.logits for s in batch])
+            # a lane admitted from its parked copy has its logits on the host
+            logits = torch.stack([s.state.logits.to(self.engine.device) for s in batch])
         table = np.stack([pool.table_row(p) for p in lane_pages])
         table_dev = None  # uploaded once, and again after a lane grew
         lanes = self._lanes(act, batch, limits_all)
@@ -528,8 +747,9 @@ class SessionPool:
                         table_dev = torch.tensor(table, dtype=torch.int32).to(self.engine.device)
                     try:
                         lane_tokens, logits = self._decode(
-                            {"k": pool.k, "v": pool.v}, logits, pos_host, rows, batch,
-                            decode_chunk, table_dev, self._paged_steps(pool))
+                            {"k": pool.k, "v": pool.v}, logits, pos_host, rows,
+                            [s.state.generator for s in batch], decode_chunk, table_dev,
+                            self._paged_steps(pool))
                     except Exception:
                         pool.broken = True  # the pool's contents are unknown now
                         raise
@@ -559,3 +779,444 @@ class SessionPool:
 
     def close(self) -> None:
         self.engine.close()
+
+
+IDLE = SamplingParams(temp=0.0)  # the rows of a batcher's free slots
+
+
+class ContinuousBatcher:
+    """Continuous (in-flight) batching, the JAX package's
+    ``ContinuousBatcher``: up to ``max_batch`` generations share one decode
+    group of fixed lane count, and a request joins at a chunk boundary
+    instead of waiting for the running group to drain.
+
+      * Dense mode (no page pool, or ``paged=False``): one stacked cache
+        ``[L, max_batch, H, session_ctx, Dh]`` allocated once.  A join copies
+        the session's cache into its slot in place (bits, no cast); a leave
+        clones the slot back into a private cache and rolls back overshoot
+        (:func:`_detach_lane_state`).  Idle slots decode at position 0 of
+        their own slot, which the next join overwrites.
+      * Paged mode (the pool's :class:`~.paged.PagedKVPool`): one page-table
+        row per slot; a join copies the session's rows into fresh pages (a
+        parked session from its host copy) and needs one growth page free
+        per active lane; a leave gathers the pages back.  Idle rows hold only
+        the trash page.  When the pool runs dry the youngest lane (by join
+        order) is preempted: it detaches whole and rejoins once pages free,
+        resuming its stream where it stopped.
+      * A lane that reaches the context end leaves; under ``context_shift``
+        it detaches, shifts its context and rejoins, so its stream goes on.
+
+    Each lane samples under its own config in the same dispatch
+    (``device_sampling.lane_rows``: all-greedy steps keep the static key,
+    any other mix the traced one) and draws from its session's generator;
+    an idle slot draws from a generator of the batcher's own, which nothing
+    reads.  On a CUDA engine at tp = 1 the group's decode chunks replay
+    captured CUDA graphs: the pool's paged steps, or steps over the stacked
+    cache in the engine's graph pool, whose address never moves.  Two keys
+    (all-greedy and traced) serve every step; :meth:`warmup` captures them
+    ahead of time.  Mirostat is refused (it samples on the host), and so is
+    an engine over tp ranks.
+
+    Requests enter through :meth:`submit`, which returns a queue of str
+    tokens ending with ``_DONE`` (after an exception, where one occurred);
+    a worker thread admits them and decodes.  No failure moves work to
+    another path: a failed join, admission or step reaches the request's
+    queue as an error."""
+
+    _DONE = object()
+    _STOP = object()
+
+    def __init__(self, pool: SessionPool, max_batch: int = 8,
+                 decode_chunk: int = DECODE_CHUNK, paged: bool | None = None):
+        eng = pool.engine
+        if eng.tp > 1:
+            raise NotImplementedError(
+                f"continuous batching over tp={eng.tp} ranks: serving over tp needs a rank-0 "
+                "controller (ROADMAP Queue 1, item 11b)")
+        if paged and pool.paged_pool is None:
+            raise ValueError("paged=True needs a pool with a page pool (paged_pool_pages)")
+        self.pool = pool
+        self.B = max_batch
+        self.decode_chunk = decode_chunk
+        self.paged = pool.paged_pool is not None if paged is None else paged
+        dev = eng.device
+        if self.paged:
+            ppool = pool.paged_pool
+            self._cache = None
+            self._pages: list[list[int]] = [[] for _ in range(max_batch)]
+            self._table = np.full((max_batch, ppool.maxp + 1), ppool.trash_page, np.int32)
+            self._table_dev: torch.Tensor | None = None  # uploaded again after a change
+        else:
+            self._cache = llama_mod.init_cache(pool._session_cfg, max_batch, eng.cache_dtype,
+                                               dev)
+        self._dense_steps: StepGraphs | None = None
+        self._logits = torch.zeros((max_batch, eng.llm_cfg.n_vocab), dtype=torch.float32,
+                                   device=dev)
+        self._pos = [0] * max_batch
+        self._idle_gens = [torch.Generator(device=dev).manual_seed(pool.seed ^ 0x00C0FFEE)
+                           for _ in range(max_batch)]
+        self._lanes: list[dict | None] = [None] * max_batch  # None: a free slot
+        self._deferred: list[tuple] = []  # waiting for a slot or pages
+        self._deferred_since: dict[int, float] = {}  # id(out) -> first deferral
+        self._join_seq = 0
+        self.joins = 0  # requests that joined while other lanes decoded
+        self.preemptions = 0  # lanes preempted by a dry page pool
+        self._q: queue.Queue = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    # -- the interface of the serve layer's window batcher --
+    def submit(self, session: ChatSession, limit: int, params: SamplingParams) -> queue.Queue:
+        """The session must hold a prepared prompt.  Returns a queue of str
+        tokens that ends with ``_DONE`` (after an exception, where one)."""
+        out: queue.Queue = queue.Queue()
+        if self._closed:
+            out.put(RuntimeError("continuous batcher is closed"))
+            out.put(self._DONE)
+            return out
+        self._q.put((session, limit, params, out))
+        return out
+
+    def close(self) -> None:
+        """Stop the worker: active lanes detach (their sessions roll back to
+        the consumed prefix), and every waiting client gets ``_DONE``."""
+        self._closed = True
+        self._q.put(self._STOP)
+        self._thread.join(timeout=60)
+
+    def warmup(self) -> dict:
+        """Capture the group's two decode chunks (all-greedy and traced
+        rows) ahead of time, before any lane joins: in paged mode through
+        :meth:`SessionPool.warmup` at this lane count (idle rows write only
+        the trash page), in dense mode over the stacked cache at position 0
+        of every slot.  Returns the seconds, graphs and graph-pool bytes.
+        Refused where the group runs eagerly (a CPU engine)."""
+        eng = self.pool.engine
+        if not eng.graphs_enabled:
+            raise RuntimeError(f"warmup captures CUDA graphs: this engine runs eagerly "
+                               f"(device {eng.device})")
+        if self.paged:
+            return self.pool.warmup(lanes=(self.B,), decode_chunk=self.decode_chunk)
+        v = eng.llm_cfg.n_vocab
+        t0 = time.perf_counter()
+        with self.pool._lock, torch.no_grad():
+            if any(lane is not None for lane in self._lanes):
+                raise RuntimeError("warmup writes every slot: it runs before any lane joins")
+            steps = self._steps()
+            logits = torch.zeros((self.B, v), dtype=torch.float32, device=eng.device)
+            gens = [torch.Generator(device=eng.device) for _ in range(self.B)]
+            for params in (IDLE, SamplingParams()):
+                steps.decode_chunk(logits, 0, self.decode_chunk, gens,
+                                   lane_rows([params] * self.B, v, eng.device), capture=True)
+            torch.cuda.synchronize(eng.device)
+        return {"warmup_s": time.perf_counter() - t0, "graphs": len(steps.graphs),
+                "keys": list(steps.graphs), "pool_bytes": eng.graph_stats()["pool_bytes"]}
+
+    # -- worker internals --
+    def _steps(self) -> StepGraphs | None:
+        """The captured steps of the group (None where it runs eagerly).
+        Caller holds the pool's lock, so no other thread runs device work
+        while a step captures (HTTP threads prefill, encode and park under
+        it); the capture's ``thread_local`` mode (``graphs.py``) keeps a
+        host read of another thread's pending logits outside the lock from
+        invalidating it."""
+        eng = self.pool.engine
+        if not eng.graphs_enabled:
+            return None
+        if self.paged:
+            return self.pool._paged_steps(self.pool.paged_pool)
+        if self._dense_steps is None:
+            self._dense_steps = StepGraphs(eng.llm_params, eng.llm_cfg, self._cache, eng.device,
+                                           eng.graph_pool)
+        return self._dense_steps
+
+    def _n_active(self) -> int:
+        return sum(lane is not None for lane in self._lanes)
+
+    def _defer(self, item) -> None:
+        self._deferred_since.setdefault(id(item[3]), time.monotonic())
+        self._deferred.append(item)
+
+    def _end(self, out, err: Exception | None = None) -> None:
+        """End a request's stream (with ``err`` first, where given)."""
+        if err is not None:
+            out.put(err)
+        out.put(self._DONE)
+        self._deferred_since.pop(id(out), None)
+
+    def _run(self) -> None:
+        while True:
+            # admission: block while idle, drain what is queued while busy
+            if self._n_active() == 0 and not self._deferred:
+                item = self._q.get()
+            else:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    item = None
+            stop = False
+            while item is not None:
+                if item is self._STOP:
+                    stop = True
+                    break
+                self._try_admit(item)
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    item = None
+            if stop:
+                for i, lane in enumerate(self._lanes):
+                    if lane is not None:
+                        self._abort_lane(i, None)
+                for it in self._deferred:
+                    it[3].put(self._DONE)
+                self._deferred = []
+                self._deferred_since.clear()
+                while True:
+                    try:
+                        it = self._q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if it is not self._STOP:
+                        it[3].put(self._DONE)
+                return
+            if self._deferred:
+                # waiters join the moment a slot or pages free, oldest first;
+                # the ones still blocked defer again
+                deferred, self._deferred = self._deferred, []
+                deferred.sort(key=lambda it: self._deferred_since.get(id(it[3]), 0.0))
+                for it in deferred:
+                    self._try_admit(it)
+            if self._n_active() == 0:
+                continue
+            try:
+                self._step()
+            except Exception as e:  # a device failure: every lane ends with it
+                print(f"[continuous] step failed: {type(e).__name__}: {e}", file=sys.stderr)
+                for i, lane in enumerate(self._lanes):
+                    if lane is not None:
+                        self._abort_lane(i, e)
+
+    def _try_admit(self, item) -> None:
+        """Admit, defer or refuse one request; never raises (a failure
+        reaches the request's own queue: an exception here would end the
+        worker and hang every client).  A fifth element (a lane dict) marks
+        a preempted or shifted lane rejoining: its chat, emitted count and
+        limit carry over, so EOS and limits act as if it never left."""
+        session, limit, params, out = item[:4]
+        resume = item[4] if len(item) > 4 else None
+        st = session.state
+        try:
+            if params.mirostat != 0 or st.logits is None:
+                self._end(out, ValueError("continuous batching needs a prepared prompt and "
+                                          "device sampling (no mirostat)"))
+                return
+            try:
+                slot = self._lanes.index(None)
+            except ValueError:
+                self._defer(item)
+                return
+            eng = self.pool.engine
+            if st.n_past + self.decode_chunk > st.n_ctx:
+                # no room for one chunk: under context shift slide the cache
+                # down first, else the stream is empty
+                if eng.context_shift:
+                    with self.pool._lock:
+                        st.ensure_device()
+                        eng.ctx_shift(st, self.decode_chunk)
+                if st.n_past + self.decode_chunk > st.n_ctx:
+                    self._end(out)
+                    return
+            with self.pool._lock:
+                if self.paged:
+                    ppool = self.pool._live_paged_pool()
+                    # one growth page per active lane stays free, so that a
+                    # join does not starve the running lanes at once
+                    if ppool is None or (ppool.free_pages
+                                         < ppool.pages_for(st.n_past) + self._n_active()):
+                        self._defer(item)
+                        return
+                    pages = (ppool.admit_host(st.parked, st.n_past) if st.parked is not None
+                             else ppool.admit(st.cache, st.n_past))
+                    try:
+                        self._join_lane(slot, st)
+                    except Exception:
+                        ppool.free(pages)  # the slot never activated: nothing else frees them
+                        raise
+                    self._pages[slot] = pages
+                    self._table[slot] = ppool.table_row(pages)
+                    self._table_dev = None
+                    st.parked = None
+                else:
+                    st.ensure_device()
+                    self._join_lane(slot, st)
+                st.cache = None  # the slot or the pages are the live copy now
+            self._deferred_since.pop(id(out), None)
+            self._pos[slot] = st.n_past
+            lane = {"session": session, "limit": limit, "out": out, "chat": "", "emitted": 0,
+                    "ends": st.n_past, "params": params}
+            if resume is not None:
+                lane.update(chat=resume["chat"], emitted=resume["emitted"],
+                            limit=resume["limit"])
+            elif self._n_active():
+                self.joins += 1
+            self._join_seq += 1
+            lane["seq"] = self._join_seq
+            self._lanes[slot] = lane
+        except Exception as e:
+            self._end(out, e)
+
+    def _join_lane(self, slot: int, st: DecodeState) -> None:
+        """Copy a joining state's pending logits into its slot's row and, in
+        dense mode, its cache into the slot, in place and as bits: the
+        session's cache and the stacked one share the engine's cache type
+        and ``session_ctx``, so nothing is cast.  Caller holds the lock."""
+        if not self.paged:
+            for kv in ("k", "v"):
+                src, dst = st.cache[kv], self._cache[kv]
+                if src.dtype != dst.dtype or src.shape[2:] != dst.shape[2:]:
+                    raise ValueError(f"session cache {src.dtype} {tuple(src.shape)} does not fit "
+                                     f"a slot of {dst.dtype} {tuple(dst.shape)}")
+                llama_mod._bits(dst)[:, slot].copy_(llama_mod._bits(src)[:, 0])
+        self._logits[slot].copy_(st.logits)
+
+    def _leave(self, slot: int, lane: dict, with_logits: bool) -> bool:
+        """Give a lane's cache back to its session (a clone of its slot, or
+        its pages gathered), rolling back overshoot, and free the slot's
+        pages.  On failure the session resets (its cache lived only in the
+        group).  Returns whether the detach worked."""
+        st = lane["session"].state
+        logits_row = self._logits[slot].clone() if with_logits else None
+        with self.pool._lock:
+            try:
+                if self.paged:
+                    ppool = self.pool.paged_pool
+                    pages, self._pages[slot] = self._pages[slot], []
+                    self._table[slot] = ppool.trash_page
+                    self._table_dev = None
+                    if ppool.broken:
+                        ppool.free(pages)
+                        raise RuntimeError("paged pool retired mid-flight")
+                    cache = ppool.evict(pages, self.pool.session_ctx)
+                else:
+                    cache = {kv: self._cache[kv][:, slot:slot + 1].clone() for kv in ("k", "v")}
+                _detach_lane_state(st, lane["ends"], self._pos[slot], cache, logits_row)
+                return True
+            except Exception:
+                self.pool._reset_lane_session(st)
+                return False
+            finally:
+                self._lanes[slot] = None
+                self._pos[slot] = 0
+
+    def _abort_lane(self, slot: int, err: Exception | None) -> None:
+        """Detach a lane at shutdown or after a failed step, leaving its
+        session coherent (``len(tokens) == n_past``), and end its stream."""
+        lane = self._lanes[slot]
+        self._leave(slot, lane, with_logits=False)
+        self._end(lane["out"], err)
+
+    def _finalize(self, slot: int, resume: bool = False) -> bool:
+        """Detach a lane that finished (or, with ``resume``, one that leaves
+        to rejoin later: its stream stays open).  Returns False where the
+        detach failed and the session had to reset; the client then hears
+        so."""
+        lane = self._lanes[slot]
+        ok = self._leave(slot, lane, with_logits=True)
+        if not resume:
+            self._end(lane["out"], None if ok else RuntimeError(
+                "lane detach failed; session state reset"))
+        return ok
+
+    def _preempt_one(self) -> bool:
+        """Preempt the youngest lane to fund the others: it detaches whole
+        and waits as a deferred resume item.  False when fewer than two
+        lanes are active."""
+        act = [i for i, lane in enumerate(self._lanes) if lane is not None]
+        if len(act) <= 1:
+            return False
+        victim = max(act, key=lambda i: self._lanes[i]["seq"])
+        lane = self._lanes[victim]
+        self.preemptions += 1
+        if self._finalize(victim, resume=True):
+            self._defer((lane["session"], lane["limit"], lane["params"], lane["out"], lane))
+        else:
+            self._end(lane["out"], RuntimeError("paged lane preemption failed; session reset"))
+        return True
+
+    def _step(self) -> None:
+        eng = self.pool.engine
+        chunk = self.decode_chunk
+        # a lane without room for a chunk leaves before the dispatch; under
+        # context shift an unfinished one detaches, shifts and rejoins
+        for i, lane in enumerate(self._lanes):
+            if lane is None or self._pos[i] + chunk <= self.pool.session_ctx:
+                continue
+            if not (eng.context_shift and lane["emitted"] < lane["limit"]):
+                self._finalize(i)
+            elif not self._finalize(i, resume=True):
+                self._end(lane["out"], RuntimeError("context-shift detach failed; session reset"))
+            else:
+                with self.pool._lock:
+                    dropped = eng.ctx_shift(lane["session"].state, chunk)
+                if dropped > 0:
+                    self._defer((lane["session"], lane["limit"], lane["params"], lane["out"],
+                                 lane))
+                else:  # nothing shiftable: the keep prefix fills the context
+                    self._end(lane["out"])
+        if self._n_active() == 0:
+            return
+        if self.paged:
+            # every lane gets pages one chunk ahead; a dry pool preempts the
+            # youngest lane and tries again; a lone lane it cannot grow ends
+            while True:
+                try:
+                    with self.pool._lock:
+                        ppool = self.pool.paged_pool
+                        for i, lane in enumerate(self._lanes):
+                            if lane is None:
+                                continue
+                            grown = ppool.extend(self._pages[i], self._pos[i] + chunk)
+                            if len(grown) != len(self._pages[i]):
+                                self._pages[i] = grown
+                                self._table[i] = ppool.table_row(grown)
+                                self._table_dev = None
+                    break
+                except PoolExhausted:
+                    if not self._preempt_one():
+                        self._finalize(next(i for i, lane in enumerate(self._lanes)
+                                            if lane is not None))
+                        return
+        act = [i for i, lane in enumerate(self._lanes) if lane is not None]
+        rows = lane_rows([lane["params"] if lane is not None else IDLE for lane in self._lanes],
+                         eng.llm_cfg.n_vocab, eng.device)
+        gens = [lane["session"].state.generator if lane is not None else self._idle_gens[i]
+                for i, lane in enumerate(self._lanes)]
+        with self.pool._lock:
+            if self.paged:
+                ppool = self.pool.paged_pool
+                if self._table_dev is None:
+                    self._table_dev = torch.tensor(self._table, dtype=torch.int32).to(eng.device)
+                try:
+                    lane_tokens, self._logits = self.pool._decode(
+                        {"k": ppool.k, "v": ppool.v}, self._logits, self._pos, rows, gens, chunk,
+                        self._table_dev, self._steps())
+                except Exception:
+                    ppool.broken = True  # the pool's contents are unknown now
+                    raise
+            else:
+                lane_tokens, self._logits = self.pool._decode(
+                    self._cache, self._logits, self._pos, rows, gens, chunk, None, self._steps())
+        self._pos = [p + chunk for p in self._pos]
+        tokenizer = eng.tokenizer
+        bump = lambda: self.pool._bump("tokens_generated")  # noqa: E731
+        for i in act:
+            lane = self._lanes[i]
+            deliver, finished = _consume_lane_tokens(lane, lane_tokens[i], tokenizer, bump)
+            for token in deliver:
+                lane["out"].put(token)
+            if finished:
+                self._finalize(i)
+        # idle slots decode at position 0 of their own slot (or the trash page)
+        self._pos = [p if lane is not None else 0 for p, lane in zip(self._pos, self._lanes)]

@@ -1,11 +1,10 @@
 """HTTP serving on the PyTorch port: a stdlib JSON API over
 :class:`~minigpt4_tpu_torch.engine.sessions.SessionPool`.
 
-Counterpart of ``minigpt4_tpu/serve.py`` for window-batched serving over
-the paged KV pool.  On a machine with an NVIDIA GPU:
+Counterpart of ``minigpt4_tpu/serve.py``.  On a machine with an NVIDIA GPU:
 
     python -m minigpt4_tpu_torch.serve model.bin vicuna.bin --session-ctx 512 \\
-        --batch-window-ms 30 --paged-pages 32
+        --continuous --max-batch 8 --paged-pages 32 --park-idle
 
 API (JSON unless noted):
   GET    /v1/models                            -> OpenAI model list
@@ -23,9 +22,16 @@ API (JSON unless noted):
                                                   ephemeral session (stream or not)
 
 Device work serializes inside the pool; HTTP handling is threaded.  With
+``--continuous`` generations join one running group of ``--max-batch``
+lanes at chunk boundaries (``sessions.ContinuousBatcher``); with
 ``--batch-window-ms`` the generations that arrive within the window decode
-as one batched group (``SessionPool.generate_batch_stream``), over the page
-pool when ``--paged-pages`` gives one.
+as one batched group (``SessionPool.generate_batch_stream``).  Both decode
+over the page pool when ``--paged-pages`` gives one.  ``--park-idle`` moves
+a session's cache to host memory between turns.  The radix prefix cache
+(on unless ``--no-prefix-cache``; ``--prefix-cache-mb``) serves every
+session's system prompt after the first, and the OpenAI route captures each
+transcript so that the next request of a conversation prefills only its new
+turn.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import numpy as np
 
 from .engine.engine import MiniGPT4Engine
 from .engine.sampling import SamplingParams
-from .engine.sessions import SessionPool
+from .engine.sessions import ContinuousBatcher, SessionPool
 from .image import preprocess
 
 MODEL_ID = "minigpt4-tpu"
@@ -54,13 +60,9 @@ MAX_BATCH = 8  # lanes of a window group
 # ROADMAP item of each and the values that ask for nothing the port lacks;
 # any other value fails at start-up
 UNPORTED = {
-    "continuous": ("continuous batching (ROADMAP Queue 1, item 13)", (False,)),
-    "max_batch": ("continuous batching (ROADMAP Queue 1, item 13)", (None,)),
     "speculative_k": ("speculative decoding (ROADMAP Queue 1, item 14)", (0,)),
     "draft_llm": ("draft-model speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
     "draft_head": ("draft-head speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
-    "prefix_cache_mb": ("the radix prefix cache (ROADMAP Queue 1, item 15)", (None,)),
-    "park_idle": ("parking idle sessions in host memory (ROADMAP Queue 1, item 16)", (False,)),
     "tp": ("serving over tp, which needs a rank-0 controller (ROADMAP Queue 1, item 11b)", (1,)),
 }
 
@@ -161,11 +163,18 @@ class _Batcher:
 
 class _Server:
     """Thin HTTP adapter; the pool's registry is the one record of which
-    sessions exist."""
+    sessions exist.  ``continuous`` takes precedence over a batch window."""
 
-    def __init__(self, pool: SessionPool, batch_window_s: float = 0.0):
+    def __init__(self, pool: SessionPool, batch_window_s: float = 0.0,
+                 continuous: bool = False, max_batch: int = 8, park_idle: bool = False):
         self.pool = pool
-        self.batcher = _Batcher(pool, batch_window_s) if batch_window_s > 0 else None
+        self.park_idle = park_idle
+        if continuous:
+            self.batcher = ContinuousBatcher(pool, max_batch=max_batch)
+        elif batch_window_s > 0:
+            self.batcher = _Batcher(pool, batch_window_s)
+        else:
+            self.batcher = None
 
     def create(self) -> int:
         return self.pool.new_session().session_id
@@ -266,21 +275,24 @@ def _host_generate(srv: _Server, s, limit: int, params, logprobs_top: int | None
         yield token, float(lp_dist[tid]), tops
 
 
-def _generation_tokens(srv: _Server, s, limit: int, params):
-    """One generation's tokens: through the window batcher where there is
-    one (device sampling only: mirostat keeps host state), else the
-    session's own stream."""
+def _generation_tokens(srv: _Server, s, limit: int, params, park: bool = True):
+    """One generation's tokens: through the batcher where there is one
+    (device sampling only: mirostat keeps host state), else the session's
+    own stream; then, under --park-idle, the session parks (``park=False``
+    for an ephemeral session that closes right after)."""
     if srv.batcher is None or params.mirostat != 0:
         yield from s.generate(limit=limit, params=params)
-        return
-    out = srv.batcher.submit(s, limit, params)
-    while True:
-        tok = out.get()
-        if tok is srv.batcher._DONE:
-            return
-        if isinstance(tok, Exception):
-            raise tok
-        yield tok
+    else:
+        out = srv.batcher.submit(s, limit, params)
+        while True:
+            tok = out.get()
+            if tok is srv.batcher._DONE:
+                break
+            if isinstance(tok, Exception):
+                raise tok
+            yield tok
+    if park and srv.park_idle:
+        s.park()  # the turn is done: the cache waits in host memory
 
 
 def _reseed(s, seed: int) -> None:
@@ -320,11 +332,12 @@ def make_handler(srv: _Server):
                 pool = srv.pool
                 body = {"ok": True, "sessions": srv.count(), "metrics": dict(pool.metrics),
                         "tok_s_30s": round(pool.generation_rate(), 2),
-                        "prefix_cache": {"enabled": False}}
+                        "prefix_cache": pool.prefix_cache_stats()}
                 if pool.paged_pool is not None:  # paged-KV capacity gauges
                     body["paged"] = {"free_pages": pool.paged_pool.free_pages,
                                      "total_pages": pool.paged_pool.n_pages,
-                                     "broken": pool.paged_pool.broken}
+                                     "broken": pool.paged_pool.broken,
+                                     "preemptions": getattr(srv.batcher, "preemptions", 0)}
                 self._json(200, body)
             else:
                 self._json(404, {"error": "not found"})
@@ -381,26 +394,28 @@ def make_handler(srv: _Server):
             s = srv.pool.new_session()
             try:
                 srv.pool.system_prompt(s)
-                have_img = False
-                for m in messages[:-1]:
+                # the transcript as the engine's template pieces, fed at once:
+                # the longest run of them the radix cache holds installs
+                pieces, have_img = [], False
+                for m in messages:
                     role, content = m.get("role"), m.get("content")
                     if role == "user":
                         text, px = self._oai_parse_user(content)
+                        emb = None
                         if px is not None and not have_img:
-                            s.encode_image(px)
-                            s.is_image_chat = have_img = True
-                        s.ask(text)
+                            emb, have_img = s.encode_image(px), True
+                        pieces += srv.pool.engine.chat_pieces(text, emb)
                     elif role == "assistant":
                         # a replayed reply ends with the "###" separator the
                         # live decode leaves in the cache
                         reply = (content if isinstance(content, str)
                                  else "".join(p.get("text", "") for p in (content or [])))
-                        srv.pool._add_strings(s, reply + "###")
-                text, px = self._oai_parse_user(messages[-1].get("content"))
-                if px is not None and not have_img:
-                    s.encode_image(px)
-                    s.is_image_chat = True
-                s.ask(text)
+                        pieces.append(("text", reply + "###"))
+                srv.pool.feed(s, pieces)
+                # the whole replayed transcript into the radix cache before
+                # decoding: the conversation's next request (these messages,
+                # the reply, a new turn) then prefills only its new turn
+                srv.pool.capture_prefix(s)
                 prompt_tokens = s.n_past
                 if req.get("seed") is not None:
                     _reseed(s, int(req["seed"]))
@@ -412,7 +427,7 @@ def make_handler(srv: _Server):
                                                   logprobs_top=top_lp if want_lp else None,
                                                   presence=presence, frequency=frequency)
                     else:
-                        for tok in _generation_tokens(srv, s, limit, params):
+                        for tok in _generation_tokens(srv, s, limit, params, park=False):
                             yield tok, None, None
 
                 def lp_entry(tok, lp, tops):
@@ -511,6 +526,8 @@ def make_handler(srv: _Server):
                 if m.group(3) == "image":
                     img = decode_image(self._body())
                     s.upload_image(preprocess(img, size=srv.pool.engine.vision_cfg.vit.image_size))
+                    if srv.park_idle:
+                        s.park()  # the user types the question meanwhile
                     self._json(200, {"ok": True})
                     return
                 req = json.loads(self._body() or b"{}")
@@ -547,7 +564,7 @@ def make_handler(srv: _Server):
 
 
 class _HTTPServer(ThreadingHTTPServer):
-    """The HTTP server; ``server_close`` also stops the window batcher."""
+    """The HTTP server; ``server_close`` also stops the batcher."""
 
     batcher = None
 
@@ -558,31 +575,41 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000,
-                 session_ctx: int = 512, batch_window_s: float = 0.0,
-                 paged_pages: int | None = None, **engine_kwargs) -> ThreadingHTTPServer:
+                 session_ctx: int = 512, batch_window_s: float = 0.0, continuous: bool = False,
+                 max_batch: int = 8, park_idle: bool = False, paged_pages: int | None = None,
+                 prefix_cache: bool = True, prefix_cache_mb: int = 512,
+                 **engine_kwargs) -> ThreadingHTTPServer:
     """Load the model, build the session pool and bind the server (not yet
     serving: call ``serve_forever``; ``shutdown`` stops serving,
     ``server_close`` releases the socket and stops the batcher, whose
     thread holds the pool).  ``port=0`` binds an ephemeral port.  Where the
-    window batcher decodes paged groups from captured CUDA graphs, the pool
-    captures them first for every lane count up to MAX_BATCH
-    (:meth:`SessionPool.warmup`; its figures are ``httpd.warmup``, else
-    None).
+    batcher decodes from captured CUDA graphs, they are captured first: the
+    continuous batcher's two chunks at ``max_batch`` lanes
+    (:meth:`ContinuousBatcher.warmup`), or the window batcher's paged
+    group at every lane count up to MAX_BATCH (:meth:`SessionPool.warmup`);
+    the figures are ``httpd.warmup``, else None.
     Options of the JAX package's server that the port does not serve yet
     (``UNPORTED``) raise NotImplementedError naming their ROADMAP item."""
     for name, (what, served) in UNPORTED.items():
         if name in engine_kwargs and engine_kwargs.pop(name) not in served:
             raise NotImplementedError(f"{name}: {what} is not ported yet")
     pool = SessionPool(model_path, llm_path, session_ctx=session_ctx,
-                       paged_pool_pages=paged_pages, **engine_kwargs)
-    warm = None
-    if batch_window_s > 0 and pool.paged_pool is not None and pool.engine.graphs_enabled:
-        try:
-            warm = pool.warmup(range(1, MAX_BATCH + 1))
-        except BaseException:
-            pool.close()
-            raise
-    srv = _Server(pool, batch_window_s=batch_window_s)
+                       paged_pool_pages=paged_pages, prefix_cache=prefix_cache,
+                       prefix_cache_mb=prefix_cache_mb, **engine_kwargs)
+    srv = warm = None
+    try:
+        srv = _Server(pool, batch_window_s=batch_window_s, continuous=continuous,
+                      max_batch=max_batch, park_idle=park_idle)
+        if pool.engine.graphs_enabled:
+            if continuous:
+                warm = srv.batcher.warmup()
+            elif batch_window_s > 0 and pool.paged_pool is not None:
+                warm = pool.warmup(range(1, MAX_BATCH + 1))
+    except BaseException:
+        if srv is not None and srv.batcher is not None:
+            srv.batcher.close()
+        pool.close()
+        raise
     httpd = _HTTPServer((host, port), make_handler(srv))
     httpd.pool = pool  # for tests and shutdown
     httpd.warmup = warm
@@ -622,16 +649,27 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--smooth-scales", default=None, metavar="NPZ",
                     help="smooth-quant scales of minigpt4_tpu_torch.quality (--save-scales), "
                     "folded into the decoder's w8a8 weights (auto resolves to w8a8)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: generations join one running group of "
+                    "--max-batch lanes at chunk boundaries instead of waiting for it to drain "
+                    "(takes precedence over --batch-window-ms)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="lanes of the --continuous group (dense: one stacked cache of this "
+                    "many sessions; paged: page-table rows)")
+    ap.add_argument("--park-idle", action="store_true",
+                    help="between turns, move each session's KV cache to host memory, trimmed "
+                    "to its consumed prefix; the next request puts it back")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="turn off the radix prefix cache (every session then prefills the "
+                    "system prompt, and every OpenAI request its whole transcript)")
+    ap.add_argument("--prefix-cache-mb", type=int, default=512, metavar="MB",
+                    help="host memory for the radix prefix cache (least recently used "
+                    "entries go first)")
     # the JAX server's options that the port does not serve yet: accepted so
     # that asking for one names its ROADMAP item instead of a usage error
-    ap.add_argument("--continuous", action="store_true")
-    ap.add_argument("--max-batch", type=int, default=None)
-    ap.add_argument("--park-idle", action="store_true")
     ap.add_argument("--speculative-k", type=int, default=0)
     ap.add_argument("--draft-llm", default=None)
     ap.add_argument("--draft-head", default=None)
-    ap.add_argument("--prefix-cache-mb", type=int, default=None)
-    ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
     args = ap.parse_args(argv)
     try:
@@ -642,7 +680,10 @@ def main(argv: list[str] | None = None) -> None:
                              quant_mode=args.quant_mode,
                              cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
                              smooth_scales=args.smooth_scales,
-                             context_shift=args.ctx_shift,
+                             context_shift=args.ctx_shift, continuous=args.continuous,
+                             max_batch=args.max_batch, park_idle=args.park_idle,
+                             prefix_cache=not args.no_prefix_cache,
+                             prefix_cache_mb=args.prefix_cache_mb,
                              **{name: getattr(args, name) for name in UNPORTED})
     except NotImplementedError as e:
         ap.error(str(e))

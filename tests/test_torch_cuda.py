@@ -57,6 +57,7 @@ from minigpt4_tpu_torch.engine.device_sampling import DeviceSamplingConfig
 from minigpt4_tpu_torch.engine.sessions import SessionPool
 from minigpt4_tpu_torch.formats import DataType, quants
 from minigpt4_tpu_torch.image import preprocess
+from minigpt4_tpu_torch.models.llama import _bits
 from minigpt4_tpu_torch.ops import _build, counters
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
@@ -1639,3 +1640,160 @@ def test_capi_through_ctypes_runs_on_the_card(cuda_device, tmp_path, monkeypatch
     finally:
         eng.close()
     assert got == want
+
+
+def _continuous_run(pool, paged: bool, graphs: bool, warm: bool = False):
+    """Three requests (one sampling, generators seeded alike) through a
+    ContinuousBatcher of 4 lanes, the third joining while the others decode;
+    returns each session's ids and final logits, the batcher's graph keys
+    and the paged kernel's launches."""
+    from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
+
+    pool.engine.graphs_enabled = graphs
+    cb = ContinuousBatcher(pool, max_batch=4, decode_chunk=8, paged=paged)
+    try:
+        stats = cb.warmup() if warm else None
+        params = [SamplingParams(temp=0.0), SamplingParams(temp=0.8), SamplingParams(temp=0.0)]
+        sessions = []
+        for i, q in enumerate(("one two", "three four five", "six")):
+            s = pool.new_session()
+            pool.begin_chat(s, q)
+            s.state.generator.manual_seed(300 + i)
+            sessions.append(s)
+        before = tfd.paged_flash_decode_attention.launches
+        outs = [cb.submit(s, 24, p) for s, p in zip(sessions[:2], params)]
+        assert isinstance(outs[0].get(timeout=300), str)  # the group decodes
+        outs.append(cb.submit(sessions[2], 24, params[2]))
+        for out in outs:
+            while (t := out.get(timeout=300)) is not cb._DONE:
+                assert not isinstance(t, Exception), t
+        torch.cuda.synchronize()
+        steps = cb._steps()
+        return dict(ids=[list(s.state.tokens) for s in sessions],
+                    logits=[s.state.logits for s in sessions],
+                    keys=set(steps.graphs) if steps is not None else set(),
+                    paged_launches=tfd.paged_flash_decode_attention.launches - before,
+                    stats=stats)
+    finally:
+        cb.close()
+        pool.engine.graphs_enabled = True
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_captured_continuous_chunk_equals_eager(cuda_device, tmp_path, paged):
+    """The continuous batcher's captured chunks (warmed up: two graphs at
+    four lanes) give the eager batcher's ids for the same requests, greedy
+    and sampled, a mid-flight join included, and final logits within
+    GRAPH_TOL; the paged kernel runs in paged mode only."""
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                       paged_pool_pages=12, device=cuda_device)
+    try:
+        cap = _continuous_run(pool, paged, graphs=True, warm=True)
+        eager = _continuous_run(pool, paged, graphs=False)
+        assert cap["stats"]["graphs"] == 2 and len(cap["keys"]) == 2
+        assert cap["ids"] == eager["ids"]
+        for a, b in zip(cap["logits"], eager["logits"]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _rel(a, b) <= GRAPH_TOL
+        assert (cap["paged_launches"] > 0) == paged and (eager["paged_launches"] > 0) == paged
+        assert pool.paged_pool.free_pages == 12
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_continuous_server_start_captures_two_graphs(cuda_device, tmp_path, paged):
+    """A continuous server of max_batch 4 captures exactly its two group
+    chunks as it starts (paged over the pool, or dense over its stacked
+    cache), and answers a chat."""
+    import json
+    import threading
+    import urllib.request
+
+    from minigpt4_tpu_torch import serve
+
+    model, llm = build_gq_models(tmp_path)
+    httpd = serve.start_server(model, llm, port=0, session_ctx=256, n_ctx=256, n_batch=32,
+                               continuous=True, max_batch=4, park_idle=True,
+                               paged_pages=12 if paged else None, device="cuda")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        assert httpd.warmup["graphs"] == 2 and httpd.batcher.paged == paged
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/v1/sessions", data=b"", method="POST"), timeout=60) as r:
+            sid = json.loads(r.read())["session_id"]
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/v1/sessions/{sid}/chat", method="POST", data=json.dumps(
+                    {"message": "hi", "limit": 8, "temp": 0.0}).encode()), timeout=300) as r:
+            assert isinstance(json.loads(r.read())["text"], str)
+        assert len(httpd.batcher._steps().graphs) == 2
+        assert httpd.pool._sessions[sid].state.parked is not None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.pool.close()
+
+
+@pytest.mark.parametrize("stage_bytes", [4096, 32 << 20])
+def test_staged_host_copies_bit_equal(cuda_device, monkeypatch, stage_bytes):
+    """Cache rows to pageable host memory and back through the page-locked
+    staging buffers (``engine/hostcopy.py``), in many pieces and in one:
+    bit-equal both ways into strided views, the host copy not page-locked."""
+    from minigpt4_tpu_torch.engine import hostcopy
+
+    monkeypatch.setattr(hostcopy, "_STAGE", hostcopy._Stage(stage_bytes))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        cache = torch.randn((3, 1, 4, 64, 16), generator=g).to(dtype).to(cuda_device)
+        rows = _bits(cache[:, :, :, :37])
+        host = hostcopy.host_copy(rows)
+        assert host.device.type == "cpu" and not host.is_pinned()
+        assert torch.equal(host, rows.cpu())
+        back = torch.zeros_like(cache)
+        hostcopy.copy_from_host_(_bits(back)[:, :, :, :37], host)
+        assert torch.equal(_bits(back)[:, :, :, :37], rows)
+        assert not _bits(back)[:, :, :, 37:].any()
+        logits = torch.randn(1000, generator=g).to(cuda_device)
+        assert torch.equal(hostcopy.host_copy(logits), logits.cpu())
+
+
+@pytest.mark.parametrize("cache_dtype", ["f32", "bf16", "f8"])
+def test_park_and_prefix_hit_on_card_bit_equal(cuda_device, tmp_path, cache_dtype):
+    """On the card: a radix hit installs the rows and logits of the system
+    prompt's prefill bit for bit into the session's own cache tensors; a
+    park moves rows [0, n_past) to host memory and ensure_device
+    brings them back bit for bit; admit_host fills the pages admit fills."""
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32, paged_pool_pages=8,
+                       device=cuda_device, cache_dtype=cache_dtype)
+    bits = _bits
+    try:
+        a, b = pool.new_session(), pool.new_session()
+        pool.system_prompt(a)
+        ptr = b.state.cache["k"].data_ptr()
+        pool.system_prompt(b)
+        n = a.n_past
+        assert pool.metrics["prefix_cache_hits"] == 1 and b.state.cache["k"].data_ptr() == ptr
+        for kv in ("k", "v"):
+            assert torch.equal(bits(a.state.cache[kv][:, :, :, :n]),
+                               bits(b.state.cache[kv][:, :, :, :n]))
+        assert torch.equal(a.state.logits, b.state.logits)
+        rows = {kv: bits(t[:, :, :, :n]).clone() for kv, t in a.state.cache.items()}
+        a.park()
+        assert a.state.parked["k"].device.type == "cpu" and a.state.parked["k"].shape[3] == n
+        pages = pool.paged_pool.admit_host(a.state.parked, n)
+        twin = pool.paged_pool.admit(b.state.cache, n)
+        for kv in ("k", "v"):
+            t = bits(getattr(pool.paged_pool, kv))
+            assert torch.equal(t[:, pages], t[:, twin])
+        pool.paged_pool.free(pages + twin)
+        with pool._lock:
+            a.state.ensure_device()
+        for kv in ("k", "v"):
+            assert torch.equal(bits(a.state.cache[kv][:, :, :, :n]), rows[kv])
+        assert a.state.logits.is_cuda and torch.equal(a.state.logits, b.state.logits)
+    finally:
+        pool.close()

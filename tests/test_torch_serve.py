@@ -20,6 +20,7 @@ from PIL import Image
 
 from fixtures import build_gq_models, build_tiny_models
 from minigpt4_tpu_torch import serve
+from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
 
 IMAGE = np.random.default_rng(0).integers(0, 255, (40, 40, 3), dtype=np.uint8)
 
@@ -100,11 +101,16 @@ def _png(arr) -> bytes:
 
 
 def test_health_and_models(paged_server):
-    base, _ = paged_server
+    base, httpd = paged_server
+
+    def httpd_stats(_):  # JAX's stats of the radix prefix cache
+        return httpd.pool.prefix_cache_stats()
+
     st, h = _get(base, "/v1/health")
     assert st == 200 and h["ok"] is True
-    assert "tok_s_30s" in h and h["prefix_cache"] == {"enabled": False}
-    assert h["paged"] == {"free_pages": 8, "total_pages": 8, "broken": False}
+    assert "tok_s_30s" in h and set(h["prefix_cache"]) == {"entries", "bytes"}
+    assert h["prefix_cache"] == httpd_stats(base)
+    assert h["paged"] == {"free_pages": 8, "total_pages": 8, "broken": False, "preemptions": 0}
     st, models = _get(base, "/v1/models")
     assert models["data"][0]["id"] == serve.MODEL_ID
 
@@ -284,22 +290,179 @@ def test_tiny_model_batched_server_matches_plain(tmp_path):
             srv.pool.close()
 
 
-@pytest.mark.parametrize("flag,item", [("--continuous", "item 13"), ("--max-batch=4", "item 13"),
+def _main_unserved(monkeypatch, argv):
+    """serve.main on ``argv`` with the server bound but not served; returns
+    the server."""
+    started = []
+    real = serve.start_server
+
+    def start(*a, **k):
+        httpd = real(*a, **k)
+        httpd.serve_forever = lambda: None  # bound, not served
+        started.append(httpd)
+        return httpd
+
+    monkeypatch.setattr(serve, "start_server", start)
+    serve.main(argv)
+    return started[0]
+
+
+@pytest.mark.parametrize("flag,item", [("--continuous", None), ("--max-batch=4", None),
                                        ("--speculative-k=4", "item 14"),
-                                       ("--no-prefix-cache", None), ("--park-idle", "item 16"),
+                                       ("--no-prefix-cache", None), ("--park-idle", None),
                                        ("--tp=2", "item 11")])
-def test_unported_options_fail_at_start_up(flag, item, capsys):
-    """An option of the JAX server that the port does not serve yet stops the
-    server before it loads anything, naming its ROADMAP item."""
-    if item is None:  # the prefix cache is off already: asking for it off is fine
-        with pytest.raises(FileNotFoundError):
-            serve.main(["missing-model.bin", "missing-llm.bin", flag, "--device", "cpu"])
+def test_unported_options_fail_at_start_up(flag, item, gq_files, monkeypatch, capsys):
+    """An option of the JAX server that the port does not serve yet
+    (speculative decoding, serving over tp) stops the server before it loads
+    anything, naming its ROADMAP item.  The options of continuous batching,
+    parking and the prefix cache reach the batcher or the pool, and a chat
+    runs through them."""
+    if item is not None:
+        with pytest.raises(SystemExit):
+            serve.main(["missing-model.bin", "missing-llm.bin", flag])
+        assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 14"):
+            serve.start_server("missing-model.bin", "missing-llm.bin", speculative_k=4)
         return
-    with pytest.raises(SystemExit):
-        serve.main(["missing-model.bin", "missing-llm.bin", flag])
-    assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        serve.start_server("missing-model.bin", "missing-llm.bin", continuous=True)
+    extra = ["--continuous"] if flag.startswith("--max-batch") else []
+    httpd = _main_unserved(monkeypatch, [str(gq_files[0]), str(gq_files[1]), "--device", "cpu",
+                                         "--port", "0", "--n-ctx", "256", "--session-ctx", "256",
+                                         flag, *extra])
+    threading.Thread(target=type(httpd).serve_forever, args=(httpd,), daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    pool = httpd.pool
+    try:
+        if flag in ("--continuous", "--max-batch=4"):
+            assert isinstance(httpd.batcher, ContinuousBatcher)
+            assert httpd.batcher.B == (4 if extra else 8) and not httpd.batcher.paged
+        else:
+            assert httpd.batcher is None
+        assert pool.prefix_cache == (flag != "--no-prefix-cache")
+        _, body = _post(base, "/v1/sessions")
+        sid = json.loads(body)["session_id"]
+        _post(base, f"/v1/sessions/{sid}/chat",
+              json.dumps({"message": "hi", "limit": 3, "temp": 0.0}).encode())
+        s = pool._sessions[sid]
+        assert (s.state.parked is not None) == (flag == "--park-idle")
+        assert pool.metrics["tokens_generated"] > 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        pool.close()
+
+
+def test_continuous_serving_matches_plain(gq_files, plain_server):
+    """--continuous: staggered concurrent chats join the running group (two
+    lanes, three requests, so one waits for a slot) and get the greedy text
+    of sessions that decode alone; the batcher's joins are counted (the
+    first request runs ten chunks, the others start after its first)."""
+    httpd, base = _start(*gq_files, continuous=True, max_batch=2)
+    limits = [160, 8, 8]
+    try:
+        texts, threads = {}, []
+        for i in range(3):
+            threads.append(threading.Thread(target=lambda i=i: texts.__setitem__(
+                i, _chat(base, f"prompt {i}", limit=limits[i]))))
+            threads[-1].start()
+            if i == 0:
+                while httpd.pool.metrics["tokens_generated"] == 0:
+                    threading.Event().wait(0.01)
+        for t in threads:
+            t.join()
+        assert [texts[i] for i in range(3)] == [
+            _chat(plain_server[0], f"prompt {i}", limit=limits[i]) for i in range(3)]
+        assert httpd.batcher.joins >= 1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.pool.close()
+
+
+def test_paged_batched_serving_with_park_idle(gq_files, plain_server):
+    """Window batching over the page pool with --park-idle: the groups admit
+    parked sessions from their host copies, the texts equal sessions that
+    decode alone, every page returns, and the sessions park after the turn."""
+    httpd, base = _start(*gq_files, batch_window_s=0.2, paged_pages=8, park_idle=True)
+    try:
+        texts = {}
+        threads = [threading.Thread(target=lambda i=i: texts.__setitem__(i, _chat(
+            base, f"prompt {i}"))) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert [texts[i] for i in range(3)] == [_chat(plain_server[0], f"prompt {i}")
+                                                for i in range(3)]
+        _, h = _get(base, "/v1/health")
+        assert h["paged"] == {"free_pages": 8, "total_pages": 8, "broken": False,
+                              "preemptions": 0}
+        assert all(s.state.parked is not None for s in httpd.pool._sessions.values())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.pool.close()
+
+
+def test_park_idle_serving(gq_files, plain_server):
+    """--park-idle: a session holds no device cache between turns (after an
+    image upload too), and its turns give the text of a session that never
+    parked."""
+    httpd, base = _start(*gq_files, park_idle=True)
+    try:
+        texts = []
+        for b in (base, plain_server[0]):
+            _, body = _post(b, "/v1/sessions")
+            sid = json.loads(body)["session_id"]
+            assert _post(b, f"/v1/sessions/{sid}/image", _png(IMAGE))[0] == 200
+            if b == base:
+                s = httpd.pool._sessions[sid]
+                assert s.state.cache is None and s.state.parked is not None
+            turns = []
+            for msg in ("hello", "and?"):
+                _, body = _post(b, f"/v1/sessions/{sid}/chat", json.dumps(
+                    {"message": msg, "limit": 4, "temp": 0.0}).encode())
+                turns.append(json.loads(body)["text"])
+                if b == base:
+                    assert s.state.cache is None and s.state.parked is not None
+            texts.append(turns)
+        assert texts[0] == texts[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.pool.close()
+
+
+def test_openai_replay_rides_the_prefix_cache(gq_files, plain_server):
+    """The OpenAI route captures each transcript before decoding: the next
+    request of the conversation prefills only its new turn, on a continuous
+    paged server with --park-idle, with the text of a server whose pool has
+    the cache off."""
+    httpd, base = _start(*gq_files, continuous=True, max_batch=2, paged_pages=8,
+                         park_idle=True)
+    off, off_base = _start(*gq_files, prefix_cache=False)
+    try:
+        def chat(b, messages):
+            _, body = _post(b, "/v1/chat/completions", json.dumps(
+                {"messages": messages, "temperature": 0.0, "max_tokens": 6}).encode())
+            return json.loads(body)["choices"][0]["message"]["content"]
+
+        first = [{"role": "user", "content": "hello there"}]
+        reply = chat(base, first)
+        assert reply == chat(off_base, first)
+        prefilled = httpd.pool.metrics["tokens_prefilled"]
+        second = first + [{"role": "assistant", "content": reply},
+                          {"role": "user", "content": "and then?"}]
+        assert chat(base, second) == chat(off_base, second)
+        m = httpd.pool.metrics
+        assert m["tokens_prefilled"] - prefilled < off.pool.metrics["tokens_prefilled"] / 2
+        assert m["prefix_cache_hits"] >= 2 and _get(base, "/v1/health")[1]["prefix_cache"][
+            "entries"] >= 1
+        assert httpd.pool.paged_pool.free_pages == 8
+    finally:
+        for srv in (httpd, off):
+            srv.shutdown()
+            srv.server_close()
+            srv.pool.close()
 
 
 def test_w8a8_f8_smooth_options_reach_the_engine(tmp_path, monkeypatch):
