@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's one-image chat path (unpacked and packed gq codes),
-its batched HTTP serving paths (window groups; continuous batching with
+its speculative decoding paths, its batched HTTP serving paths (window groups; continuous batching with
 parked sessions and the radix prefix cache), its quantized-container / repacked-weight
 path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
 on one card), its dequant-matmul probes and its clients (context shift,
@@ -8,7 +8,8 @@ chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
 NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
-(--only-serving, --only-clients, --only-kernels SECTIONS: one phase alone, no result line)
+(--only-serving, --only-clients, --only-speculative, --only-kernels SECTIONS: one phase
+alone, no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -80,6 +81,43 @@ Phases (any failure exits nonzero before the last line):
                flash kernels, and neither a packed entry; a' the packed p5 and
                p6 entries and b' the other six, and neither an unpacked gq
                entry.
+  4''. speculative - (inside a and a', on a's loaded engine, warmed up,
+               then its speculative dispatches captured by warmup at k = 8;
+               every stream through generate) a. greedy n-gram drafts at
+                  k = 8 on the image turn, 64 ids: the plain captured
+                  chunks, the speculative stream eager (32 ids), then two
+                  captured runs, the second all replays (graph keys
+                  ("spec", 1, passes, 8, None) in graph_stats); tok/s of
+                  each, tokens per pass, the launches of flash decode at
+                  S = 8 (= layers x passes) and gq at M = 8; b. sampled
+                  n-gram speculation (temp 0.8, top-k 40), 32 ids eager and
+                  twice captured from the generator seeded alike: equal
+                  ids, a ("spec_stoch", ...) graph replayed, tokens per
+                  pass and the residual ban; c. the 7B q5_k file (8 layers)
+                  as draft_llm_path (engine.set_drafter); d. a random draft
+                  head of init_draft_head (d_main 5120), saved and loaded
+                  (16 ids each).  f., after the 7B chat on its engine: the
+                  7B file drafting for itself on a text turn, so that
+                  drafts hold: 48 ids, more than 2 tokens per pass.  Every
+                  greedy stream must
+                  give the plain stream's ids, or leave them only where the
+                  plain top-2 margin is a tie (SPEC_TIE_DECODE;
+                  spec_ids_check prints where).  Each sub-path's launch
+                  counts are set to 0 just before and read just after
+                  ("speculative ..." paths).  e., in phase 5 (spec_batch):
+                  copies of the eight prepared sessions as a plain paged
+                  group, then with speculative_k = 8 as a paged window
+                  group and through a ContinuousBatcher (8 lanes, paged):
+                  the plain ids up to ties within SPEC_TIE_PREFILL (a
+                  verify of 64 rows runs the bf16 prefill matmul),
+                  aggregate tok/s and spec_demotions ("speculative
+                  batched" path); b'. the first two sessions as one group
+                  of a greedy and a sampled lane (M = 16): the greedy
+                  lane's plain ids, each lane's tokens per lane-pass of the
+                  sampled verify steps.  `python3 chip_smoke.py
+                  --only-speculative` runs phases 1-2, a-d on a fresh 13B
+                  engine, f on a 7B engine and e, b' on a session pool, and
+                  prints no result line.
   5. serving - minigpt4_tpu_torch.serve.start_server on the 13B files with
                session_ctx 512, a 30 ms batch window and a pool of 32 pages,
                on an ephemeral port.  Eight client threads each create a
@@ -223,7 +261,8 @@ Phases (any failure exits nonzero before the last line):
                over the two ranks (1024 positions each) against the kernel on
                the whole cache, 2e-5, counting the stats kernel's launches
                (the "sp" path).
-  10. clients - (after phase 8) the 13B Q5_K_M files through
+  10. clients - (after phase 8) the 13B Q5_K_M geometry cut to 8 layers
+               (LLM_13B_CLIENTS) and the 13B f16 container through
                MiniGPT4Engine(n_ctx=512, n_batch=64, context_shift=True), graphs
                on: a. the system prompt and image turn (235 positions), saved
                with save_state, then 400 greedy ids through generate, which
@@ -239,7 +278,7 @@ Phases (any failure exits nonzero before the last line):
                moving each time; the save and restore seconds and the file
                size.  c. libminigpt4_torch.so (c_api/_build.py, g++) and the
                unchanged examples/main.c compiled against it, run as a process
-               on the 13B files with no MINIGPT4_TPU_DEVICE: its stream must
+               on the same files with no MINIGPT4_TPU_DEVICE: its stream must
                equal the engine's greedy text for main.c's zero image and
                prompt (the engine of a-b, then closed); then the same library
                through ctypes in this process (launch counts set to 0 after
@@ -2444,7 +2483,8 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
         # (on copies of the prepared sessions, before paged_vs_dense moves them on)
         graph_cmp = (dict(uncounted(lambda: paged_graph_ab(pool, prepared, card)), warmup=warm)
                      if cuda else None)
-        cmp = dict(paged_vs_dense(pool, prepared, card, sync), graphs=graph_cmp)
+        spec = spec_batch(pool, prepared, card, sync) if cuda else None
+        cmp = dict(paged_vs_dense(pool, prepared, card, sync), graphs=graph_cmp, spec_batch=spec)
         peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
         log(f"[serving] peak device memory {peak:.2f} GB  [{card}]")
     finally:
@@ -2458,6 +2498,447 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
             torch.cuda.empty_cache()
     return dict(counts=counts, load_s=t_load, groups=groups, agg_tok_s=n_gen / span, warmup=warm,
                 per_request_tok_s=per_lane, peak_gb=peak, **cmp)
+
+
+# ---------------------------------------------------------------------------
+# phase 4'': speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 8  # verify width: S = 8 rows, M = 8 at one lane
+SPEC_TOKENS = 64
+SPEC_EAGER_TOKENS = 32  # of the eager single streams
+SPEC_DRAFT_TOKENS = 16  # of the drafted streams, whose draft steps run eagerly
+SPEC_ACCEPT_TOKENS = 48  # of the self-drafted stream, whose drafts hold
+SPEC_BATCH_TOKENS = 32
+SAMPLED = dict(temp=0.8, top_k=40)
+# where speculative ids leave plain greedy's, the plain top-2 logit margin at
+# that position must be below this share of max|logit|: a tie the two
+# paths' roundings may break either way.  A verify of at most 8 rows runs
+# the decode matmuls as a plain step does (last-bit differences between
+# M = 8 and M = 1 rows and S = 8 and S = 1 attention); a batched verify of
+# B * k > 8 rows runs the bf16 prefill matmul, as the JAX package's does
+SPEC_TIE_DECODE = 1e-4
+SPEC_TIE_PREFILL = 2e-2
+
+
+def _margin(logits: torch.Tensor) -> tuple[float, float]:
+    """(top-2 gap, max |logit|) of pending logits [V]."""
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1]), float(logits.float().abs().max())
+
+
+def spec_ids_check(label: str, got: list, want: list, margin_at, tie: float, card: str) -> dict:
+    """Speculative ids ``got`` against plain greedy's ``want``: equal, or
+    equal up to a position j where ``margin_at(j)`` (the plain path's top-2
+    gap and max |logit| there) shows a tie within ``tie``; else raise."""
+    n = min(len(got), len(want))
+    j = next((i for i in range(n) if got[i] != want[i]), None)
+    if j is None and len(got) == len(want):
+        return {"equal": True, "n": n}
+    j = n if j is None else j
+    gap, top = margin_at(j)
+    log(f"[speculative {label}] ids equal to plain greedy's for {j} of {len(want)}; at {j} the "
+        f"plain top-2 margin is {gap:.4g} = {gap / top:.3e} of max|logit| (tie bound {tie:g})"
+        f"  [{card}]")
+    if not gap <= tie * top:
+        raise AssertionError(f"{label}: speculative ids {got} leave plain greedy's {want} at {j}, "
+                             f"where the plain margin {gap} is no tie ({gap / top:.3e} > {tie})")
+    return {"equal": False, "first_diff": j, "margin": gap, "max_logit": top, "n": n}
+
+
+class SpecStreams:
+    """Single speculative streams of a loaded engine on its image turn (the
+    system prompt and the chat image) or, with ``image`` False, on a text
+    turn, through ``generate``.  While open it records each speculative
+    dispatch (its kind, verify passes and tokens emitted) by wrapping the
+    engine's three dispatch functions."""
+
+    def __init__(self, eng, image: bool = True):
+        import minigpt4_tpu_torch.engine.engine as engine_mod
+        from minigpt4_tpu_torch.image import preprocess
+
+        self.eng, self.engine_mod = eng, engine_mod
+        self.emb = (eng.encode_image(preprocess(chat_image(), size=eng.vision_cfg.vit.image_size))
+                    if image else None)
+        self.dispatches: list = []  # (kind, passes, tokens emitted)
+
+    def _rec(self, kind: str, fn, passes_at: int):
+        def rec(*a):
+            ids = fn(*a)
+            self.dispatches.append((kind, a[passes_at], len(ids)))
+            return ids
+        return rec
+
+    def __enter__(self):
+        eng, mod = self.eng, self.engine_mod
+        self._draft = mod._draft_chunk
+        eng.decode_chunk_spec = self._rec("spec", eng.decode_chunk_spec, 1)
+        eng.decode_chunk_spec_stoch = self._rec("spec_stoch", eng.decode_chunk_spec_stoch, 1)
+        mod._draft_chunk = self._rec("draft", self._draft, 3)
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng.decode_chunk_spec, self.eng.decode_chunk_spec_stoch
+        self.engine_mod._draft_chunk = self._draft
+        self.eng.graphs_enabled = True
+
+    def turn(self) -> int:
+        eng = self.eng
+        eng.reset()
+        eng.system_prompt()
+        if self.emb is None:
+            eng.begin_chat("Tell me a story about a picture.")
+        else:
+            eng.begin_chat_image(self.emb, "What is in this picture?")
+        return eng.n_past
+
+    def run(self, k: int, graphs: bool = True, limit: int = SPEC_TOKENS, params=None,
+            seed: int | None = None) -> dict:
+        """One stream of ``limit`` ids at ``speculative_k`` = ``k`` (0: the
+        plain chunks; the drafter where the engine has one), greedy unless
+        ``params``; ``seed`` reseeds the state's generator after the turn.
+        Its ids, seconds, tok/s, dispatches, tokens per pass, launch counts
+        (set to 0 just before) and graph replays."""
+        from minigpt4_tpu_torch.engine import SamplingParams
+
+        eng = self.eng
+        eng.graphs_enabled = graphs
+        n0 = self.turn()
+        if seed is not None:
+            eng._st.generator.manual_seed(seed)
+        self.dispatches.clear()
+        replays0 = eng.graph_stats()["replays"]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(eng.generate(limit=limit, params=params or SamplingParams(temp=0.0),
+                          speculative_k=k))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ids = eng._st.tokens[n0:]
+        passes = sum(p for _, p, _ in self.dispatches)
+        emitted = sum(e for _, _, e in self.dispatches)
+        return dict(ids=ids, s=dt, tok_s=len(ids) / dt, passes=passes, emitted=emitted,
+                    tokens_per_pass=emitted / passes if passes else None,
+                    dispatches=list(self.dispatches), counts=launch_counts(),
+                    replays=eng.graph_stats()["replays"] - replays0, ban=eng._st.spec_ban)
+
+    def plain_margin(self, j: int) -> tuple[float, float]:
+        """The plain greedy stream's top-2 margin at its j-th id."""
+        from minigpt4_tpu_torch.engine import SamplingParams
+
+        self.eng.graphs_enabled = True
+        self.turn()
+        if j:
+            self.eng.decode_chunk(j, SamplingParams(temp=0.0))
+        return _margin(self.eng._st.logits)
+
+
+KEEP = ("s", "tok_s", "passes", "emitted", "tokens_per_pass", "dispatches", "replays")
+
+
+def speculative(eng, card: str) -> dict:
+    """Speculative decoding on the loaded 13B Q5_K_M engine (gq, graphs
+    warmed up; then its speculative dispatches warmed up at k = 8, as a
+    server with --speculative-k does), every stream through ``generate``:
+    (a) greedy n-gram drafts
+    at k = 8 on the image turn, eager and captured, against the plain
+    captured chunks; (b) sampled n-gram speculation (temp 0.8, top-k 40),
+    eager and captured from the same generator state: equal ids, a
+    ("spec_stoch", ...) graph replayed; (c) the 7B q5_k file as the
+    drafter; (d) a random draft head (init_draft_head, d_main 5120) saved
+    and loaded.  Every greedy stream must give plain greedy's ids
+    (spec_ids_check).  Returns each sub-path's launch counts and times."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.train import draft as draft_mod
+
+    cfg = eng.llm_cfg
+    out: dict = {}
+    # what a server started with --speculative-k captures: the n-gram
+    # dispatches of the first dispatch's passes, greedy and sampled
+    eng.speculative_k = SPEC_K
+    try:
+        warm = eng.warmup(prefill_buckets=(), decode_chunks=())
+    finally:
+        eng.speculative_k = 0
+    log(f"[speculative] warmup of the speculative dispatches {warm['warmup_s']:.2f} s: keys "
+        f"{[k for k in warm['keys'] if str(k[0]).startswith('spec')]}  [{card}]")
+    with SpecStreams(eng) as ss:
+        # (a) n-gram drafts: the plain captured chunks, an eager run, then
+        # two captured runs: the first meets each key not warmed up twice
+        # (eager, then captured), the second replays every dispatch
+        plain = ss.run(0)
+        out["plain"] = {k: plain[k] for k in ("s", "tok_s", "replays")}
+        a = {"eager": ss.run(SPEC_K, graphs=False, limit=SPEC_EAGER_TOKENS),
+             "captured 1": ss.run(SPEC_K), "captured": ss.run(SPEC_K)}
+        keys = [k for k in eng.graph_stats()["keys"] if k[0] == "spec"]
+        cap = a["captured"]
+        n_flash, n_gq = cap["counts"]["flash_decode"], cap["counts"]["gq_decode"]
+        n_gqg = cap["counts"]["gq_decode_generic"]
+        log(f"[speculative a] 13B image turn, {SPEC_TOKENS} greedy ids, n-gram drafts at k = "
+            f"{SPEC_K}: plain captured chunks {plain['tok_s']:.2f} tok/s; speculative eager "
+            f"{a['eager']['tok_s']:.2f} ({SPEC_EAGER_TOKENS} ids), captured {cap['tok_s']:.2f} "
+            f"tok/s ({cap['tokens_per_pass']:.3f} tokens per pass: {cap['emitted']} in "
+            f"{cap['passes']} passes over {len(cap['dispatches'])} dispatches "
+            f"{[d[1:] for d in cap['dispatches']]}; {cap['replays']} graph replays); launches: "
+            f"flash_decode at S = {SPEC_K} {n_flash} (= {cfg.n_layer} x {cap['passes']} "
+            f"passes), gq_decode at M = {SPEC_K} {n_gq}, gq_decode_generic at M = {SPEC_K} "
+            f"{n_gqg}; spec graph keys {keys}  [{card}]")
+        if n_flash != cfg.n_layer * cap["passes"] or n_gq <= 0 or n_gqg <= 0:
+            raise AssertionError(f"speculative a: launches {cap['counts']} for "
+                                 f"{cap['passes']} verify passes")
+        if not keys or cap["replays"] < len(cap["dispatches"]):
+            raise AssertionError(f"speculative a: the n-gram dispatches did not replay graphs "
+                                 f"({keys}, {cap['replays']} replays)")
+        checks = {name: spec_ids_check(f"a {name}", r["ids"], plain["ids"][:len(r["ids"])],
+                                       ss.plain_margin, SPEC_TIE_DECODE, card)
+                  for name, r in a.items()}
+        out["a"] = {name: {k: r[k] for k in KEEP} for name, r in a.items()}
+        out["a"].update(keys=[list(map(str, k)) for k in keys], checks=checks,
+                        counts=cap["counts"])
+
+        # (b) sampled n-gram speculation, eager then captured, each from the
+        # generator seeded alike after the turn: the same draws
+        sampled = SamplingParams(**SAMPLED)
+        b = {name: ss.run(SPEC_K, graphs=graphs, limit=SPEC_EAGER_TOKENS, params=sampled,
+                          seed=SEED + 1)
+             for name, graphs in (("eager", False), ("captured 1", True), ("captured", True))}
+        keys_b = [k for k in eng.graph_stats()["keys"] if k[0] == "spec_stoch"]
+        cap = b["captured"]
+        kinds = {d[0] for r in b.values() for d in r["dispatches"]}
+        log(f"[speculative b] 13B image turn, {SPEC_EAGER_TOKENS} ids sampled (temp 0.8, top-k "
+            f"40) by n-gram speculation at k = {SPEC_K}: eager {b['eager']['tok_s']:.2f} tok/s, "
+            f"captured {cap['tok_s']:.2f} ({cap['tokens_per_pass']:.3f} tokens per pass: "
+            f"{cap['emitted']} in {cap['passes']} passes, dispatches "
+            f"{[d[1:] for d in cap['dispatches']]}, {cap['replays']} graph replays, residual ban "
+            f"after the stream {cap['ban']}); captured ids equal to eager: "
+            f"{cap['ids'] == b['captured 1']['ids'] == b['eager']['ids']} (the first captured "
+            f"run, which captures a key, {b['captured 1']['tok_s']:.2f} tok/s); spec_stoch graph "
+            f"keys {keys_b}; launches "
+            f"flash_decode {cap['counts']['flash_decode']}, gq_decode "
+            f"{cap['counts']['gq_decode']}  [{card}]")
+        if not cap["ids"] == b["captured 1"]["ids"] == b["eager"]["ids"]:
+            raise AssertionError(f"speculative b: captured sampled ids {cap['ids']} differ from "
+                                 f"the eager ones {b['eager']['ids']}")
+        if kinds != {"spec_stoch"} or not keys_b or cap["replays"] <= 0:
+            raise AssertionError(f"speculative b: the sampled dispatches ({kinds}) did not replay "
+                                 f"a spec_stoch graph ({keys_b}, {cap['replays']} replays)")
+        # (a key's capture runs its step once eagerly: those launches count too)
+        if cap["counts"]["flash_decode"] < cfg.n_layer * cap["passes"]:
+            raise AssertionError(f"speculative b: launches {cap['counts']} for "
+                                 f"{cap['passes']} verify passes")
+        out["b"] = {name: {k: r[k] for k in KEEP + ("ban",)} for name, r in b.items()}
+        out["b"].update(keys=[list(map(str, k)) for k in keys_b], counts=cap["counts"])
+
+        # (c) the 7B q5_k file (8 layers, the same vocabulary) drafts; (d) a
+        # random draft head over the 13B embedding, saved and loaded
+        _, llm7 = smoke_models(LLM_7B)
+        head = ROOT / "build" / "smoke_models" / f"draft-head-d{cfg.n_embd}-seed{SEED}.npz"
+        hcfg = draft_mod.DraftHeadConfig()
+        art = draft_mod.init_draft_head(torch.Generator(device=eng.device).manual_seed(SEED),
+                                        cfg.n_embd, hcfg)
+        draft_mod.save_artifact(head, art, hcfg)
+        del art
+        for name, kw in (("c", {"draft_llm_path": llm7}), ("d", {"draft_head_path": head})):
+            what = "7B q5_k L8 file" if name == "c" else f"draft head {hcfg}"
+            out[name] = drafted(eng, ss, f"{name} 13B", what, kw, plain["ids"],
+                                SPEC_DRAFT_TOKENS, plain["tok_s"], card)
+    return out
+
+
+def drafted(eng, ss: SpecStreams, label: str, what: str, drafter: dict, want: list, limit: int,
+            plain_tok_s: float, card: str) -> dict:
+    """A greedy stream of ``limit`` ids drafted by ``drafter``
+    (``set_drafter``'s arguments, dropped afterwards): plain greedy's ids
+    ``want`` (spec_ids_check), its kernels launched."""
+    t0 = time.perf_counter()
+    eng.set_drafter(**drafter)
+    t_load = time.perf_counter() - t0
+    try:
+        r = ss.run(0, limit=limit)
+    finally:
+        eng.set_drafter()
+    log(f"[speculative {label}] {what} as the drafter (loaded in {t_load:.2f} s), draft_k "
+        f"{SPEC_K}: {r['tok_s']:.2f} tok/s against plain {plain_tok_s:.2f}; "
+        f"{r['tokens_per_pass']:.3f} tokens per pass ({r['emitted']} in {r['passes']} passes); "
+        f"launches {r['counts']}  [{card}]")
+    if r["counts"]["flash_decode"] <= 0 or r["counts"]["gq_decode"] <= 0:
+        raise AssertionError(f"speculative {label}: the kernels did not launch: {r['counts']}")
+    out = {k: r[k] for k in KEEP + ("counts",)}
+    out.update(load_s=t_load, check=spec_ids_check(label, r["ids"], want[:limit],
+                                                   ss.plain_margin, SPEC_TIE_DECODE, card))
+    return out
+
+
+def spec_accepted(eng, llm: Path, card: str) -> dict:
+    """(f) Drafts that hold: the loaded 7B engine drafted by its own file
+    (``set_drafter(draft_llm_path=llm)``) on a text turn (a drafter sees an
+    image's rows as zero embeddings, so on an image turn its drafts would
+    not hold), so that most of each pass's drafts are accepted: several
+    tokens per pass, cursors advancing by more, the accepted drafts' cache
+    rows kept and the drafter's last step filling its cache.  The ids must
+    be plain greedy's and the stream must average more than 2 tokens per
+    pass."""
+    with SpecStreams(eng, image=False) as ss:
+        plain = ss.run(0, limit=SPEC_ACCEPT_TOKENS)
+        out = drafted(eng, ss, "f 7B", "its own file", {"draft_llm_path": llm}, plain["ids"],
+                      SPEC_ACCEPT_TOKENS, plain["tok_s"], card)
+    if not out["tokens_per_pass"] > 2:
+        raise AssertionError(f"speculative f: {out['tokens_per_pass']} tokens per pass with a "
+                             f"drafter equal to the model")
+    return out
+
+
+def only_speculative(card: str) -> None:
+    """``--only-speculative``: (a)-(d) on a 13B Q5_K_M engine (warmed up),
+    (f) on a 7B q5_k engine, then (e) on a session pool of the 13B files
+    (32 pages, its paged group captured for 8 lanes) with the eight serving
+    questions."""
+    from minigpt4_tpu_torch.engine import MiniGPT4Engine
+    from minigpt4_tpu_torch.engine.sessions import SessionPool
+
+    model, llm = smoke_models(LLM_13B)
+    for lg in (LLM_13B, LLM_7B):
+        m, l = smoke_models(lg)
+        eng = MiniGPT4Engine(m, l, device=DEVICE)
+        try:
+            if lg is LLM_13B:
+                eng.warmup()
+                speculative(eng, card)
+            else:
+                spec_accepted(eng, l, card)
+        finally:
+            eng.close()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    pool = SessionPool(model, llm, session_ctx=512, paged_pool_pages=32, device=DEVICE)
+    try:
+        pool.warmup(lanes=(8,))
+        prepared = []
+        for q in QUESTIONS:
+            s = pool.new_session()
+            s.ask(q)
+            prepared.append(s)
+        spec_batch(pool, prepared, card, torch.cuda.synchronize)
+    finally:
+        pool.close()
+
+
+def spec_batch(pool, sessions: list, card: str, sync) -> dict:
+    """(e) Copies of the eight prepared serving sessions: a plain greedy
+    paged group of SPEC_BATCH_TOKENS, then with the engine's speculative_k
+    at SPEC_K the same paged group and a continuous batcher of eight lanes
+    (paged; counts set to 0 before these two and read after): both give
+    the plain group's ids (spec_ids_check, the bf16 tie bound: B * k =
+    64 rows); aggregate tok/s and the governor's demotions.  Then (b') the
+    first two sessions as one speculative group of a greedy and a sampled
+    lane (temp 0.8, top-k 40; counts set to 0 just before): the greedy
+    lane gives its plain ids, and each lane's tokens per lane-pass of the
+    sampled verify steps is printed."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
+    from minigpt4_tpu_torch.models import llama as llama_mod
+
+    greedy = SamplingParams(temp=0.0)
+    eng = pool.engine
+    n0 = [s.n_past for s in sessions]
+
+    def group(k: int, continuous: bool = False, sources=sessions, params=greedy):
+        eng.speculative_k = k
+        lanes = [_clone(pool, s) for s in sources]
+        d0 = pool.metrics["spec_demotions"]
+        sync()
+        t0 = time.perf_counter()
+        if continuous:
+            cb = ContinuousBatcher(pool, max_batch=len(lanes))
+            try:
+                outs = [cb.submit(s, SPEC_BATCH_TOKENS, params) for s in lanes]
+                for q in outs:
+                    _drain_batcher(cb, q)
+            finally:
+                cb.close()
+        else:
+            pool.generate_batch(lanes, limit=SPEC_BATCH_TOKENS, params=params, decode_chunk=16)
+        sync()
+        dt = time.perf_counter() - t0
+        ids = [s.state.tokens[n:] for s, n in zip(lanes, n0)]
+        for s in lanes:
+            s.close()
+        return dict(ids=ids, s=dt, tok_s=sum(map(len, ids)) / dt,
+                    demotions=pool.metrics["spec_demotions"] - d0)
+
+    margins: dict = {}  # (lane, position) -> the plain margin, shared by both batchers
+
+    def margin_at(lane: int):
+        def at(j: int):
+            if (lane, j) not in margins:
+                c = _clone(pool, sessions[lane])
+                try:
+                    if j:
+                        eng.decode_chunk(j, greedy, st=c.state)
+                    margins[lane, j] = _margin(c.state.logits)
+                finally:
+                    c.close()
+            return margins[lane, j]
+        return at
+
+    try:
+        plain = group(0)
+        reset_launch_counts()
+        spec = {"window": group(SPEC_K), "continuous": group(SPEC_K, continuous=True)}
+        counts = launch_counts()
+    finally:
+        eng.speculative_k = 0
+    out = {"plain_tok_s": plain["tok_s"], "counts": counts}
+    for name, r in spec.items():
+        checks = [spec_ids_check(f"e {name} lane {i}", got, want, margin_at(i), SPEC_TIE_PREFILL,
+                                 card) for i, (got, want) in enumerate(zip(r["ids"], plain["ids"]))]
+        out[name] = dict(s=r["s"], tok_s=r["tok_s"], demotions=r["demotions"],
+                         lanes_equal=sum(c["equal"] for c in checks), checks=checks)
+        log(f"[speculative e] {name} batcher, {len(sessions)} paged lanes x {SPEC_BATCH_TOKENS} "
+            f"greedy ids at k = {SPEC_K}: {r['tok_s']:.2f} tok/s aggregate against the plain "
+            f"paged group's {plain['tok_s']:.2f}; spec_demotions {r['demotions']}; lanes equal to "
+            f"plain {out[name]['lanes_equal']} of {len(checks)}  [{card}]")
+    log(f"[speculative e] launches of the two speculative batchers: {counts}  [{card}]")
+    if counts["paged_flash_decode"] <= 0 or counts["gq_prefill"] <= 0:
+        raise AssertionError(f"speculative e: the batched verify's kernels did not launch: "
+                             f"{counts}")
+
+    # (b') a greedy and a sampled lane in one group: the sampled verify
+    # steps, recorded by wrapping the loop the group calls
+    steps: list = []  # (verify passes, tokens per lane) of each sampled step
+    loop = llama_mod.stochastic_speculative_decode_loop
+
+    def rec(*a, **kw):
+        res = loop(*a, **kw)
+        steps.append((res[1].shape[1], res[1].sum(dim=1).tolist()))
+        return res
+
+    llama_mod.stochastic_speculative_decode_loop = rec
+    try:
+        reset_launch_counts()
+        pair = group(SPEC_K, sources=sessions[:2], params=[greedy, SamplingParams(**SAMPLED)])
+        pair_counts = launch_counts()
+    finally:
+        llama_mod.stochastic_speculative_decode_loop = loop
+        eng.speculative_k = 0
+    passes = sum(p for p, _ in steps)
+    per_lane = [sum(t[i] for _, t in steps) / passes if passes else None for i in range(2)]
+    log(f"[speculative b'] paged group of a greedy and a sampled lane (temp 0.8, top-k 40), "
+        f"{SPEC_BATCH_TOKENS} ids each at k = {SPEC_K} (M = {2 * SPEC_K}): {pair['tok_s']:.2f} "
+        f"tok/s aggregate; {len(steps)} sampled verify steps of {passes} passes, tokens per "
+        f"lane-pass {per_lane}; spec_demotions {pair['demotions']}; launches "
+        f"gq_prefill {pair_counts['gq_prefill']}, paged_flash_decode "
+        f"{pair_counts['paged_flash_decode']}  [{card}]")
+    if not steps or pair_counts["gq_prefill"] <= 0 or pair_counts["paged_flash_decode"] <= 0:
+        raise AssertionError(f"speculative b': no sampled verify step ran ({steps}) or its "
+                             f"kernels did not launch ({pair_counts})")
+    out["pair"] = dict(s=pair["s"], tok_s=pair["tok_s"], demotions=pair["demotions"],
+                       steps=steps, tokens_per_lane_pass=per_lane, counts=pair_counts,
+                       check=spec_ids_check("b' greedy lane", pair["ids"][0], plain["ids"][0],
+                                            margin_at(0), SPEC_TIE_PREFILL, card))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3170,6 +3651,11 @@ def tp_phase(card: str) -> dict:
 
 # examples/main.c's engine (n_ctx 512, n_batch 64, seed 1337) and its knobs
 CLIENT_CTX, CLIENT_BATCH, CLIENT_QUESTION = 512, 64, "what is this?"
+# the 13B Q5_K_M geometry at full width cut to 8 layers for the script's time
+# limit: the phase loads the model three times (this process, examples/main.c,
+# ctypes), ~20 s each at full depth, and what it checks (the shift, the
+# checkpoints, the C ABI's text) does not depend on depth
+LLM_13B_CLIENTS = dict(LLM_13B, n_layer=8)
 CLIENT_KNOBS = (0.0, 40, 0.9, 1.0, 1.0, 64, 1.1, 1.0, 1.0, 0, 5.0, 1.0, 1)
 SHIFT_TOKENS = 400  # greedy ids past the 512-position context
 # the eager run: from a checkpoint AB_BEFORE decode chunks before the first
@@ -3387,7 +3873,7 @@ def _c_text(tokens: list[str]) -> str:
 def clients_capi(model: Path, llm: Path, want: list[str], size: int, n_floats: int,
                  card: str) -> dict:
     """Phase 10 c: examples/main.c, unchanged, compiled against
-    libminigpt4_torch.so and run as a process on the 13B files with no
+    libminigpt4_torch.so and run as a process on the same files with no
     MINIGPT4_TPU_DEVICE (the card); then the same library through ctypes in
     this process, its launches counted.  Both must stream ``want``'s text
     (the engine's tokens for a zero image of ``size`` pixels, whose
@@ -3479,13 +3965,14 @@ def clients_capi(model: Path, llm: Path, want: list[str], size: int, n_floats: i
 
 
 def clients_phase(card: str) -> dict:
-    """Phase 10: the 13B Q5_K_M files through a context-shifting engine
-    (n_ctx 512, n_batch 64, graphs on): the shift and restore checks, then
+    """Phase 10: the 13B Q5_K_M geometry at 8 layers through a
+    context-shifting engine (n_ctx 512, n_batch 64, graphs on): the shift
+    and restore checks, then
     examples/main.c's greedy text in this process as the C ABI's yardstick;
     the engine closes before the C ABI runs."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine
 
-    model, llm = smoke_models(LLM_13B)
+    model, llm = smoke_models(LLM_13B_CLIENTS)
     ckpt = ROOT / "build" / "smoke_models" / "clients-chat.npz"
     ckpt.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -3558,6 +4045,11 @@ def main() -> int:
         clients_phase(card)
         phase("end (--only-clients)")
         return 0
+    if "--only-speculative" in sys.argv:  # a quick look at the speculative paths: no result line
+        phase("speculative")
+        only_speculative(card)
+        phase("end (--only-speculative)")
+        return 0
     if "--only-serving" in sys.argv:  # a quick look at phase 5 alone: no result line
         phase("serving")
         continuous_serving(card, serving(card))
@@ -3601,6 +4093,8 @@ def main() -> int:
             raise AssertionError(f"{label}: greedy ids {paths[label]['greedy_ids']} differ from "
                                  f"the unpacked chat's {paths['13B Q5_K_M']['greedy_ids']}")
         ab = decode_ab(engines, card)
+        phase("speculative")
+        spec = speculative(engines["unpacked"], card)
     finally:
         for e in engines.values():
             e.close()
@@ -3609,17 +4103,30 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     paths[label]["decode_ab"] = ab
+    for name, what in (("a", "n-gram"), ("b", "sampled n-gram"), ("c", "draft 7B"),
+                       ("d", "draft head")):
+        paths[f"speculative 13B {what}"] = spec[name]
     phase("7B chats")
     # (graphs captured lazily; no warmup and no eager A/B, to keep the time)
-    paths["7B q5_k L8"] = chat("7B q5_k L8", LLM_7B, card,
-                               ("gq_decode", "gq_prefill", "flash_decode"), forbid=PACKED_KERNELS,
-                               graphs=False)
+    paths["7B q5_k L8"], eng = chat("7B q5_k L8", LLM_7B, card,
+                                    ("gq_decode", "gq_prefill", "flash_decode"),
+                                    forbid=PACKED_KERNELS, graphs=False, keep=True)
+    try:
+        phase("speculative: accepted drafts")
+        paths["speculative 7B self-drafted"] = spec_accepted(eng, smoke_models(LLM_7B)[1], card)
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     paths["7B q4 mix L8 gq packed"] = chat("7B q4 mix L8 gq packed", LLM_7B_MIX, card,
                                            PACKED_MIX_KERNELS, quant_mode="gq", forbid=GQ_KERNELS,
                                            graphs=False)
     phase("serving")
     paths["serving 13B"] = serving(card)
     paths["continuous"] = continuous_serving(card, paths["serving 13B"])
+    paths["speculative batched"] = paths["serving 13B"]["spec_batch"]
+    paths["speculative greedy + sampled group"] = paths["speculative batched"]["pair"]
     counts = paths["serving 13B"]["counts"]
     missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
@@ -3638,8 +4145,8 @@ def main() -> int:
     paths["quality small"] = quality_run(card)
     phase("clients")
     clients = clients_phase(card)
-    paths["13B clients: shift + restore"] = {"counts": clients["counts"]}
-    paths["13B C ABI chat (ctypes)"] = {"counts": clients["capi"]["counts"]}
+    paths["13B L8 clients: shift + restore"] = {"counts": clients["counts"]}
+    paths["13B L8 C ABI chat (ctypes)"] = {"counts": clients["capi"]["counts"]}
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[end] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "

@@ -17,8 +17,7 @@ options beyond them are environment variables, read when a model loads:
     MINIGPT4_TPU_SMOOTH_SCALES  smooth-quant scales (quality.py --save-scales)
     MINIGPT4_TPU_WARMUP         set: capture the engine's CUDA graphs at load
                                 (MiniGPT4Engine.warmup)
-    MINIGPT4_TPU_SPECULATIVE_K  refused unless 0: speculative decoding is
-                                not ported (ROADMAP Queue 1, item 14)
+    MINIGPT4_TPU_SPECULATIVE_K  speculative verify width (0 = off), an integer
 """
 
 from __future__ import annotations
@@ -55,9 +54,11 @@ def engine_options() -> dict:
             raise FileNotFoundError(f"MINIGPT4_TPU_SMOOTH_SCALES={sm!r} does not exist")
         kw["smooth_scales"] = sm
     sk = os.environ.get("MINIGPT4_TPU_SPECULATIVE_K")
-    if sk and sk.strip() != "0":
-        raise ValueError(f"MINIGPT4_TPU_SPECULATIVE_K={sk!r}: speculative decoding is not "
-                         "ported (ROADMAP Queue 1, item 14)")
+    if sk:
+        try:
+            kw["speculative_k"] = int(sk)
+        except ValueError:
+            raise ValueError(f"MINIGPT4_TPU_SPECULATIVE_K={sk!r}: expected an integer") from None
     return kw
 
 

@@ -15,6 +15,10 @@ takes the static form (a bare argmax); any other group carries its lanes'
 thresholds as device tensors and runs every stage of the chain under
 ``where`` guards (:func:`chain_sorted_traced`), so one captured decode
 chunk serves every mix of configs at a lane count.
+
+Speculative sampling reads the chain as a distribution in vocabulary order
+(:func:`chain_logits_dyn`) and samples with a rejected draft excluded
+(:func:`sample_res_rows`), as the JAX package's functions of those names.
 """
 
 from __future__ import annotations
@@ -89,9 +93,47 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
         return torch.argmax(logits if bias is None else logits + bias)
     order, scaled = chain_sorted(logits, cfg, bias)
     u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     # a 1-element index, not a 0-d one (which indexes through a host read)
-    return order.index_select(0, torch.argmax(scaled + gumbel).reshape(1))[0]
+    return order.index_select(0, torch.argmax(scaled + _gumbel(u)).reshape(1))[0]
+
+
+def _chain_rows(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor, tfs_z: torch.Tensor, typical_p: torch.Tensor,
+                bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The traced chain over N rows at once: logits [N, V] and thresholds
+    [N] -> (order [N, V], scaled [N, V]), each row as
+    :func:`chain_sorted_traced` computes it."""
+    if bias is not None:
+        logits = logits + bias
+    v = logits.shape[-1]
+    ar = torch.arange(v, device=logits.device)[None]
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    sl = logits.gather(-1, order)
+    probs = torch.softmax(sl.float(), dim=-1)
+    keep = ar < torch.where(top_k > 0, top_k, v)[:, None]
+
+    fd = torch.diff(probs, n=2, dim=-1).abs()
+    s = fd.sum(dim=-1, keepdim=True)
+    fd = torch.where(s > 0, fd / s, torch.full_like(fd, 1.0 / (v - 2)))
+    n_keep = (torch.searchsorted(torch.cumsum(fd, -1), tfs_z[:, None].contiguous()) + 1).clamp(min=1)
+    keep &= ar < torch.where(tfs_z[:, None] < 1.0, n_keep, v)
+
+    surprise = -torch.log(probs + 1e-12)
+    entropy = (probs * surprise).sum(dim=-1, keepdim=True)
+    t_order = torch.argsort((surprise - entropy).abs(), dim=-1, stable=True)
+    t_cum = torch.cumsum(probs.gather(-1, t_order), -1)
+    t_keep_n = (torch.searchsorted(t_cum, typical_p[:, None].contiguous()) + 1).clamp(min=1)
+    t_rank = torch.argsort(t_order, dim=-1, stable=True)
+    keep &= t_rank < torch.where(typical_p[:, None] < 1.0, t_keep_n, v)
+
+    kp = torch.where(keep, probs, 0.0)
+    kp = kp / kp.sum(dim=-1, keepdim=True).clamp(min=1e-12)
+    n_keep = (torch.searchsorted(torch.cumsum(kp, -1), top_p[:, None].contiguous()) + 1).clamp(min=1)
+    keep &= ar < torch.where(top_p[:, None] < 1.0, n_keep, v)
+
+    keep |= ar == 0  # min_keep = 1
+    scaled = torch.where(keep, sl / torch.where(temp > 0, temp, 1.0)[:, None], float("-inf"))
+    return order, scaled
 
 
 def chain_sorted_traced(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
@@ -102,37 +144,14 @@ def chain_sorted_traced(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.T
     tfs_z, typical_p or top_p >= 1) keeps every position; temp <= 0 scales
     by 1 (the caller takes the argmax then).  For equal thresholds it keeps
     the positions :func:`chain_sorted` keeps."""
-    if bias is not None:
-        logits = logits + bias
-    v = logits.shape[-1]
-    ar = torch.arange(v, device=logits.device)
-    order = torch.argsort(-logits, stable=True)
-    sl = logits[order]
-    probs = torch.softmax(sl.float(), dim=-1)
-    keep = ar < torch.where(top_k > 0, top_k, v)
+    order, scaled = _chain_rows(logits[None], *(t.reshape(1) for t in
+                                                (temp, top_k, top_p, tfs_z, typical_p)),
+                                None if bias is None else bias[None])
+    return order[0], scaled[0]
 
-    fd = torch.diff(probs, n=2).abs()
-    s = fd.sum()
-    fd = torch.where(s > 0, fd / s, torch.full_like(fd, 1.0 / (v - 2)))
-    n_keep = (torch.searchsorted(torch.cumsum(fd, 0), tfs_z.reshape(1)) + 1).clamp(min=1)
-    keep &= ar < torch.where(tfs_z < 1.0, n_keep, v)
 
-    surprise = -torch.log(probs + 1e-12)
-    entropy = (probs * surprise).sum()
-    t_order = torch.argsort((surprise - entropy).abs(), stable=True)
-    t_cum = torch.cumsum(probs[t_order], 0)
-    t_keep_n = (torch.searchsorted(t_cum, typical_p.reshape(1)) + 1).clamp(min=1)
-    t_rank = torch.argsort(t_order, stable=True)
-    keep &= t_rank < torch.where(typical_p < 1.0, t_keep_n, v)
-
-    kp = torch.where(keep, probs, 0.0)
-    kp = kp / kp.sum().clamp(min=1e-12)
-    n_keep = (torch.searchsorted(torch.cumsum(kp, 0), top_p.reshape(1)) + 1).clamp(min=1)
-    keep &= ar < torch.where(top_p < 1.0, n_keep, v)
-
-    keep |= ar == 0  # min_keep = 1
-    scaled = torch.where(keep, sl / torch.where(temp > 0, temp, 1.0), float("-inf"))
-    return order, scaled
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u.clamp(min=1e-20)))
 
 
 def sample_token_traced(logits: torch.Tensor, generator: torch.Generator, temp, top_k, top_p,
@@ -143,9 +162,25 @@ def sample_token_traced(logits: torch.Tensor, generator: torch.Generator, temp, 
     ``sample_token_dyn``)."""
     order, scaled = chain_sorted_traced(logits, temp, top_k, top_p, tfs_z, typical_p, bias)
     u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
-    drawn = order.index_select(0, torch.argmax(scaled + gumbel).reshape(1))[0]
+    drawn = order.index_select(0, torch.argmax(scaled + _gumbel(u)).reshape(1))[0]
     return torch.where(temp <= 0, order[0], drawn)
+
+
+def chain_logits_dyn(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
+                     top_p: torch.Tensor, tfs_z: torch.Tensor, typical_p: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The traced chain as a distribution (JAX's ``chain_logits_dyn``):
+    logits [N, V] and thresholds [N] -> the post-chain scaled logits z [N,
+    V] in vocabulary order, truncated ids at -inf, with softmax(z) the
+    distribution a sampled row draws from (temp > 0).  Stochastic
+    speculation reads each draft's target probability from it."""
+    order, scaled = _chain_rows(logits, temp, top_k, top_p, tfs_z, typical_p, bias)
+    return torch.full_like(scaled, float("-inf")).scatter(-1, order, scaled)
+
+
+def _greedy_pick(logits: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The argmax of the (biased) logits over the last axis."""
+    return torch.argmax(logits if bias is None else logits + bias, dim=-1)
 
 
 TRACED = ("temp", "top_k", "top_p", "tfs_z", "typical_p")  # the thresholds of traced rows
@@ -206,19 +241,44 @@ def lane_rows(params_list, n_vocab: int, device: str | torch.device) -> LaneRows
     return LaneRows(configs, bias, traced)
 
 
+def sample_res_rows(logits: torch.Tensor, ban: torch.Tensor | None, generators: list,
+                    rows: LaneRows) -> torch.Tensor:
+    """Residual-aware sample of a batch (JAX's ``sample_res_rows``): logits
+    [B, V], ``ban`` [B] a token id each lane must exclude (-1 or None:
+    none) -> ids [B].  After speculative sampling rejected draft d, the
+    next token must come from norm(p with d zeroed): d is removed after the
+    chain's truncation, so what the chain keeps does not change.  Greedy
+    lanes ignore the ban (a rejected d is not the argmax).  Where the ban
+    would empty the support the lane draws from the whole chain.  Each lane
+    draws V uniforms from its generator in sorted order, as
+    :func:`sample_token_traced` does, so with no ban this is the traced
+    sample draw for draw.  Static rows (all greedy) take the argmax."""
+    if rows.traced is None:
+        return sample_rows(logits, generators, rows)
+    t = rows.traced
+    order, scaled = _chain_rows(logits, *(t[name] for name in TRACED), rows.bias)
+    if ban is not None:
+        ban = ban.long()
+        rank = torch.where(ban >= 0, (order == ban[:, None]).long().argmax(dim=-1), -1)
+        ar = torch.arange(logits.shape[-1], device=logits.device)[None]
+        zb = torch.where(ar == rank[:, None], float("-inf"), scaled)
+        scaled = torch.where(zb.amax(dim=-1, keepdim=True) == float("-inf"), scaled, zb)
+    u = torch.stack([torch.rand(scaled.shape[-1], generator=g, device=scaled.device)
+                     for g in generators])
+    drawn = order.gather(1, torch.argmax(scaled + _gumbel(u), dim=-1, keepdim=True))[:, 0]
+    return torch.where(t["temp"] <= 0, order[:, 0], drawn)
+
+
 def sample_rows(logits: torch.Tensor, generators: list, rows: LaneRows) -> torch.Tensor:
     """logits [B, V] f32 -> token ids [B] (int64 on the logits' device), each
     lane under its own config and bias plane, sampled lanes drawing from
     their own generator.  Greedy lanes take the argmax of their biased
     logits, all in one reduction.  Traced rows run the traced chain on every
     lane, each drawing from its own generator (the thresholds are device
-    values, so which lanes are greedy is not known here)."""
+    values, so which lanes are greedy is not known here):
+    :func:`sample_res_rows` without a ban."""
     if rows.traced is not None:
-        t = rows.traced
-        return torch.stack([
-            sample_token_traced(logits[i], generators[i], *(t[name][i] for name in TRACED),
-                                None if rows.bias is None else rows.bias[i])
-            for i in range(logits.shape[0])])
+        return sample_res_rows(logits, None, generators, rows)
     biased = logits if rows.bias is None else logits + rows.bias
     tok = torch.argmax(biased, dim=-1)
     for i, cfg in enumerate(rows.configs):

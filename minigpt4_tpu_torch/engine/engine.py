@@ -12,6 +12,12 @@ cursor, the tokenizer and the samplers:
     ctx_shift           drop the oldest turns past the keep prefix
     save_state, restore_state   checkpoint the chat to an npz file
 
+With ``speculative_k`` (or a drafter) ``generate`` decodes by speculation:
+n-gram or drafter-proposed tokens verified k at a time, greedy streams
+giving plain greedy's ids, sampled ones speculative sampling's draws
+(``decode_chunk_spec``, ``decode_chunk_spec_stoch``, ``_draft_chunk``; the
+residual ban in ``DecodeState.spec_ban``, consumed by ``resolve_ban``).
+
 Prefill chunks are padded to power-of-two buckets (8 .. n_batch), capped
 at the remaining context; padded rows write cache entries past the real
 tokens, which the causal mask hides and the next chunk overwrites.  Decode
@@ -55,7 +61,8 @@ from ..models.params import QUANT_MODES, resolve_gq_pack
 from ..ops import group_i8 as gq
 from ..parallel import spmd
 from ..parallel.mesh import init_tp
-from .device_sampling import DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_token
+from .device_sampling import (DeviceSamplingConfig, lane_rows, logit_bias_tensor, sample_res_rows,
+                              sample_token)
 from .graphs import GraphCache, StepGraphs, pool_bytes
 from .hostcopy import copy_from_host_, host_copy
 from .sampling import Sampler, SamplingParams
@@ -116,12 +123,22 @@ class DecodeState:
         # the host copy of the cache while parked: {"shape", "dtype", "device",
         # "k", "v"}, k / v the bits (llama._bits) of rows [0, n_past)
         self.parked: dict | None = None
+        # draft-model speculation: the drafter's cache and how far it has
+        # evaluated ``tokens``; built and caught up by ``_draft_catchup``
+        self.dcache: dict | None = None
+        self.draft_past = 0
+        # stochastic speculation's residual ban: the token id the next sample
+        # from the pending logits must exclude (-1: none)
+        self.spec_ban = -1
 
     def reset(self) -> None:
         self.n_past = 0
         self.logits = None
         self.tokens = []
         self.n_keep = 0
+        self.dcache = None
+        self.draft_past = 0
+        self.spec_ban = -1
         if self.parked is not None:  # nothing of the old rows is needed
             self.parked = dict(self.parked, k=self.parked["k"][:, :, :, :0],
                                v=self.parked["v"][:, :, :, :0])
@@ -143,6 +160,9 @@ class DecodeState:
         if self.logits is not None:
             self.logits = self.logits.cpu()
         self.cache = None
+        # the draft cache is rebuilt from ``tokens`` rather than parked
+        self.dcache = None
+        self.draft_past = 0
 
     def ensure_device(self) -> None:
         """Put a parked cache back on its device: a zero cache of the state's
@@ -169,8 +189,7 @@ class DecodeState:
         engine's fields (``DecodeState.save``): the whole cache as bits
         (``k``, ``v``) and its type under the JAX name (``kv_dtype``),
         ``n_past``, ``has_logits``, ``logits``, ``tokens``, ``n_keep`` and
-        ``spec_ban`` (always -1: the port has no speculative sampling),
-        plus the generator's state (``torch_generator``, with its device
+        ``spec_ban``, plus the generator's state (``torch_generator``, with its device
         type in ``torch_generator_device``).  Stored uncompressed: a
         cache's random bits do not compress.  A parked state is put back on
         its device first, as the JAX engine's is."""
@@ -182,7 +201,7 @@ class DecodeState:
                      logits=(self.logits.float().cpu().numpy() if self.logits is not None
                              else np.zeros(1, np.float32)),
                      tokens=np.asarray(self.tokens, np.int64), n_keep=np.int64(self.n_keep),
-                     spec_ban=np.int64(-1),
+                     spec_ban=np.int64(self.spec_ban),
                      torch_generator=self.generator.get_state().numpy(),
                      torch_generator_device=np.bytes_(self.generator.device.type))
 
@@ -192,12 +211,12 @@ class DecodeState:
         tensors (captured CUDA graphs hold their addresses; a checkpoint of
         another cache type is converted).  A checkpoint without a generator
         of this state's device type (every JAX one) leaves the state's
-        generator as it is.  Raises ValueError, changing nothing, on a cache
-        shape other than this state's, an unknown cache type, or a pending
-        speculative-sampling exclusion (``spec_ban`` >= 0; speculative
-        decoding is ROADMAP Queue 1, item 14).  A parked state is put back on
-        its device first (JAX ``DecodeState.restore``), so nothing stale of
-        the parked copy comes back later."""
+        generator as it is.  The residual ban (``spec_ban``) is restored and
+        the draft cache dropped (it described the old history).  Raises
+        ValueError, changing nothing, on a cache shape other than this
+        state's or an unknown cache type.  A parked state is put back on its
+        device first (JAX ``DecodeState.restore``), so nothing stale of the
+        parked copy comes back later."""
         self.ensure_device()
         z = np.load(path)
         arrays = {kv: z[kv] for kv in ("k", "v")}  # an npz member reads on each access
@@ -209,9 +228,6 @@ class DecodeState:
         if name not in TORCH_DTYPES:
             raise ValueError(f"checkpoint cache type {name!r}: expected "
                              f"{' | '.join(TORCH_DTYPES)}")
-        if "spec_ban" in z.files and int(z["spec_ban"]) >= 0:
-            raise ValueError("checkpoint holds a speculative-sampling exclusion; speculative "
-                             "decoding is not ported (ROADMAP Queue 1, item 14)")
         for kv, a in arrays.items():
             dst = self.cache[kv]
             bits = a.view(_INT_NP[a.dtype.itemsize])
@@ -226,6 +242,9 @@ class DecodeState:
         self.tokens = ([int(t) for t in z["tokens"]] if "tokens" in z.files
                        else [-1] * self.n_past)
         self.n_keep = int(z["n_keep"]) if "n_keep" in z.files else 0
+        self.spec_ban = int(z["spec_ban"]) if "spec_ban" in z.files else -1
+        self.dcache = None
+        self.draft_past = 0
         if ("torch_generator" in z.files
                 and z["torch_generator_device"].item().decode() == self.generator.device.type):
             self.generator.set_state(torch.from_numpy(z["torch_generator"].copy()))
@@ -264,6 +283,9 @@ class MiniGPT4Engine:
         tp: int = 1,
         dp: int = 1,
         context_shift: bool = False,
+        speculative_k: int = 0,
+        draft_llm_path: str | Path | None = None,
+        draft_head_path: str | Path | None = None,
     ):
         """Load both model files onto ``device``.
 
@@ -324,7 +346,28 @@ class MiniGPT4Engine:
         ``context_shift``: where a prefill or a decode chunk would overflow
         a state's context, drop its oldest tokens after the keep prefix
         (:meth:`ctx_shift`) instead of raising ``context overflow`` (prefill)
-        or stopping (``generate``), as the JAX engine's ``context_shift``."""
+        or stopping (``generate``), as the JAX engine's ``context_shift``.
+
+        ``speculative_k``: the verify width of speculative decoding in
+        ``generate`` (0 or 1: off; at most ``FLASH_DECODE_MAX_S``, 32): greedy
+        streams draft by n-gram lookup and verify k tokens per pass, with the
+        ids of plain greedy decode; sampled streams run speculative sampling,
+        whose draws have plain sampling's distribution.  ``draft_llm_path``
+        (a smaller llama file of the same vocabulary) or ``draft_head_path``
+        (an artifact of ``train/draft.py``) drafts greedy streams instead,
+        ``self.draft_k`` = ``speculative_k`` or 8 tokens per pass.  Refused:
+        both drafters at once, a drafter of another vocabulary or width, and
+        either under tp > 1 (JAX's errors)."""
+        if speculative_k > llama_mod.FLASH_DECODE_MAX_S:
+            raise ValueError(
+                f"speculative_k={speculative_k} exceeds the flash-decode "
+                f"verify-block limit ({llama_mod.FLASH_DECODE_MAX_S})")
+        _check_drafter(draft_llm_path, draft_head_path, tp)
+        if tp > 1 and speculative_k > 1:
+            raise NotImplementedError(
+                f"speculative_k={speculative_k} over tp={tp} ranks: speculation under tensor "
+                "parallelism is not ported (ROADMAP Queue 1, item 11)")
+        self.speculative_k = speculative_k
         if dp != 1:
             raise ValueError(
                 f"dp={dp}: the engine's chat and serving surface prefills at batch 1 and cannot "
@@ -390,11 +433,74 @@ class MiniGPT4Engine:
         self.cache_cfg = spmd.cache_cfg(self.llm_cfg, tp)  # sizes this rank's caches
         self._st = self.new_state(self.llm_cfg.n_ctx, seed)
         self.sampler = Sampler(seed)
+        self._draft_file = None
+        self.set_drafter(draft_llm_path, draft_head_path)
         # captured CUDA graphs: on a CUDA engine at tp = 1, captured lazily
         self.graphs_enabled = self.device.type == "cuda" and self.tp_group is None
         self._graph_pool = None
         self._step_graphs: StepGraphs | None = None
         self._encode_graphs: GraphCache | None = None
+
+    def set_drafter(self, draft_llm_path=None, draft_head_path=None) -> None:
+        """Load the drafter of draft-model speculation (the JAX engine's
+        ``__init__`` arguments of the same names), replacing any earlier
+        one; with neither path, drop it.  Sets ``draft_params`` /
+        ``draft_cfg`` (None without a drafter) and ``draft_k``.  A drafter
+        file loads in the engine's quant_mode (``auto``: gq where it
+        applies); a draft head is assembled over the engine's embedding.
+        The states' draft caches are dropped."""
+        _check_drafter(draft_llm_path, draft_head_path, self.tp)
+        if self._draft_file is not None:
+            self._draft_file.close()
+        self.draft_params = None
+        self.draft_cfg = None
+        self._draft_file = None
+        self._draft_fns_by_ctx: dict[int, DraftFns] = {}
+        self.draft_k = 0
+        self._st.dcache, self._st.draft_past = None, 0
+        n_ctx = self.llm_cfg.n_ctx
+        if draft_head_path is not None:
+            from ..train import draft as draft_head_mod
+
+            with utils.phase_timer("Draft head init"):
+                art, dhc = draft_head_mod.load_artifact(draft_head_path)
+                emb = self.llm_params["tok_embeddings"]
+                if art["p_in"].shape[0] != self.llm_cfg.n_embd:
+                    raise ValueError(f"draft head d_main {art['p_in'].shape[0]} != model "
+                                     f"n_embd {self.llm_cfg.n_embd}")
+                self.draft_cfg = dhc.llama_cfg(self.llm_cfg.n_vocab, n_ctx)
+                self.draft_params = draft_head_mod.assemble_draft(emb, art, emb.dtype)
+        if draft_llm_path is not None:
+            with utils.phase_timer("Draft LLM init"):
+                self._draft_file = LlamaFileReader(draft_llm_path)
+                try:
+                    self.draft_params, self.draft_cfg = llama_mod.load_params(
+                        self._draft_file, COMPUTE_DTYPE, n_ctx=n_ctx, device=self.device,
+                        quant_mode=self.quant_mode, pack=self.gq_packed)
+                    if self.draft_cfg.n_vocab != self.llm_cfg.n_vocab:
+                        raise ValueError(
+                            f"draft model vocab ({self.draft_cfg.n_vocab}) != main model vocab "
+                            f"({self.llm_cfg.n_vocab}): the drafter must share the tokenizer")
+                except Exception:
+                    self._draft_file.close()
+                    self._draft_file = None
+                    self.draft_params = self.draft_cfg = None
+                    raise
+        if self.draft_params is not None:
+            # an explicit speculative_k, else 8 (the width that an S <= 8
+            # verify serves at the cost of one decode step)
+            self.draft_k = self.speculative_k if self.speculative_k > 1 else 8
+
+    def draft_fns_for(self, n_ctx: int) -> "DraftFns | None":
+        """The drafter's functions for states of ``n_ctx`` positions (JAX's
+        ``draft_fns_for``), memoized; None without a drafter."""
+        if self.draft_params is None:
+            return None
+        fns = self._draft_fns_by_ctx.get(n_ctx)
+        if fns is None:
+            fns = self._draft_fns_by_ctx[n_ctx] = DraftFns(
+                self.draft_params, dataclasses.replace(self.draft_cfg, n_ctx=n_ctx), self.device)
+        return fns
 
     def new_state(self, n_ctx: int, seed: int) -> DecodeState:
         """A fresh decode state with a cache of ``n_ctx`` positions and its
@@ -413,6 +519,13 @@ class MiniGPT4Engine:
     @property
     def n_past(self) -> int:
         return self._st.n_past
+
+    @n_past.setter
+    def n_past(self, v: int) -> None:
+        """Move the engine's cursor (a rewind): the drafter's frontier follows
+        it down."""
+        self._st.n_past = v
+        self._st.draft_past = min(self._st.draft_past, v)
 
     @property
     def cache(self) -> dict:
@@ -474,7 +587,10 @@ class MiniGPT4Engine:
         ``_attn_bucket`` gives it), the decode chunks (1: the single-token
         step of ``add_tokens`` / ``end_chat``; more: ``decode_chunk`` for
         greedy and for sampling, whose traced thresholds serve every
-        config) and the encoder at batch 1.  Captures run on the engine's own cache at positions past
+        config), with ``speculative_k`` > 1 the n-gram speculative dispatch
+        of ``_spec_passes`` passes, greedy and sampled (the JAX engine's
+        warmup compiles its greedy one), and the encoder at batch 1.
+        Captures run on the engine's own cache at positions past
         its cursor (or, where those run out, at positions whose contents are
         restored afterwards), and the state's generator is restored, so
         neither the conversation nor its random stream changes.  Returns
@@ -513,6 +629,17 @@ class MiniGPT4Engine:
                     for params in (SamplingParams(temp=0.0), SamplingParams()):
                         steps.decode_chunk(logits, p, n, [st.generator],
                                            lane_rows([params], v, self.device), capture=True)
+            k = self.speculative_k
+            passes = _spec_passes(DECODE_CHUNK, k) if k > 1 else 0
+            if k > 1 and passes * k <= st.n_ctx:
+                with _spare_positions(st, passes * k) as p:
+                    logits = torch.zeros((1, v), dtype=torch.float32, device=self.device)
+                    hist = torch.full((1, st.n_ctx), -1, dtype=torch.long, device=self.device)
+                    steps.spec_chunk(logits, p, hist, passes, k, capture=True)
+                    ban = torch.full((1,), -1, dtype=torch.long, device=self.device)
+                    steps.spec_chunk_stoch(logits, p, hist, ban, passes, k, [st.generator],
+                                           lane_rows([SamplingParams()], v, self.device),
+                                           capture=True)
             size = self.vision_cfg.vit.image_size
             self._encode(torch.zeros((1, 3, size, size), dtype=COMPUTE_DTYPE,
                                      device=self.device), capture=True)
@@ -576,6 +703,8 @@ class MiniGPT4Engine:
             llama_mod.shift_kv_cache(st.cache, keep, drop, st.n_past, self.llm_cfg)
         del st.tokens[keep:keep + drop]
         st.n_past -= drop
+        # the drafter's rows past keep describe the old positions
+        st.draft_past = min(st.draft_past, keep)
         return drop
 
     def _maybe_shift(self, st: DecodeState, need: int) -> None:
@@ -602,6 +731,7 @@ class MiniGPT4Engine:
             logits = self._forward(st, chunk, last_idx=s - 1)
             st.n_past += s
         st.logits = logits[0]
+        st.spec_ban = -1  # fresh pending logits: a carried ban is dead
 
     def add_tokens(self, tokens: list[int], st: DecodeState | None = None) -> None:
         """llama_eval in n_batch chunks (add_tokens, minigpt4.cpp:2365-2382)."""
@@ -622,6 +752,7 @@ class MiniGPT4Engine:
                         st.n_past, self.llm_cfg, tp=self.tp_group)[0]
             st.n_past += 1
             st.tokens.append(int(tokens[0]))
+            st.spec_ban = -1
             return
         embeds = llama_mod.embed_tokens(self.llm_params, ids)
         self._prefill_embeds(st, embeds, token_ids=[int(t) for t in tokens])
@@ -690,9 +821,13 @@ class MiniGPT4Engine:
         self._feed(self.chat_pieces(question), st)
 
     def sample_token(self, params: SamplingParams | None = None) -> int:
-        """Host sample from the pending logits (the mirostat path)."""
+        """Host sample from the pending logits (the mirostat path).  A carried
+        residual ban is dropped: mirostat's truncation defines its own
+        distribution, to which the device chain's residual does not apply
+        (the JAX engine's ``end_chat``)."""
         if self._st.logits is None:
             raise RuntimeError("nothing evaluated yet")
+        self._st.spec_ban = -1
         return self.sampler.sample(self._st.logits.float().cpu().numpy(),
                                    params or SamplingParams())
 
@@ -705,6 +840,15 @@ class MiniGPT4Engine:
             raise RuntimeError("nothing evaluated yet")
         if params.mirostat != 0:
             tid = self.sample_token(params)
+        elif st.spec_ban >= 0:
+            # a stochastic-speculative dispatch left a residual ban on these
+            # logits: the next sample excludes the rejected draft
+            self._maybe_shift(st, 1)
+            if st.n_past + 1 > st.n_ctx:
+                raise ValueError(f"context overflow: n_past {st.n_past} + 1 > {st.n_ctx}")
+            tid = self.resolve_ban(st, lane_rows([params], self.llm_cfg.n_vocab,
+                                                 self.device))[0]
+            return self.id_to_token(tid)
         else:
             with torch.no_grad():
                 tid = int(sample_token(st.logits, st.generator, _device_config(params),
@@ -731,10 +875,83 @@ class MiniGPT4Engine:
         st.n_past += n
         st.tokens.extend(ids)
         st.logits = logits[0]
+        st.spec_ban = -1
         return ids
 
+    def _emit(self, st: DecodeState, tokens: torch.Tensor, counts: torch.Tensor,
+              logits: torch.Tensor) -> list[int]:
+        """Book the tokens a speculative dispatch emitted (pass p: its first
+        counts[p] tokens) into ``st``; one host read."""
+        toks, cnts = tokens[0].tolist(), counts[0].tolist()
+        ids = [t for row, c in zip(toks, cnts) for t in row[:c]]
+        st.n_past += len(ids)
+        st.tokens.extend(ids)
+        st.logits = logits[0]
+        return ids
+
+    def decode_chunk_spec(self, st: DecodeState, n_passes: int, k: int) -> list[int]:
+        """Greedy speculative decode (JAX ``StepFns.decode_chunk_spec``):
+        ``n_passes`` verify passes of width ``k`` in one dispatch
+        (:func:`llama.speculative_decode_loop`), a captured graph on a graph
+        engine's own state; emits n_passes .. n_passes * k tokens, those of
+        plain greedy decode.  The caller keeps n_past + n_passes * k within
+        the context."""
+        steps = self._steps(st)
+        hist = _lane_hist([st], st.n_ctx, self.device)
+        with torch.no_grad():
+            if steps is not None:
+                out = steps.spec_chunk(st.logits[None], st.n_past, hist, n_passes, k)
+            else:
+                out = llama_mod.speculative_decode_loop(
+                    self.llm_params, st.cache, st.logits[None], st.n_past, hist, n_passes, k,
+                    self.llm_cfg, tp=self.tp_group)
+        ids = self._emit(st, *out[:3])
+        st.spec_ban = -1
+        return ids
+
+    def decode_chunk_spec_stoch(self, st: DecodeState, n_passes: int, k: int, rows) -> list[int]:
+        """Sampled speculative decode (JAX ``StepFns.decode_chunk_spec_stoch``)
+        under the traced ``rows`` (:func:`llama.stochastic_speculative_decode_loop`),
+        drawing from the state's generator; the residual ban carries to the
+        next dispatch in ``st.spec_ban``."""
+        steps = self._steps(st)
+        ban = torch.full((1,), st.spec_ban, dtype=torch.long).to(self.device)
+        hist = _lane_hist([st], st.n_ctx, self.device)
+        with torch.no_grad():
+            if steps is not None:
+                out = steps.spec_chunk_stoch(st.logits[None], st.n_past, hist, ban, n_passes, k,
+                                             [st.generator], rows)
+            else:
+                out = llama_mod.stochastic_speculative_decode_loop(
+                    self.llm_params, st.cache, st.logits[None], st.n_past, hist, ban,
+                    [st.generator], rows, n_passes, k, self.llm_cfg, tp=self.tp_group)
+        ids = self._emit(st, *out[:3])
+        st.spec_ban = int(out[4][0])
+        return ids
+
+    def resolve_ban(self, st: DecodeState, rows) -> list[int]:
+        """Consume a carried residual ban before a plain path samples from the
+        same pending logits (JAX ``StepFns.resolve_ban``): one token drawn
+        with the rejected draft excluded, then evaluated."""
+        ban = torch.full((1,), st.spec_ban, dtype=torch.long).to(self.device)
+        with torch.no_grad():
+            tid = sample_res_rows(st.logits[None], ban, [st.generator], rows)
+            steps = self._steps(st)
+            if steps is not None:
+                logits = steps.step(tid[:, None], st.n_past)
+            else:
+                logits = llama_mod.forward(
+                    self.llm_params, st.cache, llama_mod.embed_tokens(self.llm_params, tid[:, None]),
+                    st.n_past, self.llm_cfg, tp=self.tp_group)
+        t = int(tid[0])
+        st.n_past += 1
+        st.tokens.append(t)
+        st.logits = logits[0]
+        st.spec_ban = -1
+        return [t]
+
     def generate(self, limit: int = 1024, params: SamplingParams | None = None,
-                 st: DecodeState | None = None, lock=None):
+                 st: DecodeState | None = None, lock=None, speculative_k: int | None = None):
         """Stream tokens with the reference's EOS logic
         (MiniGPT4ChatBot.generate, minigpt4_library.py:609-657): chunks of
         DECODE_CHUNK tokens decoded on the device, yielded one by one.
@@ -744,8 +961,21 @@ class MiniGPT4Engine:
         of the context.  Mirostat samples on the host, one token at a time
         (the engine's own state only: a session samples mirostat with its own
         sampler), shifting one position at a time.
-        ``lock``, where given, is held around each chunk's device work."""
+        ``lock``, where given, is held around each chunk's device work.
+
+        ``speculative_k`` (default: the engine's) > 1 decodes by speculation,
+        as JAX's ``generate_stream``: a greedy stream verifies n-gram drafts
+        (or, with a drafter, the drafter's) by argmax and yields plain greedy
+        decode's ids; a sampled stream runs speculative sampling.  The passes
+        per dispatch follow the observed tokens per pass, so that a dispatch
+        emits about DECODE_CHUNK tokens; where no k-wide pass fits the
+        context a plain chunk decodes the tail, a carried ban first consumed
+        by :meth:`resolve_ban`."""
         params = params or SamplingParams()
+        k = self.speculative_k if speculative_k is None else speculative_k
+        if k > llama_mod.FLASH_DECODE_MAX_S:
+            raise ValueError(f"speculative_k={k} exceeds the flash-decode verify-block limit "
+                             f"({llama_mod.FLASH_DECODE_MAX_S})")
         if params.mirostat != 0:
             if st is not None:
                 raise ValueError("mirostat samples on the engine's own state only")
@@ -755,17 +985,46 @@ class MiniGPT4Engine:
         if st.logits is None:
             return
         lock = lock if lock is not None else contextlib.nullcontext()
+        greedy = params.temp <= 0 and not params.logit_bias
+        rows = lane_rows([params], self.llm_cfg.n_vocab, self.device)
+        dfns = self.draft_fns_for(st.n_ctx)
+        use_draft = dfns is not None and greedy
+        use_spec = k > 1 and greedy and not use_draft
+        use_spec_stoch = k > 1 and not greedy and dfns is None
+        width = self.draft_k if use_draft else k
+        gov = _SpecGovernor(break_even=0.0)  # the observed tokens per pass; never demotes
         chat = ""
         emitted = 0
         while emitted < limit:
             if self.context_shift and st.n_past + DECODE_CHUNK > st.n_ctx:
                 with lock:
                     self.ctx_shift(st, DECODE_CHUNK)
-            n = min(DECODE_CHUNK, st.n_ctx - st.n_past)
-            if n <= 0:
-                return
-            with lock:
-                token_ids = self.decode_chunk(n, params, st)
+            token_ids = None
+            if use_draft or use_spec or use_spec_stoch:
+                passes = _fit_passes(gov.passes_for(DECODE_CHUNK, width,
+                                                    _spec_passes(DECODE_CHUNK, width)),
+                                     st.n_past, width, st.n_ctx, floor=1)
+                if passes:
+                    with lock:
+                        if use_draft:
+                            token_ids = _draft_chunk(self, dfns, st, passes, width)
+                        elif use_spec:
+                            token_ids = self.decode_chunk_spec(st, passes, width)
+                        else:
+                            token_ids = self.decode_chunk_spec_stoch(st, passes, width, rows)
+                    gov.observe(len(token_ids), passes, 1)
+            if token_ids is None:
+                if st.spec_ban >= 0:
+                    if st.n_past + 1 > st.n_ctx:
+                        return
+                    with lock:
+                        token_ids = self.resolve_ban(st, rows)
+                else:
+                    n = min(DECODE_CHUNK, st.n_ctx - st.n_past)
+                    if n <= 0:
+                        return
+                    with lock:
+                        token_ids = self.decode_chunk(n, params, st)
             for j, tid in enumerate(token_ids):
                 token = self.id_to_token(tid)
                 chat += token
@@ -827,6 +1086,20 @@ class MiniGPT4Engine:
     def close(self) -> None:
         self._container.close()
         self._llm_file.close()
+        if self._draft_file is not None:
+            self._draft_file.close()
+
+
+def _check_drafter(draft_llm_path, draft_head_path, tp: int) -> None:
+    """The JAX engine's refusals of a drafter: both kinds at once, or one
+    under tp > 1."""
+    if draft_head_path is not None and draft_llm_path is not None:
+        raise ValueError("pass draft_llm_path OR draft_head_path, not both")
+    if tp > 1 and draft_head_path is not None:
+        raise ValueError("draft_head_path requires tp=1")
+    if tp > 1 and draft_llm_path is not None:
+        raise ValueError("draft_llm_path requires tp=1 (the drafter is small enough to "
+                         "replicate; sharding it buys nothing)")
 
 
 def check_tp(reader: LlamaFileReader, decoder_mode: str, tp: int) -> None:
@@ -867,11 +1140,156 @@ def _spare_positions(st: DecodeState, n: int):
 
 def rollback(st: DecodeState, n: int) -> None:
     """Rewind ``n`` evaluations decoded past a stop; the pending logits
-    belong to the rolled-back continuation and are dropped."""
+    belong to the rolled-back continuation and are dropped, with their ban,
+    and the drafter's frontier follows the cursor down."""
     if n > 0:
         st.n_past -= n
         del st.tokens[st.n_past:]
         st.logits = None
+        st.spec_ban = -1
+        st.draft_past = min(st.draft_past, st.n_past)
+
+
+class DraftFns:
+    """The drafter of draft-model speculation over states of ``dcfg.n_ctx``
+    positions (JAX's ``DraftFns``): its params and config, its cache
+    (:meth:`new_cache`, bf16 as JAX's) and the catch-up prefill.  The
+    drafted dispatch itself is :func:`llama.draft_speculative_decode_loop`,
+    run eagerly (ROADMAP Queue 1, item 5a')."""
+
+    def __init__(self, dparams: dict, dcfg, device):
+        self.dparams, self.dcfg, self.device = dparams, dcfg, device
+
+    def new_cache(self) -> dict:
+        return llama_mod.init_cache(self.dcfg, 1, torch.bfloat16, self.device)
+
+    def attn_bucket(self, needed: int) -> int:
+        return _attn_bucket(needed, self.dcfg.n_ctx)
+
+    def catchup(self, dcache: dict, ids: list[int], pos0: int, attn_len: int) -> None:
+        """Prefill the token ids ``ids`` [S] into the draft cache from
+        ``pos0`` (logits discarded); -1 entries (injected embedding rows,
+        whose width the drafter does not take) feed zero embeddings."""
+        t = torch.tensor([ids], dtype=torch.long).to(self.device)
+        emb = llama_mod.embed_tokens(self.dparams, t.clamp(min=0))
+        emb = torch.where((t < 0)[..., None], 0.0, emb).to(emb.dtype)
+        llama_mod.forward(self.dparams, dcache, emb, pos0, self.dcfg, attn_len=attn_len)
+
+
+def _spec_passes(decode_chunk: int, k: int) -> int:
+    """Verify passes per speculative dispatch: at least 2 (a pass may emit
+    one token), at least ``decode_chunk`` positions of width."""
+    return max(1, max(decode_chunk, 2 * k) // k)
+
+
+class _SpecGovernor:
+    """Adaptive speculation (the JAX package's ``_SpecGovernor``, with its
+    constants, so that both make the same decisions on the same
+    observations).  A batched verify pass costs more than a plain step, the
+    more so the more lanes it carries, so a group whose tokens per
+    lane-pass stay low loses throughput by speculating.  The governor keeps
+    an EWMA of tokens per lane-pass, from which it scales the passes per
+    dispatch; below the lane-scaled break-even the group decodes plain
+    chunks for ``cooldown`` steps, then probes again with one speculative
+    step.  The ids are the same either way; only the throughput moves.  A
+    single stream (``MiniGPT4Engine.generate``) keeps only the EWMA: its
+    break-even is 0, so it never demotes."""
+
+    def __init__(self, cooldown: int = 8, break_even: float | None = None):
+        self.cooldown = cooldown
+        self.break_even = break_even  # None: the lane-scaled formula
+        self.ewma: float | None = None
+        self.cool = 0
+        self.demotions = 0
+
+    def threshold(self, lanes: int) -> float:
+        """Break-even tokens per lane-pass: a pass premium taken as linear in
+        the lane count, floored just above 1 (one or two lanes practically
+        never demote) and capped at 1.5."""
+        if self.break_even is not None:
+            return self.break_even
+        return min(1.5, 1.0 + 0.054 * lanes)
+
+    def want_spec(self) -> bool:
+        if self.cool > 0:
+            self.cool -= 1
+            return False
+        return True
+
+    def passes_for(self, decode_chunk: int, k: int, start: int = 2) -> int:
+        """Verify passes per dispatch: ``start`` doubled up to 16 until, at
+        the observed acceptance, a dispatch emits about ``decode_chunk``
+        tokens and its fixed cost amortizes as a plain chunk's does.  A
+        group starts from 2, a single stream from :func:`_spec_passes`, as
+        in JAX."""
+        est = self.ewma if self.ewma is not None else float(k)
+        want = decode_chunk / max(est, 1.0)
+        p = start
+        while p < min(want, 16):
+            p *= 2
+        return p
+
+    def observe(self, tokens: int, passes: int, lanes: int) -> None:
+        r = tokens / max(passes * lanes, 1)
+        self.ewma = r if self.ewma is None else 0.5 * self.ewma + 0.5 * r
+        if self.ewma < self.threshold(lanes):
+            self.cool = self.cooldown
+            self.demotions += 1
+            self.ewma = None  # a fresh estimate at the next probe
+
+
+def _fit_passes(n_passes: int, pos: int, k: int, n_ctx: int, floor: int) -> int:
+    """``n_passes`` halved toward ``floor`` until the passes' k-wide spans
+    from ``pos`` fit the context; 0 where even ``floor`` passes do not."""
+    while n_passes > floor and pos + n_passes * k > n_ctx:
+        n_passes = max(floor, n_passes // 2)
+    return n_passes if pos + n_passes * k <= n_ctx else 0
+
+
+def _lane_hist(states: list, n_ctx: int, device) -> torch.Tensor:
+    """The lanes' token histories [B, n_ctx] long on ``device``, -1 past
+    each lane's cursor: what the n-gram drafts read."""
+    hist = torch.full((len(states), n_ctx), -1, dtype=torch.long)
+    for i, st in enumerate(states):
+        hist[i, :st.n_past] = torch.tensor(st.tokens[:st.n_past], dtype=torch.long)
+    return hist.to(device)
+
+
+def _draft_catchup(dfns: DraftFns, st: DecodeState, chunk: int = 64) -> None:
+    """Bring the draft cache's frontier up to the cursor by prefilling
+    ``st.tokens[draft_past:n_past]`` through the drafter (JAX's
+    ``_draft_catchup``), in chunks padded to power-of-two buckets; near the
+    context end the exact remainder, since a padded write there would clamp
+    onto history."""
+    if st.dcache is None:
+        st.dcache = dfns.new_cache()
+        st.draft_past = 0
+    while st.draft_past < st.n_past:
+        span = st.tokens[st.draft_past:min(st.draft_past + chunk, st.n_past)]
+        b = _bucket(len(span), chunk)
+        if st.draft_past + b > dfns.dcfg.n_ctx:
+            b = len(span)
+        with torch.no_grad():
+            dfns.catchup(st.dcache, span + [-1] * (b - len(span)), st.draft_past,
+                         dfns.attn_bucket(st.draft_past + b))
+        st.draft_past += len(span)
+
+
+def _draft_chunk(eng: "MiniGPT4Engine", dfns: DraftFns, st: DecodeState, n_passes: int,
+                 k: int) -> list[int]:
+    """One draft-model speculative dispatch (JAX's ``_draft_chunk``): the
+    catch-up, then ``n_passes`` drafted verify passes, booked as
+    :meth:`MiniGPT4Engine.decode_chunk_spec` books them.  Positions past the
+    new cursor hold rejected drafts: the frontier stops at the cursor."""
+    _draft_catchup(dfns, st)
+    with torch.no_grad():
+        out = llama_mod.draft_speculative_decode_loop(
+            eng.llm_params, st.cache, dfns.dparams, st.dcache, st.logits[None], st.n_past,
+            n_passes, k, eng.llm_cfg, dfns.dcfg)
+    ids = eng._emit(st, *out)
+    st.draft_past = st.n_past
+    st.spec_ban = -1
+    return ids
 
 
 def _device_config(params: SamplingParams) -> DeviceSamplingConfig:

@@ -12,12 +12,17 @@ of launches of a decode chunk.  The keys mirror JAX's static arguments:
                   JAX's static scfg or traced rows; bias plane present or
                   not; page-table width or None)
     single step   lanes B
+    speculative   (lanes B, verify passes n, width k, None): the n-gram
+                  dispatch, greedy ("spec") or sampled ("spec_stoch", with
+                  the bias plane present or not); the last slot stands for
+                  JAX's attention bucket, which an S = k <= 32 verify does
+                  not read (flash decode reads each lane's positions alone)
     prefill       (bucket S, attention span when S > 32, else None)
     encode        image batch
 
 Every value a step reads that changes between calls (cursors, pending
 logits, token ids, embeddings, the page table, the bias plane, traced
-thresholds) lives in a static input buffer that a call fills before the
+thresholds, the n-gram history and the residual ban) lives in a static input buffer that a call fills before the
 replay; a call hands back copies of the static outputs (token ids, logits,
 embeddings), so a later replay cannot overwrite what a caller kept.  The
 steps compute positions from the device cursors (``models/llama.py``), so
@@ -186,6 +191,43 @@ class StepGraphs(GraphCache):
         gens = [g if rows.traced is not None or not c.greedy else None
                 for g, c in zip(generators, rows.configs)]
         return self.run(key, step, feed, gens, capture)
+
+    def spec_chunk(self, logits: torch.Tensor, pos0, hist: torch.Tensor, n_passes: int, k: int,
+                   capture: bool = False):
+        """:func:`llama.speculative_decode_loop` of ``n_passes`` passes of
+        width ``k`` from the pending logits [B, V] at the cursors ``pos0``
+        over the histories ``hist`` [B, C]: (tokens [B, n, k], counts [B,
+        n], final logits [B, V], hist [B, C])."""
+        b = logits.shape[0]
+        feed = {"logits": logits, "pos": pos_vector(pos0, b, logits.device), "hist": hist}
+
+        def step(inp, _):
+            return llama_mod.speculative_decode_loop(self.params, self.cache, inp["logits"],
+                                                     inp["pos"], inp["hist"], n_passes, k,
+                                                     self.cfg)
+
+        return self.run(("spec", b, n_passes, k, None), step, feed, capture=capture)
+
+    def spec_chunk_stoch(self, logits: torch.Tensor, pos0, hist: torch.Tensor, ban: torch.Tensor,
+                         n_passes: int, k: int, generators: list, rows: LaneRows,
+                         capture: bool = False):
+        """:func:`llama.stochastic_speculative_decode_loop` under the traced
+        ``rows``, each lane drawing from its generator, with the carried
+        bans ``ban`` [B]: (tokens, counts, final logits, hist, ban)."""
+        b = logits.shape[0]
+        feed = {"logits": logits, "pos": pos_vector(pos0, b, logits.device), "hist": hist,
+                "ban": ban, **rows.traced}
+        if rows.bias is not None:
+            feed["bias"] = rows.bias
+
+        def step(inp, gens):
+            traced = {name: inp[name] for name in TRACED}
+            return llama_mod.stochastic_speculative_decode_loop(
+                self.params, self.cache, inp["logits"], inp["pos"], inp["hist"], inp["ban"], gens,
+                LaneRows(rows.configs, inp.get("bias"), traced), n_passes, k, self.cfg)
+
+        key = ("spec_stoch", b, n_passes, k, None, rows.bias is not None)
+        return self.run(key, step, feed, generators, capture)
 
     def step(self, tokens: torch.Tensor, pos0, capture: bool = False) -> torch.Tensor:
         """One position per lane, embedding included (JAX's ``decode_step``):

@@ -51,9 +51,17 @@ operations on the session's state, and before each mirostat token); a
 window group leaves out a session without room for a chunk, as JAX's, and a
 batcher lane that reaches the end detaches, shifts and rejoins.
 
-Not ported yet (ROADMAP): speculative decoding and its governor.  Lane
-caches and the page pool hold the engine's cache type
-(``MiniGPT4Engine.cache_dtype``).
+With an engine of ``speculative_k`` > 1 a session's stream speculates
+(``MiniGPT4Engine.generate``, with its drafter where it has one), and both
+batchers run batched verify passes: every lane drafts from its own n-gram
+history (``hist``, on the device, kept across steps), all-greedy groups
+verify by argmax (plain greedy's ids) and any other group by speculative
+sampling, each lane carrying its residual ban between steps.  A
+:class:`_SpecGovernor` demotes a group to plain chunks while its tokens per
+lane-pass stay below break-even (``metrics["spec_demotions"]``), and
+probes again after a cooldown.  The batched verify steps run eagerly
+(ROADMAP Queue 1, item 5a').  Lane caches and the page pool hold the
+engine's cache type (``MiniGPT4Engine.cache_dtype``).
 """
 
 from __future__ import annotations
@@ -70,7 +78,8 @@ import torch
 
 from ..models import llama as llama_mod
 from .device_sampling import lane_rows
-from .engine import DECODE_CHUNK, EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine
+from .engine import (DECODE_CHUNK, EOS_SUFFIX, EOS_TOKEN_SUFFIX, DecodeState, MiniGPT4Engine,
+                     _fit_passes, _lane_hist, _SpecGovernor)
 from .graphs import StepGraphs
 from .hostcopy import copy_from_host_, host_copy
 from .paged import PagedKVPool, PoolExhausted
@@ -176,6 +185,26 @@ def _detach_lane_state(st: DecodeState, ends: int, pos_now: int, cache: dict | N
     st.n_past = ends
     del st.tokens[ends:]
     st.logits = logits_row if ends == pos_now else None
+    # the drafter's rows past ``ends`` belong to the rolled-back continuation
+    st.draft_past = min(st.draft_past, ends)
+
+
+def _put_hist(hist: torch.Tensor, pos: list[int], lane_tokens: list) -> None:
+    """Write each lane's plain-chunk tokens into ``hist`` from its cursor, in
+    place, dropping what falls past the context (a finished lane's
+    overshoot), as JAX's scatter drops it: a demoted step must leave no gap
+    below a cursor that would starve the drafts when speculation resumes."""
+    c = hist.shape[1]
+    ii, jj, vv = [], [], []
+    for i, (p, toks) in enumerate(zip(pos, lane_tokens)):
+        for j, t in enumerate(toks):
+            if p + j < c:
+                ii.append(i)
+                jj.append(p + j)
+                vv.append(int(t))
+    if ii:
+        hist[torch.tensor(ii).to(hist.device), torch.tensor(jj).to(hist.device)] = (
+            torch.tensor(vv, dtype=hist.dtype).to(hist.device))
 
 
 class SessionPool:
@@ -197,7 +226,8 @@ class SessionPool:
         self._sessions: dict[int, ChatSession] = {}
         self.metrics = {"sessions_created": 0, "images_encoded": 0,
                         "tokens_prefilled": 0, "tokens_generated": 0,
-                        "prefix_cache_hits": 0, "prefix_cache_misses": 0}
+                        "prefix_cache_hits": 0, "prefix_cache_misses": 0,
+                        "spec_demotions": 0}
         self._session_cfg = dataclasses.replace(self.engine.cache_cfg, n_ctx=session_ctx)
         # the radix prefix cache: token ids fed from position 0 -> {"k", "v":
         # host bits of rows [0, n), "logits": host [V], "bytes"}, in LRU order
@@ -503,7 +533,15 @@ class SessionPool:
         Parked sessions join from their host copies (a session left out
         stays parked).
 
-        Yields, once per decode chunk, a list of (session index, token) in
+        With an engine of ``speculative_k`` > 1 each step runs batched verify
+        passes instead (JAX's ``generate_batch_stream``): every lane drafts
+        from its own history, an all-greedy group verifies by argmax (plain
+        greedy's ids) and any other group by speculative sampling, each lane
+        carrying its residual ban; a :class:`_SpecGovernor` demotes the group
+        to plain chunks while speculation does not pay, counted in
+        ``metrics["spec_demotions"]``.
+
+        Yields, once per decode step, a list of (session index, token) in
         the order per-session generation would emit them."""
         n_all = len(sessions)
         if isinstance(params, (list, tuple)):
@@ -537,12 +575,20 @@ class SessionPool:
                  "ends": s.n_past} for i, s in enumerate(batch)]
 
     def _decode(self, cache, logits, pos, rows, gens, decode_chunk, page_table=None,
-                steps: StepGraphs | None = None):
+                steps: StepGraphs | None = None, ban: list[int] | None = None):
         """One decode chunk of a group whose lanes draw from ``gens``,
         replaying ``steps``' graph where given; returns (token ids per lane,
-        the final logits).  Caller holds the lock."""
+        the final logits).  ``ban``: the lanes' residual bans (traced rows);
+        where one is set the chunk runs eagerly with them excluded at its
+        first step (JAX's ``decode_loop_dyn_ban``; without a ban its draws
+        are the same).  Caller holds the lock."""
         with torch.no_grad():
-            if steps is not None:
+            if ban is not None and any(b >= 0 for b in ban):
+                tokens, logits = llama_mod.decode_loop(
+                    self.engine.llm_params, cache, logits, pos, decode_chunk, gens, rows,
+                    self.engine.llm_cfg, page_table=page_table, tp=self.engine.tp_group,
+                    ban0=torch.tensor(ban, dtype=torch.long).to(logits.device))
+            elif steps is not None:
                 tokens, logits = steps.decode_chunk(logits, pos, decode_chunk, gens, rows,
                                                     page_table)
             else:
@@ -613,24 +659,27 @@ class SessionPool:
         pos_host = [s.n_past for s in batch]
         done = [False] * n
         bump = lambda: self._bump("tokens_generated")  # noqa: E731
+        group = self._spec_group(batch, rows)
         try:
             while not all(done):
                 max_pos = max(pos_host[i] for i in range(n) if not done[i])
                 if max_pos + decode_chunk > n_ctx:
                     break  # an active lane is out of context: stop the group
+                spec, span, n_passes = self._spec_plan(group, decode_chunk, max_pos, n_ctx)
                 # a finished lane past the cache end writes onto its last
                 # position (models/llama.forward): stop before that position
                 # could hold the lane's history
-                if any(done[i] and pos_host[i] + decode_chunk > n_ctx
-                       and lanes[i]["ends"] > n_ctx - decode_chunk for i in range(n)):
+                if any(done[i] and pos_host[i] + span > n_ctx
+                       and lanes[i]["ends"] > n_ctx - span for i in range(n)):
                     break
                 with self._lock:
-                    lane_tokens, logits = self._decode(
-                        cache, logits, pos_host, rows, [s.state.generator for s in batch],
-                        decode_chunk)
-                pos_host = [p + decode_chunk for p in pos_host]
+                    lane_tokens, logits = self._group_step(
+                        group, cache, logits, pos_host, [s.state.generator for s in batch],
+                        decode_chunk, n_passes if spec else 0, done)
+                pos_host = [p + len(t) for p, t in zip(pos_host, lane_tokens)]
                 yield self._deliver(act, lanes, lane_tokens, done, bump)
         finally:
+            self._end_spec_group(group)
             with self._lock:
                 err = None
                 for i, s in enumerate(batch):
@@ -638,11 +687,87 @@ class SessionPool:
                         _detach_lane_state(s.state, lanes[i]["ends"], pos_host[i],
                                            {kv: cache[kv][:, i:i + 1].clone()
                                             for kv in ("k", "v")}, logits[i])
+                        s.state.spec_ban = self._lane_ban(group, i, lanes[i], pos_host[i])
                     except Exception as e:
                         self._reset_lane_session(s.state)
                         err = err or e
                 if err is not None:
                     raise err
+
+    # -- batched speculation --
+    def _spec_group(self, batch: list[ChatSession], rows) -> dict:
+        """The speculative state of a window group: its rows, the lanes'
+        histories (with speculation on), their residual bans (traced rows;
+        host ints) and its governor."""
+        states = [s.state for s in batch]
+        use_spec = self.engine.speculative_k > 1
+        return {"rows": rows, "gov": _SpecGovernor(),
+                "hist": (_lane_hist(states, self.session_ctx, self.engine.device)
+                         if use_spec else None),
+                "ban": [st.spec_ban for st in states] if rows.traced is not None else None}
+
+    def _spec_plan(self, group: dict, decode_chunk: int, max_pos: int,
+                   n_ctx: int) -> tuple[bool, int, int]:
+        """(speculate, positions the step may advance, verify passes) for the
+        next step of a group whose furthest active lane is at ``max_pos``:
+        passes scaled to the acceptance and halved toward the context end;
+        a plain chunk where no speculative step fits or the governor
+        demoted the group."""
+        k = self.engine.speculative_k
+        if k <= 1:
+            return False, decode_chunk, 0
+        gov = group["gov"]
+        n_passes = _fit_passes(gov.passes_for(decode_chunk, k), max_pos, k, n_ctx, floor=2)
+        if n_passes and gov.want_spec():
+            return True, n_passes * k, n_passes
+        return False, decode_chunk, 0
+
+    def _group_step(self, group: dict, cache, logits, pos, gens, decode_chunk: int,
+                    n_passes: int, done, page_table=None, steps: StepGraphs | None = None):
+        """One step of a group: ``n_passes`` > 0 speculative verify passes
+        (eager), else a plain chunk (replaying ``steps`` where given, eager
+        where a lane carries a ban).  Updates the group's history, bans and
+        governor; returns (token ids per lane, the final logits).  Caller
+        holds the lock."""
+        rows, eng = group["rows"], self.engine
+        if n_passes:
+            with torch.no_grad():
+                if rows.traced is None:
+                    tokens, counts, logits, group["hist"] = llama_mod.speculative_decode_loop(
+                        eng.llm_params, cache, logits, pos, group["hist"], n_passes,
+                        eng.speculative_k, eng.llm_cfg, page_table=page_table)
+                else:
+                    ban_dev = torch.tensor(group["ban"], dtype=torch.long).to(eng.device)
+                    (tokens, counts, logits, group["hist"],
+                     ban_out) = llama_mod.stochastic_speculative_decode_loop(
+                        eng.llm_params, cache, logits, pos, group["hist"], ban_dev, gens, rows,
+                        n_passes, eng.speculative_k, eng.llm_cfg, page_table=page_table)
+                    group["ban"] = ban_out.tolist()
+            toks, cnts = tokens.tolist(), counts.tolist()
+            lane_tokens = [[t for row, c in zip(tr, cr) for t in row[:c]]
+                           for tr, cr in zip(toks, cnts)]
+            act = [i for i in range(len(lane_tokens)) if not done[i]]
+            group["gov"].observe(sum(len(lane_tokens[i]) for i in act), n_passes, len(act))
+            return lane_tokens, logits
+        lane_tokens, logits = self._decode(cache, logits, pos, rows, gens, decode_chunk,
+                                           page_table, steps, group["ban"])
+        if group["ban"] is not None:
+            group["ban"] = [-1] * len(lane_tokens)
+        if group["hist"] is not None:
+            _put_hist(group["hist"], pos, lane_tokens)
+        return lane_tokens, logits
+
+    def _end_spec_group(self, group: dict) -> None:
+        if group["gov"].demotions:
+            self._bump("spec_demotions", group["gov"].demotions)
+
+    @staticmethod
+    def _lane_ban(group: dict, i: int, lane: dict, pos: int) -> int:
+        """The residual ban lane ``i`` hands back to its session: its own
+        where its pending logits survive the detach (nothing rolled back),
+        else none."""
+        ban = group["ban"]
+        return ban[i] if ban is not None and lane["ends"] == pos else -1
 
     def _deliver(self, act, lanes, lane_tokens, done, bump) -> list[tuple[int, str]]:
         updates: list[tuple[int, str]] = []
@@ -727,16 +852,18 @@ class SessionPool:
         pos_host = [s.n_past for s in batch]
         done = [False] * n
         bump = lambda: self._bump("tokens_generated")  # noqa: E731
+        group = self._spec_group(batch, rows)
         try:
             while not all(done):
                 max_pos = max(pos_host[i] for i in range(n) if not done[i])
                 if max_pos + decode_chunk > n_ctx:
                     break
+                spec, span, n_passes = self._spec_plan(group, decode_chunk, max_pos, n_ctx)
                 with self._lock:
                     try:
                         for i in range(n):
                             if not done[i]:
-                                grown = pool.extend(lane_pages[i], pos_host[i] + decode_chunk)
+                                grown = pool.extend(lane_pages[i], pos_host[i] + span)
                                 if len(grown) != len(lane_pages[i]):
                                     lane_pages[i] = grown
                                     table[i] = pool.table_row(grown)
@@ -746,16 +873,17 @@ class SessionPool:
                     if table_dev is None:
                         table_dev = torch.tensor(table, dtype=torch.int32).to(self.engine.device)
                     try:
-                        lane_tokens, logits = self._decode(
-                            {"k": pool.k, "v": pool.v}, logits, pos_host, rows,
-                            [s.state.generator for s in batch], decode_chunk, table_dev,
-                            self._paged_steps(pool))
+                        lane_tokens, logits = self._group_step(
+                            group, {"k": pool.k, "v": pool.v}, logits, pos_host,
+                            [s.state.generator for s in batch], decode_chunk,
+                            n_passes if spec else 0, done, table_dev, self._paged_steps(pool))
                     except Exception:
                         pool.broken = True  # the pool's contents are unknown now
                         raise
-                pos_host = [p + decode_chunk for p in pos_host]
+                pos_host = [p + len(t) for p, t in zip(pos_host, lane_tokens)]
                 yield self._deliver(act, lanes, lane_tokens, done, bump)
         finally:
+            self._end_spec_group(group)
             # every lane's pages go back into a private dense cache and the
             # pool, also when the consumer closed the stream early
             with self._lock:
@@ -767,6 +895,7 @@ class SessionPool:
                         dense = pool.evict(lane_pages[i], self.session_ctx)
                         _detach_lane_state(s.state, lanes[i]["ends"], pos_host[i], dense,
                                            logits[i])
+                        s.state.spec_ban = self._lane_ban(group, i, lanes[i], pos_host[i])
                     except Exception as e:
                         try:
                             pool.free(lane_pages[i])
@@ -817,6 +946,14 @@ class ContinuousBatcher:
     ahead of time.  Mirostat is refused (it samples on the host), and so is
     an engine over tp ranks.
 
+    With an engine of ``speculative_k`` > 1 a step runs batched verify
+    passes (JAX's speculative branch of ``_step``): each slot keeps its
+    lane's history in a row of ``_hist`` (written at the join, kept through
+    plain steps) and its residual ban in ``_ban`` (taken from the session at
+    the join, handed back at the leave).  A step whose furthest lane has no
+    room for the speculative span, or that the governor demoted, decodes a
+    plain chunk; the governor starts afresh whenever the group drains.
+
     Requests enter through :meth:`submit`, which returns a queue of str
     tokens ending with ``_DONE`` (after an exception, where one occurred);
     a worker thread admits them and decodes.  No failure moves work to
@@ -852,6 +989,13 @@ class ContinuousBatcher:
         self._dense_steps: StepGraphs | None = None
         self._logits = torch.zeros((max_batch, eng.llm_cfg.n_vocab), dtype=torch.float32,
                                    device=dev)
+        # batched speculation: the slots' token histories, residual bans and
+        # the group's governor
+        self._hist = (torch.full((max_batch, pool.session_ctx), -1, dtype=torch.long, device=dev)
+                      if eng.speculative_k > 1 else None)
+        self._ban = [-1] * max_batch
+        self._gov = _SpecGovernor()
+        self._gov_reported = 0  # demotions already counted in the pool's metrics
         self._pos = [0] * max_batch
         self._idle_gens = [torch.Generator(device=dev).manual_seed(pool.seed ^ 0x00C0FFEE)
                            for _ in range(max_batch)]
@@ -989,6 +1133,9 @@ class ContinuousBatcher:
                 for it in deferred:
                     self._try_admit(it)
             if self._n_active() == 0:
+                # the group drained: the next one starts a fresh estimate
+                self._gov = _SpecGovernor()
+                self._gov_reported = 0
                 continue
             try:
                 self._step()
@@ -1054,6 +1201,7 @@ class ContinuousBatcher:
                 st.cache = None  # the slot or the pages are the live copy now
             self._deferred_since.pop(id(out), None)
             self._pos[slot] = st.n_past
+            self._ban[slot] = st.spec_ban
             lane = {"session": session, "limit": limit, "out": out, "chat": "", "emitted": 0,
                     "ends": st.n_past, "params": params}
             if resume is not None:
@@ -1080,6 +1228,8 @@ class ContinuousBatcher:
                                      f"a slot of {dst.dtype} {tuple(dst.shape)}")
                 llama_mod._bits(dst)[:, slot].copy_(llama_mod._bits(src)[:, 0])
         self._logits[slot].copy_(st.logits)
+        if self._hist is not None:
+            self._hist[slot].copy_(_lane_hist([st], self._hist.shape[1], self._hist.device)[0])
 
     def _leave(self, slot: int, lane: dict, with_logits: bool) -> bool:
         """Give a lane's cache back to its session (a clone of its slot, or
@@ -1102,6 +1252,9 @@ class ContinuousBatcher:
                 else:
                     cache = {kv: self._cache[kv][:, slot:slot + 1].clone() for kv in ("k", "v")}
                 _detach_lane_state(st, lane["ends"], self._pos[slot], cache, logits_row)
+                # the lane's ban survives where its pending logits do
+                st.spec_ban = (self._ban[slot] if with_logits and lane["ends"] == self._pos[slot]
+                               else -1)
                 return True
             except Exception:
                 self.pool._reset_lane_session(st)
@@ -1109,6 +1262,7 @@ class ContinuousBatcher:
             finally:
                 self._lanes[slot] = None
                 self._pos[slot] = 0
+                self._ban[slot] = -1
 
     def _abort_lane(self, slot: int, err: Exception | None) -> None:
         """Detach a lane at shutdown or after a failed step, leaving its
@@ -1145,6 +1299,13 @@ class ContinuousBatcher:
             self._end(lane["out"], RuntimeError("paged lane preemption failed; session reset"))
         return True
 
+    def _spec_plan(self, max_pos: int) -> tuple[bool, int, int]:
+        """(speculate, positions the step may advance, verify passes): the
+        window group's plan (``SessionPool._spec_plan``) under this group's
+        governor."""
+        return self.pool._spec_plan({"gov": self._gov}, self.decode_chunk, max_pos,
+                                    self.pool.session_ctx)
+
     def _step(self) -> None:
         eng = self.pool.engine
         chunk = self.decode_chunk
@@ -1167,8 +1328,12 @@ class ContinuousBatcher:
                     self._end(lane["out"])
         if self._n_active() == 0:
             return
+        # a lane near the context end demotes the step to a plain chunk, and
+        # so does the governor; speculation resumes after
+        spec, span, n_passes = self._spec_plan(
+            max(p for p, lane in zip(self._pos, self._lanes) if lane is not None))
         if self.paged:
-            # every lane gets pages one chunk ahead; a dry pool preempts the
+            # every lane gets pages one step ahead; a dry pool preempts the
             # youngest lane and tries again; a lone lane it cannot grow ends
             while True:
                 try:
@@ -1177,7 +1342,7 @@ class ContinuousBatcher:
                         for i, lane in enumerate(self._lanes):
                             if lane is None:
                                 continue
-                            grown = ppool.extend(self._pages[i], self._pos[i] + chunk)
+                            grown = ppool.extend(self._pages[i], self._pos[i] + span)
                             if len(grown) != len(self._pages[i]):
                                 self._pages[i] = grown
                                 self._table[i] = ppool.table_row(grown)
@@ -1193,22 +1358,32 @@ class ContinuousBatcher:
                          eng.llm_cfg.n_vocab, eng.device)
         gens = [lane["session"].state.generator if lane is not None else self._idle_gens[i]
                 for i, lane in enumerate(self._lanes)]
+        group = {"rows": rows, "hist": self._hist, "gov": self._gov,
+                 "ban": list(self._ban) if rows.traced is not None else None}
+        done = [lane is None for lane in self._lanes]
         with self.pool._lock:
             if self.paged:
                 ppool = self.pool.paged_pool
                 if self._table_dev is None:
                     self._table_dev = torch.tensor(self._table, dtype=torch.int32).to(eng.device)
                 try:
-                    lane_tokens, self._logits = self.pool._decode(
-                        {"k": ppool.k, "v": ppool.v}, self._logits, self._pos, rows, gens, chunk,
-                        self._table_dev, self._steps())
+                    lane_tokens, self._logits = self.pool._group_step(
+                        group, {"k": ppool.k, "v": ppool.v}, self._logits, self._pos, gens,
+                        chunk, n_passes if spec else 0, done, self._table_dev, self._steps())
                 except Exception:
                     ppool.broken = True  # the pool's contents are unknown now
                     raise
             else:
-                lane_tokens, self._logits = self.pool._decode(
-                    self._cache, self._logits, self._pos, rows, gens, chunk, None, self._steps())
-        self._pos = [p + chunk for p in self._pos]
+                lane_tokens, self._logits = self.pool._group_step(
+                    group, self._cache, self._logits, self._pos, gens, chunk,
+                    n_passes if spec else 0, done, None, self._steps())
+        self._hist = group["hist"]
+        # a step other than a sampled speculative one leaves no ban
+        self._ban = group["ban"] if spec and group["ban"] is not None else [-1] * self.B
+        if self._gov.demotions > self._gov_reported:
+            self.pool._bump("spec_demotions", self._gov.demotions - self._gov_reported)
+            self._gov_reported = self._gov.demotions
+        self._pos = [p + len(t) for p, t in zip(self._pos, lane_tokens)]
         tokenizer = eng.tokenizer
         bump = lambda: self.pool._bump("tokens_generated")  # noqa: E731
         for i in act:

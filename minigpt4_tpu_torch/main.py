@@ -7,8 +7,9 @@ streamed answer to each prompt, every sampling knob a flag.
         -i image.png -p "what is in the picture?" [--device cuda] [--ctx-shift]
 
 The engine runs on ``--device`` (default cuda) and never falls back to the
-CPU on its own.  ``--speculative-k``, ``--draft-llm`` and ``--draft-head``
-exit naming their ROADMAP item (speculative decoding is not ported).
+CPU on its own.  ``--speculative-k K`` decodes by speculation (greedy output
+is token-identical, sampled output runs speculative sampling);
+``--draft-llm`` or ``--draft-head`` drafts greedy decode with a smaller model.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ import time
 from .engine import MiniGPT4Engine, SamplingParams
 from .image import load_image, preprocess
 from .utils import Verbosity
-
-SPECULATIVE = "speculative decoding is not ported (ROADMAP Queue 1, item 14)"
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -67,14 +66,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="also write the generated pieces one per line here")
     p.add_argument("--warmup", action="store_true",
                    help="capture the engine's CUDA graphs before the session")
-    # the JAX CLI's speculative options: accepted so that asking names the item
-    p.add_argument("--speculative-k", type=int, default=0, help=SPECULATIVE)
-    p.add_argument("--draft-llm", default=None, metavar="PATH", help=SPECULATIVE)
-    p.add_argument("--draft-head", default=None, metavar="PATH", help=SPECULATIVE)
-    args = p.parse_args(argv)
-    if args.speculative_k or args.draft_llm or args.draft_head:
-        p.error(f"--speculative-k / --draft-llm / --draft-head: {SPECULATIVE}")
-    return args
+    p.add_argument("--speculative-k", type=int, default=0,
+                   help="speculative decoding verify width (0 = off): greedy output is "
+                   "token-identical; sampled output runs speculative sampling")
+    p.add_argument("--draft-llm", default=None, metavar="PATH",
+                   help="smaller ggml llama sharing the tokenizer: draft-model speculative "
+                   "decoding for greedy generation (token-identical)")
+    p.add_argument("--draft-head", default=None, metavar="PATH",
+                   help="draft-head artifact (train/draft.py): tiny drafter over the main "
+                   "model's embedding for greedy generation (token-identical)")
+    return p.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -84,7 +85,9 @@ def main(argv: list[str] | None = None) -> int:
         args.model, args.llm_model, verbosity=args.verbosity, seed=args.seed,
         n_ctx=args.n_ctx, n_batch=args.n_batch, device=args.device,
         cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
-        smooth_scales=args.smooth_scales, context_shift=args.ctx_shift, tp=args.tp)
+        smooth_scales=args.smooth_scales, context_shift=args.ctx_shift, tp=args.tp,
+        speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
+        draft_head_path=args.draft_head)
     try:
         if args.warmup:
             eng.warmup()

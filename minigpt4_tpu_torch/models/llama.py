@@ -10,8 +10,18 @@ rows runs the flash-decode kernel, longer prefill chunks a plain masked
 softmax.  RoPE is the interleaved-pair variant (ggml_rope mode 0).
 
 With a ``page_table`` the cache is instead the serving page pools
-``[L, NP + 1, H, 128, Dh]`` of ``engine/paged.py``: decode steps (S = 1)
-write through the table and attend with the paged flash-decode kernel.
+``[L, NP + 1, H, 128, Dh]`` of ``engine/paged.py``: decode steps and
+verify spans (S <= 32 rows from per-row cursors) write through the table
+and attend with the paged flash-decode kernel.
+
+Speculative decoding (the JAX package's loops of the same names):
+:func:`speculative_decode_loop` drafts by n-gram lookup
+(:func:`_ngram_draft`) and verifies k tokens in one S = k forward;
+:func:`stochastic_speculative_decode_loop` is its sampled form (speculative
+sampling with a point-mass draft and the residual ban);
+:func:`draft_speculative_decode_loop` drafts with a second, smaller model.
+Every pass keeps its values on the device, so a dispatch reads no host
+value until it returns, and a captured CUDA graph replays it.
 
 The cache holds f32, bf16 or e4m3 (``torch.float8_e4m3fn``); K/V reach an
 e4m3 cache through :func:`to_cache`, the JAX package's cast.
@@ -314,8 +324,8 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     ``act_stats``: the calibration capture of :func:`_layer`, plus "head",
     the absolute maxima of the final norm's output over every position.
 
-    ``pos0`` is the cursor: an int, a sequence of one int per batch row (S
-    = 1 only), or an i32 [B] tensor on the device.  Positions, cache writes
+    ``pos0`` is the cursor: an int, a sequence of one int per batch row, or
+    an i32 [B] tensor on the device.  Positions, cache writes
     and the attention masks are computed from it on the device, so a step
     reads no host value and a captured CUDA graph replays it at any cursor
     (``engine/graphs.py``).  Bucket-padded rows past ``last_idx`` write
@@ -328,18 +338,16 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     position p lives at offset p % PAGE of pool page
     ``page_table[b, min(p // PAGE, MAXP)]``; a finished row overshooting
     its capacity lands in the table's last slot, the pool's trash page.
-    The page of each row is looked up on the device, once per call.
+    The page of each row is looked up on the device, once per call, and
+    every position is written through its own page: a span of S > 1 rows
+    (a speculative verify) that crosses a page edge lands on two pages,
+    where the JAX package blends two window writes.
 
     ``tp``: this rank's tensor-parallel group; ``params`` and ``cache`` are
     then its shards (``parallel/spmd.py``) and every rank returns the same
     full-vocabulary logits."""
     b, s, _ = embeds.shape
     dev = embeds.device
-    if s > 1 and (page_table is not None or isinstance(pos0, (list, tuple))):
-        raise NotImplementedError(
-            f"forward of {s} positions from per-row cursors: spans over the page pool or "
-            "a batched group (the speculative verify writes) are not ported yet "
-            "(ROADMAP Queue 1, item 14)")
     pos_dev = pos_vector(pos0, b, dev)
     positions = _positions(pos_dev, s)
     if page_table is not None:
@@ -379,7 +387,8 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps: int,
                 generators: list, rows, cfg: LlamaConfig,
-                page_table: torch.Tensor | None = None, tp: TPGroup | None = None):
+                page_table: torch.Tensor | None = None, tp: TPGroup | None = None,
+                ban0: torch.Tensor | None = None):
     """Generate ``n_steps`` tokens with on-device sampling.
 
     Keeps the reference's sample-then-eval order: token i is sampled from
@@ -395,18 +404,220 @@ def decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0, n_steps:
     caller provisions pages covering every active row's pos0 + n_steps.
     ``tp``: see :func:`forward`; every rank samples the same tokens (greedy
     is key-free, and a sampled row draws from generators seeded alike on
-    every rank)."""
-    from ..engine.device_sampling import sample_rows
+    every rank).  ``ban0`` [B] (traced rows only): each lane's residual ban
+    (-1: none), which step 0 excludes (JAX's ``decode_loop`` with ``ban0``);
+    with every ban -1 the draws are those of the loop without it."""
+    from ..engine.device_sampling import sample_res_rows, sample_rows
 
+    if ban0 is not None and rows.traced is None:
+        raise ValueError("ban0 requires the traced (lane_rows) config")
     pos = pos_vector(pos0, logits0.shape[0], logits0.device)
     logits = logits0
     toks = []
     for i in range(n_steps):
-        tok = sample_rows(logits, generators, rows)
+        tok = (sample_res_rows(logits, ban0, generators, rows) if i == 0 and ban0 is not None
+               else sample_rows(logits, generators, rows))
         toks.append(tok)
         logits = forward(params, cache, embed_tokens(params, tok[:, None]), pos + i, cfg,
                          page_table=page_table, tp=tp)
     return torch.stack(toks, dim=1), logits
+
+
+def _ngram_draft(hist: torch.Tensor, pos: torch.Tensor, t0: torch.Tensor,
+                 k_draft: int) -> torch.Tensor:
+    """Prompt-lookup drafts of a batch (JAX's ``_ngram_draft``, batched):
+    for each lane, the ``k_draft`` tokens that followed the most recent
+    occurrence of its current n-gram in its history.
+
+    ``hist`` [B, C] holds the evaluated token ids (-1 for injected
+    embedding rows, which match no token id), ``pos`` [B] the number of
+    valid entries and ``t0`` [B] the sampled, not yet evaluated token.  A
+    4-gram match beats a trigram, a trigram a bigram; among equal lengths
+    the most recent wins.  A match needs a written continuation (index <=
+    pos - 2), so a period-1 stream drafts its repetition.  The start is
+    clipped to C - k_draft, and -1 entries of the draft are filled forward
+    from ``t0``.  With no match the slice is arbitrary: verification
+    rejects it.  Returns [B, k_draft] long, computed on the device."""
+    b, c = hist.shape
+    dev = hist.device
+    hist = hist.long()
+    pos = pos.long()
+    t0 = t0.long()
+    idx = torch.arange(c, device=dev)[None]
+    rows = torch.arange(b, device=dev)
+
+    def at(back):  # hist[pos - back], clipped at 0
+        return hist[rows, (pos - back).clamp(min=0)][:, None]
+
+    pos_c = pos[:, None]
+    m2 = ((hist == t0[:, None]) & (hist.roll(1, 1) == at(1)) & (idx >= 1)
+          & (idx <= pos_c - 2))
+    m3 = m2 & (hist.roll(2, 1) == at(2)) & (idx >= 2) & (pos_c >= 2)
+    m4 = m3 & (hist.roll(3, 1) == at(3)) & (idx >= 3) & (pos_c >= 3)
+    val = torch.where(m4, 2 * c + idx, torch.where(m3, c + idx, torch.where(m2, idx, -1)))
+    j = val.amax(dim=1)
+    j = torch.where(j >= 2 * c, j - 2 * c, torch.where(j >= c, j - c, j))
+    start = (j + 1).clamp(0, c - k_draft)
+    draft = hist.gather(1, start[:, None] + torch.arange(k_draft, device=dev))
+    # forward fill: each -1 takes the last written entry before it, or t0
+    ar = torch.arange(k_draft, device=dev)[None]
+    last = torch.where(draft >= 0, ar, -1).cummax(dim=1).values
+    filled = draft.gather(1, last.clamp(min=0))
+    return torch.where(last >= 0, filled, t0[:, None])
+
+
+def _write_hist(hist: torch.Tensor, toks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``hist`` with each lane's ``toks`` [B, k] written from its cursor;
+    the start clips to C - k, as JAX's ``dynamic_update_slice`` clips it
+    (only a finished lane past its context end gets there)."""
+    c, k = hist.shape[1], toks.shape[1]
+    start = pos.long().clamp(max=c - k)[:, None] + torch.arange(k, device=hist.device)
+    return hist.scatter(1, start, toks.to(hist.dtype))
+
+
+def _accept(logits_all: torch.Tensor, ok: torch.Tensor):
+    """(accepted drafts [B], tokens emitted [B], the pending logits after
+    the last accepted token [B, V]) of a verify pass whose leading drafts
+    ``ok`` [B, k-1] agree."""
+    acc = ok.long().cumprod(dim=1).sum(dim=1)
+    v = logits_all.shape[-1]
+    new_logits = logits_all.gather(1, acc[:, None, None].expand(-1, 1, v))[:, 0]
+    return acc, 1 + acc, new_logits
+
+
+def speculative_decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0,
+                            hist: torch.Tensor, n_passes: int, k_spec: int, cfg: LlamaConfig,
+                            page_table: torch.Tensor | None = None,
+                            tp: TPGroup | None = None):
+    """Greedy speculative decode (JAX's ``speculative_decode_loop``):
+    ``n_passes`` verify passes, each drafting ``k_spec - 1`` tokens by
+    n-gram lookup (:func:`_ngram_draft`) and verifying the block [t0,
+    drafts] in one forward of S = ``k_spec`` rows, which reads the weights
+    once.  A draft is accepted only where it equals the argmax of the
+    model's own logits at its position, so the emitted ids are those of
+    plain greedy decode.  Sample-then-eval order: t0 is the argmax of the
+    pending logits.  Rejected positions leave cache and history entries
+    past the advanced cursor, which the mask hides and later writes
+    overwrite.
+
+    ``pos0``: int, [B] ints or i32 [B] on the device; ``hist`` [B, C] the
+    lanes' token histories (not modified); ``page_table``: paged mode, the
+    caller provisions pages covering pos0 + n_passes * k_spec for active
+    lanes.  Returns (tokens [B, n_passes, k_spec], counts [B, n_passes],
+    final logits [B, V], hist [B, C]): lane b's pass p emitted
+    ``tokens[b, p, :counts[b, p]]``."""
+    pos = pos_vector(pos0, logits0.shape[0], logits0.device).long()
+    logits, h = logits0, hist
+    toks_all, counts = [], []
+    for _ in range(n_passes):
+        t0 = logits.argmax(dim=-1)
+        draft = _ngram_draft(h, pos, t0, k_spec - 1)
+        toks = torch.cat([t0[:, None], draft], dim=1)
+        logits_all = forward(params, cache, embed_tokens(params, toks), pos, cfg,
+                             all_logits=True, page_table=page_table, tp=tp)
+        g = logits_all.argmax(dim=-1)
+        _, count, logits = _accept(logits_all, draft == g[:, :-1])
+        h = _write_hist(h, toks, pos)
+        pos = pos + count
+        toks_all.append(toks)
+        counts.append(count)
+    return torch.stack(toks_all, dim=1), torch.stack(counts, dim=1), logits, h
+
+
+def stochastic_speculative_decode_loop(params: dict, cache: dict, logits0: torch.Tensor, pos0,
+                                       hist: torch.Tensor, ban0: torch.Tensor, generators: list,
+                                       rows, n_passes: int, k_spec: int, cfg: LlamaConfig,
+                                       page_table: torch.Tensor | None = None,
+                                       tp: TPGroup | None = None):
+    """Sampled speculative decode (JAX's
+    ``stochastic_speculative_decode_loop``): speculative sampling with the
+    n-gram draft as a point-mass proposal.  Each draft d is accepted with
+    probability p(d), p the lane's post-chain distribution at its position
+    (:func:`~..engine.device_sampling.chain_logits_dyn`); the first
+    rejected draft becomes the lane's ban, and the next sample (the next
+    pass's t0, or the next dispatch's) draws from norm(p with d zeroed)
+    (:func:`~..engine.device_sampling.sample_res_rows`).  The emitted
+    distribution is that of plain sampling; greedy lanes (temp <= 0) verify
+    by the argmax of their biased logits and emit plain greedy ids.
+
+    ``rows``: traced lane rows (:func:`~..engine.device_sampling.lane_rows`
+    of a group with a sampled or biased lane); ``generators``: one per
+    lane, from which each pass draws t0 (V uniforms) and then the k - 1
+    acceptance uniforms; ``ban0`` [B] the carried bans (-1: none).
+    Returns (tokens [B, n_passes, k_spec], counts [B, n_passes], final
+    logits [B, V], hist [B, C], ban [B])."""
+    from ..engine.device_sampling import (TRACED, _greedy_pick, chain_logits_dyn,
+                                          sample_res_rows)
+
+    if rows.traced is None:
+        raise ValueError("stochastic speculation takes the traced (lane_rows) config")
+    b = logits0.shape[0]
+    dev = logits0.device
+    pos = pos_vector(pos0, b, dev).long()
+    ban = pos_vector(ban0, b, dev).long()
+    greedy_lane = rows.traced["temp"] <= 0.0
+    # each draft position's chain runs under its lane's thresholds
+    thresholds = [rows.traced[name][:, None].expand(b, k_spec - 1).reshape(-1)
+                  for name in TRACED]
+    bias = rows.bias
+    bias_rep = (None if bias is None
+                else bias[:, None].expand(b, k_spec - 1, bias.shape[-1]).reshape(-1, bias.shape[-1]))
+    logits, h = logits0, hist
+    toks_all, counts = [], []
+    for _ in range(n_passes):
+        t0 = sample_res_rows(logits, ban, generators, rows)
+        draft = _ngram_draft(h, pos, t0, k_spec - 1)
+        toks = torch.cat([t0[:, None], draft], dim=1)
+        logits_all = forward(params, cache, embed_tokens(params, toks), pos, cfg,
+                             all_logits=True, page_table=page_table, tp=tp)
+        v = logits_all.shape[-1]
+        z = chain_logits_dyn(logits_all[:, :-1].reshape(-1, v), *thresholds, bias_rep)
+        p_d = torch.softmax(z, dim=-1).gather(1, draft.reshape(-1, 1)).reshape(b, k_spec - 1)
+        u = torch.stack([torch.rand(k_spec - 1, generator=g, device=dev) for g in generators])
+        g = _greedy_pick(logits_all, None if bias is None else bias[:, None, :])
+        ok = torch.where(greedy_lane[:, None], draft == g[:, :-1], u < p_d)
+        acc, count, logits = _accept(logits_all, ok)
+        # the first rejected draft is the next sample's ban
+        nxt = toks.gather(1, (acc + 1).clamp(max=k_spec - 1)[:, None])[:, 0]
+        ban = torch.where(acc < k_spec - 1, nxt, -1)
+        h = _write_hist(h, toks, pos)
+        pos = pos + count
+        toks_all.append(toks)
+        counts.append(count)
+    return torch.stack(toks_all, dim=1), torch.stack(counts, dim=1), logits, h, ban
+
+
+def draft_speculative_decode_loop(params: dict, cache: dict, dparams: dict, dcache: dict,
+                                  logits0: torch.Tensor, pos0, n_passes: int, k_spec: int,
+                                  cfg: LlamaConfig, dcfg: LlamaConfig):
+    """Greedy speculative decode drafted by a second, smaller model sharing
+    the vocabulary (JAX's ``draft_speculative_decode_loop``, llama.cpp's
+    "speculative" example).  Each pass runs ``k_spec`` greedy steps of the
+    drafter from t0 (the last one only fills the draft cache, so that a
+    fully accepted pass leaves it without a gap) and one S = ``k_spec``
+    verify of [t0, d1 .. d(k-1)] on the main model.  The emitted ids are
+    those of plain greedy decode whatever the drafter proposes.  Both
+    caches are updated in place; ``dcache`` must hold the same history as
+    ``cache`` up to the cursor.  Returns (tokens [B, n_passes, k_spec],
+    counts [B, n_passes], final logits [B, V])."""
+    pos = pos_vector(pos0, logits0.shape[0], logits0.device).long()
+    logits = logits0
+    toks_all, counts = [], []
+    for _ in range(n_passes):
+        tok = logits.argmax(dim=-1)
+        seq = []
+        for i in range(k_spec):
+            seq.append(tok)
+            dlog = forward(dparams, dcache, embed_tokens(dparams, tok[:, None]), pos + i, dcfg)
+            tok = dlog.argmax(dim=-1)
+        toks = torch.stack(seq, dim=1)
+        logits_all = forward(params, cache, embed_tokens(params, toks), pos, cfg, all_logits=True)
+        g = logits_all.argmax(dim=-1)
+        _, count, logits = _accept(logits_all, toks[:, 1:] == g[:, :-1])
+        pos = pos + count
+        toks_all.append(toks)
+        counts.append(count)
+    return torch.stack(toks_all, dim=1), torch.stack(counts, dim=1), logits
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,14 @@ a session's cache to host memory between turns.  The radix prefix cache
 session's system prompt after the first, and the OpenAI route captures each
 transcript so that the next request of a conversation prefills only its new
 turn.
+
+``--speculative-k K`` decodes by speculation (n-gram drafts verified K at a
+time: greedy streams give plain greedy's ids, sampled ones speculative
+sampling's draws), in single sessions and in both batchers, whose groups
+fall back to plain chunks while their acceptance does not pay
+(``engine._SpecGovernor``, the ``spec_demotions`` metric).
+``--draft-llm`` or ``--draft-head`` drafts a session's greedy stream with a
+smaller model instead.
 """
 
 from __future__ import annotations
@@ -60,9 +68,6 @@ MAX_BATCH = 8  # lanes of a window group
 # ROADMAP item of each and the values that ask for nothing the port lacks;
 # any other value fails at start-up
 UNPORTED = {
-    "speculative_k": ("speculative decoding (ROADMAP Queue 1, item 14)", (0,)),
-    "draft_llm": ("draft-model speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
-    "draft_head": ("draft-head speculative decoding (ROADMAP Queue 1, item 14)", (None,)),
     "tp": ("serving over tp, which needs a rank-0 controller (ROADMAP Queue 1, item 11b)", (1,)),
 }
 
@@ -665,11 +670,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prefix-cache-mb", type=int, default=512, metavar="MB",
                     help="host memory for the radix prefix cache (least recently used "
                     "entries go first)")
-    # the JAX server's options that the port does not serve yet: accepted so
-    # that asking for one names its ROADMAP item instead of a usage error
-    ap.add_argument("--speculative-k", type=int, default=0)
-    ap.add_argument("--draft-llm", default=None)
-    ap.add_argument("--draft-head", default=None)
+    ap.add_argument("--speculative-k", type=int, default=0,
+                    help="speculative decoding verify width, up to 32 (0 = off): n-gram "
+                    "drafted, block-verified; greedy output is token-identical, sampled "
+                    "output runs speculative sampling")
+    ap.add_argument("--draft-llm", default=None, metavar="PATH",
+                    help="a smaller llama file of the same tokenizer that drafts greedy "
+                    "single-session decode")
+    ap.add_argument("--draft-head", default=None, metavar="PATH",
+                    help="a draft-head artifact (train/draft.py) that drafts greedy "
+                    "single-session decode")
+    # the JAX server's option that the port does not serve yet: accepted so
+    # that asking for it names its ROADMAP item instead of a usage error
     ap.add_argument("--tp", type=int, default=1)
     args = ap.parse_args(argv)
     try:
@@ -684,6 +696,8 @@ def main(argv: list[str] | None = None) -> None:
                              max_batch=args.max_batch, park_idle=args.park_idle,
                              prefix_cache=not args.no_prefix_cache,
                              prefix_cache_mb=args.prefix_cache_mb,
+                             speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
+                             draft_head_path=args.draft_head,
                              **{name: getattr(args, name) for name in UNPORTED})
     except NotImplementedError as e:
         ap.error(str(e))

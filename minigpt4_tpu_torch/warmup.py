@@ -8,7 +8,8 @@ so a chat or server started afterwards loads it instead of compiling it.
 Captured CUDA graphs do not persist (unlike the JAX package's compile
 cache, they live in the process that captured them).  So the CLI loads the
 engine, runs :meth:`MiniGPT4Engine.warmup` (the prefill buckets 8, 32, 128
-and 512, the decode chunks 1 and 16, the encoder) and prints its seconds,
+and 512, the decode chunks 1 and 16, with ``--speculative-k`` the n-gram
+speculative dispatch, greedy and sampled, and the encoder) and prints its seconds,
 the graphs it captured and the memory their pool holds: what a chat
 process of the same flags spends when it calls ``MiniGPT4Engine.warmup()``.
 (A server captures what it replays, the paged group's decode chunks, at
@@ -19,8 +20,8 @@ its start: ``serve.start_server`` calls ``SessionPool.warmup``.)
 
 The flags are the engine knobs that change what is captured.  ``--tp``
 above 1 is refused (graphs cannot hold the ranks' gloo all-reduces: that
-path runs eagerly, ROADMAP Queue 1 item 11), and so is ``--speculative-k``
-(ROADMAP Queue 1, item 14).
+path runs eagerly, ROADMAP Queue 1 item 11).  ``--draft-llm`` and
+``--draft-head`` load the drafter, whose dispatches run eagerly.
 """
 
 from __future__ import annotations
@@ -40,22 +41,24 @@ def main(argv=None) -> int:
     ap.add_argument("--quant-mode", default="auto", choices=QUANT_MODES)
     ap.add_argument("--cache-dtype", default="auto", choices=CACHE_DTYPES)
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--speculative-k", type=int, default=0)
+    ap.add_argument("--speculative-k", type=int, default=0,
+                    help="capture the speculative dispatch of this verify width (0 = off)")
+    ap.add_argument("--draft-llm", default=None, metavar="PATH")
+    ap.add_argument("--draft-head", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     if args.tp != 1:
         ap.error(f"--tp {args.tp}: a tensor-parallel engine runs eagerly (its gloo all-reduces "
                  "cannot be captured in a CUDA graph), so there is nothing to warm up; "
                  "not ported yet (ROADMAP Queue 1, item 11)")
-    if args.speculative_k:
-        ap.error("--speculative-k: speculative decoding is not ported yet "
-                 "(ROADMAP Queue 1, item 14)")
 
     from .engine.engine import MiniGPT4Engine
 
     t0 = time.perf_counter()
     eng = MiniGPT4Engine(args.model, args.llm_model, n_ctx=args.n_ctx,
                          quant_mode=args.quant_mode,
-                         cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype)
+                         cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
+                         speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
+                         draft_head_path=args.draft_head)
     t_load = time.perf_counter() - t0
     try:
         stats = eng.warmup()

@@ -240,11 +240,39 @@ def test_quantize_byte_equal_to_jax(lib, models, tmp_path, data_type):
 
 
 def test_speculative_k_is_refused(lib, models, cpu, monkeypatch, capsys):
+    """MINIGPT4_TPU_SPECULATIVE_K is served as the JAX host serves it: an
+    integer reaches the engine (``capi_host.engine_options``) and a chat
+    through the library gives the plain engine's greedy tokens; only a value
+    that is not an integer is refused, failing the load."""
+    from minigpt4_tpu_torch.c_api import capi_host
+
     model, llm = models
+    args = (str(model).encode(), str(llm).encode(), 0, 1337, 256, 32, False)
+    monkeypatch.setenv("MINIGPT4_TPU_SPECULATIVE_K", "four")
+    assert not lib.minigpt4_model_load(*args)
+    assert "expected an integer" in capsys.readouterr().err
     monkeypatch.setenv("MINIGPT4_TPU_SPECULATIVE_K", "4")
-    assert not lib.minigpt4_model_load(str(model).encode(), str(llm).encode(), 0, 1337, 256, 32,
-                                       False)
-    assert "ROADMAP Queue 1, item 14" in capsys.readouterr().err
+    assert capi_host.engine_options()["speculative_k"] == 4
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device="cpu")
+    try:
+        eng.system_prompt()
+        eng.begin_chat("what?")
+        want = [eng.end_chat(SamplingParams(temp=0.0)) for _ in range(6)]
+    finally:
+        eng.close()
+    ctx = lib.minigpt4_model_load(*args)
+    assert ctx
+    try:
+        assert lib.minigpt4_system_prompt(ctx, 0) == 0
+        assert lib.minigpt4_begin_chat(ctx, b"what?", 0) == 0
+        token = ctypes.c_char_p()
+        got = []
+        for _ in range(6):
+            assert lib.minigpt4_end_chat(ctx, ctypes.byref(token), 0, *GREEDY) == 0
+            got.append(token.value.decode("utf-8"))
+        assert got == want
+    finally:
+        assert lib.minigpt4_free(ctx) == 0
 
 
 def test_examples_main_c_streams_the_engine_text(models, tmp_path):

@@ -118,11 +118,21 @@ def test_cli_matches_examples_main(models, png, tmp_path, monkeypatch, capsys):
     assert "> what is it?" in printed and "> and then?" in printed
 
 
-def test_cli_refuses_speculative_options(models, png, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["-m", str(models[0]), "-l", str(models[1]), "-i", str(png),
-                  "--speculative-k", "4", "--device", "cpu"])
-    assert "ROADMAP Queue 1, item 14" in capsys.readouterr().err
+def test_cli_refuses_speculative_options(models, png, tmp_path):
+    """--speculative-k is served: a greedy run writes the plain run's
+    tokens, turn for turn; a width past the flash-decode limit (32) is
+    refused with the JAX engine's error."""
+    flags = ["-m", str(models[0]), "-l", str(models[1]), "-i", str(png), "-p", "what is it?",
+             "and then?", "--temp", "0.0", "--limit", "24", "--n_ctx", "256", "--verbosity",
+             "0", "--device", "cpu"]
+    runs = []
+    for k in ("0", "4"):
+        out = tmp_path / f"k{k}.txt"
+        assert cli.main(flags + ["--speculative-k", k, "--tokens-out", str(out)]) == 0
+        runs.append(out.read_text())
+    assert runs[0] == runs[1] and runs[0].count("### end of turn") == 2
+    with pytest.raises(ValueError, match="verify-block limit"):
+        cli.main(flags + ["--speculative-k", "33"])
 
 
 def test_cli_context_shift_runs_past_n_ctx(models, png, tmp_path):

@@ -1797,3 +1797,182 @@ def test_park_and_prefix_hit_on_card_bit_equal(cuda_device, tmp_path, cache_dtyp
         assert a.state.logits.is_cuda and torch.equal(a.state.logits, b.state.logits)
     finally:
         pool.close()
+
+
+def _gq_decoder(llm, device):
+    from minigpt4_tpu_torch.formats import LlamaFileReader
+    from minigpt4_tpu_torch.models import llama as tllama
+
+    with LlamaFileReader(llm) as r:
+        return tllama.load_params(r, torch.float32, n_ctx=256, device=device)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_verify_span_on_card_matches_plain(cuda_device, tmp_path, k, lanes):
+    """An S = k speculative verify span from per-row cursors (lane 0 at
+    124 crosses a page edge for k > 4) over a cache of random history,
+    kernel by kernel at the span's shapes on the gq fixture: the fixture's
+    fused wqkv through gq decode at M = lanes * k <= 8 (1e-5 of max|y|) or
+    gq prefill above it (1e-4), dense and paged flash decode at S = k
+    against their plain versions (1e-5 absolute), the paged kernel with the
+    dense kernel's bits.  Then the whole forward of the span: paged equal
+    to dense bit for bit on the card, and within 1e-2 of max|logit| of the
+    CPU's plain forward (the composed path: 1.0e-3 to 3.1e-3 on an H100 80GB
+    HBM3 at 700 W, over f32 and bf16 caches alike), with the flash kernels
+    launched once per layer and no launch on the CPU."""
+    from minigpt4_tpu_torch.models import llama as tllama
+
+    _, llm = build_gq_models(tmp_path)
+    pos = [124, 40][:lanes]
+    ids = torch.from_numpy(np.random.default_rng(k).integers(3, 250, (lanes, k)))
+    out = {}
+    for device in ("cpu", cuda_device):
+        params, cfg = _gq_decoder(llm, device)
+        g = torch.Generator().manual_seed(0)
+        shape = (cfg.n_layer, lanes, cfg.n_head, cfg.n_ctx, cfg.head_dim)
+        dense = {kv: (torch.randn(shape, generator=g) * 0.5).to(device) for kv in "kv"}
+        table = torch.tensor([[1, 2, 4], [3, 0, 4]], dtype=torch.int32)[:lanes].to(device)
+        pools = {kv: torch.zeros((cfg.n_layer, 5, cfg.n_head, 128, cfg.head_dim), device=device)
+                 for kv in "kv"}
+        for kv in "kv":
+            for lane in range(lanes):
+                for slot in range(2):
+                    pools[kv][:, table[lane, slot]] = dense[kv][:, lane, :,
+                                                                slot * 128:(slot + 1) * 128]
+        out[str(device)] = (params, cfg, dense, pools, table)
+    params, cfg, dense, pools, table = out[str(cuda_device)]
+    # the kernels at the span's shapes
+    x = torch.from_numpy(np.random.default_rng(k + 10 * lanes).normal(
+        0, 1, (lanes * k, cfg.n_embd)).astype(np.float32)).to(cuda_device)
+    w = params["layers"]["wqkv"]["w"]
+    m_small = lanes * k <= tgq.GQ_MAX_M
+    kern, plain = ((tgq.gq_decode, tgq.qmatmul_decode_ref) if m_small
+                   else (tgq.gq_prefill, tgq.qmatmul_prefill_ref))
+    assert _rel(kern(x, w, 1), plain(x, w, 1)) <= (1e-5 if m_small else 1e-4)
+    q = torch.from_numpy(np.random.default_rng(k).normal(
+        0, 1, (lanes, cfg.n_head, k, cfg.head_dim)).astype(np.float32)).to(cuda_device)
+    cur = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    scale = cfg.head_dim ** -0.5
+    got = tfd.flash_decode_attention(q, dense["k"], dense["v"], 1, cur, scale)
+    torch.testing.assert_close(got, tfd.flash_decode_ref(q, dense["k"], dense["v"], 1, cur, scale),
+                               rtol=0, atol=1e-5)
+    paged = tfd.paged_flash_decode_attention(q, pools["k"], pools["v"], 1, cur, table, scale)
+    torch.testing.assert_close(paged, tfd.paged_flash_decode_ref(
+        q, pools["k"], pools["v"], 1, cur, table, scale), rtol=0, atol=1e-5)
+    assert torch.equal(paged, got)
+    # the whole span, dense and paged, on both devices
+    logits = {}
+    for device in ("cpu", cuda_device):
+        params, cfg, dense, pools, table = out[str(device)]
+        emb = tllama.embed_tokens(params, ids.to(device))
+        before = counters.counts()
+        a = tllama.forward(params, dense, emb, pos, cfg, all_logits=True)
+        b = tllama.forward(params, pools, emb, torch.tensor(pos, dtype=torch.int32, device=device),
+                           cfg, all_logits=True, page_table=table)
+        delta = {key[0]: n - before.get(key, 0) for key, n in counters.counts().items()
+                 if key[1] == "launches" and n != before.get(key, 0)}
+        assert torch.equal(a, b)
+        logits[str(device)] = (a, delta)
+    (cg, cd), (gg, gd) = logits["cpu"], logits[str(cuda_device)]
+    assert cd == {}
+    assert gd["flash_decode"] == gd["paged_flash_decode"] == cfg.n_layer
+    assert gd["gq_decode" if m_small else "gq_prefill"] > 0
+    assert _rel(gg, cg) <= 1e-2
+
+
+def test_speculative_engine_on_card_equals_plain_greedy(cuda_device, tmp_path, monkeypatch):
+    """The gq fixture's image chat on the card with speculative_k = 8: the
+    n-gram dispatch replays a captured graph from its second use (its key in
+    graph_stats), and the captured, eager and plain chats give the same
+    greedy ids.  A sampled stream (temp 0.8, top-k 40) gives the same ids
+    captured as eager from the same generator state, and its spec_stoch
+    graph replays.  With the model's own file as its drafter the drafts
+    hold (more than 2 tokens per pass) and the ids are plain greedy's."""
+    import minigpt4_tpu_torch.engine.engine as engine_mod
+
+    model, llm = build_gq_models(tmp_path)
+    img = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
+    greedy, sampled = SamplingParams(temp=0.0), SamplingParams(temp=0.8, top_k=40)
+    runs, stoch = {}, {}
+    dispatches = []  # (verify passes, tokens emitted) of each drafted dispatch
+    real_draft = engine_mod._draft_chunk
+
+    def rec(e, dfns, st, n_passes, k):
+        ids = real_draft(e, dfns, st, n_passes, k)
+        dispatches.append((n_passes, len(ids)))
+        return ids
+
+    monkeypatch.setattr(engine_mod, "_draft_chunk", rec)
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=cuda_device, speculative_k=8)
+    try:
+        emb = eng.encode_image(preprocess(img, size=eng.vision_cfg.vit.image_size))
+
+        def turn(graphs: bool) -> None:
+            eng.graphs_enabled = graphs
+            eng.reset()
+            eng.system_prompt()
+            eng.begin_chat_image(emb, "what is in the image?")
+
+        for name, k, graphs in (("plain", 0, True), ("eager", 8, False), ("captured", 8, True),
+                                ("replayed", 8, True)):
+            turn(graphs)
+            runs[name] = list(eng.generate(limit=48, params=greedy, speculative_k=k))
+        for name, graphs in (("eager", False), ("captured", True), ("replayed", True)):
+            turn(graphs)
+            eng._st.generator.manual_seed(7)
+            replays = eng.graph_stats()["replays"]
+            ids = list(eng.generate(limit=32, params=sampled))
+            stoch[name] = (ids, eng.graph_stats()["replays"] - replays)
+        stats = eng.graph_stats()
+        eng.set_drafter(draft_llm_path=llm)
+        turn(True)
+        drafted = list(eng.generate(limit=48, params=greedy))
+    finally:
+        eng.close()
+    assert runs["eager"] == runs["plain"] == runs["captured"] == runs["replayed"]
+    assert any(key[0] == "spec" and key[3] == 8 for key in stats["keys"])
+    assert stoch["eager"][0] and all(isinstance(t, str) for t in stoch["eager"][0])
+    assert stoch["captured"][0] == stoch["eager"][0] == stoch["replayed"][0]
+    assert any(key[0] == "spec_stoch" and key[3] == 8 for key in stats["keys"])
+    assert stoch["replayed"][1] > 0  # every graph replayed is a spec_stoch one
+    assert drafted == runs["plain"]
+    assert sum(n for _, n in dispatches) > 2 * sum(p for p, _ in dispatches)
+
+
+def test_speculative_batch_on_card_equals_plain(cuda_device, tmp_path):
+    """Three greedy sessions decoded as a paged group and by the continuous
+    batcher with speculative_k = 4 on the card: the plain group's text."""
+    from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
+
+    model, llm = build_gq_models(tmp_path)
+    texts = {}
+    for k in (0, 4):
+        pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                           paged_pool_pages=8, device=cuda_device, speculative_k=k)
+        try:
+            ss = []
+            for q in ("one two three", "four five", "six seven eight nine"):
+                s = pool.new_session()
+                pool.begin_chat(s, q)
+                ss.append(s)
+            group = pool.generate_batch(ss, limit=24, params=SamplingParams(temp=0.0),
+                                        decode_chunk=8)
+            for s, q in zip(ss, ("again", "more", "and")):
+                pool.begin_chat(s, q)
+            cb = ContinuousBatcher(pool, max_batch=4, decode_chunk=8)
+            try:
+                outs = [cb.submit(s, 24, SamplingParams(temp=0.0)) for s in ss]
+                cont = []
+                for q in outs:
+                    toks = []
+                    while (item := q.get(timeout=300)) is not ContinuousBatcher._DONE:
+                        assert not isinstance(item, Exception), item
+                        toks.append(item)
+                    cont.append("".join(toks))
+            finally:
+                cb.close()
+            texts[k] = (group, cont)
+        finally:
+            pool.close()
+    assert texts[4] == texts[0]

@@ -148,6 +148,7 @@ sys.modules["minigpt4_tpu"] = None
 sys.path.insert(0, sys.argv[1])
 from minigpt4_tpu_torch import library, main, quantize, webui  # noqa: F401
 from minigpt4_tpu_torch.c_api import _build, capi_host  # noqa: F401
+from minigpt4_tpu_torch.train import draft  # noqa: F401
 code = quantize.main([sys.argv[1] + "/missing-in.bin", sys.argv[1] + "/missing-out.bin", "q8_0"])
 print(json.dumps({"jax_loaded": sys.modules["jax"] is not None,
                   "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,

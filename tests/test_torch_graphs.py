@@ -232,7 +232,7 @@ def _rows(cfgs, bias=None):
 
 
 @pytest.mark.parametrize("step", ["decode_chunk", "step", "prefill", "paged_decode_chunk",
-                                  "traced_decode_chunk"])
+                                  "traced_decode_chunk", "spec_chunk", "spec_chunk_stoch"])
 def test_captured_steps_read_no_host_value(gq, fake_cuda, step):
     params, cfg = gq
     v = cfg.n_vocab
@@ -252,11 +252,22 @@ def test_captured_steps_read_no_host_value(gq, fake_cuda, step):
         rows = tds.lane_rows([SamplingParams(temp=0.8, tfs_z=0.97, typical_p=0.95,
                                              logit_bias={7: 4.0})], v, "cpu")
     ids = torch.zeros((b, 1), dtype=torch.long)
+    # the n-gram history (the cached positions repeat a short cycle, so drafts
+    # match) and a pending residual ban
+    hist = torch.full((b, N_CTX), -1, dtype=torch.long)
+    hist[:, :48] = torch.arange(48) % 5
+    ban = torch.full((b,), 7, dtype=torch.long)
+    traced = tds.lane_rows([SamplingParams(temp=0.8, top_k=40)] * b, v, "cpu")
     with _no_host_reads():
         if step == "step":
             out = steps.step(ids, pos, capture=True)
         elif step == "prefill":
             out = steps.prefill(_emb(cfg, 1, 40, 2), pos, 33, 128, capture=True)
+        elif step == "spec_chunk":
+            out = steps.spec_chunk(logits, pos, hist, 2, 4, capture=True)[2]
+        elif step == "spec_chunk_stoch":
+            out = steps.spec_chunk_stoch(logits, pos, hist, ban, 2, 4, gens, traced,
+                                         capture=True)[2]
         else:
             out, _ = steps.decode_chunk(logits, pos, 3, gens, rows, table, capture=True)
     assert len(fake_cuda) == 1 and torch.isfinite(out.float()).all()
@@ -306,6 +317,26 @@ def test_graph_cache_keys_are_jax_static_arguments(gq, fake_cuda):
                                [gen] * n_lanes, rows, table[:n_lanes])
     assert set(paged.graphs) == {("decode", n, 2, form, False, 3) for n in (2, 3)
                                  for form in ((GREEDY,) * n, "traced")}
+
+
+def test_speculative_dispatch_keys(gq, fake_cuda):
+    """The n-gram dispatches key as JAX's static arguments (lanes, passes,
+    width; the attention span is no key: an S = k verify reads each lane's
+    positions alone): met once eager, captured at the second use, replayed
+    at the third; the sampled one holds a generator slot."""
+    params, cfg = gq
+    v = cfg.n_vocab
+    steps = graphs.StepGraphs(params, cfg, _history(params, cfg), "cpu", "pool")
+    hist = torch.full((1, N_CTX), -1, dtype=torch.long)
+    logits = torch.zeros((1, v))
+    rows = tds.lane_rows([SamplingParams(temp=0.8)], v, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for p in (48, 60, 72):
+        steps.spec_chunk(logits, p, hist, 2, 4)
+        steps.spec_chunk_stoch(logits, p, hist, torch.full((1,), -1), 2, 4, [gen], rows)
+    assert list(steps.graphs) == [("spec", 1, 2, 4, None), ("spec_stoch", 1, 2, 4, None, False)]
+    assert len(fake_cuda) == 2 and steps.replays == 4  # a capturing call replays too
+    assert [len(g.graph.generators) for g in steps.graphs.values()] == [0, 1]
 
 
 def test_replays_add_the_captured_launch_counts(fake_cuda):
@@ -522,12 +553,16 @@ def _warmup(*args):
 @pytest.mark.parametrize("args,rc,says", [
     (["--help"], 0, "--quant-mode"),
     (["-m", "x.bin", "-l", "y.bin", "--tp", "2"], 2, "ROADMAP Queue 1, item 11"),
-    (["-m", "x.bin", "-l", "y.bin", "--speculative-k", "8"], 2, "ROADMAP Queue 1, item 14"),
+    # served: the flags reach the engine, whose load then meets the missing file
+    (["-m", "x.bin", "-l", "y.bin", "--speculative-k", "8", "--draft-head", "h.npz"], 1,
+     "x.bin"),
 ], ids=["help", "tp", "speculative"])
 def test_warmup_cli(args, rc, says):
     out = _warmup(*args)
     assert out.returncode == rc, out.stderr
     assert says in out.stdout + out.stderr
+    assert "item 14" not in out.stdout + out.stderr
     if args == ["--help"]:
-        for flag in ("-m", "-l", "--n-ctx", "--cache-dtype", "--tp", "--speculative-k"):
+        for flag in ("-m", "-l", "--n-ctx", "--cache-dtype", "--tp", "--speculative-k",
+                     "--draft-llm", "--draft-head"):
             assert flag in out.stdout

@@ -83,7 +83,9 @@ def test_paged_attention_ref_matches_jax_paged_kernel(s):
 
 def test_paged_forward_writes_through_the_table_and_refuses_spans():
     """One decode step over the pools equals the step over the dense caches
-    the pools hold; the overshooting lane writes only the trash page."""
+    the pools hold; the overshooting lane writes only the trash page.  (The
+    name is older than speculative decoding: spans of S > 1 rows from
+    per-row cursors are served now, and equal the dense group's.)"""
     cfg = tllama.LlamaConfig(n_vocab=64, n_embd=128, n_head=2, n_layer=2, n_rot=64, n_ff=128,
                              n_ctx=512)
     rng = np.random.default_rng(3)
@@ -115,12 +117,19 @@ def test_paged_forward_writes_through_the_table_and_refuses_spans():
         for b, p in enumerate(pos[:2]):
             torch.testing.assert_close(pools[kv][:, table[b, p // PAGE], :, p % PAGE],
                                        dense[kv][:, b, :, p], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 14"):
-        tllama.forward(params, pools, emb.repeat(1, 2, 1), pos, cfg,
-                       page_table=torch.from_numpy(table))
-    # so do spans from per-row cursors over a dense batched cache
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 14"):
-        tllama.forward(params, dense, emb.repeat(1, 2, 1), pos, cfg)
+    # spans of S > 1 rows from per-row cursors (speculative verifies) are
+    # served, paged and dense alike: lane 1's 2 rows at 299, 300 and the
+    # dense group's rows agree bit for bit
+    span = emb.repeat(1, 2, 1)
+    got = tllama.forward(params, pools, span, pos, cfg, page_table=torch.from_numpy(table),
+                         all_logits=True)
+    want = tllama.forward(params, dense, span, pos, cfg, all_logits=True)
+    torch.testing.assert_close(got[:2], want[:2], rtol=0, atol=0)
+    for kv in ("k", "v"):
+        for j in range(2):
+            p = pos[1] + j
+            torch.testing.assert_close(pools[kv][:, table[1, p // PAGE], :, p % PAGE],
+                                       dense[kv][:, 1, :, p], rtol=0, atol=0)
 
 
 def test_paged_batch_matches_jax_session_pool(pool, gq_files):

@@ -163,17 +163,26 @@ def test_unknown_session_and_path_404(plain_server):
 
 def test_window_batched_paged_serving(paged_server, plain_server):
     """Concurrent generations decode as one paged group, with the text of
-    sessions that decode alone, and every page returns to the pool."""
+    sessions that decode alone, and every page returns to the pool.  The
+    three requests are held at the batcher until all three have prefilled,
+    so that they reach its window together however the threads run."""
     base, httpd = paged_server
     texts = {}
     groups = []
     orig = httpd.pool.generate_batch_stream
+    submit = httpd.batcher.submit
+    together = threading.Barrier(3, timeout=120)
 
     def spy(sessions, *a, **k):
         groups.append(len(sessions))
         return orig(sessions, *a, **k)
 
+    def held_submit(*a, **k):
+        together.wait()
+        return submit(*a, **k)
+
     httpd.pool.generate_batch_stream = spy
+    httpd.batcher.submit = held_submit
     try:
         threads = [threading.Thread(target=lambda i=i: texts.__setitem__(i, _chat(base, f"prompt {i}")))
                    for i in range(3)]
@@ -183,6 +192,7 @@ def test_window_batched_paged_serving(paged_server, plain_server):
             t.join()
     finally:
         httpd.pool.generate_batch_stream = orig
+        del httpd.batcher.submit
     assert len(texts) == 3 and max(groups) >= 2  # lanes shared a group
     assert httpd.pool.paged_pool.free_pages == 8
     _, h = _get(base, "/v1/health")
@@ -307,22 +317,25 @@ def _main_unserved(monkeypatch, argv):
     return started[0]
 
 
-@pytest.mark.parametrize("flag,item", [("--continuous", None), ("--max-batch=4", None),
-                                       ("--speculative-k=4", "item 14"),
-                                       ("--no-prefix-cache", None), ("--park-idle", None),
-                                       ("--tp=2", "item 11")])
-def test_unported_options_fail_at_start_up(flag, item, gq_files, monkeypatch, capsys):
-    """An option of the JAX server that the port does not serve yet
-    (speculative decoding, serving over tp) stops the server before it loads
-    anything, naming its ROADMAP item.  The options of continuous batching,
-    parking and the prefix cache reach the batcher or the pool, and a chat
-    runs through them."""
+@pytest.mark.parametrize("flag,item", [
+    ("--continuous", None), ("--max-batch=4", None),
+    # served since speculative decoding was ported; the id is the one it had
+    pytest.param("--speculative-k=4", None, id="--speculative-k=4-item 14"),
+    ("--no-prefix-cache", None), ("--park-idle", None), ("--tp=2", "item 11")])
+def test_unported_options_fail_at_start_up(flag, item, gq_files, plain_server, monkeypatch,
+                                          capsys):
+    """An option of the JAX server that the port does not serve yet (serving
+    over tp) stops the server before it loads anything, naming its ROADMAP
+    item.  The options of continuous batching, parking, the prefix cache and
+    speculative decoding reach the batcher, the pool or the engine, and a
+    chat runs through them (greedy, with plain greedy's text under
+    speculation)."""
     if item is not None:
         with pytest.raises(SystemExit):
             serve.main(["missing-model.bin", "missing-llm.bin", flag])
         assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 14"):
-            serve.start_server("missing-model.bin", "missing-llm.bin", speculative_k=4)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 11"):
+            serve.start_server("missing-model.bin", "missing-llm.bin", tp=2)
         return
     extra = ["--continuous"] if flag.startswith("--max-batch") else []
     httpd = _main_unserved(monkeypatch, [str(gq_files[0]), str(gq_files[1]), "--device", "cpu",
@@ -338,10 +351,13 @@ def test_unported_options_fail_at_start_up(flag, item, gq_files, monkeypatch, ca
         else:
             assert httpd.batcher is None
         assert pool.prefix_cache == (flag != "--no-prefix-cache")
+        assert pool.engine.speculative_k == (4 if flag == "--speculative-k=4" else 0)
         _, body = _post(base, "/v1/sessions")
         sid = json.loads(body)["session_id"]
-        _post(base, f"/v1/sessions/{sid}/chat",
-              json.dumps({"message": "hi", "limit": 3, "temp": 0.0}).encode())
+        _, reply = _post(base, f"/v1/sessions/{sid}/chat",
+                         json.dumps({"message": "hi", "limit": 24, "temp": 0.0}).encode())
+        if flag == "--speculative-k=4":
+            assert json.loads(reply)["text"] == _chat(plain_server[0], "hi", limit=24)
         s = pool._sessions[sid]
         assert (s.state.parked is not None) == (flag == "--park-idle")
         assert pool.metrics["tokens_generated"] > 0

@@ -80,9 +80,10 @@ def test_jax_checkpoint_continues_with_jax_ids(tiny, tmp_path, cache_dtype):
 
 
 def test_restore_refusals_change_nothing(tiny, tmp_path):
-    """Another cache shape, or a pending speculative-sampling exclusion (the
-    port has no speculative sampling), raise ValueError before anything of
-    the state changes."""
+    """Another cache shape raises ValueError before anything of the state
+    changes.  A pending speculative-sampling exclusion (``spec_ban`` >= 0),
+    refused before speculative decoding was ported, now restores with the
+    rest of the checkpoint."""
     other = MiniGPT4Engine(*tiny, n_ctx=160, n_batch=32, device="cpu")
     eng = MiniGPT4Engine(*tiny, n_ctx=N_CTX, n_batch=32, device="cpu")
     try:
@@ -97,9 +98,10 @@ def test_restore_refusals_change_nothing(tiny, tmp_path):
         before = (eng.n_past, list(eng._st.tokens), {kv: t.clone() for kv, t in eng.cache.items()})
         with pytest.raises(ValueError, match="cache shape"):
             eng.restore_state(tmp_path / "short.npz")
-        with pytest.raises(ValueError, match="item 14"):
-            eng.restore_state(tmp_path / "banned.npz")
         assert (eng.n_past, eng._st.tokens) == before[:2]
+        assert all(torch.equal(eng.cache[kv], t) for kv, t in before[2].items())
+        eng.restore_state(tmp_path / "banned.npz")
+        assert (eng.n_past, eng._st.tokens, eng._st.spec_ban) == (*before[:2], 7)
         assert all(torch.equal(eng.cache[kv], t) for kv, t in before[2].items())
     finally:
         other.close()
