@@ -8,8 +8,8 @@ chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
 NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
-(--only-serving, --only-clients, --only-speculative, --only-kernels SECTIONS: one phase
-alone, no result line)
+(--only-serving, --only-clients, --only-speculative, --only-train, --only-kernels SECTIONS:
+one phase alone, no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -118,6 +118,30 @@ Phases (any failure exits nonzero before the last line):
                   --only-speculative` runs phases 1-2, a-d on a fresh 13B
                   engine, f on a 7B engine and e, b' on a session pool, and
                   prints no result line.
+  4'''. train - (inside a and a', after 4'', on a's loaded engine;
+               minigpt4_tpu_torch/train/, no backward kernel: the trainers
+               differentiate through plain torch as the JAX package's
+               through XLA) b. the draft head's distillation with the 13B
+               gq engine as the teacher: teacher_targets on 4 x 128 random
+               ids (gq_prefill and gq_prefill_generic must launch; row 0
+               equal to a B = 1 forward's argmax up to SPEC_TIE_PREFILL
+               ties), 30 AdamW(3e-3, weight decay 1e-4) steps of a
+               DraftHeadConfig(512, 2, 8, 1408) head (the loss must fall,
+               no kernel may launch), saved and set as the engine's draft
+               head: 16 drafted greedy ids equal to plain greedy's, tokens
+               per pass.  a. stage-1 projection training at Vicuna-13B
+               width and depth: the 13B Q5_K_M file loaded again as
+               qtensor (packed bytes; gq is refused) beside the engine's
+               f16-container vision params, llama_proj as f32 leaves; 2
+               images at 224 with 24-token captions (56 decoder rows); the
+               first step's projection gradient at 2 layers, the qtensor
+               autograd Function against plain autograd (1e-5 of
+               max|grad|); then 5 Adam(1e-2) steps at 40 layers through
+               make_train_step: s/step with forward and backward apart,
+               the loss per step (must fall by 2 %), peak device memory,
+               and no kernel launched ("train ..." paths).
+               `python3 chip_smoke.py --only-train` runs phases 1-2 and
+               this phase on a fresh 13B engine and prints no result line.
   5. serving - minigpt4_tpu_torch.serve.start_server on the 13B files with
                session_ctx 512, a 30 ms batch window and a pool of 32 pages,
                on an ephemeral port.  Eight client threads each create a
@@ -150,7 +174,8 @@ Phases (any failure exits nonzero before the last line):
                16 greedy ids equal an unparked copy's); the pass's seconds.
                `python3 chip_smoke.py --only-serving` runs phases 1-2 and 5
                and prints no result line.
-  6. repack  - a third chat as in phase 4: the 13B Q5_K_M file with
+  6. repack  - a third chat as in phase 4: the 13B Q5_K_M geometry cut to
+               8 layers (LLM_13B_L8, which pays for phase 4''') with
                quant_mode="repack" (every decoder weight repacked) and a 13B
                container whose quantizable weights are q5_k (ViT-G fc2 and
                the Q-Former projections of K % 256 == 0; the rest f16);
@@ -169,7 +194,8 @@ Phases (any failure exits nonzero before the last line):
                the shape), and both flash kernels over e4m3 caches (dense S
                = 1, 8, 32 at pos0 = 2015; paged at the serving pools) in
                phase 3.
-               Then smooth-quant scales of the 13B Q5_K_M file
+               Then smooth-quant scales of the 13B Q5_K_M geometry cut to 8
+               layers (LLM_13B_L8, which with phase 6 pays for phase 4''')
                (quality.compute_smooth_scales, one 32-token calibration
                sequence, qtensor params freed before the next load) and a
                SessionPool over it in quant_mode="w8a8" with those scales and
@@ -262,7 +288,7 @@ Phases (any failure exits nonzero before the last line):
                the whole cache, 2e-5, counting the stats kernel's launches
                (the "sp" path).
   10. clients - (after phase 8) the 13B Q5_K_M geometry cut to 8 layers
-               (LLM_13B_CLIENTS) and the 13B f16 container through
+               (LLM_13B_L8) and the 13B f16 container through
                MiniGPT4Engine(n_ctx=512, n_batch=64, context_shift=True), graphs
                on: a. the system prompt and image turn (235 positions), saved
                with save_state, then 400 greedy ids through generate, which
@@ -314,6 +340,7 @@ and of each path); the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import gc
 import io
 import json
@@ -1810,9 +1837,11 @@ PACKED_MIX_KERNELS = ("gq_decode[p4]", "gq_prefill[p4]", "gq_decode_generic[p4]"
                       "gq_decode_generic[p5]", "gq_decode_generic[p6]", "gq_prefill_generic[p4]",
                       "gq_prefill_generic[p5]", "flash_decode")
 REPACK_CHAT_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
+REPACK_LABEL = "13B L8 repack + q5_k container"
 # the stats mode of flash decode (sequence-parallel partials), counted apart
 STATS = "flash_decode[stats]"
 W8A8_KERNELS = ("i8_decode", "i8_prefill", "rq_prefill", "flash_decode", "paged_flash_decode")
+W8A8_LABEL = "13B L8 w8a8 + f8 cache"
 DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode") + tuple(
     k for k in PACKED_KERNELS if "_decode" in k)
 
@@ -3244,7 +3273,7 @@ CALIB_TOKENS = 32  # one calibration sequence for the smooth-quant scales
 
 
 def smooth_scales_13b(llm: Path, card: str) -> dict:
-    """Smooth-quant scales of the 13B file from quality.compute_smooth_scales
+    """Smooth-quant scales of a 13B-width file from quality.compute_smooth_scales
     (qtensor params on the card, freed before it returns) on one
     calibration sequence."""
     from minigpt4_tpu_torch import quality
@@ -3258,7 +3287,7 @@ def smooth_scales_13b(llm: Path, card: str) -> dict:
     bad = [k for k, v in scales.items() if not (np.isfinite(v).all() and (v > 0).all())]
     if set(scales) != {"attn", "ffn", "w2", "head"} or bad:
         raise AssertionError(f"smooth scales: sites {sorted(scales)}, not finite/positive {bad}")
-    log(f"[w8a8] smooth scales of the 13B file from {CALIB_TOKENS} calibration tokens in "
+    log(f"[w8a8] smooth scales of {llm.name} from {CALIB_TOKENS} calibration tokens in "
         f"{t:.1f} s (qtensor load, calibration forward, weight column maxima): "
         + ", ".join(f"{k} {v.shape} [{v.min():.3g}, {v.max():.3g}]" for k, v in scales.items())
         + f"  [{card}]")
@@ -3266,7 +3295,8 @@ def smooth_scales_13b(llm: Path, card: str) -> dict:
 
 
 def w8a8_f8(card: str) -> dict:
-    """The 13B Q5_K_M file in quant_mode="w8a8" with smooth-quant scales over
+    """The 13B Q5_K_M geometry cut to 8 layers (LLM_13B_L8, for the script's
+    time limit) in quant_mode="w8a8" with smooth-quant scales over
     an e4m3 cache, behind the 13B q5_1 container (ViT-G fc2 and the Q-Former
     and llama_proj weights of K % 256 == 0 become i8, the K = 1408 weights
     repacked): a SessionPool (32 pages of e4m3 pools) whose engine runs the
@@ -3278,10 +3308,10 @@ def w8a8_f8(card: str) -> dict:
     from minigpt4_tpu_torch.engine.sessions import SessionPool
     from minigpt4_tpu_torch.ops import i8_matmul as i8
 
-    _, llm = smoke_models(LLM_13B)
+    _, llm = smoke_models(LLM_13B_L8)
     model = smoke_container(LLM_13B["n_embd"], "q5_1")
     scales = smooth_scales_13b(llm, card)
-    label = "13B w8a8 + f8 cache"
+    label = W8A8_LABEL
     t0 = time.perf_counter()
     pool = SessionPool(model, llm, session_ctx=512, paged_pool_pages=32, device=DEVICE,
                        quant_mode="w8a8", cache_dtype="f8", smooth_scales=scales)
@@ -3652,10 +3682,12 @@ def tp_phase(card: str) -> dict:
 # examples/main.c's engine (n_ctx 512, n_batch 64, seed 1337) and its knobs
 CLIENT_CTX, CLIENT_BATCH, CLIENT_QUESTION = 512, 64, "what is this?"
 # the 13B Q5_K_M geometry at full width cut to 8 layers for the script's time
-# limit: the phase loads the model three times (this process, examples/main.c,
-# ctypes), ~20 s each at full depth, and what it checks (the shift, the
-# checkpoints, the C ABI's text) does not depend on depth
-LLM_13B_CLIENTS = dict(LLM_13B, n_layer=8)
+# limit: the clients phase loads the model three times (this process,
+# examples/main.c, ctypes), ~20 s each at full depth, and what it checks (the
+# shift, the checkpoints, the C ABI's text) does not depend on depth; the
+# repack chat (phase 6) and the w8a8 path (phase 7) run it too, which pays for
+# the train phase
+LLM_13B_L8 = dict(LLM_13B, n_layer=8)
 CLIENT_KNOBS = (0.0, 40, 0.9, 1.0, 1.0, 64, 1.1, 1.0, 1.0, 0, 5.0, 1.0, 1)
 SHIFT_TOKENS = 400  # greedy ids past the 512-position context
 # the eager run: from a checkpoint AB_BEFORE decode chunks before the first
@@ -3972,7 +4004,7 @@ def clients_phase(card: str) -> dict:
     the engine closes before the C ABI runs."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine
 
-    model, llm = smoke_models(LLM_13B_CLIENTS)
+    model, llm = smoke_models(LLM_13B_L8)
     ckpt = ROOT / "build" / "smoke_models" / "clients-chat.npz"
     ckpt.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -4006,6 +4038,259 @@ def _preprocess(img: np.ndarray, pool) -> np.ndarray:
     from minigpt4_tpu_torch.image import preprocess
 
     return preprocess(img, size=pool.engine.vision_cfg.vit.image_size)
+
+
+# ---------------------------------------------------------------------------
+# phase 4''': train (inside phase 4, on the 13B chat's files and engine)
+# ---------------------------------------------------------------------------
+
+TRAIN_T = 24  # caption tokens: 32 queries + 24 = 56 decoder rows, past the flash span
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-2
+TRAIN_GRAD_DEPTH = 2  # layers of the Function-vs-plain-autograd gradient check
+TRAIN_GRAD_TOL = 1e-5  # of max|grad|
+DISTILL_B, DISTILL_T = 4, 128
+DISTILL_STEPS = 30
+DISTILL_WARM = 8
+DISTILL_LR = 3e-3
+DISTILL_TOKENS = 16
+
+
+def _first_layers(params: dict, n: int) -> dict:
+    """Decoder ``params`` cut to their first ``n`` layers: stacked tensors
+    and QTensors sliced, per-layer lists (the K_M file's wv, w2) cut."""
+    from minigpt4_tpu_torch.ops.quant_matmul import QTensor
+
+    def cut(w):
+        if isinstance(w, dict):
+            return {k: cut(v) for k, v in w.items()}
+        if isinstance(w, QTensor):
+            return QTensor(w.packed[:n], w.dtype, w.n_in)
+        return w[:n]
+
+    return dict(params, layers=cut(params["layers"]))
+
+
+def _plain_qmatmul(x, qt, layer=None):
+    """qmatmul through plain autograd (which saves the dequantized weight):
+    the yardstick of the autograd Function's gradients."""
+    if qt.stacked:
+        qt = qt.layer(layer)
+    return x @ qt.dequantize(x.dtype).t()
+
+
+def train_projection(eng, card: str) -> dict:
+    """(a) Stage-1 projection training at Vicuna-13B width and depth: the 13B
+    Q5_K_M file loaded again as qtensor (packed bytes: the trainer refuses
+    the engine's gq), the chat engine's f16-container vision params frozen,
+    its llama_proj copied into f32 leaves.  B = 2 images at 224, captions of
+    TRAIN_T random ids.  First the projection's gradient of one step on the
+    first TRAIN_GRAD_DEPTH layers, the qtensor Function's against plain
+    autograd's (within TRAIN_GRAD_TOL of max|grad|); then TRAIN_STEPS
+    torch.optim.Adam steps through make_train_step on one fixed batch at
+    full depth: forward and backward seconds apart (caption_loss timed
+    inside the step), the loss per step (must fall by 2 %, the projection
+    must move) and the peak device memory.  No kernel may launch in the
+    steps (launch counts set to 0 just before, read just after)."""
+    from minigpt4_tpu_torch.formats import LlamaFileReader
+    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.ops import quant_matmul as qm
+    from minigpt4_tpu_torch.train import make_train_step, projection
+
+    _, llm = smoke_models(LLM_13B)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with LlamaFileReader(llm) as r:
+        lp, lcfg = llama_mod.load_params(r, torch.float32, n_ctx=512, device=DEVICE,
+                                         quant_mode="qtensor")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    load_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    vcfg = eng.vision_cfg
+    frozen = {"vision": {k: v for k, v in eng.vision_params.items() if k != "llama_proj"},
+              "llm": lp}
+    proj0 = {k: v.detach().clone() for k, v in eng.vision_params["llama_proj"].items()}
+    rng = np.random.default_rng(SEED + 7)
+    size = vcfg.vit.image_size
+    imgs = (chat_image(), rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+    pixels = torch.from_numpy(np.stack([preprocess(im, size=size) for im in imgs])).to(DEVICE)
+    tokens = torch.from_numpy(rng.integers(1, lcfg.n_vocab, (2, TRAIN_T))).to(DEVICE)
+    mask = torch.ones((2, TRAIN_T), device=DEVICE)
+
+    def proj_grad(frozen_, cfg_):
+        proj = {k: v.clone().requires_grad_() for k, v in proj0.items()}
+        loss = projection.caption_loss(proj, frozen_, pixels, tokens, mask, vcfg, cfg_)
+        return torch.autograd.grad(loss, list(proj.values()))
+
+    shallow = (dict(frozen, llm=_first_layers(lp, TRAIN_GRAD_DEPTH)),
+               dataclasses.replace(lcfg, n_layer=TRAIN_GRAD_DEPTH))
+    g_fn = proj_grad(*shallow)
+    qmatmul = qm.qmatmul
+    qm.qmatmul = _plain_qmatmul
+    try:
+        g_plain = proj_grad(*shallow)
+    finally:
+        qm.qmatmul = qmatmul
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(g_fn, g_plain))
+    log(f"[train a] 13B qtensor decoder loaded in {t_load:.2f} s ({load_gb:.3f} GB); the "
+        f"projection's first gradient at {TRAIN_GRAD_DEPTH} layers, the qtensor Function "
+        f"against plain autograd: max |d| / max|grad| {grad_err:.3e} (tol {TRAIN_GRAD_TOL:g})"
+        f"  [{card}]")
+    if not grad_err <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train a: Function gradient {grad_err:.3e} from plain autograd's")
+    del g_fn, g_plain, shallow
+
+    proj = {k: v.clone().requires_grad_() for k, v in proj0.items()}
+    step = make_train_step(vcfg, lcfg, torch.optim.Adam(list(proj.values()), lr=TRAIN_LR))
+    forward_s: list = []
+    caption_loss = projection.caption_loss
+
+    def timed_loss(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = caption_loss(*a)
+        torch.cuda.synchronize()
+        forward_s.append(time.perf_counter() - t)
+        return out
+
+    losses, step_s = [], []
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    projection.caption_loss = timed_loss
+    try:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            proj, loss = step(proj, frozen, pixels, tokens, mask)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t)
+    finally:
+        projection.caption_loss = caption_loss
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    backward_s = [s - f for s, f in zip(step_s, forward_s)]
+    moved = float((proj["w"].detach() - proj0["w"]).abs().max())
+    launched = {k: n for k, n in counts.items() if n}
+    log(f"[train a] {TRAIN_STEPS} Adam({TRAIN_LR:g}) steps at Vicuna-13B width and depth "
+        f"(qtensor decoder, f32, B = 2, S = {vcfg.qformer.query_length} + {TRAIN_T}): losses "
+        f"{[round(x, 5) for x in losses]}; s/step {[round(x, 3) for x in step_s]} (forward "
+        f"{[round(x, 3) for x in forward_s]}, backward + update "
+        f"{[round(x, 3) for x in backward_s]}); peak allocated {peak / 1e9:.2f} GB, "
+        f"{(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB held before the steps; "
+        f"max |d proj| {moved:.3e}; launches {launched}  [{card}]")
+    if launched:
+        raise AssertionError(f"train a: kernels launched in the training steps: {launched}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] * 0.98
+            and moved > 0):
+        raise AssertionError(f"train a: losses {losses} did not fall by 2 % (proj moved {moved})")
+    return dict(counts=counts, losses=losses, step_s=step_s, forward_s=forward_s,
+                backward_s=backward_s, peak_gb=peak / 1e9, step_gb=(peak - base) / 1e9,
+                load_s=t_load, load_gb=load_gb, grad_err=grad_err)
+
+
+def distill(eng, card: str) -> dict:
+    """(b) The draft head's distillation with the loaded 13B Q5_K_M gq engine
+    as the teacher: teacher_targets on DISTILL_B random rows of DISTILL_T
+    ids (gq_prefill and gq_prefill_generic must launch; row 0's ids those of
+    a B = 1 forward of all logits, up to top-2 ties within
+    SPEC_TIE_PREFILL), then DISTILL_STEPS AdamW steps of a
+    DraftHeadConfig(512, 2, 8, 1408) head over the engine's embedding (the
+    loss must fall; no kernel may launch), saved, and a drafted greedy
+    stream of DISTILL_TOKENS ids with it as the engine's draft head: plain
+    greedy's ids, its tokens per pass."""
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.train import draft as draft_mod
+
+    params, cfg = eng.llm_params, eng.llm_cfg
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(3, cfg.n_vocab, (DISTILL_B, DISTILL_T))).to(DEVICE)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    targets = draft_mod.teacher_targets(params, cfg, toks)
+    torch.cuda.synchronize()
+    t_targets = time.perf_counter() - t0
+    t_counts = launch_counts()
+    missing = [k for k in ("gq_prefill", "gq_prefill_generic") if t_counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"train b: teacher_targets never launched {missing}: {t_counts}")
+
+    def row0():
+        c1 = dataclasses.replace(cfg, n_ctx=DISTILL_T)
+        with torch.no_grad():
+            return llama_mod.forward(params, llama_mod.init_cache(c1, 1, torch.bfloat16, DEVICE),
+                                     llama_mod.embed_tokens(params, toks[:1]), 0, c1,
+                                     all_logits=True)[0]
+
+    l1 = uncounted(row0)
+    ties = []
+    for j in (l1.argmax(dim=-1).int() != targets[0]).nonzero().flatten().tolist():
+        gap, top = _margin(l1[j])
+        ties.append((j, gap / top))
+        if not gap <= SPEC_TIE_PREFILL * top:
+            raise AssertionError(f"train b: teacher target {j} of row 0 differs from a B = 1 "
+                                 f"forward's argmax at a margin of {gap / top:.3e}")
+    log(f"[train b] teacher_targets B = {DISTILL_B}, T = {DISTILL_T} on the 13B gq engine: "
+        f"{t_targets * 1e3:.1f} ms; launches {({k: n for k, n in t_counts.items() if n})}; row "
+        f"0 equal to a B = 1 forward's argmax but at {len(ties)} ties {ties}  [{card}]")
+
+    dhc = draft_mod.DraftHeadConfig(512, 2, 8, 1408)
+    dcfg = dhc.llama_cfg(cfg.n_vocab, DISTILL_T)
+    art = draft_mod.init_draft_head(torch.Generator(device=DEVICE).manual_seed(SEED + 9),
+                                    cfg.n_embd, dhc)
+    leaves = [t.requires_grad_() for t in draft_mod.art_leaves(art)]
+    step = draft_mod.make_distill_step(
+        dcfg, torch.optim.AdamW(leaves, lr=DISTILL_LR, weight_decay=1e-4))
+    emb = params["tok_embeddings"].float()
+    losses, accs = [], []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISTILL_STEPS):
+        art, loss, acc = step(art, emb, toks, targets, DISTILL_WARM)
+        losses.append(float(loss))
+        accs.append(float(acc))
+    t_distill = time.perf_counter() - t0
+    d_counts = launch_counts()
+    launched = {k: n for k, n in d_counts.items() if n}
+    log(f"[train b] {DISTILL_STEPS} AdamW({DISTILL_LR:g}, weight decay 1e-4) steps of a {dhc} "
+        f"head: {t_distill:.2f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}, agreement "
+        f"{accs[0]:.4f} -> {accs[-1]:.4f}; launches {launched}  [{card}]")
+    if launched or not losses[-1] < losses[0]:
+        raise AssertionError(f"train b: losses {losses}, launches {launched}")
+    head = ROOT / "build" / "smoke_models" / f"draft-head-distilled-d{cfg.n_embd}-seed{SEED}.npz"
+    draft_mod.save_artifact(head, art, dhc, teacher_mode=f"real:{eng._llm_file.path.name}"
+                            f"@{eng.quant_mode}")
+    del art, leaves, step, emb
+    with SpecStreams(eng) as ss:
+        plain = ss.run(0, limit=DISTILL_TOKENS)
+        head_out = drafted(eng, ss, "g 13B", f"the distilled {dhc} head",
+                           {"draft_head_path": head}, plain["ids"], DISTILL_TOKENS,
+                           plain["tok_s"], card)
+    return {"teacher": dict(counts=t_counts, ms=t_targets * 1e3, ties=ties),
+            "distill": dict(counts=d_counts, s=t_distill, losses=losses, agreement=accs),
+            "drafted": head_out}
+
+
+def train_phase(eng, card: str) -> dict:
+    """The train phase on the loaded 13B Q5_K_M engine: (b) distill with it
+    as the teacher, then (a) train_projection beside it; every sub-path's
+    launch counts, keyed as paths of the kernels line."""
+    t0 = time.perf_counter()
+    b = distill(eng, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = train_projection(eng, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    return {"train projection 13B qtensor": a, "train teacher targets 13B gq": b["teacher"],
+            "train distill draft head": b["distill"],
+            "speculative 13B distilled head": b["drafted"]}
 
 
 def main() -> int:
@@ -4049,6 +4334,17 @@ def main() -> int:
         phase("speculative")
         only_speculative(card)
         phase("end (--only-speculative)")
+        return 0
+    if "--only-train" in sys.argv:  # a quick look at the train phase alone: no result line
+        from minigpt4_tpu_torch.engine import MiniGPT4Engine
+
+        phase("train")
+        eng = MiniGPT4Engine(*smoke_models(LLM_13B), device=DEVICE)
+        try:
+            train_phase(eng, card)
+        finally:
+            eng.close()
+        phase("end (--only-train)")
         return 0
     if "--only-serving" in sys.argv:  # a quick look at phase 5 alone: no result line
         phase("serving")
@@ -4095,6 +4391,8 @@ def main() -> int:
         ab = decode_ab(engines, card)
         phase("speculative")
         spec = speculative(engines["unpacked"], card)
+        phase("train")
+        train = train_phase(engines["unpacked"], card)
     finally:
         for e in engines.values():
             e.close()
@@ -4106,6 +4404,7 @@ def main() -> int:
     for name, what in (("a", "n-gram"), ("b", "sampled n-gram"), ("c", "draft 7B"),
                        ("d", "draft head")):
         paths[f"speculative 13B {what}"] = spec[name]
+    paths.update(train)
     phase("7B chats")
     # (graphs captured lazily; no warmup and no eager A/B, to keep the time)
     paths["7B q5_k L8"], eng = chat("7B q5_k L8", LLM_7B, card,
@@ -4135,12 +4434,12 @@ def main() -> int:
     if stray:
         raise AssertionError(f"serving: packed kernels launched: {stray}")
     phase("repack")
-    paths["13B repack + q5_k container"] = chat(
-        "13B repack + q5_k container", LLM_13B, card, REPACK_CHAT_KERNELS, quant_mode="repack",
+    paths[REPACK_LABEL] = chat(
+        REPACK_LABEL, LLM_13B_L8, card, REPACK_CHAT_KERNELS, quant_mode="repack",
         vision_quant="q5_k", forbid=GQ_KERNELS + PACKED_KERNELS)
     paths["13B q5_1 encode"] = encode_check(card)
     phase("w8a8")
-    paths["13B w8a8 + f8 cache"] = w8a8_f8(card)
+    paths[W8A8_LABEL] = w8a8_f8(card)
     phase("quality")
     paths["quality small"] = quality_run(card)
     phase("clients")
@@ -4200,11 +4499,9 @@ def main() -> int:
     # the rq kernels, the w8a8 path for the i8 kernels and the e4m3 reads,
     # the serving phase for the others); every path's count is in
     # "launches_by_path"
-    main_path = {"rq_decode": "13B repack + q5_k container",
-                 "rq_prefill": "13B repack + q5_k container",
-                 "i8_decode": "13B w8a8 + f8 cache", "i8_prefill": "13B w8a8 + f8 cache",
-                 "flash_decode[e4m3]": "13B w8a8 + f8 cache",
-                 "paged_flash_decode[e4m3]": "13B w8a8 + f8 cache"}
+    main_path = {"rq_decode": REPACK_LABEL, "rq_prefill": REPACK_LABEL,
+                 "i8_decode": W8A8_LABEL, "i8_prefill": W8A8_LABEL,
+                 "flash_decode[e4m3]": W8A8_LABEL, "paged_flash_decode[e4m3]": W8A8_LABEL}
     main_path.update({k: "13B Q5_K_M gq packed" if k in PACKED_13B_KERNELS
                       else "7B q4 mix L8 gq packed" for k in PACKED_KERNELS})
     kernels = []

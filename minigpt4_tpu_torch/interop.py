@@ -193,3 +193,14 @@ def vision_params_from_numpy(tree: dict, device: str | torch.device,
     """JAX ``minigpt4.load_params`` output (NumPy leaves) -> port vision
     params; quantized weights convert as above."""
     return _vision_tree(tree, device, dtype)
+
+
+def trainable_from_numpy(tree: dict, device: str | torch.device) -> dict:
+    """A JAX tree of dense trainable arrays (NumPy leaves) -> the same tree
+    of f32 leaf tensors that require grad: a ``llama_proj`` ``{"w": [K, N],
+    "b": [N]}`` for ``train.projection``, or a draft-head artifact
+    (``p_in``, ``p_out``, ``norm``, ``layers``) for ``train.draft``, so
+    both packages train from the same bits."""
+    if isinstance(tree, dict):
+        return {k: trainable_from_numpy(v, device) for k, v in tree.items()}
+    return _t(tree, device, torch.float32).requires_grad_()

@@ -254,7 +254,7 @@ def _row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -
 
 
 def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
-           page_table=None, act_stats=None, tp=None):
+           page_table=None, act_stats=None, tp=None, use_flash=True):
     """One decoder layer on x [B, S, D]; writes K/V of the S positions into
     layer ``li`` of the cache in place.  ``pos_dev``: the cursors, i32 [B]
     on the device.  ``rows``: the (cache row [B, 1], position [B, S]) index
@@ -264,7 +264,14 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
     ``act_stats``: a dict of lists; the per-channel absolute maxima of the
     inputs of the quantizable matmuls are appended per site ("attn", "wo",
     "ffn", "w2"), the calibration capture of ``quality.py``.  ``tp``: the
-    rank's tensor-parallel group (``forward``)."""
+    rank's tensor-parallel group (``forward``).  ``use_flash``: see
+    ``forward``.
+
+    Under autograd (K or V requires grad, dense cache) the cache takes the
+    detached rows and stays out of the graph, and the layer attends over a
+    copy of its own slice [B, H, C, Dh] with the rows written into it: the
+    next layer's write then bumps no tensor that this layer's backward
+    saved.  The values are the same; without grad nothing is copied."""
     b, s, _ = x.shape
     h = rms_norm(x, layers["attention_norm"][li], RMS_EPS)
     if act_stats is not None:
@@ -283,16 +290,23 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
     k = rope_interleaved(heads(xk), cos, sin)
     v = heads(xv)
 
-    ck[li][rows[0], :, rows[1]] = to_cache(k.transpose(1, 2), ck.dtype)
-    cv[li][rows[0], :, rows[1]] = to_cache(v.transpose(1, 2), cv.dtype)
+    kc, vc = to_cache(k.transpose(1, 2), ck.dtype), to_cache(v.transpose(1, 2), cv.dtype)
+    li_att = li
+    if page_table is None and torch.is_grad_enabled() and (kc.requires_grad or vc.requires_grad):
+        ck[li][rows[0], :, rows[1]] = kc.detach()
+        cv[li][rows[0], :, rows[1]] = vc.detach()
+        ck, cv, li_att = ck[li].clone()[None], cv[li].clone()[None], 0
+    ck[li_att][rows[0], :, rows[1]] = kc
+    cv[li_att][rows[0], :, rows[1]] = vc
 
     if page_table is not None:
         ctx = paged_flash_decode_attention(q, ck, cv, li, pos_dev, page_table,
                                            1.0 / math.sqrt(cfg.head_dim))
-    elif s <= FLASH_DECODE_MAX_S:
-        ctx = flash_decode_attention(q, ck, cv, li, pos_dev, 1.0 / math.sqrt(cfg.head_dim))
+    elif s <= FLASH_DECODE_MAX_S and use_flash:
+        ctx = flash_decode_attention(q, ck, cv, li_att, pos_dev, 1.0 / math.sqrt(cfg.head_dim))
     else:
-        ctx = _prefill_attention(q, ck, cv, li, pos_dev, attn_len or cfg.n_ctx, cfg.head_dim)
+        ctx = _prefill_attention(q, ck, cv, li_att, pos_dev, attn_len or cfg.n_ctx,
+                                 cfg.head_dim)
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
     if act_stats is not None:
         act_stats.setdefault("wo", []).append(_amax(ctx))
@@ -317,7 +331,8 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
             last_idx=None, attn_len: int | None = None,
             page_table: torch.Tensor | None = None, act_stats: dict | None = None,
-            all_logits: bool = False, tp: TPGroup | None = None) -> torch.Tensor:
+            all_logits: bool = False, tp: TPGroup | None = None,
+            use_flash: bool = True) -> torch.Tensor:
     """embeds [B, S, D] -> logits [B, V] (f32) at position ``last_idx``
     (default S-1; an int, or a long [1] tensor on the device), or [B, S, V]
     at every position with ``all_logits``; the cache is updated in place.
@@ -345,7 +360,14 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
 
     ``tp``: this rank's tensor-parallel group; ``params`` and ``cache`` are
     then its shards (``parallel/spmd.py``) and every rank returns the same
-    full-vocabulary logits."""
+    full-vocabulary logits.
+
+    ``use_flash`` (the JAX package's argument): False sends spans of S <=
+    32 rows to the plain masked attention over ``attn_len or cfg.n_ctx``
+    (JAX's einsum branch), as the trainers do: the flash-decode kernel has
+    no backward.  Paged mode ignores it.  ``forward`` differentiates
+    through dense and ``qtensor`` weights (``train/``); a kernel wrapper
+    given an input that requires grad on the card raises."""
     b, s, _ = embeds.shape
     dev = embeds.device
     pos_dev = pos_vector(pos0, b, dev)
@@ -363,7 +385,7 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
     x = embeds
     for li in range(cfg.n_layer):
         x = _layer(x, params["layers"], li, cache["k"], cache["v"], pos_dev, rope, cfg,
-                   attn_len, rows, page_table, act_stats, tp)
+                   attn_len, rows, page_table, act_stats, tp, use_flash)
     if act_stats is not None:
         act_stats.setdefault("head", []).append(_amax(rms_norm(x, params["norm"], RMS_EPS)))
     if all_logits:

@@ -150,6 +150,18 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: launch failed with CUDA error {rc} ({msg})")
 
 
+def refuse_grad(kernel: str, *ts) -> None:
+    """Raise where an input of a kernel launch requires grad: no kernel has
+    a backward, and its output would leave the autograd graph unnoticed.
+    The trainers (``train/``) differentiate through dense and ``qtensor``
+    weights; a kernel under autograd runs inside ``torch.no_grad()``."""
+    import torch
+
+    if any(t is not None and t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise RuntimeError(f"{kernel}: the kernel has no backward, but an input requires grad; "
+                           "run it under torch.no_grad() or train through qtensor weights")
+
+
 def stream_ptr(device) -> int:
     import torch
 

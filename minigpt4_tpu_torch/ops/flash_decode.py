@@ -224,6 +224,7 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: i
     cache's (H, Dh).  Returns q as contiguous, aligned f32 and the cursors as
     i32 [B]."""
     b, h, s, dh = q.shape
+    _build.refuse_grad(name, q, k, v)
     if v.shape != k.shape or v.dtype != k.dtype:
         raise ValueError(f"{name}: k and v must match in shape and dtype")
     if heads != (h, dh):

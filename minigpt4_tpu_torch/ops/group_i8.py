@@ -505,6 +505,7 @@ def _launch(name: str, x: torch.Tensor, w: GroupQuant, layer: int | None,
     """Launch the entry ``mgt_<name>`` on the weight's plane mode and code
     storage; count the launch on the wrapper, by packing."""
     fn_name = f"mgt_{name}"
+    _build.refuse_grad(fn_name, x)
     if w.exact != exact:
         raise ValueError(f"{fn_name} takes {'exact' if exact else 'generic'}-plane weights, "
                          f"got a {'exact' if w.exact else 'generic'} {w.dtype.name} weight")

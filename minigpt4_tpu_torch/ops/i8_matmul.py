@@ -180,6 +180,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(fn_name: str, x: torch.Tensor, w: I8SBQuant, layer, x_dtype: torch.dtype,
             x_scale=None) -> torch.Tensor:
+    _build.refuse_grad(fn_name, x, x_scale)
     if x.dim() != 2 or x.shape[1] != w.n_in or x.dtype != x_dtype:
         raise ValueError(f"{fn_name}: x must be {x_dtype} [M, {w.n_in}], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -254,6 +255,8 @@ def qmatmul_i8sb(x: torch.Tensor, w: I8SBQuant, layer=None, x_scale=None) -> tor
         raise ValueError("stacked I8SBQuant requires a layer index")
     if k % SB:
         raise ValueError(f"I8SBQuant K={k} is not a multiple of {SB}")
+    if x.device.type != "cpu":  # the prefill branch quantizes x before its launch
+        _build.refuse_grad("qmatmul_i8sb", x, x_scale)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).float()
     sx = None if x_scale is None else x_scale.reshape(-1, 1).float()

@@ -64,6 +64,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(fn_name: str, x: torch.Tensor, w: RepackedQuant, layer) -> torch.Tensor:
+    _build.refuse_grad(fn_name, x)
     if x.dim() != 2 or x.shape[1] != w.n_in:
         raise ValueError(f"{fn_name}: x must be [M, {w.n_in}], got {tuple(x.shape)}")
     if x.dtype != torch.float32:

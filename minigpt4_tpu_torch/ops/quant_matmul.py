@@ -5,7 +5,11 @@ this form in XLA with no Pallas kernel (its kernels take the repacked
 form), so here it is plain torch: the whole weight is dequantized by
 ``ops/dequant.py`` in x's dtype on every call, then ``x @ W.T``.  It is the
 form of ``quant_mode="qtensor"``, of the smooth-quant calibration
-(``quality.compute_smooth_scales``) and of the formats no kernel takes.
+(``quality.compute_smooth_scales``), of the formats no kernel takes, and of
+the frozen weights the trainers differentiate through (``train/``):
+:func:`qmatmul` is an autograd Function that saves only the packed bytes
+and dequantizes again in its backward, so a step holds no dequantized
+weight (13B in f32: about 51 GB).
 """
 
 from __future__ import annotations
@@ -67,11 +71,27 @@ def concat_out(ws: list[QTensor]) -> QTensor:
     return QTensor(torch.cat([w.packed for w in ws], dim=-2), w0.dtype, w0.n_in)
 
 
+class _QMatmul(torch.autograd.Function):
+    """y = x @ dequant(W).T with a frozen W: forward saves the packed bytes,
+    backward gives dx = dy @ dequant(W) and W no grad."""
+
+    @staticmethod
+    def forward(ctx, x, packed, dtype):
+        ctx.save_for_backward(packed)
+        ctx.dtype = dtype
+        return x @ dequantize(packed, dtype, x.dtype).t()
+
+    @staticmethod
+    def backward(ctx, dy):
+        (packed,) = ctx.saved_tensors
+        return dy @ dequantize(packed, ctx.dtype, dy.dtype), None, None
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
     """x [..., K] @ W.T -> [..., N] in x's dtype, the weight dequantized in
-    x's dtype (``qmatmul_xla``)."""
+    x's dtype (``qmatmul_xla``); differentiable in x (:class:`_QMatmul`)."""
     if qt.stacked:
         if layer is None:
             raise ValueError("stacked QTensor requires a layer index")
         qt = qt.layer(layer)
-    return x @ qt.dequantize(x.dtype).t()
+    return _QMatmul.apply(x, qt.packed, qt.dtype)

@@ -1,2 +1,6 @@
-"""Training-side modules of the port: so far the inference half of the
-draft head (``draft.py``)."""
+"""Training: the stage-1 projection trainer (``projection.py``) and the
+draft head with its distillation (``draft.py``)."""
+
+from .projection import caption_loss, make_train_step
+
+__all__ = ["caption_loss", "make_train_step"]

@@ -1,7 +1,6 @@
 """The draft head: a tiny decoder over the main model's frozen embedding,
-the drafter of draft-model speculation (counterpart of the inference half
-of ``minigpt4_tpu/train/draft.py``; its distillation is ROADMAP Queue 1,
-item 12).
+the drafter of draft-model speculation, and its distillation (counterpart
+of ``minigpt4_tpu/train/draft.py``).
 
 The head is a 1-2 layer llama whose token embedding is the main model's
 embedding projected through ``p_in`` [d_main, d_draft] and whose output
@@ -15,10 +14,18 @@ runs like a second model file.
 Artifacts are npz files with the JAX package's keys and types (float16
 arrays, ``cfg`` as i32 [d_draft, n_layer, n_head, n_ff], an optional
 ``teacher_mode`` string), so each side reads what the other writes.
+
+Distillation (:func:`make_distill_step`) is cross-entropy of the head's
+next-token prediction, teacher-forced, against the teacher's greedy choice
+(:func:`teacher_targets`), the event a speculative verify accepts on.  The
+artifact's leaves (:func:`art_leaves`) are the parameters of a
+``torch.optim`` optimizer; ``minigpt4_tpu_torch.tools.train_draft`` runs
+it against a llama.cpp file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -87,6 +94,68 @@ def assemble_draft(main_emb: torch.Tensor, art: dict, dtype: torch.dtype = torch
             "norm": art["norm"].to(dev, dtype),
             "output": {"w": (p_out @ emb.T).to(dtype)},
             "layers": layers}
+
+
+def art_leaves(art: dict) -> list[torch.Tensor]:
+    """The artifact's tensors in a fixed order (p_in, p_out, norm, then the
+    layers' in ``_LAYER_KEYS`` order): the parameters of the optimizer of
+    :func:`make_distill_step`."""
+    layers = art["layers"]
+    return [art["p_in"], art["p_out"], art["norm"]] + [
+        layers[name]["w"] if lin else layers[name] for name, lin in _LAYER_KEYS]
+
+
+def make_distill_step(dcfg: llama_mod.LlamaConfig, opt: torch.optim.Optimizer):
+    """Returns step(art, main_emb, tokens, targets, warm) -> (art, loss,
+    agreement): one distillation step of ``opt``, an optimizer over
+    :func:`art_leaves` (each requiring grad; updated in place, the same
+    dict returned; the optimizer's state lives in it, where the JAX package
+    threads ``opt_state``).
+
+    The loss is the mean cross-entropy of the head's logits [B, T, V]
+    (assembled in f32 over the frozen [V, d_main] ``main_emb`` inside the
+    loss, an f32 cache of ``dcfg.n_ctx``, the plain attention) against the
+    teacher's greedy ``targets`` [B, T] at positions t >= ``warm``; the
+    agreement is the share of those positions whose argmax is the target.
+    Both come back detached."""
+
+    def loss_fn(art, main_emb, tokens, targets, warm):
+        dparams = assemble_draft(main_emb, art, dtype=torch.float32)
+        b, t = tokens.shape
+        cache = llama_mod.init_cache(dcfg, b, torch.float32, main_emb.device)
+        emb = llama_mod.embed_tokens(dparams, tokens)
+        logits = llama_mod.forward(dparams, cache, emb, 0, dcfg, all_logits=True,
+                                   use_flash=False)  # [B, T, V]
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ce = -lp.gather(-1, targets.long()[..., None])[..., 0]
+        mask = (torch.arange(t, device=ce.device)[None, :] >= warm).float().expand(ce.shape)
+        acc = (logits.argmax(dim=-1) == targets).float()
+        return (ce * mask).sum() / mask.sum(), (acc * mask).sum() / mask.sum()
+
+    def step(art, main_emb, tokens, targets, warm):
+        opt.zero_grad(set_to_none=True)
+        loss, acc = loss_fn(art, main_emb, tokens, targets, warm)
+        loss.backward()
+        opt.step()
+        return art, loss.detach(), acc.detach()
+
+    return step
+
+
+def teacher_targets(params: dict, cfg: llama_mod.LlamaConfig, tokens: torch.Tensor,
+                    cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The teacher's greedy targets i32 [B, T] for a token batch on its
+    device: its argmax at every position, teacher-forced, under
+    ``torch.no_grad()``, so any weight form serves (gq runs its prefill
+    kernels).  The scratch cache holds min(n_ctx, T) positions, not
+    ``cfg.n_ctx``: the forward never reads past T."""
+    b, t = tokens.shape
+    cfg = dataclasses.replace(cfg, n_ctx=min(cfg.n_ctx, t))
+    with torch.no_grad():
+        cache = llama_mod.init_cache(cfg, b, cache_dtype, tokens.device)
+        emb = llama_mod.embed_tokens(params, tokens)
+        logits = llama_mod.forward(params, cache, emb, 0, cfg, all_logits=True)
+    return logits.argmax(dim=-1).int()
 
 
 def _np16(t) -> np.ndarray:

@@ -1976,3 +1976,104 @@ def test_speculative_batch_on_card_equals_plain(cuda_device, tmp_path):
         finally:
             pool.close()
     assert texts[4] == texts[0]
+
+
+def _train_files(tmp_path, kind: str):
+    """The tiny dense fixture (``kind`` "tiny") or the Q5_K one ("gq")."""
+    from fixtures import build_tiny_models
+
+    return (build_tiny_models if kind == "tiny" else build_gq_models)(tmp_path)
+
+
+def _train_models(files, device, quant_mode: str = "auto"):
+    """(frozen, proj, vision cfg, llm cfg) of ``files`` on ``device``, the
+    decoder in ``quant_mode``; proj is the container's llama_proj as leaves
+    that require grad."""
+    from minigpt4_tpu_torch.formats import ContainerReader, LlamaFileReader
+    from minigpt4_tpu_torch.models import llama as tllama
+    from minigpt4_tpu_torch.models import minigpt4 as tvision
+
+    model, llm = files
+    with ContainerReader(model) as r:
+        vp, vcfg = tvision.load_params(r, torch.float32, device)
+    with LlamaFileReader(llm) as r:
+        lp, lcfg = tllama.load_params(r, torch.float32, n_ctx=64, device=device,
+                                      quant_mode=quant_mode)
+    proj = {k: v.detach().clone().requires_grad_() for k, v in vp.pop("llama_proj").items()}
+    return {"vision": vp, "llm": lp}, proj, vcfg, lcfg
+
+
+def _caption_grads(frozen, proj, vcfg, lcfg, t: int, device):
+    from minigpt4_tpu_torch.train import caption_loss
+
+    rng = np.random.default_rng(t)
+    vs = vcfg.vit.image_size
+    pixels = torch.from_numpy(rng.normal(size=(2, 3, vs, vs)).astype(np.float32)).to(device)
+    tokens = torch.from_numpy(rng.integers(1, lcfg.n_vocab, (2, t))).to(device)
+    mask = torch.ones((2, t), device=device)
+    loss = caption_loss(proj, frozen, pixels, tokens, mask, vcfg, lcfg)
+    return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, list(proj.values()))]
+
+
+@pytest.mark.parametrize("kind,mode,t", [("tiny", "auto", 6), ("tiny", "auto", 40),
+                                         ("gq", "qtensor", 6), ("gq", "qtensor", 40)])
+def test_caption_loss_grads_on_card_equal_cpu(cuda_device, tmp_path, kind, mode, t):
+    """The projection's gradients on the card, through the plain attention
+    of S <= 32 rows (T = 6) and the prefill attention over an f32 cache (T =
+    40), dense and qtensor decoders, equal the CPU's within 1e-5 of
+    max|grad| (f32 sums in other orders), the loss within 1e-5 relative;
+    no kernel launches on the way."""
+    files, out = _train_files(tmp_path, kind), {}
+    for device in ("cpu", cuda_device):
+        models = _train_models(files, device, mode)
+        counters.reset()
+        out[str(device)] = _caption_grads(*models, t, device)
+        assert all(n == 0 for n in counters.counts().values()), counters.counts()
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(cuda_device)]
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for a, b in zip(g_card, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_forward_without_flash_launches_no_kernel(cuda_device, tmp_path):
+    """``forward(use_flash=False)`` at S = 10 launches no flash kernel and
+    gives the flash path's logits within 1e-5 of max|logit|; the default
+    launches it once per layer; and a flash launch on a q that requires grad
+    raises instead of cutting the graph (the Q5_K fixture as qtensor: head
+    dim 64, which the flash kernel serves, and no matmul kernel)."""
+    from minigpt4_tpu_torch.models import llama as tllama
+
+    frozen, _, _, cfg = _train_models(_train_files(tmp_path, "gq"), cuda_device, "qtensor")
+    p = frozen["llm"]
+    ids = torch.from_numpy(np.random.default_rng(1).integers(3, 250, (2, 10))).to(cuda_device)
+    emb = tllama.embed_tokens(p, ids)
+    counters.reset()
+    plain = tllama.forward(p, tllama.init_cache(cfg, 2, torch.float32, cuda_device), emb, 0, cfg,
+                           all_logits=True, use_flash=False)
+    assert tfd.flash_decode_attention.launches == 0
+    flash = tllama.forward(p, tllama.init_cache(cfg, 2, torch.float32, cuda_device), emb, 0, cfg,
+                           all_logits=True)
+    assert tfd.flash_decode_attention.launches == cfg.n_layer
+    assert float((plain - flash).abs().max()) <= 1e-5 * float(flash.abs().max())
+    with pytest.raises(RuntimeError, match="no backward"):
+        tllama.forward(p, tllama.init_cache(cfg, 2, torch.float32, cuda_device),
+                       emb.detach().requires_grad_(), 0, cfg)
+
+
+@pytest.mark.parametrize("mode", ["gq", "repack", "w8a8"])
+def test_trainer_refuses_kernel_weights_on_card(cuda_device, tmp_path, mode):
+    """A gq, repacked or w8a8 decoder on the card is refused before any
+    forward, naming qtensor; its kernels raise on an input that requires
+    grad rather than leave the graph."""
+    from minigpt4_tpu_torch.models.params import linear
+
+    frozen, proj, vcfg, lcfg = _train_models(_train_files(tmp_path, "gq"), cuda_device, mode)
+    counters.reset()
+    with pytest.raises(NotImplementedError, match="qtensor"):
+        _caption_grads(frozen, proj, vcfg, lcfg, 6, cuda_device)
+    assert all(n == 0 for n in counters.counts().values())
+    x = torch.randn((3, lcfg.n_embd), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        linear(x, frozen["llm"]["layers"]["wqkv"], 0)
+    with torch.no_grad():
+        assert linear(x, frozen["llm"]["layers"]["wqkv"], 0).shape == (3, 3 * lcfg.n_embd)
