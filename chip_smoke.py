@@ -8,8 +8,8 @@ chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
 NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
-(--only-serving, --only-clients, --only-speculative, --only-train, --only-kernels SECTIONS:
-one phase alone, no result line)
+(--only-serving, --only-clients, --only-speculative, --only-train, --only-tp,
+--only-kernels SECTIONS: one phase alone, no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -142,7 +142,11 @@ Phases (any failure exits nonzero before the last line):
                and no kernel launched ("train ..." paths).
                `python3 chip_smoke.py --only-train` runs phases 1-2 and
                this phase on a fresh 13B engine and prints no result line.
-  5. serving - minigpt4_tpu_torch.serve.start_server on the 13B files with
+  5. serving - minigpt4_tpu_torch.serve.start_server on the 13B Q5_K_M
+               geometry cut to 8 layers (LLM_13B_L8: its start captures 16
+               group chunks, and the cut pays for the tp phase's second
+               slice; the continuous pass below stays at full depth)
+               and the 13B f16 container, with
                session_ctx 512, a 30 ms batch window and a pool of 32 pages,
                on an ephemeral port.  Eight client threads each create a
                session; one uploads an image; all ask (different lengths)
@@ -286,7 +290,38 @@ Phases (any failure exits nonzero before the last line):
                are printed.  Then sp_flash_decode_attention
                over the two ranks (1024 positions each) against the kernel on
                the whole cache, 2e-5, counting the stats kernel's launches
-               (the "sp" path).
+               (the "sp" path).  Between the chat and the SP check each rank
+               runs the second tp slice on its loaded engine (tp_slice), held
+               to the tp=1 engine of this process (tp_refs): a. the chat
+               image through the ViT-G split over the ranks
+               (parallel/sharding.py; qkv / fc1 column-, proj / fc2
+               row-parallel), the embedding within 1e-4 of max|emb| of
+               tp=1's, encode ms per rank (on failure debug.first_divergence
+               of the two stage dumps); b. three Adam steps of llama_proj
+               (2 images, 24-token captions) through the sharded encoder and
+               the decoder loaded again as qtensor f32 and sharded: the loss
+               of each step within 1e-4 relative and llama_proj after within
+               2 x 3 x lr absolute of tp=1's (Adam moves an element by
+               ~lr a step whatever its gradient), the first step's gradient
+               within 1e-4 of max|grad|, forward and backward s/step and
+               peak memory per rank (profiling.device_memory_stats), no
+               kernel launched; c. start_server(tp=2, pool=) over a pool on
+               the rank's engine, a window server (paged, 32 pages) and then
+               a continuous one (8 lanes): four requests at once of 32 greedy
+               ids, one after a PNG upload; every operation's ids agree
+               across the ranks (parallel/controller.py) and the first 8 of
+               each request equal tp=1's; aggregate tok/s and the
+               collectives' share of the wall (profiling.collective_seconds:
+               the request threads' all-reduces, which the profiler of the
+               calling thread does not see); d. n-gram
+               speculation at k = 8 on a text turn: greedy ids equal plain
+               tp=2 greedy's but where the plain top-2 margin is below
+               SPEC_TIE_PREFILL of max|logit|, a seeded sampled stream equal
+               on both ranks.  Paths "13B q5_k repack tp=2 rank r serve
+               window / serve continuous / spec" in launches_by_path (rows
+               paged_flash_decode, rq_decode, rq_prefill; flash_decode,
+               rq_decode).  `python3 chip_smoke.py --only-tp` runs phases 1-2
+               and 9 alone.
   10. clients - (after phase 8) the 13B Q5_K_M geometry cut to 8 layers
                (LLM_13B_L8) and the 13B f16 container through
                MiniGPT4Engine(n_ctx=512, n_batch=64, context_shift=True), graphs
@@ -340,6 +375,7 @@ and of each path); the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import base64
+import collections
 import dataclasses
 import gc
 import io
@@ -438,61 +474,6 @@ def _time_ms(fn, args_for, reps: int) -> list[float]:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return out
-
-
-def _short(name: str) -> str:
-    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
-    return name.split("(")[0][:60]
-
-
-def profile_window(fn, sync) -> dict:
-    """One call of ``fn`` under torch.profiler (host and device activity):
-    wall ms, device busy ms (the union of the device activity intervals),
-    the idle share, the number of device activities, the three names with
-    the most device time, the device time of the flash decode kernels, of
-    the quantized prefill kernels (qmm_prefill_kernel and its x pre-pass)
-    and of the M <= 8 decode matmuls (gq, rq, i8), and the host time inside
-    collectives (the union
-    of the intervals of the host activities named all_reduce / allreduce,
-    0 outside tensor parallelism).  The profiler slows the host, so the idle
-    share is an upper estimate."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("the profiler saw no device activity")
-    busy, end = 0.0, -math.inf
-    per_name: dict[str, float] = {}
-    for e in sorted(dev, key=lambda e: e.time_range.start):
-        s, f = e.time_range.start, e.time_range.end
-        if f > end:
-            busy += f - max(s, end)
-            end = f
-        per_name[_short(e.name)] = per_name.get(_short(e.name), 0.0) + (f - s) / 1e3
-    busy_ms = busy / 1e3
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
-    coll, end = 0.0, -math.inf
-    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CPU
-                     and ("allreduce" in e.name.lower() or "all_reduce" in e.name.lower())),
-                    key=lambda e: e.time_range.start):
-        s, f = e.time_range.start, e.time_range.end
-        if f > end:
-            coll += f - max(s, end)
-            end = f
-    flash = sum(ms for n, ms in per_name.items() if "flash_decode_kernel" in n)
-    prefill = sum(ms for n, ms in per_name.items()
-                  if "qmm_prefill_kernel" in n or "prefill_x_kernel" in n)
-    decode = {f"{k}_decode_ms": sum(ms for n, ms in per_name.items() if f"{k}_decode" in n)
-              for k in ("gq", "rq", "i8")}
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, device_ops=len(dev),
-                top=[(n, round(ms, 3)) for n, ms in top], collective_ms=coll / 1e3,
-                flash_ms=flash, prefill_ms=prefill, **decode)
 
 
 def log_profile(label: str, prof: dict, card: str) -> None:
@@ -1907,6 +1888,7 @@ def graph_ab(eng, label: str, card: str) -> dict:
     Fails unless the captured chunk's idle share is below the eager one's."""
     from minigpt4_tpu_torch.engine import SamplingParams
     from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.profiling import profile_window
 
     sync = torch.cuda.synchronize
     st = eng._st
@@ -2087,6 +2069,7 @@ def chat_on(eng, label: str, card: str) -> dict:
     chunk, a sampled second turn; returns its times."""
     from minigpt4_tpu_torch.engine import SamplingParams
     from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.profiling import profile_window
 
     sync = torch.cuda.synchronize
     n_vocab = eng.llm_cfg.n_vocab
@@ -2284,6 +2267,7 @@ def paged_vs_dense(pool, sessions: list, card: str, sync) -> dict:
     each way: the identical-token prefix per lane and the paged group's
     tok/s."""
     from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.profiling import profile_window
 
     greedy = SamplingParams(temp=0.0)
     paged, dense = sessions, [_clone(pool, s) for s in sessions]
@@ -2339,6 +2323,7 @@ def paged_graph_ab(pool, sessions: list, card: str) -> dict:
     below the eager one's."""
     from minigpt4_tpu_torch.engine import SamplingParams
     from minigpt4_tpu_torch.ops import flash_decode as fd
+    from minigpt4_tpu_torch.profiling import profile_window
 
     sync = torch.cuda.synchronize
     eng = pool.engine
@@ -3411,6 +3396,383 @@ TP_PREFIX = 8  # greedy ids that must agree from the first
 TP_KERNELS = ("rq_decode", "rq_prefill", "flash_decode")
 
 
+# the second tp slice: the sharded encoder, the sharded training step,
+# serving over the ranks and speculation under tp, on the phase's engine
+TP_ENCODE_TOL = 1e-4  # of max|emb|: f32 sums of ViT-G's split proj / fc2 in another order
+TP_TRAIN_STEPS = 3
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_LOSS_RTOL = 1e-4  # per step, against tp=1 (f32 sums in another order)
+TP_TRAIN_GRAD_TOL = 1e-4  # of max|grad|, the first step's gradient against tp=1's
+# llama_proj after the steps, the mean |d| over its elements: Adam moves an
+# element by about lr a step whatever the size of its gradient, so the few
+# elements whose gradient is near 0 follow the f32 noise of the two sums'
+# orders, while a wrong gradient turns a share of the elements the other way
+# (2 lr each): more than one element in 2000 so turned exceeds this bound
+TP_TRAIN_PROJ_TOL = 1e-3 * TP_TRAIN_LR
+TP_ADAM_EPS = 1e-8  # torch.optim.Adam's default
+TP_SERVE_PROMPTS = ["Hi.", "What is the capital of France?", "List three fruits.",
+                    "What is in this picture?"]  # the last with the PNG
+TP_SERVE_TOKENS = 32
+TP_SERVE_PAGES = 32
+TP_SPEC_TOKENS = 32
+
+
+def tp_train_batch(vcfg) -> tuple:
+    """The train phase's batch: 2 images of the chat's size and 24-token
+    captions (BOS first), from the seed."""
+    rng = np.random.default_rng(SEED + 11)
+    size = vcfg.vit.image_size
+    pixels = rng.normal(0, 1, (2, 3, size, size)).astype(np.float32)
+    tokens = np.concatenate([np.ones((2, 1), np.int64), rng.integers(3, 32000, (2, 23))], axis=1)
+    return pixels, tokens, np.ones((2, 24), np.float32)
+
+
+def tp_train(vision: dict, vcfg, llm: dict, lcfg, tp, label: str, card: str) -> dict:
+    """TP_TRAIN_STEPS Adam steps of ``llama_proj`` through ``vision`` /
+    ``llm`` (this rank's shards under ``tp``), forward and backward timed
+    apart; no kernel may launch (the trainers run plain torch)."""
+    from minigpt4_tpu_torch.profiling import device_memory_stats
+    from minigpt4_tpu_torch.train.projection import caption_loss
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    pixels, tokens, mask = (torch.from_numpy(a).to(dev) for a in tp_train_batch(vcfg))
+    proj = {k: v.detach().clone().requires_grad_(True) for k, v in vision["llama_proj"].items()}
+    frozen = {"vision": {k: v for k, v in vision.items() if k != "llama_proj"}, "llm": llm}
+    opt = torch.optim.Adam(list(proj.values()), lr=TP_TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, fwd, bwd, grad = [], [], [], None
+    for _ in range(TP_TRAIN_STEPS):
+        opt.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = caption_loss(proj, frozen, pixels, tokens, mask, vcfg, lcfg, tp)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        fwd.append(t1 - t0)
+        bwd.append(time.perf_counter() - t1)
+        if grad is None:
+            grad = {k: v.grad.cpu().numpy() for k, v in proj.items()}
+        opt.step()
+        losses.append(float(loss))
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: kernels launched in the training step: {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    mem = device_memory_stats(dev)
+    log(f"[{label}] {TP_TRAIN_STEPS} Adam steps of llama_proj (2 images, 24-token captions): "
+        f"losses {[round(x, 6) for x in losses]}; forward {statistics.median(fwd):.3f} s, "
+        f"backward {statistics.median(bwd):.3f} s a step (median); peak "
+        f"{mem['peak_bytes_in_use'] / 1e9:.2f} GB of {mem['bytes_limit'] / 1e9:.1f} GB; no "
+        f"kernel launched  [{card}]")
+    return dict(losses=losses, fwd_s=fwd, bwd_s=bwd, peak_gb=mem["peak_bytes_in_use"] / 1e9,
+                proj={k: v.detach().cpu().numpy() for k, v in proj.items()}, grad=grad,
+                counts=counts)
+
+
+def tp_grad_without_copy(vision: dict, vcfg, llm: dict, lcfg, tp) -> dict:
+    """The first step's gradient of ``llama_proj`` with ``copy_to_tp`` taken
+    out of the decoder, so that its column-parallel inputs keep this rank's
+    partial gradient: the wrong update that TP_TRAIN_PROJ_TOL must see."""
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.train.projection import caption_loss
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    pixels, tokens, mask = (torch.from_numpy(a).to(dev) for a in tp_train_batch(vcfg))
+    proj = {k: v.detach().clone().requires_grad_(True) for k, v in vision["llama_proj"].items()}
+    frozen = {"vision": {k: v for k, v in vision.items() if k != "llama_proj"}, "llm": llm}
+    saved = llama_mod.copy_to_tp
+    llama_mod.copy_to_tp = lambda x, group: x
+    try:
+        caption_loss(proj, frozen, pixels, tokens, mask, vcfg, lcfg, tp).backward()
+    finally:
+        llama_mod.copy_to_tp = saved
+    return {k: v.grad.cpu().numpy() for k, v in proj.items()}
+
+
+def adam_first_step_gap(a: dict, b: dict) -> float:
+    """The mean |d| over every element between Adam's first updates from the
+    gradients ``a`` and ``b`` (lr g / (|g| + eps) after bias correction)."""
+    def step(g):
+        return TP_TRAIN_LR * g / (np.abs(g) + TP_ADAM_EPS)
+
+    total = sum(float(np.abs(step(a[k]) - step(v)).sum()) for k, v in b.items())
+    return total / sum(v.size for v in b.values())
+
+
+def tp_refs(eng, llm: str, card: str) -> dict:
+    """What the tp ranks are held to, from the tp=1 engine of the same files:
+    the chat image's embedding, the training steps (the decoder loaded
+    again as qtensor, f32) and the greedy ids of the served requests."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+    from minigpt4_tpu_torch.formats import LlamaFileReader
+    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.models import minigpt4 as vision_mod
+
+    px = preprocess(chat_image(), size=eng.vision_cfg.vit.image_size)
+    with torch.no_grad():
+        emb = vision_mod.encode_image(eng.vision_params, torch.from_numpy(px[None]).to(
+            eng.device), eng.vision_cfg).cpu().numpy()
+    with LlamaFileReader(llm) as r:
+        qt, qcfg = llama_mod.load_params(r, torch.float32, n_ctx=64, device=eng.device,
+                                         quant_mode="qtensor")
+    train = tp_train(eng.vision_params, eng.vision_cfg, qt, qcfg, None, "tp=1 train", card)
+    del qt
+    ids, prompts = [], []
+    for i, q in enumerate(TP_SERVE_PROMPTS):  # as the server's session routes feed them
+        eng.reset()
+        if i == len(TP_SERVE_PROMPTS) - 1:
+            eng.system_prompt()
+            eng.begin_chat_image(eng.encode_image(px), q)
+        else:
+            eng.begin_chat(q)
+        prompts.append(eng.n_past)
+        list(eng.generate(limit=TP_SERVE_TOKENS, params=SamplingParams(temp=0.0)))
+        ids.append(eng._st.tokens[prompts[-1]:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"emb": emb, "train": train, "serve_ids": ids, "serve_prompts": prompts}
+
+
+def tp_serve(g, eng, model: str, llm: str, label: str, server: dict, refs: dict,
+             card: str) -> dict:
+    """``start_server(tp=2)`` over a pool on this rank's engine: rank 0
+    serves the four requests of TP_SERVE_PROMPTS at once (the last after a
+    PNG upload), 32 greedy ids each, profiled; the others follow.  The
+    requests are held at the batcher until all four have prefilled (their
+    prefills run one after another under the controller's order), so that
+    they decode together: some group (window) or step (continuous) must
+    hold two lanes or more.  Rank 0's ids (its sessions' tokens) against
+    tp=1's: the first TP_PREFIX must agree.  Every operation's ids agreed
+    across the ranks, or the request failed (``parallel/controller.py``)."""
+    from minigpt4_tpu_torch import serve
+    from minigpt4_tpu_torch.engine.sessions import SessionPool
+    from minigpt4_tpu_torch.profiling import collective_seconds
+
+    pool = SessionPool(model, llm, session_ctx=512, paged_pool_pages=TP_SERVE_PAGES, engine=eng)
+    reset_launch_counts()
+    httpd = serve.start_server(model, llm, port=0, tp=g.size, pool=pool, **server)
+    if httpd is None:  # a follower: rank 0 closed the server
+        return {"counts": launch_counts()}
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results = [None] * len(TP_SERVE_PROMPTS)
+    lanes = []  # lanes of each window group, or active lanes of each continuous step
+    batcher = httpd.batcher
+    submit, together = batcher.submit, threading.Barrier(len(TP_SERVE_PROMPTS), timeout=300)
+
+    def held_submit(*a, **k):
+        together.wait()
+        return submit(*a, **k)
+
+    batcher.submit = held_submit
+    if server.get("continuous"):
+        step = batcher._step
+        batcher._step = lambda: (lanes.append(batcher._n_active()), step())[1]
+    else:
+        stream = pool.generate_batch_stream
+        pool.generate_batch_stream = lambda sessions, *a, **k: (
+            lanes.append(len(sessions)), stream(sessions, *a, **k))[1]
+
+    def client(i):
+        try:
+            _, raw = _request(base, "/v1/sessions")
+            sid = json.loads(raw)["session_id"]
+            if i == len(TP_SERVE_PROMPTS) - 1:
+                _request(base, f"/v1/sessions/{sid}/image", _png(chat_image()))
+            st, raw = _request(base, f"/v1/sessions/{sid}/chat", json.dumps(
+                {"message": TP_SERVE_PROMPTS[i], "limit": TP_SERVE_TOKENS,
+                 "temp": 0.0}).encode())
+            results[i] = dict(status=st, sid=sid)
+        except Exception as e:  # reported below
+            results[i] = dict(status=None, error=f"{type(e).__name__}: {e}")
+
+    def run():
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(results))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+
+    try:
+        c0, n0 = collective_seconds()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        coll_s, n_coll = (a - b for a, b in zip(collective_seconds(), (c0, n0)))
+        bad = [r for r in results if r["status"] != 200]
+        if bad or httpd.ranks.ctl.broken:
+            raise AssertionError(f"{label}: failed requests {bad}; {httpd.ranks.ctl.broken}")
+        ids = [pool._sessions[r["sid"]].state.tokens[n0:]
+               for r, n0 in zip(results, refs["serve_prompts"])]
+        ops = httpd.ranks.ctl.ops
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for obj, name in ((batcher, "submit"), (batcher, "_step"),
+                          (pool, "generate_batch_stream")):
+            obj.__dict__.pop(name, None)
+    counts = launch_counts()
+    agree = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), min(len(x), len(y)))
+             for x, y in zip(ids, refs["serve_ids"])]
+    n_tok = sum(len(x) for x in ids)
+    log(f"[{label}] 4 requests of {TP_SERVE_TOKENS} greedy ids (one with the PNG): "
+        f"{n_tok / wall:.2f} tok/s aggregate over {wall:.2f} s (uploads and prefills "
+        f"included); collectives {coll_s:.2f} s in {n_coll} all-reduces "
+        f"({100 * coll_s / wall:.0f} % of the wall, every thread of rank 0); "
+        f"{'steps' if server.get('continuous') else 'groups'} of "
+        f"{dict(sorted(collections.Counter(lanes).items()))} lanes (must reach 2); ids agree "
+        f"with tp=1's on the first {agree} of "
+        f"{TP_SERVE_TOKENS} (must: {TP_PREFIX}); {ops} operations agreed across the ranks; "
+        f"launches {counts}  [{card}]")
+    if min(agree) < TP_PREFIX:
+        raise AssertionError(f"{label}: ids {ids} agree with tp=1's {refs['serve_ids']} on "
+                             f"{agree}")
+    if max(lanes, default=0) < 2:
+        raise AssertionError(f"{label}: the requests never decoded together: {lanes}")
+    return dict(counts=counts, ids=ids, agree=agree, tok_s=n_tok / wall, wall_s=wall,
+                collective_s=coll_s, collectives=n_coll, ops=ops, lanes=lanes)
+
+
+def tp_spec(g, eng, label: str, card: str) -> dict:
+    """n-gram speculation at k = SPEC_K on the rank's engine, on a text
+    turn: greedy against plain greedy at tp=2 (equal, or leaving it only at
+    a plain top-2 margin below SPEC_TIE_PREFILL of max|logit|), and a
+    sampled stream from a seeded generator (the ranks compare it after)."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    greedy = SamplingParams(temp=0.0)
+    q = "Tell me a story about a cat."
+
+    def turn():
+        eng.reset()
+        eng.system_prompt()
+        eng.begin_chat(q)
+        return eng.n_past
+
+    n0 = turn()
+    list(eng.generate(limit=TP_SPEC_TOKENS, params=greedy))
+    plain = eng._st.tokens[n0:]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n0 = turn()
+    list(eng.generate(limit=TP_SPEC_TOKENS, params=greedy, speculative_k=SPEC_K))
+    t_spec = time.perf_counter() - t0
+    spec = eng._st.tokens[n0:]
+    n0 = turn()
+    eng._st.generator.manual_seed(SEED + 5)
+    list(eng.generate(limit=TP_SPEC_TOKENS, params=SamplingParams(**SAMPLED),
+                      speculative_k=SPEC_K))
+    sampled = eng._st.tokens[n0:]
+    counts = launch_counts()
+
+    def margin_at(j):  # the plain path's pending logits after j of its ids
+        turn()
+        if j:
+            eng.add_tokens(plain[:j])
+        top = eng._st.logits.float().topk(2).values
+        return float(top[0] - top[1]), float(eng._st.logits.float().abs().max())
+
+    check = spec_ids_check(label, spec, plain, margin_at, SPEC_TIE_PREFILL, card)
+    log(f"[{label}] k={SPEC_K}: greedy {len(spec)} ids in {t_spec:.2f} s, equal to plain tp=2 "
+        f"greedy: {check['equal']}; sampled {sampled[:8]}...; launches {counts}  [{card}]")
+    return dict(counts=counts, spec=spec, plain=plain, sampled=sampled, check=check)
+
+
+def tp_slice(g, eng, model: str, llm: str, refs: dict, card: str) -> dict:
+    """The second tp slice on this rank, on the phase's loaded engine: (a)
+    the chat image through the ViT-G split over the ranks against tp=1's
+    embedding, (b) TP_TRAIN_STEPS Adam steps of llama_proj over the sharded
+    encoder and the sharded qtensor decoder, (c) a window and a continuous
+    server over the ranks, (d) n-gram speculation."""
+    from minigpt4_tpu_torch import debug
+    from minigpt4_tpu_torch.formats import LlamaFileReader
+    from minigpt4_tpu_torch.image import preprocess
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.models import minigpt4 as vision_mod
+    from minigpt4_tpu_torch.parallel import sharding, spmd
+
+    label = f"tp={g.size} rank {g.rank}"
+    out = {}
+    # (a) the sharded encoder
+    vshards = sharding.shard_vision_params(eng.vision_params, eng.vision_cfg, g)
+    px = torch.from_numpy(preprocess(chat_image(), size=eng.vision_cfg.vit.image_size)[None])
+    px = px.to(g.device)
+    with torch.no_grad():
+        ms = []
+        for _ in range(2):  # the first builds nothing: plain torch, f32
+            torch.cuda.synchronize(g.device)
+            t0 = time.perf_counter()
+            emb = vision_mod.encode_image(vshards, px, eng.vision_cfg, g)
+            torch.cuda.synchronize(g.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    emb = emb.cpu().numpy()
+    gap = float(np.abs(emb - refs["emb"]).max() / np.abs(refs["emb"]).max())
+    kinds = sharding.vit_placement(eng.vision_params["visual_encoder"], eng.vision_cfg.vit, g.size)
+    log(f"[{label}] ViT-G split over {g.size} ranks ({kinds}): encode {ms[-1]:.1f} ms "
+        f"(first {ms[0]:.1f} ms); embedding against tp=1's: max |d| / max |emb| {gap:.3e} "
+        f"(tol {TP_ENCODE_TOL:g})  [{card}]")
+    if not gap <= TP_ENCODE_TOL:
+        path = Path(ROOT, "build", f"tp_dump_rank{g.rank}")
+        debug.save_dump(debug.dump_vision_stages(vshards, px, eng.vision_cfg, g), f"{path}_tp.npz")
+        debug.save_dump(debug.dump_vision_stages(eng.vision_params, px, eng.vision_cfg),
+                        f"{path}_whole.npz")
+        first = debug.first_divergence(debug.compare_dumps(f"{path}_tp.npz", f"{path}_whole.npz"))
+        raise AssertionError(f"{label}: sharded embedding {gap} > {TP_ENCODE_TOL}; first "
+                             f"divergence {first}")
+    out["encode"] = dict(ms=ms, gap=gap, kinds=kinds)
+    # (b) the sharded training step
+    with LlamaFileReader(llm) as r:
+        qt, qcfg = llama_mod.load_params(r, torch.float32, n_ctx=64, device=g.device,
+                                         quant_mode="qtensor")
+    qt = spmd.shard_llama_params(qt, g)
+    train = tp_train(vshards, eng.vision_cfg, qt, qcfg, g, f"{label} train", card)
+    wrong_grad = tp_grad_without_copy(vshards, eng.vision_cfg, qt, qcfg, g)
+    del qt, vshards
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = refs["train"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(train["losses"], one["losses"]))
+    grad_gap = max(float(np.abs(train["grad"][k] - v).max() / np.abs(v).max())
+                   for k, v in one["grad"].items())
+    proj_max = max(float(np.abs(train["proj"][k] - v).max()) for k, v in one["proj"].items())
+    proj_mean = (sum(float(np.abs(train["proj"][k] - v).sum()) for k, v in one["proj"].items())
+                 / sum(v.size for v in one["proj"].values()))
+    # the same reading between the first updates from tp=1's gradient and
+    # from this rank's (sound) or the one without copy_to_tp (wrong)
+    first_mean = adam_first_step_gap(train["grad"], one["grad"])
+    wrong_mean = adam_first_step_gap(wrong_grad, one["grad"])
+    wrong_gap = max(float(np.abs(wrong_grad[k] - v).max() / np.abs(v).max())
+                    for k, v in one["grad"].items())
+    log(f"[{label} train] against tp=1: losses {loss_gap:.3e} relative (tol "
+        f"{TP_TRAIN_LOSS_RTOL:g}); the first step's gradient {grad_gap:.3e} of max|grad| (tol "
+        f"{TP_TRAIN_GRAD_TOL:g}); llama_proj after {TP_TRAIN_STEPS} steps mean |d| "
+        f"{proj_mean:.3e} (tol {TP_TRAIN_PROJ_TOL:g}), max |d| {proj_max:.3e}; the first "
+        f"update's mean |d| {first_mean:.3e}, without copy_to_tp {wrong_mean:.3e} (its "
+        f"gradient {wrong_gap:.3e} of max|grad|: the bound must refuse it)  [{card}]")
+    if not (loss_gap <= TP_TRAIN_LOSS_RTOL and grad_gap <= TP_TRAIN_GRAD_TOL
+            and proj_mean <= TP_TRAIN_PROJ_TOL):
+        raise AssertionError(f"{label}: training step off tp=1's: {loss_gap}, {grad_gap}, "
+                             f"{proj_mean}")
+    if not (wrong_mean > TP_TRAIN_PROJ_TOL and wrong_gap > TP_TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label}: the bounds pass an update without copy_to_tp: "
+                             f"{wrong_mean}, {wrong_gap}")
+    out["train"] = dict(train, loss_gap=loss_gap, grad_gap=grad_gap, proj_max=proj_max,
+                        proj_mean=proj_mean, first_mean=first_mean, wrong_mean=wrong_mean,
+                        wrong_gap=wrong_gap)
+    del out["train"]["proj"], out["train"]["grad"]
+    # (c) serving over the ranks, then (d) speculation, on the same engine
+    out["serve window"] = tp_serve(g, eng, model, llm, f"{label} window server",
+                                   dict(batch_window_s=0.03), refs, card)
+    out["serve continuous"] = tp_serve(g, eng, model, llm, f"{label} continuous server",
+                                       dict(continuous=True, max_batch=8), refs, card)
+    out["spec"] = tp_spec(g, eng, f"{label} speculative", card)
+    return out
+
+
 def _local_shapes(eng) -> dict:
     """The rank's local decoder shapes: (N, K) of each projection of layer 0
     and of the head, the KV cache's heads."""
@@ -3451,7 +3813,7 @@ def depth_logits(files: list, tp: int) -> list:
     return out
 
 
-def tp_rank(g, model: str, llm: str, shallow: list, card: str) -> dict:
+def tp_rank(g, model: str, llm: str, shallow: list, refs: dict, card: str) -> dict:
     """One rank of the tp phase: text_turn_logits on the ``shallow`` files,
     the chat of phase 4 through MiniGPT4Engine(tp=2, quant_mode="repack") on
     this rank's shards (the repacked and flash kernels at the local shapes,
@@ -3479,11 +3841,12 @@ def tp_rank(g, model: str, llm: str, shallow: list, card: str) -> dict:
         log(f"[{label}] local shapes {shapes}; {mem_gb:.3f} GB allocated by the load")
         out = chat_on(eng, label, card)
         text.append(text_turn_logits(eng))
+        out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb, shapes=shapes,
+                                         text=text, backend=g.backend), TP_KERNELS,
+                             GQ_KERNELS + PACKED_KERNELS, card)
+        out["slice"] = tp_slice(g, eng, model, llm, refs, card)
     finally:
         eng.close()
-    out = check_launches(label, dict(out, load_s=t_load, mem_gb=mem_gb, shapes=shapes, text=text,
-                                     backend=g.backend), TP_KERNELS,
-                         GQ_KERNELS + PACKED_KERNELS, card)
     prof = out["profile"]
     log(f"[{label}] load {t_load:.2f} s, greedy {out['decode_tok_s']:.2f} tok/s, collectives "
         f"{prof['collective_ms']:.1f} of {prof['wall_ms']:.1f} ms of a profiled 16-token chunk "
@@ -3631,19 +3994,20 @@ def tp_phase(card: str) -> dict:
     label = "13B q5_k repack tp=1"
     one, eng = chat(label, LLM_13B_Q5K, card, REPACK_CHAT_KERNELS, quant_mode="repack",
                     forbid=GQ_KERNELS + PACKED_KERNELS, keep=True, graphs=False)
+    model, llm = smoke_models(LLM_13B_Q5K)
     try:
         text1.append(text_turn_logits(eng))
+        refs = tp_refs(eng, str(llm), card)
     finally:
         eng.close()
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    model, llm = smoke_models(LLM_13B_Q5K)
     log(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the ranks start")
     t0 = time.perf_counter()
-    ranks = dryrun.run_ranks(tp_rank, TP, (str(model), str(llm), shallow, card), device="cuda",
-                             timeout_s=900)
+    ranks = dryrun.run_ranks(tp_rank, TP, (str(model), str(llm), shallow, refs, card),
+                             device="cuda", timeout_s=900)
     wall = time.perf_counter() - t0
 
     def gap(a, b):
@@ -3671,6 +4035,18 @@ def tp_phase(card: str) -> dict:
                                  f"{agree} < {TP_PREFIX}")
     if ranks[0]["greedy_ids"] != ranks[1]["greedy_ids"]:
         raise AssertionError("the two ranks decoded different tokens")
+    specs = [r["slice"]["spec"] for r in ranks]
+    for key in ("spec", "sampled"):
+        if specs[0][key] != specs[1][key]:
+            raise AssertionError(f"speculation under tp: the ranks' {key} ids differ: "
+                                 f"{specs[0][key]} / {specs[1][key]}")
+    for what, need in (("serve window", ("paged_flash_decode", "rq_decode", "rq_prefill")),
+                       ("serve continuous", ("paged_flash_decode", "rq_decode", "rq_prefill")),
+                       ("spec", ("flash_decode", "rq_decode"))):
+        for r, out in enumerate(ranks):
+            missing = [k for k in need if out["slice"][what]["counts"][k] <= 0]
+            if missing:
+                raise AssertionError(f"tp rank {r} {what}: kernels never launched: {missing}")
     log(f"[tp] {TP} ranks done in {wall:.1f} s (spawn, loads, chat, SP)  [{card}]")
     return dict(tp1=one, ranks=ranks)
 
@@ -4346,9 +4722,14 @@ def main() -> int:
             eng.close()
         phase("end (--only-train)")
         return 0
+    if "--only-tp" in sys.argv:  # a quick look at the tp phase alone: no result line
+        phase("tp")
+        tp_phase(card)
+        phase("end (--only-tp)")
+        return 0
     if "--only-serving" in sys.argv:  # a quick look at phase 5 alone: no result line
         phase("serving")
-        continuous_serving(card, serving(card))
+        continuous_serving(card, serving(card, lg=LLM_13B_L8))
         phase("end (--only-serving)")
         return 0
     if "--only-kernels" in sys.argv:  # a quick look at phase 3 alone: no result line
@@ -4370,6 +4751,9 @@ def main() -> int:
     for r, out in enumerate(tp["ranks"]):
         paths[f"13B q5_k repack tp={TP} rank {r}"] = out
     paths["sp"] = {"counts": tp["ranks"][0]["sp_counts"]}
+    for r, out in enumerate(tp["ranks"]):
+        for what in ("serve window", "serve continuous", "spec"):
+            paths[f"13B q5_k repack tp={TP} rank {r} {what}"] = out["slice"][what]
     phase("13B chats, unpacked and packed")
     # the same files with the gq codes packed: the same greedy tokens; both
     # engines stay loaded for a decode A/B in alternating turns
@@ -4422,7 +4806,11 @@ def main() -> int:
                                            PACKED_MIX_KERNELS, quant_mode="gq", forbid=GQ_KERNELS,
                                            graphs=False)
     phase("serving")
-    paths["serving 13B"] = serving(card)
+    # the window server on the 13B Q5_K_M geometry cut to 8 layers (its start
+    # captures 16 group chunks), which pays for the tp phase's second slice;
+    # the continuous pass stays at full depth, where staggered requests
+    # overlap and join a running group
+    paths["serving 13B"] = serving(card, lg=LLM_13B_L8)
     paths["continuous"] = continuous_serving(card, paths["serving 13B"])
     paths["speculative batched"] = paths["serving 13B"]["spec_batch"]
     paths["speculative greedy + sampled group"] = paths["speculative batched"]["pair"]

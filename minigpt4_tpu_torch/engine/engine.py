@@ -357,16 +357,14 @@ class MiniGPT4Engine:
         (an artifact of ``train/draft.py``) drafts greedy streams instead,
         ``self.draft_k`` = ``speculative_k`` or 8 tokens per pass.  Refused:
         both drafters at once, a drafter of another vocabulary or width, and
-        either under tp > 1 (JAX's errors)."""
+        either under tp > 1 (JAX's errors).  Under tp > 1 the n-gram loops
+        run eagerly on every rank, each rank's generator seeded alike, so
+        every rank draws the same ids from the gathered logits."""
         if speculative_k > llama_mod.FLASH_DECODE_MAX_S:
             raise ValueError(
                 f"speculative_k={speculative_k} exceeds the flash-decode "
                 f"verify-block limit ({llama_mod.FLASH_DECODE_MAX_S})")
         _check_drafter(draft_llm_path, draft_head_path, tp)
-        if tp > 1 and speculative_k > 1:
-            raise NotImplementedError(
-                f"speculative_k={speculative_k} over tp={tp} ranks: speculation under tensor "
-                "parallelism is not ported (ROADMAP Queue 1, item 11)")
         self.speculative_k = speculative_k
         if dp != 1:
             raise ValueError(
@@ -386,9 +384,7 @@ class MiniGPT4Engine:
         disable_tf32()
         # the decoder's mode: auto is gq, or w8a8 where calibration scales
         # are given (a deliberate w8a8 opt-in)
-        self.quant_mode = quant_mode
-        if quant_mode == "auto":
-            self.quant_mode = "w8a8" if smooth_scales else "gq"
+        self.quant_mode = resolve_decoder_mode(quant_mode, smooth_scales)
         if tp > 1:  # refused before any weight loads or any rank joins
             with LlamaFileReader(llm_path) as reader:
                 check_tp(reader, self.quant_mode, tp)
@@ -595,18 +591,23 @@ class MiniGPT4Engine:
         restored afterwards), and the state's generator is restored, so
         neither the conversation nor its random stream changes.  Returns
         :meth:`graph_stats` with the seconds of the build (``build_s``) and
-        of the captures (``warmup_s``).  Refused on an engine that runs
-        eagerly (CPU, tp > 1)."""
-        if not self.graphs_enabled:
-            raise RuntimeError("warmup captures CUDA graphs: this engine runs eagerly "
-                               f"(device {self.device}, tp={self.tp})")
+        of the captures (``warmup_s``).  On a CUDA engine over tp > 1 ranks
+        (every rank calls it) each of those steps runs once eagerly instead,
+        on the rank's shards: gloo's all-reduces cannot be captured, so the
+        result reports 0 graphs, and ``eager_keys`` the steps run.  Refused
+        on a CPU engine."""
+        if self.device.type != "cuda":
+            raise RuntimeError("warmup builds the kernels and captures CUDA graphs: this engine "
+                               f"runs on {self.device}")
         from ..ops import _build
 
         t0 = time.perf_counter()
         _build.load()
         t_build = time.perf_counter() - t0
         st = self._st
-        steps = self._steps(st)
+        steps = (self._steps(st) if self.graphs_enabled else
+                 StepGraphs(self.llm_params, self.llm_cfg, st.cache, self.device, None,
+                            tp=self.tp_group))
         d, v = self.llm_cfg.n_embd, self.llm_cfg.n_vocab
         emb_dtype = self.llm_params["tok_embeddings"].dtype
         gen_state = st.generator.get_state()
@@ -646,7 +647,8 @@ class MiniGPT4Engine:
             torch.cuda.synchronize(self.device)
         st.generator.set_state(gen_state)
         return dict(self.graph_stats(), build_s=t_build,
-                    warmup_s=time.perf_counter() - t0 - t_build)
+                    warmup_s=time.perf_counter() - t0 - t_build,
+                    eager_keys=[] if self.graphs_enabled else sorted(map(str, steps.seen)))
 
     # ------------------------------------------------------------------
     # vision
@@ -1100,6 +1102,15 @@ def _check_drafter(draft_llm_path, draft_head_path, tp: int) -> None:
     if tp > 1 and draft_llm_path is not None:
         raise ValueError("draft_llm_path requires tp=1 (the drafter is small enough to "
                          "replicate; sharding it buys nothing)")
+
+
+def resolve_decoder_mode(quant_mode: str, smooth_scales=None) -> str:
+    """The decoder's weight form for an engine's ``quant_mode``: ``auto`` is
+    gq, or w8a8 where calibration scales are given (a deliberate w8a8
+    opt-in)."""
+    if quant_mode == "auto":
+        return "w8a8" if smooth_scales else "gq"
+    return quant_mode
 
 
 def check_tp(reader: LlamaFileReader, decoder_mode: str, tp: int) -> None:

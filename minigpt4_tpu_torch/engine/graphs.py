@@ -97,10 +97,11 @@ class GraphCache:
     (``torch.cuda.graph_pool_handle()``; the engine's, shared by all its
     graphs)."""
 
-    def __init__(self, device, pool):
+    def __init__(self, device, pool, eager: bool = False):
         self.device = torch.device(device)
         self.pool = pool
-        self.stream = torch.cuda.Stream(device=self.device)
+        self.eager = eager  # run every key eagerly, capture none (tp > 1)
+        self.stream = None if eager else torch.cuda.Stream(device=self.device)
         self.graphs: dict = {}
         self.seen: set = set()  # keys used once, eagerly
         self.replays = 0  # graph replays so far
@@ -114,7 +115,11 @@ class GraphCache:
         lane does not sample), and returns a tuple of tensors.  For a
         replay, ``feed``'s tensors are copied into the static buffers and
         ``generators`` lend their states to the graph.  Returns the outputs
-        (copies of the static ones after a replay)."""
+        (copies of the static ones after a replay).  An ``eager`` cache
+        runs ``fn`` every time and records the key in ``seen``."""
+        if self.eager:
+            self.seen.add(key)
+            return tuple(fn(feed, list(generators)))
         graph = self.graphs.get(key)
         if graph is None:
             if not capture and key not in self.seen:
@@ -158,11 +163,12 @@ class StepGraphs(GraphCache):
     """The captured decoder steps of one cache: the engine's own state's
     dense cache, or a session pool's page pools.  ``params`` / ``cfg`` are
     the decoder's; ``cache`` is ``{"k", "v"}`` as :func:`llama.forward`
-    takes it."""
+    takes it.  With a tensor-parallel group ``tp`` the steps run on the
+    rank's shards, eagerly (gloo's all-reduces cannot be captured)."""
 
-    def __init__(self, params: dict, cfg, cache: dict, device, pool):
-        super().__init__(device, pool)
-        self.params, self.cfg, self.cache = params, cfg, cache
+    def __init__(self, params: dict, cfg, cache: dict, device, pool, tp=None):
+        super().__init__(device, pool, eager=tp is not None)
+        self.params, self.cfg, self.cache, self.tp = params, cfg, cache, tp
 
     def decode_chunk(self, logits: torch.Tensor, pos0, n: int, generators: list,
                      rows: LaneRows, page_table: torch.Tensor | None = None,
@@ -185,7 +191,7 @@ class StepGraphs(GraphCache):
             traced = None if rows.traced is None else {name: inp[name] for name in TRACED}
             return llama_mod.decode_loop(self.params, self.cache, inp["logits"], inp["pos"], n,
                                          gens, LaneRows(rows.configs, inp.get("bias"), traced),
-                                         self.cfg, page_table=inp.get("table"))
+                                         self.cfg, page_table=inp.get("table"), tp=self.tp)
 
         # traced rows draw on every lane; static ones on the sampled lanes
         gens = [g if rows.traced is not None or not c.greedy else None
@@ -204,7 +210,7 @@ class StepGraphs(GraphCache):
         def step(inp, _):
             return llama_mod.speculative_decode_loop(self.params, self.cache, inp["logits"],
                                                      inp["pos"], inp["hist"], n_passes, k,
-                                                     self.cfg)
+                                                     self.cfg, tp=self.tp)
 
         return self.run(("spec", b, n_passes, k, None), step, feed, capture=capture)
 
@@ -224,7 +230,8 @@ class StepGraphs(GraphCache):
             traced = {name: inp[name] for name in TRACED}
             return llama_mod.stochastic_speculative_decode_loop(
                 self.params, self.cache, inp["logits"], inp["pos"], inp["hist"], inp["ban"], gens,
-                LaneRows(rows.configs, inp.get("bias"), traced), n_passes, k, self.cfg)
+                LaneRows(rows.configs, inp.get("bias"), traced), n_passes, k, self.cfg,
+                tp=self.tp)
 
         key = ("spec_stoch", b, n_passes, k, None, rows.bias is not None)
         return self.run(key, step, feed, generators, capture)
@@ -237,7 +244,8 @@ class StepGraphs(GraphCache):
 
         def step(inp, _):
             e = llama_mod.embed_tokens(self.params, inp["tokens"])
-            return (llama_mod.forward(self.params, self.cache, e, inp["pos"], self.cfg),)
+            return (llama_mod.forward(self.params, self.cache, e, inp["pos"], self.cfg,
+                                      tp=self.tp),)
 
         return self.run(("step", b), step, feed, capture=capture)[0]
 
@@ -254,6 +262,6 @@ class StepGraphs(GraphCache):
 
         def step(inp, _):
             return (llama_mod.forward(self.params, self.cache, inp["embeds"], inp["pos"],
-                                      self.cfg, inp["last"], attn_len=span),)
+                                      self.cfg, inp["last"], attn_len=span, tp=self.tp),)
 
         return self.run(("prefill", s, span), step, feed, capture=capture)[0]

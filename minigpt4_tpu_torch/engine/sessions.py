@@ -41,9 +41,14 @@ so it needs two graphs; :meth:`SessionPool.warmup` and
 window group and single sessions run eagerly.
 
 With a tensor-parallel engine (``tp=N``, one process per rank, every rank
-running the same calls) the lane caches and the page pool hold the rank's
-heads (``parallel/spmd.py``); lanes, page tables and cursors are the same
-on every rank.  The prefix cache is off there, and the batcher refuses tp.
+running the same calls) the lane caches, the batcher's slots and the page
+pool hold the rank's heads (``parallel/spmd.py``), a parked session this
+rank's shard; lanes, page tables and cursors are the same on every rank,
+and every step runs eagerly.  The prefix cache is off there, as the JAX
+package's is under a mesh.  Where rank 0 alone takes requests (the HTTP
+server), a ``parallel.controller.Controller`` replays each device-touching
+call of a pool, its sessions and its batcher (the methods marked
+``replicated``) on the other ranks, in rank 0's order.
 
 With an engine of ``context_shift=True`` a session's prefill and its own
 decode shift its context where the JAX ``SessionPool`` does (the engine's
@@ -84,6 +89,7 @@ from .graphs import StepGraphs
 from .hostcopy import copy_from_host_, host_copy
 from .paged import PagedKVPool, PoolExhausted
 from .sampling import Sampler, SamplingParams
+from ..parallel.controller import _Discard, replicated, replicated_stream
 
 
 class ChatSession:
@@ -99,6 +105,10 @@ class ChatSession:
         self.is_image_chat = False
 
     @property
+    def _ctl(self):
+        return self._pool._ctl
+
+    @property
     def n_past(self) -> int:
         return self.state.n_past
 
@@ -108,17 +118,20 @@ class ChatSession:
         lg = self.state.logits
         return None if lg is None else lg.float().cpu().numpy()
 
+    @replicated
     def encode_image(self, pixels: np.ndarray) -> np.ndarray:
         emb = self._pool.encode_image(pixels)
         self.embedding = emb
         return emb
 
+    @replicated
     def upload_image(self, pixels: np.ndarray) -> None:
         self.reset()
         self._pool.system_prompt(self)
         self.encode_image(pixels)
         self.is_image_chat = True
 
+    @replicated
     def ask(self, question: str) -> None:
         if self.is_image_chat and self.embedding is not None:
             self._pool.begin_chat_image(self, self.embedding, question)
@@ -129,11 +142,13 @@ class ChatSession:
     def generate(self, limit: int = 256, params: SamplingParams | None = None):
         yield from self._pool.generate(self, limit, params or SamplingParams())
 
+    @replicated
     def reset(self) -> None:
         self.state.reset()
         self.is_image_chat = False
         self.embedding = None
 
+    @replicated
     def park(self) -> None:
         """Move this session's KV cache to host memory, trimmed to the
         consumed prefix, while the user thinks (:meth:`DecodeState.park`).
@@ -143,6 +158,14 @@ class ChatSession:
         with self._pool._lock:
             self.state.park()
 
+    @replicated
+    def reseed(self, seed: int) -> None:
+        """Reseed both samplers: the host chain and the device generator (a
+        seeded request)."""
+        self.sampler.reset(seed)
+        self.state.generator.manual_seed(seed)
+
+    @replicated
     def close(self) -> None:
         self._pool._release(self)
 
@@ -211,15 +234,19 @@ class SessionPool:
     """One loaded engine and the decode states of its sessions.
 
     ``prefix_cache`` / ``prefix_cache_mb``: the radix prefix cache and its
-    host-memory budget (JAX's defaults: on, 512 MB); off under tp."""
+    host-memory budget (JAX's defaults: on, 512 MB); off under tp.
+    ``engine``: a loaded engine to serve instead of loading the files (a
+    pool of the same process may share it; :meth:`close` closes it)."""
 
     def __init__(self, model_path, llm_path, session_ctx: int = 512, seed: int = 1337,
                  paged_pool_pages: int | None = None, prefix_cache: bool = True,
-                 prefix_cache_mb: int = 512, **engine_kwargs):
-        self.engine = MiniGPT4Engine(model_path, llm_path, seed=seed, **engine_kwargs)
+                 prefix_cache_mb: int = 512, engine: MiniGPT4Engine | None = None,
+                 **engine_kwargs):
+        self.engine = engine or MiniGPT4Engine(model_path, llm_path, seed=seed, **engine_kwargs)
         self.session_ctx = session_ctx
         self.seed = seed
         self._lock = threading.Lock()
+        self._ctl = None  # the tp controller that replicates this pool's calls, if any
         self._metrics_lock = threading.Lock()  # counters move across streams
         self._rate_events: deque[tuple[float, int]] = deque(maxlen=4096)
         self._next_id = 0
@@ -265,6 +292,7 @@ class SessionPool:
         return total / span
 
     # -- session lifecycle --
+    @replicated
     def new_session(self) -> ChatSession:
         with self._lock:
             sid = self._next_id
@@ -278,6 +306,7 @@ class SessionPool:
         self._sessions.pop(s.session_id, None)
 
     # -- device operations, under the lock --
+    @replicated
     def encode_image(self, pixels: np.ndarray) -> np.ndarray:
         with self._lock:
             self.metrics["images_encoded"] += 1
@@ -297,6 +326,7 @@ class SessionPool:
                 self.engine.add_embedding(x, st=st)
                 self._bump("tokens_prefilled", st.n_past - n0)
 
+    @replicated
     def feed(self, s: ChatSession, pieces: list[tuple]) -> None:
         """Feed pieces of the engine's templates (``system_pieces``,
         ``chat_pieces``: ("text", str), ("rows", embedding), ("keep", None))
@@ -475,6 +505,7 @@ class SessionPool:
     def begin_chat(self, s: ChatSession, q: str) -> None:
         self.feed(s, self.engine.chat_pieces(q))
 
+    @replicated_stream
     def generate(self, s: ChatSession, limit: int, params: SamplingParams):
         """One session's stream: device-sampled chunks through the engine,
         or, for mirostat, the session's host sampler one token at a time.
@@ -514,6 +545,7 @@ class SessionPool:
                 out[i] += token
         return out
 
+    @replicated_stream
     def generate_batch_stream(self, sessions: list[ChatSession],
                               limit: int | list[int] = 256,
                               params: SamplingParams | list[SamplingParams] | None = None,
@@ -735,13 +767,15 @@ class SessionPool:
                 if rows.traced is None:
                     tokens, counts, logits, group["hist"] = llama_mod.speculative_decode_loop(
                         eng.llm_params, cache, logits, pos, group["hist"], n_passes,
-                        eng.speculative_k, eng.llm_cfg, page_table=page_table)
+                        eng.speculative_k, eng.llm_cfg, page_table=page_table,
+                        tp=eng.tp_group)
                 else:
                     ban_dev = torch.tensor(group["ban"], dtype=torch.long).to(eng.device)
                     (tokens, counts, logits, group["hist"],
                      ban_out) = llama_mod.stochastic_speculative_decode_loop(
                         eng.llm_params, cache, logits, pos, group["hist"], ban_dev, gens, rows,
-                        n_passes, eng.speculative_k, eng.llm_cfg, page_table=page_table)
+                        n_passes, eng.speculative_k, eng.llm_cfg, page_table=page_table,
+                        tp=eng.tp_group)
                     group["ban"] = ban_out.tolist()
             toks, cnts = tokens.tolist(), counts.tolist()
             lane_tokens = [[t for row, c in zip(tr, cr) for t in row[:c]]
@@ -943,8 +977,12 @@ class ContinuousBatcher:
     captured CUDA graphs: the pool's paged steps, or steps over the stacked
     cache in the engine's graph pool, whose address never moves.  Two keys
     (all-greedy and traced) serve every step; :meth:`warmup` captures them
-    ahead of time.  Mirostat is refused (it samples on the host), and so is
-    an engine over tp ranks.
+    ahead of time.  Mirostat is refused (it samples on the host).  Over tp
+    ranks the slots hold the rank's heads and every step runs eagerly; with
+    a controlled pool (``parallel/controller.py``) rank 0's worker thread
+    runs each round of admissions and one step as one replicated operation
+    (:meth:`_cycle`), which every other rank's batcher, built alike and
+    without a thread, applies in the same order.
 
     With an engine of ``speculative_k`` > 1 a step runs batched verify
     passes (JAX's speculative branch of ``_step``): each slot keeps its
@@ -966,10 +1004,6 @@ class ContinuousBatcher:
     def __init__(self, pool: SessionPool, max_batch: int = 8,
                  decode_chunk: int = DECODE_CHUNK, paged: bool | None = None):
         eng = pool.engine
-        if eng.tp > 1:
-            raise NotImplementedError(
-                f"continuous batching over tp={eng.tp} ranks: serving over tp needs a rank-0 "
-                "controller (ROADMAP Queue 1, item 11b)")
         if paged and pool.paged_pool is None:
             raise ValueError("paged=True needs a pool with a page pool (paged_pool_pages)")
         self.pool = pool
@@ -1006,9 +1040,22 @@ class ContinuousBatcher:
         self.joins = 0  # requests that joined while other lanes decoded
         self.preemptions = 0  # lanes preempted by a dry page pool
         self._q: queue.Queue = queue.Queue()
+        self._outs: dict[int, queue.Queue] = {}  # request id -> its token queue (rank 0)
+        self._next_rid = 0
         self._closed = False
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        self._thread = None
+        ctl = pool._ctl
+        if ctl is not None and ctl.leader:
+            ctl.register(self, "ContinuousBatcher", {"max_batch": max_batch,
+                                                     "decode_chunk": decode_chunk,
+                                                     "paged": paged})
+        if ctl is None or ctl.leader:  # a follower's batcher runs rank 0's cycles
+            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread.start()
+
+    @property
+    def _ctl(self):
+        return self.pool._ctl
 
     # -- the interface of the serve layer's window batcher --
     def submit(self, session: ChatSession, limit: int, params: SamplingParams) -> queue.Queue:
@@ -1027,7 +1074,8 @@ class ContinuousBatcher:
         the consumed prefix), and every waiting client gets ``_DONE``."""
         self._closed = True
         self._q.put(self._STOP)
-        self._thread.join(timeout=60)
+        if self._thread is not None:
+            self._thread.join(timeout=60)
 
     def warmup(self) -> dict:
         """Capture the group's two decode chunks (all-greedy and traced
@@ -1091,32 +1139,36 @@ class ContinuousBatcher:
 
     def _run(self) -> None:
         while True:
-            # admission: block while idle, drain what is queued while busy
-            if self._n_active() == 0 and not self._deferred:
-                item = self._q.get()
-            else:
+            # admission: block while idle, take what is queued while busy
+            items = [self._q.get()] if self._n_active() == 0 and not self._deferred else []
+            while True:
                 try:
-                    item = self._q.get_nowait()
+                    items.append(self._q.get_nowait())
                 except queue.Empty:
-                    item = None
-            stop = False
-            while item is not None:
-                if item is self._STOP:
-                    stop = True
                     break
-                self._try_admit(item)
-                try:
-                    item = self._q.get_nowait()
-                except queue.Empty:
-                    item = None
+            stop = any(it is self._STOP for it in items)
             if stop:
-                for i, lane in enumerate(self._lanes):
-                    if lane is not None:
-                        self._abort_lane(i, None)
-                for it in self._deferred:
-                    it[3].put(self._DONE)
-                self._deferred = []
-                self._deferred_since.clear()
+                rest = items[items.index(self._STOP) + 1:]
+                items = items[:items.index(self._STOP)]
+            new = []
+            for session, limit, params, out in items:
+                self._next_rid += 1
+                self._outs[self._next_rid] = out
+                new.append((session, limit, params, self._next_rid))
+            try:
+                self._cycle(new, stop)
+            except Exception as e:  # the ranks diverged: every client hears of it
+                print(f"[continuous] {type(e).__name__}: {e}", file=sys.stderr)
+                for out in list(self._outs.values()) + [lane["out"] for lane in self._lanes
+                                                        if lane is not None]:
+                    out.put(e)
+                    out.put(self._DONE)
+                self._outs.clear()
+                return
+            if stop:
+                for it in rest:
+                    if it is not self._STOP:
+                        it[3].put(self._DONE)
                 while True:
                     try:
                         it = self._q.get_nowait()
@@ -1125,25 +1177,45 @@ class ContinuousBatcher:
                     if it is not self._STOP:
                         it[3].put(self._DONE)
                 return
-            if self._deferred:
-                # waiters join the moment a slot or pages free, oldest first;
-                # the ones still blocked defer again
-                deferred, self._deferred = self._deferred, []
-                deferred.sort(key=lambda it: self._deferred_since.get(id(it[3]), 0.0))
-                for it in deferred:
-                    self._try_admit(it)
-            if self._n_active() == 0:
-                # the group drained: the next one starts a fresh estimate
-                self._gov = _SpecGovernor()
-                self._gov_reported = 0
-                continue
-            try:
-                self._step()
-            except Exception as e:  # a device failure: every lane ends with it
-                print(f"[continuous] step failed: {type(e).__name__}: {e}", file=sys.stderr)
-                for i, lane in enumerate(self._lanes):
-                    if lane is not None:
-                        self._abort_lane(i, e)
+
+    @replicated
+    def _cycle(self, items: list, stop: bool) -> list | None:
+        """One round of the worker: admit ``items`` ((session, limit,
+        params, request id), in order), re-admit the deferred oldest first,
+        then decode one step; with ``stop`` detach every lane and end every
+        waiting stream instead.  Returns the step's token ids per slot (what
+        the tp ranks agree on), None where no step ran."""
+        for session, limit, params, rid in items:
+            self._try_admit((session, limit, params, self._outs.pop(rid, None) or _Discard()))
+        if stop:
+            for i, lane in enumerate(self._lanes):
+                if lane is not None:
+                    self._abort_lane(i, None)
+            for it in self._deferred:
+                it[3].put(self._DONE)
+            self._deferred = []
+            self._deferred_since.clear()
+            return None
+        if self._deferred:
+            # waiters join the moment a slot or pages free, oldest first;
+            # the ones still blocked defer again
+            deferred, self._deferred = self._deferred, []
+            deferred.sort(key=lambda it: self._deferred_since.get(id(it[3]), 0.0))
+            for it in deferred:
+                self._try_admit(it)
+        if self._n_active() == 0:
+            # the group drained: the next one starts a fresh estimate
+            self._gov = _SpecGovernor()
+            self._gov_reported = 0
+            return None
+        try:
+            return self._step()
+        except Exception as e:  # a device failure: every lane ends with it
+            print(f"[continuous] step failed: {type(e).__name__}: {e}", file=sys.stderr)
+            for i, lane in enumerate(self._lanes):
+                if lane is not None:
+                    self._abort_lane(i, e)
+            return None
 
     def _try_admit(self, item) -> None:
         """Admit, defer or refuse one request; never raises (a failure
@@ -1306,7 +1378,7 @@ class ContinuousBatcher:
         return self.pool._spec_plan({"gov": self._gov}, self.decode_chunk, max_pos,
                                     self.pool.session_ctx)
 
-    def _step(self) -> None:
+    def _step(self) -> list | None:
         eng = self.pool.engine
         chunk = self.decode_chunk
         # a lane without room for a chunk leaves before the dispatch; under
@@ -1327,7 +1399,7 @@ class ContinuousBatcher:
                 else:  # nothing shiftable: the keep prefix fills the context
                     self._end(lane["out"])
         if self._n_active() == 0:
-            return
+            return None
         # a lane near the context end demotes the step to a plain chunk, and
         # so does the governor; speculation resumes after
         spec, span, n_passes = self._spec_plan(
@@ -1352,7 +1424,7 @@ class ContinuousBatcher:
                     if not self._preempt_one():
                         self._finalize(next(i for i, lane in enumerate(self._lanes)
                                             if lane is not None))
-                        return
+                        return None
         act = [i for i, lane in enumerate(self._lanes) if lane is not None]
         rows = lane_rows([lane["params"] if lane is not None else IDLE for lane in self._lanes],
                          eng.llm_cfg.n_vocab, eng.device)
@@ -1395,3 +1467,4 @@ class ContinuousBatcher:
                 self._finalize(i)
         # idle slots decode at position 0 of their own slot (or the trash page)
         self._pos = [p if lane is not None else 0 for p, lane in zip(self._pos, self._lanes)]
+        return [list(map(int, lane_tokens[i])) for i in act]

@@ -6,7 +6,8 @@ with a fused QKV projection whose bias is (q_bias, 0, v_bias), exact-GELU
 MLP, LayerNorm eps 1e-6.  Blocks are stacked [L, ...] and indexed per layer;
 a quantized container's weights stack as one quantized weight (group-quant,
 repacked, w8a8 or packed bytes) whose layer index reaches the kernel (the
-JAX package's static-layer path).
+JAX package's static-layer path).  Over a tensor-parallel group the blocks
+run on one rank's shards (``parallel/sharding.py``; ``tp=``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from ..formats import is_quantized
+from ..parallel.mesh import TPGroup
 from .layers import gelu, layer_norm, merge_heads, mha, split_heads
+from .llama import col_linear, row_linear
 from .params import QUANT_FORMS, dense_from_numpy, linear, load_quant_weight, tensor
 
 LN_EPS = 1e-6
@@ -49,29 +52,48 @@ def patch_embed(pixels: torch.Tensor, p: dict, cfg: ViTConfig) -> torch.Tensor:
     return linear(x.reshape(b, s * s, 3 * ps * ps), p)
 
 
-def block_forward(x: torch.Tensor, bp: dict, cfg: ViTConfig, li: int) -> torch.Tensor:
-    """Pre-LN block ``li`` of the stacked blocks on x [B, S, D]."""
+def block_forward(x: torch.Tensor, bp: dict, cfg: ViTConfig, li: int,
+                  tp: TPGroup | None = None) -> torch.Tensor:
+    """Pre-LN block ``li`` of the stacked blocks on x [B, S, D].
+
+    ``tp``: this rank's tensor-parallel group, ``bp`` then holds its shards
+    (``parallel/sharding.py``): a split qkv gives this rank's heads, which
+    it attends over alone; a split proj / fc2 contracts this rank's K slice
+    and the outputs are summed over the ranks (the bias once, after); a
+    weight that stayed whole takes the whole input, gathered where its
+    producer was split (``models.llama.row_linear``)."""
 
     def ln(p):
         return {"g": p["g"][li], "b": p["b"][li]}
 
+    d = cfg.embed_dim
     h = layer_norm(x, ln(bp["norm1"]), LN_EPS)
-    q, k, v = linear(h, bp["qkv"], li).split(cfg.embed_dim, dim=-1)
-    attn = mha(split_heads(q, cfg.n_heads), split_heads(k, cfg.n_heads),
-               split_heads(v, cfg.n_heads), scale=1.0 / float(np.sqrt(cfg.head_dim)))
-    x = x + linear(merge_heads(attn), bp["proj"], li)
+    q, k, v = col_linear(h, bp["qkv"], li, tp, 3 * d).chunk(3, dim=-1)
+    n_heads = q.shape[-1] // cfg.head_dim  # this rank's heads under tp
+    attn = mha(split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads),
+               scale=1.0 / float(np.sqrt(cfg.head_dim)))
+    x = x + row_linear(merge_heads(attn), bp["proj"], li, tp, d)
     h = layer_norm(x, ln(bp["norm2"]), LN_EPS)
-    return x + linear(gelu(linear(h, bp["fc1"], li)), bp["fc2"], li)
+    hidden = gelu(col_linear(h, bp["fc1"], li, tp, cfg.mlp_dim))
+    return x + row_linear(hidden, bp["fc2"], li, tp, cfg.mlp_dim)
 
 
-def forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """[B, 3, 224, 224] f32 -> [B, 257, D] (pre-ln_vision hidden states)."""
+def forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig,
+            tp: TPGroup | None = None) -> torch.Tensor:
+    """[B, 3, 224, 224] f32 -> [B, 257, D] (pre-ln_vision hidden states);
+    ``tp``: see :func:`block_forward`."""
+    x = embeddings(params, pixels, cfg)
+    for li in range(cfg.depth):
+        x = block_forward(x, params["blocks"], cfg, li, tp)
+    return x
+
+
+def embeddings(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """The patch embedding with the cls token and position embedding: the
+    input of block 0, [B, 257, D]."""
     x = patch_embed(pixels, params["patch_embed"], cfg)
     cls = params["cls_token"].to(x.dtype).expand(x.shape[0], 1, cfg.embed_dim)
-    x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)
-    for li in range(cfg.depth):
-        x = block_forward(x, params["blocks"], cfg, li)
-    return x
+    return torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)
 
 
 def _stack(trees: list[dict]) -> dict:

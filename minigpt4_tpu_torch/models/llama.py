@@ -29,8 +29,13 @@ e4m3 cache through :func:`to_cache`, the JAX package's cast.
 With a tensor-parallel group (``tp``, a :class:`~..parallel.TPGroup`) the
 same functions run on one rank's shards (``parallel/spmd.py``), as the JAX
 package's run under ``shard_map``: local head counts and widths come from
-the arrays, :func:`_row_linear` sums the row-parallel outputs over the
-ranks, and the vocab-parallel head is gathered.
+the arrays, :func:`row_linear` sums the row-parallel outputs over the
+ranks, and the vocab-parallel head is gathered.  Under autograd (the
+sharded training step) those sums and the gather are the differentiable
+collectives of ``parallel/mesh.py``, and the replicated input of every
+split column-parallel linear passes :func:`~..parallel.mesh.copy_to_tp`, so
+that its gradient sums the ranks' partial ones; outside autograd they are
+the in-place all-reduces, launch for launch as before.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from ..ops import quant_matmul as qm
 from ..ops import repack as rp
 from ..ops.flash_decode import (PAGE, pos_vector, flash_decode_attention,
                                 paged_flash_decode_attention)
-from ..parallel.mesh import TPGroup, all_gather_tiled, pmax, psum
+from ..parallel.mesh import TPGroup, all_gather_tiled, copy_to_tp, pmax, reduce_from_tp
 from .layers import rms_norm
 from .params import QUANT_FORMS, linear, load_quant_weight, tensor
 
@@ -222,20 +227,41 @@ def _k_width(w, full_k: int) -> int:
     return w.shape[-2]
 
 
-def _row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -> torch.Tensor:
+def _n_out(w) -> int:
+    """The output width a weight produces (a per-layer list stays whole)."""
+    if isinstance(w, list):
+        return -1
+    return w.shape[-1] if isinstance(w, torch.Tensor) else w.n_out
+
+
+def col_linear(h: torch.Tensor, p: dict, li, tp: TPGroup | None, full_n: int) -> torch.Tensor:
+    """Column-parallel linear of the replicated ``h``: where the weight is
+    this rank's output rows (narrower than ``full_n``), autograd sums the
+    gradient of ``h`` over the ranks (:func:`~..parallel.mesh.copy_to_tp`);
+    a whole weight computes the whole output on every rank and takes none."""
+    if tp is not None and 0 < _n_out(p["w"]) < full_n:
+        h = copy_to_tp(h, tp)
+    return linear(h, p, li)
+
+
+def row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -> torch.Tensor:
     """Row-parallel linear (the JAX package's ``_row_linear``).  ``full_k``
     is the global contraction width (n_embd for wo, n_ff for w2); it tells
     the four cases apart: a K-sharded weight contracts this rank's slice of
     the input (sliced here if the producer stayed whole) and the outputs
-    are summed over the ranks; a whole weight takes the full-width input
-    (gathered first if the producer was split) with no sum."""
+    are summed over the ranks, and a bias ``p["b"]`` (the vision
+    encoder's) is added once after the sum; a whole weight takes the
+    full-width input (gathered first if the producer was split) with no
+    sum."""
     if tp is None:
         return linear(x, p, li)
     w = p["w"]
     kw = _k_width(w, full_k)
     if kw < full_k:  # weight K-sharded
         if x.shape[-1] == full_k:
-            x = x[..., tp.rank * kw:(tp.rank + 1) * kw]
+            # a replicated input: under autograd its gradient sums the
+            # ranks' slices
+            x = copy_to_tp(x, tp)[..., tp.rank * kw:(tp.rank + 1) * kw]
         if isinstance(w, i8.I8SBQuant):
             # the global row absmax keeps the activation grid of one device
             # (one tiny MAX over the ranks); the partials stay f32 across
@@ -244,10 +270,15 @@ def _row_linear(x: torch.Tensor, p: dict, li, tp: TPGroup | None, full_k: int) -
             sx = pmax(xf.abs().amax(dim=-1, keepdim=True), tp) / 127.0
             sx = torch.where(sx == 0, 1.0, sx)
             y = i8.qmatmul_i8sb(xf, w, li if w.stacked else None, x_scale=sx)
-            y = psum(y, tp).to(x.dtype)
-            b = p.get("b")
-            return y if b is None else y + b.to(y.dtype)
-        return psum(linear(x, p, li), tp)
+            y = reduce_from_tp(y, tp).to(x.dtype)
+        else:
+            y = reduce_from_tp(linear(x, {"w": w}, li), tp)
+        b = p.get("b")
+        if b is None:
+            return y
+        if li is not None and b.dim() == 2:
+            b = b[li]
+        return y + b.to(y.dtype)
     if x.shape[-1] < full_k:
         x = all_gather_tiled(x, tp)
     return linear(x, p, li)
@@ -281,10 +312,10 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
         return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
 
     if "wqkv" in layers:
-        qkv = linear(h, layers["wqkv"], li)
+        qkv = col_linear(h, layers["wqkv"], li, tp, 3 * cfg.n_embd)
         xq, xk, xv = qkv.split(qkv.shape[-1] // 3, dim=-1)  # local width under tp
     else:
-        xq, xk, xv = (linear(h, layers[n], li) for n in FUSED["wqkv"])
+        xq, xk, xv = (col_linear(h, layers[n], li, tp, cfg.n_embd) for n in FUSED["wqkv"])
     cos, sin = rope
     q = rope_interleaved(heads(xq), cos, sin)
     k = rope_interleaved(heads(xk), cos, sin)
@@ -310,7 +341,7 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
     if act_stats is not None:
         act_stats.setdefault("wo", []).append(_amax(ctx))
-    x = x + _row_linear(ctx, layers["wo"], li, tp, cfg.n_embd)
+    x = x + row_linear(ctx, layers["wo"], li, tp, cfg.n_embd)
 
     h = rms_norm(x, layers["ffn_norm"][li], RMS_EPS)
     if act_stats is not None:
@@ -318,14 +349,14 @@ def _layer(x, layers, li, ck, cv, pos_dev, rope, cfg, attn_len, rows,
     if "w13" in layers:
         # halves of the fused output, as the JAX package splits it: a file's
         # n_mult may derive an n_ff other than its weights' width
-        gate_in, up = linear(h, layers["w13"], li).chunk(2, dim=-1)
+        gate_in, up = col_linear(h, layers["w13"], li, tp, 2 * cfg.n_ff).chunk(2, dim=-1)
     else:
-        gate_in, up = (linear(h, layers[n], li) for n in FUSED["w13"])
+        gate_in, up = (col_linear(h, layers[n], li, tp, cfg.n_ff) for n in FUSED["w13"])
     gate = torch.nn.functional.silu(gate_in.float()).to(x.dtype)
     gu = gate * up
     if act_stats is not None:
         act_stats.setdefault("w2", []).append(_amax(gu))
-    return x + _row_linear(gu, layers["w2"], li, tp, cfg.n_ff)
+    return x + row_linear(gu, layers["w2"], li, tp, cfg.n_ff)
 
 
 def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaConfig,
@@ -396,7 +427,8 @@ def forward(params: dict, cache: dict, embeds: torch.Tensor, pos0, cfg: LlamaCon
         h = x.index_select(1, last_idx.reshape(1)).squeeze(1)
     else:
         h = x[:, last_idx]
-    logits = linear(rms_norm(h, params["norm"], RMS_EPS), params["output"])
+    logits = col_linear(rms_norm(h, params["norm"], RMS_EPS), params["output"], None, tp,
+                         cfg.n_vocab)
     if tp is not None and logits.shape[-1] != cfg.n_vocab:
         logits = all_gather_tiled(logits, tp)  # the vocab-parallel head
     return logits.float()

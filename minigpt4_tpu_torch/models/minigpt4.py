@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel.mesh import TPGroup
 from . import eva_vit, qformer
 from .layers import layer_norm
 from .params import linear, tensor
@@ -23,9 +24,13 @@ class VisionConfig:
     llama_embed_dim: int  # 4096 (7B) or 5120 (13B)
 
 
-def encode_image(params: dict, pixels: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
-    """pixels [B, 3, 224, 224] (preprocessed f32 CHW) -> [B, 32, n_embd]."""
-    x = eva_vit.forward(params["visual_encoder"], pixels, cfg.vit)
+def encode_image(params: dict, pixels: torch.Tensor, cfg: VisionConfig,
+                 tp: TPGroup | None = None) -> torch.Tensor:
+    """pixels [B, 3, 224, 224] (preprocessed f32 CHW) -> [B, 32, n_embd].
+    ``tp``: this rank's tensor-parallel group; ``params`` then holds its
+    shards (``parallel/sharding.shard_vision_params``: the ViT's blocks
+    split, the rest whole) and every rank returns the whole embedding."""
+    x = eva_vit.forward(params["visual_encoder"], pixels, cfg.vit, tp)
     x = layer_norm(x, params["ln_vision"], LN_VISION_EPS)
     x = qformer.forward(params["qformer"], x, cfg.qformer)
     return linear(x, params["llama_proj"])

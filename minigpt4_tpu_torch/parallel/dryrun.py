@@ -1,6 +1,6 @@
 """Multi-rank dry run of the port's parallel paths, and the rank runner.
 
-Counterpart of ``__graft_entry__.dryrun_multichip`` (steps 3 to 6):
+Counterpart of ``__graft_entry__.dryrun_multichip`` (steps 1 to 6):
 
     python -m minigpt4_tpu_torch.parallel.dryrun --nproc N [--device cpu]
 
@@ -9,6 +9,13 @@ directory, gloo on the CPU and where ranks share a card, NCCL where each
 has its own) on small synthetic files it writes first, and prints one
 ``[dryrun] ... ok`` line per step:
 
+  1. the sharded training step over a (dp, tp) mesh (tp = 2 where N is
+     even, the rest dp): one Adam step of ``llama_proj`` through the
+     sharded vision encoder and decoder (``parallel/sharding.py``), its
+     loss and updated projection against the same step on one rank;
+  2. sharded inference over all N ranks: the sharded encoder's image
+     embedding injected before a token prompt, a prefill and 4 greedy
+     decode steps, against the unsharded model;
   3. the sharded quantized decoder (q4_0 file, ``quant_mode="repack"``):
      prefill logits and 4 greedy tokens of the fused decode loop against
      the unsharded decoder;
@@ -19,9 +26,8 @@ has its own) on small synthetic files it writes first, and prints one
      the sequential engine;
   6. ``MiniGPT4Engine(tp=N)``: greedy tokens of a chat equal to tp=1.
 
-Steps 1 (the sharded training step) and 2 (auto-SPMD placement) are not
-ported.  :func:`run_ranks` runs any module-level function on N ranks with
-a deadline.
+:func:`run_ranks` runs any module-level function on N ranks with a
+deadline.
 """
 
 from __future__ import annotations
@@ -277,8 +283,85 @@ def chat_tokens(eng, limit: int = 10) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+def _load_model(files: dict, dev) -> tuple:
+    """(vision params, vision config, decoder params, decoder config) of the
+    f32 pair, dense on ``dev``."""
+    from ..formats import ContainerReader, LlamaFileReader
+    from ..models import llama as llama_mod
+    from ..models import minigpt4 as vision_mod
+
+    with ContainerReader(files["llm_model"]) as r:
+        vp, vcfg = vision_mod.load_params(r, torch.float32, dev)
+    with LlamaFileReader(files["llm"]) as r:
+        lp, lcfg = llama_mod.load_params(r, torch.float32, n_ctx=64, device=dev)
+    return vp, vcfg, lp, lcfg
+
+
+def train_batch(n: int, vcfg, seed: int = 0) -> tuple:
+    """(pixels [n, 3, H, W], caption ids [n, 6], mask [n, 6]) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    size = vcfg.vit.image_size
+    pixels = rng.normal(0, 1, (n, 3, size, size)).astype(np.float32)
+    tokens = np.concatenate([np.ones((n, 1), np.int64), rng.integers(3, 262, (n, 5))], axis=1)
+    mask = np.ones((n, 6), np.float32)
+    mask[0, -2:] = 0  # a ragged caption
+    return pixels, tokens, mask
+
+
+def sharded_train_step(mesh, files: dict, n: int, lr: float = 1e-3) -> dict:
+    """One Adam step of ``llama_proj`` on a batch of ``n`` over ``mesh``
+    (this rank's shards), and the same step on this rank's whole model:
+    both losses and both updated projections."""
+    from ..train.projection import make_train_step
+    from .sharding import shard_params
+
+    dev = mesh.device
+    vp, vcfg, lp, lcfg = _load_model(files, dev)
+    pixels, tokens, mask = (torch.from_numpy(a).to(dev) for a in train_batch(n, vcfg))
+    out = {}
+    for label, m in (("one", None), ("mesh", mesh)):
+        vision, llm = (vp, lp) if m is None else shard_params(vp, vcfg, lp, m.tp_group)
+        proj = {k: v.detach().clone().requires_grad_(True) for k, v in vp["llama_proj"].items()}
+        frozen = {"vision": {k: v for k, v in vision.items() if k != "llama_proj"}, "llm": llm}
+        opt = torch.optim.Adam(list(proj.values()), lr=lr)
+        proj, loss = make_train_step(vcfg, lcfg, opt, m)(proj, frozen, pixels, tokens, mask)
+        out[label] = {"loss": float(loss), "proj": {k: v.detach().cpu().numpy()
+                                                    for k, v in proj.items()}}
+    return out
+
+
+def sharded_chat_tokens(g, files: dict, n_decode: int = 4) -> tuple[list, list]:
+    """Sharded encode -> inject -> prefill -> greedy decode over ``g`` (the
+    vision encoder and decoder split by ``sharding.shard_params``), and the
+    same on this rank's whole model: (sharded ids, whole ids)."""
+    from ..engine.device_sampling import lane_rows
+    from ..models import llama as llama_mod
+    from ..models import minigpt4 as vision_mod
+    from .sharding import shard_params
+    from .spmd import cache_cfg
+
+    dev = g.device
+    vp, vcfg, lp, lcfg = _load_model(files, dev)
+    pixels = torch.from_numpy(train_batch(1, vcfg, seed=1)[0]).to(dev)
+    tokens = torch.tensor([[1, 7, 9, 4]], device=dev)
+    runs = []
+    with torch.no_grad():
+        for tp in (None, g):
+            vision, llm = (vp, lp) if tp is None else shard_params(vp, vcfg, lp, g)
+            img = vision_mod.encode_image(vision, pixels, vcfg, tp)
+            seq = torch.cat([img, llama_mod.embed_tokens(llm, tokens)], dim=1)
+            cache = llama_mod.init_cache(cache_cfg(lcfg, g.size if tp else 1), 1, torch.float32,
+                                         dev)
+            logits = llama_mod.forward(llm, cache, seq, 0, lcfg, tp=tp)
+            rows = lane_rows([_greedy()], lcfg.n_vocab, dev)
+            ids, _ = llama_mod.decode_loop(llm, cache, logits, seq.shape[1], n_decode,
+                                           [torch.Generator(device=dev)], rows, lcfg, tp=tp)
+            runs.append(ids[0].cpu().tolist())
+    return runs[1], runs[0]
+
+
 def dryrun_rank(g, files: dict) -> dict:
-    """Steps 3 to 6 on this rank; rank 0 prints a line per step."""
+    """Steps 1 to 6 on this rank; rank 0 prints a line per step."""
     from ..engine.device_sampling import lane_rows
     from ..engine.engine import MiniGPT4Engine
     from ..formats import LlamaFileReader
@@ -292,6 +375,25 @@ def dryrun_rank(g, files: dict) -> dict:
             print(f"[dryrun] {msg}", flush=True)
 
     dev = g.device
+    # 1: the sharded training step against one rank's
+    from .mesh import make_mesh
+
+    tp = 2 if g.size % 2 == 0 else 1
+    mesh = make_mesh(g.size // tp, tp, dev.type)
+    step = sharded_train_step(mesh, files, 2 * mesh.dp)
+    one, got = step["one"], step["mesh"]
+    np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)
+    for k, v in one["proj"].items():
+        np.testing.assert_allclose(got["proj"][k], v, rtol=1e-4, atol=1e-6)
+    say(f"train step ok over mesh dp={mesh.dp} tp={mesh.tp}: loss {got['loss']:.6f} "
+        f"(one rank {one['loss']:.6f})")
+
+    # 2: sharded encode -> inject -> prefill -> decode against the whole model
+    ids, want_ids = sharded_chat_tokens(g, files)
+    if ids != want_ids:
+        raise AssertionError(f"sharded prefill+decode tokens {ids} != unsharded {want_ids}")
+    say(f"sharded encode + prefill + decode ok over {g.size} ranks, tokens {ids}")
+
     # 3: the sharded quantized decoder against the unsharded one
     with LlamaFileReader(files["q_llm"]) as r:
         params, cfg = llama_mod.load_params(r, torch.float32, n_ctx=64, device=dev,

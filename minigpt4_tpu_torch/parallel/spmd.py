@@ -18,7 +18,7 @@ A weight the rule cannot split evenly stays whole on every rank
 package computes a PartitionSpec and lets ``shard_map`` cut the arrays,
 :func:`shard_llama_params` cuts this rank's shards itself; the model
 (``models/llama.py``) finds the local widths from the arrays, and its
-``_row_linear`` adds the collectives.
+``row_linear`` adds the collectives.
 """
 
 from __future__ import annotations

@@ -40,6 +40,20 @@ fall back to plain chunks while their acceptance does not pay
 (``engine._SpecGovernor``, the ``spec_demotions`` metric).
 ``--draft-llm`` or ``--draft-head`` drafts a session's greedy stream with a
 smaller model instead.
+
+``--tp N`` serves one model over N tensor-parallel ranks, one process each
+(on one card they share it over gloo; with N cards each rank has its own):
+
+    python -m minigpt4_tpu_torch.serve model.bin vicuna.bin --tp 2 \
+        --continuous --max-batch 8 --paged-pages 32 [--speculative-k 8]
+
+starts the N - 1 other ranks itself (spawned processes, a ``file://``
+rendezvous in a temporary directory); under ``torchrun`` each process takes
+its rank from ``RANK`` instead.  Rank 0 serves HTTP; every other rank loads
+the same model and replays rank 0's device operations
+(``parallel/controller.py``), every collective with a deadline
+(``TP_TIMEOUT_S``).  A rank that fails or disagrees fails the request, and
+every request after it.  The prefix cache is off under tp.
 """
 
 from __future__ import annotations
@@ -48,28 +62,30 @@ import argparse
 import base64
 import io
 import json
+import os
 import queue
 import re
+import shutil
+import signal
 import sys
+import tempfile
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 
-from .engine.engine import MiniGPT4Engine
+from .engine.engine import MiniGPT4Engine, check_tp, resolve_decoder_mode
 from .engine.sampling import SamplingParams
 from .engine.sessions import ContinuousBatcher, SessionPool
+from .formats import LlamaFileReader
 from .image import preprocess
 
 MODEL_ID = "minigpt4-tpu"
 MAX_BATCH = 8  # lanes of a window group
-# options of the JAX package's server that the port does not serve yet: the
-# ROADMAP item of each and the values that ask for nothing the port lacks;
-# any other value fails at start-up
-UNPORTED = {
-    "tp": ("serving over tp, which needs a rank-0 controller (ROADMAP Queue 1, item 11b)", (1,)),
-}
+TP_TIMEOUT_S = 300.0  # the deadline of every collective of a tp server
 
 
 def decode_image(body: bytes) -> np.ndarray:
@@ -302,8 +318,7 @@ def _generation_tokens(srv: _Server, s, limit: int, params, park: bool = True):
 
 def _reseed(s, seed: int) -> None:
     """A seeded request: both samplers (host chain and the device generator)."""
-    s.sampler.reset(seed)
-    s.state.generator.manual_seed(seed)
+    s.reseed(seed)
 
 
 def make_handler(srv: _Server):
@@ -517,7 +532,10 @@ def make_handler(srv: _Server):
                         pass
                 return
             if path == "/v1/sessions":
-                self._json(200, {"session_id": srv.create()})
+                try:
+                    self._json(200, {"session_id": srv.create()})
+                except Exception as e:  # a broken tp controller refuses every call
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
             m = sess_re.match(path)
             if not m or not m.group(3):
@@ -569,21 +587,80 @@ def make_handler(srv: _Server):
 
 
 class _HTTPServer(ThreadingHTTPServer):
-    """The HTTP server; ``server_close`` also stops the batcher."""
+    """The HTTP server; ``server_close`` also stops the batcher and, under
+    tp, the other ranks (``_TPRanks``)."""
 
     batcher = None
+    ranks = None
 
     def server_close(self) -> None:
         super().server_close()
         if self.batcher is not None:
             self.batcher.close()
+        if self.ranks is not None:
+            self.ranks.close()
+
+
+class _TPRanks:
+    """Rank 0's side of a tp server: its controller, the follower processes
+    it spawned (none under torchrun) and the process group it made."""
+
+    def __init__(self, ctl, procs: list, rendezvous: str | None, own_group: bool):
+        self.ctl, self.procs, self.rendezvous, self.own_group = ctl, procs, rendezvous, own_group
+
+    def close(self, timeout_s: float = 60.0) -> None:
+        """Stop the followers' loops, join the followers (killed past
+        ``timeout_s``) and take the process group down where it was made
+        here."""
+        import torch.distributed as dist
+
+        try:
+            self.ctl.stop()
+        finally:
+            self.ctl.pool._ctl = None  # the pool is this rank's own again
+            deadline = time.monotonic() + timeout_s
+            for p in self.procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            if self.own_group and dist.is_initialized():
+                dist.destroy_process_group()
+            if self.rendezvous:
+                shutil.rmtree(self.rendezvous, ignore_errors=True)
+
+    def failed(self) -> list[int]:
+        """Spawned ranks that exited with an error."""
+        return [r + 1 for r, p in enumerate(self.procs) if p.exitcode not in (None, 0)]
+
+
+def _follower_main(rank: int, tp: int, init_method: str, timeout_s: float, args: tuple,
+                   kwargs: dict) -> None:
+    """A spawned follower rank: join the group, build the same pool and
+    follow rank 0 until it stops (exit code 1 on an error)."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_tp
+
+    try:
+        init_tp(tp, kwargs.get("device", "cuda"), init_method=init_method, rank=rank,
+                timeout_s=timeout_s)
+        start_server(*args, tp=tp, tp_timeout_s=timeout_s, **kwargs)
+    except BaseException:
+        print(f"[serve] tp rank {rank} failed:\n{traceback.format_exc()}", file=sys.stderr,
+              flush=True)
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000,
                  session_ctx: int = 512, batch_window_s: float = 0.0, continuous: bool = False,
                  max_batch: int = 8, park_idle: bool = False, paged_pages: int | None = None,
-                 prefix_cache: bool = True, prefix_cache_mb: int = 512,
-                 **engine_kwargs) -> ThreadingHTTPServer:
+                 prefix_cache: bool = True, prefix_cache_mb: int = 512, tp: int = 1,
+                 tp_timeout_s: float = TP_TIMEOUT_S, pool: SessionPool | None = None,
+                 **engine_kwargs) -> ThreadingHTTPServer | None:
     """Load the model, build the session pool and bind the server (not yet
     serving: call ``serve_forever``; ``shutdown`` stops serving,
     ``server_close`` releases the socket and stops the batcher, whose
@@ -593,14 +670,36 @@ def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000
     (:meth:`ContinuousBatcher.warmup`), or the window batcher's paged
     group at every lane count up to MAX_BATCH (:meth:`SessionPool.warmup`);
     the figures are ``httpd.warmup``, else None.
-    Options of the JAX package's server that the port does not serve yet
-    (``UNPORTED``) raise NotImplementedError naming their ROADMAP item."""
-    for name, (what, served) in UNPORTED.items():
-        if name in engine_kwargs and engine_kwargs.pop(name) not in served:
-            raise NotImplementedError(f"{name}: {what} is not ported yet")
-    pool = SessionPool(model_path, llm_path, session_ctx=session_ctx,
-                       paged_pool_pages=paged_pages, prefix_cache=prefix_cache,
-                       prefix_cache_mb=prefix_cache_mb, **engine_kwargs)
+
+    ``tp`` > 1 serves over tensor-parallel ranks (module docstring).  In a
+    process of a group that exists already (``torch.distributed``
+    initialized, as ``parallel.dryrun.run_ranks`` makes it) or under
+    ``torchrun`` (``RANK`` set), this process is its rank: rank 0 returns
+    the server, any other rank follows rank 0 until the server closes and
+    returns None.  Otherwise this process becomes rank 0 and spawns the
+    others first; the server returns with them running, and
+    ``server_close`` stops them (``httpd.ranks``).  ``tp_timeout_s`` is the
+    deadline of every collective.
+
+    ``pool``: serve a loaded ``SessionPool`` (over the engine's tp ranks, on
+    every rank of a group that exists) instead of loading the files; the
+    pool's own settings stand, and closing the server leaves it open."""
+    if tp > 1:
+        return _start_tp(model_path, llm_path, tp, tp_timeout_s, dict(
+            host=host, port=port, session_ctx=session_ctx, batch_window_s=batch_window_s,
+            continuous=continuous, max_batch=max_batch, park_idle=park_idle,
+            paged_pages=paged_pages, prefix_cache=prefix_cache,
+            prefix_cache_mb=prefix_cache_mb, **engine_kwargs), pool)
+    if pool is None:
+        pool = SessionPool(model_path, llm_path, session_ctx=session_ctx,
+                           paged_pool_pages=paged_pages, prefix_cache=prefix_cache,
+                           prefix_cache_mb=prefix_cache_mb, **engine_kwargs)
+    return _serve_pool(pool, host, port, batch_window_s, continuous, max_batch, park_idle)
+
+
+def _serve_pool(pool: SessionPool, host: str, port: int, batch_window_s: float,
+                continuous: bool, max_batch: int, park_idle: bool) -> ThreadingHTTPServer:
+    """Bind the HTTP server over a loaded pool (``start_server``)."""
     srv = warm = None
     try:
         srv = _Server(pool, batch_window_s=batch_window_s, continuous=continuous,
@@ -620,6 +719,74 @@ def start_server(model_path, llm_path, host: str = "127.0.0.1", port: int = 8000
     httpd.warmup = warm
     httpd.batcher = srv.batcher
     return httpd
+
+
+def _start_tp(model_path, llm_path, tp: int, timeout_s: float, kw: dict,
+              pool: SessionPool | None = None):
+    """``start_server`` over ``tp`` ranks (its docstring)."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from .parallel.controller import Controller
+    from .parallel.mesh import init_tp
+
+    server_kw = {k: kw.pop(k) for k in ("host", "port", "batch_window_s", "continuous",
+                                        "max_batch", "park_idle")}
+    device = kw.get("device", "cuda")
+    own_pool = pool is None
+    if own_pool:
+        with LlamaFileReader(llm_path) as reader:  # JAX's refusals, before any rank starts
+            check_tp(reader, resolve_decoder_mode(kw.get("quant_mode", "auto"),
+                                                  kw.get("smooth_scales")), tp)
+    # a given pool's engine has joined its group already
+    procs, rendezvous, own_group = [], None, own_pool and not dist.is_initialized()
+    if own_group and "RANK" not in os.environ:
+        # this process is rank 0: spawn the others, then join the group
+        rendezvous = tempfile.mkdtemp(prefix="mgt_serve_")
+        init = Path(rendezvous, "rendezvous").as_uri()
+        ctx = mp.get_context("spawn")
+        follower_kw = dict(kw, **{k: server_kw[k] for k in ("batch_window_s", "continuous",
+                                                             "max_batch", "park_idle")})
+        procs = [ctx.Process(target=_follower_main, daemon=True,
+                             args=(r, tp, init, timeout_s, (model_path, llm_path), follower_kw))
+                 for r in range(1, tp)]
+        for p in procs:
+            p.start()
+        init_tp(tp, device, init_method=init, rank=0, timeout_s=timeout_s)
+    elif own_group:  # torchrun
+        init_tp(tp, device, timeout_s=timeout_s)
+    ranks = None
+    try:
+        if own_pool:
+            pool = SessionPool(model_path, llm_path, tp=tp,
+                               paged_pool_pages=kw.pop("paged_pages"), **kw)
+        ctl = Controller(pool, timeout_s)
+        if not ctl.leader:  # rank 0's batcher makes this rank's (a replicated "new")
+            try:
+                ctl.follow()
+            finally:
+                pool._ctl = None
+                if own_pool:
+                    pool.close()
+                if own_group:
+                    dist.destroy_process_group()
+            return None
+        ranks = _TPRanks(ctl, procs, rendezvous, own_group)
+        httpd = _serve_pool(pool, **server_kw)
+        httpd.ranks = ranks
+        return httpd
+    except BaseException:
+        if ranks is not None:
+            ranks.close()
+        else:
+            for p in procs:
+                p.kill()
+            if own_group and dist.is_initialized():
+                dist.destroy_process_group()
+            if rendezvous:
+                shutil.rmtree(rendezvous, ignore_errors=True)
+        raise
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -680,9 +847,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--draft-head", default=None, metavar="PATH",
                     help="a draft-head artifact (train/draft.py) that drafts greedy "
                     "single-session decode")
-    # the JAX server's option that the port does not serve yet: accepted so
-    # that asking for it names its ROADMAP item instead of a usage error
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks, one process each (spawned here, or one per "
+                    "torchrun process); rank 0 serves HTTP")
     args = ap.parse_args(argv)
     try:
         httpd = start_server(args.model_path, args.llm_model_path, args.host, args.port,
@@ -697,12 +864,20 @@ def main(argv: list[str] | None = None) -> None:
                              prefix_cache=not args.no_prefix_cache,
                              prefix_cache_mb=args.prefix_cache_mb,
                              speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
-                             draft_head_path=args.draft_head,
-                             **{name: getattr(args, name) for name in UNPORTED})
-    except NotImplementedError as e:
+                             draft_head_path=args.draft_head, tp=args.tp)
+    except ValueError as e:  # a refused configuration (tp placement, knobs)
         ap.error(str(e))
-    print(f"serving on http://{args.host}:{args.port}", flush=True)
-    httpd.serve_forever()
+    if httpd is None:  # a follower rank under torchrun: rank 0 closed the server
+        return
+    print(f"serving on http://{args.host}:{httpd.server_address[1]}", flush=True)
+    if args.tp == 1:
+        httpd.serve_forever()
+        return
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))  # a terminated server stops its ranks
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
 
 
 if __name__ == "__main__":

@@ -18,16 +18,20 @@ its start: ``serve.start_server`` calls ``SessionPool.warmup``.)
     python -m minigpt4_tpu_torch.warmup -m minigpt4-13B.bin -l vicuna-13b-q5_k.bin \\
         [--n-ctx 2048] [--quant-mode auto] [--cache-dtype auto]
 
-The flags are the engine knobs that change what is captured.  ``--tp``
-above 1 is refused (graphs cannot hold the ranks' gloo all-reduces: that
-path runs eagerly, ROADMAP Queue 1 item 11).  ``--draft-llm`` and
-``--draft-head`` load the drafter, whose dispatches run eagerly.
+The flags are the engine knobs that change what is captured.  ``--tp N``
+runs N ranks (spawned processes on the card's devices, a ``file://``
+rendezvous), each building the kernels and running each of those steps
+once eagerly on its shards: a tensor-parallel engine captures no graph
+(gloo's all-reduces cannot be captured), so it reports 0 graphs and the
+step keys it ran.  ``--draft-llm`` and ``--draft-head`` load the drafter,
+whose dispatches run eagerly.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 QUANT_MODES = ("auto", "repack", "qtensor", "w8a8", "gq")
 CACHE_DTYPES = ("auto", "bf16", "f32", "f8")
@@ -46,33 +50,47 @@ def main(argv=None) -> int:
     ap.add_argument("--draft-llm", default=None, metavar="PATH")
     ap.add_argument("--draft-head", default=None, metavar="PATH")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error(f"--tp {args.tp}: a tensor-parallel engine runs eagerly (its gloo all-reduces "
-                 "cannot be captured in a CUDA graph), so there is nothing to warm up; "
-                 "not ported yet (ROADMAP Queue 1, item 11)")
+    engine_kw = dict(n_ctx=args.n_ctx, quant_mode=args.quant_mode,
+                     cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
+                     speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
+                     draft_head_path=args.draft_head)
+    if args.tp == 1:
+        line = warm(None, args.model, args.llm_model, engine_kw)
+    else:
+        from .parallel.dryrun import run_ranks
 
+        for f in (args.model, args.llm_model):
+            if not Path(f).is_file():  # before any rank starts
+                raise FileNotFoundError(f)
+        line = run_ranks(warm, args.tp, (args.model, args.llm_model, engine_kw),
+                         timeout_s=1800)[0]
+    print(line)
+    return 0
+
+
+def warm(g, model: str, llm: str, engine_kw: dict) -> str:
+    """Load the engine (over ``g``'s ranks where given), warm it up and
+    describe it in one line."""
     from .engine.engine import MiniGPT4Engine
+    from .ops import _build
 
     t0 = time.perf_counter()
-    eng = MiniGPT4Engine(args.model, args.llm_model, n_ctx=args.n_ctx,
-                         quant_mode=args.quant_mode,
-                         cache_dtype=None if args.cache_dtype == "auto" else args.cache_dtype,
-                         speculative_k=args.speculative_k, draft_llm_path=args.draft_llm,
-                         draft_head_path=args.draft_head)
+    eng = MiniGPT4Engine(model, llm, tp=g.size if g else 1, **engine_kw)
     t_load = time.perf_counter() - t0
     try:
         stats = eng.warmup()
     finally:
         eng.close()
-    from .ops import _build
-
     nvcc = ("not run (sources unchanged)" if _build.build_seconds is None
             else f"nvcc {_build.build_seconds:.1f} s")
-    print(f"[warmup] load {t_load:.1f} s; kernels {stats['build_s']:.1f} s ({nvcc}), library "
-          f"{_build.BUILD_DIR / _build.LIB_NAME}; warmup {stats['warmup_s']:.1f} s; "
-          f"{stats['graphs']} graphs captured, their memory pool holds "
-          f"{stats['pool_bytes'] / 1e9:.3f} GB")
-    return 0
+    what = (f"{stats['graphs']} graphs captured, their memory pool holds "
+            f"{stats['pool_bytes'] / 1e9:.3f} GB")
+    if g is not None:
+        what = (f"tp={g.size}: {stats['graphs']} graphs captured (a tensor-parallel engine runs "
+                f"eagerly: gloo's all-reduces cannot be captured), {len(stats['eager_keys'])} "
+                "step keys run once eagerly")
+    return (f"[warmup] load {t_load:.1f} s; kernels {stats['build_s']:.1f} s ({nvcc}), library "
+            f"{_build.BUILD_DIR / _build.LIB_NAME}; warmup {stats['warmup_s']:.1f} s; {what}")
 
 
 if __name__ == "__main__":

@@ -24,6 +24,10 @@ from minigpt4_tpu.utils import error_code_to_string as jax_error_string
 from minigpt4_tpu_torch.c_api import _build
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 HEADER = ROOT / "minigpt4_tpu_torch" / "c_api" / "minigpt4.h"
 GREEDY = (0.0, 40, 0.9, 1.0, 1.0, 64, 1.1, 1.0, 1.0, 0, 5.0, 1.0, 1)  # examples/main.c's knobs

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from fixtures import build_tiny_models
@@ -23,6 +24,10 @@ from minigpt4_tpu_torch import library, quantize, webui
 from minigpt4_tpu_torch import main as cli
 from minigpt4_tpu_torch.library import (ImageFormat, MiniGPT4ChatBot, MiniGPT4Image,
                                         load_library)
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 IMAGE = np.random.default_rng(0).integers(0, 255, (64, 64, 3), dtype=np.uint8)

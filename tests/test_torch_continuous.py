@@ -27,6 +27,10 @@ from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher, SessionPool
 from minigpt4_tpu_torch.models import llama as tllama
 from test_torch_graphs import fake_cuda  # noqa: F401  (the stand-in CUDA graph API)
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 GREEDY = SamplingParams(temp=0.0)
 POOL_KW = dict(session_ctx=256, n_ctx=256, n_batch=32)
 LONG, SHORT = "tell me a long story about llamas", "hi"
@@ -270,8 +274,10 @@ def test_failed_join_frees_pages_and_reaches_the_client(pool):
 
 def test_bad_request_and_refusals(pool):
     """An unprepared session and a mirostat request get a ValueError on their
-    own queues and the worker goes on; a pool over tp ranks is refused with
-    its ROADMAP item."""
+    own queues and the worker goes on.  A batcher over tp ranks is served
+    (tests/test_torch_serve_tp.py): a follower's batcher has no thread and
+    runs rank 0's rounds (``_cycle``) as they come, with the ids of the
+    threaded batcher."""
     cb = ContinuousBatcher(pool, max_batch=2, decode_chunk=2)
     try:
         bad = pool.new_session()
@@ -285,9 +291,25 @@ def test_bad_request_and_refusals(pool):
         good.close()
     finally:
         cb.close()
-    tp_pool = types.SimpleNamespace(engine=types.SimpleNamespace(tp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 11b"):
-        ContinuousBatcher(tp_pool)
+    want = _drain(cb := ContinuousBatcher(pool, max_batch=2, decode_chunk=2),
+                  cb.submit(s := _prep(pool, "hello", system=False), 6, GREEDY))
+    cb.close()
+    s.close()
+    follower = types.SimpleNamespace(leader=False, leading=lambda: False)
+    pool._ctl = follower
+    try:
+        cb = ContinuousBatcher(pool, max_batch=2, decode_chunk=2)
+        assert cb._thread is None
+        s = _prep(pool, "hello", system=False)
+        steps = [cb._cycle([(s, 6, GREEDY, 1)], False)]
+        while cb._n_active():
+            steps.append(cb._cycle([], False))
+        ids = [t for step in steps for t in step[0]]
+        assert "".join(pool.engine.tokenizer.id_to_str(t) for t in ids).startswith(want)
+        assert cb._cycle([], True) is None and len(s.state.tokens) == s.n_past
+        s.close()
+    finally:
+        pool._ctl = None
 
 
 def test_close_releases_waiting_clients(pool):

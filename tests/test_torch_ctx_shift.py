@@ -28,6 +28,10 @@ from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.engine.sessions import SessionPool
 from minigpt4_tpu_torch.models import llama as tllama
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 L, H, C, DH = 2, 4, 64, 16
 CFG_T = tllama.LlamaConfig(n_vocab=96, n_embd=H * DH, n_head=H, n_layer=L, n_rot=DH,
                            n_ff=128, n_ctx=C)

@@ -2077,3 +2077,60 @@ def test_trainer_refuses_kernel_weights_on_card(cuda_device, tmp_path, mode):
         linear(x, frozen["llm"]["layers"]["wqkv"], 0)
     with torch.no_grad():
         assert linear(x, frozen["llm"]["layers"]["wqkv"], 0).shape == (3, 3 * lcfg.n_embd)
+
+
+# -- tensor parallelism over 2 ranks on the card (gloo, cuda:0) ----------------
+
+def test_sharded_encoder_on_card_equals_whole(cuda_device, tmp_path):
+    """The ViT split over 2 ranks on cuda:0 (``parallel/sharding.py``) on a
+    q4_0 container: qkv and fc1 column-parallel as repacked weights at the
+    local shapes (their kernels launch), proj and fc2 whole (a repacked row
+    slot stays whole); the embedding equals the whole encoder's on the card
+    within 1e-5 of max|emb| (a column shard gives the whole launch's bits in
+    its rows; the f32 attention and sums are the same), on both ranks."""
+    from minigpt4_tpu_torch.parallel import dryrun
+    from torch_rank_tasks import rank_tasks
+
+    model, _ = dryrun.write_models(tmp_path, quant=DataType.Q4_0, d=256)
+    pixels = np.random.default_rng(2).normal(0, 1, (2, 3, 28, 28)).astype(np.float32)
+    task = ("enc", "fn", dict(fn="sharded_encoder", model=str(model), pixels=pixels))
+    ranks = dryrun.run_ranks(rank_tasks, 2, ([task],), device="cuda", timeout_s=300)
+    for r in ranks:
+        e = r["enc"]
+        assert e["kinds"] == {"qkv": "col", "fc1": "col", "proj": "rep", "fc2": "rep"}
+        assert _rel(torch.from_numpy(e["emb"]), torch.from_numpy(e["whole"])) <= 1e-5
+        assert sum(e["launches"][(k, "launches", None)] for k in ("rq_decode", "rq_prefill")) > 0
+    np.testing.assert_array_equal(ranks[0]["enc"]["emb"], ranks[1]["enc"]["emb"])
+
+
+def test_sharded_train_step_on_card_equals_cpu(cuda_device, tmp_path):
+    """One Adam step of ``llama_proj`` over tp = 2 ranks on cuda:0 through
+    the sharded encoder and decoder (the f32 fixture): the loss within 1e-5
+    relative and the gradient within 1e-4 of max|grad| of the CPU's at
+    tp = 1, and no kernel launched (the trainers run plain torch)."""
+    from fixtures import build_tiny_models
+    from minigpt4_tpu_torch.parallel import dryrun
+    from minigpt4_tpu_torch.train.projection import make_train_step
+    from torch_rank_tasks import rank_tasks
+    from torch_tp_tasks import load
+
+    model, llm = map(str, build_tiny_models(tmp_path))
+    rng = np.random.default_rng(3)
+    batch = dict(pixels=rng.normal(0, 1, (2, 3, 28, 28)).astype(np.float32),
+                 tokens=np.concatenate([np.ones((2, 1), np.int64),
+                                        rng.integers(3, 262, (2, 5))], axis=1),
+                 mask=np.ones((2, 6), np.float32))
+    task = ("step", "fn", dict(fn="train_step_tp", model=model, llm=llm, device="cuda", **batch))
+    ranks = dryrun.run_ranks(rank_tasks, 2, ([task],), device="cuda", timeout_s=300)
+    vp, vcfg, lp, lcfg = load(model, llm, "cpu", n_ctx=64)
+    proj = {k: v.detach().clone().requires_grad_(True) for k, v in vp["llama_proj"].items()}
+    frozen = {"vision": {k: v for k, v in vp.items() if k != "llama_proj"}, "llm": lp}
+    step = make_train_step(vcfg, lcfg, torch.optim.Adam(list(proj.values()), lr=1e-3))
+    _, loss = step(proj, frozen, *(torch.from_numpy(batch[k]) for k in ("pixels", "tokens",
+                                                                         "mask")))
+    for r in ranks:
+        got = r["step"]
+        assert abs(got["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+        for k, v in proj.items():
+            assert _rel(torch.from_numpy(got["grad"][k]), v.grad) <= 1e-4, k
+        assert all(n == 0 for n in got["launches"].values()), got["launches"]

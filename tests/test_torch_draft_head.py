@@ -31,6 +31,10 @@ from minigpt4_tpu_torch import interop
 from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.train import draft as tdraft
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 JCFG = jllama.LlamaConfig(n_vocab=128, n_embd=64, n_head=2, n_layer=2, n_rot=32, n_ff=128,
                           n_ctx=64)
 TCFG = tllama.LlamaConfig(n_vocab=128, n_embd=64, n_head=2, n_layer=2, n_rot=32, n_ff=128,

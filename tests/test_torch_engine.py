@@ -28,6 +28,10 @@ from minigpt4_tpu_torch.engine import device_sampling as tds
 from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.library import MiniGPT4ChatBot
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 QUESTION = "what is in the image?"
 IMAGE = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
@@ -149,6 +153,8 @@ sys.path.insert(0, sys.argv[1])
 from minigpt4_tpu_torch import library, main, quantize, webui  # noqa: F401
 from minigpt4_tpu_torch.c_api import _build, capi_host  # noqa: F401
 from minigpt4_tpu_torch.train import draft  # noqa: F401
+from minigpt4_tpu_torch import debug, profiling, serve, warmup  # noqa: F401
+from minigpt4_tpu_torch.parallel import controller, sharding  # noqa: F401
 code = quantize.main([sys.argv[1] + "/missing-in.bin", sys.argv[1] + "/missing-out.bin", "q8_0"])
 print(json.dumps({"jax_loaded": sys.modules["jax"] is not None,
                   "jax_package_loaded": sys.modules["minigpt4_tpu"] is not None,

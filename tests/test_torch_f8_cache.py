@@ -32,6 +32,10 @@ from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 F8 = torch.float8_e4m3fn
 
 

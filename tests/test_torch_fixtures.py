@@ -13,11 +13,16 @@ JAX package's writers make.
 """
 
 import numpy as np
+import torch
 
 from fixtures import GQ_D, GQ_FF, GQ_HEADS, VOCAB, build_gq_models
 from minigpt4_tpu_torch.formats import (ContainerReader, ContainerWriter, DataType, LlamaFileReader,
                                         LlamaFileWriter, LlamaHParams, LlamaVocab)
 from minigpt4_tpu_torch.formats import quants as nq
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 KM_LAYERS = 4
 

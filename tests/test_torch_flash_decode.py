@@ -14,6 +14,10 @@ import jax.numpy as jnp
 from minigpt4_tpu.ops.flash_decode import flash_decode_attention as jax_flash
 from minigpt4_tpu_torch.ops import flash_decode as tfd
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 CASES = [
     # (S, pos0): decode steps, the 8-row text bucket, the 32-row image chunk
     (1, 0), (1, 300), (8, 0), (8, 130), (32, 0), (32, 250),

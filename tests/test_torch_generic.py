@@ -69,6 +69,10 @@ from minigpt4_tpu_torch.ops import group_i8 as tgq
 from test_torch_fixtures import KM_LAYERS, build_llm_q5_k_m
 from test_torch_group_i8 import dual_i8_f64
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 GENERIC = [DataType.Q4_0, DataType.Q4_1, DataType.Q5_0, DataType.Q5_1, DataType.Q8_0,
            DataType.Q2_K, DataType.Q3_K, DataType.Q6_K]

@@ -34,6 +34,10 @@ from minigpt4_tpu.ops import group_i8 as jgq
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 from test_torch_group_i8 import dual_i8_f64
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

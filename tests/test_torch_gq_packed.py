@@ -53,6 +53,10 @@ from minigpt4_tpu_torch.models import minigpt4 as tvision
 from minigpt4_tpu_torch.models.params import load_quant_weight, resolve_gq_pack
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 PACKABLE = [DataType.Q4_0, DataType.Q4_1, DataType.Q4_K, DataType.Q5_0, DataType.Q5_1,
             DataType.Q5_K, DataType.Q6_K]
 KEPT = [DataType.Q2_K, DataType.Q3_K, DataType.Q8_0]

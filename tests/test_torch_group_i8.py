@@ -28,6 +28,10 @@ from minigpt4_tpu_torch.models.params import linear, load_quant_weight
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 from minigpt4_tpu_torch.ops.repack import RepackedQuant
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 EXACT = [DataType.Q4_K, DataType.Q5_K]
 
 

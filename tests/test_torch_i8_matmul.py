@@ -35,6 +35,10 @@ from minigpt4_tpu_torch.ops import i8_matmul as ti8
 from minigpt4_tpu_torch.ops.quant_matmul import QTensor
 from minigpt4_tpu_torch.ops.repack import RepackedQuant
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 REPACKABLE = [DataType.Q4_0, DataType.Q4_1, DataType.Q5_0, DataType.Q5_1, DataType.Q8_0,
               DataType.Q2_K, DataType.Q3_K, DataType.Q4_K, DataType.Q5_K, DataType.Q6_K]
 # every format of the JAX package's DEQUANT_FNS

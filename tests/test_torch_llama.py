@@ -36,6 +36,10 @@ from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.models.params import linear as tparams_linear
 from minigpt4_tpu_torch.ops.group_i8 import GroupQuant
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 N_CTX = 256
 
 

@@ -18,6 +18,10 @@ from minigpt4_tpu_torch.engine.paged import PagedKVPool
 from minigpt4_tpu_torch.engine.sessions import SessionPool
 from minigpt4_tpu_torch.models import llama as tllama
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 GREEDY = SamplingParams(temp=0.0)
 POOL_KW = dict(session_ctx=256, n_ctx=256, n_batch=32)
 

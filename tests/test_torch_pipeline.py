@@ -4,12 +4,17 @@ package's: both stages on the CPU here (on a card both may be cuda:0)."""
 
 import numpy as np
 import pytest
+import torch
 
 from fixtures import build_tiny_models
 from minigpt4_tpu.engine import MiniGPT4Engine as JaxEngine
 from minigpt4_tpu.engine import SamplingParams as JaxParams
 from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.parallel.pipeline import TwoStagePipeline
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 QUESTION = "what is this?"
 IMAGES = [np.random.default_rng(s).normal(0, 1, (3, 28, 28)).astype(np.float32)

@@ -37,6 +37,10 @@ from minigpt4_tpu_torch.ops import probes
 from minigpt4_tpu_torch.tools import (probe_i8ops, probe_int4, qmm_group_i8, qmm_r3, qmm_v3,
                                      qmm_variants, unpack_variants)
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -12,8 +12,13 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from minigpt4_tpu_torch.ops import qmm_prefill as qp
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 CUH = Path(qp.__file__).resolve().parent.parent / "csrc" / "qmm_prefill.cuh"
 

@@ -37,6 +37,10 @@ from minigpt4_tpu_torch import quality as tq
 from minigpt4_tpu_torch.formats import LlamaFileReader
 from minigpt4_tpu_torch.models import llama as tllama
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 GEOM = tq.GEOMETRIES["tiny"]
 
 

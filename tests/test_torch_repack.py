@@ -59,6 +59,10 @@ from minigpt4_tpu_torch.models.params import linear as tlinear
 from minigpt4_tpu_torch.ops import pallas_quant_matmul as trq
 from minigpt4_tpu_torch.ops import repack as trp
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 FORMATS = sorted(trp.REPACKABLE)
 IDS = [d.name.lower() for d in FORMATS]

@@ -16,11 +16,16 @@ import weakref
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from fixtures import build_gq_models, build_tiny_models
 from minigpt4_tpu_torch import serve
 from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 IMAGE = np.random.default_rng(0).integers(0, 255, (40, 40, 3), dtype=np.uint8)
 
@@ -321,21 +326,26 @@ def _main_unserved(monkeypatch, argv):
     ("--continuous", None), ("--max-batch=4", None),
     # served since speculative decoding was ported; the id is the one it had
     pytest.param("--speculative-k=4", None, id="--speculative-k=4-item 14"),
-    ("--no-prefix-cache", None), ("--park-idle", None), ("--tp=2", "item 11")])
+    ("--no-prefix-cache", None), ("--park-idle", None),
+    # served since serving over tp was ported; the id is the one it had
+    pytest.param("--tp=2", "group-quant", id="--tp=2-item 11")])
 def test_unported_options_fail_at_start_up(flag, item, gq_files, plain_server, monkeypatch,
                                           capsys):
-    """An option of the JAX server that the port does not serve yet (serving
-    over tp) stops the server before it loads anything, naming its ROADMAP
-    item.  The options of continuous batching, parking, the prefix cache and
-    speculative decoding reach the batcher, the pool or the engine, and a
-    chat runs through them (greedy, with plain greedy's text under
-    speculation)."""
+    """Every option of the JAX server is served.  Over tp ranks (``--tp=2``,
+    served in tests/test_torch_serve_tp.py) what the JAX package cannot
+    place stops the server before any rank starts or anything loads: the
+    gq decoder of these files, with JAX's reason.  The options of
+    continuous batching, parking, the prefix cache and speculative decoding
+    reach the batcher, the pool or the engine, and a chat runs through them
+    (greedy, with plain greedy's text under speculation)."""
     if item is not None:
+        argv = [str(gq_files[0]), str(gq_files[1]), "--device", "cpu", flag]
         with pytest.raises(SystemExit):
-            serve.main(["missing-model.bin", "missing-llm.bin", flag])
-        assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 11"):
-            serve.start_server("missing-model.bin", "missing-llm.bin", tp=2)
+            serve.main(argv)
+        err = capsys.readouterr().err
+        assert item in err and "ROADMAP" not in err
+        with pytest.raises(ValueError, match="cannot place one either"):
+            serve.start_server(*map(str, gq_files), device="cpu", tp=2)
         return
     extra = ["--continuous"] if flag.startswith("--max-batch") else []
     httpd = _main_unserved(monkeypatch, [str(gq_files[0]), str(gq_files[1]), "--device", "cpu",

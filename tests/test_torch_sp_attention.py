@@ -20,6 +20,10 @@ from minigpt4_tpu_torch.ops import flash_decode as fd
 from minigpt4_tpu_torch.parallel import dryrun
 from torch_rank_tasks import rank_tasks
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 DH = 128
 SCALE = 1.0 / np.sqrt(DH)
 SP_POSITIONS = [0, 100, 700, 1000]

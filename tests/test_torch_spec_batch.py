@@ -12,12 +12,17 @@ asserted).
 """
 
 import pytest
+import torch
 
 from fixtures import build_gq_models
 from minigpt4_tpu.engine.sessions import _SpecGovernor as JaxGovernor
 from minigpt4_tpu_torch.engine import SamplingParams
 from minigpt4_tpu_torch.engine import sessions as S
 from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher, SessionPool, _SpecGovernor
+
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
 
 GREEDY = SamplingParams(temp=0.0)
 PROMPTS = ["one two three", "four five", "six seven eight nine"]

@@ -32,6 +32,10 @@ from minigpt4_tpu_torch.engine.sampling import SamplingParams
 from minigpt4_tpu_torch.models import llama as tllama
 from minigpt4_tpu_torch.ops.flash_decode import PAGE
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 N_CTX = 256
 GREEDY_ROWS = lane_rows([SamplingParams(temp=0.0)], 1, "cpu")
 # the greedy prompt: 8 seeded ids (numpy seed 0, ids 3..199 after BOS) and

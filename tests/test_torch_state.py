@@ -18,6 +18,10 @@ from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.image import preprocess
 from minigpt4_tpu_torch.models.llama import _bits
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 IMAGE = np.random.default_rng(0).integers(0, 255, (40, 50, 3), dtype=np.uint8)
 N_CTX = 256
 

@@ -26,6 +26,10 @@ from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
 from minigpt4_tpu_torch.engine import device_sampling as tds
 from minigpt4_tpu_torch.models import llama as tllama
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 N = 16384  # seeded lanes of the distribution checks
 
 

@@ -35,6 +35,10 @@ from minigpt4_tpu_torch.parallel import dryrun, spmd
 from test_torch_fixtures import build_llm_q5_k_m
 from torch_rank_tasks import pool_run, rank_tasks, stepwise_tokens
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ENGINE = dict(n_ctx=256, n_batch=16)
 DEPTHS = (1, 4)  # layers of the q5_k files of the depth-gap cases
 

@@ -42,6 +42,10 @@ from minigpt4_tpu_torch.ops import quant_matmul as qm
 from minigpt4_tpu_torch.train import caption_loss, make_train_step
 from minigpt4_tpu_torch.train import projection
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 N_CTX = 64
 LOSS_RTOL = 1e-5

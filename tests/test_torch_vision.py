@@ -26,6 +26,10 @@ from minigpt4_tpu_torch.models import eva_vit, qformer
 from minigpt4_tpu_torch.models import minigpt4 as tvision
 from minigpt4_tpu_torch.models.layers import layer_norm
 
+# one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
+# torch's OpenMP pools spin against each other and run ~17x slower
+torch.set_num_threads(1)
+
 GOLDENS = Path(__file__).parent / "goldens" / "vision_goldens.npz"
 
 

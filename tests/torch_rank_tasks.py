@@ -64,7 +64,8 @@ def rank_tasks(g, tasks: list) -> dict:
     engine's error message), "row_linear" and "sp" (see their functions),
     "imports" (the modules of JAX or of the JAX package this rank has
     loaded: none, since the port imports neither), "depth_gaps" (see
-    :func:`depth_gaps`)."""
+    :func:`depth_gaps`), "fn" (``kwargs["fn"]``, a function of
+    ``torch_tp_tasks``, called with the group and the other kwargs)."""
     out = {}
     for label, kind, kw in tasks:
         kw = dict(kw)
@@ -96,6 +97,10 @@ def rank_tasks(g, tasks: list) -> dict:
             out[label] = sp_attention(g, **kw)
         elif kind == "depth_gaps":
             out[label] = depth_gaps(g, **kw)
+        elif kind == "fn":
+            import torch_tp_tasks
+
+            out[label] = getattr(torch_tp_tasks, kw.pop("fn"))(g, **kw)
         elif kind == "imports":
             out[label] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax", "jaxlib", "minigpt4_tpu"))
@@ -105,7 +110,7 @@ def rank_tasks(g, tasks: list) -> dict:
 
 
 def row_linear_cases(g, x: np.ndarray, w: np.ndarray, x8: np.ndarray, w8: np.ndarray) -> dict:
-    """``models.llama._row_linear`` in its four cases on dense x [.., K] and
+    """``models.llama.row_linear`` in its four cases on dense x [.., K] and
     w [K, N] (K-sharded weight with a split or a whole input; whole weight
     with a split or a whole input), and a K-sharded I8SBQuant of w8 [N, K8]
     on x8 (the global row absmax).  Returns this rank's outputs."""
@@ -115,15 +120,15 @@ def row_linear_cases(g, x: np.ndarray, w: np.ndarray, x8: np.ndarray, w8: np.nda
     xs, ws = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
     sl = slice(g.rank * kw, (g.rank + 1) * kw)
     out = {
-        "k_sharded_split_input": llama_mod._row_linear(xs[..., sl], {"w": ws[sl]}, None, g, k),
-        "k_sharded_whole_input": llama_mod._row_linear(xs, {"w": ws[sl]}, None, g, k),
-        "whole_split_input": llama_mod._row_linear(xs[..., sl], {"w": ws}, None, g, k),
-        "whole_whole_input": llama_mod._row_linear(xs, {"w": ws}, None, g, k),
+        "k_sharded_split_input": llama_mod.row_linear(xs[..., sl], {"w": ws[sl]}, None, g, k),
+        "k_sharded_whole_input": llama_mod.row_linear(xs, {"w": ws[sl]}, None, g, k),
+        "whole_split_input": llama_mod.row_linear(xs[..., sl], {"w": ws}, None, g, k),
+        "whole_whole_input": llama_mod.row_linear(xs, {"w": ws}, None, g, k),
     }
     codes, scales = i8.requantize_i8sb(torch.from_numpy(w8).to(dev))
     q8 = shard_weight(i8.I8SBQuant(codes, scales, k8), "row", g.rank, g.size)
     x8t = torch.from_numpy(x8).to(dev)
-    out["i8_k_sharded"] = llama_mod._row_linear(x8t[..., g.rank * kw8:(g.rank + 1) * kw8], {"w": q8},
+    out["i8_k_sharded"] = llama_mod.row_linear(x8t[..., g.rank * kw8:(g.rank + 1) * kw8], {"w": q8},
                                       None, g, k8)
     return {name: t.cpu().numpy() for name, t in out.items()}
 
