@@ -3,13 +3,14 @@
 its speculative decoding paths, its batched HTTP serving paths (window groups; continuous batching with
 parked sessions and the radix prefix cache), its quantized-container / repacked-weight
 path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
-on one card), its dequant-matmul probes and its clients (context shift,
-chat checkpoints, the C ABI library under examples/main.c and ctypes) on an
-NVIDIA GPU.
+on one card), its dequant-matmul probes, its clients (context shift,
+chat checkpoints, the C ABI library under examples/main.c and ctypes), the
+kernel gate and the benchmark's synthetic 13B teacher with its distilled
+draft head on an NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (--only-serving, --only-clients, --only-speculative, --only-train, --only-tp,
---only-kernels SECTIONS: one phase alone, no result line)
+--only-synthetic, --only-kernels SECTIONS: one phase alone, no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -347,6 +348,33 @@ Phases (any failure exits nonzero before the last line):
                flash_decode must launch; its tok/s.
                `python3 chip_smoke.py --only-clients` runs phases 1-2 and 10
                and prints no result line.
+  11. synthetic models - (right after phase 3') a. minigpt4_tpu_torch.
+               kernel_gate: run_gate, every matmul entry (gq on i8 and
+               packed codes, exact and generic planes; rq; i8) at every
+               Vicuna-7B and -13B weight shape as the loader lays it out,
+               q4_k, q5_k, q6_k, q4_0, q8_0 and q5_1, M = 1, 8, 9, 512,
+               stacked (layer 1 of 2) and flat, against the f64 product of
+               the dequantized weight (1e-3 for the gq decode and i8
+               entries, 2e-2 for the prefill and rq ones), and run_tp_gate
+               (the repack.k_slice shards of 13B w2 and wo at tp = 2 and 4,
+               summed); outside the launch counts; each case in
+               build/kernel_gate.log, each matmul entry of the kernels line
+               gains "gate": {"cases", "max_rel_err"}.  b. the benchmark's
+               synthetic Vicuna-13B teacher (benchmark.synth_llama_params,
+               gq, bench_pack_policy's packing, default_rng(0), full width
+               and depth) built on the card: seconds and bytes; a 64-token
+               word-id prefill and 32 greedy steps through llama.forward
+               (its gq entries and flash decode must launch: path
+               "synthetic 13B gq teacher") and n-gram drafting's tokens per
+               pass over them; over a 512-token teacher-forced word stream,
+               the distinct argmax targets and the modal share (non-finite
+               logits or one distinct target, a collapsed teacher, fail).
+               c. tools/train_draft.run on that teacher (40 steps, 4 teacher
+               batches of 8 x 128; path "synthetic 13B distill"): target ms,
+               distill s, EVAL tokens per pass at k = 8, the artifact tagged
+               synth_teacher_tag's way.  `python3 chip_smoke.py
+               --only-synthetic` runs phases 1-2 and 11 and prints no
+               result line.
 Captured CUDA graphs (engine/graphs.py): every engine's own steps and the
 paged group replay graphs, so the launch counts of every path above are
 counted through replays (ops/counters.py).  The 13B Q5_K_M chat, its
@@ -4669,6 +4697,187 @@ def train_phase(eng, card: str) -> dict:
             "speculative 13B distilled head": b["drafted"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the benchmark's synthetic models and the kernel gate
+# ---------------------------------------------------------------------------
+
+SYNTH_LABEL = "synthetic 13B gq teacher"
+SYNTH_DISTILL_LABEL = "synthetic 13B distill"
+SYNTH_PREFILL = 64
+SYNTH_STEPS = 32
+SYNTH_STREAM = 512
+SYNTH_VMAX = 320  # the draft tool's word-id range
+SYNTH_DISTILL = ["--steps", "40", "--teacher-batches", "4", "--batch", "8", "--seq", "128"]
+# the entries of the kernels line the gate holds (a gq entry per packing)
+GATE_ENTRIES = GQ_KERNELS + ("rq_decode", "rq_prefill", "i8_decode", "i8_prefill") + PACKED_KERNELS
+
+
+def kernel_gate(card: str) -> dict:
+    """(a) minigpt4_tpu_torch.kernel_gate: run_gate (every matmul entry at
+    every 7B / 13B weight shape, quant type, packing, M = 1, 8, 9, 512,
+    stacked and flat, against the f64 product of the dequantized weight)
+    and run_tp_gate (the K shards of 13B w2 and wo at tp = 2 and 4), outside
+    the launch counts; one line per case in build/kernel_gate.log, each
+    entry's cases and worst error in the log.  Any failed case fails."""
+    from minigpt4_tpu_torch import kernel_gate as kg
+
+    log_path = ROOT / "build" / "kernel_gate.log"
+    report = []
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        ok = uncounted(lambda: kg.run_gate(report=report, out=f))
+        ok = uncounted(lambda: kg.run_tp_gate(report=report, out=f)) and ok
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gate = kg.summary(report)
+    for entry, st in sorted(gate.items()):
+        log(f"[gate] {entry:24s} {st['cases']:4d} cases, {st['failed']} failed, max rel err "
+            f"{st['max_rel_err']:.3e}  [{card}]")
+    log(f"[gate] {len(report)} cases (the full sweep and tp) in "
+        f"{seconds:.1f} s; each case in {log_path.relative_to(ROOT)}  [{card}]")
+    failed = [r["tag"] for r in report if not r["ok"]]
+    if not ok or failed:
+        raise AssertionError(f"kernel gate: {len(failed)} failed cases, e.g. {failed[:5]}")
+    missing = [k for k in GATE_ENTRIES if k not in gate]
+    if missing:
+        raise AssertionError(f"kernel gate: no case for {missing}")
+    return {"entries": gate, "cases": len(report), "s": seconds}
+
+
+def _word_stream(n: int, n_vocab: int) -> np.ndarray:
+    """n word ids (benchmark.word_tokenize over the evaluation and the draft
+    tool's training prose, in the tool's range: SYNTH_VMAX or the vocabulary)."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.tools import train_draft
+
+    text = B.REALISTIC_TEXT + train_draft.TRAIN_TEXT_A + train_draft.TRAIN_TEXT_B
+    return (B.word_tokenize(text) % min(SYNTH_VMAX, n_vocab))[:n]
+
+
+def synthetic_models(card: str) -> dict:
+    """(b) benchmark.synth_llama_params at Vicuna-13B, full width and depth,
+    in gq mode with bench_pack_policy's packing, from default_rng(0), built
+    on the card: build seconds and the bytes it holds; a SYNTH_PREFILL-token
+    word-id prompt and SYNTH_STEPS greedy steps through models/llama.forward
+    (the counts set to 0 just before, read just after: the gq entries of
+    its packing and flash decode must launch), and n-gram drafting's
+    tokens per pass at k = 8 walked over those greedy ids (printed); over one SYNTH_STREAM-token
+    teacher-forced word-id stream, the distinct argmax targets and the modal
+    share (printed, not gated: only non-finite logits or a single target, a
+    collapsed teacher, fail).  (c) tools/train_draft.run on that teacher
+    (SYNTH_DISTILL): teacher-target ms, distill seconds, tokens per pass at
+    k = 8 on REALISTIC_TEXT; the artifact's tag is synth_teacher_tag's."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.formats import DataType
+    from minigpt4_tpu_torch.models import llama as llama_mod
+    from minigpt4_tpu_torch.tools import train_draft
+    from minigpt4_tpu_torch.train import draft as draft_mod
+
+    cfg = B.GEOMETRIES["13B"]
+    pack = B.bench_pack_policy(cfg)
+    tag = B.synth_teacher_tag("gq", pack)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0), quant_mode="gq",
+                                  device=DEVICE, pack=pack)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - mem0
+    log(f"[synthetic] {SYNTH_LABEL} ({tag}, {cfg.n_layer} layers, width {cfg.n_embd}) built on "
+        f"the card in {build_s:.2f} s, {held / 1e9:.3f} GB  [{card}]")
+
+    ccfg = dataclasses.replace(cfg, n_ctx=SYNTH_STREAM)
+    prompt = torch.from_numpy(_word_stream(SYNTH_PREFILL, cfg.n_vocab)).long().to(DEVICE)[None]
+    reset_launch_counts()
+    with torch.no_grad():
+        cache = llama_mod.init_cache(ccfg, 1, torch.bfloat16, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = llama_mod.forward(params, cache, llama_mod.embed_tokens(params, prompt), 0, ccfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        finite = bool(torch.isfinite(logits).all())
+        ids = []
+        t0 = time.perf_counter()
+        for i in range(SYNTH_STEPS):
+            tok = logits.argmax(dim=-1)
+            ids.append(tok)
+            logits = llama_mod.forward(params, cache, llama_mod.embed_tokens(params, tok[:, None]),
+                                       SYNTH_PREFILL + i, ccfg)
+            finite = finite and bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = launch_counts()
+    ids = torch.cat(ids).tolist()
+    del cache
+    # n-gram drafting at k = 8 walked over the prompt and the teacher's own
+    # greedy continuation (benchmark.spec_acceptance_on_stream)
+    ngram = B.spec_acceptance_on_stream(np.concatenate([prompt[0].cpu().numpy(), ids]),
+                                        k_spec=8, warm=SYNTH_PREFILL)
+    log(f"[synthetic] {SYNTH_PREFILL}-token prefill {prefill_ms:.1f} ms, {SYNTH_STEPS} greedy "
+        f"steps eager {SYNTH_STEPS / decode_s:.2f} tok/s, {len(set(ids))} distinct ids, n-gram "
+        f"acceptance on them {ngram:.2f} tokens per pass at k = 8, finite {finite}; launches "
+        f"{({k: v for k, v in counts.items() if v})}  [{card}]")
+    if not finite:
+        raise AssertionError(f"{SYNTH_LABEL}: non-finite logits")
+    want = (("gq_decode[p5]", "gq_prefill[p5]") if pack else ("gq_decode", "gq_prefill")) + (
+        "flash_decode",)
+    missing = [k for k in want if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{SYNTH_LABEL}: kernels never launched: {missing}")
+
+    stream = torch.from_numpy(_word_stream(SYNTH_STREAM, cfg.n_vocab)).long().to(DEVICE)[None]
+    with torch.no_grad():
+        cache = llama_mod.init_cache(ccfg, 1, torch.bfloat16, DEVICE)
+        all_logits = llama_mod.forward(params, cache, llama_mod.embed_tokens(params, stream), 0,
+                                       ccfg, all_logits=True)
+    stream_finite = bool(torch.isfinite(all_logits).all())
+    targets = all_logits[0].argmax(dim=-1).cpu().numpy()
+    del cache, all_logits
+    cur = stream[0].cpu().numpy()
+    distinct = int(len(np.unique(targets)))
+    modal = float(np.bincount(targets).max() / len(targets))
+    per_token = [np.bincount(targets[cur == t]).max() / (cur == t).sum() for t in np.unique(cur)]
+    weights = [(cur == t).sum() for t in np.unique(cur)]
+    modal_per_token = float(np.average(per_token, weights=weights))
+    log(f"[synthetic] {SYNTH_STREAM}-token teacher-forced word stream: {distinct} distinct argmax "
+        f"targets, modal share {modal:.3f}, modal share per current token {modal_per_token:.3f}, "
+        f"finite {stream_finite}  [{card}]")
+    if not stream_finite or distinct <= 1:
+        raise AssertionError(f"{SYNTH_LABEL}: collapsed or non-finite teacher "
+                             f"({distinct} distinct targets, finite {stream_finite})")
+
+    args = train_draft.parse_args(SYNTH_DISTILL + [
+        "--model", "13B", "--device", DEVICE, "--out", str(ROOT / "build" / "draft_synth_13b.npz")])
+    reset_launch_counts()
+    res = train_draft.run(params, cfg, B.word_tokenize, args, tag)
+    distill_counts = launch_counts()
+    del params
+    if draft_mod.artifact_teacher_mode(args.out) != tag:
+        raise AssertionError(f"{SYNTH_DISTILL_LABEL}: artifact tag is not {tag}")
+    target_ms = res["teacher_s"] / args.teacher_batches * 1e3
+    log(f"[synthetic] {SYNTH_DISTILL_LABEL}: teacher targets {target_ms:.1f} ms per batch of "
+        f"{args.batch} x {args.seq}, {args.steps} steps in {res['distill_s']:.2f} s (loss "
+        f"{res['losses'][0]:.3f} -> {res['losses'][-1]:.3f}), EVAL agreement "
+        f"{res['agreement']:.3f}, {res['tokens_per_pass']:.2f} tokens per pass at k = 8 "
+        f"({res['teacher_distinct']} distinct teacher targets on the eval stream)  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"teacher": {"counts": counts, "build_s": build_s, "gb": held / 1e9,
+                        "distinct": distinct, "modal": modal, "ngram_tokens_per_pass": ngram},
+            "distill": {"counts": distill_counts, **res}}
+
+
+def synthetic_phase(card: str) -> dict:
+    """Phase 11: (a) the kernel gate, (b) the synthetic 13B teacher, (c) its
+    distillation."""
+    t0 = time.perf_counter()
+    out = {"gate": kernel_gate(card), **synthetic_models(card)}
+    log(f"[synthetic] phase took {time.perf_counter() - t0:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
@@ -4722,6 +4931,11 @@ def main() -> int:
             eng.close()
         phase("end (--only-train)")
         return 0
+    if "--only-synthetic" in sys.argv:  # a quick look at phase 11 alone: no result line
+        phase("synthetic models")
+        synthetic_phase(card)
+        phase("end (--only-synthetic)")
+        return 0
     if "--only-tp" in sys.argv:  # a quick look at the tp phase alone: no result line
         phase("tp")
         tp_phase(card)
@@ -4743,6 +4957,10 @@ def main() -> int:
     paths = {}
     probe = probes_phase(card)
     paths["probes"] = {"counts": probe["counts"]}
+    phase("synthetic models")
+    synth = synthetic_phase(card)
+    paths[SYNTH_LABEL] = synth["teacher"]
+    paths[SYNTH_DISTILL_LABEL] = synth["distill"]
     # the tp ranks are processes of their own: they run while this one holds
     # little device memory
     phase("tp")
@@ -4926,6 +5144,9 @@ def main() -> int:
             kernels[-1]["sass_opcodes"] = sass["i8_prefill_kernel"]
         if name in ("gq_prefill", "gq_prefill_generic", "rq_prefill"):
             kernels[-1]["sass_opcodes"] = sass["qmm_prefill_kernel"]
+        if name in GATE_ENTRIES:
+            st = synth["gate"]["entries"][name]
+            kernels[-1]["gate"] = {"cases": st["cases"], "max_rel_err": st["max_rel_err"]}
     rows = kernel_results[STATS]
     main_row = next(r for r in rows if r["shape"] == "B=1 S=1 pos0=2015 slice 3")
     kernels.append({

@@ -1,28 +1,32 @@
-"""Distill a draft head against a llama.cpp file, then score it.
+"""Distill a draft head against a teacher decoder, then score it.
 
-Counterpart of the JAX package's ``tools/train_bench_draft.py`` in its
-``--llm-file`` mode, with its flags and prints, plus ``--device``.  The
-teacher is the file's decoder in ``--quant-mode`` (default ``gq``, the
-engine's resolution of ``auto``) with the engine's f32 activations, so the
-targets are the argmax an engine of that mode computes; its greedy targets
-over mixed streams (held-out prose, uniform ids, zipf ids) are computed
-first, then the teacher is freed but for its embedding, and the head
-(``train/draft.py``) is distilled with AdamW (weight decay 1e-4) under a
-linear warmup from 0 and a cosine decay to 0 (optax's
-``warmup_cosine_decay_schedule(0, lr, warmup, steps)``; step 0 runs at lr 0).
+Counterpart of the JAX package's ``tools/train_bench_draft.py``, with its
+flags and prints, plus ``--device``.  The teacher is either a llama.cpp file
+(``--llm-file``, with its own tokenizer) or the benchmark's synthetic
+decoder at ``--model``'s geometry (``benchmark.synth_llama_params`` from
+seed 0, Q5_K, packed as ``benchmark.bench_pack_policy`` decides; word-level
+ids over the first 320 of the vocabulary).  It runs in ``--quant-mode``
+(default ``gq``, the engine's resolution of ``auto``) with the engine's f32
+activations, so the targets are the argmax an engine of that mode
+computes; its greedy targets over mixed streams (held-out prose, uniform
+ids, zipf ids) are computed first, then the teacher is freed but for its
+embedding, and the head (``train/draft.py``) is distilled with AdamW
+(weight decay 1e-4) under a linear warmup from 0 and a cosine decay to 0
+(optax's ``warmup_cosine_decay_schedule(0, lr, warmup, steps)``; step 0
+runs at lr 0).
 
 The evaluation is teacher-forced acceptance on prose the head never saw
-(``REALISTIC_TEXT``): at each position past a warm-up, whether the head's
-next-token prediction equals the teacher's, walked as the verify rule walks
-it (:func:`pass_walk`, k = 8).  The artifact is tagged
-``real:<file>@<mode>``; the engine loads it with ``--draft-head``.
+(``benchmark.REALISTIC_TEXT``): at each position past a warm-up, whether
+the head's next-token prediction equals the teacher's, walked as the
+verify rule walks it (:func:`pass_walk`, k = 8).  The artifact is tagged
+``real:<file>@<mode>``, or with ``benchmark.synth_teacher_tag`` for the
+synthetic teacher; the engine loads it with ``--draft-head``.
 
     python -m minigpt4_tpu_torch.tools.train_draft --llm-file vicuna.bin \\
         --steps 1200 --out draft_head.npz [--device cpu]
+    python -m minigpt4_tpu_torch.tools.train_draft --model 13B --steps 1200
 
-The JAX tool's synthetic-teacher mode (no ``--llm-file``) needs the
-benchmark's geometries and synthetic weights, which the port does not have
-yet (ROADMAP Queue 1, item 6); without ``--llm-file`` this tool exits 2.
+:func:`run` takes a teacher its caller already built.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..benchmark import REALISTIC_TEXT
 
 # Held-out prose (same assistant-describes-an-image register as the eval
 # stream, different content and words).
@@ -73,38 +79,6 @@ wind, which points from the upper left toward the sail. The background is
 plain white, and a scale bar in the lower left indicates one meter. The
 title of it is printed along the top edge and reads "Parts of a Sailing
 Dinghy", followed by a small registration mark ending in the letters QS.
-"""
-# The evaluation stream: ordinary, non-repetitive assistant prose (the JAX
-# package's ``benchmark.REALISTIC_TEXT``, copied).
-REALISTIC_TEXT = """
-The picture shows a small wooden boat resting on a pebble beach at low tide.
-The hull is painted in two tones, a faded blue above the waterline and a
-dark red below it, and the paint is flaking near the bow. A coiled rope
-lies across the front bench, and a single oar leans against the starboard
-side. Behind the boat the beach rises toward a line of dune grass, and past
-the grass there is a row of low cottages with slate roofs. The sky is
-overcast but bright, which softens the shadows and makes the colors of the
-hull stand out against the grey stones. There are no people visible in the
-frame, though a set of footprints runs from the water to the dunes.
-The text in the picture is painted on the bow of the boat. It reads
-"Marigold" in white serif letters, followed by a smaller registration mark
-that is partly worn away. The first three characters of the mark are legible
-and appear to be K, 4, and 7; the rest is too faded to read with
-confidence. The name is repeated on a small plaque near the stern, where it
-is easier to read because the plaque is sheltered from the weather.
-The color of it depends on which part you mean. The upper hull is a faded
-blue, close to slate blue, while the lower hull is a dark red that shades
-toward brown where the paint has thinned. The interior benches are
-unpainted wood, grey from exposure. If you mean the lettering, the
-lettering is white with a thin dark outline, and the plaque near the stern
-has a brass border that has gone green at the corners. Overall the palette
-of the image is muted: grey stones, grey sky, dune grass in pale green,
-and the two tones of the hull carrying most of the saturation.
-To summarize, the image is a quiet coastal scene centered on a beached
-rowing boat named Marigold, with no people present, soft overcast light,
-and a limited palette in which the blue and red of the hull are the
-strongest colors. The most legible text is the name on the bow, and the
-registration mark beginning K47 is only partly readable.
 """
 EVAL_PAD = 512  # the eval stream's length, padded (causal: padding is inert)
 EVAL_WARM = 48  # positions skipped before agreement counts
@@ -147,13 +121,13 @@ def warmup_cosine(warmup: int, steps: int):
     return factor
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=1200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--model", default="13B",
-                    help="the synthetic teacher's geometry (needs ROADMAP item 6)")
+                    help="the synthetic teacher's geometry (benchmark.GEOMETRIES)")
     # the teacher's numerics must match the engine that will draft with the
     # head (argmax agreement is numerics-sensitive)
     ap.add_argument("--quant-mode", default="gq")
@@ -163,39 +137,35 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/draft_head.npz")
     ap.add_argument("--teacher-batches", type=int, default=24)
     ap.add_argument("--llm-file", default=None,
-                    help="llama.cpp checkpoint to distill against, with its own tokenizer")
+                    help="llama.cpp checkpoint to distill against, with its own tokenizer, "
+                    "instead of the synthetic teacher")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if not args.llm_file:
-        print("train_draft: the synthetic-teacher mode (no --llm-file) needs the benchmark's "
-              "geometries and synthetic weights, not ported yet (ROADMAP Queue 1, item 6); "
-              "pass --llm-file", file=sys.stderr)
-        return 2
+    return ap.parse_args(argv)
 
-    from ..engine.engine import COMPUTE_DTYPE
-    from ..formats import LlamaFileReader
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(params: dict, cfg, tok_fn, args: argparse.Namespace, tag: str) -> dict:
+    """Targets, distillation, evaluation and the artifact (tagged ``tag``)
+    for a teacher ``params`` of ``cfg`` already on ``args.device``; ``tok_fn``
+    maps text to ids.  The teacher's tensors are used up to the evaluation
+    targets; a caller that wants them freed drops its own reference.
+    Returns the run's figures (seconds, per-position agreement, tokens per
+    pass)."""
     from ..models import llama as llama_mod
-    from ..models.params import resolve_gq_pack
-    from ..tokenizer import LlamaTokenizer
     from ..train import draft as D
 
     dev = torch.device(args.device)
-    t0 = time.perf_counter()
-    with LlamaFileReader(args.llm_file) as r:
-        params, cfg = llama_mod.load_params(r, COMPUTE_DTYPE, n_ctx=EVAL_PAD, device=dev,
-                                            quant_mode=args.quant_mode,
-                                            pack=resolve_gq_pack(args.quant_mode))
-        bpe = LlamaTokenizer(r.vocab.tokens, r.vocab.scores)
-
-    def tok_fn(text):
-        return np.asarray(bpe.tokenize(text, add_bos=False), np.int32)
-
-    print(f"[draft-train] teacher built in {time.perf_counter()-t0:.1f}s", flush=True)
     cache_dt = torch.float8_e4m3fn if cfg.n_embd >= 5120 else torch.bfloat16
 
     # ---- training corpus + teacher targets --------------------------------
     rng = np.random.default_rng(42)
-    vmax = cfg.n_vocab
+    # the synthetic teacher keeps the word-level 320-id range (clamped for
+    # tiny geometries); a real file uses its whole vocabulary
+    vmax = cfg.n_vocab if args.llm_file else min(320, cfg.n_vocab)
     streams = make_streams(rng, 4096, vmax,
                            [tok_fn(TRAIN_TEXT_A) % vmax, tok_fn(TRAIN_TEXT_B) % vmax])
     flat = np.concatenate(streams)
@@ -219,12 +189,14 @@ def main(argv=None) -> int:
         toks = sample_batch()
         data.append((torch.from_numpy(toks).to(dev), tgt_fn(toks)))
         if i == 0:
+            _sync(dev)
             print(f"[draft-train] first teacher batch {time.perf_counter()-t0:.1f}s", flush=True)
+    _sync(dev)
+    teacher_s = time.perf_counter() - t0
     print(f"[draft-train] {args.teacher_batches} teacher batches "
-          f"({args.teacher_batches*args.batch*args.seq} positions) in "
-          f"{time.perf_counter()-t0:.1f}s", flush=True)
+          f"({args.teacher_batches*args.batch*args.seq} positions) in {teacher_s:.1f}s", flush=True)
 
-    # eval-stream targets now, then free the teacher but for its embedding
+    # eval-stream targets now; past them only the embedding is read
     stream = (tok_fn(REALISTIC_TEXT) % vmax)[:EVAL_PAD - 1]
     n_ev = len(stream)
     toks_eval = np.pad(stream, (0, EVAL_PAD - n_ev))[None]
@@ -242,14 +214,18 @@ def main(argv=None) -> int:
     opt = torch.optim.AdamW(leaves, lr=args.lr, weight_decay=1e-4)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, warmup_cosine(warmup, args.steps))
     step = D.make_distill_step(dcfg, opt)
+    losses = []
     t0 = time.perf_counter()
     for i in range(args.steps):
         toks, tgts = data[i % len(data)]
         art, loss, acc = step(art, emb32, toks, tgts, 8)
         sched.step()
         if i % 100 == 0 or i == args.steps - 1:
+            losses.append(float(loss))
             print(f"[draft-train] step {i}: loss {float(loss):.3f} "
                   f"agree {float(acc):.3f} ({time.perf_counter()-t0:.0f}s)", flush=True)
+    _sync(dev)
+    distill_s = time.perf_counter() - t0
 
     # ---- eval: teacher-forced acceptance on held-out prose ------------------
     dcfg_eval = dhc.llama_cfg(cfg.n_vocab, EVAL_PAD)
@@ -267,9 +243,46 @@ def main(argv=None) -> int:
           f"(k={K_SPEC}; n-gram floor is ~1.04)", flush=True)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    tag = f"real:{Path(args.llm_file).name}@{args.quant_mode}"
     D.save_artifact(args.out, art, dhc, teacher_mode=tag)
     print(f"[draft-train] saved {args.out} (teacher {tag})", flush=True)
+    return {"teacher_s": teacher_s, "distill_s": distill_s, "losses": losses,
+            "agreement": float(agree.mean()), "tokens_per_pass": acc_pp,
+            "teacher_distinct": int(len(np.unique(teacher_pred)))}
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    from .. import benchmark as B
+    from ..engine.engine import COMPUTE_DTYPE
+    from ..formats import DataType, LlamaFileReader
+    from ..models import llama as llama_mod
+    from ..models.params import resolve_gq_pack
+    from ..tokenizer import LlamaTokenizer
+
+    dev = torch.device(args.device)
+    t0 = time.perf_counter()
+    if args.llm_file:
+        with LlamaFileReader(args.llm_file) as r:
+            params, cfg = llama_mod.load_params(r, COMPUTE_DTYPE, n_ctx=EVAL_PAD, device=dev,
+                                                quant_mode=args.quant_mode,
+                                                pack=resolve_gq_pack(args.quant_mode))
+            bpe = LlamaTokenizer(r.vocab.tokens, r.vocab.scores)
+
+        def tok_fn(text):
+            return np.asarray(bpe.tokenize(text, add_bos=False), np.int32)
+
+        tag = f"real:{Path(args.llm_file).name}@{args.quant_mode}"
+    else:
+        cfg = B.GEOMETRIES[args.model]
+        pack = B.bench_pack_policy(cfg) if args.quant_mode == "gq" else False
+        params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0),
+                                      COMPUTE_DTYPE, quant_mode=args.quant_mode, device=dev,
+                                      pack=pack)
+        tok_fn = B.word_tokenize
+        tag = B.synth_teacher_tag(args.quant_mode, pack)
+    _sync(dev)
+    print(f"[draft-train] teacher built in {time.perf_counter()-t0:.1f}s", flush=True)
+    run(params, cfg, tok_fn, args, tag)
     return 0
 
 

@@ -243,3 +243,39 @@ def test_library_main_smoke(models, png, capsys):
                    "--device", "cpu", "--limit", "4"])
     out = capsys.readouterr().out
     assert "> hi" in out and "> and?" in out
+
+
+@pytest.mark.parametrize("ftype", ["f16", "f32"])
+def test_convert_byte_equal_to_jax(tmp_path, ftype):
+    """``minigpt4_tpu_torch.convert`` on tests/test_clients.py's checkpoint
+    writes the JAX converter's bytes, through the function and the CLI."""
+    import test_clients
+    from minigpt4_tpu.convert import convert as jax_convert
+    from minigpt4_tpu_torch import convert
+
+    ckpt, _ = test_clients.TestConverter()._torch_checkpoint(tmp_path)
+    want = jax_convert(ckpt, tmp_path / f"jax-{ftype}.bin", ftype=ftype,
+                       qformer_config={"num_attention_heads": 2})
+    got = convert.convert(ckpt, tmp_path / f"port-{ftype}.bin", ftype=ftype,
+                          qformer_config={"num_attention_heads": 2})
+    assert got.read_bytes() == want.read_bytes()
+    cli_out = tmp_path / f"cli-{ftype}.bin"
+    convert.main([str(ckpt), "-o", str(cli_out), "--ftype", ftype])
+    assert cli_out.read_bytes() == jax_convert(ckpt, tmp_path / "jax-cli.bin",
+                                               ftype=ftype).read_bytes()
+
+
+def test_quantize_all_byte_equal_to_jax(models, tmp_path):
+    """``minigpt4_tpu_torch.quantize_all`` writes the JAX tool's file names,
+    each byte-equal to the JAX tool's."""
+    from minigpt4_tpu import quantize_all as jax_quantize_all
+    from minigpt4_tpu_torch import quantize_all
+
+    got, want = tmp_path / "port", tmp_path / "jax"
+    rc_got = quantize_all.main([str(models[0]), str(got)])
+    rc_want = jax_quantize_all.main([str(models[0]), str(want)])
+    assert rc_got == rc_want
+    names = sorted(p.name for p in want.iterdir())
+    assert names and sorted(p.name for p in got.iterdir()) == names
+    for name in names:
+        assert (got / name).read_bytes() == (want / name).read_bytes(), name

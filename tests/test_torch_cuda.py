@@ -2134,3 +2134,75 @@ def test_sharded_train_step_on_card_equals_cpu(cuda_device, tmp_path):
         for k, v in proj.items():
             assert _rel(torch.from_numpy(got["grad"][k]), v.grad) <= 1e-4, k
         assert all(n == 0 for n in got["launches"].values()), got["launches"]
+
+
+def test_kernel_gate_fast_sweep_passes(cuda_device):
+    """minigpt4_tpu_torch.kernel_gate --fast through the kernels: every
+    case of the worst-K 13B shapes (w2, w13) within its bound, and the K
+    shards of tensor parallelism."""
+    from minigpt4_tpu_torch import kernel_gate as kg
+
+    report = []
+    assert kg.run_gate(fast=True, report=report, out=None), [
+        r["tag"] for r in report if not r["ok"]]
+    assert len(report) == len(kg.gate_cases(fast=True))
+    tp = []
+    assert kg.run_tp_gate(report=tp, out=None), [r["tag"] for r in tp if not r["ok"]]
+
+
+def _tree_to(tree, device):
+    """A decoder tree with every tensor (and every quantized weight's) on ``device``."""
+    import dataclasses
+
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return dataclasses.replace(tree, **{k: v.to(device) for k, v in tree.tensors().items()})
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_synthetic_gq_teacher_on_card(cuda_device, pack):
+    """benchmark.synth_llama_params at the tiny geometry in gq mode: built on
+    the card it equals the CPU build of the same seed in everything drawn
+    from NumPy (the embedding, the rng's state) and in every form and
+    constant; a 16-row prefill and a decode step on the card (gq_prefill,
+    gq_decode, flash decode) are within 1e-3 of max|logit| of the CPU's
+    plain versions on the card's weights."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.models import llama as tllama
+
+    cfg = B.GEOMETRIES["tiny"]
+    trees, rngs = {}, {}
+    for dev in ("cpu", "cuda"):
+        rngs[dev] = np.random.default_rng(0)
+        trees[dev] = B.synth_llama_params(cfg, DataType.Q5_K, rngs[dev], quant_mode="gq",
+                                          device=dev, pack=pack)
+    assert rngs["cpu"].integers(0, 2**31) == rngs["cuda"].integers(0, 2**31)
+    cpu, card = trees["cpu"], trees["cuda"]
+    assert torch.equal(card["tok_embeddings"].cpu(), cpu["tok_embeddings"])
+    for name in ("wqkv", "wo", "w13", "w2"):
+        a, b = card["layers"][name]["w"], cpu["layers"][name]["w"]
+        assert a.packing == b.packing == ("p5" if pack else "none")
+        assert {k: (v.shape, v.dtype) for k, v in a.tensors().items()} == {
+            k: (v.shape, v.dtype) for k, v in b.tensors().items()}
+        assert torch.equal(a.d.cpu(), b.d) and torch.equal(a.dmin.cpu(), b.dmin)
+    plain = _tree_to(card, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.n_vocab, (1, 17)))
+    out = {}
+    before = (tgq.gq_decode.launches + sum(tgq.gq_decode.packed_launches.values()),
+              tgq.gq_prefill.launches + sum(tgq.gq_prefill.packed_launches.values()),
+              tfd.flash_decode_attention.launches)
+    for dev, params in (("cpu", plain), ("cuda", card)):
+        cache = tllama.init_cache(cfg, 1, torch.bfloat16, dev)
+        t = toks.to(dev)
+        pre = tllama.forward(params, cache, tllama.embed_tokens(params, t[:, :16]), 0, cfg)
+        step = tllama.forward(params, cache, tllama.embed_tokens(params, t[:, 16:]), 16, cfg)
+        out[dev] = (pre.cpu(), step.cpu())
+    after = (tgq.gq_decode.launches + sum(tgq.gq_decode.packed_launches.values()),
+             tgq.gq_prefill.launches + sum(tgq.gq_prefill.packed_launches.values()),
+             tfd.flash_decode_attention.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max()

@@ -289,8 +289,9 @@ def test_train_draft_tool_on_cpu(gq_files, tmp_path):
     """``python -m minigpt4_tpu_torch.tools.train_draft --llm-file ...
     --device cpu`` distills a head for a few steps and saves it tagged with
     its teacher; the port's engine loads it as --draft-head and its greedy
-    speculative ids equal plain greedy's.  Without --llm-file the tool exits
-    non-zero, naming the benchmark's item."""
+    speculative ids equal plain greedy's.  Without --llm-file the tool
+    distills against the benchmark's synthetic teacher at ``--model tiny``
+    and tags the artifact with ``benchmark.synth_teacher_tag``."""
     from minigpt4_tpu_torch.engine import MiniGPT4Engine, SamplingParams
     from minigpt4_tpu_torch.train import draft as tdraft
 
@@ -321,6 +322,13 @@ def test_train_draft_tool_on_cpu(gq_files, tmp_path):
     finally:
         eng.close()
 
-    proc = subprocess.run(cmd[:3] + ["--device", "cpu"], capture_output=True, text=True,
-                          timeout=120, cwd=ROOT)
-    assert proc.returncode != 0 and "item 6" in proc.stderr
+    from minigpt4_tpu_torch import benchmark as B
+
+    synth = tmp_path / "synth.npz"
+    proc = subprocess.run(cmd[:3] + ["--model", "tiny", "--steps", "3", "--teacher-batches", "1",
+                                     "--device", "cpu", "--out", str(synth)],
+                          capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[draft-train] EVAL on REALISTIC_TEXT" in proc.stdout
+    tag = B.synth_teacher_tag("gq", B.bench_pack_policy(B.GEOMETRIES["tiny"]))
+    assert tdraft.artifact_teacher_mode(synth) == tag and tag.startswith("gq@2e-05")
