@@ -5,12 +5,14 @@ parked sessions and the radix prefix cache), its quantized-container / repacked-
 path, its w8a8 path over an e4m3 cache, its tensor-parallel path (two ranks
 on one card), its dequant-matmul probes, its clients (context shift,
 chat checkpoints, the C ABI library under examples/main.c and ctypes), the
-kernel gate and the benchmark's synthetic 13B teacher with its distilled
-draft head on an NVIDIA GPU.
+kernel gate, the benchmark's synthetic 13B teacher with its distilled
+draft head, and the benchmark's timing half with the kernel floors on an
+NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (--only-serving, --only-clients, --only-speculative, --only-train, --only-tp,
---only-synthetic, --only-kernels SECTIONS: one phase alone, no result line)
+--only-synthetic, --only-bench, --only-kernels SECTIONS: one phase alone,
+no result line)
 
 Phases (any failure exits nonzero before the last line):
   1. device  - needs torch.cuda; prints the card's name and power limit,
@@ -372,9 +374,33 @@ Phases (any failure exits nonzero before the last line):
                c. tools/train_draft.run on that teacher (40 steps, 4 teacher
                batches of 8 x 128; path "synthetic 13B distill"): target ms,
                distill s, EVAL tokens per pass at k = 8, the artifact tagged
-               synth_teacher_tag's way.  `python3 chip_smoke.py
-               --only-synthetic` runs phases 1-2 and 11 and prints no
-               result line.
+               synth_teacher_tag's way and written to benchmark.
+               DRAFT_ARTIFACT, where phase 12 reads it.  `python3
+               chip_smoke.py --only-synthetic` runs phases 1-2 and 11 and
+               prints no result line.
+  12. bench  - (after phase 10) minigpt4_tpu_torch.benchmark in this
+               process: a. chip_state_probe (GB/s of chained bf16 matvecs,
+               each chain one captured graph; above 105 % of 3.35 TB/s
+               fails); b. bench_decode("13B", Q5_K, 64, 64,
+               quant_mode="gq", sections="single") at full width and
+               depth, bench.py's headline arm: the core block and the
+               n-gram, sampled, drafter and distilled-head riders (the head
+               of phase 11); c. bench_decode over the serving riders
+               (batched, batched speculation, paged, paged speculation)
+               with quant_mode="w8a8", an e4m3 cache and 8 lanes at 13B
+               width cut to 8 layers (GEOMETRIES["13B_L8"], registered
+               here); d. bench_encode(5120); e. kernel_gate.run_floors
+               ("check") against minigpt4_tpu_torch/kernel_floors.json,
+               outside the counts.  The counts are set to 0 before b and
+               read after d (path "bench").  Each result is one "[bench
+               ...]" JSON line.  Fails on a section error, a skipped
+               section, a rate that is not finite and positive, a floor
+               under its margin, a kernel of b or c never launched, and
+               b's decode_tok_s below 0.7 x the packed 13B gq chat's
+               captured tok/s of phase 4.  `python3 chip_smoke.py
+               --only-bench` runs phases 1-2 and 12 (without the chat
+               comparison; the draft-head rider then reports its artifact
+               absent) and prints no result line.
 Captured CUDA graphs (engine/graphs.py): every engine's own steps and the
 paged group replay graphs, so the launch counts of every path above are
 counted through replays (ops/counters.py).  The 13B Q5_K_M chat, its
@@ -4849,7 +4875,7 @@ def synthetic_models(card: str) -> dict:
                              f"({distinct} distinct targets, finite {stream_finite})")
 
     args = train_draft.parse_args(SYNTH_DISTILL + [
-        "--model", "13B", "--device", DEVICE, "--out", str(ROOT / "build" / "draft_synth_13b.npz")])
+        "--model", "13B", "--device", DEVICE, "--out", str(B.DRAFT_ARTIFACT)])
     reset_launch_counts()
     res = train_draft.run(params, cfg, B.word_tokenize, args, tag)
     distill_counts = launch_counts()
@@ -4876,6 +4902,127 @@ def synthetic_phase(card: str) -> dict:
     out = {"gate": kernel_gate(card), **synthetic_models(card)}
     log(f"[synthetic] phase took {time.perf_counter() - t0:.1f} s  [{card}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the benchmark's timing half and the kernel floors
+# ---------------------------------------------------------------------------
+
+BENCH_LABEL = "bench"
+BENCH_SERVING = "13B_L8"  # the serving riders: Vicuna-13B width, depth cut to 8
+BENCH_N = 64  # decode steps and prefill rows, bench.py's headline arm
+# the headline decode must reach this share of the captured 13B gq chat's
+# tok/s of phase 4 (below it the benchmark would be timing an eager path:
+# 26.98 eager against 76.00 captured, PERF.md section 5)
+BENCH_CHAT_SHARE = 0.7
+BENCH_SERVING_KERNELS = ("i8_decode", "i8_prefill", "flash_decode", "paged_flash_decode")
+
+
+def _bench_rates(res: dict) -> dict:
+    return {k: v for k, v in res.items()
+            if ("tok_s" in k or k.endswith(("_ms", "imgs_s", "gb_s"))) and not isinstance(v, str)}
+
+
+def bench_problems(name: str, res: dict) -> list[str]:
+    """What fails a benchmark result: a section's error, a section skipped
+    (no deadline is set here), a rate that is not finite and positive."""
+    out = [f"{name}: {k} = {res[k]}" for k in res if k.endswith("_error")]
+    if res.get("skipped_sections"):
+        out.append(f"{name}: sections skipped with no deadline: {res['skipped_sections']}")
+    out += [f"{name}: {k} = {v}" for k, v in _bench_rates(res).items()
+            if not (math.isfinite(v) and v > 0)]
+    return out
+
+
+def bench_phase(card: str, chat_tok_s: float | None = None) -> dict:
+    """Phase 12, in this process: (a) benchmark.chip_state_probe; (b)
+    bench_decode("13B", Q5_K, 64, 64, quant_mode="gq", sections="single") at
+    full width and depth (its draft_head rider reads the head phase 11
+    distilled into benchmark.DRAFT_ARTIFACT); (c) bench_decode over the
+    serving riders at 13B width and 8 layers (GEOMETRIES["13B_L8"],
+    registered here) with quant_mode="w8a8", an e4m3 cache and 8 lanes; (d)
+    bench_encode(5120); (e) kernel_gate.run_floors("check") against the
+    committed minigpt4_tpu_torch/kernel_floors.json, outside the counts.
+    The counts are set to 0 before (b) and read after (d): path "bench".
+    Each result is one "[bench ...]" JSON line.  Fails on a section error,
+    a skipped section, a rate not finite and positive, a probe reading
+    above PROBE_MAX_SHARE x 3.35 TB/s (chip_state_probe raises), a floor
+    under its margin, a kernel of
+    (b) or (c) never launched, a missing draft_head rider where the
+    artifact exists, and a headline decode_tok_s below BENCH_CHAT_SHARE x
+    ``chat_tok_s`` (the captured 13B gq chat of phase 4; not checked with
+    --only-bench, which has no phase 4)."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch import kernel_gate as kg
+    from minigpt4_tpu_torch.formats import DataType
+
+    t_phase = time.perf_counter()
+    B.GEOMETRIES[BENCH_SERVING] = dataclasses.replace(B.GEOMETRIES["13B"], n_layer=8)
+    res: dict = {}
+    t0 = time.perf_counter()
+    gbs = B.chip_state_probe()
+    res["chip_state"] = {"chip_state_gb_s": gbs, "s": time.perf_counter() - t0, "device": card}
+    artifact = B.DRAFT_ARTIFACT.exists()
+    pack = B.bench_pack_policy(B.GEOMETRIES["13B"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res["13B gq single"] = B.bench_decode("13B", DataType.Q5_K, BENCH_N, BENCH_N,
+                                          quant_mode="gq", sections="single")
+    res["13B gq single"]["s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["13B L8 w8a8 serving"] = B.bench_decode(
+        BENCH_SERVING, DataType.Q5_K, BENCH_N, BENCH_N, cache_dtype=torch.float8_e4m3fn,
+        quant_mode="w8a8", batch=8, sections="serving")
+    res["13B L8 w8a8 serving"]["s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["encode"] = B.bench_encode(5120)
+    res["encode"]["s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    floors: list = []
+    t0 = time.perf_counter()
+    floors_ok = uncounted(lambda: kg.run_floors("check", report=floors))
+    res["floors"] = {"ok": floors_ok, "s": time.perf_counter() - t0, "device": card,
+                     "shapes": floors}
+    for name, r in res.items():
+        log(f"[bench {name}] {json.dumps(r)}")
+
+    problems = [p for name, r in res.items() if name not in ("floors", "chip_state")
+                for p in bench_problems(name, r)]
+    if not (math.isfinite(gbs) and gbs > 0):  # (above the card's rate it raised)
+        problems.append(f"chip_state_probe {gbs} GB/s")
+    recorded = (json.loads(kg.FLOORS_PATH.read_text()).get("ratios", {})
+                if kg.FLOORS_PATH.exists() else {})
+    if not floors_ok or set(recorded) != set(kg.FLOOR_SHAPES):
+        problems.append(f"kernel floors: ok {floors_ok}, recorded {sorted(recorded)}")
+    single = res["13B gq single"]
+    if artifact and "draft_head_pass_ms" not in single:
+        problems.append(f"13B gq single: no draft_head rider although {B.DRAFT_ARTIFACT} exists")
+    if not artifact:
+        log(f"[bench] the draft-head artifact is absent ({B.DRAFT_ARTIFACT.relative_to(ROOT)}): "
+            f"no draft_head_* metrics, as the JAX package reports it  [{card}]")
+    if chat_tok_s is not None and single["decode_tok_s"] < BENCH_CHAT_SHARE * chat_tok_s:
+        problems.append(f"13B gq single: decode_tok_s {single['decode_tok_s']:.2f} below "
+                        f"{BENCH_CHAT_SHARE} x the captured chat's {chat_tok_s:.2f}")
+    want = (("gq_decode[p5]", "gq_prefill[p5]") if pack else ("gq_decode", "gq_prefill")
+            ) + BENCH_SERVING_KERNELS
+    missing = [k for k in want if counts[k] <= 0]
+    if missing:
+        problems.append(f"kernels never launched in the benchmark: {missing}")
+    chat = "not run (--only-bench)" if chat_tok_s is None else f"{chat_tok_s:.2f}"
+    log(f"[bench] 13B gq decode {single['decode_tok_s']:.2f} tok/s (the captured chat's "
+        f"{chat}), chip state {gbs:.1f} GB/s, floors {[round(f['ratio'], 3) for f in floors]}; "
+        f"launches {({k: v for k, v in counts.items() if v})}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    if problems:
+        raise AssertionError("benchmark: " + "; ".join(problems))
+    return {"counts": counts, "results": res}
 
 
 def main() -> int:
@@ -4935,6 +5082,11 @@ def main() -> int:
         phase("synthetic models")
         synthetic_phase(card)
         phase("end (--only-synthetic)")
+        return 0
+    if "--only-bench" in sys.argv:  # a quick look at phase 12 alone: no result line
+        phase("bench")
+        bench_phase(card)
+        phase("end (--only-bench)")
         return 0
     if "--only-tp" in sys.argv:  # a quick look at the tp phase alone: no result line
         phase("tp")
@@ -5052,6 +5204,11 @@ def main() -> int:
     clients = clients_phase(card)
     paths["13B L8 clients: shift + restore"] = {"counts": clients["counts"]}
     paths["13B L8 C ABI chat (ctypes)"] = {"counts": clients["capi"]["counts"]}
+    phase("bench")
+    # the packed gq chat's captured 16-token chunks (graph_ab), the engine's
+    # counterpart of the benchmark's headline arm
+    paths[BENCH_LABEL] = bench_phase(
+        card, paths["13B Q5_K_M gq packed"]["graphs"]["captured"]["tok_s"])
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[end] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "

@@ -164,10 +164,12 @@ class StepGraphs(GraphCache):
     dense cache, or a session pool's page pools.  ``params`` / ``cfg`` are
     the decoder's; ``cache`` is ``{"k", "v"}`` as :func:`llama.forward`
     takes it.  With a tensor-parallel group ``tp`` the steps run on the
-    rank's shards, eagerly (gloo's all-reduces cannot be captured)."""
+    rank's shards, eagerly (gloo's all-reduces cannot be captured);
+    ``eager`` runs them eagerly too (the benchmark's steps on the CPU)."""
 
-    def __init__(self, params: dict, cfg, cache: dict, device, pool, tp=None):
-        super().__init__(device, pool, eager=tp is not None)
+    def __init__(self, params: dict, cfg, cache: dict, device, pool, tp=None,
+                 eager: bool = False):
+        super().__init__(device, pool, eager=eager or tp is not None)
         self.params, self.cfg, self.cache, self.tp = params, cfg, cache, tp
 
     def decode_chunk(self, logits: torch.Tensor, pos0, n: int, generators: list,

@@ -26,25 +26,38 @@ the K shards of tensor parallelism (13B w2 and wo at tp = 2 and 4, cut by
 ``repack.k_slice``): the sum of the shard outputs against the whole
 weight's reference.  gq has no tp case: the port refuses a gq decoder
 under tp.  The gate builds nothing with JAX's Mosaic, so JAX's compile-time
-budget (``--compile-budget``) has no counterpart, and the timed ratios
-against recorded floors (``--floors``) belong to the benchmark.
+budget (``--compile-budget``) has no counterpart.
+
+:func:`run_floors` (``--floors check|record``) holds each decode kernel's
+speed to a recorded floor: at four 13B shapes (:data:`FLOOR_SHAPES`) the
+ratio of a dense bf16 ``torch.matmul`` at M = 1 to the kernel
+(``rq_decode`` on the repacked form, ``gq_decode``, ``i8_decode``), both
+timed back to back on one card, must stay at least :data:`FLOOR_MARGIN`
+times the ratio recorded in ``kernel_floors.json`` beside this module.
+The absolute times move with the card's state and power limit; the ratio
+is what a layout or launch regression breaks.  ``record`` writes the file
+with the card's name and power limit.
 
     python -m minigpt4_tpu_torch.kernel_gate            # full sweep
     python -m minigpt4_tpu_torch.kernel_gate --fast     # the worst-K shapes
     python -m minigpt4_tpu_torch.kernel_gate --qtypes q4_k,q5_k --tp
+    python -m minigpt4_tpu_torch.kernel_gate --floors check --floors-only
 
 Without a card the command exits 1: the gate launches kernels, and the
 plain versions a CPU tensor would take are no gate.  Tests reach
-:func:`run_gate` with an injected ``launch`` at small shapes.
+:func:`run_gate` with an injected ``launch`` at small shapes, and
+:func:`run_floors` with an injected ``perf_pair``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -55,6 +68,7 @@ from .ops import group_i8 as gq
 from .ops import i8_matmul as i8
 from .ops import pallas_quant_matmul as pqm
 from .ops import repack as rp
+from .tools import _harness
 
 # (N, K) of each weight as the port's loader holds it
 SHAPES_13B = {"wqkv": (15360, 5120), "wo": (5120, 5120), "w13": (27648, 5120),
@@ -297,6 +311,134 @@ def run_tp_gate(device: str = "cuda", *, launch=None, shapes: dict | None = None
     return ok
 
 
+FLOORS_PATH = Path(__file__).resolve().parent / "kernel_floors.json"
+FLOOR_SHAPES = {  # name: (kernel arm, K, N), decode at M = 1
+    "q5k_w2": ("q5k", 13824, 5120),
+    "gq_w2": ("gq", 13824, 5120),
+    "i8_w2": ("i8", 13824, 5120),
+    "gq_wo": ("gq", 5120, 5120),
+}
+FLOOR_MARGIN = 0.70  # run-to-run noise allowance of the ratio
+
+
+def _clone(w):
+    """A copy of the weight dataclass ``w`` with every tensor cloned."""
+    return dataclasses.replace(w, **{f.name: getattr(w, f.name).clone()
+                                     for f in dataclasses.fields(w)
+                                     if isinstance(getattr(w, f.name), torch.Tensor)})
+
+
+def _weight_bytes(w) -> int:
+    return _harness.nbytes(*(getattr(w, f.name) for f in dataclasses.fields(w)
+                             if isinstance(getattr(w, f.name), torch.Tensor)))
+
+
+def _chain_ms(fn, args: list) -> float:
+    """Device ms per call of ``fn(*args[i])``: one CUDA graph of
+    ``_harness.LAUNCHES`` calls rotating through ``args`` (copies of the
+    weight whose rotation spans twice the 50 MB L2, so every call reads its
+    weight from device memory, as a decode step does), replayed between
+    CUDA events (``_harness.time_ms``)."""
+    return _harness.time_ms(fn, lambda i: args[i], len(args))
+
+
+def _perf_pair(kind: str, k: int, n: int, device: str = "cuda") -> tuple[float, float]:
+    """(kernel ms, dense ms) of one M = 1 decode shape [N, K] on the card,
+    timed in turns kernel, dense, kernel, dense (the smaller of each pair):
+    ``q5k`` ``rq_decode`` on random repacked q5_k planes, ``gq``
+    ``gq_decode`` on the q5_k group-quant form (i8 codes) of random ggml
+    bytes, ``i8`` ``i8_decode`` on random codes in [-127, 126] with scales
+    2e-4, each from an f32 x; the dense arm ``torch.matmul`` of the bf16 x
+    and a bf16 [K, N] weight."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, k), generator=gen, device=dev)
+    if kind == "q5k":
+        w, kfn = random_packed(rng, (n, k), DataType.Q5_K, "repack", dev), pqm.rq_decode
+    elif kind == "gq":
+        raw = random_bytes(rng, (n, k), DataType.Q5_K).reshape(-1)
+        w, kfn = gq.from_ggml(raw, (n, k), DataType.Q5_K, dev), gq.gq_decode
+    elif kind == "i8":
+        codes = torch.randint(-127, 127, (n, k), dtype=torch.int8, generator=gen, device=dev)
+        w = i8.I8SBQuant(codes, torch.full((n, k // i8.SB), 2e-4, device=dev), k)
+        kfn = i8.i8_decode
+    else:
+        raise ValueError(kind)
+    dense = (torch.randn((k, n), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    ws = [w] + [_clone(w) for _ in range(_harness.copies_for(_weight_bytes(w)) - 1)]
+    ds = [dense] + [dense.clone() for _ in range(_harness.copies_for(_harness.nbytes(dense)) - 1)]
+    k_args = [(x, wi) for wi in ws]
+    d_args = [(x.to(torch.bfloat16), di) for di in ds]
+    kms = dms = float("inf")
+    for _ in range(2):
+        kms = min(kms, _chain_ms(kfn, k_args))
+        dms = min(dms, _chain_ms(torch.matmul, d_args))
+    return kms, dms
+
+
+def run_floors(mode: str = "check", verbose: bool = True, device: str = "cuda", *,
+               perf_pair=None, path: str | Path | None = None, report: list | None = None,
+               out=sys.stderr) -> bool:
+    """Each decode kernel against a dense bf16 matvec of its shape, timed
+    back to back (:func:`_perf_pair`): the ratio dense ms / kernel ms (> 1:
+    the kernel beats dense, reading fewer bytes) must stay at least
+    FLOOR_MARGIN x the ratio recorded in ``path`` (default
+    :data:`FLOORS_PATH`); a shape with no recorded ratio passes.
+    ``mode="record"`` writes the measured ratios, their times and the card
+    to ``path`` instead (commit it deliberately).  One line per shape goes
+    to ``out`` (FAIL lines always, the others when ``verbose``) and, with
+    ``report``, one dict per shape into it.  Returns False if any shape
+    failed or fell under its floor.  Without a card it raises: the floors
+    time kernels, and a CPU run would pass silently.  Tests inject
+    ``perf_pair(kind, k, n) -> (kernel_ms, dense_ms)``."""
+    dev = torch.device(device)
+    if perf_pair is None:
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            raise RuntimeError("run_floors times the port's kernels on an NVIDIA GPU; there is "
+                               "no card here (or the device is not cuda)")
+
+        def perf_pair(kind, k, n):
+            return _perf_pair(kind, k, n, device)
+    path = Path(path or FLOORS_PATH)
+    recorded = json.loads(path.read_text()).get("ratios", {}) if path.exists() else {}
+    ratios, times = {}, {}
+    ok = True
+    for name, (kind, k, n) in FLOOR_SHAPES.items():
+        try:
+            kms, dms = perf_pair(kind, k, n)
+        except Exception as e:  # a failed launch fails its shape, named
+            ok = False
+            _emit(out, f"[kernel-floors] FAIL {name}: {type(e).__name__}: {e}")
+            continue
+        ratio = dms / kms
+        ratios[name] = round(ratio, 3)
+        times[name] = {"kernel_ms": round(kms, 5), "dense_ms": round(dms, 5)}
+        floor = recorded.get(name)
+        good = mode != "check" or floor is None or ratio >= floor * FLOOR_MARGIN
+        ok = ok and good
+        if report is not None:
+            report.append({"name": name, "kernel_ms": kms, "dense_ms": dms, "ratio": ratio,
+                           "recorded": floor, "ok": good})
+        base = f"recorded {floor:.3f}" if floor is not None else "no baseline"
+        line = (f"{name}: ratio {ratio:.3f} ({base}, floor {FLOOR_MARGIN} x) kernel "
+                f"{kms:.4f} ms dense {dms:.4f} ms")
+        if not good:
+            _emit(out, f"[kernel-floors] FAIL {line}")
+        elif verbose:
+            _emit(out, f"[kernel-floors] {line}")
+    if mode == "record" and ratios:
+        path.write_text(json.dumps(
+            {"margin": FLOOR_MARGIN, "ratios": ratios, "ms": times,
+             "card": _harness.card(dev),
+             "note": "dense_ms / kernel_ms at M = 1, timed back to back on the card named in "
+                     "card (name, power limit); re-record deliberately with "
+                     "python -m minigpt4_tpu_torch.kernel_gate --floors record --floors-only"},
+            indent=1) + "\n")
+        _emit(out, f"[kernel-floors] recorded -> {path}")
+    return ok
+
+
 def summary(report: list) -> dict:
     """Per entry: {"cases": n, "failed": f, "max_rel_err": e}."""
     out: dict = {}
@@ -316,6 +458,11 @@ def main(argv=None) -> int:
                     help="comma list (e.g. q4_k,q5_k) to split a long sweep; drops the i8 cases")
     ap.add_argument("--tp", action="store_true",
                     help="also the K shards of 13B w2 and wo at tp = 2 and 4")
+    ap.add_argument("--floors", choices=["check", "record"], default=None,
+                    help="also the decode kernels' speed floors against kernel_floors.json "
+                    "(record: measure and write them)")
+    ap.add_argument("--floors-only", action="store_true",
+                    help="skip the sweep (floors / tp only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_gate: no CUDA card (torch.cuda.is_available() is false); the gate "
@@ -329,14 +476,22 @@ def main(argv=None) -> int:
     _build.load()
     t0 = time.perf_counter()
     report: list = []
-    ok = run_gate(fast=args.fast, qtypes=qtypes, report=report)
+    ok = True
+    if not args.floors_only:
+        ok = run_gate(fast=args.fast, qtypes=qtypes, report=report)
     if args.tp:
         ok = run_tp_gate(report=report) and ok
     for entry, s in sorted(summary(report).items()):
         print(f"[kernel-gate] {entry}: {s['cases']} cases, {s['failed']} failed, "
               f"max rel err {s['max_rel_err']:.3e}")
-    print(f"[kernel-gate] {len(report)} cases, {sum(not r['ok'] for r in report)} failed, "
-          f"{time.perf_counter() - t0:.1f} s  [{torch.cuda.get_device_name(0)}]")
+    if report:
+        print(f"[kernel-gate] {len(report)} cases, {sum(not r['ok'] for r in report)} failed, "
+              f"{time.perf_counter() - t0:.1f} s  [{torch.cuda.get_device_name(0)}]")
+    if args.floors:
+        floors: list = []
+        ok = run_floors(args.floors, report=floors) and ok
+        print(f"[kernel-floors] {args.floors}: {sum(not r['ok'] for r in floors)} of "
+              f"{len(floors)} shapes under their floors  [{_harness.card(torch.device('cuda'))}]")
     return 0 if ok else 1
 
 

@@ -2206,3 +2206,36 @@ def test_synthetic_gq_teacher_on_card(cuda_device, pack):
     for got, want in zip(out["cuda"], out["cpu"]):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_bench_decode_on_card_has_the_cpu_keys(cuda_device, monkeypatch):
+    """benchmark.bench_decode, every section, at the JAX test's smoke
+    geometry on the card (its steps replayed as CUDA graphs where the engine
+    captures them): the keys of the same run on the CPU, no section error,
+    every rate finite and positive, and the card named."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.models.llama import LlamaConfig
+
+    monkeypatch.setitem(B.GEOMETRIES, "emit_smoke", LlamaConfig(
+        n_vocab=512, n_embd=256, n_head=4, n_layer=2, n_rot=64, n_ff=512, n_ctx=128))
+    run = dict(n_decode=8, prefill_len=8, dtype=torch.float32, cache_dtype=torch.float32,
+               batch=2)
+    cpu = B.bench_decode("emit_smoke", DataType.Q5_K, device="cpu", **run)
+    card = B.bench_decode("emit_smoke", DataType.Q5_K, device="cuda", **run)
+    assert set(card) == set(cpu)
+    assert not [k for k in card if k.endswith("_error")]
+    assert card["device"] != "cpu"
+    rates = {k: v for k, v in card.items() if "tok_s" in k or k.endswith("_ms")}
+    assert rates and all(np.isfinite(v) and v > 0 for v in rates.values())
+
+
+def test_kernel_floors_hold_on_card(cuda_device):
+    """kernel_gate.run_floors("check") against the committed
+    kernel_floors.json: every decode kernel within FLOOR_MARGIN of its
+    recorded ratio to a dense bf16 matvec."""
+    from minigpt4_tpu_torch import kernel_gate as kg
+
+    report = []
+    assert kg.FLOORS_PATH.exists()
+    assert kg.run_floors("check", report=report, out=None), report
+    assert [r["name"] for r in report] == list(kg.FLOOR_SHAPES)
