@@ -274,7 +274,16 @@ Phases (any failure exits nonzero before the last line):
                to build/probes/<tool>.jsonl, the phase's seconds and each
                kernel's representative case to the log.  The launch counts are
                set to 0 before and read after (the "probes" path); the phase
-               frees its tensors before the tp phase.
+               frees its tensors before the tp phase.  The dequantize-matvec
+               (csrc/probe_qmm.cuh: a persistent grid over a cp.async ring,
+               f32 FMAs at M = 1, bf16 mma.sync with x in three exact parts at
+               M = 2..8) and the op chains (csrc/probe_ops.cu: a persistent
+               grid streaming with no row arithmetic, the out block a stage of
+               its own) are redesigned for the H100 (their kernels-line
+               entries say "state": "redesigned"); before phase 3 their SASS
+               is held per template instance (PROBE_SASS): every M = 2..8
+               dequantize-matvec instance (qmm_tc_kernel) must hold HMMA, and
+               no instance of either kernel may touch local memory.
   9. tp      - (runs right after phase 3', while this process holds little
                device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width, cut
                to 8 layers, every projection q5_k, quant_mode="repack", behind the
@@ -632,6 +641,42 @@ def check_decode_sass(card: str) -> dict:
         if no_i2f and i2f:
             raise AssertionError(f"{kernel}: int-to-float converts in its SASS ({i2f})")
         out[kernel] = ops
+    return out
+
+
+# the probe kernels redesigned for the H100 (csrc/probe_qmm.cuh,
+# csrc/probe_ops.cu), held per template instance: kernel -> (needs HMMA, no
+# local memory).  The dequantize-matvec's M = 2..8 instances run on the
+# tensor cores (mma.sync bf16), its M = 1 instances and the op chains on
+# the f32 and integer units; none keeps anything in local memory.
+PROBE_SASS = {"qmm_tc_kernel": (True, True), "qmm_fma_kernel": (False, True),
+              "op_chain_kernel": (False, True)}
+
+
+def check_probe_sass(card: str) -> dict:
+    """Every instance of each kernel of PROBE_SASS held to its row there;
+    returns the opcodes summed over each kernel's instances."""
+    from minigpt4_tpu_torch.tools import _harness
+
+    out = {}
+    for kernel, (need_hmma, no_local) in PROBE_SASS.items():
+        funcs = _harness.sass_functions(kernel)
+        if not funcs:
+            raise AssertionError(f"{kernel}: no instance in the library's SASS")
+        total: dict = {}
+        for name, ops in funcs.items():
+            hmma = sum(v for k, v in ops.items() if k.startswith("HMMA"))
+            local = {k: v for k, v in ops.items() if k.startswith(("LDL", "STL"))}
+            if need_hmma and not hmma:
+                raise AssertionError(f"{kernel}: no HMMA in the SASS of {name}")
+            if no_local and local:
+                raise AssertionError(f"{kernel}: local-memory accesses {local} in {name}")
+            for k, v in ops.items():
+                total[k] = total.get(k, 0) + v
+        hmma = {k: v for k, v in total.items() if k.startswith("HMMA")}
+        log(f"[sass] {kernel}: {len(funcs)} instances, tensor-core MMAs {hmma}, no local "
+            f"memory in any; opcodes {json.dumps(dict(sorted(total.items())))}  [{card}]")
+        out[kernel] = total
     return out
 
 
@@ -1023,8 +1068,8 @@ def rq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
     """rq_decode at the 13B decode shapes, M = 1 and 8: q5_k at the five of
     DECODE_13B, q6_k at those of Q6K_13B; against the plain version and
     device-only beside the bound (check_rq), and beside the same-run time of
-    the q5 magic dequantize-matvec probe (qmm_r3's q5u8or: 16-byte loads at M
-    = 1, 4-byte at M = 8, the probe tools' fastest widths there) at the same shape."""
+    the q5 magic dequantize-matvec probe (qmm_r3's q5u8or, 16-byte copies, the
+    probe tools' fastest width at M = 1 and 8) at the same shape."""
     import dataclasses
 
     from minigpt4_tpu_torch.formats import DataType
@@ -1044,11 +1089,10 @@ def rq_decode_13b_cases(results: dict, card: str, gen: torch.Generator) -> None:
         for row in results["rq_decode"][-2:]:
             m = int(row["shape"].rsplit("M=", 1)[1])
             x = torch.randn(m, k, generator=gen, device=DEVICE)
-            width = 16 if m == 1 else 4
             probe_row(row, f"rq_decode {dtype.name.lower()} 13B {name} {n}x{k} M={m}",
-                      lambda xx, ww: probes.dequant_matvec(xx, ww, "magic", width),
+                      lambda xx, ww: probes.dequant_matvec(xx, ww, "magic", 16),
                       lambda i: (x, copies[i % len(copies)]), len(copies),
-                      f"the q5 magic probe ({width}-byte loads)", card)
+                      "the q5 magic probe (16-byte copies)", card)
         del pw, copies
         torch.cuda.empty_cache()
 
@@ -3960,7 +4004,7 @@ PROBE_RUNS = (("qmm_group_i8", _M + ["--only", "gi8,gq"]),
 PROBE_KERNELS = {
     "probe_group_i8": ("minigpt4_tpu_torch/csrc/probe_group_i8.cu", "tools/qmm_group_i8.py:115",
                        ["tools/qmm_group_i8.py:115"], ("qmm_group_i8", "w13 gi8", 8)),
-    "dequant_matvec": ("minigpt4_tpu_torch/csrc/probe_qmm.cu", "tools/qmm_variants.py:48",
+    "dequant_matvec": ("minigpt4_tpu_torch/csrc/probe_qmm.cuh", "tools/qmm_variants.py:48",
                        ["tools/qmm_variants.py:48", "tools/qmm_v3.py:93", "tools/qmm_v3.py:270",
                         "tools/qmm_v3.py:416", "tools/qmm_r3.py:89",
                         "tools/unpack_variants.py:82"], ("qmm_variants", "dense w16", 1)),
@@ -3971,6 +4015,10 @@ PROBE_KERNELS = {
                  ["tools/probe_i8ops.py:50", "tools/qmm_v3.py:416 (opsi8, opsi32)"],
                  ("probe_i8ops", "i8aa reps=8", 0)),
 }
+# the kernels line's "state" of each probe kernel: a direct counterpart of
+# the TPU probe, or redesigned for the H100 (PROBE_SASS checks those)
+PROBE_STATE = {"probe_group_i8": "ported", "dequant_matvec": "redesigned", "int_dot": "ported",
+               "op_chain": "redesigned"}
 
 
 def probes_phase(card: str) -> dict:
@@ -4018,6 +4066,7 @@ def probe_kernel_entries(paths: dict, probe: dict) -> list:
         row = next(r for r in rows if r["tool"] == tool and r["case"] == case and r["m"] == m)
         entries.append({
             "name": kern, "route": "cuda", "source": src, "replaces": replaces,
+            "state": PROBE_STATE[kern],
             "replaces_all": every, "launches": paths["probes"]["counts"][kern],
             "launches_by_path": {label: p["counts"].get(kern, 0) for label, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows if r.get("max_abs_err") is not None),
@@ -5057,6 +5106,7 @@ def main() -> int:
 
     sass = check_wgmma_sass(card)
     sass.update(check_decode_sass(card))
+    sass.update(check_probe_sass(card))
     if "--only-clients" in sys.argv:  # a quick look at phase 10 alone: no result line
         phase("clients")
         clients_phase(card)

@@ -12,19 +12,23 @@ micro-benchmarks that drive them are :mod:`minigpt4_tpu_torch.tools`.
   :func:`qmatmul_group_i8` splits x and forms the group sums ``sgt`` first,
   with the functions of the production decode kernels
   (``group_i8.split_activations``, ``group_i8.group_sums``).
-* :func:`dequant_matvec` (``csrc/probe_qmm.cu``, ``probe_qmm_km.cu``; the
-  unpack-chain probes ``qmm_variants``, ``qmm_v3``, ``qmm_r3``,
-  ``unpack_variants``): ``y = x @ (value(code) * s[n, k / 32]).T`` for
-  M <= 8, over a :class:`ProbeWeight` in one of the ``STORAGES`` and
-  ``LAYOUTS``, unpacked by one of the ``STRATEGIES`` with loads of one of
-  the ``WIDTHS`` (bytes per lane).
+* :func:`dequant_matvec` (``csrc/probe_qmm.cuh``, ``probe_qmm.cu``,
+  ``probe_qmm_km.cu``; the unpack-chain probes ``qmm_variants``,
+  ``qmm_v3``, ``qmm_r3``, ``unpack_variants``): ``y = x @ (value(code) *
+  s[n, k / 32]).T`` for M <= 8, over a :class:`ProbeWeight` in one of the
+  ``STORAGES`` and ``LAYOUTS``, unpacked by one of the ``STRATEGIES`` with
+  copies of one of the ``WIDTHS`` (bytes per lane); f32 FMAs at M = 1,
+  bf16 tensor cores with x in the three exact parts of
+  :func:`split_bf16x3` at M = 2..8.  :func:`matvec_plan` is the launch's
+  partition of the output and of K.
 * :func:`int_dot` (``csrc/probe_int.cu``, ``tools/probe_int4.py``):
   i8 x i8 -> i32, s4 x s4 -> i32 (``mma.sync`` m16n8k64 .s4), and s4 codes
   x i8 activations with per-256 f32 scales.
 * :func:`op_chain` (``csrc/probe_ops.cu``, ``tools/probe_i8ops.py`` and
   ``qmm_v3``'s op-packing probes): REPS elementwise ops per element of an
   ``[N, K]`` tensor; returns the probe's ``[8, 128 N / 256]`` block and a
-  checksum per 256-row tile of every result.
+  checksum per 256-row tile of every result.  :func:`op_chain_plan` is the
+  launch's split of the tensor over the grid.
 
 Int4 codes are stored two per byte along K, code 2j in the low nibble of
 byte j (the port's K-order, ``ops/repack.py``); signed ones as two's
@@ -306,6 +310,79 @@ def dequant_matvec_ref(x: torch.Tensor, w: ProbeWeight) -> torch.Tensor:
     return x.float() @ v.t()
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 x as three bf16 parts (hi, mid, lo) whose f32 sum is x exactly,
+    the tensor-core path's B operand (``probe_qmm.cuh`` split3): hi =
+    RN(x), mid = RN(x - hi), lo = x - hi - mid (each difference exact in f32,
+    lo at most 8 significant bits)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+# the dequantize-matvec's tiling (probe_qmm.cuh Geo): output rows (nm) or
+# columns (km) per tile, and codes of K per step
+MATVEC_SMS = 132  # the H100 SXM's SMs; the launch asks the device
+MATVEC_WARPS = 16  # warps per block, splitting each step's groups
+
+
+def matvec_geometry(storage: str, layout: str, m: int) -> dict:
+    """The launch's constants for one instance (probe_qmm.cuh ``Geo``):
+    ``tile`` rows per tile, ``chunk`` rows per chunk, ``fields`` and
+    ``step`` codes of each field per step, ``warp_groups`` groups per warp
+    and step, ``tile_sets`` of warps splitting a chunk's tiles, and
+    ``cluster``, the most blocks that split K for the same rows (km)."""
+    code, _ = STORAGES[storage]
+    km, fma = layout == "km", m == 1
+    ks = (256 if code == 2 else 128) if km else 1024 if code == 2 else 512
+    fields = 8 if code >= 3 else 1
+    sets = 4 if km else 1
+    return {"tile": 16 if (not fma or km) else 8, "chunk": 160 if km else 48, "fields": fields,
+            "step": ks // fields, "warp_groups": ks // 32 // (MATVEC_WARPS // sets),
+            "tile_sets": sets, "cluster": 8 if km else 1}
+
+
+def matvec_plan(n: int, k: int, m: int, storage: str, layout: str = "nm",
+                sms: int = MATVEC_SMS) -> list[dict]:
+    """Per block of the persistent grid: its ``rows`` (nm; km: columns, in
+    whole 16-column units, shared by the ``cluster`` blocks that split K),
+    its cluster ``rank`` and its chunks, each ``(rows, steps)`` with
+    ``rows`` the output rows (nm) or columns (km) ``[n0, n1)`` and
+    ``steps`` the field-local ranges ``[i0, i1)`` of K that its steps copy
+    (every field of a high-bit storage walks the same range; field f covers
+    k = f K / 8 + i).  Within a step the warps take the groups ``[w g, (w +
+    1) g)`` of the step's 32-code groups, g = ``warp_groups``.  The kernel's
+    own formulas (probe_qmm.cuh qmm_body; km takes ``sms`` / 8 clusters,
+    where the launch asks the device how many fit at once), for the tests."""
+    geo = matvec_geometry(storage, layout, m)
+    tr, ct = geo["tile"], geo["chunk"] // geo["tile"]
+    nb, step = k // geo["fields"], geo["step"]
+    steps_all = -(-nb // step)
+    if layout == "km":  # clusters on runs of whole 16-column units
+        unit, csize = 16, min(geo["cluster"], steps_all)
+        clusters = min(sms // geo["cluster"], n // 16)
+    else:
+        unit, csize, clusters = 1, 1, min(-(-n // tr), sms)
+    blocks = []
+    for b in range(clusters * csize):
+        cid, rk = divmod(b, csize)
+        b0 = unit * (n // unit * cid // clusters)
+        b1 = unit * (n // unit * (cid + 1) // clusters)
+        sb, se = steps_all * rk // csize, steps_all * (rk + 1) // csize
+        ntb = -(-(b1 - b0) // tr)  # tiles, the last one cut at b1
+        nch = -(-ntb // ct)
+        chunks = []
+        for ci in range(nch):
+            lo, hi = ntb * ci // nch, ntb * (ci + 1) // nch
+            rows = (b0 + lo * tr, min(b0 + hi * tr, b1))
+            chunks.append({"rows": rows, "steps": [(st * step, min((st + 1) * step, nb))
+                                                   for st in range(sb, se)]})
+        blocks.append({"rows": (b0, b1), "rank": rk, "chunks": chunks})
+    return blocks
+
+
 def dequant_matvec(x: torch.Tensor, w: ProbeWeight, strategy: str = "shift",
                    width: int = 16) -> torch.Tensor:
     """x f32 [M <= 8, K] @ W.T -> f32 [M, N] by the unpack ``strategy`` with
@@ -334,8 +411,7 @@ def dequant_matvec(x: torch.Tensor, w: ProbeWeight, strategy: str = "shift",
             raise ValueError(f"{fn_name}: codes, planes and scales must be contiguous and "
                              "16-byte aligned")
     x = _aligned(x)
-    km = w.layout == "km"
-    y = (torch.zeros if km else torch.empty)((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     storage, signed = STORAGES[w.storage]
     _call(fn_name, x.device, x.data_ptr(), w.codes.data_ptr(), _ptr(w.hi), _ptr(w.scales),
           y.data_ptr(), m, n, k, storage, int(signed), STRATEGIES[strategy], width,
@@ -448,9 +524,30 @@ def op_chain_ref(inp: torch.Tensor, op: str, reps: int = 8):
     return out, words.sum(dim=1) & 0xFFFFFFFF
 
 
-def op_chain(inp: torch.Tensor, op: str, reps: int = 8):
+OP_CHUNK = 1024  # 16-byte vectors per chunk of the op-chain kernel: 4 per thread of 256
+
+
+def op_chain_plan(rows: int, cols: int, esize: int, resident: int) -> list[list[tuple]]:
+    """Per block of the grid: the ``(tile, first, end)`` vector ranges it
+    streams, counted from the tile's start (the kernel's split,
+    ``csrc/probe_ops.cu``: chunks of ``OP_CHUNK`` vectors, a whole number
+    per tile, taken interleaved by a grid of at most ``resident`` blocks
+    trimmed so that every block takes the same number of chunks, give or
+    take one)."""
+    cpt = cols * esize // 16 * TILE_ROWS // OP_CHUNK
+    chunks = rows // TILE_ROWS * cpt
+    rounds = -(-chunks // resident)
+    grid = -(-chunks // rounds)
+    return [[(ch // cpt, ch % cpt * OP_CHUNK, (ch % cpt + 1) * OP_CHUNK)
+             for ch in range(b, chunks, grid)] for b in range(grid)]
+
+
+def op_chain(inp: torch.Tensor, op: str, reps: int = 8, widen: bool = True):
     """The :func:`op_chain_ref` function (``csrc/probe_ops.cu``, entry
-    ``mgt_probe_op_chain``); returns (out, cks) as it does."""
+    ``mgt_probe_op_chain``); returns (out, cks) as it does.  ``widen=False``
+    returns the kernel's checksum words as int32 (their bits the u32 sums),
+    without the int64 widening, which costs two small elementwise kernels
+    (the tools time the launch so)."""
     if inp.device.type == "cpu":
         return op_chain_ref(inp, op, reps)
     fn_name = "mgt_probe_op_chain"
@@ -468,7 +565,7 @@ def op_chain(inp: torch.Tensor, op: str, reps: int = 8):
     _call(fn_name, inp.device, inp.data_ptr(), out.data_ptr(), cks.data_ptr(), code, rows, cols,
           reps, c1, c2)
     op_chain.launches += 1
-    return out, cks.to(torch.int64) & 0xFFFFFFFF
+    return (out, cks.to(torch.int64) & 0xFFFFFFFF) if widen else (out, cks)
 
 
 op_chain.launches = 0

@@ -178,20 +178,31 @@ def _sass(lib: str, stamp: float) -> str:
                           check=True).stdout
 
 
-def sass_opcodes(kernel: str) -> dict:
-    """{opcode: count} over the SASS of the built library's functions whose
-    name holds ``kernel`` (``cuobjdump -sass``; needs the CUDA toolkit)."""
+def sass_functions(kernel: str) -> dict:
+    """{function: {opcode: count}} over the SASS of the built library's
+    functions whose (mangled) name holds ``kernel``, one entry per template
+    instance (``cuobjdump -sass``; needs the CUDA toolkit)."""
     from ..ops import _build
 
     lib = _build.build()
     out = _sass(str(lib), lib.stat().st_mtime)
-    ops: collections.Counter = collections.Counter()
-    inside = False
+    funcs: dict = {}
+    ops = None
     for line in out.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside:
+            name = line.split("Function :", 1)[1].strip()
+            ops = funcs.setdefault(name, collections.Counter()) if kernel in name else None
+        elif ops is not None:
             hit = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
             if hit:
                 ops[hit.group(1)] += 1
-    return dict(ops)
+    return {name: dict(c) for name, c in funcs.items()}
+
+
+def sass_opcodes(kernel: str) -> dict:
+    """{opcode: count} over the SASS of the built library's functions whose
+    name holds ``kernel`` (``cuobjdump -sass``; needs the CUDA toolkit)."""
+    total: collections.Counter = collections.Counter()
+    for ops in sass_functions(kernel).values():
+        total.update(ops)
+    return dict(total)

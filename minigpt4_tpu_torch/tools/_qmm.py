@@ -151,8 +151,18 @@ def _matvec_case(arm: Arm, width: int, w: probes.ProbeWeight, x: torch.Tensor, r
                                       len(mats))
     n_bytes = w.nbytes + 4 * m * (k + n)
     res["bytes"] = n_bytes
-    res["bound_ms"], res["bound_by"] = h.bound(n_bytes, 2.0 * m * n * k, h.F32_FLOPS)
+    res["bound_ms"], res["bound_by"] = matvec_bound(n_bytes, m, n, k)
+    res["bound_f32_ms"] = h.bound(n_bytes, 2.0 * m * n * k, h.F32_FLOPS)[0]
     return res
+
+
+def matvec_bound(n_bytes: float, m: int, n: int, k: int) -> tuple[float, str]:
+    """The dequantize-matvec's bound in the units it computes with: at M = 1
+    2 M N K f32 FMAs; at M = 2..8 the tensor-core products, three bf16 parts
+    of x (``probes.split_bf16x3``), 3 x 2 M N K at the bf16 peak."""
+    if m == 1:
+        return h.bound(n_bytes, 2.0 * m * n * k, h.F32_FLOPS)
+    return h.bound(n_bytes, 3 * 2.0 * m * n * k, h.BF16_FLOPS)
 
 
 def _prod_case(fmt: str, n: int, k: int, x: torch.Tensor, seed: int, device,
@@ -231,7 +241,8 @@ def run(tool: str, variants: dict[str, Arm], argv: list[str] | None, doc: str,
                         kernel=arm.describe()["kernel"],
                         width=width, shape=f"{n}x{k} M={m}",
                         **{kk: res[kk] for kk in ("plain_ms", "library_ms", "max_rel_err",
-                                                  "max_abs_err", "rel_err_f64", "tol")
+                                                  "max_abs_err", "rel_err_f64", "tol",
+                                                  "bound_f32_ms")
                            if kk in res}))
             if not timed:
                 print(json.dumps({"tool": tool, "check": f"{n}x{k} M={m}", "arms": len(done),

@@ -58,7 +58,8 @@ def run_case(tool: str, op: str, rows: int, cols: int, reps: int, gen, device, t
     if not timed:
         return res
     rot = h.rotation((inp,), h.nbytes(inp))
-    k_ms = h.time_ms(lambda t: probes.op_chain(t, op, reps), lambda i: rot[i], len(rot))
+    k_ms = h.time_ms(lambda t: probes.op_chain(t, op, reps, widen=False), lambda i: rot[i],
+                     len(rot))
     p_ms = h.time_ms(lambda t: probes.op_chain_ref(t, op, reps), lambda i: rot[i], len(rot),
                      replays=1)
     n_bytes = h.nbytes(inp, out) + 4 * cks.numel()

@@ -41,9 +41,11 @@ blocks (C = 2048) is held to the same bounds, and to the plain
 split-then-merge at the same split count.  The probe kernels (ops/probes.py):
 the dual-i8 q5_k matmul and every storage / strategy / width / layout of the
 dequantize-matvec are f32 sums in another order than their plain versions
-(1e-4 of max|y|); the integer dots, the s4 chunk-scaled dot (products and
-sums rounded apart in chunk order, as the plain version) and the op chains
-give their plain versions' bits.  A column-parallel slice (half the output
+(1e-4 of max|y|; at M = 2..8 on the tensor cores with x split into three
+exact bf16 parts, each row within 1e-4 of its own max against the f64
+formula, and two launches give the same bits); the integer dots, the s4
+chunk-scaled dot (products and sums rounded apart in chunk order, as the
+plain version) and the op chains give their plain versions' bits.  A column-parallel slice (half the output
 rows) of a 13B weight gives the whole-width launch's bits in those rows.
 """
 
@@ -1122,6 +1124,158 @@ def test_probe_op_chain_bit_equal(cuda_device, op, reps):
     out, cks = tpb.op_chain(inp, op, reps)
     ref_out, ref_cks = tpb.op_chain_ref(inp, op, reps)
     assert torch.equal(out, ref_out) and torch.equal(cks, ref_cks)
+
+
+def _formula_f64(x: torch.Tensor, w) -> torch.Tensor:
+    """y = x @ (value * s).T in f64 on the CPU (code_values and the scales
+    are exact in f64)."""
+    v = tpb.code_values(w).cpu().double()
+    if w.scales is not None:
+        s = w.scales.cpu().double() if w.layout == "nm" else w.scales.cpu().double().t()
+        v = v * s.repeat_interleave(tpb.GS, dim=1)
+    return x.cpu().double() @ v.t()
+
+
+def _matvec_cases(storages_nm, storages_km):
+    return ([(s, "nm") for s in storages_nm] + [(s, "km") for s in storages_km])
+
+
+ALL_LAYOUTS = _matvec_cases(list(tpb.STORAGES), list(tpb.KM_STORAGES))
+ALL_IDS = [f"{s}-{lay}" for s, lay in ALL_LAYOUTS]
+
+
+def _strategy(storage):
+    return "shift" if storage == "dense" else "magic"
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("storage,layout,n", [("i4", "nm", 1), ("i4", "nm", 7), ("q5d", "nm", 203),
+                                              ("i8", "nm", 4101), ("dense", "nm", 5003),
+                                              ("i4", "km", 16), ("i8", "km", 208),
+                                              ("dense", "km", 4112)],
+                         ids=lambda v: str(v))
+def test_probe_dequant_matvec_ragged_grid(cuda_device, storage, layout, n, m):
+    """N not a multiple of a tile (8 or 16 rows), a chunk (32 or 64) or the
+    grid: every row is written once and holds the plain version's value."""
+    gen = _probe_gen(cuda_device, n + m)
+    w = tpb.random_probe_weight(storage, n, 2048, gen, cuda_device, layout)
+    x = torch.randn((m, 2048), generator=gen, device=cuda_device)
+    for width in tpb.WIDTHS:
+        got = tpb.dequant_matvec(x, w, _strategy(storage), width)
+        assert got.shape == (m, n) and torch.isfinite(got).all()
+        assert _rel(got, tpb.dequant_matvec_ref(x, w)) <= PROBE_TOL
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("storage,layout", _matvec_cases(["dense", "i8", "q5", "q5d"],
+                                                         ["i8", "i4"]),
+                         ids=lambda v: str(v))
+def test_probe_dequant_matvec_small_n_full_k(cuda_device, storage, layout, m):
+    """A few rows with the whole 13B w2 K (13824): few blocks, each block's
+    warps splitting K and adding their parts in warp order."""
+    gen = _probe_gen(cuda_device, m)
+    n, k = (24, 13824) if layout == "nm" else (32, 13824)
+    w = tpb.random_probe_weight(storage, n, k, gen, cuda_device, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    got = tpb.dequant_matvec(x, w, _strategy(storage), 16)
+    assert _rel(got, tpb.dequant_matvec_ref(x, w)) <= PROBE_TOL
+    assert _rel(got, _formula_f64(x, w)) <= PROBE_TOL
+
+
+@pytest.mark.parametrize("storage,layout", ALL_LAYOUTS, ids=ALL_IDS)
+def test_probe_dequant_matvec_tensor_core_rows(cuda_device, storage, layout):
+    """M = 2..7 run the M = 8 (tensor-core) instances with the unused x rows
+    never read into y: each against its plain version, both strategies."""
+    gen = _probe_gen(cuda_device, 11)
+    w = tpb.random_probe_weight(storage, 304, 1024, gen, cuda_device, layout)
+    for m in range(2, 8):
+        x = torch.randn((m, 1024), generator=gen, device=cuda_device)
+        for strategy in (["shift"] if storage == "dense" else list(tpb.STRATEGIES)):
+            got = tpb.dequant_matvec(x, w, strategy, 16)
+            assert got.shape == (m, 304)
+            assert _rel(got, tpb.dequant_matvec_ref(x, w)) <= PROBE_TOL, (m, strategy)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("storage,layout", ALL_LAYOUTS, ids=ALL_IDS)
+def test_probe_dequant_matvec_wide_x_rows(cuda_device, storage, layout, m):
+    """Rows of x from 2^-20 to 2^10 (row m scaled by 2^(30 m / (M - 1) - 20)):
+    each row within 1e-4 of its own max against the f64 formula, so the
+    three-part split of x loses nothing on the tensor cores."""
+    gen = _probe_gen(cuda_device, 5)
+    k = 2048
+    w = tpb.random_probe_weight(storage, 160, k, gen, cuda_device, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    x = x * torch.exp2(torch.linspace(-20, 10, m, device=cuda_device))[:, None]
+    got = tpb.dequant_matvec(x, w, _strategy(storage), 16).cpu().double()
+    want = _formula_f64(x, w)
+    for row in range(m):
+        err = (got[row] - want[row]).abs().max() / want[row].abs().max()
+        assert err <= PROBE_TOL, (row, float(err))
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("storage,layout", ALL_LAYOUTS, ids=ALL_IDS)
+def test_probe_dequant_matvec_launches_bit_equal(cuda_device, storage, layout, m):
+    """Two launches on the same inputs give the same bits: the K slices are
+    added in a fixed order in both layouts (no atomics)."""
+    gen = _probe_gen(cuda_device, 3)
+    n, k = (5120, 2048) if layout == "nm" else (5120, 2048)
+    w = tpb.random_probe_weight(storage, n, k, gen, cuda_device, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    for width in tpb.WIDTHS:
+        a = tpb.dequant_matvec(x, w, _strategy(storage), width)
+        b = tpb.dequant_matvec(x, w, _strategy(storage), width)
+        assert torch.equal(a, b)
+
+
+def _op_input(op, shape, gen, device):
+    dtype = tpb.OPS[op][1]
+    if dtype == torch.bfloat16:
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    lo, hi = (0, 200) if dtype == torch.uint8 else (-100, 100)
+    return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("reps", [1, 64])
+@pytest.mark.parametrize("op", list(tpb.OPS))
+def test_probe_op_chain_uneven_grid_bit_equal(cuda_device, op, reps):
+    """REPS 1 and 64 over 9 tiles of 7680 columns: the persistent grid's
+    ranges end inside tiles, so tiles take checksum parts from several
+    blocks; the block and the checksums equal the plain version's bits."""
+    gen = _probe_gen(cuda_device, reps)
+    inp = _op_input(op, (2304, 7680), gen, cuda_device)
+    out, cks = tpb.op_chain(inp, op, reps)
+    ref_out, ref_cks = tpb.op_chain_ref(inp, op, reps)
+    assert torch.equal(out, ref_out) and torch.equal(cks, ref_cks)
+    out2, cks2 = tpb.op_chain(inp, op, reps, widen=False)
+    assert torch.equal(out2, out) and torch.equal(cks2.to(torch.int64) & 0xFFFFFFFF, cks)
+
+
+@pytest.mark.parametrize("op,c1,c2", [("i8aa", 0xD5D5D5D5, 0x81818181),
+                                      ("i8aa", 0x55555555, 0x81818181),
+                                      ("i8add", 0, 0x81818181), ("i8add", 0, 0x01010101)])
+def test_probe_op_chain_byte_adds_any_constants(cuda_device, op, c1, c2):
+    """The packed-byte adds wrap each byte for any constants: the general
+    form (a constant with a top bit set) and the shorter one (none set)
+    against a per-byte reference."""
+    gen = _probe_gen(cuda_device, c2 & 0xFF)
+    inp = _op_input(op, (512, 384), gen, cuda_device)
+    code = tpb.OPS[op][0]
+    out = torch.empty((8, 256), dtype=torch.float32, device=cuda_device)
+    cks = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    as_int = lambda u: u - (1 << 32) if u >= 1 << 31 else u
+    tpb._call("mgt_probe_op_chain", cuda_device, inp.data_ptr(), out.data_ptr(), cks.data_ptr(),
+              code, 512, 384, 5, as_int(c1), as_int(c2))
+    v = inp.to(torch.int32)
+    for _ in range(5):
+        v = ((v & (c1 & 0xFF)) if op == "i8aa" else v) + (c2 & 0xFF)
+        v = ((v + 128) & 0xFF) - 128  # wrap to i8
+    res = v.to(torch.int8).contiguous()
+    want_out = res.reshape(2, 256, 384)[:, :8, :128].float().permute(1, 0, 2).reshape(8, 256)
+    words = res.view(torch.int32).reshape(2, -1).to(torch.int64)
+    assert torch.equal(out, want_out)
+    assert torch.equal(cks.to(torch.int64) & 0xFFFFFFFF, words.sum(dim=1) & 0xFFFFFFFF)
 
 
 def test_probe_refused_launches_raise(cuda_device):

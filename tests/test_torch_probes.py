@@ -172,6 +172,111 @@ def test_dequant_matvec_layouts_hold_the_same_weight():
                                rtol=1e-6, atol=1e-6)
 
 
+# the redesign's host-side pieces: the exact x split of the tensor-core path,
+# the launch's partition of rows and K, the bound in the kernel's units
+
+
+def _wide_rows(rng, m: int, k: int) -> np.ndarray:
+    """Rows of x whose magnitudes span 2^-20 .. 2^10, with signs, zeros and
+    powers of two mixed in."""
+    x = rng.normal(0, 1, (m, k)) * np.exp2(rng.uniform(-20, 10, (m, k)))
+    x[:, :8] = [0.0, -0.0, 1.0, -2.0 ** -20, 2.0 ** 10, 3.0, 1 + 2 ** -23, -(1 + 2 ** -9)]
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_bf16x3_parts_sum_to_x_exactly(seed):
+    x = torch.from_numpy(_wide_rows(np.random.default_rng(seed), 8, 4096))
+    hi, mid, lo = probes.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    # the kernel's order: lo + mid first, then hi, each sum exact in f32
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    assert torch.equal(hi.float() + (mid.float() + lo.float()), x)
+    assert torch.equal(hi.float(), x.to(torch.bfloat16).float())
+    # each part is the rounding of what the ones before left
+    assert torch.equal(lo.float(), x - hi.float() - mid.float())
+
+
+@pytest.mark.parametrize("storage", list(probes.STORAGES))
+def test_code_values_are_exact_in_bf16(storage):
+    """The tensor-core path feeds the codes' values as bf16: every value of
+    every storage (integers -128..255, or bf16 weights) is exact there."""
+    gen = torch.Generator().manual_seed(7)
+    w = probes.random_probe_weight(storage, 64, 512, gen, "cpu")
+    v = probes.code_values(w)
+    assert torch.equal(v.to(torch.bfloat16).float(), v)
+
+
+PLAN_CASES = [(5120, 13824, 1, "dense", "nm"), (5120, 13824, 8, "i4", "nm"),
+              (5120, 13824, 8, "q5d", "nm"), (5120, 13824, 1, "q5", "nm"),
+              (203, 2048, 3, "i8", "nm"), (7, 256, 8, "u4", "nm"), (24, 13824, 1, "i8", "nm"),
+              (27648, 5120, 1, "q5i4", "nm"), (5120, 13824, 1, "i8", "km"),
+              (208, 2048, 8, "i4", "km"), (32, 13824, 8, "dense", "km"), (64, 256, 1, "i8", "km")]
+
+
+@pytest.mark.parametrize("n,k,m,storage,layout", PLAN_CASES,
+                         ids=[f"{c[3]}-{c[4]}-{c[0]}x{c[1]}-m{c[2]}" for c in PLAN_CASES])
+def test_matvec_plan_covers_every_row_and_k_once(n, k, m, storage, layout):
+    geo = probes.matvec_geometry(storage, layout, m)
+    plan = probes.matvec_plan(n, k, m, storage, layout)
+    nb = k // geo["fields"]
+    rows = np.zeros(n, np.int64)
+    cover: dict = {}  # (chunk rows) -> field-local k covered, over the ranks
+    sizes = []
+    for block in plan:
+        b0, b1 = block["rows"]
+        if block["rank"] == 0:
+            sizes.append(b1 - b0)
+        for ch in block["chunks"]:
+            n0, n1 = ch["rows"]
+            assert b0 <= n0 < n1 <= b1 and n1 - n0 <= geo["chunk"]
+            assert (n0 - b0) % geo["tile"] == 0 and (layout == "nm" or n0 % 16 == 0)
+            if block["rank"] == 0:
+                rows[n0:n1] += 1
+            assert ch["steps"], "every rank takes at least one step of every chunk"
+            seen = cover.setdefault((n0, n1), np.zeros(nb, np.int64))
+            for i0, i1 in ch["steps"]:
+                assert i1 - i0 <= geo["step"] and (i1 - i0) % 32 == 0
+                seen[i0:i1] += 1
+    assert (rows == 1).all()
+    # each field-local k once per chunk, so every k of every field once
+    assert all((c == 1).all() for c in cover.values())
+    # the warps split each step's 32-code groups of every field, whole groups
+    groups = geo["fields"] * (geo["step"] // 32)
+    assert groups == geo["warp_groups"] * probes.MATVEC_WARPS // geo["tile_sets"]
+    # the rows (km: 16-column units) split evenly over the blocks (clusters)
+    assert max(sizes) - min(sizes) <= (16 if layout == "km" else 1)
+
+
+@pytest.mark.parametrize("rows,cols,esize,resident", [(5120, 13824, 1, 1056), (1280, 13824, 4, 1056),
+                                                      (2304, 7680, 1, 1056), (768, 384, 2, 7)])
+def test_op_chain_plan_covers_every_vector_once(rows, cols, esize, resident):
+    plan = probes.op_chain_plan(rows, cols, esize, resident)
+    tile_vecs = cols * esize // 16 * probes.TILE_ROWS
+    assert tile_vecs % probes.OP_CHUNK == 0 and len(plan) <= resident
+    seen = np.zeros(rows // probes.TILE_ROWS * tile_vecs, np.int64)
+    for ranges in plan:
+        for t, f, e in ranges:
+            assert 0 <= f < e <= tile_vecs < 2 ** 31  # 32-bit offsets within a tile
+            seen[t * tile_vecs + f:t * tile_vecs + e] += 1
+    assert (seen == 1).all()
+    per_block = [len(r) for r in plan]
+    assert max(per_block) - min(per_block) <= 1
+
+
+def test_matvec_bound_counts_the_kernels_units():
+    from minigpt4_tpu_torch.tools import _harness as h
+    from minigpt4_tpu_torch.tools import _qmm
+
+    n, k = 5120, 13824
+    b1, by1 = _qmm.matvec_bound(1e6, 1, n, k)
+    assert by1 == "operations" and b1 == pytest.approx(2 * n * k / h.F32_FLOPS * 1e3)
+    b8, by8 = _qmm.matvec_bound(1e6, 8, n, k)  # three bf16 parts on the tensor cores
+    assert by8 == "operations" and b8 == pytest.approx(3 * 2 * 8 * n * k / h.BF16_FLOPS * 1e3)
+    nib = n * k // 2 + n * k // 16  # i4 codes and scales: the bytes bind at M = 8
+    assert _qmm.matvec_bound(nib, 8, n, k) == (pytest.approx(nib / h.HBM_BPS * 1e3), "bytes")
+
+
 # ---------------------------------------------------------------------------
 # kernel C
 # ---------------------------------------------------------------------------
