@@ -261,12 +261,12 @@ Phases (any failure exits nonzero before the last line):
                minigpt4_tpu_torch/tools/, the counterparts of the JAX
                package's tools/ probes, each run in this process through its
                main() at the 13B shapes for M = 1 and 8 with the fewest timed
-               launches (20): qmm_group_i8 (the dual-i8 exact-q5_k kernel
-               against gq_decode_generic at the five 13B decode shapes; its
-               rq_decode and i8_decode arms are phase 3's decode rows),
+               launches (20): qmm_group_i8 (the dual-i8 exact-q5_k kernel at
+               the five 13B decode shapes; its gq, rq_decode and i8_decode
+               arms are phase 3's decode rows),
                qmm_variants, unpack_variants, qmm_v3 (its three
                entries) and qmm_r3 (the dequantize-matvec at the w2 shape,
-               16-byte loads), probe_int4 (i8 x i8, s4 x s4 on mma.sync, s4
+               16-byte loads), probe_int4 (i8 x i8, s4 x s4, s4
                chunk-scaled) and probe_i8ops (the op chains, REPS = 8).  Every
                case holds its kernel against its plain version (integer modes
                bit-equal, f32 modes within 1e-4 of max|y|; the dual-i8 kernel
@@ -274,16 +274,25 @@ Phases (any failure exits nonzero before the last line):
                to build/probes/<tool>.jsonl, the phase's seconds and each
                kernel's representative case to the log.  The launch counts are
                set to 0 before and read after (the "probes" path); the phase
-               frees its tensors before the tp phase.  The dequantize-matvec
+               frees its tensors before the tp phase.  All four probe
+               kernels are redesigned for the H100 (their kernels-line
+               entries say "state": "redesigned"): the dequantize-matvec
                (csrc/probe_qmm.cuh: a persistent grid over a cp.async ring,
                f32 FMAs at M = 1, bf16 mma.sync with x in three exact parts at
-               M = 2..8) and the op chains (csrc/probe_ops.cu: a persistent
-               grid streaming with no row arithmetic, the out block a stage of
-               its own) are redesigned for the H100 (their kernels-line
-               entries say "state": "redesigned"); before phase 3 their SASS
-               is held per template instance (PROBE_SASS): every M = 2..8
-               dequantize-matvec instance (qmm_tc_kernel) must hold HMMA, and
-               no instance of either kernel may touch local memory.
+               M = 2..8), the op chains (csrc/probe_ops.cu: a persistent grid
+               streaming with no row arithmetic, the out block a stage of its
+               own), the dual-i8 matmul and the integer dots
+               (csrc/probe_group_i8.cu, csrc/probe_int.cu: a persistent grid
+               over the ring of csrc/probe_ring.cuh, producer warps copying
+               while consumer warps compute, clusters splitting K at small N,
+               every group dot on s8 mma.sync, int4 codes unpacked in
+               registers).  Before phase 3 their SASS is held
+               per template instance (PROBE_SASS): every M = 2..8
+               dequantize-matvec instance (qmm_tc_kernel) must hold HMMA,
+               every instance of the dual-i8 and integer kernels IMMA, and no
+               instance of any of them may touch local memory.  Phase 3's
+               kernel / probe factors of gq_decode and i8_decode read against
+               the redesigned dual-i8 and i8 x i8 probes.
   9. tp      - (runs right after phase 3', while this process holds little
                device memory) MiniGPT4Engine(tp=2) on one card: Vicuna-13B at full width, cut
                to 8 layers, every projection q5_k, quant_mode="repack", behind the
@@ -645,12 +654,16 @@ def check_decode_sass(card: str) -> dict:
 
 
 # the probe kernels redesigned for the H100 (csrc/probe_qmm.cuh,
-# csrc/probe_ops.cu), held per template instance: kernel -> (needs HMMA, no
-# local memory).  The dequantize-matvec's M = 2..8 instances run on the
-# tensor cores (mma.sync bf16), its M = 1 instances and the op chains on
-# the f32 and integer units; none keeps anything in local memory.
-PROBE_SASS = {"qmm_tc_kernel": (True, True), "qmm_fma_kernel": (False, True),
-              "op_chain_kernel": (False, True)}
+# csrc/probe_ops.cu, csrc/probe_group_i8.cu, csrc/probe_int.cu), held per
+# template instance: kernel -> (the tensor-core opcode every instance must
+# hold, or None; no local memory).  The dequantize-matvec's M = 2..8
+# instances run on the bf16 tensor cores (HMMA), the dual-i8 matmul and the
+# integer dots on the s8 ones (IMMA), the dequantize-matvec's M = 1
+# instances and the op chains on the f32 and integer units; none keeps
+# anything in local memory.
+PROBE_SASS = {"qmm_tc_kernel": ("HMMA", True), "qmm_fma_kernel": (None, True),
+              "op_chain_kernel": (None, True), "probe_group_i8_kernel": ("IMMA", True),
+              "int_dot_kernel": ("IMMA", True)}
 
 
 def check_probe_sass(card: str) -> dict:
@@ -659,23 +672,23 @@ def check_probe_sass(card: str) -> dict:
     from minigpt4_tpu_torch.tools import _harness
 
     out = {}
-    for kernel, (need_hmma, no_local) in PROBE_SASS.items():
+    for kernel, (need_mma, no_local) in PROBE_SASS.items():
         funcs = _harness.sass_functions(kernel)
         if not funcs:
             raise AssertionError(f"{kernel}: no instance in the library's SASS")
         total: dict = {}
         for name, ops in funcs.items():
-            hmma = sum(v for k, v in ops.items() if k.startswith("HMMA"))
             local = {k: v for k, v in ops.items() if k.startswith(("LDL", "STL"))}
-            if need_hmma and not hmma:
-                raise AssertionError(f"{kernel}: no HMMA in the SASS of {name}")
+            if need_mma and not any(k.startswith(need_mma) for k in ops):
+                raise AssertionError(f"{kernel}: no {need_mma} in the SASS of {name}")
             if no_local and local:
                 raise AssertionError(f"{kernel}: local-memory accesses {local} in {name}")
             for k, v in ops.items():
                 total[k] = total.get(k, 0) + v
-        hmma = {k: v for k, v in total.items() if k.startswith("HMMA")}
-        log(f"[sass] {kernel}: {len(funcs)} instances, tensor-core MMAs {hmma}, no local "
-            f"memory in any; opcodes {json.dumps(dict(sorted(total.items())))}  [{card}]")
+        mma = {k: v for k, v in total.items() if k.startswith(("HMMA", "IMMA"))}
+        log(f"[sass] {kernel}: {len(funcs)} instances, tensor-core MMAs {mma}"
+            f"{f' ({need_mma} in every one)' if need_mma else ''}, no local memory in any; "
+            f"opcodes {json.dumps(dict(sorted(total.items())))}  [{card}]")
         out[kernel] = total
     return out
 
@@ -3990,10 +4003,10 @@ def tp_rank(g, model: str, llm: str, shallow: list, refs: dict, card: str) -> di
 # its SASS read-out (cuobjdump over the whole library takes ~20 s), the op
 # chains at the probe's REPS
 _M = ["--m", "1,8"]
-# qmm_group_i8's rq and w8a8 arms time rq_decode and i8_decode at the 13B
-# decode shapes, which phase 3 holds and times already: the probe and gq
-# arms alone here
-PROBE_RUNS = (("qmm_group_i8", _M + ["--only", "gi8,gq"]),
+# qmm_group_i8's gq, rq and w8a8 arms time gq_decode_generic, rq_decode and
+# i8_decode at the 13B decode shapes, which phase 3 holds and times already
+# (gq_decode beside this probe's same-run time): the probe arm alone here
+PROBE_RUNS = (("qmm_group_i8", _M + ["--only", "gi8"]),
               ("qmm_variants", _M + ["--width", "16"]),
               ("unpack_variants", _M + ["--width", "16"]), ("qmm_v3", _M + ["--width", "16"]),
               ("qmm_v3", ["km"] + _M + ["--width", "16"]),
@@ -4017,8 +4030,8 @@ PROBE_KERNELS = {
 }
 # the kernels line's "state" of each probe kernel: a direct counterpart of
 # the TPU probe, or redesigned for the H100 (PROBE_SASS checks those)
-PROBE_STATE = {"probe_group_i8": "ported", "dequant_matvec": "redesigned", "int_dot": "ported",
-               "op_chain": "redesigned"}
+PROBE_STATE = {"probe_group_i8": "redesigned", "dequant_matvec": "redesigned",
+               "int_dot": "redesigned", "op_chain": "redesigned"}
 
 
 def probes_phase(card: str) -> dict:
@@ -5099,7 +5112,8 @@ def main() -> int:
             unit = next((u for u in ("gq_decode", "gq_prefill", "rq_matmul",
                                      "flash_decode", "i8_matmul") if f"{u}_cu" in name), "")
             at = max(name.find(t) for t in ("qmm_", "flash_", "i8_decode", "i8_prefill",
-                                            "gq_decode_i8", "rq_decode"))
+                                            "gq_decode_i8", "rq_decode", "probe_group_i8",
+                                            "int_dot", "op_chain"))
             kernel = f"{unit}: {name[at:][:80]}"
         elif "spill" in line or ("Used" in line and "registers" in line):
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")

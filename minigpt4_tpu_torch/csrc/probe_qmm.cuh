@@ -52,7 +52,8 @@
 // * A ring of D slots in shared memory, each one step: the codes, planes,
 //   scales and x of a chunk's rows and KS codes of K, copied by cp.async W
 //   bytes a lane (x 16); D - 1 steps stay in flight across each step's one
-//   barrier.
+//   barrier (the copies and schedule of probe_ring.cuh, which the integer
+//   probes share).
 // * Within a step the warps split K by 32-code groups (km: four group
 //   slots by four tile sets); a thread (r, c) = (lane / 4, lane % 4) takes
 //   8 codes of each group of its rows (nm: k = 32 j + 8 c + q; km at
@@ -80,12 +81,9 @@
 //   warps in warp order, so every launch gives the same bits; no atomics.
 #pragma once
 
-#include <algorithm>
-
-#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 
-#include "common.cuh"
+#include "probe_ring.cuh"
 
 namespace mgt {
 namespace probe {
@@ -99,7 +97,6 @@ __host__ __device__ constexpr bool has_hi(int s) { return s == kQ5 || s == kQ5D;
 __host__ __device__ constexpr int codes_per_word(int s) { return s == kDense ? 2 : s == kI8 ? 4 : 8; }
 // 32-bit words holding a thread's 8 codes of a group
 __host__ __device__ constexpr int words8(int s) { return s == kDense ? 4 : s == kI8 ? 2 : 1; }
-__host__ __device__ constexpr int align16(int b) { return (b + 15) / 16 * 16; }
 
 // The tiling of one instance (both the kernel and its launch read it).
 template <int LAY, int MT, int S>
@@ -326,25 +323,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// cp.async of B bytes (4: through L1; 16: L2 only)
-template <int B>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  static_assert(B == 4 || B == 16, "cp.async of 4 or 16 bytes");
-  if constexpr (B == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the offset in its group of a thread's code q (of 8), thread c of a quad
 template <int LAY, int S>
 __device__ __forceinline__ int kpos(int c, int q) {
@@ -417,10 +395,9 @@ __device__ __forceinline__ void qmm_body(const Args& a) {
     p.i0 = (sb + p.st) * G::L;
     p.len = min(G::L, nb - p.i0);
   };
-  // the next step to issue, to compute
-  Pos pi{0, 0, 0, 0, 0, 0, sb * G::L, min(G::L, nb - sb * G::L)}, pc = pi;
+  // the first step (run_ring walks the next step to issue and to compute from it)
+  Pos pi{0, 0, 0, 0, 0, 0, sb * G::L, min(G::L, nb - sb * G::L)};
   set_chunk(pi);
-  set_chunk(pc);
 
   auto issue = [&](const Pos& ps) {
     uint8_t* base = smem + ps.sl * slot;
@@ -782,27 +759,10 @@ __device__ __forceinline__ void qmm_body(const Args& a) {
     }
   };
 
-#pragma unroll 1
-  for (int s = 0; s < G::D - 1; ++s) {
-    if (s < steps) {
-      issue(pi);
-      advance(pi);
-    }
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<G::D - 2>();  // step s has landed (this thread's copies)
-    __syncthreads();            // ... and everyone's; slot (s - 1) % D is free
-    if (s + G::D - 1 < steps) {
-      issue(pi);
-      advance(pi);
-    }
-    cp_async_commit();
-    compute(pc);
-    if (pc.st == spc - 1) finish(pc);
-    advance(pc);
-  }
+  run_ring<G::D>(steps, pi, advance, issue, [&](const Pos& ps) {
+    compute(ps);
+    if (ps.st == spc - 1) finish(ps);
+  });
 }
 
 // the M = 1 instances (f32 FMAs) and the M = 2..8 ones (tensor cores)

@@ -8,10 +8,10 @@ micro-benchmarks that drive them are :mod:`minigpt4_tpu_torch.tools`.
 * :func:`probe_group_i8` (``csrc/probe_group_i8.cu``,
   ``tools/qmm_group_i8.py``): exact q5_k codes (i8, 0..31) times dual-i8
   activations ``x ~= s1 x1 + s2 x2``; per 32-code group the two exact i32
-  dot products, then ``t = s1 c1 + s2 c2`` and ``y += t sc + sgt bt`` in f32.
-  :func:`qmatmul_group_i8` splits x and forms the group sums ``sgt`` first,
-  with the functions of the production decode kernels
-  (``group_i8.split_activations``, ``group_i8.group_sums``).
+  dot products (on the s8 tensor cores), then ``t = s1 c1 + s2 c2`` and
+  ``y += t sc + sgt bt`` in f32.  :func:`qmatmul_group_i8` splits x and
+  forms the group sums ``sgt`` first, with the functions of the production
+  decode kernels (``group_i8.split_activations``, ``group_i8.group_sums``).
 * :func:`dequant_matvec` (``csrc/probe_qmm.cuh``, ``probe_qmm.cu``,
   ``probe_qmm_km.cu``; the unpack-chain probes ``qmm_variants``,
   ``qmm_v3``, ``qmm_r3``, ``unpack_variants``): ``y = x @ (value(code) *
@@ -22,8 +22,14 @@ micro-benchmarks that drive them are :mod:`minigpt4_tpu_torch.tools`.
   :func:`split_bf16x3` at M = 2..8.  :func:`matvec_plan` is the launch's
   partition of the output and of K.
 * :func:`int_dot` (``csrc/probe_int.cu``, ``tools/probe_int4.py``):
-  i8 x i8 -> i32, s4 x s4 -> i32 (``mma.sync`` m16n8k64 .s4), and s4 codes
-  x i8 activations with per-256 f32 scales.
+  i8 x i8 -> i32, s4 x s4 -> i32, and s4 codes x i8 activations with
+  per-256 f32 scales, every mode on ``mma.sync`` m16n8k32 s8 with int4
+  codes sign-extended to s8 (:func:`s4_to_s8`; the weights' as 16 times
+  their value, :func:`s4_to_s8x16`).
+* Both integer kernels stream the weight through ``csrc/probe_ring.cuh``'s
+  ring over a persistent grid: :func:`ring_plan` is their launch's
+  partition of the output and of K, :func:`imma_dot` the k order and
+  column map of their MMA fragments, :func:`ring_mmas` the MMAs they issue.
 * :func:`op_chain` (``csrc/probe_ops.cu``, ``tools/probe_i8ops.py`` and
   ``qmm_v3``'s op-packing probes): REPS elementwise ops per element of an
   ``[N, K]`` tensor; returns the probe's ``[8, 128 N / 256]`` block and a
@@ -52,6 +58,7 @@ from .group_i8 import group_sums, split_activations
 GS = 32  # group size of q5_k, and of the probes' scales
 SB = 256  # chunk of the dual-i8 kernel and of the s4 superblock scales
 MAX_M = 8
+MATVEC_SMS = 132  # the H100 SXM's SMs, for the plans; the launches ask the device
 
 # storage name -> (kernel storage code, signed nibbles)
 STORAGES = {"dense": (0, False), "i8": (1, False), "u4": (2, False), "i4": (2, True),
@@ -61,6 +68,7 @@ LAYOUTS = {"nm": 0, "km": 1}
 WIDTHS = (4, 16)
 KM_STORAGES = ("dense", "i8", "u4", "i4")
 INT_MODES = {"i8xi8": 0, "s4xs4": 1, "s4_sb": 2}
+S4_MAX_K = 1 << 21  # s4xs4 sums 16 times the dot product in i32 (csrc/probe_int.cu)
 # op name -> (kernel op code, input dtype, c1, c2): the constants of the
 # chain, repeated per byte for the packed i8 / u8 forms, bf16 bits for the
 # bf16 forms: 1.0, and bf16(1.0009765625) = 1.0 (the JAX probe's multiplier,
@@ -112,6 +120,152 @@ def unpack_nibbles(b: torch.Tensor, signed: bool = False) -> torch.Tensor:
     b = b.to(torch.int32)
     q = torch.stack([b & 15, b >> 4], dim=-1).reshape(*b.shape[:-1], 2 * b.shape[-1])
     return (q ^ 8) - 8 if signed else q
+
+
+# ---------------------------------------------------------------------------
+# the integer tensor-core kernels (A and C): work split, fragments, unpack
+# ---------------------------------------------------------------------------
+
+RING_TILE = 16  # output rows per MMA tile (the m16 side of m16n8k32)
+RING_WARPS = 8  # consumer warps of the int kernel, splitting each step's 32-code groups
+RING_CLUSTER = 8  # the most blocks of a cluster that split K
+MMA_OPS = 2 * 16 * 8 * 32  # operations of one mma.sync m16n8k32, padding included
+
+
+def ring_geometry(kernel: str, m: int, mode: str | None = None) -> dict:
+    """The launch's constants for one instance (``Geo`` of
+    ``csrc/probe_group_i8.cu`` and ``csrc/probe_int.cu``): ``step`` codes of
+    K per step, ``chunk`` rows per chunk, the computing ``warps`` and their
+    ``warp_groups`` 32-code groups each per step, whether a cluster may
+    ``split`` K, and the MMA ``halves`` (n8 sides) per tile and group."""
+    if kernel == "group_i8":  # M <= 4: 4 producer and 8 consumer warps; above, 16 of both roles
+        return {"step": 512, "chunk": 64, "warps": 8 if m <= 4 else 16,
+                "warp_groups": 2 if m <= 4 else 1, "split": True, "halves": 1 if m <= 4 else 2}
+    if mode not in INT_MODES:
+        raise ValueError(f"unknown int_dot mode {mode!r}")
+    s4w, wide = mode != "i8xi8", mode == "s4xs4" and m > MAX_M
+    return {"step": 1024 if s4w else 512, "chunk": 32 if wide else 64, "warps": RING_WARPS,
+            "warp_groups": 4 if s4w else 2, "split": mode != "s4_sb", "halves": 2 if wide else 1}
+
+
+def ring_plan(n: int, k: int, m: int, kernel: str = "group_i8", mode: str | None = None,
+              sms: int = MATVEC_SMS) -> list[dict]:
+    """Per block of the persistent grid: its cluster's ``rows`` ``[b0, b1)``
+    (N split evenly by rows over the clusters), its ``rank`` of the
+    ``cluster`` blocks that split K, and its chunks, each with its
+    ``rows`` ``[n0, n1)`` (whole 16-row tiles from b0, the last cut at b1),
+    ``tiles`` and ``steps``: the codes ``k`` ``[k0, k1)`` of each step of
+    the rank's share of K, and per warp the codes ``[c0, c1)`` of the
+    step's groups it takes.  The kernels' own formulas (probe_ring.cuh
+    ``Walk``, ``launch_walk``; as many clusters as ``sms`` / cluster, where
+    the launch asks the device how many fit at once), for the tests and the
+    bound."""
+    geo = ring_geometry(kernel, m, mode)
+    ks, ct, gw = geo["step"], geo["chunk"] // RING_TILE, geo["warp_groups"]
+    tiles, steps_all = -(-n // RING_TILE), -(-k // ks)
+    csize = max(1, min(RING_CLUSTER, steps_all, sms // tiles)) if geo["split"] else 1
+    if csize > 1 and sms // csize * ct < tiles:  # a cluster that splits K holds one chunk
+        csize = 1
+    ncl = min(tiles, sms // csize)
+    blocks = []
+    for b in range(ncl * csize):
+        cid, rk = divmod(b, csize)
+        b0, b1 = n * cid // ncl, n * (cid + 1) // ncl
+        sb, se = steps_all * rk // csize, steps_all * (rk + 1) // csize
+        ntb = -(-(b1 - b0) // RING_TILE)
+        nch = -(-ntb // ct)
+        chunks = []
+        for ci in range(nch):
+            lo, hi = ntb * ci // nch, ntb * (ci + 1) // nch
+            n0 = b0 + lo * RING_TILE
+            steps = []
+            for st in range(sb, se):
+                k0, k1 = st * ks, min((st + 1) * ks, k)
+                steps.append({"k": (k0, k1), "warps": [
+                    (min(k0 + 32 * gw * w, k1), min(k0 + 32 * gw * (w + 1), k1))
+                    for w in range(geo["warps"])]})
+            chunks.append({"rows": (n0, min(b0 + hi * RING_TILE, b1)), "tiles": hi - lo,
+                           "steps": steps})
+        blocks.append({"rows": (b0, b1), "rank": rk, "cluster": csize, "chunks": chunks})
+    return blocks
+
+
+def ring_mmas(n: int, k: int, m: int, kernel: str = "group_i8", mode: str | None = None,
+              sms: int = MATVEC_SMS) -> int:
+    """The MMAs the launch issues: every tile of every chunk, for every
+    32-code group of every step, once per n8 half (padding included)."""
+    halves = ring_geometry(kernel, m, mode)["halves"]
+    return sum(ch["tiles"] * (st["k"][1] - st["k"][0]) // 32 * halves
+               for b in ring_plan(n, k, m, kernel, mode, sms) for ch in b["chunks"]
+               for st in ch["steps"])
+
+
+def s4_to_s8(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 words of 8 int4 codes (code j in nibble j) -> (even, odd): the
+    codes 0, 2, 4, 6 and 1, 3, 5, 7 as sign-extended bytes of a word, by the
+    kernel's operations (``csrc/probe_int.cu`` ``s4_to_s8``): per byte
+    ``((n ^ 8) + 0x78) ^ 0x80``."""
+    def ext(v: torch.Tensor) -> torch.Tensor:
+        return ((((v & 0x0F0F0F0F) ^ 0x08080808) + 0x78787878) ^ 0x80808080) & 0xFFFFFFFF
+
+    return ext(words), ext(words >> 4)
+
+
+def s4_to_s8x16(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's weight unpack (``csrc/probe_int.cu`` ``s4_to_s8x16``):
+    each nibble moved to the top half of its byte, so the even and odd codes
+    read as s8 bytes are 16 times their value (the MMA's sums are 16 times
+    the dot product, shifted back exactly)."""
+    return (words << 4) & 0xF0F0F0F0, words & 0xF0F0F0F0
+
+
+def word_bytes(words: torch.Tensor) -> torch.Tensor:
+    """int64 [..., W] words -> int8 [..., 4 W] bytes (little-endian)."""
+    b = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    return b.reshape(*words.shape[:-1], -1).to(torch.uint8).view(torch.int8)
+
+
+def imma_dot(a_rows: torch.Tensor, b_cols: torch.Tensor) -> torch.Tensor:
+    """One mma.sync m16n8k32 s8 as the kernels feed it, step by step: a_rows
+    int8 [16, 32] (A's rows, one 32-code group) and b_cols int8 [8, 32]
+    (B's columns, the same group) in storage order; lane (g, t) loads its
+    own 8 bytes 8 t .. 8 t + 7 of rows g, g + 8 and column g, places the
+    first four in k slots 4 t .. 4 t + 3 and the last four in 16 + 4 t ..;
+    the MMA's logical A and B are assembled from those registers by the
+    PTX fragment layout, multiplied in int64, and D read back through the
+    D layout.  Returns int64 [16, 8], which equals a_rows @ b_cols.T
+    because A and B take the same k order."""
+    a_log = torch.zeros((16, 32), dtype=torch.int64)
+    b_log = torch.zeros((32, 8), dtype=torch.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for row in (g, g + 8):  # registers 0, 2 (row g) and 1, 3 (row g + 8)
+            own = a_rows[row, 8 * t:8 * t + 8].long()
+            a_log[row, 4 * t:4 * t + 4] = own[:4]
+            a_log[row, 16 + 4 * t:16 + 4 * t + 4] = own[4:]
+        own = b_cols[g, 8 * t:8 * t + 8].long()
+        b_log[4 * t:4 * t + 4, g] = own[:4]
+        b_log[16 + 4 * t:16 + 4 * t + 4, g] = own[4:]
+    d_log = a_log @ b_log
+    d = torch.zeros((16, 8), dtype=torch.int64)
+    for lane in range(32):  # D: rows g (registers 0, 1), g + 8 (2, 3), columns 2 t, 2 t + 1
+        g, t = divmod(lane, 4)
+        for i in range(4):
+            row, col = g + 8 * (i // 2), 2 * t + i % 2
+            d[row, col] = d_log[row, col]
+    return d
+
+
+def dual_columns(x1: torch.Tensor, x2: torch.Tensor, half: int) -> torch.Tensor:
+    """B's 8 columns of one n8 half of the dual-i8 kernel: column 2 j is
+    x1's activation row 4 half + j, column 2 j + 1 x2's (zero past M); D
+    column 2 t then holds c1 and 2 t + 1 c2 of activation row 4 half + t."""
+    m, k = x1.shape
+    cols = torch.zeros((8, k), dtype=torch.int8)
+    for j in range(4):
+        if 4 * half + j < m:
+            cols[2 * j], cols[2 * j + 1] = x1[4 * half + j], x2[4 * half + j]
+    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +328,10 @@ def probe_group_i8(x1, x2, s12, sgt, codes, sct, bt, layer=None) -> torch.Tensor
             raise ValueError(f"{fn_name}: {name} must be contiguous")
     if codes.data_ptr() % 16:
         raise ValueError(f"{fn_name}: codes must be 16-byte aligned")
-    x1, x2 = _aligned(x1), _aligned(x2)
-    s12, sgt = s12.float().contiguous(), sgt.float().contiguous()
+    # the kernel copies the planes and sgt in 16-byte pieces from their
+    # tensors' aligned starts
+    x1, x2, sct, bt = _aligned(x1), _aligned(x2), _aligned(sct), _aligned(bt)
+    s12, sgt = s12.float().contiguous(), _aligned(sgt.float())
     y = torch.empty((m, n), dtype=torch.float32, device=x1.device)
     _call(fn_name, x1.device, x1.data_ptr(), x2.data_ptr(), s12.data_ptr(), sgt.data_ptr(),
           codes.data_ptr(), sct.data_ptr(), bt.data_ptr(), y.data_ptr(), m, n, k,
@@ -324,7 +480,6 @@ def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
 
 # the dequantize-matvec's tiling (probe_qmm.cuh Geo): output rows (nm) or
 # columns (km) per tile, and codes of K per step
-MATVEC_SMS = 132  # the H100 SXM's SMs; the launch asks the device
 MATVEC_WARPS = 16  # warps per block, splitting each step's groups
 
 
@@ -450,7 +605,7 @@ def int_dot_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor | None,
 def int_dot(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor | None,
             mode: str) -> torch.Tensor:
     """The :func:`int_dot_ref` function (``csrc/probe_int.cu``, entry
-    ``mgt_probe_int_dot``); s4xs4 on ``mma.sync`` m16n8k64 .s4."""
+    ``mgt_probe_int_dot``); every mode on ``mma.sync`` m16n8k32 s8."""
     if x.device.type == "cpu":
         return int_dot_ref(x, w, scales, mode)
     fn_name = "mgt_probe_int_dot"
@@ -467,13 +622,15 @@ def int_dot(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor | None,
         raise ValueError(f"{fn_name}: K must agree and be a multiple of {SB}")
     if not 1 <= m <= (16 if mode == "s4xs4" else MAX_M):
         raise ValueError(f"{fn_name} {mode}: M={m} out of range")
+    if mode == "s4xs4" and k >= S4_MAX_K:
+        raise ValueError(f"{fn_name} s4xs4: K={k} not below {S4_MAX_K}")
     if mode == "s4_sb" and (scales is None or scales.dtype != torch.float32
                             or tuple(scales.shape) != (n, k // SB)):
         raise ValueError(f"{fn_name}: s4_sb needs f32 scales [{n}, {k // SB}]")
     _same_device(fn_name, x, w=w, scales=scales)
     x, w = _aligned(x), _aligned(w)
     if scales is not None:
-        scales = scales.contiguous()
+        scales = _aligned(scales)
     y = torch.empty((m, n), dtype=torch.float32 if mode == "s4_sb" else torch.int32,
                     device=x.device)
     _call(fn_name, x.device, x.data_ptr(), w.data_ptr(),

@@ -2,19 +2,28 @@
 of the JAX package's ``tools/probe_int4.py``, at its shape (the 13B w2 as
 n = 13824, k = 5120, M = 1).
 
-Arms (``ops/probes.int_dot``, ``csrc/probe_int.cu``):
+Arms (``ops/probes.int_dot``, ``csrc/probe_int.cu``), every one on
+``mma.sync`` m16n8k32 s8 (IMMA.16832.S8.S8) over a streaming ring:
 
-  i8xi8  i8 x i8 -> i32 with ``__dp4a`` (the w8a8 traffic reference);
-  s4xs4  s4 x s4 -> i32 with ``mma.sync.aligned.m16n8k64...s4.s4.s32``
-         (half the weight bytes);
+  i8xi8  i8 x i8 -> i32 (the w8a8 traffic reference);
+  s4xs4  s4 x s4 -> i32, both operands unpacked to s8 in registers (the
+         weight's as 16 times its codes) (half the weight bytes);
   s4_sb  s4 codes x i8 activations, the exact i32 of each 256-wide chunk
-         times an f32 scale, summed in f32: what a w4a8 path needs.
+         times an f32 scale, summed in f32 in chunk order: what a w4a8 path
+         needs.
 
-The JAX probe's arm D asked whether Mosaic accepts an int4 operand at all;
-here the question is what ptxas makes of the s4 ``mma.sync`` for sm_90a,
-and the tool answers it from the built library's SASS (``cuobjdump``): the
-line ``{"mma_s4_sm90a": ...}`` lists the tensor-core instructions of the s4
-kernel.  Timing and the SASS need an NVIDIA GPU and the CUDA toolkit.
+The JAX probe's arm D asked whether Mosaic accepts an int4 operand at all.
+Here the question was what ptxas makes of an s4 ``mma.sync`` for sm_90a;
+the first form of this kernel issued ``mma.sync ... m16n8k64 .s4.s4``
+and its SASS answered it: the card has no int4 tensor-core instruction, and
+ptxas lowers each to two IMMA.16832.S8.S8 after its own unpack.  So the
+kernel now unpacks the codes itself, and the line
+``{"mma_s4_sm90a": ..., "s4_kernel_tensor_ops": ...}`` lists the
+tensor-core opcodes of its s4xs4 instances (``cuobjdump``).  The library
+yardstick for i8xi8 is ``torch._int_mm``, which refuses M <= 16: below
+that it runs on x padded with zero rows to the smallest M it takes
+(``library_m``).  Timing and the SASS need an NVIDIA GPU and the CUDA
+toolkit.
 
 Usage:  python -m minigpt4_tpu_torch.tools.probe_int4 [--m 1] [--only s4xs4]
 Checks only:  python -m minigpt4_tpu_torch.tools.probe_int4 --device cpu --check-only
@@ -76,21 +85,40 @@ def run_mode(mode: str, n: int, k: int, m: int, gen, device, timed: bool) -> dic
                           len(rot))
     res["plain_ms"] = h.time_ms(lambda wv, sv: probes.int_dot_ref(x, wv, sv, mode),
                                 lambda i: rot[i], len(rot), replays=1)
-    res["library_ms"] = None
-    if mode == "i8xi8" and m > 16:  # torch._int_mm refuses M <= 16
-        mats = [wv.t() for wv, _ in rot]
-        res["library_ms"] = h.time_ms(lambda wt: torch._int_mm(x, wt), lambda i: (mats[i],),
-                                      len(mats))
+    res["library_ms"] = res["library_m"] = None
+    if mode == "i8xi8":
+        res["library_m"], res["library_ms"] = library_int_mm(x, [wv for wv, _ in rot])
     res["bytes"] = h.nbytes(x, w, scales) + 4 * m * n
-    res["bound_ms"], res["bound_by"] = h.bound(res["bytes"], 2.0 * m * n * k, h.INT8_OPS)
+    ops = float(probes.MMA_OPS * probes.ring_mmas(n, k, m, "int_dot", mode))
+    res["bound_ms"], res["bound_by"] = h.bound(res["bytes"], ops, h.INT8_OPS)
+    res["ops_bound_ms"] = ops / h.INT8_OPS * 1e3
     return res
 
 
+def library_int_mm(x: torch.Tensor, ws: list) -> tuple[int, float]:
+    """(rows, ms) of ``torch._int_mm`` on x over the weight copies ``ws``;
+    x padded with zero rows to the smallest row count it accepts (more than
+    16) where it has fewer.  Timed only: the port never calls it."""
+    mats = [wv.t() for wv in ws]
+    for rows in range(max(x.shape[0], 17), 65):
+        xp = torch.zeros((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+        xp[:x.shape[0]] = x
+        try:
+            torch._int_mm(xp, mats[0])
+        except RuntimeError:
+            continue
+        return rows, h.time_ms(lambda wt: torch._int_mm(xp, wt), lambda i: (mats[i],), len(mats))
+    raise RuntimeError("torch._int_mm accepted no row count up to 64")
+
+
+S4_KERNEL = "int_dot_kernelILi1E"  # the mangled name of int_dot_kernel<1 (s4xs4), MT>
+
+
 def sass_s4() -> dict:
-    """The tensor-core instructions ptxas emitted for the s4 kernel, read
-    from the built library with cuobjdump: {opcode: count}."""
-    return {op: n for op, n in h.sass_opcodes("s4_mma_kernel").items()
-            if re.match(r"[IH]MMA", op)}
+    """The tensor-core instructions ptxas emitted for the s4xs4 instances
+    of the int kernel, read from the built library with cuobjdump:
+    {opcode: count}."""
+    return {op: n for op, n in h.sass_opcodes(S4_KERNEL).items() if re.match(r"[IH]MMA", op)}
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -128,7 +156,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     if args.no_sass:
         return out
     sass = sass_s4()
-    print(json.dumps({"tool": TOOL, "mma_s4_sm90a": "accepted by ptxas" if sass else "absent",
+    print(json.dumps({"tool": TOOL, "mma_s4_sm90a": ", ".join(sorted(sass)) or "absent",
                       "s4_kernel_tensor_ops": sass, "card": h.card(device)}), flush=True)
     return out
 

@@ -5,7 +5,10 @@ production decode kernels: the Hopper counterpart of the JAX package's
 The codes are the raw 5-bit q (0..31) as i8 [N, K]; the per-32-group
 scale and bias planes bf16 [G, N]; the activations a dual-i8 split
 ``x ~= s1 x1 + s2 x2`` (s2 = s1 / 128), so each group's two dot products
-are exact i32 (``ops/probes.probe_group_i8``, ``csrc/probe_group_i8.cu``).
+are exact i32 (``ops/probes.probe_group_i8``, ``csrc/probe_group_i8.cu``:
+the group dots on the s8 tensor cores, the weight streamed through a
+shared-memory ring).  Its bound is the larger of the bytes and the MMAs the
+launch issues, padding included, at the int8 peak (``ops_bound_ms``).
 The question it answered on the H100: should a ``__dp4a`` kernel replace
 the f32-FMA gq decode kernel, above all at M = 8?  The production decode
 kernels now compute this function (``csrc/gq_decode_i8.cuh``), and the
@@ -122,7 +125,8 @@ def _arm(name: str, n: int, k: int, m: int, device, gen, planes, x, seed: int):
         rot = h.rotation((codes, sct, bt), h.nbytes(codes, sct, bt))
         args = [(x1, x2, s12, sgt, *r) for r in rot]
         return (probes.probe_group_i8, probes.group_i8_ref, args,
-                h.nbytes(codes, sct, bt, x1, x2, s12, sgt), PLAIN_TOL, 4.0 * m * n * k, h.INT8_OPS)
+                h.nbytes(codes, sct, bt, x1, x2, s12, sgt), PLAIN_TOL,
+                float(probes.MMA_OPS * probes.ring_mmas(n, k, m, "group_i8")), h.INT8_OPS)
     if name == "gq":
         rot = h.rotation((codes, sct, bt), h.nbytes(codes, sct, bt))
         ws = [gq.GroupQuant(codes=c, dtype=DataType.Q5_1, n_in=k, group_size=GS, a=a, b=b)
@@ -167,6 +171,7 @@ def bench(device: torch.device, seed: int, ms: list[int], arms) -> list[dict]:
                 h.hold(f"{TOOL} {shape} {name} M={m}", err, tol)
                 extra = {}
                 if name == "gi8":
+                    extra["ops_bound_ms"] = ops / peak * 1e3
                     extra["rel_err_f64"] = h.rel_err(got, dequant_ref_f64(x, *planes))
                     h.hold(f"{TOOL} {shape} gi8 M={m} against the f64 dequant",
                            extra["rel_err_f64"], CHECK_TOL)

@@ -1037,31 +1037,58 @@ def _probe_gen(device, seed):
     return gen
 
 
-@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
-@pytest.mark.parametrize("m", [1, 3, 8])
-def test_probe_group_i8_matches_plain(cuda_device, m, stacked):
-    """The dual-i8 exact-q5_k kernel against its plain version (1e-4) and the
-    f64 dequant reference (3e-4, the JAX probe's check), ragged N, stacked
-    codes and planes at layer 1."""
-    gen = _probe_gen(cuda_device, m)
-    n, k, lead = 300, 768, ((2,) if stacked else ())
-    codes = torch.randint(0, 32, (*lead, n, k), generator=gen, device=cuda_device,
-                          dtype=torch.int8)
-    sct = (torch.rand((*lead, k // 32, n), generator=gen, device=cuda_device) * 0.02
+def _group_i8_case(device, n, k, m, seed, lead=()):
+    gen = _probe_gen(device, seed)
+    codes = torch.randint(0, 32, (*lead, n, k), generator=gen, device=device, dtype=torch.int8)
+    sct = (torch.rand((*lead, k // 32, n), generator=gen, device=device) * 0.02
            + 0.001).to(torch.bfloat16)
-    bt = -(torch.rand((*lead, k // 32, n), generator=gen, device=cuda_device) * 0.1).to(
+    bt = -(torch.rand((*lead, k // 32, n), generator=gen, device=device) * 0.1).to(
         torch.bfloat16)
-    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    return codes, sct, bt, torch.randn((m, k), generator=gen, device=device)
+
+
+def _check_group_i8(got, x, codes, sct, bt, layer=None):
+    x1, x2, s1, s2 = tpb.split_activations(x)
+    want = tpb.group_i8_ref(x1, x2, torch.cat([s1, s2], 1), tpb.group_sums(x), codes, sct, bt,
+                            layer)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel(got, want) <= PROBE_TOL
+    f64 = x.double() @ tpb.dequant_group_i8(codes, sct, bt, layer).double().t()
+    assert _rel(got, f64) <= 3e-4
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_probe_group_i8_matches_plain(cuda_device, m, stacked):
+    """The dual-i8 exact-q5_k kernel (s8 tensor cores, one MMA half at M <=
+    4, two above) against its plain version (1e-4) and the f64 dequant
+    reference (3e-4, the JAX probe's check), ragged N, stacked codes and
+    planes at layer 1."""
+    codes, sct, bt, x = _group_i8_case(cuda_device, 300, 768, m, m, (2,) if stacked else ())
     layer = 1 if stacked else None
     before = tpb.probe_group_i8.launches
     got = tpb.qmatmul_group_i8(x, codes, sct, bt, layer)
     assert tpb.probe_group_i8.launches == before + 1
-    x1, x2, s1, s2 = tpb.split_activations(x)
-    want = tpb.group_i8_ref(x1, x2, torch.cat([s1, s2], 1), tpb.group_sums(x), codes, sct, bt,
-                            layer)
-    assert _rel(got, want) <= PROBE_TOL
-    f64 = x.double() @ tpb.dequant_group_i8(codes, sct, bt, layer).double().t()
-    assert _rel(got, f64) <= 3e-4
+    _check_group_i8(got, x, codes, sct, bt, layer)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("n,k", [(160, 13824), (7, 1024), (1000, 2304), (5120, 256)])
+def test_probe_group_i8_ragged_and_split_k(cuda_device, n, k, m):
+    """Small N with a long K (a cluster of blocks splits K, rank 0 adds the
+    ranks' sums), N below one tile, N whose planes start off 16-byte
+    boundaries, and K of one half step."""
+    codes, sct, bt, x = _group_i8_case(cuda_device, n, k, m, n + m)
+    _check_group_i8(tpb.qmatmul_group_i8(x, codes, sct, bt), x, codes, sct, bt)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("n,k", [(160, 13824), (5120, 5120)])
+def test_probe_group_i8_launches_bit_equal(cuda_device, n, k, m):
+    """Sums in a fixed order, no atomics: two launches give the same bits."""
+    codes, sct, bt, x = _group_i8_case(cuda_device, n, k, m, 3)
+    assert torch.equal(tpb.qmatmul_group_i8(x, codes, sct, bt),
+                       tpb.qmatmul_group_i8(x, codes, sct, bt))
 
 
 MATVEC_CASES = [(s, st, w, "nm") for s in tpb.STORAGES for st in tpb.STRATEGIES
@@ -1086,26 +1113,48 @@ def test_probe_dequant_matvec_matches_plain(cuda_device, storage, strategy, widt
     assert _rel(got, tpb.dequant_matvec_ref(x, w)) <= PROBE_TOL
 
 
-INT_CASES = [("i8xi8", 1), ("i8xi8", 8), ("s4xs4", 1), ("s4xs4", 8), ("s4xs4", 16),
-             ("s4_sb", 1), ("s4_sb", 5), ("s4_sb", 8)]
+INT_CASES = [(mode, m) for mode in tpb.INT_MODES
+             for m in range(1, (16 if mode == "s4xs4" else tpb.MAX_M) + 1)]
+
+
+def _int_case(device, mode, n, k, m, seed):
+    gen = _probe_gen(device, seed)
+    i8 = lambda rows: torch.randint(-128, 128, (rows, k), generator=gen, device=device,
+                                    dtype=torch.int8)
+    s4 = lambda rows: torch.randint(0, 256, (rows, k // 2), generator=gen, device=device,
+                                    dtype=torch.uint8)
+    x = s4(m) if mode == "s4xs4" else i8(m)
+    w = i8(n) if mode == "i8xi8" else s4(n)
+    sc = (torch.rand((n, k // 256), generator=gen, device=device) + 0.5) * 2.0 ** -13
+    return x, w, sc if mode == "s4_sb" else None
 
 
 @pytest.mark.parametrize("mode,m", INT_CASES, ids=[f"{a}-m{b}" for a, b in INT_CASES])
 def test_probe_int_dot_bit_equal(cuda_device, mode, m):
-    """i8 x i8 and s4 x s4 (mma.sync m16n8k64) give the exact integers; the
-    s4 chunk-scaled dot gives its plain version's bits (ragged N)."""
-    gen = _probe_gen(cuda_device, m)
-    n, k = 300, 1024
-    i8 = lambda rows: torch.randint(-127, 128, (rows, k), generator=gen, device=cuda_device,
-                                    dtype=torch.int8)
-    s4 = lambda rows: torch.randint(0, 256, (rows, k // 2), generator=gen, device=cuda_device,
-                                    dtype=torch.uint8)
-    x = s4(m) if mode == "s4xs4" else i8(m)
-    w = i8(n) if mode == "i8xi8" else s4(n)
-    sc = (torch.rand((n, k // 256), generator=gen, device=cuda_device) + 0.5) * 2.0 ** -13
-    sc = sc if mode == "s4_sb" else None
+    """Every mode on the s8 tensor cores: i8 x i8 and s4 x s4 give the exact
+    integers, the s4 chunk-scaled dot its plain version's bits (ragged N),
+    at every M (s4 x s4 to 16: two n8 halves above 8)."""
+    x, w, sc = _int_case(cuda_device, mode, 300, 1024, m, m)
     got, want = tpb.int_dot(x, w, sc, mode), tpb.int_dot_ref(x, w, sc, mode)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+INT_SHAPE_CASES = [(mode, m, n, k) for mode in tpb.INT_MODES
+                   for m in ((1, 8, 16) if mode == "s4xs4" else (1, 8))
+                   for n, k in ((160, 13824), (7, 512), (1000, 2304))]
+
+
+@pytest.mark.parametrize("mode,m,n,k", INT_SHAPE_CASES,
+                         ids=[f"{c[0]}-m{c[1]}-{c[2]}x{c[3]}" for c in INT_SHAPE_CASES])
+def test_probe_int_dot_ragged_and_split_k(cuda_device, mode, m, n, k):
+    """Small N with a long K (the integer modes split K over a cluster; the
+    chunk-scaled mode keeps K in one block, in chunk order), N below one
+    tile, N whose scale rows start off 16-byte boundaries: bit-equal, and
+    two launches give the same bits."""
+    x, w, sc = _int_case(cuda_device, mode, n, k, m, n + m)
+    got = tpb.int_dot(x, w, sc, mode)
+    assert torch.equal(got, tpb.int_dot_ref(x, w, sc, mode))
+    assert torch.equal(got, tpb.int_dot(x, w, sc, mode))
 
 
 @pytest.mark.parametrize("reps", [1, 8])
@@ -1291,6 +1340,19 @@ def test_probe_refused_launches_raise(cuda_device):
     s4 = torch.zeros((17, 128), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="out of range"):
         tpb.int_dot(s4, s4, None, "s4xs4")
+    i8 = torch.zeros((9, 256), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="out of range"):
+        tpb.int_dot(i8, i8, None, "i8xi8")
+    long_k = torch.zeros((1, tpb.S4_MAX_K // 2), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="not below"):
+        tpb.int_dot(long_k, long_k, None, "s4xs4")
+    codes = torch.zeros((64, 256), dtype=torch.int8, device=cuda_device)
+    planes = torch.ones((8, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="M in 1..8"):
+        tpb.qmatmul_group_i8(torch.randn((9, 256), device=cuda_device), codes, planes, planes)
+    with pytest.raises(ValueError, match="K % 256"):
+        tpb.qmatmul_group_i8(torch.randn((1, 224), device=cuda_device), codes[:, :224],
+                             planes[:7], planes[:7])
     with pytest.raises(ValueError, match="256 t"):
         tpb.op_chain(torch.zeros((100, 128), dtype=torch.int8, device=cuda_device), "i8aa")
 

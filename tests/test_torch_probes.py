@@ -106,6 +106,170 @@ def test_group_i8_stacked_layer_is_its_slice():
     assert torch.equal(got, probes.qmatmul_group_i8(x, codes[2], planes[2], -planes[2]))
 
 
+# the integer tensor-core kernels' host-side pieces (A and C): the launch's
+# partition of rows and K, the MMA fragments' k order and column map, the
+# s4 unpack, the bound in the kernels' units
+
+RING_CASES = [("group_i8", None, 5120, 13824, 1), ("group_i8", None, 27648, 5120, 8),
+              ("group_i8", None, 5120, 5120, 5), ("group_i8", None, 300, 768, 3),
+              ("group_i8", None, 160, 13824, 8), ("int_dot", "i8xi8", 13824, 5120, 1),
+              ("int_dot", "s4xs4", 13824, 5120, 16), ("int_dot", "s4_sb", 13824, 5120, 8),
+              ("int_dot", "s4xs4", 160, 13824, 1), ("int_dot", "s4_sb", 160, 13824, 1),
+              ("int_dot", "i8xi8", 300, 1024, 8), ("int_dot", "s4xs4", 5120, 5120, 9)]
+
+
+@pytest.mark.parametrize("kernel,mode,n,k,m", RING_CASES,
+                         ids=[f"{c[1] or c[0]}-{c[2]}x{c[3]}-m{c[4]}" for c in RING_CASES])
+def test_ring_plan_covers_every_row_and_group_once(kernel, mode, n, k, m):
+    geo = probes.ring_geometry(kernel, m, mode)
+    plan = probes.ring_plan(n, k, m, kernel, mode)
+    csize = plan[0]["cluster"]
+    assert 1 <= csize <= probes.RING_CLUSTER and len(plan) <= probes.MATVEC_SMS
+    assert csize == 1 or (geo["split"] and csize <= -(-k // geo["step"]))
+    rows = np.zeros(n, np.int64)
+    cover: dict = {}  # chunk rows -> 32-code groups covered, over ranks, steps and warps
+    sizes = []
+    for block in plan:
+        b0, b1 = block["rows"]
+        if block["rank"] == 0:
+            sizes.append(b1 - b0)
+        for ch in block["chunks"]:
+            n0, n1 = ch["rows"]
+            assert b0 <= n0 < n1 <= b1 and (n0 - b0) % probes.RING_TILE == 0
+            assert ch["tiles"] == -(-(n1 - n0) // probes.RING_TILE) and n1 - n0 <= geo["chunk"]
+            if block["rank"] == 0:
+                rows[n0:n1] += 1
+            assert ch["steps"], "every rank takes at least one step of every chunk"
+            seen = cover.setdefault((n0, n1), np.zeros(k // 32, np.int64))
+            last = -1
+            for st in ch["steps"]:
+                k0, k1 = st["k"]
+                assert k0 > last and k1 - k0 <= geo["step"]
+                assert (k1 - k0) % (256 if mode == "s4_sb" else 32) == 0
+                last = k0
+                for c0, c1 in st["warps"]:
+                    assert k0 <= c0 <= c1 <= k1 and (c1 - c0) % 32 == 0
+                    assert c1 - c0 <= 32 * geo["warp_groups"]
+                    if mode == "s4_sb" and c1 > c0:  # a warp's groups in one 256-chunk
+                        assert c0 // 256 == (c1 - 1) // 256
+                    seen[c0 // 32:c1 // 32] += 1
+    assert (rows == 1).all()
+    assert all((c == 1).all() for c in cover.values())
+    assert max(sizes) - min(sizes) <= 1  # rows split evenly over the clusters
+    if mode == "s4_sb":  # its chunk order: K whole in one block, steps in order
+        assert csize == 1
+    if csize > 1:  # a cluster that splits K holds one chunk, added after the ring
+        assert all(len(b["chunks"]) == 1 for b in plan)
+    assert probes.ring_mmas(n, k, m, kernel, mode) >= (
+        -(-n // 16) * (k // 32) * geo["halves"])
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8])
+def test_imma_fragments_reproduce_group_i8_partials(m):
+    """The dual-i8 kernel's MMA as its lanes load it (each lane's own 8
+    bytes, x1 / x2 in columns 2 j / 2 j + 1 of each n8 half) gives the exact
+    c1 and c2 of every group, and the f32 terms formed from them sum to
+    group_i8_ref's y bit for bit."""
+    rng = np.random.default_rng(m)
+    n, k = 16, 128
+    codes = torch.from_numpy(rng.integers(0, 32, (n, k)).astype(np.int8))
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    x1, x2, s1, s2 = probes.split_activations(x)
+    c1 = torch.zeros((k // 32, m, n), dtype=torch.int64)
+    c2 = torch.zeros_like(c1)
+    for gi in range(k // 32):
+        grp = slice(32 * gi, 32 * gi + 32)
+        for half in range(2 if m > 4 else 1):
+            d = probes.imma_dot(codes[:, grp], probes.dual_columns(x1[:, grp], x2[:, grp], half))
+            for t in range(4):
+                if 4 * half + t < m:
+                    c1[gi, 4 * half + t] = d[:, 2 * t]
+                    c2[gi, 4 * half + t] = d[:, 2 * t + 1]
+    q = codes.long().reshape(n, k // 32, 32)
+    assert torch.equal(c1, torch.einsum("mgk,ngk->gmn", x1.long().reshape(m, -1, 32), q))
+    assert torch.equal(c2, torch.einsum("mgk,ngk->gmn", x2.long().reshape(m, -1, 32), q))
+    sct = torch.from_numpy(rng.random((k // 32, n), np.float32) * 0.02).to(torch.bfloat16)
+    bt = -sct
+    sgt = probes.group_sums(x)
+    t = c1.float() * s1.reshape(1, m, 1) + c2.float() * s2.reshape(1, m, 1)
+    y = (t * sct.float()[:, None, :] + sgt[:, :, None] * bt.float()[:, None, :]).sum(dim=0)
+    want = probes.group_i8_ref(x1, x2, torch.cat([s1, s2], 1), sgt, codes, sct, bt)
+    assert torch.equal(y, want)
+
+
+def test_s4_to_s8_matches_unpack_nibbles_over_all_bytes():
+    """The kernel's unpack of a word of 8 int4 codes (even codes, odd codes
+    as sign-extended bytes) holds every byte value in every position of the
+    word bit-equal to unpack_nibbles(signed=True)."""
+    raw = (torch.arange(256).reshape(256, 1) + torch.arange(4).reshape(1, 4)) % 256  # [256, 4]
+    words = (raw << torch.tensor([0, 8, 16, 24])).sum(dim=1, keepdim=True)  # [256, 1] int64
+    even, odd = probes.s4_to_s8(words)
+    codes = probes.unpack_nibbles(raw.to(torch.uint8), signed=True)  # [256, 8] int32
+    assert torch.equal(probes.word_bytes(even).int(), codes[:, 0::2])
+    assert torch.equal(probes.word_bytes(odd).int(), codes[:, 1::2])
+    # the weights' unpack: the same codes times 16
+    even, odd = probes.s4_to_s8x16(words)
+    assert torch.equal(probes.word_bytes(even).int(), 16 * codes[:, 0::2])
+    assert torch.equal(probes.word_bytes(odd).int(), 16 * codes[:, 1::2])
+
+
+def _own_bytes_s4(nib: torch.Tensor, unpack=probes.s4_to_s8) -> torch.Tensor:
+    """[rows, 16] nibble bytes of a group -> [rows, 32] in the order the
+    kernel's lanes hold them: lane t's word (bytes 4 t .. 4 t + 3) unpacked,
+    even codes then odd ones."""
+    b = nib.long()
+    words = b[:, 0::4] | b[:, 1::4] << 8 | b[:, 2::4] << 16 | b[:, 3::4] << 24  # [rows, 4]
+    even, odd = unpack(words)
+    eb = probes.word_bytes(even).reshape(-1, 4, 4)
+    ob = probes.word_bytes(odd).reshape(-1, 4, 4)
+    return torch.cat([eb, ob], dim=2).reshape(-1, 32)
+
+
+@pytest.mark.parametrize("mode", ["s4_sb", "s4xs4", "i8xi8"])
+def test_imma_fragments_reproduce_int_dot(mode):
+    """The int kernel's MMA as its lanes feed it: s4 weight rows unpacked per
+    lane word to 16 x the codes, i8 x byte-permuted (__byte_perm 0x6420 /
+    0x7531: x[8 t + 0, 2, 4, 6], x[8 t + 1, 3, 5, 7]) or s4 x sign-extended
+    in the same order, gives one group's exact integer dot (times 16 for s4
+    weights, shifted back exactly)."""
+    rng = np.random.default_rng(len(mode))
+    s4w = mode != "i8xi8"
+    w = torch.from_numpy(rng.integers(0, 256, (16, 16)).astype(np.uint8)) if s4w else \
+        torch.from_numpy(rng.integers(-128, 128, (16, 32)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(0, 256, (8, 16)).astype(np.uint8)) if mode == "s4xs4" else \
+        torch.from_numpy(rng.integers(-128, 128, (8, 32)).astype(np.int8))
+    a_rows = _own_bytes_s4(w, probes.s4_to_s8x16) if s4w else w
+    if mode == "s4xs4":
+        b_cols = _own_bytes_s4(x)
+    elif s4w:
+        perm = torch.tensor([8 * t + j for t in range(4) for j in (0, 2, 4, 6, 1, 3, 5, 7)])
+        b_cols = x[:, perm]
+    else:
+        b_cols = x
+    want = probes.int_dot_ref(x, w, None, "s4xs4" if mode == "s4xs4" else "i8xi8") \
+        if mode != "s4_sb" else (x.long() @ probes.unpack_nibbles(w, signed=True).long().t())
+    d = probes.imma_dot(a_rows, b_cols).t()
+    assert torch.equal(d, (16 if s4w else 1) * want.long())
+    assert torch.equal(d >> (4 if s4w else 0), want.long())
+
+
+def test_ring_bound_counts_the_padded_mmas():
+    """The tools' ops bound counts the MMAs the launch issues (2 16 8 32
+    operations each, padding included) at the int8 peak; the bytes bound the
+    timed shapes."""
+    from minigpt4_tpu_torch.tools import _harness as h
+
+    n, k = 27648, 5120
+    for m, halves in ((1, 1), (4, 1), (5, 2), (8, 2)):
+        mmas = probes.ring_mmas(n, k, m, "group_i8")
+        assert mmas >= n // 16 * (k // 32) * halves and mmas % halves == 0
+    ops = probes.MMA_OPS * probes.ring_mmas(n, k, 8, "group_i8")
+    nbytes = n * k + n * k // 32 * 4
+    assert h.bound(nbytes, ops, h.INT8_OPS) == (pytest.approx(nbytes / h.HBM_BPS * 1e3), "bytes")
+    ops_s4 = probes.MMA_OPS * probes.ring_mmas(13824, 5120, 16, "int_dot", "s4xs4")
+    assert ops_s4 / h.INT8_OPS < 13824 * 5120 / 2 / h.HBM_BPS
+
+
 # ---------------------------------------------------------------------------
 # kernel B
 # ---------------------------------------------------------------------------
