@@ -419,6 +419,21 @@ Phases (any failure exits nonzero before the last line):
                --only-bench` runs phases 1-2 and 12 (without the chat
                comparison; the draft-head rider then reports its artifact
                absent) and prints no result line.
+  Tools     - the repo-level tools' ports (minigpt4_tpu_torch/tools/), a
+               step in three phases, each with its own path and "[tools
+               ...]" lines: in phase 11, before the teacher is freed,
+               profile_prefill_engine.run (each token tile x attn_len
+               None / 512, chains of 2 and 6) and probe_teacher_locality.run
+               on it (its gq prefill entry and flash decode must launch);
+               in phase 7, before the chat, probe_paged_capacity.run at 8,
+               12 and 16 lanes and at 8 lanes with --spec-k 8, and
+               probe_paged_spec_cost.run on the w8a8 engine's decoder (the
+               i8 kernels and both flash kernels must launch, no gq
+               kernel); right after the 13B chats, python -m
+               minigpt4_tpu_torch.tools.coldstart_probe over their 13B
+               Q5_K_M pair as a process of its own (exit 0, JAX's keys,
+               finite positive numbers; gq_decode, gq_decode_generic,
+               gq_prefill and flash_decode in its launch line).
 Captured CUDA graphs (engine/graphs.py): every engine's own steps and the
 paged group replay graphs, so the launch counts of every path above are
 counted through replays (ops/counters.py).  The 13B Q5_K_M chat, its
@@ -448,6 +463,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import dataclasses
 import gc
 import io
@@ -1941,13 +1957,7 @@ DECODE_MATMULS = ("gq_decode", "gq_decode_generic", "rq_decode", "i8_decode") + 
 def launch_counts() -> dict:
     from minigpt4_tpu_torch.ops import counters
 
-    c = counters.counts()
-    counts = {k: c[(k, "launches", None)] for k in counters.wrappers()}
-    counts[STATS] = c[("flash_decode", "stats_launches", None)]
-    for k in PACKED_KERNELS:
-        name, packing = k[:-1].split("[")
-        counts[k] = c[(name, "packed_launches", packing)]
-    return counts
+    return counters.named()
 
 
 def reset_launch_counts() -> None:
@@ -3426,6 +3436,7 @@ def w8a8_f8(card: str) -> dict:
         log(f"[graphs {label}] the paged group's greedy and sampled chunks of "
             f"{len(QUESTIONS)} lanes captured in {group_warm['warmup_s']:.2f} s; the pool holds "
             f"{group_warm['pool_bytes'] / 1e9:.3f} GB  [{card}]")
+        tools = w8a8_tools(eng, card)
         reset_launch_counts()  # the chat's and the paged group's own launches
         out = chat_on(eng, label, card)
         out["graphs"] = dict(uncounted(lambda: graph_ab(eng, label, card)), warmup=warm)
@@ -3463,7 +3474,7 @@ def w8a8_f8(card: str) -> dict:
         torch.cuda.empty_cache()
     out = check_launches(label, dict(out, load_s=t_load, group_tok_s=n_tok / t_paged),
                          W8A8_KERNELS, GQ_KERNELS + PACKED_KERNELS, card)
-    return out
+    return dict(out, tools=tools)
 
 
 def quality_run(card: str) -> dict:
@@ -4941,6 +4952,7 @@ def synthetic_models(card: str) -> dict:
     reset_launch_counts()
     res = train_draft.run(params, cfg, B.word_tokenize, args, tag)
     distill_counts = launch_counts()
+    tools = teacher_tools(params, cfg, pack, card)
     del params
     if draft_mod.artifact_teacher_mode(args.out) != tag:
         raise AssertionError(f"{SYNTH_DISTILL_LABEL}: artifact tag is not {tag}")
@@ -4954,7 +4966,7 @@ def synthetic_models(card: str) -> dict:
     torch.cuda.empty_cache()
     return {"teacher": {"counts": counts, "build_s": build_s, "gb": held / 1e9,
                         "distinct": distinct, "modal": modal, "ngram_tokens_per_pass": ngram},
-            "distill": {"counts": distill_counts, **res}}
+            "distill": {"counts": distill_counts, **res}, "tools": tools}
 
 
 def synthetic_phase(card: str) -> dict:
@@ -4964,6 +4976,171 @@ def synthetic_phase(card: str) -> dict:
     out = {"gate": kernel_gate(card), **synthetic_models(card)}
     log(f"[synthetic] phase took {time.perf_counter() - t0:.1f} s  [{card}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the repo-level tools (minigpt4_tpu_torch/tools/): a step in three phases
+# ---------------------------------------------------------------------------
+
+TOOLS_TEACHER = "tools 13B gq teacher: prefill split + locality"
+TOOLS_W8A8 = "tools 13B L8 w8a8: paged capacity + spec cost"
+TOOLS_COLDSTART = "tools coldstart 13B Q5_K_M (subprocess)"
+# the prefill split's chains of 2 and 6 calls, the least of 2 (the tool's
+# defaults are JAX's 4, 12 and 3): six arms of a 13B 512-row prefill
+TOOLS_PREFILL_ARGS = ["--chains", "2,6", "--reps", "2"]
+TOOLS_W8A8_KERNELS = ("i8_decode", "i8_prefill", "paged_flash_decode", "flash_decode")
+COLDSTART_KEYS = ("build_s", "encode_ms", "ttft_ms", "decode_tok_s", "n_decode")
+COLDSTART_KERNELS = ("gq_decode", "gq_decode_generic", "gq_prefill", "flash_decode")
+COLDSTART_TIMEOUT_S = 300
+
+
+def _tool(label: str, fn, card: str):
+    """``fn()`` with its stdout (the tool's JSON lines) logged as ``[tools
+    label] ...`` lines; returns fn's result."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[tools {label}] {line}")
+
+
+def _finite_positive(d: dict, keys) -> list[str]:
+    return [f"{k} = {d.get(k)}" for k in keys
+            if not (isinstance(d.get(k), (int, float)) and math.isfinite(d[k]) and d[k] > 0)]
+
+
+def teacher_tools(params: dict, cfg, pack: bool, card: str) -> dict:
+    """Phase 11's tools step on the synthetic 13B gq teacher (full width and
+    depth): profile_prefill_engine.run (each token tile of the prefill
+    kernel x attn_len None / 512, chains TOOLS_PREFILL_ARGS, each arm a
+    captured graph) and probe_teacher_locality.run (windows 1-16 over
+    about 115 lanes, an e4m3 cache).  The counts are set to 0 before and
+    read after (path TOOLS_TEACHER): the gq prefill entry of the teacher's
+    packing and flash decode must launch.  Fails on a time that is not
+    finite and positive, an arm not replayed from its graph, an agreement
+    outside [0, 1]."""
+    from minigpt4_tpu_torch.ops import qmm_prefill
+    from minigpt4_tpu_torch.tools import probe_teacher_locality, profile_prefill_engine
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    pargs = profile_prefill_engine.parse_args(TOOLS_PREFILL_ARGS + ["--device", DEVICE])
+    arms = _tool("profile_prefill_engine",
+                 lambda: profile_prefill_engine.run(params, cfg, pargs), card)
+    largs = probe_teacher_locality.parse_args(["--model", "13B", "--device", DEVICE])
+    loc = _tool("probe_teacher_locality",
+                lambda: probe_teacher_locality.run(params, cfg, largs), card)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    s = time.perf_counter() - t0
+    problems = [f"arm {a['tn']}/{a['attn_len']}: {p}" for a in arms
+                for p in _finite_positive(a, ("prefill512_ms", "prefill_tok_s"))]
+    problems += [f"arm {a['tn']}/{a['attn_len']} not captured" for a in arms if not a["captured"]]
+    if len(arms) != 2 * len(qmm_prefill.TOKEN_TILES):
+        problems.append(f"{len(arms)} prefill arms")
+    problems += [f"locality {k} = {v}" for k, v in loc.items()
+                 if k.startswith("w") and not 0.0 <= v <= 1.0]
+    want = ("gq_prefill[p5]" if pack else "gq_prefill", "flash_decode")
+    problems += [f"{k} never launched" for k in want if counts[k] <= 0]
+    best = min(arms, key=lambda a: a["prefill512_ms"])
+    log(f"[tools] {TOOLS_TEACHER}: fastest arm token tile {best['tn']}, attn_len "
+        f"{best['attn_len']}: {best['prefill512_ms']:.2f} ms a 512-row prefill; agreement "
+        + ", ".join(f"{k} {v:.3f}" for k, v in loc.items() if k.startswith("w"))
+        + f"; launches {({k: v for k, v in counts.items() if v})}; {s:.1f} s  [{card}]")
+    if problems:
+        raise AssertionError(f"{TOOLS_TEACHER}: " + "; ".join(problems))
+    return {"counts": counts, "prefill": arms, "locality": loc, "s": s}
+
+
+def w8a8_tools(eng, card: str) -> dict:
+    """The w8a8 phase's tools step on its engine's decoder (13B width, 8
+    layers, smooth-quant scales folded, before the chat): probe_paged_capacity.run
+    at 8, 12 and 16 lanes (e4m3 pools, the group chunks captured), then its
+    speculative arm at 8 lanes (k = 8, eager verify passes over
+    page-crossing spans), then probe_paged_spec_cost.run (arms A-E).  The
+    counts are set to 0 before and read after (path TOOLS_W8A8): the i8
+    kernels and both flash kernels must launch, no gq kernel may.  Fails on
+    an error line, a missing arm or a number that is not finite and
+    positive."""
+    from minigpt4_tpu_torch.tools import probe_paged_capacity, probe_paged_spec_cost
+
+    params, cfg = eng.llm_params, eng.llm_cfg
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    cap_args = probe_paged_capacity.parse_args(["--lanes", "8,12,16", "--device", DEVICE])
+    lines = _tool("probe_paged_capacity", lambda: probe_paged_capacity.run(params, cfg, cap_args),
+                  card)
+    spec_args = probe_paged_capacity.parse_args(["--lanes", "8", "--spec-k", "8",
+                                                 "--device", DEVICE])
+    spec = _tool("probe_paged_capacity --spec-k 8",
+                 lambda: probe_paged_capacity.run(params, cfg, spec_args), card)
+    cost_args = probe_paged_spec_cost.parse_args(["--device", DEVICE])
+    cost = _tool("probe_paged_spec_cost", lambda: probe_paged_spec_cost.run(params, cfg, cost_args),
+                 card)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    s = time.perf_counter() - t0
+    problems = [f"lanes {ln['lanes']}: {ln['error']}" for ln in lines + spec if "error" in ln]
+    problems += [f"lanes {ln['lanes']}: {p}" for ln in lines if "error" not in ln
+                 for p in _finite_positive(ln, ("pool_mb", "dense_reservation_mb",
+                                                "aggregate_tok_s", "per_lane_tok_s"))]
+    problems += [f"spec lanes {ln['lanes']}: {p}" for ln in spec if "error" not in ln
+                 for p in _finite_positive(ln, ("plain_step_ms", "spec_pass_ms",
+                                                "accept_per_pass"))]
+    problems += [f"{ln['lanes']} lanes not captured" for ln in lines
+                 if "error" not in ln and not ln["captured"]]
+    problems += [f"spec cost: {p}" for p in _finite_positive(
+        cost, ("dense_plain_ms", "dense_spec_ms", "dense_spec8_ms", "paged_plain_ms",
+               "paged_plain_eager_ms", "paged_spec_cross_ms", "paged_spec_aligned_ms"))]
+    problems += [f"{k} never launched" for k in TOOLS_W8A8_KERNELS if counts[k] <= 0]
+    problems += [f"{k} launched" for k in GQ_KERNELS + PACKED_KERNELS if counts[k]]
+    log(f"[tools] {TOOLS_W8A8}: "
+        + "; ".join(f"{ln['lanes']} lanes {ln.get('aggregate_tok_s', 0):.2f} tok/s aggregate, "
+                    f"pool {ln.get('pool_mb', 0):.1f} MB (dense {ln.get('dense_reservation_mb', 0):.1f})"
+                    for ln in lines)
+        + f"; launches {({k: v for k, v in counts.items() if v})}; {s:.1f} s  [{card}]")
+    if problems:
+        raise AssertionError(f"{TOOLS_W8A8}: " + "; ".join(problems))
+    return {"counts": counts, "capacity": lines, "spec": spec, "spec_cost": cost, "s": s}
+
+
+def coldstart_tools(model: Path, llm: Path, chat_out: dict, card: str) -> dict:
+    """python -m minigpt4_tpu_torch.tools.coldstart_probe over the 13B
+    Q5_K_M pair the chats wrote (full depth, f16 container; --n-decode 32,
+    --image-size 224) as a process of its own, with the kernel library
+    built (the "warm" start: build/kernels/ holds it).  Fails unless it
+    exits 0 with JAX's keys, every number finite and positive, and its
+    launch line shows COLDSTART_KERNELS launched (path TOOLS_COLDSTART).
+    Its TTFT pieces are printed beside the in-process chat's."""
+    cmd = [sys.executable, "-m", "minigpt4_tpu_torch.tools.coldstart_probe", "-m", str(model),
+           "-l", str(llm), "--n-decode", "32", "--image-size", "224", "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=COLDSTART_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[tools coldstart_probe] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{TOOLS_COLDSTART}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    launch = [ln for ln in lines if ln.startswith("[launches] ")]
+    res = json.loads(lines[-1])
+    counts = json.loads(launch[-1][len("[launches] "):]) if launch else {}
+    problems = [f"keys {sorted(res)}"] if set(res) != set(COLDSTART_KEYS) | {"device"} else []
+    problems += _finite_positive(res, COLDSTART_KEYS)
+    problems += [f"{k} never launched" for k in COLDSTART_KERNELS if counts.get(k, 0) <= 0]
+    log(f"[tools] {TOOLS_COLDSTART}: build {res.get('build_s', 0):.2f} s (the chat's load "
+        f"{chat_out['load_s']:.2f} s), encode {res.get('encode_ms', 0):.1f} ms (chat "
+        f"{chat_out['encode_ms']:.1f}), ttft {res.get('ttft_ms', 0):.1f} ms: image turn + first "
+        f"token, first use eager (the warmed chat's system prompt + image turn "
+        f"{chat_out['prefill_ms']:.1f} ms), strict per-token decode "
+        f"{res.get('decode_tok_s', 0):.2f} tok/s (the chat's generate "
+        f"{chat_out['decode_tok_s']:.2f}); process wall {wall:.1f} s  [{card}]")
+    if problems:
+        raise AssertionError(f"{TOOLS_COLDSTART}: " + "; ".join(problems))
+    return {"counts": counts, **res, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -5177,6 +5354,7 @@ def main() -> int:
     synth = synthetic_phase(card)
     paths[SYNTH_LABEL] = synth["teacher"]
     paths[SYNTH_DISTILL_LABEL] = synth["distill"]
+    paths[TOOLS_TEACHER] = synth["tools"]
     # the tp ranks are processes of their own: they run while this one holds
     # little device memory
     phase("tp")
@@ -5223,6 +5401,8 @@ def main() -> int:
                        ("d", "draft head")):
         paths[f"speculative 13B {what}"] = spec[name]
     paths.update(train)
+    phase("tools: cold start")
+    paths[TOOLS_COLDSTART] = coldstart_tools(*smoke_models(LLM_13B), paths["13B Q5_K_M"], card)
     phase("7B chats")
     # (graphs captured lazily; no warmup and no eager A/B, to keep the time)
     paths["7B q5_k L8"], eng = chat("7B q5_k L8", LLM_7B, card,
@@ -5262,6 +5442,7 @@ def main() -> int:
     paths["13B q5_1 encode"] = encode_check(card)
     phase("w8a8")
     paths[W8A8_LABEL] = w8a8_f8(card)
+    paths[TOOLS_W8A8] = paths[W8A8_LABEL]["tools"]
     phase("quality")
     paths["quality small"] = quality_run(card)
     phase("clients")

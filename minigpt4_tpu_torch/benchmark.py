@@ -278,12 +278,19 @@ def synth_vision_params(cfg: vision_mod.VisionConfig, rng: np.random.Generator,
                         dtype: torch.dtype = torch.float32,
                         device: str | torch.device = "cuda") -> dict:
     """Random vision params of ``cfg`` (dense ``[in, out]`` weights, normal
-    with std 0.02, zero biases, unit norms), every draw from ``rng`` in the
-    JAX package's order, so the tree is the JAX package's for the same
-    seed; the ViT's blocks are stacked, the Q-Former's layers a list."""
+    with std 0.02, zero biases, unit norms); the ViT's blocks are stacked,
+    the Q-Former's layers a list.  Off the card every draw is from ``rng``
+    in the JAX package's order, so the tree is the JAX package's for the
+    same seed.  On a CUDA ``device`` the normals are drawn there, from a
+    generator seeded by one draw of ``rng`` (as :func:`synth_llama_params`
+    draws its codes): ViT-G's ~1.0 B NumPy normals took ~30 s of host time."""
     vit, qf = cfg.vit, cfg.qformer
+    gen = _generator(rng, device) if torch.device(device).type == "cuda" else None
 
     def normal(std, shape):
+        if gen is not None:
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            return w.mul_(std).to(dtype)
         return tensor(rng.normal(0, std, shape).astype(np.float32), dtype, device)
 
     def zeros(n):

@@ -42,6 +42,22 @@ def counts() -> dict:
     return out
 
 
+def named() -> dict:
+    """Every counter by one name: the wrapper's for ``launches``,
+    ``<wrapper>[stats]`` for flash decode's (m, l) form and
+    ``<wrapper>[<packing>]`` for a gq wrapper's packed launches (the names
+    of ``chip_smoke.py``'s kernels line)."""
+    out = {}
+    for (name, attr, packing), n in counts().items():
+        if attr == "launches":
+            out[name] = n
+        elif attr == "stats_launches":
+            out[f"{name}[stats]"] = n
+        else:
+            out[f"{name}[{packing}]"] = n
+    return out
+
+
 def add(delta: dict, sign: int = 1) -> None:
     """Add ``sign`` times ``delta`` (keys of :func:`counts`) to the counters."""
     fs = wrappers()

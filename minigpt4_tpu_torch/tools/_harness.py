@@ -1,5 +1,5 @@
 """What the probe tools share: flags, timing on the card, bounds and one
-JSON line per case.
+JSON line per case; and the synthetic decoder the repo-level tools build.
 
 The single counterpart of the ``timed`` function that the JAX probes
 repeat.  A kernel is timed as a CUDA graph of ``LAUNCHES`` (20) launches that
@@ -93,6 +93,27 @@ def card(device: torch.device) -> str:
                              timeout=60, check=True)
         _card["line"] = out.stdout.strip().splitlines()[0]
     return _card["line"]
+
+
+def synth_decoder(model: str, quant_mode: str, device: str) -> tuple:
+    """(params, cfg): ``benchmark.synth_llama_params`` of
+    ``GEOMETRIES[model]`` in ``quant_mode`` (Q5_K, ``default_rng(0)``, the
+    engine's f32, packed as ``bench_pack_policy`` decides), built on
+    ``device`` and synchronised: the decoder the repo-level tools' ``main``
+    measures."""
+    import numpy as np
+
+    from .. import benchmark as B
+    from ..engine.engine import COMPUTE_DTYPE
+    from ..formats import DataType
+
+    dev = torch.device(device)
+    cfg = B.GEOMETRIES[model]
+    params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0), COMPUTE_DTYPE,
+                                  quant_mode=quant_mode, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return params, cfg
 
 
 def copies_for(nbytes: int) -> int:

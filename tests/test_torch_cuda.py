@@ -49,6 +49,8 @@ plain version) and the op chains give their plain versions' bits.  A column-para
 rows) of a 13B weight gives the whole-width launch's bits in those rows.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -2455,3 +2457,134 @@ def test_kernel_floors_hold_on_card(cuda_device):
     assert kg.FLOORS_PATH.exists()
     assert kg.run_floors("check", report=report, out=None), report
     assert [r["name"] for r in report] == list(kg.FLOOR_SHAPES)
+
+
+def test_synth_vision_params_drawn_on_card(cuda_device):
+    """benchmark.synth_vision_params on the card draws its normals there from
+    one draw of rng: the CPU tree's structure, shapes and constants, on the
+    card, std 0.02 (0.5 for the query tokens), and the rng one draw on."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.models import minigpt4 as tvision
+    from minigpt4_tpu_torch.models.eva_vit import ViTConfig
+    from minigpt4_tpu_torch.models.qformer import QFormerConfig
+
+    cfg = tvision.VisionConfig(
+        vit=ViTConfig(image_size=28, patch_size=14, embed_dim=64, depth=2, head_dim=16,
+                      mlp_dim=128),
+        qformer=QFormerConfig(hidden_size=32, n_heads=2, n_layers=2, encoder_width=64,
+                              query_length=4, intermediate_size=64), llama_embed_dim=48)
+    r_cpu, r_card = np.random.default_rng(3), np.random.default_rng(3)
+    cpu = B.synth_vision_params(cfg, r_cpu, torch.float32, "cpu")
+    card = B.synth_vision_params(cfg, r_card, torch.float32, "cuda")
+    r_ref = np.random.default_rng(3)
+    r_ref.integers(0, 2**31)
+    assert r_card.integers(0, 2**31) == r_ref.integers(0, 2**31)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}.{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, tree
+
+    a, b = dict(leaves(card)), dict(leaves(cpu))
+    assert a.keys() == b.keys()
+    for path, t in a.items():
+        assert t.device.type == "cuda" and (t.shape, t.dtype) == (b[path].shape, b[path].dtype)
+        if path.endswith((".b", "cls_token")) or path.endswith(".g"):
+            assert torch.equal(t.cpu(), b[path]), path  # zeros and ones, not drawn
+        elif t.numel() >= 1024:
+            std = 0.5 if "query_tokens" in path else 0.02
+            assert abs(float(t.std()) / std - 1) < 0.1, path
+
+
+def _tiny_tool_args(mod, argv):
+    return mod.parse_args(argv + ["--device", "cuda"])
+
+
+def test_paged_capacity_probe_on_card(cuda_device):
+    """tools/probe_paged_capacity.run at the tiny geometry in w8a8 over e4m3
+    pools, 2 and 12 lanes and the speculative arm at 2: no error line, the
+    plain chunks replayed from a captured graph, i8_decode, i8_prefill (12
+    decode rows) and the paged flash kernel launched."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.tools import probe_paged_capacity as cap
+
+    cfg = B.GEOMETRIES["tiny"]
+    params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0),
+                                  quant_mode="w8a8", device="cuda")
+    counters.reset()
+    plain = cap.run(params, cfg, _tiny_tool_args(cap, ["--lanes", "2,12", "--steps", "1"]))
+    spec = cap.run(params, cfg, _tiny_tool_args(cap, ["--lanes", "2", "--spec-k", "8",
+                                                      "--steps", "1"]))
+    assert [ln["lanes"] for ln in plain] == [2, 12] and [ln["lanes"] for ln in spec] == [2]
+    assert not [ln for ln in plain + spec if "error" in ln]
+    assert all(ln["captured"] for ln in plain) and not spec[0]["captured"]
+    assert 1 <= spec[0]["accept_per_pass"] <= 8
+    assert ti8.i8_decode.launches and ti8.i8_prefill.launches
+    assert tfd.paged_flash_decode_attention.launches
+
+
+def test_paged_spec_cost_probe_on_card(cuda_device):
+    """tools/probe_paged_spec_cost.run at the tiny geometry in w8a8: every
+    arm timed, the paged plain chunk captured, both flash kernels launched."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.tools import probe_paged_spec_cost as cost
+
+    cfg = B.GEOMETRIES["tiny"]
+    params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0),
+                                  quant_mode="w8a8", device="cuda")
+    counters.reset()
+    out = cost.run(params, cfg, _tiny_tool_args(cost, []))
+    ms = [k for k in out if k.endswith("_ms")]
+    assert len(ms) == 7 and all(np.isfinite(out[k]) and out[k] > 0 for k in ms)
+    assert out["captured"] == ["paged_plain"]
+    assert tfd.flash_decode_attention.launches and tfd.paged_flash_decode_attention.launches
+
+
+def test_prefill_profile_and_locality_on_card(cuda_device):
+    """tools/profile_prefill_engine.run and probe_teacher_locality.run on the
+    tiny gq teacher: six captured arms, the token tiles restored; agreements
+    in [0, 1] within 2 positions of the CPU's plain versions; the gq
+    prefill entry and flash decode launched."""
+    from minigpt4_tpu_torch import benchmark as B
+    from minigpt4_tpu_torch.ops import qmm_prefill
+    from minigpt4_tpu_torch.tools import probe_teacher_locality as loc
+    from minigpt4_tpu_torch.tools import profile_prefill_engine as pf
+
+    cfg = B.GEOMETRIES["tiny"]
+    tiles = qmm_prefill.TOKEN_TILES
+    params = B.synth_llama_params(cfg, DataType.Q5_K, np.random.default_rng(0),
+                                  quant_mode="gq", device="cuda", pack=False)
+    counters.reset()
+    arms = pf.run(params, cfg, _tiny_tool_args(pf, ["--chains", "1,2", "--reps", "1"]))
+    assert qmm_prefill.TOKEN_TILES == tiles
+    assert [(a["tn"], a["attn_len"]) for a in arms] == [(t, al) for t in tiles
+                                                       for al in (None, 512)]
+    assert all(a["captured"] and np.isfinite(a["prefill512_ms"]) for a in arms)
+    largs = ["--model", "tiny", "--windows", "1,8"]
+    card = loc.run(params, cfg, _tiny_tool_args(loc, largs))
+    assert tgq.gq_prefill.launches and tfd.flash_decode_attention.launches
+    cpu = loc.run(_tree_to(params, "cpu"), cfg, loc.parse_args(largs + ["--device", "cpu"]))
+    for w in ("w1", "w8"):
+        assert 0 <= card[w] <= 1 and abs(card[w] - cpu[w]) * card["positions"] <= 2
+
+
+def test_coldstart_probe_on_card(cuda_device, tmp_path, capsys):
+    """tools/coldstart_probe.main on the tiny gq fixture pair on the card:
+    JAX's keys and the device, every number finite and positive, and its
+    launch line shows the gq entries and flash decode."""
+    from minigpt4_tpu_torch.tools import coldstart_probe
+
+    model, llm = build_gq_models(tmp_path)
+    assert coldstart_probe.main(["-m", str(model), "-l", str(llm), "--image-size", "28",
+                                 "--n-decode", "8", "--n-ctx", "256"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    counts = json.loads(lines[-2][len("[launches] "):])
+    out = json.loads(lines[-1])
+    assert set(out) == {"build_s", "encode_ms", "ttft_ms", "decode_tok_s", "n_decode", "device"}
+    assert all(np.isfinite(out[k]) and out[k] > 0 for k in out if k != "device")
+    assert counts["gq_decode"] > 0 and counts["gq_prefill"] > 0 and counts["flash_decode"] > 0

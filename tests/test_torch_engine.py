@@ -98,6 +98,9 @@ w8_form = (w8.quant_mode, str(w8.cache_dtype),
            type(w8.llm_params["layers"]["wqkv"]["w"]).__name__, len(w8_toks) > 0)
 w8.close()
 from minigpt4_tpu_torch.parallel import dryrun, pipeline, spmd  # noqa: F401
+from minigpt4_tpu_torch.tools import (coldstart_probe, make_synth_13b,  # noqa: F401
+                                      probe_paged_capacity, probe_paged_spec_cost,
+                                      probe_teacher_locality, profile_prefill_engine)
 sys.path.insert(0, sys.argv[1] + "/tests")
 from torch_rank_tasks import rank_tasks
 one = MiniGPT4Engine(sys.argv[2], sys.argv[3], n_ctx=256, n_batch=32, device="cpu",
