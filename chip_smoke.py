@@ -2514,10 +2514,92 @@ def paged_graph_ab(pool, sessions: list, card: str) -> dict:
     return out
 
 
+SESSION_TOKENS = 64  # of phase 5's session captured against eager
+
+
+def session_graph_ab(pool, card: str) -> dict:
+    """Phase 5's first step: one session's system prompt, image turn and
+    SESSION_TOKENS greedy ids through the pool, its steps replayed from the
+    engine's session graphs over the resident cache and run eagerly
+    (``graphs_enabled`` off), each from a new session: one captured run
+    that captures the keys, then captured, eager, eager, captured.  Ids
+    equal; the image turn's and the final pending logits within GRAPH_TOL
+    (the same kernels in the same order: bit-equal expected); the prefill
+    (system prompt and image turn) wall ms, the decode tok/s and the graph
+    replays each way; the session keys (the same for every session) and the
+    resident buffers' bytes.  Leaves graphs on."""
+    from minigpt4_tpu_torch.engine import SamplingParams
+
+    eng = pool.engine
+    greedy = SamplingParams(temp=0.0)
+    emb = pool.encode_image(_preprocess(chat_image(), pool))
+    sync = torch.cuda.synchronize
+
+    def run(mode: bool) -> dict:
+        eng.graphs_enabled = mode
+        s = pool.new_session()
+        r0 = eng.graph_stats()["replays"]
+        sync()
+        t0 = time.perf_counter()
+        pool.system_prompt(s)
+        pool.begin_chat_image(s, emb, "What is in this picture?")
+        sync()
+        t1 = time.perf_counter()
+        prefill, n0 = s.state.logits.clone(), s.n_past
+        "".join(pool.generate(s, SESSION_TOKENS, greedy))
+        sync()
+        t2 = time.perf_counter()
+        ids = s.state.tokens[n0:]
+        out = dict(ids=ids, prefill=prefill, positions=n0,
+                   logits=None if s.state.logits is None else s.state.logits.clone(),
+                   prefill_ms=(t1 - t0) * 1e3, tok_s=len(ids) / (t2 - t1),
+                   replays=eng.graph_stats()["replays"] - r0)
+        s.close()
+        return out
+
+    try:
+        warm = run(True)
+        runs: dict = {True: [], False: []}
+        for mode in (True, False, False, True):
+            runs[mode].append(run(mode))
+    finally:
+        eng.graphs_enabled = True
+    cap, eag = runs[True][-1], runs[False][0]
+    same = all(r["ids"] == eag["ids"] for r in runs[True] + runs[False] + [warm])
+    errs = {"prefill": _rel_d(cap["prefill"], eag["prefill"])}
+    if cap["logits"] is not None and eag["logits"] is not None:
+        errs["final"] = _rel_d(cap["logits"], eag["logits"])
+    res = eng._resident[pool.session_ctx]
+    keys = key_replays(res.steps)
+    buf_gb = sum(t.numel() * t.element_size() for t in res.bufs["cache"].values()) / 1e9
+    out = {"ids_equal": same, "errs": errs, "keys": keys, "resident_gb": buf_gb,
+           "spare": "cache" in res.spare, "positions": cap["positions"]}
+    for mode, name in ((True, "captured"), (False, "eager")):
+        out[name] = {k: statistics.median(r[k] for r in runs[mode])
+                     for k in ("prefill_ms", "tok_s")}
+        out[name]["replays"] = [r["replays"] for r in runs[mode]]
+    log(f"[graphs session] one session of the window server's pool: system prompt + image "
+        f"turn ({cap['positions']} positions) and {len(cap['ids'])} greedy ids: captured "
+        f"prefill {out['captured']['prefill_ms']:.1f} ms, decode {out['captured']['tok_s']:.2f} "
+        f"tok/s ({out['captured']['replays']} graph replays); eager prefill "
+        f"{out['eager']['prefill_ms']:.1f} ms, decode {out['eager']['tok_s']:.2f} tok/s (medians "
+        f"of 2); ids equal {same}; max |d| (/ max) "
+        + ", ".join(f"{k} {d:.3e} ({r:.3e})" for k, (d, r) in errs.items())
+        + f" (tol {GRAPH_TOL:g}); session keys and replays {keys}; resident cache "
+        f"{buf_gb:.3f} GB and a spare of the same size {out['spare']}  [{card}]")
+    bad = [k for k, (_, r) in errs.items() if not r <= GRAPH_TOL]
+    if not same or bad or min(out["captured"]["replays"]) <= 0 or not keys:
+        raise AssertionError(f"session graphs: captured and eager differ or nothing replayed: "
+                             f"{out}")
+    return out
+
+
 def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32,
             limit: int = 32) -> dict:
-    """Eight concurrent HTTP chats through the port's server, then the
-    paged-vs-dense comparison on the same pool."""
+    """One session captured against eager (:func:`session_graph_ab`), then
+    eight concurrent HTTP chats through the port's server (their sessions'
+    steps replaying the session graphs), then the paged-vs-dense
+    comparison on the same pool."""
     from minigpt4_tpu_torch import serve
 
     model, llm = smoke_models(lg) if isinstance(lg, dict) else lg
@@ -2537,6 +2619,8 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
             f"sampled 16-token chunks for 1 to 8 lanes: {warm['warmup_s']:.2f} s, "
             f"{warm['graphs']} graphs, the engine's graph memory pool holds "
             f"{warm['pool_bytes'] / 1e9:.3f} GB  [{card}]")
+    session = uncounted(lambda: session_graph_ab(pool, card)) if cuda else None
+    gen0 = pool.metrics["tokens_generated"]  # the HTTP chats' own tokens
     reset_launch_counts()  # the HTTP chats' own launches
     groups: list[int] = []
     decode_from: dict[int, int] = {}  # session id -> cursor where its decode began
@@ -2591,7 +2675,7 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
             raise AssertionError(f"serving: pages not returned: {health['paged']}")
         lane_tok = [len(pool._sessions[r["sid"]].state.tokens) for r in results]
         span = max(r["t1"] for r in results) - min(r["t0"] for r in results)
-        n_gen = health["metrics"]["tokens_generated"]
+        n_gen = health["metrics"]["tokens_generated"] - gen0
         if any(r["sid"] not in decode_from for r in results):
             raise AssertionError(f"serving: a request bypassed the window batcher: {groups}")
         # tokens each request generated (its cursor after the chat, past the
@@ -2632,7 +2716,7 @@ def serving(card: str, device: str = DEVICE, lg: dict = LLM_13B, pages: int = 32
         if cuda:
             torch.cuda.empty_cache()
     return dict(counts=counts, load_s=t_load, groups=groups, agg_tok_s=n_gen / span, warmup=warm,
-                per_request_tok_s=per_lane, peak_gb=peak, **cmp)
+                per_request_tok_s=per_lane, peak_gb=peak, session=session, **cmp)
 
 
 # ---------------------------------------------------------------------------
@@ -2877,20 +2961,39 @@ def speculative(eng, card: str) -> dict:
         for name, kw in (("c", {"draft_llm_path": llm7}), ("d", {"draft_head_path": head})):
             what = "7B q5_k L8 file" if name == "c" else f"draft head {hcfg}"
             out[name] = drafted(eng, ss, f"{name} 13B", what, kw, plain["ids"],
-                                SPEC_DRAFT_TOKENS, plain["tok_s"], card)
+                                SPEC_DRAFT_TOKENS, plain["tok_s"], card, ab=True)
     return out
 
 
+def key_replays(steps) -> dict:
+    """A StepGraphs' captured keys (as strings) and each one's replays."""
+    return {} if steps is None else {str(k): g.replays for k, g in steps.graphs.items()}
+
+
 def drafted(eng, ss: SpecStreams, label: str, what: str, drafter: dict, want: list, limit: int,
-            plain_tok_s: float, card: str) -> dict:
+            plain_tok_s: float, card: str, ab: bool = False) -> dict:
     """A greedy stream of ``limit`` ids drafted by ``drafter``
     (``set_drafter``'s arguments, dropped afterwards): plain greedy's ids
-    ``want`` (spec_ids_check), its kernels launched."""
+    ``want`` (spec_ids_check), its kernels launched.  With ``ab`` (phase
+    4''), ``warmup()`` first captures the drafter's catch-up buckets and its
+    drafted dispatch of the first pass count, then the stream runs captured
+    twice (the first meets the later dispatches' pass count once, the second
+    captures it), eagerly (``graphs_enabled`` off) and captured again, all
+    from the same turn: ids equal, a drafted pass's ms each way, and the
+    drafter's keys with their replays."""
     t0 = time.perf_counter()
     eng.set_drafter(**drafter)
     t_load = time.perf_counter() - t0
+    runs, warm = {}, None
     try:
-        r = ss.run(0, limit=limit)
+        if ab:
+            warm = eng.warmup(prefill_buckets=(), decode_chunks=())
+            for name, graphs in (("captured 1", True), ("captured 2", True), ("eager", False),
+                                 ("captured", True)):
+                runs[name] = ss.run(0, graphs=graphs, limit=limit)
+        r = runs.get("captured") or ss.run(0, limit=limit)
+        own = eng._resident.get("own")
+        keys = key_replays(own.dsteps if own is not None else None)
     finally:
         eng.set_drafter()
     log(f"[speculative {label}] {what} as the drafter (loaded in {t_load:.2f} s), draft_k "
@@ -2900,8 +3003,24 @@ def drafted(eng, ss: SpecStreams, label: str, what: str, drafter: dict, want: li
     if r["counts"]["flash_decode"] <= 0 or r["counts"]["gq_decode"] <= 0:
         raise AssertionError(f"speculative {label}: the kernels did not launch: {r['counts']}")
     out = {k: r[k] for k in KEEP + ("counts",)}
-    out.update(load_s=t_load, check=spec_ids_check(label, r["ids"], want[:limit],
-                                                   ss.plain_margin, SPEC_TIE_DECODE, card))
+    out.update(load_s=t_load, keys=keys, check=spec_ids_check(
+        label, r["ids"], want[:limit], ss.plain_margin, SPEC_TIE_DECODE, card))
+    if ab:
+        eag = runs["eager"]
+        same = all(x["ids"] == eag["ids"] for x in runs.values())
+        pass_ms = {name: x["s"] / x["passes"] * 1e3 for name, x in runs.items()}
+        out.update(ab={name: {k: x[k] for k in KEEP} for name, x in runs.items()},
+                   pass_ms=pass_ms, ids_equal=same, warmup_s=warm["warmup_s"])
+        log(f"[graphs {label}] drafted passes captured against eager: ids equal {same} "
+            f"({len(eag['ids'])} ids); a drafted pass {pass_ms['captured']:.2f} ms captured "
+            f"({r['passes']} passes, {r['replays']} graph replays), "
+            f"{pass_ms['eager']:.2f} ms eager ({eag['passes']} passes); the warmup captured "
+            f"the drafter's steps in {warm['warmup_s']:.2f} s; drafter keys and replays {keys}  "
+            f"[{card}]")
+        if not same or r["replays"] <= 0 or not any(k.startswith("('draft'") and n > 0
+                                                     for k, n in keys.items()):
+            raise AssertionError(f"speculative {label}: the captured drafted stream differs from "
+                                 f"the eager one or replayed no drafted graph: {out}")
     return out
 
 
@@ -2966,22 +3085,30 @@ def spec_batch(pool, sessions: list, card: str, sync) -> dict:
     at SPEC_K the same paged group and a continuous batcher of eight lanes
     (paged; counts set to 0 before these two and read after): both give
     the plain group's ids (spec_ids_check, the bf16 tie bound: B * k =
-    64 rows); aggregate tok/s and the governor's demotions.  Then (b') the
-    first two sessions as one speculative group of a greedy and a sampled
-    lane (temp 0.8, top-k 40; counts set to 0 just before): the greedy
-    lane gives its plain ids, and each lane's tokens per lane-pass of the
-    sampled verify steps is printed."""
+    64 rows); aggregate tok/s and the governor's demotions.  The paged
+    group's verify passes replay their captured graph (key ("spec", 8,
+    passes, k, None, table width)); the same group run eagerly gives its
+    ids.  Then (b') the first two sessions as one speculative group of a
+    greedy and a sampled lane (temp 0.8, top-k 40; counts set to 0 just
+    before), captured and eager from generators seeded alike: equal ids
+    (the sampled verify passes and, where the governor demotes a group
+    that carries a residual ban, the banned chunk replay their graphs),
+    the greedy lane gives its plain ids, and each lane's tokens per
+    lane-pass of the sampled verify steps is printed."""
     from minigpt4_tpu_torch.engine import SamplingParams
     from minigpt4_tpu_torch.engine.sessions import ContinuousBatcher
-    from minigpt4_tpu_torch.models import llama as llama_mod
 
     greedy = SamplingParams(temp=0.0)
     eng = pool.engine
     n0 = [s.n_past for s in sessions]
 
-    def group(k: int, continuous: bool = False, sources=sessions, params=greedy):
+    def group(k: int, continuous: bool = False, sources=sessions, params=greedy,
+              graphs: bool = True):
         eng.speculative_k = k
+        eng.graphs_enabled = graphs
         lanes = [_clone(pool, s) for s in sources]
+        for i, s in enumerate(lanes):
+            s.state.generator.manual_seed(SEED + 200 + i)
         d0 = pool.metrics["spec_demotions"]
         sync()
         t0 = time.perf_counter()
@@ -3000,6 +3127,7 @@ def spec_batch(pool, sessions: list, card: str, sync) -> dict:
         ids = [s.state.tokens[n:] for s, n in zip(lanes, n0)]
         for s in lanes:
             s.close()
+        eng.graphs_enabled = True
         return dict(ids=ids, s=dt, tok_s=sum(map(len, ids)) / dt,
                     demotions=pool.metrics["spec_demotions"] - d0)
 
@@ -3023,6 +3151,7 @@ def spec_batch(pool, sessions: list, card: str, sync) -> dict:
         reset_launch_counts()
         spec = {"window": group(SPEC_K), "continuous": group(SPEC_K, continuous=True)}
         counts = launch_counts()
+        window_eager = uncounted(lambda: group(SPEC_K, graphs=False))
     finally:
         eng.speculative_k = 0
     out = {"plain_tok_s": plain["tok_s"], "counts": counts}
@@ -3039,24 +3168,44 @@ def spec_batch(pool, sessions: list, card: str, sync) -> dict:
     if counts["paged_flash_decode"] <= 0 or counts["gq_prefill"] <= 0:
         raise AssertionError(f"speculative e: the batched verify's kernels did not launch: "
                              f"{counts}")
+    keys = {k: n for k, n in key_replays(pool._paged_graphs).items()
+            if k.startswith(("('spec'", "('spec_stoch'", "('decode_ban'"))}
+    same = spec["window"]["ids"] == window_eager["ids"]
+    out["window_eager"] = dict(s=window_eager["s"], tok_s=window_eager["tok_s"], ids_equal=same)
+    log(f"[graphs speculative e] the {len(sessions)}-lane paged speculative group captured "
+        f"{spec['window']['tok_s']:.2f} tok/s aggregate against eager "
+        f"{window_eager['tok_s']:.2f}; ids equal {same}; the group's verify keys and replays "
+        f"{keys}  [{card}]")
+    if not same or not any(k.startswith("('spec'") and n > 0 for k, n in keys.items()):
+        raise AssertionError(f"speculative e: the captured speculative group differs from the "
+                             f"eager one or replayed no verify graph: {keys}")
 
     # (b') a greedy and a sampled lane in one group: the sampled verify
-    # steps, recorded by wrapping the loop the group calls
+    # steps, recorded by wrapping the group's step
     steps: list = []  # (verify passes, tokens per lane) of each sampled step
-    loop = llama_mod.stochastic_speculative_decode_loop
+    step = pool._group_step
 
-    def rec(*a, **kw):
-        res = loop(*a, **kw)
-        steps.append((res[1].shape[1], res[1].sum(dim=1).tolist()))
+    def rec(group, *a):
+        res = step(group, *a)
+        if a[5] and group["rows"].traced is not None:  # verify passes of a sampled group
+            steps.append((a[5], [len(t) for t in res[0]]))
         return res
 
-    llama_mod.stochastic_speculative_decode_loop = rec
+    pool._group_step = rec
+    pair_params = [greedy, SamplingParams(**SAMPLED)]
     try:
         reset_launch_counts()
-        pair = group(SPEC_K, sources=sessions[:2], params=[greedy, SamplingParams(**SAMPLED)])
+        pair = group(SPEC_K, sources=sessions[:2], params=pair_params)
         pair_counts = launch_counts()
+        n_steps = len(steps)
+        # again captured (a key the first run met once is captured and
+        # replayed now), then eagerly
+        pair2, pair_eager = (uncounted(lambda g=g: group(SPEC_K, sources=sessions[:2],
+                                                         params=pair_params, graphs=g))
+                             for g in (True, False))
+        del steps[n_steps:]
     finally:
-        llama_mod.stochastic_speculative_decode_loop = loop
+        del pool._group_step
         eng.speculative_k = 0
     passes = sum(p for p, _ in steps)
     per_lane = [sum(t[i] for _, t in steps) / passes if passes else None for i in range(2)]
@@ -3069,8 +3218,21 @@ def spec_batch(pool, sessions: list, card: str, sync) -> dict:
     if not steps or pair_counts["gq_prefill"] <= 0 or pair_counts["paged_flash_decode"] <= 0:
         raise AssertionError(f"speculative b': no sampled verify step ran ({steps}) or its "
                              f"kernels did not launch ({pair_counts})")
+    keys = {k: n for k, n in key_replays(pool._paged_graphs).items()
+            if k.startswith(("('spec_stoch'", "('decode_ban'"))}
+    pair_same = pair["ids"] == pair2["ids"] == pair_eager["ids"]
+    log(f"[graphs speculative b'] the greedy + sampled pair captured {pair['tok_s']:.2f} and "
+        f"{pair2['tok_s']:.2f} tok/s aggregate against eager {pair_eager['tok_s']:.2f}, from "
+        f"generators seeded alike: ids equal {pair_same}; sampled verify and banned-chunk keys "
+        f"and replays {keys}  [{card}]")
+    if not pair_same or not any(k.startswith("('spec_stoch'") and n > 0
+                                for k, n in keys.items()):
+        raise AssertionError(f"speculative b': the captured pair differs from the eager one or "
+                             f"replayed no sampled verify graph: {keys}")
     out["pair"] = dict(s=pair["s"], tok_s=pair["tok_s"], demotions=pair["demotions"],
                        steps=steps, tokens_per_lane_pass=per_lane, counts=pair_counts,
+                       replayed_tok_s=pair2["tok_s"], eager_tok_s=pair_eager["tok_s"],
+                       ids_equal=pair_same, keys=keys,
                        check=spec_ids_check("b' greedy lane", pair["ids"][0], plain["ids"][0],
                                             margin_at(0), SPEC_TIE_PREFILL, card))
     return out
@@ -3305,6 +3467,10 @@ def continuous_serving(card: str, window: dict, lg: dict = LLM_13B, pages: int =
             f"{health['prefix_cache']}; /v1/health {health['paged']}  [{card}]")
         for r, q in zip(results, QUESTIONS):
             log(f"[continuous]   {q[:32]!r:36s} -> {r['text'][:40]!r}")
+        res = pool.engine._resident.get(pool.session_ctx)
+        log(f"[graphs continuous] the requests' sessions replayed {res.steps.replays} graphs of "
+            f"{len(res.steps.graphs)} keys over the resident cache: "
+            f"{key_replays(res.steps)}  [{card}]")
         missing = [k for k in CONT_KERNELS if counts.get(k, 0) <= 0]
         if joins < 1 or hits < 7 or missing or health["paged"]["free_pages"] != pages:
             raise AssertionError(f"continuous: joins {joins}, prefix hits {hits}, kernels never "
@@ -5058,8 +5224,9 @@ def w8a8_tools(eng, card: str) -> dict:
     """The w8a8 phase's tools step on its engine's decoder (13B width, 8
     layers, smooth-quant scales folded, before the chat): probe_paged_capacity.run
     at 8, 12 and 16 lanes (e4m3 pools, the group chunks captured), then its
-    speculative arm at 8 lanes (k = 8, eager verify passes over
-    page-crossing spans), then probe_paged_spec_cost.run (arms A-E).  The
+    speculative arm at 8 lanes (k = 8, captured verify passes over
+    page-crossing spans), then probe_paged_spec_cost.run (arms A-E; C, D and
+    E captured, each also eager).  The
     counts are set to 0 before and read after (path TOOLS_W8A8): the i8
     kernels and both flash kernels must launch, no gq kernel may.  Fails on
     an error line, a missing arm or a number that is not finite and
@@ -5093,7 +5260,13 @@ def w8a8_tools(eng, card: str) -> dict:
                  if "error" not in ln and not ln["captured"]]
     problems += [f"spec cost: {p}" for p in _finite_positive(
         cost, ("dense_plain_ms", "dense_spec_ms", "dense_spec8_ms", "paged_plain_ms",
-               "paged_plain_eager_ms", "paged_spec_cross_ms", "paged_spec_aligned_ms"))]
+               "paged_plain_eager_ms", "paged_spec_cross_ms", "paged_spec_aligned_ms",
+               "paged_spec_cross_eager_ms", "paged_spec_aligned_eager_ms"))]
+    problems += [f"spec cost arm {a} not captured" for a in
+                 ("paged_plain", "paged_spec_cross", "paged_spec_aligned")
+                 if a not in cost.get("captured", [])]
+    problems += [f"spec lanes {ln['lanes']} verify passes not captured" for ln in spec
+                 if "error" not in ln and not ln["captured"]]
     problems += [f"{k} never launched" for k in TOOLS_W8A8_KERNELS if counts[k] <= 0]
     problems += [f"{k} launched" for k in GQ_KERNELS + PACKED_KERNELS if counts[k]]
     log(f"[tools] {TOOLS_W8A8}: "
@@ -5101,6 +5274,14 @@ def w8a8_tools(eng, card: str) -> dict:
                     f"pool {ln.get('pool_mb', 0):.1f} MB (dense {ln.get('dense_reservation_mb', 0):.1f})"
                     for ln in lines)
         + f"; launches {({k: v for k, v in counts.items() if v})}; {s:.1f} s  [{card}]")
+    if "paged_spec_cross_ms" in cost:
+        log(f"[graphs tools] a paged verify pass (8 lanes, k = 8, 2 passes a dispatch): "
+            f"captured {cost['paged_spec_cross_ms']:.2f} ms crossing a page edge, "
+            f"{cost.get('paged_spec_aligned_ms', float('nan')):.2f} ms aligned; eager "
+            f"{cost.get('paged_spec_cross_eager_ms', float('nan')):.2f} / "
+            f"{cost.get('paged_spec_aligned_eager_ms', float('nan')):.2f} ms; the paged plain "
+            f"chunk captured {cost.get('paged_plain_ms', float('nan')):.2f} ms a token, eager "
+            f"{cost.get('paged_plain_eager_ms', float('nan')):.2f}  [{card}]")
     if problems:
         raise AssertionError(f"{TOOLS_W8A8}: " + "; ".join(problems))
     return {"counts": counts, "capacity": lines, "spec": spec, "spec_cost": cost, "s": s}

@@ -24,14 +24,14 @@ the same state.  Weights the JAX package draws with ``jax.random`` are
 drawn here on ``device`` by a ``torch.Generator`` seeded from that one
 draw, so a 13B build never goes through the host.
 
-Timing follows what the port's engine runs.  What the engine captures as
-CUDA graphs (``engine/graphs.py``) is timed as replays of the same
-``StepGraphs`` steps: the state's prefill buckets, single step and decode
-chunks, the single-stream n-gram dispatches, the paged group's chunk and
-the encoder.  What the engine runs eagerly is timed eagerly: the drafted
-loops (``engine._draft_chunk``), batched speculation
-(``SessionPool._group_step`` with passes) and the dense batched group.
-:data:`SECTION_GRAPHS` records which is which, and each run says on stderr.
+Timing follows what the port's engine runs.  On the card every section is
+timed as replays of the ``StepGraphs`` steps the engine captures for it
+(``engine/graphs.py``): the state's prefill buckets, single step and decode
+chunks, the single-stream n-gram dispatches, the drafted dispatch, the
+dense batched group's chunk and verify passes (as the continuous batcher's
+stacked slots), the paged group's chunk and verify passes, and the encoder
+(on the CPU every section runs eagerly); each run says on stderr which
+sections replayed graphs.
 Times are the host's clock around work that ends in a host fetch of the ids
 (or ``torch.cuda.synchronize()``), as a user waits for it; the calibration
 :func:`chip_state_probe` times CUDA graphs with CUDA events.  Two numbers
@@ -434,13 +434,6 @@ def word_tokenize(text: str) -> np.ndarray:
 # a chip_state_probe reading above this share of the H100's 3.35 TB/s (the
 # data sheet's HBM rate) is a timing fault, not a fast card
 PROBE_MAX_SHARE = 1.05
-# how each section of bench_decode and bench_encode runs: as replays of the
-# graphs the engine captures for the same steps, or eagerly, as the engine
-# runs it (on the CPU every section runs eagerly)
-SECTION_GRAPHS = {"core": "captured", "spec": "captured", "stoch_spec": "captured",
-                  "draft_spec": "eager", "draft_head": "eager", "batched": "eager",
-                  "batched_spec": "eager", "paged": "captured", "paged_spec": "eager",
-                  "encode": "captured"}
 DRAFT_ARTIFACT = Path(__file__).parent / "assets" / "bench_draft_13b.npz"
 
 
@@ -550,24 +543,30 @@ def _draft_model(cfg: llama_mod.LlamaConfig, dev: torch.device) -> tuple:
 
 def _drafted_pass_s(params: dict, cache: dict, cfg: llama_mod.LlamaConfig, dparams: dict,
                     dcfg: llama_mod.LlamaConfig, logits: torch.Tensor, pos: int,
-                    k_spec: int) -> tuple[float, torch.Tensor]:
-    """Seconds per pass of the drafted loop (``draft_speculative_decode_loop``,
-    eager as the engine's ``_draft_chunk``): one warm call, then three timed
-    calls of 2 passes from cursor ``pos`` over a fresh bf16 drafter cache.
-    Returns (seconds per pass, the pending logits)."""
-    dcache = llama_mod.init_cache(dcfg, 1, torch.bfloat16, logits.device)
+                    k_spec: int, pool_id, graphs: bool) -> tuple[float, torch.Tensor, int]:
+    """Seconds per pass of the drafted dispatch (``draft_speculative_decode_loop``
+    through ``StepGraphs.draft_chunk``, key ("draft", 2, k), as the engine's
+    ``_draft_chunk`` replays it; eager without ``graphs``): one call that
+    captures, then three timed calls of 2 passes from cursor ``pos`` over a
+    fresh bf16 drafter cache.  Returns (seconds per pass, the pending
+    logits, the replays)."""
+    from .engine.engine import DraftFns
 
-    def call(lg):
-        toks, _, lg = llama_mod.draft_speculative_decode_loop(params, cache, dparams, dcache, lg,
-                                                              pos, 2, k_spec, cfg, dcfg)
+    dev = logits.device
+    steps = StepGraphs(params, cfg, cache, dev, pool_id, eager=not graphs,
+                       draft=DraftFns(dparams, dcfg, dev),
+                       dcache=llama_mod.init_cache(dcfg, 1, torch.bfloat16, dev))
+
+    def call(lg, capture=False):
+        toks, _, lg = steps.draft_chunk(lg, pos, 2, k_spec, capture=capture)
         _host(toks)
         return lg
 
-    logits = call(logits)
+    logits = call(logits, capture=True)
     t0 = time.perf_counter()
     for _ in range(3):
         logits = call(logits)
-    return (time.perf_counter() - t0) / 6, logits
+    return (time.perf_counter() - t0) / 6, logits, steps.replays
 
 
 def _accept_walk(agree: np.ndarray, k_draft: int) -> float:
@@ -817,8 +816,8 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         _emit()
 
     # --- drafter speculation: the synthetic ~170M drafter beside the model,
-    # k drafter steps and one verify per pass (eager, as the engine's
-    # drafted loop).  Unrelated weights make its acceptance meaningless, so
+    # k drafter steps and one verify per pass (the engine's drafted
+    # dispatch).  Unrelated weights make its acceptance meaningless, so
     # the numbers are the pass cost and the rates it implies at 2 and 4
     # accepted drafts per pass.
     def _draft_spec_section():
@@ -826,12 +825,12 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         if cfg.n_embd < 2048 or sections == "serving":  # the smoke geometries: skip
             return
         dparams, dcfg = _draft_model(cfg, dev)
-        pass_s, logits = _drafted_pass_s(params, steps.cache, cfg, dparams, dcfg, logits,
-                                         min(p2 + done, cfg.n_ctx - 2 * k_spec - 1), k_spec)
+        pass_s, logits, ran["draft_spec"] = _drafted_pass_s(
+            params, steps.cache, cfg, dparams, dcfg, logits,
+            min(p2 + done, cfg.n_ctx - 2 * k_spec - 1), k_spec, pool_id, graphs)
         out["draft_spec_pass_ms"] = pass_s * 1e3
         out["draft_spec_tok_s_at_accept2"] = 3.0 / pass_s
         out["draft_spec_tok_s_at_accept4"] = 5.0 / pass_s
-        ran["draft_spec"] = None
 
     if _budget("draft_spec", 120):
         try:
@@ -889,12 +888,11 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         out["draft_head_accept_realistic"] = acc_pp
 
         # the decode state's cache was freed for the evaluation: a fresh one
-        pass_s, logits = _drafted_pass_s(params, llama_mod.init_cache(cfg, 1, cache_dtype, dev),
-                                         cfg, dparams, dcfg, logits,
-                                         min(cfg.n_ctx - 4 * k_spec - 1, 512), k_spec)
+        pass_s, logits, ran["draft_head"] = _drafted_pass_s(
+            params, llama_mod.init_cache(cfg, 1, cache_dtype, dev), cfg, dparams, dcfg, logits,
+            min(cfg.n_ctx - 4 * k_spec - 1, 512), k_spec, pool_id, graphs)
         out["draft_head_pass_ms"] = pass_s * 1e3
         out["decode_tok_s_draft_realistic"] = acc_pp / pass_s
-        ran["draft_head"] = None
 
     if _budget("draft_head", 150):
         try:
@@ -907,8 +905,9 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         _report(ran, graphs)
         return out
 
-    # --- the dense batched group (eager, as the engine's dense group): B
-    # sessions share every weight read, at the serving context of 512
+    # --- the dense batched group (captured, as the continuous batcher's
+    # stacked slots): B sessions share every weight read, at the serving
+    # context of 512
     if not _budget("batched", 240):
         _report(ran, graphs)
         return out
@@ -925,10 +924,10 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
                                     llama_mod.embed_tokens(params, bt[:, c0:c0 + pf_chunk]),
                                     c0, bcfg)
     greedy_b = lane_rows([SamplingParams(temp=0.0)] * bsz, cfg.n_vocab, dev)
+    bsteps = StepGraphs(params, bcfg, bcache, dev, pool_id, eager=not graphs)
 
     def bdl(lg: torch.Tensor, pos0: int):
-        return llama_mod.decode_loop(params, bcache, lg, pos0, chunk, [None] * bsz, greedy_b,
-                                     bcfg)
+        return bsteps.decode_chunk(lg, pos0, chunk, [None] * bsz, greedy_b, capture=True)
 
     btoks, blogits = bdl(blogits, bprefill)
     _host(btoks)
@@ -942,7 +941,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
     dt_b = time.perf_counter() - t0
     out["decode_batch"] = bsz
     out["decode_tok_s_batched_aggregate"] = bsz * n_b / dt_b
-    ran["batched"] = None
+    ran["batched"] = bsteps.replays
     _emit()
 
     # the paged section's admission source, on the host now: the group's
@@ -954,8 +953,8 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
     paged_logits0 = blogits.cpu()
     dense_group_mb = 2 * bcache["k"].numel() * bcache["k"].element_size() / 1e6
 
-    # --- batched n-gram speculation (eager, as the batchers' speculative
-    # steps): per-lane drafts over the shared weight read
+    # --- batched n-gram speculation (captured, as the continuous batcher's
+    # verify steps): per-lane drafts over the shared weight read
     def _batched_spec_section():
         nonlocal blogits, btoks
         sp_k_b, sp_passes_b = 8, 2
@@ -973,11 +972,11 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         bhist = torch.from_numpy(bhist0).to(dev)
 
         def bspec(lg, hist):
-            return llama_mod.speculative_decode_loop(params, bcache, lg, bpos_sp, hist,
-                                                     sp_passes_b, sp_k_b, bcfg)
+            return bsteps.spec_chunk(lg, bpos_sp, hist, sp_passes_b, sp_k_b, capture=True)
 
         btoks_sp, _, blogits, bhist = bspec(blogits, bhist)
         _host(btoks_sp)
+        before = bsteps.replays
         t0 = time.perf_counter()
         n_tok_b = n_pass_b = 0
         for _ in range(3):
@@ -987,7 +986,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         dt_bs = time.perf_counter() - t0
         out["decode_tok_s_batched_spec"] = n_tok_b / dt_bs
         out["spec_accept_per_pass_batched"] = n_tok_b / n_pass_b
-        ran["batched_spec"] = None
+        ran["batched_spec"] = bsteps.replays - before
 
     if _budget("batched_spec", 120):
         try:
@@ -1005,7 +1004,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         _report(ran, graphs)
         return out
     try:
-        bcache = blogits = btoks = None  # release the dense group before the pool
+        bcache = blogits = btoks = bsteps = None  # release the dense group before the pool
         n_pg = min(n_b, 4 * chunk)
         # +96: room for the paged speculation below (its passes run up to
         # ~3 spans past the plain run)
@@ -1047,7 +1046,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
         out["dense_group_mb"] = round(dense_group_mb, 1)
         ran["paged"] = psteps.replays
 
-        # --- paged n-gram speculation (eager, as the batchers' speculative
+        # --- paged n-gram speculation (captured, as the batchers' verify
         # steps): greedy verify passes over the same pool, whose writes split
         # where a span crosses a page edge
         def _paged_spec_section():
@@ -1056,14 +1055,11 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
             span = sp_k_p * sp_passes_p
             if int(ppos[0]) + 3 * span > bcfg.n_ctx:
                 return  # no context room left for the passes
-            kv = {"k": pool.k, "v": pool.v}
-
             def sstep(plogits, hist, pos_dev, pos_max):
                 for i in range(bsz):
                     lane_pages[i] = pool.extend(lane_pages[i], pos_max + span)
-                _, pcnt, plogits, hist = llama_mod.speculative_decode_loop(
-                    params, kv, plogits, pos_dev, hist, sp_passes_p, sp_k_p, bcfg,
-                    page_table=table())
+                _, pcnt, plogits, hist = psteps.spec_chunk(plogits, pos_dev, hist, sp_passes_p,
+                                                           sp_k_p, table(), capture=True)
                 cnt = _host(pcnt)
                 step_pos = torch.from_numpy(cnt.sum(axis=1).astype(np.int32)).to(dev)
                 return plogits, hist, pos_dev + step_pos, int(cnt.sum())
@@ -1071,6 +1067,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
             hist = torch.from_numpy(phist).to(dev)
             pos_dev = torch.from_numpy(ppos.astype(np.int32)).to(dev)
             plogits, hist, pos_dev, _ = sstep(plogits, hist, pos_dev, int(ppos.max()))
+            before = psteps.replays
             t0 = time.perf_counter()
             n_tok = n_pass = 0
             for _ in range(2):
@@ -1081,7 +1078,7 @@ def bench_decode(model: str, qtype: DataType, n_decode: int, prefill_len: int,
             dt_s = time.perf_counter() - t0
             out["decode_tok_s_paged_spec"] = n_tok / dt_s
             out["spec_accept_per_pass_paged"] = n_tok / n_pass
-            ran["paged_spec"] = None
+            ran["paged_spec"] = psteps.replays - before
 
         _emit()
         if _budget("paged_spec", 90):

@@ -33,13 +33,21 @@ default, or one passed as ``st``.  The serving sessions
 (``engine/sessions.py``) each own a state with a cache of ``session_ctx``
 positions (:meth:`MiniGPT4Engine.new_state`) and share the loaded model.
 
-On a CUDA engine at tp = 1 the steps of the engine's own state (prefill
-chunks, the single-token step, decode chunks) and the image encoder replay
-captured CUDA graphs (``engine/graphs.py``), captured lazily on the second
-use of each key or ahead of time by :meth:`MiniGPT4Engine.warmup`.  They run
-eagerly on a CPU engine, under tp > 1 (gloo's all-reduces cannot be
-captured) and on states made by ``new_state``; ``graphs_enabled`` (True
-exactly where graphs run) set to False runs the same steps eagerly.
+On a CUDA engine at tp = 1 every step that the JAX engine compiles replays
+a captured CUDA graph (``engine/graphs.py``), captured lazily on the second
+use of each key or ahead of time by :meth:`MiniGPT4Engine.warmup`: prefill
+chunks, the single-token step, decode chunks, the n-gram dispatches (greedy
+and sampled), the residual ban's step, the drafter's catch-up and drafted
+dispatch, and the image encoder.  The engine's own state replays graphs over
+its own cache.  The states of ``new_state`` (serving sessions) share one set
+of graphs per context length, captured over a resident cache of that
+geometry (:class:`_Resident`): before a step the state's buffer is copied
+whole into the resident one and the previous owner's rows go back to a
+buffer of their own, so captured results are the eager ones bit for bit and
+the number of graphs does not grow with the number of sessions.  Steps run
+eagerly on a CPU engine and under tp > 1 (gloo's all-reduces cannot be
+captured); mirostat samples on the host; ``graphs_enabled`` (True exactly
+where graphs run) set to False runs the same steps eagerly.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -110,7 +119,11 @@ class DecodeState:
     A serving session's state can be parked (:meth:`park`): its cache then
     lives in host memory, trimmed to the consumed prefix, until
     :meth:`ensure_device` puts it back.  ``cache`` is None while the state is
-    parked or rides a batched group (whose cache is then the live copy)."""
+    parked or rides a batched group (whose cache is then the live copy).  On
+    a graph engine a session's ``cache`` (and ``dcache``) may be the engine's
+    resident buffer of its geometry (:class:`_Resident`); every operation
+    here reads and writes whatever buffer ``cache`` is, and one that sets it
+    to None or replaces it ends the residency."""
 
     def __init__(self, cache: dict, generator: torch.Generator):
         self.cache = cache
@@ -265,6 +278,69 @@ def _host_bits(t: torch.Tensor) -> np.ndarray:
     """A cache tensor's bits on the host, as the JAX package's checkpoints
     hold them: f32 as float32, bf16 as uint16, e4m3 as uint8."""
     return llama_mod._bits(t).cpu().numpy().view(_BITS_NP[t.element_size()])
+
+
+def _copy_buffers(dst: dict, src: dict) -> None:
+    """Copy a whole cache ``{"k", "v"}`` as bits (no cast, every position)."""
+    for kv in ("k", "v"):
+        llama_mod._bits(dst[kv]).copy_(llama_mod._bits(src[kv]))
+
+
+class _Resident:
+    """The resident buffers of one state geometry, over which one set of
+    captured graphs runs: ``bufs["cache"]``, the session cache every
+    captured step of that geometry reads and writes, and, with a drafter,
+    ``bufs["dcache"]``, the drafter's cache beside it; ``steps`` and
+    ``dsteps`` are their graphs (``dsteps`` with the drafter).
+
+    :meth:`take` makes a state's buffer the resident one: the previous
+    owner's rows go back to a buffer of its own (the spare: the buffer the
+    state before it gave up), the state's buffer is copied in whole and
+    becomes the spare.  Whole buffers, not rows [0, n_past): rows past the
+    cursor stay the state's own, which the plain S > 32 prefill path
+    multiplies by masked weights (an e4m3 row can be NaN), so a captured step
+    gives the eager step's bits.  Device memory above the states' own caches
+    is one buffer per attribute.  Ownership is by identity (``owner.cache is
+    resident``): a path that sets a state's buffer to None or replaces it
+    (park, a batched group, a detach) ends the residency, and the next taker
+    needs no copy out.  Callers hold the lock around the step."""
+
+    def __init__(self):
+        self.bufs: dict = {}  # "cache" / "dcache" -> the resident buffer
+        self.spare: dict = {}  # a free buffer of that geometry, per attribute
+        self.owner: dict = {}  # the state whose attribute is the resident buffer (a weakref)
+        self.steps: StepGraphs | None = None
+        self.dsteps: StepGraphs | None = None
+
+    def take(self, st: DecodeState, attr: str, new) -> dict:
+        """Make ``getattr(st, attr)`` the resident buffer (made by ``new()``
+        on first use) and return it.  A state without a buffer (a draft cache
+        dropped by ``reset`` or ``park``) takes the resident one as it is;
+        its caller restarts the rows it reads (``draft_past = 0``)."""
+        res = self.bufs.get(attr)
+        if res is None:
+            res = self.bufs[attr] = new()
+        cur = getattr(st, attr)
+        if cur is res:
+            return res
+        ref = self.owner.get(attr)
+        prev = ref() if ref is not None else None
+        if prev is not None and getattr(prev, attr) is res:
+            back = self.spare.pop(attr, None) or {kv: torch.empty_like(t) for kv, t in res.items()}
+            _copy_buffers(back, res)
+            setattr(prev, attr, back)
+        if cur is not None:
+            _copy_buffers(res, cur)
+            self.spare[attr] = cur
+        setattr(st, attr, res)
+        self.owner[attr] = weakref.ref(st)
+        return res
+
+    def drop_draft(self) -> None:
+        """Forget the drafter's buffer and graphs (a new drafter)."""
+        for d in (self.bufs, self.spare, self.owner):
+            d.pop("dcache", None)
+        self.dsteps = None
 
 
 class MiniGPT4Engine:
@@ -429,13 +505,15 @@ class MiniGPT4Engine:
         self.cache_cfg = spmd.cache_cfg(self.llm_cfg, tp)  # sizes this rank's caches
         self._st = self.new_state(self.llm_cfg.n_ctx, seed)
         self.sampler = Sampler(seed)
-        self._draft_file = None
-        self.set_drafter(draft_llm_path, draft_head_path)
         # captured CUDA graphs: on a CUDA engine at tp = 1, captured lazily
         self.graphs_enabled = self.device.type == "cuda" and self.tp_group is None
         self._graph_pool = None
-        self._step_graphs: StepGraphs | None = None
+        # the resident buffers and their graphs: "own" for the engine's own
+        # state (its cache is resident for good), n_ctx for session states
+        self._resident: dict = {}
         self._encode_graphs: GraphCache | None = None
+        self._draft_file = None
+        self.set_drafter(draft_llm_path, draft_head_path)
 
     def set_drafter(self, draft_llm_path=None, draft_head_path=None) -> None:
         """Load the drafter of draft-model speculation (the JAX engine's
@@ -444,8 +522,11 @@ class MiniGPT4Engine:
         ``draft_cfg`` (None without a drafter) and ``draft_k``.  A drafter
         file loads in the engine's quant_mode (``auto``: gq where it
         applies); a draft head is assembled over the engine's embedding.
-        The states' draft caches are dropped."""
+        The states' draft caches are dropped, and the captured drafter steps
+        with them."""
         _check_drafter(draft_llm_path, draft_head_path, self.tp)
+        for res in self._resident.values():
+            res.drop_draft()
         if self._draft_file is not None:
             self._draft_file.close()
         self.draft_params = None
@@ -539,16 +620,50 @@ class MiniGPT4Engine:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return self._graph_pool
 
+    def _resident_of(self, st: DecodeState) -> _Resident:
+        """The resident set ``st``'s steps run on, with ``st``'s cache made
+        resident in it (a parked state is put back on its device first): the
+        engine's own state's, whose cache it is for good, or the one shared
+        by every session state of ``st.n_ctx`` positions.  Caller holds the
+        lock around the step."""
+        st.ensure_device()
+        key = "own" if st is self._st else st.n_ctx
+        res = self._resident.get(key)
+        if res is None:
+            res = self._resident[key] = _Resident()
+            if key == "own":
+                res.bufs["cache"] = st.cache
+                res.owner["cache"] = weakref.ref(st)
+        res.take(st, "cache", lambda: {kv: torch.zeros_like(t) for kv, t in st.cache.items()})
+        return res
+
     def _steps(self, st: DecodeState) -> StepGraphs | None:
-        """The captured steps of ``st``'s cache, or None where ``st`` runs
-        eagerly: a state of ``new_state`` (serving sessions), tp > 1 and a
-        CPU engine."""
-        if st is not self._st or not self.graphs_enabled:
+        """The captured steps that run ``st``'s next step, with ``st``
+        resident in their cache (:meth:`_resident_of`), or None where it
+        runs eagerly: tp > 1 and a CPU engine (``graphs_enabled`` off)."""
+        if not self.graphs_enabled:
             return None
-        if self._step_graphs is None:
-            self._step_graphs = StepGraphs(self.llm_params, self.llm_cfg, st.cache, self.device,
-                                           self.graph_pool)
-        return self._step_graphs
+        res = self._resident_of(st)
+        if res.steps is None:
+            res.steps = StepGraphs(self.llm_params, self.llm_cfg, res.bufs["cache"], self.device,
+                                   self.graph_pool)
+        return res.steps
+
+    def _draft_steps(self, st: DecodeState, dfns: "DraftFns") -> StepGraphs | None:
+        """The captured drafter steps for ``st`` (its cache and its draft
+        cache made resident; a state without a draft cache takes the
+        resident one and catches up from position 0), or None where they
+        run eagerly."""
+        if not self.graphs_enabled:
+            return None
+        res = self._resident_of(st)
+        if st.dcache is None:
+            st.draft_past = 0
+        dcache = res.take(st, "dcache", dfns.new_cache)
+        if res.dsteps is None:
+            res.dsteps = StepGraphs(self.llm_params, self.llm_cfg, res.bufs["cache"], self.device,
+                                    self.graph_pool, draft=dfns, dcache=dcache)
+        return res.dsteps
 
     def _encode(self, x: torch.Tensor, capture: bool = False) -> torch.Tensor:
         """pixels [B, 3, S, S] on the device -> [B, 32, n_embd], through the
@@ -565,11 +680,14 @@ class MiniGPT4Engine:
                                        capture=capture)[0]
 
     def graph_stats(self) -> dict:
-        """Graphs captured for this engine (its own state's steps and the
-        encoder), their replays so far, and the bytes the shared memory pool
-        holds (every graph of the engine's, the session pool's included);
-        zeros before the first capture."""
-        caches = [c for c in (self._step_graphs, self._encode_graphs) if c is not None]
+        """Graphs captured for this engine (its own state's steps, the
+        session states' shared steps, the drafter's and the encoder's),
+        their replays so far, and the bytes the shared memory pool holds
+        (every graph of the engine's, the session pool's included); zeros
+        before the first capture."""
+        caches = [c for res in self._resident.values() for c in (res.steps, res.dsteps)
+                  if c is not None]
+        caches += [self._encode_graphs] if self._encode_graphs is not None else []
         return {"graphs": sum(len(c.graphs) for c in caches),
                 "keys": [k for c in caches for k in c.graphs],
                 "replays": sum(c.replays for c in caches),
@@ -585,11 +703,15 @@ class MiniGPT4Engine:
         greedy and for sampling, whose traced thresholds serve every
         config), with ``speculative_k`` > 1 the n-gram speculative dispatch
         of ``_spec_passes`` passes, greedy and sampled (the JAX engine's
-        warmup compiles its greedy one), and the encoder at batch 1.
-        Captures run on the engine's own cache at positions past
-        its cursor (or, where those run out, at positions whose contents are
-        restored afterwards), and the state's generator is restored, so
-        neither the conversation nor its random stream changes.  Returns
+        warmup compiles its greedy one), with a drafter its catch-up buckets
+        (8 .. 64 rows; the 64-row one at every attention span up to the
+        context) and the drafted dispatch of ``_spec_passes`` passes of
+        ``draft_k``, and the encoder at batch 1.  Captures run on the
+        engine's own cache at positions past its cursor (or, where those run
+        out, at positions whose contents are restored afterwards; the
+        drafter's frontier steps back below what a capture wrote), and the
+        state's generator is restored, so neither the conversation nor its
+        random stream changes.  Returns
         :meth:`graph_stats` with the seconds of the build (``build_s``) and
         of the captures (``warmup_s``).  On a CUDA engine over tp > 1 ranks
         (every rank calls it) each of those steps runs once eagerly instead,
@@ -641,6 +763,9 @@ class MiniGPT4Engine:
                     steps.spec_chunk_stoch(logits, p, hist, ban, passes, k, [st.generator],
                                            lane_rows([SamplingParams()], v, self.device),
                                            capture=True)
+            dfns = self.draft_fns_for(st.n_ctx) if self.graphs_enabled else None
+            if dfns is not None:
+                self._warmup_drafter(st, dfns)
             size = self.vision_cfg.vit.image_size
             self._encode(torch.zeros((1, 3, size, size), dtype=COMPUTE_DTYPE,
                                      device=self.device), capture=True)
@@ -649,6 +774,32 @@ class MiniGPT4Engine:
         return dict(self.graph_stats(), build_s=t_build,
                     warmup_s=time.perf_counter() - t0 - t_build,
                     eager_keys=[] if self.graphs_enabled else sorted(map(str, steps.seen)))
+
+    def _warmup_drafter(self, st: DecodeState, dfns: "DraftFns", chunk: int = 64) -> None:
+        """Capture the drafter's catch-up buckets and its drafted dispatch
+        on ``st`` (the warm-up's positions; the drafter's frontier steps back
+        below every row a capture wrote, so the next catch-up computes them
+        again)."""
+        steps = self._draft_steps(st, dfns)
+        b = 8
+        while b <= min(chunk, st.n_ctx):
+            p = min(st.draft_past, st.n_ctx - b)
+            spans = [None]
+            if b > llama_mod.FLASH_DECODE_MAX_S:  # every span a catch-up of b rows reads
+                spans = sorted({_attn_bucket(q, st.n_ctx) for q in range(b, st.n_ctx + 1)})
+            for span in spans:
+                steps.catchup(torch.full((1, b), -1, dtype=torch.long, device=self.device), p,
+                              span, capture=True)
+            st.draft_past = min(st.draft_past, p)
+            b *= 2
+        k = self.draft_k
+        passes = _spec_passes(DECODE_CHUNK, k)
+        if passes * k <= st.n_ctx:
+            with _spare_positions(st, passes * k) as p:
+                logits = torch.zeros((1, self.llm_cfg.n_vocab), dtype=torch.float32,
+                                     device=self.device)
+                steps.draft_chunk(logits, p, passes, k, capture=True)
+                st.draft_past = min(st.draft_past, p)
 
     # ------------------------------------------------------------------
     # vision
@@ -1165,8 +1316,10 @@ class DraftFns:
     """The drafter of draft-model speculation over states of ``dcfg.n_ctx``
     positions (JAX's ``DraftFns``): its params and config, its cache
     (:meth:`new_cache`, bf16 as JAX's) and the catch-up prefill.  The
-    drafted dispatch itself is :func:`llama.draft_speculative_decode_loop`,
-    run eagerly (ROADMAP Queue 1, item 5a')."""
+    drafted dispatch itself is :func:`llama.draft_speculative_decode_loop`.
+    On a graph engine both replay captured graphs over the state's resident
+    caches (``StepGraphs.draft_chunk`` / ``catchup``, keys ("draft",
+    passes, k) and ("catchup", bucket, span))."""
 
     def __init__(self, dparams: dict, dcfg, device):
         self.dparams, self.dcfg, self.device = dparams, dcfg, device
@@ -1177,13 +1330,13 @@ class DraftFns:
     def attn_bucket(self, needed: int) -> int:
         return _attn_bucket(needed, self.dcfg.n_ctx)
 
-    def catchup(self, dcache: dict, ids: list[int], pos0: int, attn_len: int) -> None:
-        """Prefill the token ids ``ids`` [S] into the draft cache from
-        ``pos0`` (logits discarded); -1 entries (injected embedding rows,
-        whose width the drafter does not take) feed zero embeddings."""
-        t = torch.tensor([ids], dtype=torch.long).to(self.device)
-        emb = llama_mod.embed_tokens(self.dparams, t.clamp(min=0))
-        emb = torch.where((t < 0)[..., None], 0.0, emb).to(emb.dtype)
+    def catchup(self, dcache: dict, ids: torch.Tensor, pos0, attn_len: int | None) -> None:
+        """Prefill the token ids ``ids`` [1, S] long (on the device) into the
+        draft cache from the cursor ``pos0`` (logits discarded); -1 entries
+        (injected embedding rows, whose width the drafter does not take)
+        feed zero embeddings.  Reads no host value."""
+        emb = llama_mod.embed_tokens(self.dparams, ids.clamp(min=0))
+        emb = torch.where((ids < 0)[..., None], 0.0, emb).to(emb.dtype)
         llama_mod.forward(self.dparams, dcache, emb, pos0, self.dcfg, attn_len=attn_len)
 
 
@@ -1266,12 +1419,14 @@ def _lane_hist(states: list, n_ctx: int, device) -> torch.Tensor:
     return hist.to(device)
 
 
-def _draft_catchup(dfns: DraftFns, st: DecodeState, chunk: int = 64) -> None:
+def _draft_catchup(dfns: DraftFns, st: DecodeState, chunk: int = 64,
+                   steps: StepGraphs | None = None) -> None:
     """Bring the draft cache's frontier up to the cursor by prefilling
     ``st.tokens[draft_past:n_past]`` through the drafter (JAX's
     ``_draft_catchup``), in chunks padded to power-of-two buckets; near the
     context end the exact remainder, since a padded write there would clamp
-    onto history."""
+    onto history.  ``steps``: the drafter's captured steps over the state's
+    resident caches (``MiniGPT4Engine._draft_steps``), else eager."""
     if st.dcache is None:
         st.dcache = dfns.new_cache()
         st.draft_past = 0
@@ -1280,9 +1435,13 @@ def _draft_catchup(dfns: DraftFns, st: DecodeState, chunk: int = 64) -> None:
         b = _bucket(len(span), chunk)
         if st.draft_past + b > dfns.dcfg.n_ctx:
             b = len(span)
+        ids = torch.tensor([span + [-1] * (b - len(span))], dtype=torch.long).to(dfns.device)
+        attn = dfns.attn_bucket(st.draft_past + b)
         with torch.no_grad():
-            dfns.catchup(st.dcache, span + [-1] * (b - len(span)), st.draft_past,
-                         dfns.attn_bucket(st.draft_past + b))
+            if steps is not None:
+                steps.catchup(ids, st.draft_past, attn)
+            else:
+                dfns.catchup(st.dcache, ids, st.draft_past, attn)
         st.draft_past += len(span)
 
 
@@ -1290,13 +1449,18 @@ def _draft_chunk(eng: "MiniGPT4Engine", dfns: DraftFns, st: DecodeState, n_passe
                  k: int) -> list[int]:
     """One draft-model speculative dispatch (JAX's ``_draft_chunk``): the
     catch-up, then ``n_passes`` drafted verify passes, booked as
-    :meth:`MiniGPT4Engine.decode_chunk_spec` books them.  Positions past the
-    new cursor hold rejected drafts: the frontier stops at the cursor."""
-    _draft_catchup(dfns, st)
+    :meth:`MiniGPT4Engine.decode_chunk_spec` books them; captured graphs on
+    a graph engine.  Positions past the new cursor hold rejected drafts: the
+    frontier stops at the cursor."""
+    steps = eng._draft_steps(st, dfns)
+    _draft_catchup(dfns, st, steps=steps)
     with torch.no_grad():
-        out = llama_mod.draft_speculative_decode_loop(
-            eng.llm_params, st.cache, dfns.dparams, st.dcache, st.logits[None], st.n_past,
-            n_passes, k, eng.llm_cfg, dfns.dcfg)
+        if steps is not None:
+            out = steps.draft_chunk(st.logits[None], st.n_past, n_passes, k)
+        else:
+            out = llama_mod.draft_speculative_decode_loop(
+                eng.llm_params, st.cache, dfns.dparams, st.dcache, st.logits[None], st.n_past,
+                n_passes, k, eng.llm_cfg, dfns.dcfg)
     ids = eng._emit(st, *out)
     st.draft_past = st.n_past
     st.spec_ban = -1

@@ -1,6 +1,6 @@
 """Captured CUDA graphs of the engine's steps: the port's counterpart of the
 jit caches the JAX engine builds (``minigpt4_tpu/engine/engine.py:390-560``,
-``StepFns``).
+``StepFns``, and ``:776-816``, ``DraftFns``).
 
 JAX compiles a step once per value of its static arguments and replays the
 executable.  Here a step is captured once per key into a
@@ -10,23 +10,39 @@ of launches of a decode chunk.  The keys mirror JAX's static arguments:
     decode chunk  (lanes B, steps n, the rows' key: "traced" where the lanes'
                   thresholds are device tensors, else the static configs, as
                   JAX's static scfg or traced rows; bias plane present or
-                  not; page-table width or None)
+                  not; page-table width or None); "decode_ban" for the same
+                  chunk with the lanes' residual bans excluded at its first
+                  step (JAX's ``decode_loop_dyn_ban`` and
+                  ``paged_decode_loop_dyn_ban``; traced rows only)
     single step   lanes B
-    speculative   (lanes B, verify passes n, width k, None): the n-gram
+    speculative   (lanes B, verify passes n, width k, None, [bias plane
+                  present or not,] page-table width or None): the n-gram
                   dispatch, greedy ("spec") or sampled ("spec_stoch", with
-                  the bias plane present or not); the last slot stands for
-                  JAX's attention bucket, which an S = k <= 32 verify does
-                  not read (flash decode reads each lane's positions alone)
+                  the bias slot); the None slot stands for JAX's attention
+                  bucket, which an S = k <= 32 verify does not read (flash
+                  decode reads each lane's positions alone); with a page
+                  table JAX's ``paged_spec_loop`` / ``paged_spec_loop_stoch``
+    drafted       ("draft", verify passes n, width k): the draft-model
+                  dispatch over this cache and the drafter's (JAX's
+                  ``DraftFns.spec_loop``; its ``attn_len`` / ``d_attn_len``
+                  need no slot, as above)
+    catch-up      ("catchup", bucket S, attention span when S > 32, else
+                  None): the drafter's prefill (JAX's ``DraftFns.catchup``)
     prefill       (bucket S, attention span when S > 32, else None)
     encode        image batch
 
 Every value a step reads that changes between calls (cursors, pending
 logits, token ids, embeddings, the page table, the bias plane, traced
-thresholds, the n-gram history and the residual ban) lives in a static input buffer that a call fills before the
+thresholds, the n-gram history, the residual bans and the drafter's
+catch-up ids) lives in a static input buffer that a call fills before the
 replay; a call hands back copies of the static outputs (token ids, logits,
 embeddings), so a later replay cannot overwrite what a caller kept.  The
 steps compute positions from the device cursors (``models/llama.py``), so
-nothing in them reads a host value.
+nothing in them reads a host value.  A graph reads and writes the cache
+(and draft cache) it was captured over, at fixed addresses: the engine
+keeps one resident cache per session geometry and copies a session's
+buffer into it before a step (``engine/engine.py``, ``_Resident``), so one
+set of graphs serves every session of that geometry.
 
 Capture.  A key's first use runs its step eagerly; its second use captures
 it (a key met once, such as a rare bias plane, costs no capture), and
@@ -72,12 +88,13 @@ def pool_bytes(pool) -> int:
 
 class _Captured:
     """One captured step: the graph, its static inputs and outputs, its slot
-    generators (None for a lane that does not sample) and the launch counts
-    of one replay."""
+    generators (None for a lane that does not sample), the launch counts
+    of one replay and the replays so far."""
 
     def __init__(self, graph, inputs: dict, outputs: tuple, slots: list, delta: dict):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.slots, self.delta = slots, delta
+        self.replays = 0
 
 
 def _load(slots: list, generators) -> None:
@@ -130,6 +147,7 @@ class GraphCache:
             graph.inputs[name].copy_(t)
         _load(graph.slots, generators)
         graph.graph.replay()
+        graph.replays += 1
         self.replays += 1
         _store(graph.slots, generators)
         counters.add(graph.delta)
@@ -161,25 +179,30 @@ class GraphCache:
 
 class StepGraphs(GraphCache):
     """The captured decoder steps of one cache: the engine's own state's
-    dense cache, or a session pool's page pools.  ``params`` / ``cfg`` are
-    the decoder's; ``cache`` is ``{"k", "v"}`` as :func:`llama.forward`
-    takes it.  With a tensor-parallel group ``tp`` the steps run on the
-    rank's shards, eagerly (gloo's all-reduces cannot be captured);
+    dense cache, a resident session cache, a batcher's stacked cache, or a
+    session pool's page pools.  ``params`` / ``cfg`` are the decoder's;
+    ``cache`` is ``{"k", "v"}`` as :func:`llama.forward` takes it.  With a
+    drafter ``draft`` (the engine's ``DraftFns``: ``dparams``, ``dcfg``,
+    ``catchup``) and its cache ``dcache`` the drafted dispatch and the
+    catch-up run too.  With a tensor-parallel group ``tp`` the steps run on
+    the rank's shards, eagerly (gloo's all-reduces cannot be captured);
     ``eager`` runs them eagerly too (the benchmark's steps on the CPU)."""
 
     def __init__(self, params: dict, cfg, cache: dict, device, pool, tp=None,
-                 eager: bool = False):
+                 eager: bool = False, draft=None, dcache: dict | None = None):
         super().__init__(device, pool, eager=eager or tp is not None)
         self.params, self.cfg, self.cache, self.tp = params, cfg, cache, tp
+        self.draft, self.dcache = draft, dcache
 
     def decode_chunk(self, logits: torch.Tensor, pos0, n: int, generators: list,
                      rows: LaneRows, page_table: torch.Tensor | None = None,
-                     capture: bool = False):
+                     ban: torch.Tensor | None = None, capture: bool = False):
         """:func:`llama.decode_loop` of ``n`` steps from the pending logits
         [B, V] at the cursors ``pos0`` (int, B ints or i32 [B]): (token ids
-        [B, n], final logits [B, V])."""
+        [B, n], final logits [B, V]).  ``ban`` [B] long (traced rows): the
+        lanes' residual bans (-1: none), excluded at the first step."""
         b = logits.shape[0]
-        key = ("decode", b, n, rows.key, rows.bias is not None,
+        key = ("decode" if ban is None else "decode_ban", b, n, rows.key, rows.bias is not None,
                None if page_table is None else page_table.shape[1])
         feed = {"logits": logits, "pos": pos_vector(pos0, b, logits.device)}
         if rows.bias is not None:
@@ -188,12 +211,15 @@ class StepGraphs(GraphCache):
             feed.update(rows.traced)
         if page_table is not None:
             feed["table"] = page_table
+        if ban is not None:
+            feed["ban"] = ban
 
         def step(inp, gens):
             traced = None if rows.traced is None else {name: inp[name] for name in TRACED}
             return llama_mod.decode_loop(self.params, self.cache, inp["logits"], inp["pos"], n,
                                          gens, LaneRows(rows.configs, inp.get("bias"), traced),
-                                         self.cfg, page_table=inp.get("table"), tp=self.tp)
+                                         self.cfg, page_table=inp.get("table"), tp=self.tp,
+                                         ban0=inp.get("ban"))
 
         # traced rows draw on every lane; static ones on the sampled lanes
         gens = [g if rows.traced is not None or not c.greedy else None
@@ -201,42 +227,83 @@ class StepGraphs(GraphCache):
         return self.run(key, step, feed, gens, capture)
 
     def spec_chunk(self, logits: torch.Tensor, pos0, hist: torch.Tensor, n_passes: int, k: int,
-                   capture: bool = False):
+                   page_table: torch.Tensor | None = None, capture: bool = False):
         """:func:`llama.speculative_decode_loop` of ``n_passes`` passes of
         width ``k`` from the pending logits [B, V] at the cursors ``pos0``
-        over the histories ``hist`` [B, C]: (tokens [B, n, k], counts [B,
-        n], final logits [B, V], hist [B, C])."""
+        over the histories ``hist`` [B, C], through ``page_table`` where
+        given: (tokens [B, n, k], counts [B, n], final logits [B, V], hist
+        [B, C])."""
         b = logits.shape[0]
         feed = {"logits": logits, "pos": pos_vector(pos0, b, logits.device), "hist": hist}
+        if page_table is not None:
+            feed["table"] = page_table
 
         def step(inp, _):
             return llama_mod.speculative_decode_loop(self.params, self.cache, inp["logits"],
                                                      inp["pos"], inp["hist"], n_passes, k,
-                                                     self.cfg, tp=self.tp)
+                                                     self.cfg, page_table=inp.get("table"),
+                                                     tp=self.tp)
 
-        return self.run(("spec", b, n_passes, k, None), step, feed, capture=capture)
+        key = ("spec", b, n_passes, k, None, None if page_table is None else page_table.shape[1])
+        return self.run(key, step, feed, capture=capture)
 
     def spec_chunk_stoch(self, logits: torch.Tensor, pos0, hist: torch.Tensor, ban: torch.Tensor,
                          n_passes: int, k: int, generators: list, rows: LaneRows,
-                         capture: bool = False):
+                         page_table: torch.Tensor | None = None, capture: bool = False):
         """:func:`llama.stochastic_speculative_decode_loop` under the traced
         ``rows``, each lane drawing from its generator, with the carried
-        bans ``ban`` [B]: (tokens, counts, final logits, hist, ban)."""
+        bans ``ban`` [B], through ``page_table`` where given: (tokens,
+        counts, final logits, hist, ban)."""
         b = logits.shape[0]
         feed = {"logits": logits, "pos": pos_vector(pos0, b, logits.device), "hist": hist,
                 "ban": ban, **rows.traced}
         if rows.bias is not None:
             feed["bias"] = rows.bias
+        if page_table is not None:
+            feed["table"] = page_table
 
         def step(inp, gens):
             traced = {name: inp[name] for name in TRACED}
             return llama_mod.stochastic_speculative_decode_loop(
                 self.params, self.cache, inp["logits"], inp["pos"], inp["hist"], inp["ban"], gens,
                 LaneRows(rows.configs, inp.get("bias"), traced), n_passes, k, self.cfg,
-                tp=self.tp)
+                page_table=inp.get("table"), tp=self.tp)
 
-        key = ("spec_stoch", b, n_passes, k, None, rows.bias is not None)
+        key = ("spec_stoch", b, n_passes, k, None, rows.bias is not None,
+               None if page_table is None else page_table.shape[1])
         return self.run(key, step, feed, generators, capture)
+
+    def draft_chunk(self, logits: torch.Tensor, pos0, n_passes: int, k: int,
+                    capture: bool = False):
+        """:func:`llama.draft_speculative_decode_loop` of ``n_passes``
+        drafted passes of width ``k`` from the pending logits [1, V] at the
+        cursor ``pos0``, over this cache and the drafter's ``dcache``, both
+        updated in place: (tokens [1, n, k], counts [1, n], final logits
+        [1, V])."""
+        feed = {"logits": logits, "pos": pos_vector(pos0, logits.shape[0], logits.device)}
+        d = self.draft
+
+        def step(inp, _):
+            return llama_mod.draft_speculative_decode_loop(
+                self.params, self.cache, d.dparams, self.dcache, inp["logits"], inp["pos"],
+                n_passes, k, self.cfg, d.dcfg)
+
+        return self.run(("draft", n_passes, k), step, feed, capture=capture)
+
+    def catchup(self, ids: torch.Tensor, pos0, span: int, capture: bool = False) -> None:
+        """The drafter's prefill of the token ids ``ids`` [1, S] long on the
+        device (-1: a zero embedding) into ``dcache`` from the cursor
+        ``pos0``, its logits discarded; ``span`` is the attention bucket the
+        S > 32 path reads (a key only there)."""
+        s = ids.shape[1]
+        span = span if s > llama_mod.FLASH_DECODE_MAX_S else None
+        feed = {"ids": ids, "pos": pos_vector(pos0, ids.shape[0], ids.device)}
+
+        def step(inp, _):
+            self.draft.catchup(self.dcache, inp["ids"], inp["pos"], span)
+            return ()
+
+        self.run(("catchup", s, span), step, feed, capture=capture)
 
     def step(self, tokens: torch.Tensor, pos0, capture: bool = False) -> torch.Tensor:
         """One position per lane, embedding included (JAX's ``decode_step``):

@@ -31,14 +31,22 @@ generator) on which the engine's operations act.
     left after the same template pieces), so a hit gives the bits of the
     prefill it replaces.
 
-On a CUDA engine at tp = 1 the paged group's and the batcher's decode
-chunks replay captured CUDA graphs (``engine/graphs.py``): per lane count
-and chunk length, one for all-greedy groups and one for every other mix of
-configs (the traced thresholds of ``device_sampling.lane_rows``), and one
-more where a lane carries a logit bias.  The batcher's lane count is fixed,
-so it needs two graphs; :meth:`SessionPool.warmup` and
-:meth:`ContinuousBatcher.warmup` capture them ahead of time.  The dense
-window group and single sessions run eagerly.
+On a CUDA engine at tp = 1 a session's own steps (prefill, single steps,
+decode chunks, speculative and drafted dispatches) replay the engine's
+graphs shared by every session of ``session_ctx`` positions, over its
+resident cache (``MiniGPT4Engine._resident_of``: a step first copies the
+session's buffer in whole, so the graphs do not grow with the sessions),
+and the paged group's and the batcher's steps replay captured CUDA graphs
+(``engine/graphs.py``): per lane count and chunk length, one for
+all-greedy groups and one for every other mix of configs (the traced
+thresholds of ``device_sampling.lane_rows``), one more where a lane carries
+a logit bias, one where a lane carries a residual ban, and the verify
+passes' dispatches (greedy and sampled, per pass count).  The batcher's lane
+count is fixed, so it needs two graphs for its plain chunks;
+:meth:`SessionPool.warmup` and :meth:`ContinuousBatcher.warmup` capture them
+ahead of time, and the greedy verify dispatch of the first speculative step
+with ``speculative_k`` > 1.  The dense window group, whose stacked cache is
+made anew per group, runs eagerly.
 
 With a tensor-parallel engine (``tp=N``, one process per rank, every rank
 running the same calls) the lane caches, the batcher's slots and the page
@@ -64,9 +72,10 @@ verify by argmax (plain greedy's ids) and any other group by speculative
 sampling, each lane carrying its residual ban between steps.  A
 :class:`_SpecGovernor` demotes a group to plain chunks while its tokens per
 lane-pass stay below break-even (``metrics["spec_demotions"]``), and
-probes again after a cooldown.  The batched verify steps run eagerly
-(ROADMAP Queue 1, item 5a').  Lane caches and the page pool hold the
-engine's cache type (``MiniGPT4Engine.cache_dtype``).
+probes again after a cooldown.  The batched verify steps replay captured
+graphs where the group's plain chunks do (the dense window group runs
+eagerly).  Lane caches and the page pool hold the engine's cache type
+(``MiniGPT4Engine.cache_dtype``).
 """
 
 from __future__ import annotations
@@ -611,22 +620,20 @@ class SessionPool:
         """One decode chunk of a group whose lanes draw from ``gens``,
         replaying ``steps``' graph where given; returns (token ids per lane,
         the final logits).  ``ban``: the lanes' residual bans (traced rows);
-        where one is set the chunk runs eagerly with them excluded at its
-        first step (JAX's ``decode_loop_dyn_ban``; without a ban its draws
-        are the same).  Caller holds the lock."""
+        where one is set the chunk excludes them at its first step (JAX's
+        ``decode_loop_dyn_ban``, key "decode_ban"; without a ban its draws
+        are the same, and it takes the plain key).  Caller holds the lock."""
+        eng = self.engine
+        ban0 = (torch.tensor(ban, dtype=torch.long).to(logits.device)
+                if ban is not None and any(b >= 0 for b in ban) else None)
         with torch.no_grad():
-            if ban is not None and any(b >= 0 for b in ban):
-                tokens, logits = llama_mod.decode_loop(
-                    self.engine.llm_params, cache, logits, pos, decode_chunk, gens, rows,
-                    self.engine.llm_cfg, page_table=page_table, tp=self.engine.tp_group,
-                    ban0=torch.tensor(ban, dtype=torch.long).to(logits.device))
-            elif steps is not None:
+            if steps is not None:
                 tokens, logits = steps.decode_chunk(logits, pos, decode_chunk, gens, rows,
-                                                    page_table)
+                                                    page_table, ban=ban0)
             else:
                 tokens, logits = llama_mod.decode_loop(
-                    self.engine.llm_params, cache, logits, pos, decode_chunk, gens, rows,
-                    self.engine.llm_cfg, page_table=page_table, tp=self.engine.tp_group)
+                    eng.llm_params, cache, logits, pos, decode_chunk, gens, rows, eng.llm_cfg,
+                    page_table=page_table, tp=eng.tp_group, ban0=ban0)
         return tokens.tolist(), logits
 
     def _paged_steps(self, pool: PagedKVPool) -> StepGraphs | None:
@@ -646,11 +653,13 @@ class SessionPool:
         """Capture ahead of time the paged group's decode chunks that a
         server replays: at each lane count of ``lanes``, the all-greedy
         chunk and the traced one, which serves every other mix of configs
-        without a logit bias.  The lanes' tables hold only the pool's trash
-        page, so no page a lane owns is written.  Returns the seconds, the
-        graphs of the paged group and the bytes of the engine's graph memory
-        pool.  Refused where the group runs eagerly (no page pool, a CPU
-        engine, tp > 1)."""
+        without a logit bias, and with the engine's ``speculative_k`` > 1
+        the greedy verify dispatch of a group's first speculative step (as
+        the JAX engine's warmup compiles its greedy speculative loop).  The
+        lanes' tables hold only the pool's trash page, so no page a lane
+        owns is written.  Returns the seconds, the graphs of the paged group
+        and the bytes of the engine's graph memory pool.  Refused where the
+        group runs eagerly (no page pool, a CPU engine, tp > 1)."""
         eng = self.engine
         if self.paged_pool is None or not eng.graphs_enabled:
             raise RuntimeError("warmup captures the paged group's CUDA graphs: this pool "
@@ -670,9 +679,26 @@ class SessionPool:
                     steps.decode_chunk(logits, 0, decode_chunk, gens,
                                        lane_rows([params] * b, v, eng.device), table,
                                        capture=True)
+                self._warmup_spec(steps, logits, decode_chunk, table)
             torch.cuda.synchronize(eng.device)
         return {"warmup_s": time.perf_counter() - t0, "graphs": len(steps.graphs),
                 "keys": list(steps.graphs), "pool_bytes": eng.graph_stats()["pool_bytes"]}
+
+    def _warmup_spec(self, steps: StepGraphs, logits: torch.Tensor, decode_chunk: int,
+                     table: torch.Tensor | None = None) -> None:
+        """With ``speculative_k`` > 1, capture the greedy verify dispatch of
+        a group's first speculative step (a fresh governor's pass count) at
+        the lane count of ``logits``, from position 0, over empty histories
+        (through ``table``, or the dense cache's first positions)."""
+        k = self.engine.speculative_k
+        if k <= 1:
+            return
+        passes = _SpecGovernor().passes_for(decode_chunk, k)
+        if passes * k > self.session_ctx:
+            return
+        hist = torch.full((logits.shape[0], self.session_ctx), -1, dtype=torch.long,
+                          device=logits.device)
+        steps.spec_chunk(logits, 0, hist, passes, k, table, capture=True)
 
     def _dense_batch_stream(self, act, batch, limits_all, rows, decode_chunk):
         """The group's lane caches stacked on the batch axis."""
@@ -756,26 +782,37 @@ class SessionPool:
 
     def _group_step(self, group: dict, cache, logits, pos, gens, decode_chunk: int,
                     n_passes: int, done, page_table=None, steps: StepGraphs | None = None):
-        """One step of a group: ``n_passes`` > 0 speculative verify passes
-        (eager), else a plain chunk (replaying ``steps`` where given, eager
-        where a lane carries a ban).  Updates the group's history, bans and
-        governor; returns (token ids per lane, the final logits).  Caller
-        holds the lock."""
+        """One step of a group: ``n_passes`` > 0 speculative verify passes,
+        else a plain chunk (the banned chunk where a lane carries a ban),
+        each replaying ``steps``' graph where given (JAX's ``paged_spec_loop``,
+        ``paged_spec_loop_stoch`` and ``paged_decode_loop_dyn_ban`` over a
+        page table, their dense twins without).  Updates the group's
+        history, bans and governor; returns (token ids per lane, the final
+        logits).  Caller holds the lock."""
         rows, eng = group["rows"], self.engine
+        k = eng.speculative_k
         if n_passes:
             with torch.no_grad():
                 if rows.traced is None:
-                    tokens, counts, logits, group["hist"] = llama_mod.speculative_decode_loop(
-                        eng.llm_params, cache, logits, pos, group["hist"], n_passes,
-                        eng.speculative_k, eng.llm_cfg, page_table=page_table,
-                        tp=eng.tp_group)
+                    if steps is not None:
+                        out = steps.spec_chunk(logits, pos, group["hist"], n_passes, k,
+                                               page_table)
+                    else:
+                        out = llama_mod.speculative_decode_loop(
+                            eng.llm_params, cache, logits, pos, group["hist"], n_passes, k,
+                            eng.llm_cfg, page_table=page_table, tp=eng.tp_group)
+                    tokens, counts, logits, group["hist"] = out
                 else:
                     ban_dev = torch.tensor(group["ban"], dtype=torch.long).to(eng.device)
-                    (tokens, counts, logits, group["hist"],
-                     ban_out) = llama_mod.stochastic_speculative_decode_loop(
-                        eng.llm_params, cache, logits, pos, group["hist"], ban_dev, gens, rows,
-                        n_passes, eng.speculative_k, eng.llm_cfg, page_table=page_table,
-                        tp=eng.tp_group)
+                    if steps is not None:
+                        out = steps.spec_chunk_stoch(logits, pos, group["hist"], ban_dev,
+                                                     n_passes, k, gens, rows, page_table)
+                    else:
+                        out = llama_mod.stochastic_speculative_decode_loop(
+                            eng.llm_params, cache, logits, pos, group["hist"], ban_dev, gens,
+                            rows, n_passes, k, eng.llm_cfg, page_table=page_table,
+                            tp=eng.tp_group)
+                    tokens, counts, logits, group["hist"], ban_out = out
                     group["ban"] = ban_out.tolist()
             toks, cnts = tokens.tolist(), counts.tolist()
             lane_tokens = [[t for row, c in zip(tr, cr) for t in row[:c]]
@@ -976,7 +1013,9 @@ class ContinuousBatcher:
     reads.  On a CUDA engine at tp = 1 the group's decode chunks replay
     captured CUDA graphs: the pool's paged steps, or steps over the stacked
     cache in the engine's graph pool, whose address never moves.  Two keys
-    (all-greedy and traced) serve every step; :meth:`warmup` captures them
+    (all-greedy and traced) serve every plain step, and one per pass count
+    the verify steps (greedy and sampled) and the banned chunk;
+    :meth:`warmup` captures the two and the first greedy verify dispatch
     ahead of time.  Mirostat is refused (it samples on the host).  Over tp
     ranks the slots hold the rank's heads and every step runs eagerly; with
     a controlled pool (``parallel/controller.py``) rank 0's worker thread
@@ -1079,7 +1118,8 @@ class ContinuousBatcher:
 
     def warmup(self) -> dict:
         """Capture the group's two decode chunks (all-greedy and traced
-        rows) ahead of time, before any lane joins: in paged mode through
+        rows), and with ``speculative_k`` > 1 its first greedy verify
+        dispatch, ahead of time, before any lane joins: in paged mode through
         :meth:`SessionPool.warmup` at this lane count (idle rows write only
         the trash page), in dense mode over the stacked cache at position 0
         of every slot.  Returns the seconds, graphs and graph-pool bytes.
@@ -1101,6 +1141,7 @@ class ContinuousBatcher:
             for params in (IDLE, SamplingParams()):
                 steps.decode_chunk(logits, 0, self.decode_chunk, gens,
                                    lane_rows([params] * self.B, v, eng.device), capture=True)
+            self.pool._warmup_spec(steps, logits, self.decode_chunk)
             torch.cuda.synchronize(eng.device)
         return {"warmup_s": time.perf_counter() - t0, "graphs": len(steps.graphs),
                 "keys": list(steps.graphs), "pool_bytes": eng.graph_stats()["pool_bytes"]}

@@ -11,10 +11,10 @@ serving paths dispatch (``llama.decode_loop(page_table=...)``).  Past 8 lanes
 a step's decode rows exceed 8, so w8a8 matmuls take ``i8_prefill`` and the
 paged flash-decode kernel runs at B = lanes.
 
-Each step runs as the engine runs it: the plain group chunk through a
-captured CUDA graph (``engine/graphs.py`` ``StepGraphs.decode_chunk``, as the
-pool's group chunks; eagerly on the CPU), the speculative verify passes
-eagerly, as both batchers run them.  ``captured`` says which.
+Each step runs as the engine runs it: the plain group chunk and the
+speculative verify passes through captured CUDA graphs (``engine/graphs.py``
+``StepGraphs.decode_chunk`` and ``spec_chunk`` over the page table, as the
+pool's group steps; eagerly on the CPU).  ``captured`` says which.
 
 ``--spec-k K`` measures paged speculative serving instead: a greedy run-in of
 32 tokens through the paged decode loop (the model's own continuation seeds
@@ -77,7 +77,6 @@ def _lane(params: dict, bcfg, lanes: int, args: argparse.Namespace, dev: torch.d
     from ..engine.graphs import StepGraphs
     from ..engine.paged import PAGE, PagedKVPool
     from ..engine.sampling import SamplingParams
-    from ..models import llama as llama_mod
 
     cache_dtype = CACHE_DTYPES[args.cache_dtype]
     ppl, spec_k = args.pages_per_lane, args.spec_k
@@ -121,8 +120,7 @@ def _lane(params: dict, bcfg, lanes: int, args: argparse.Namespace, dev: torch.d
         pos = pos + RUNIN
 
         def spec(lg, h):
-            return llama_mod.speculative_decode_loop(params, kv, lg, pos, h, PASSES, spec_k,
-                                                     bcfg, page_table=pt)
+            return steps.spec_chunk(lg, pos, h, PASSES, spec_k, pt, capture=True)
 
         toks, cnt, logits, hist = spec(logits, hist)
         toks.cpu()
@@ -136,7 +134,8 @@ def _lane(params: dict, bcfg, lanes: int, args: argparse.Namespace, dev: torch.d
         dt = time.perf_counter() - t0
         line.update({"spec_k": spec_k, "aggregate_tok_s_measured": n_tok / dt,
                      "accept_per_pass": n_tok / n_pass,
-                     "spec_pass_ms": dt / (args.steps * PASSES) * 1e3, "captured": False})
+                     "spec_pass_ms": dt / (args.steps * PASSES) * 1e3,
+                     "captured": steps.replays > 0})
     else:
         toks, logits = chunk(logits, args.chunk)
         toks.cpu()

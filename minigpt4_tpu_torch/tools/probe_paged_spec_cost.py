@@ -19,18 +19,22 @@ speculation.  8 lanes, k = 8, an e4m3 cache, w8a8 weights with the engine's
 f32 activations, cyclic histories (a period of 8 ids: drafts hold).  The dense
 group is freed before the pool is allocated.
 
-Each arm runs as the engine runs it: the paged plain chunk through a captured
-CUDA graph (the pool's group chunk), the dense group's chunk and every
-verify pass eagerly (the batchers run those eagerly); ``paged_plain_eager_ms``
-is C run eagerly too, the like-for-like point for D, and ``captured`` lists
-the arms timed as graph replays (none on the CPU).
+Each arm runs as the engine runs it: the paged plain chunk and the paged
+verify passes through captured CUDA graphs (the pool's group steps, keys
+("decode", ...) and ("spec", ...) with the table's width; D and E replay one
+graph, the cursors being its inputs), the dense group's chunk and verify
+passes eagerly (the window batcher's dense group runs eagerly); the
+``*_eager_ms`` keys are C, D and E run eagerly too, the like-for-like points
+against the captured ones, and ``captured`` lists the arms timed as graph
+replays (none on the CPU).
 
     python -m minigpt4_tpu_torch.tools.probe_paged_spec_cost
     python -m minigpt4_tpu_torch.tools.probe_paged_spec_cost --model tiny --device cpu
 
 One JSON line: ``dense_plain_ms``, ``dense_spec_ms``, ``dense_spec8_ms``,
 ``paged_plain_ms``, ``paged_spec_cross_ms``, ``paged_spec_aligned_ms`` (per
-token of a chunk, per verify pass), ``paged_plain_eager_ms``, ``captured``,
+token of a chunk, per verify pass), ``paged_plain_eager_ms``,
+``paged_spec_cross_eager_ms``, ``paged_spec_aligned_eager_ms``, ``captured``,
 ``device``.  :func:`run` takes a decoder its caller already built.
 """
 
@@ -143,12 +147,18 @@ def run(params: dict, cfg, args: argparse.Namespace) -> dict:
                                          bcfg, page_table=pt)
             t.cpu()
 
+        def paged_spec(pos):
+            t, _, _, _ = steps.spec_chunk(logits0, pos, hist0, PASSES, K, pt, capture=True)
+            t.cpu()
+
         measure([("paged_plain", paged_plain),
                  ("paged_plain_eager", paged_plain_eager),
-                 ("paged_spec_cross", lambda: spec(kv, pos_cross, PASSES, pt)),
-                 ("paged_spec_aligned", lambda: spec(kv, pos_align, PASSES, pt))])
+                 ("paged_spec_cross", lambda: paged_spec(pos_cross)),
+                 ("paged_spec_aligned", lambda: paged_spec(pos_align)),
+                 ("paged_spec_cross_eager", lambda: spec(kv, pos_cross, PASSES, pt)),
+                 ("paged_spec_aligned_eager", lambda: spec(kv, pos_align, PASSES, pt))])
         if steps.replays:
-            captured.append("paged_plain")
+            captured += ["paged_plain", "paged_spec_cross", "paged_spec_aligned"]
         del steps, pool, kv
     out.update(captured=captured, device=card(dev))
     print(json.dumps(out), flush=True)

@@ -2508,8 +2508,9 @@ def _tiny_tool_args(mod, argv):
 def test_paged_capacity_probe_on_card(cuda_device):
     """tools/probe_paged_capacity.run at the tiny geometry in w8a8 over e4m3
     pools, 2 and 12 lanes and the speculative arm at 2: no error line, the
-    plain chunks replayed from a captured graph, i8_decode, i8_prefill (12
-    decode rows) and the paged flash kernel launched."""
+    plain chunks and the verify passes replayed from captured graphs,
+    i8_decode, i8_prefill (12 decode rows) and the paged flash kernel
+    launched."""
     from minigpt4_tpu_torch import benchmark as B
     from minigpt4_tpu_torch.tools import probe_paged_capacity as cap
 
@@ -2522,7 +2523,7 @@ def test_paged_capacity_probe_on_card(cuda_device):
                                                       "--steps", "1"]))
     assert [ln["lanes"] for ln in plain] == [2, 12] and [ln["lanes"] for ln in spec] == [2]
     assert not [ln for ln in plain + spec if "error" in ln]
-    assert all(ln["captured"] for ln in plain) and not spec[0]["captured"]
+    assert all(ln["captured"] for ln in plain + spec)
     assert 1 <= spec[0]["accept_per_pass"] <= 8
     assert ti8.i8_decode.launches and ti8.i8_prefill.launches
     assert tfd.paged_flash_decode_attention.launches
@@ -2530,7 +2531,8 @@ def test_paged_capacity_probe_on_card(cuda_device):
 
 def test_paged_spec_cost_probe_on_card(cuda_device):
     """tools/probe_paged_spec_cost.run at the tiny geometry in w8a8: every
-    arm timed, the paged plain chunk captured, both flash kernels launched."""
+    arm timed (the paged ones captured and eager), the paged plain chunk and
+    verify passes captured, both flash kernels launched."""
     from minigpt4_tpu_torch import benchmark as B
     from minigpt4_tpu_torch.tools import probe_paged_spec_cost as cost
 
@@ -2540,8 +2542,8 @@ def test_paged_spec_cost_probe_on_card(cuda_device):
     counters.reset()
     out = cost.run(params, cfg, _tiny_tool_args(cost, []))
     ms = [k for k in out if k.endswith("_ms")]
-    assert len(ms) == 7 and all(np.isfinite(out[k]) and out[k] > 0 for k in ms)
-    assert out["captured"] == ["paged_plain"]
+    assert len(ms) == 9 and all(np.isfinite(out[k]) and out[k] > 0 for k in ms)
+    assert out["captured"] == ["paged_plain", "paged_spec_cross", "paged_spec_aligned"]
     assert tfd.flash_decode_attention.launches and tfd.paged_flash_decode_attention.launches
 
 
@@ -2588,3 +2590,251 @@ def test_coldstart_probe_on_card(cuda_device, tmp_path, capsys):
     assert set(out) == {"build_s", "encode_ms", "ttft_ms", "decode_tok_s", "n_decode", "device"}
     assert all(np.isfinite(out[k]) and out[k] > 0 for k in out if k != "device")
     assert counts["gq_decode"] > 0 and counts["gq_prefill"] > 0 and counts["flash_decode"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the captured steps of serving sessions, batched verify passes, the banned
+# chunk and the drafter, against the same steps run eagerly (bit for bit)
+# ---------------------------------------------------------------------------
+
+def _state_bits(st) -> tuple:
+    return (list(st.tokens), st.n_past, None if st.logits is None else st.logits.clone(),
+            {kv: _bits(t).clone() for kv, t in st.cache.items()})
+
+
+def _same_state(a: tuple, b: tuple) -> None:
+    assert a[:2] == b[:2]
+    assert (a[2] is None) == (b[2] is None)
+    if a[2] is not None:
+        assert torch.equal(a[2], b[2])
+    assert all(torch.equal(a[3][kv], b[3][kv]) for kv in ("k", "v"))
+
+
+def _two_sessions(pool, graphs: bool) -> tuple:
+    """Two sessions' prompts, chunks and turns, one step of each in turn
+    (the second samples from a generator seeded alike every run): texts and
+    states."""
+    pool.engine.graphs_enabled = graphs
+    ss = [pool.new_session() for _ in range(2)]
+    for i, s in enumerate(ss):
+        s.state.generator.manual_seed(400 + i)
+    texts = []
+    steps = [lambda s, i: pool.system_prompt(s),
+             lambda s, i: pool.begin_chat(s, ("what is red?", "where is it?")[i]),
+             lambda s, i: "".join(pool.generate(s, 20, SamplingParams(temp=0.0))),
+             lambda s, i: pool.begin_chat(s, ("and the blue", "and the pink")[i]),
+             lambda s, i: "".join(pool.generate(s, 12, SamplingParams(temp=0.8, top_k=40)))]
+    for step in steps:
+        for i, s in enumerate(ss):
+            texts.append(step(s, i))
+    torch.cuda.synchronize()
+    out = texts, [_state_bits(s.state) for s in ss]
+    for s in ss:
+        s.close()
+    return out
+
+
+def test_interleaved_sessions_captured_equal_eager(cuda_device, tmp_path):
+    """Two sessions interleaved on the card replay the engine's session
+    graphs over its resident cache: their texts, tokens, pending logits and
+    cache bits equal the eager run's, captured (first run) and replayed
+    (second run, no new graph)."""
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=512, n_ctx=512, n_batch=32, device=cuda_device,
+                       prefix_cache=False)
+    try:
+        eager = _two_sessions(pool, False)
+        first = _two_sessions(pool, True)
+        res = pool.engine._resident[512]
+        n_graphs, r0 = len(res.steps.graphs), res.steps.replays
+        replayed = _two_sessions(pool, True)
+        assert len(res.steps.graphs) == n_graphs > 0 and res.steps.replays > r0
+        for got in (first, replayed):
+            assert got[0] == eager[0]
+            for a, b in zip(got[1], eager[1]):
+                _same_state(a, b)
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("case", ["greedy", "sampled", "banned"])
+def test_group_verify_and_banned_chunk_captured_equal_eager(cuda_device, tmp_path, paged, case):
+    """SessionPool._group_step over three lanes, through a page table (the
+    window group and the paged batcher) or a stacked cache (the dense
+    batcher): greedy and sampled verify passes and the banned chunk, run
+    eagerly and from their graph (first use eager, then captured and
+    replayed, then replayed), from the same cache bits and generator states:
+    tokens, logits, histories, bans, cache bits and generator states equal."""
+    from minigpt4_tpu_torch.engine.device_sampling import lane_rows
+    from minigpt4_tpu_torch.engine.graphs import StepGraphs
+
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                       paged_pool_pages=12, device=cuda_device, speculative_k=4)
+    eng = pool.engine
+    params = {"greedy": [SamplingParams(temp=0.0)] * 3,
+              "sampled": [SamplingParams(temp=0.0), SamplingParams(temp=0.8),
+                          SamplingParams(temp=1.1, top_p=0.9)],
+              "banned": [SamplingParams(temp=0.8), SamplingParams(temp=0.0),
+                         SamplingParams(temp=0.6)]}[case]
+    n_passes = 0 if case == "banned" else 2
+    try:
+        sessions = []
+        for q in ("one two", "three four five", "six"):
+            s = pool.new_session()
+            pool.begin_chat(s, q)
+            sessions.append(s)
+        pos = [s.n_past for s in sessions]
+        logits0 = torch.stack([s.state.logits for s in sessions])
+        table = None
+        if paged:
+            lane_pages, ppool = pool._try_admit_paged(sessions)
+            lane_pages = [ppool.extend(p, n + 8) for p, n in zip(lane_pages, pos)]
+            table = torch.from_numpy(np.stack([ppool.table_row(p) for p in lane_pages])
+                                     ).to(cuda_device)
+            cache = {"k": ppool.k, "v": ppool.v}
+            steps = pool._paged_steps(ppool)
+        else:
+            cache = {kv: torch.cat([s.state.cache[kv] for s in sessions], dim=1)
+                     for kv in ("k", "v")}
+            steps = StepGraphs(eng.llm_params, eng.llm_cfg, cache, eng.device, eng.graph_pool)
+        rows = lane_rows(params, eng.llm_cfg.n_vocab, cuda_device)
+        c0 = {kv: t.clone() for kv, t in cache.items()}
+
+        def run(graph_steps):
+            for kv in ("k", "v"):
+                cache[kv].copy_(c0[kv])
+            group = pool._spec_group(sessions, rows)
+            if case == "banned":
+                group["ban"] = [5, -1, 7]
+            gens = [torch.Generator(device=cuda_device).manual_seed(500 + i) for i in range(3)]
+            toks, logits = pool._group_step(group, cache, logits0, pos, gens, 8, n_passes,
+                                            [False] * 3, table, graph_steps)
+            torch.cuda.synchronize()
+            return (toks, logits.clone(), group["hist"].clone(), group["ban"],
+                    {kv: _bits(t).clone() for kv, t in cache.items()},
+                    [g.get_state() for g in gens])
+
+        want = run(None)
+        for _ in range(3):
+            got = run(steps)
+            assert got[0] == want[0] and got[3] == want[3]
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            assert all(torch.equal(got[4][kv], want[4][kv]) for kv in ("k", "v"))
+            assert all(torch.equal(a, b) for a, b in zip(got[5], want[5]))
+        width = None if table is None else table.shape[1]
+        key = {"greedy": ("spec", 3, 2, 4, None, width),
+               "sampled": ("spec_stoch", 3, 2, 4, None, False, width),
+               "banned": ("decode_ban", 3, 8, "traced", False, width)}[case]
+        assert key in steps.graphs and steps.replays >= 2
+    finally:
+        pool.close()
+
+
+def _drafted_run(eng, prompt: list[int], graphs: bool) -> tuple:
+    """The engine's state from ``prompt``: three drafted dispatches of 2
+    passes of width 4 (the catch-up before the first): their ids, the final
+    logits and both caches' bits."""
+    import minigpt4_tpu_torch.engine.engine as engine_mod
+
+    eng.graphs_enabled = graphs
+    eng.reset()
+    eng.add_tokens(prompt)
+    st = eng._st
+    dfns = eng.draft_fns_for(st.n_ctx)
+    ids = [engine_mod._draft_chunk(eng, dfns, st, 2, 4) for _ in range(3)]
+    torch.cuda.synchronize()
+    return (ids, st.logits.clone(), {kv: _bits(t).clone() for kv, t in st.cache.items()},
+            {kv: _bits(t).clone() for kv, t in st.dcache.items()})
+
+
+def test_warmup_with_drafter_captures_drafted_steps(cuda_device, tmp_path):
+    """MiniGPT4Engine.warmup with a drafter captures the drafted dispatch of
+    _spec_passes(16, 8) passes and the catch-up buckets (8, 16, 32 rows and
+    64 at every span); the conversation is untouched; drafted dispatches and
+    their catch-ups then give the eager run's ids and both caches' bits,
+    from graphs (the ("draft", 2, 4) key meets its capture in the first
+    captured run)."""
+    from minigpt4_tpu_torch.engine.engine import _spec_passes
+
+    model, llm = build_gq_models(tmp_path)
+    eng = MiniGPT4Engine(model, llm, n_ctx=256, n_batch=32, device=cuda_device,
+                         draft_llm_path=llm)
+    prompt = [1, 170, 128, 103, 56, 63, 11, 17, 13, 176, 83, 83, 83, 144, 107, 192, 40]
+    try:
+        eng.add_tokens(prompt)
+        n = eng.n_past
+        before = _state_bits(eng._st)
+        stats = eng.warmup(prefill_buckets=(8,), decode_chunks=(1,))
+        after = _state_bits(eng._st)  # the rows past the cursor took the captures' writes
+        _same_state(after[:3] + ({kv: t[:, :, :, :n] for kv, t in after[3].items()},),
+                    before[:3] + ({kv: t[:, :, :, :n] for kv, t in before[3].items()},))
+        keys = set(eng._resident["own"].dsteps.graphs)
+        passes = _spec_passes(16, eng.draft_k)
+        assert ("draft", passes, eng.draft_k) in keys
+        assert {("catchup", b, None) for b in (8, 16, 32)} <= keys
+        assert {("catchup", 64, s) for s in (128, 256)} <= keys
+        assert stats["graphs"] >= len(keys)
+        eager = _drafted_run(eng, prompt, False)
+        dsteps = eng._resident["own"].dsteps
+        r0 = dsteps.replays
+        n = eng.n_past
+        for _ in range(2):
+            got = _drafted_run(eng, prompt, True)
+            assert got[0] == eager[0] and torch.equal(got[1], eager[1])
+            # the drafter's rows up to its frontier (the cursor); past it the
+            # resident draft cache holds what the warmup's captures wrote
+            # where the eager run's fresh cache holds zeros, rows no read reaches
+            assert all(torch.equal(got[2][kv], eager[2][kv]) for kv in ("k", "v"))
+            assert all(torch.equal(got[3][kv][:, :, :, :n], eager[3][kv][:, :, :, :n])
+                       for kv in ("k", "v"))
+        assert dsteps.replays > r0 and ("draft", 2, 4) in dsteps.graphs
+    finally:
+        eng.close()
+
+
+def test_session_pool_warmup_captures_verify_dispatch(cuda_device, tmp_path):
+    """SessionPool.warmup with speculative_k = 4 also captures the greedy
+    verify dispatch of a group's first speculative step at each lane count;
+    a speculative paged group afterwards replays it (no new capture of that
+    key) and gives the eager group's ids."""
+    from minigpt4_tpu_torch.engine.sessions import _SpecGovernor
+
+    model, llm = build_gq_models(tmp_path)
+    pool = SessionPool(model, llm, session_ctx=256, n_ctx=256, n_batch=32,
+                       paged_pool_pages=12, device=cuda_device, speculative_k=4)
+    try:
+        stats = pool.warmup(lanes=(1, 2), decode_chunk=8)
+        w = pool.paged_pool.maxp + 1
+        passes = _SpecGovernor().passes_for(8, 4)
+        spec_keys = {("spec", b, passes, 4, None, w) for b in (1, 2)}
+        assert spec_keys <= set(stats["keys"]) and stats["graphs"] == 6
+        class Counted:  # a graph that counts its replays
+            def __init__(self, graph):
+                self.graph, self.n = graph, 0
+
+            def replay(self):
+                self.n += 1
+                self.graph.replay()
+
+        key = ("spec", 2, passes, 4, None, w)
+        captured = pool._paged_graphs.graphs[key]
+        captured.graph = Counted(captured.graph)
+        runs = {}
+        for graphs in (True, False):
+            pool.engine.graphs_enabled = graphs
+            sessions = []
+            for q in ("one two one two one two", "three four three four"):
+                s = pool.new_session()
+                pool.begin_chat(s, q)
+                sessions.append(s)
+            pool.generate_batch(sessions, limit=24, params=SamplingParams(temp=0.0),
+                                decode_chunk=8)
+            runs[graphs] = [list(s.state.tokens) for s in sessions]
+            for s in sessions:
+                s.close()
+        assert runs[True] == runs[False]
+        assert pool._paged_graphs.graphs[key] is captured and captured.graph.n >= 1
+    finally:
+        pool.close()

@@ -32,7 +32,6 @@ captured steps to eager ones there).  Here:
 (f) ``python -m minigpt4_tpu_torch.warmup``: ``--help`` and its refusals.
 """
 
-import contextlib
 import dataclasses
 import subprocess
 import sys
@@ -52,7 +51,6 @@ from minigpt4_tpu.models import llama as jllama
 from minigpt4_tpu_torch import interop
 from minigpt4_tpu_torch.engine import device_sampling as tds
 from minigpt4_tpu_torch.engine import graphs
-from minigpt4_tpu_torch.engine import engine as engine_mod
 from minigpt4_tpu_torch.engine.device_sampling import DeviceSamplingConfig, LaneRows
 from minigpt4_tpu_torch.engine.sampling import SamplingParams
 from minigpt4_tpu_torch.engine.sessions import SessionPool
@@ -62,6 +60,7 @@ from minigpt4_tpu_torch.ops import flash_decode as tfd
 from minigpt4_tpu_torch.ops import group_i8 as tgq
 from minigpt4_tpu_torch.ops.flash_decode import PAGE
 from test_torch_fixtures import build_llm_q5_k_m
+from torch_graph_stub import _no_host_reads, fake_cuda  # noqa: F401 (a fixture)
 
 # one intra-op thread: the suite runs several pytest-xdist workers on the same cores, where
 # torch's OpenMP pools spin against each other and run ~17x slower
@@ -142,93 +141,6 @@ def test_device_cursor_forward_is_bit_equal(gq, case):
     for kv in ("k", "v"):
         assert torch.equal(dev[kv], host[kv]), kv
         assert not torch.equal(dev[kv], cache[kv]), kv  # the positions were written
-
-
-class _HostRead(AssertionError):
-    pass
-
-
-@contextlib.contextmanager
-def _no_host_reads():
-    """Make every way of reading a tensor on the host, or of copying host
-    data into one, raise: on the card each is a copy that a capture
-    refuses (a 0-d tensor used as an index is read on the host, a Python
-    number stored into a tensor element is copied from it)."""
-    def refuse(*a, **k):
-        raise _HostRead("a captured step read a host value")
-
-    getitem, setitem = torch.Tensor.__getitem__, torch.Tensor.__setitem__
-
-    def host_index(index):  # a 0-d tensor index is read on the host
-        parts = index if isinstance(index, tuple) else (index,)
-        return any(isinstance(i, torch.Tensor) and i.dim() == 0 for i in parts)
-
-    def load(t, index):
-        if host_index(index):
-            refuse()
-        return getitem(t, index)
-
-    def store(t, index, value):
-        if host_index(index) or not isinstance(value, torch.Tensor):
-            refuse()
-        setitem(t, index, value)
-
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("item", "tolist", "cpu", "__bool__"):
-            mp.setattr(torch.Tensor, name, refuse)
-        mp.setattr(torch.Tensor, "__getitem__", load)
-        mp.setattr(torch.Tensor, "__setitem__", store)
-        mp.setattr(torch, "tensor", refuse)
-        yield
-
-
-class _FakeGraph:
-    """Stand-in for torch.cuda.CUDAGraph: counts captures and replays; a
-    replay draws once from each registered generator, as a captured draw
-    advances it."""
-
-    def __init__(self):
-        self.replays = 0
-        self.generators = []
-
-    def register_generator_state(self, gen):
-        self.generators.append(gen)
-
-    def replay(self):
-        self.replays += 1
-        for g in self.generators:
-            torch.rand(1, generator=g)
-
-
-class _FakeStream:
-    def __init__(self, device=None):
-        pass
-
-    def wait_stream(self, other):
-        pass
-
-
-@pytest.fixture
-def fake_cuda(monkeypatch):
-    """torch.cuda's graph API stood in for on the CPU: a capture runs its
-    step eagerly inside the context and records the graph."""
-    captured = []
-
-    @contextlib.contextmanager
-    def graph(g, pool=None, stream=None, capture_error_mode="global"):
-        assert capture_error_mode == "thread_local" and pool == "pool"
-        captured.append(g)
-        yield
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", graph)
-    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    monkeypatch.setattr(engine_mod, "pool_bytes", lambda pool: 0)
-    return captured
 
 
 def _rows(cfgs, bias=None):
@@ -338,7 +250,8 @@ def test_speculative_dispatch_keys(gq, fake_cuda):
     for p in (48, 60, 72):
         steps.spec_chunk(logits, p, hist, 2, 4)
         steps.spec_chunk_stoch(logits, p, hist, torch.full((1,), -1), 2, 4, [gen], rows)
-    assert list(steps.graphs) == [("spec", 1, 2, 4, None), ("spec_stoch", 1, 2, 4, None, False)]
+    assert list(steps.graphs) == [("spec", 1, 2, 4, None, None),
+                                  ("spec_stoch", 1, 2, 4, None, False, None)]
     assert len(fake_cuda) == 2 and steps.replays == 4  # a capturing call replays too
     assert [len(g.graph.generators) for g in steps.graphs.values()] == [0, 1]
 
@@ -421,11 +334,12 @@ def test_session_pool_warmup_captures_each_lane_count(fake_cuda, tmp_path):
             s = pool.new_session()
             pool.begin_chat(s, q)
             sessions.append(s)
+        n_captured = len(fake_cuda)  # and the sessions' own prefill graphs
         pool.generate_batch(sessions, limit=4, params=[SamplingParams(temp=0.0),
                                                        SamplingParams(temp=0.8),
                                                        SamplingParams(temp=0.5, top_k=3)],
                             decode_chunk=4)
-        assert len(fake_cuda) == 4  # replayed the traced graph of 3 lanes
+        assert len(fake_cuda) == n_captured  # replayed the traced graph of 3 lanes
         assert pool._paged_graphs.graphs[("decode", 3, 4, "traced", False, w)].graph.replays >= 1
     finally:
         pool.close()

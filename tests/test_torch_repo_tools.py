@@ -251,7 +251,8 @@ def test_paged_spec_cost_has_jax_keys():
     lines, _ = run_port(probe_paged_spec_cost, ["--model", "tiny", "--device", "cpu"],
                         SPEC_COST_TINY)
     port_line = lines[-1]
-    assert set(port_line) == set(jax_line) | {"paged_plain_eager_ms", "captured", "device"}
+    assert set(port_line) == set(jax_line) | {"paged_plain_eager_ms", "paged_spec_cross_eager_ms",
+                                              "paged_spec_aligned_eager_ms", "captured", "device"}
     assert port_line["captured"] == []  # eager on the CPU
     assert not _finite_positive(port_line)
 
